@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``cup3d_tpu_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda) and the
+repo checkout; it imports nothing of JAX or of the JAX package.  Phases,
+each of which raises on a fault (nothing is caught):
+
+1. versions, the card's name and power limit, the TF32 flags;
+2. build the CUDA kernels from ``cup3d_tpu_torch/csrc`` with nvcc (timed);
+3. each of the five fused-BiCGSTAB kernels at the main path's shape
+   (256^3, T = 32768 tiles, f32) against its plain PyTorch version on the
+   same seeded inputs (update also on its breakdown branch), then timed
+   with CUDA events beside the plain version and its bound;
+4. one whole Poisson solve at 64^3, kernels against plain versions;
+5. the main path through the CLI entry: ``build_driver``, ``init()``,
+   ``simulate()`` of the 256^3 Taylor-Green vortex with the iterative
+   solver and ``CUP3D_FUSED=1`` for 20 steps, with the kernels' launch
+   counters set to 0 just before and read just after; then a few steps
+   with a synchronise after each operator for the step's time split, and
+   a few under ``torch.profiler`` for the device's busy share and its
+   time by kernel name.
+
+Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
+power limit, then as its last line ``{"ok": true, "device": ...}``.
+Writes the per-step diagnostics, the profiler's kernel table
+(``kernels.txt``) and its Chrome trace (``trace.json``) under
+``runs/chip_smoke/`` (git-ignored).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+N_MAIN = 256            # the main path's grid: 256^3 (bench_tgv_iterative)
+N_SOLVE = 64            # the whole-solve comparison
+STEPS = 20
+SEED = 0
+TIMING_SAMPLES = 21     # median over samples of LAUNCHES_PER_SAMPLE launches
+LAUNCHES_PER_SAMPLE = 10
+OUT_DIR = os.path.join("runs", "chip_smoke")
+
+# Tolerances of kernel vs plain version (max abs error over max |plain|):
+# elementwise outputs differ only by FMA contraction -> 2e-6, the bound
+# the JAX package holds its Pallas kernels to; getz sums 6 axis transforms
+# of 8 terms where the plain version sums two 512-term matmuls -> 1e-5.
+# Per-tile partials (512-term sums in another order) are held to 1e-5 of
+# the largest per-tile sum of |terms|.
+VEC_RTOL = 2e-6
+GETZ_RTOL = 1e-5
+PART_RTOL = 1e-5
+
+# Published peaks of the H100 SXM (NVIDIA data sheet): memory bytes/s, f32
+# FLOP/s outside the tensor cores.  Keyed on a substring of the nvidia-smi
+# name; another card has no row and stops the run.
+PEAKS = (
+    ("H100 80GB HBM3", 3.35e12, 67e12),
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks_for(name: str):
+    for key, bw, fl in PEAKS:
+        if key in name:
+            return bw, fl
+    raise RuntimeError(f"no published peaks known for card {name!r}")
+
+
+def time_ms(fn) -> float:
+    """Median device time of one call: CUDA events around batches of
+    back-to-back calls, so host overhead hides behind the queue."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(TIMING_SAMPLES):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(LAUNCHES_PER_SAMPLE):
+            fn()
+        e1.record()
+        e1.synchronize()
+        samples.append(e0.elapsed_time(e1) / LAUNCHES_PER_SAMPLE)
+    return statistics.median(samples)
+
+
+def max_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want|)."""
+    err = float(torch.max(torch.abs(got - want)))
+    return err, float(torch.max(torch.abs(want)))
+
+
+def check_close(name, got, want, rtol, abs_scale=None) -> float:
+    err, scale = max_err(got, want)
+    scale = abs_scale if abs_scale is not None else scale
+    if not err <= rtol * max(scale, 1e-30):
+        raise AssertionError(f"{name}: max abs err {err:.3e} > "
+                             f"{rtol:g} x {scale:.3e}")
+    return err
+
+
+def part_scale(*terms) -> float:
+    """Largest per-tile sum of |terms| (the partials' error scale)."""
+    acc = 0
+    for t in terms:
+        acc = acc + torch.abs(t)
+    return float(torch.max(torch.sum(acc, dim=(1, 2, 3))))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version at the main path's shape
+# ---------------------------------------------------------------------------
+
+
+def kernel_phase(bw: float, fp32_flops: float, dev="cuda") -> dict:
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    dev = torch.device(dev)
+    T = (N_MAIN // 8) ** 3
+    cells = T * 512
+    h = 2 * math.pi / N_MAIN
+    h2 = h * h
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def vec():
+        return torch.randn((T, 8, 8, 8), generator=gen, device=dev)
+
+    def row(*vals):
+        return fb._scalars(*(torch.tensor(v, device=dev) for v in vals))
+
+    # per kernel: max_abs_err is over its vector outputs (the per-tile
+    # partials are checked to PART_RTOL and printed beside it)
+    results = {}
+
+    def record(name, errs, perrs, kernel_fn, plain_fn, nbytes, flops):
+        ms = time_ms(kernel_fn)
+        plain_ms = time_ms(plain_fn)
+        t_bytes = nbytes / bw * 1e3
+        t_ops = flops / fp32_flops * 1e3
+        results[name] = dict(
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None)
+        log(f"  {name:9s} err {max(errs):.3e} (partials {max(perrs):.3e})"
+            f"  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+            f"({results[name]['bound_by']}: {nbytes / 1e6:.0f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+
+    # -- B1 update (in place on p, rhat: compare on clones) ---------------
+    r, p, v, rhat = vec(), vec(), vec(), vec()
+    errs, perrs = [], []
+    for vals in ((0.7, 1.3, 0.0), (0.0, 1.3, 1.0)):
+        sc = row(*vals)
+        want = fb.update(r, p.clone(), v, rhat.clone(), sc, kernels=False)
+        got = fb.update(r, p.clone(), v, rhat.clone(), sc)
+        for g, w in zip(got[:2], want[:2]):
+            errs.append(check_close("update", g, w, VEC_RTOL))
+        perrs.append(check_close("update partial", got[2], want[2],
+                                 PART_RTOL, part_scale(want[0])))
+    # breakdown: p and v are selected away, whatever they hold
+    bad = torch.full_like(p, float("inf"))
+    got = fb.update(r, bad.clone(), bad, rhat.clone(), row(0.0, 1.3, 1.0))
+    if not (torch.equal(got[0], r) and torch.equal(got[1], r)):
+        raise AssertionError("update: breakdown branch leaked p or v")
+    sc = row(0.7, 1.3, 0.0)
+    pk, rk = p.clone(), rhat.clone()
+    # without breakdown the kernel reads r, p, v and writes p: rhat is
+    # neither read nor written (it is re-seeded in place only on breakdown)
+    record("update", errs, perrs,
+           lambda: fb.update(r, pk, v, rk, sc),
+           lambda: fb.update(r, p, v, rhat, sc, kernels=False),
+           4 * 4 * cells, 4 * cells)
+
+    # -- B2 getz_two ----------------------------------------------------------
+    w = vec()
+    aux = torch.randn((8, T), generator=gen, device=dev)
+    aux[7] = 0.0
+    want = fb.getz_two(w, aux, h2, kernels=False)
+    got = fb.getz_two(w, aux, h2)
+    errs = [check_close("getz_two", got, want, GETZ_RTOL)]
+    # 6 axis transforms of 8 FMAs + the A zc / divide / add: ~110 flop/cell
+    record("getz_two", errs, [0.0], lambda: fb.getz_two(w, aux, h2),
+           lambda: fb.getz_two(w, aux, h2, kernels=False),
+           2 * 4 * cells, 110 * cells)
+
+    # -- B4 lap ------------------------------------------------------------------
+    w, a = vec(), vec()
+    planes = torch.randn((T, 6, 8, 8), generator=gen, device=dev)
+    inv_h2 = 1.0 / h2
+    want = fb.lap(w, planes, a, inv_h2, kernels=False)
+    got = fb.lap(w, planes, a, inv_h2)
+    errs = [check_close("lap", got[0], want[0], VEC_RTOL)]
+    perrs = [check_close("lap partial a.Aw", got[1], want[1], PART_RTOL,
+                        part_scale(a * want[0])),
+            check_close("lap partial Aw.Aw", got[2], want[2], PART_RTOL,
+                        part_scale(want[0] * want[0]))]
+    record("lap", errs, perrs, lambda: fb.lap(w, planes, a, inv_h2),
+           lambda: fb.lap(w, planes, a, inv_h2, kernels=False),
+           3.75 * 4 * cells, 12 * cells)
+
+    # -- B5 axpy -----------------------------------------------------------------
+    r, v = vec(), vec()
+    sc = row(0.37)
+    want = fb.axpy(r, v, sc, kernels=False)
+    got = fb.axpy(r, v, sc)
+    errs = [check_close("axpy", got[0], want[0], VEC_RTOL)]
+    perrs = [check_close("axpy partial", got[1], want[1], PART_RTOL,
+                        part_scale(want[0]))]
+    record("axpy", errs, perrs, lambda: fb.axpy(r, v, sc),
+           lambda: fb.axpy(r, v, sc, kernels=False), 3 * 4 * cells, 3 * cells)
+
+    # -- B6 finish (in place on x, r written into s: compare on clones) --------
+    x, y, z, s, t, rh = (vec() for _ in range(6))
+    sc = row(0.37, 1.21)
+    want = fb.finish(x.clone(), y, z, s.clone(), t, rh, sc, kernels=False)
+    got = fb.finish(x.clone(), y, z, s.clone(), t, rh, sc)
+    errs = [check_close("finish x", got[0], want[0], VEC_RTOL),
+            check_close("finish r", got[1], want[1], VEC_RTOL)]
+    perrs = [check_close("finish partial r.r", got[2], want[2], PART_RTOL,
+                        part_scale(want[1] * want[1])),
+            check_close("finish partial rhat.r", got[3], want[3], PART_RTOL,
+                        part_scale(rh * want[1]))]
+    xk, sk = x.clone(), s.clone()
+    record("finish", errs, perrs, lambda: fb.finish(xk, y, z, sk, t, rh, sc),
+           lambda: fb.finish(x, y, z, s, t, rh, sc, kernels=False),
+           8 * 4 * cells, 10 * cells)
+    torch.cuda.synchronize()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: one whole solve, kernels against plain versions
+# ---------------------------------------------------------------------------
+
+
+def solve_phase(dev="cuda") -> None:
+    from cup3d_tpu_torch.grid.uniform import UniformGrid
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import krylov
+
+    n = N_SOLVE
+    grid = UniformGrid((n, n, n), (1.0, 1.0, 1.0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    rhs = torch.randn((n, n, n), generator=gen, device=dev)
+    bt = krylov.to_lanes(rhs - torch.mean(rhs))
+    kw = dict(tol_abs=1e-6, tol_rel=1e-4, maxiter=200)
+    x_k, rn_k, k_k = fb.fused_bicgstab(grid, bt, **kw)
+    x_p, rn_p, k_p = fb.fused_bicgstab(grid, bt, kernels=False, **kw)
+    k_k, k_p = int(k_k), int(k_p)
+    rel = float(torch.max(torch.abs(x_k - x_p)) / torch.max(torch.abs(x_p)))
+    log(f"  {n}^3 fused solve: kernels {k_k} its (resid {float(rn_k):.3e}), "
+        f"plain {k_p} its (resid {float(rn_p):.3e}), x rel diff {rel:.3e}")
+    if abs(k_k - k_p) > 1 or not rel <= 1e-4:
+        raise AssertionError(f"whole solve disagrees: its {k_k} vs {k_p}, "
+                             f"x rel {rel:.3e} (bounds +-1, 1e-4)")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path through the CLI entry
+# ---------------------------------------------------------------------------
+
+
+def main_path_phase() -> dict:
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import krylov
+
+    os.environ["CUP3D_FUSED"] = "1"
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for name in ("energy.txt", "div.txt"):
+        if os.path.exists(os.path.join(OUT_DIR, name)):
+            os.remove(os.path.join(OUT_DIR, name))
+    nb = N_MAIN // 8
+    argv = (f"-bpdx {nb} -bpdy {nb} -bpdz {nb} -levelMax 1 "
+            "-extent 6.283185307179586 -initCond taylorGreen "
+            "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+            f"-nu 1e-3 -dt 1e-3 -tend 0 -nsteps {STEPS} -verbose 0 "
+            f"-freqDiagnostics 1 -path4serialization {OUT_DIR}").split()
+    t0 = time.perf_counter()
+    d = build_driver(argv)
+    d.init()
+    torch.cuda.synchronize()
+    log(f"  build_driver + init: {time.perf_counter() - t0:.2f} s")
+    s = d.sim
+    ke0 = float(diag.dissipation(s.grid, s.state["vel"], s.nu)
+                ["kinetic_energy"])
+    maxiter = d.pipeline[1].solver_maxiter
+
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    t0 = time.perf_counter()
+    d.simulate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.launches)
+    executed = fb.iterations["executed"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    energy = _read_table(os.path.join(OUT_DIR, "energy.txt"))
+    div = _read_table(os.path.join(OUT_DIR, "div.txt"))
+    log(f"  step  wall_s     iters  resid       KE            max|div u|")
+    for i, row in enumerate(d.step_log):
+        log(f"  {row['step']:4d}  {row['wall_s']:.4f}  {int(row['iters']):5d}"
+            f"  {row['resid']:.3e}  {energy[i][1]:.8e}  {div[i][3]:.3e}")
+    iters = [row["iters"] for row in d.step_log]
+    if len(iters) != STEPS:
+        raise AssertionError(f"ran {len(iters)} steps, expected {STEPS}")
+    if not all(math.isfinite(k) and 0 <= k <= maxiter for k in iters):
+        raise AssertionError(f"iteration counts out of range: {iters}")
+    kes = [e[1] for e in energy]
+    if not (all(math.isfinite(k) for k in kes) and kes[-1] < ke0):
+        raise AssertionError(f"kinetic energy not finite or not decaying: "
+                             f"KE0 {ke0}, per step {kes}")
+    # each executed iteration (chunk tails included) launches update,
+    # axpy and finish once and getz_two and lap twice; a solve of k
+    # iterations executes k rounded up to the chunk
+    chunk = krylov.ITER_CHUNK
+    want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
+    want = {"update": executed, "axpy": executed, "finish": executed,
+            "getz_two": 2 * executed, "lap": 2 * executed}
+    if executed != want_exec or launches != want or executed == 0:
+        raise AssertionError(f"launch counts {launches}, executed "
+                             f"{executed}, expected {want_exec} executed")
+    log(f"  {STEPS} steps in {wall:.3f} s ({wall / STEPS * 1e3:.2f} ms/step), "
+        f"{int(sum(iters))} iterations ({executed} executed), "
+        f"KE {ke0:.8e} -> {kes[-1]:.8e}, peak memory {peak_gb:.2f} GB")
+    log(f"  launches: {launches}")
+    split = _step_split(d)
+    _profile_window(d)
+    return dict(launches=launches, wall=wall, iters=iters, split=split)
+
+
+def _read_table(path):
+    with open(path) as f:
+        return [[float(x) for x in line.split()] for line in f if line.strip()]
+
+
+def _step_split(d, steps: int = 3) -> dict:
+    """Host time of each operator with a synchronise around it, over a few
+    more steps of the same run (the step's split between advection, the
+    pressure solve and the diagnostics)."""
+    s = d.sim
+    totals: dict = {}
+    for _ in range(steps):
+        dt = d.calc_max_timestep()
+        dt_dev = torch.tensor(dt, dtype=s.dtype, device=s.device)
+        for op in d.pipeline:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op(dt_dev)
+            torch.cuda.synchronize()
+            totals[op.name] = totals.get(op.name, 0.0) + (
+                time.perf_counter() - t0)
+        d._read_step_pack()
+        s.step += 1
+        s.time += dt
+    split = {k: v / steps * 1e3 for k, v in totals.items()}
+    log("  per-step split (ms, synchronised): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    return split
+
+
+def _busy_ms(events) -> float:
+    """Union length of the device kernels' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
+def _profile_window(d, steps: int = 3) -> None:
+    """A few more steps of the same run under torch.profiler: the host wall
+    per step, the device's busy share of it, and the device time by kernel
+    name (the full table and a Chrome trace go to OUT_DIR)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            d.advance(d.calc_max_timestep())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = _busy_ms(prof.events())
+    with open(os.path.join(OUT_DIR, "kernels.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=40))
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace.json"))
+    # device-side entries only: the CPU ops' rows repeat their kernels' time
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"  profiler, {steps} steps: wall {wall_ms / steps:.3f} ms/step, "
+        f"device busy {busy / steps:.3f} ms/step ({busy / wall_ms:.1%}), "
+        f"kernel time {total / steps:.3f} ms/step, iterations "
+        f"{[int(r['iters']) for r in d.step_log[-steps:]]}")
+    log(f"  {'kernel':<72}{'calls/step':>11}{'ms/step':>10}{'share':>8}")
+    for e in rows[:25]:
+        ms = e.self_device_time_total / 1e3 / steps
+        log(f"  {e.key[:70]:<72}{e.count / steps:>11.1f}{ms:>10.3f}"
+            f"{ms * steps / total:>8.1%}")
+
+
+KERNELS = (
+    # name, TPU kernel body it replaces
+    ("update", "cup3d_tpu/ops/fused_bicgstab.py:173"),
+    ("getz_two", "cup3d_tpu/ops/fused_bicgstab.py:185"),
+    ("lap", "cup3d_tpu/ops/fused_bicgstab.py:195"),
+    ("axpy", "cup3d_tpu/ops/fused_bicgstab.py:203"),
+    ("finish", "cup3d_tpu/ops/fused_bicgstab.py:209"),
+)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
+              file=sys.stderr)
+        return 1
+    from cup3d_tpu_torch.ops import cuda_lib
+
+    # -- phase 1 ----------------------------------------------------------
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, card {name} x{torch.cuda.device_count()}")
+    log(f"nvidia-smi: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
+    bw, fp32_flops = peaks_for(name)
+
+    # -- phase 2 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = cuda_lib.load()
+    log(f"phase 2: built {lib.path.name} in {lib.build_s:.2f} s "
+        f"(load {time.perf_counter() - t0:.2f} s)")
+    for line in lib.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas: " + line.strip())
+
+    log(f"phase 3: kernels vs plain versions at {N_MAIN}^3")
+    per_kernel = kernel_phase(bw, fp32_flops)
+    log(f"phase 4: whole solve at {N_SOLVE}^3")
+    solve_phase()
+    log(f"phase 5: main path, {N_MAIN}^3 TGV, {STEPS} steps")
+    run = main_path_phase()
+
+    rows = []
+    for kname, replaces in KERNELS:
+        rows.append(dict(
+            name=kname, route="cuda",
+            source="cup3d_tpu_torch/csrc/fused_bicgstab.cu",
+            replaces=replaces, launches=run["launches"][kname],
+            **per_kernel[kname]))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

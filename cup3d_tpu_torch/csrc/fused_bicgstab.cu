@@ -1,0 +1,326 @@
+// Hopper (sm_90a) kernels for the five stages of the fused BiCGSTAB
+// iteration (cup3d_tpu_torch/ops/fused_bicgstab.py).
+//
+// They replace the Pallas stage bodies of cup3d_tpu/ops/fused_bicgstab.py
+// (_k_update :173, _k_getz_two :185, _k_lap :195, _k_axpy :203,
+// _k_finish :209) and compute what those compute, not how: the TPU
+// stages stream lane-major (8,8,8,T) chunks of 256 tiles through VMEM;
+// here every vector is TILE-MAJOR, shape (T,8,8,8) in f32, so one 8^3
+// tile is 2 KB of contiguous memory and one thread block owns one tile.
+// The tile index t = (tx*NBy + ty)*NBz + tz is the JAX lane index, and
+// a cell (a,b,c) of tile t lives at t*512 + (a*8 + b)*8 + c.
+//
+// What bounds them on an H100: all five are memory-bound at 256^3
+// (T = 32768).  Per launch they move (f32):
+//   update  r, p, v in; p out                         4 x 4 B / cell
+//           (+ rhat out on a breakdown, when it is re-seeded from r)
+//   getz    w in, y out (+ 8 aux floats per tile)     2 x 4 B / cell
+//   lap     w, a in; 6 face planes in; Aw out        3.75 x 4 B / cell
+//   axpy    r, v in; s out                            3 x 4 B / cell
+//   finish  x, y, z, s, t, rhat in; x, r out         8 x 4 B / cell
+// plus O(T) partials.  The design keeps each tile's data in registers /
+// shared memory for the whole stage so every vector crosses device
+// memory exactly once per launch, loads and stores 16 B per thread
+// where the access is elementwise, and does the per-tile reductions in
+// the block (warp shuffles, then a fixed-order sum over the warps) so
+// partials are bitwise reproducible run to run -- no float atomics.
+// The per-tile partials are combined by one torch.sum on the caller's
+// side, exactly as the TPU driver's _combine does.
+//
+// Every entry point launches on the caller's stream and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kCells = 512;           // cells of one 8^3 tile
+constexpr int kVecThreads = 128;      // elementwise stages: 4 cells / thread
+constexpr int kWarps = kVecThreads / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum of one value per thread over a 128-thread block, valid in thread 0.
+// Fixed shuffle tree then a fixed-order sum of the 4 warp totals:
+// the same inputs always give the same bits.
+__device__ __forceinline__ float block_sum(float v, float* shared4) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) shared4[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += shared4[w];
+  }
+  return s;
+}
+
+__device__ __forceinline__ float hsum(float4 a) {
+  return ((a.x + a.y) + a.z) + a.w;
+}
+
+__device__ __forceinline__ float hdot(float4 a, float4 b) {
+  return ((a.x * b.x + a.y * b.y) + a.z * b.z) + a.w * b.w;
+}
+
+// ---------------------------------------------------------------------------
+// B1 update: p = r + beta (p - omega v), breakdown re-seed, per-tile sum p.
+// Replaces _k_update (cup3d_tpu/ops/fused_bicgstab.py:173, math :96-108).
+// On breakdown (scal[2] > 0.5) p and v are SELECTED to zero (not scaled
+// by beta = 0), so a non-finite p or v cannot leak through 0 * inf, and
+// rhat is re-seeded to r.  p and rhat are updated in place.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float upd1(float r, float p, float v, float beta,
+                                      float omega, bool broke) {
+  const float pe = broke ? 0.f : p;
+  const float ve = broke ? 0.f : v;
+  return r + beta * (pe - omega * ve);
+}
+
+__global__ void __launch_bounds__(kVecThreads)
+k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
+         float4* rhat, const float* __restrict__ scal, float* __restrict__ ts) {
+  __shared__ float red[kWarps];
+  const float beta = scal[0], omega = scal[1];
+  const bool broke = scal[2] > 0.5f;
+  const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
+  const float4 rr = r[i], pp = p[i], vv = v[i];
+  float4 pn;
+  pn.x = upd1(rr.x, pp.x, vv.x, beta, omega, broke);
+  pn.y = upd1(rr.y, pp.y, vv.y, beta, omega, broke);
+  pn.z = upd1(rr.z, pp.z, vv.z, beta, omega, broke);
+  pn.w = upd1(rr.w, pp.w, vv.w, beta, omega, broke);
+  p[i] = pn;
+  if (broke) rhat[i] = rr;
+  const float s = block_sum(hsum(pn), red);
+  if (threadIdx.x == 0) ts[blockIdx.x] = s;
+}
+
+// ---------------------------------------------------------------------------
+// B2 getz (two-level): y = zc + S3 diag(1/lam) S3 (-h2 (w - A zc)).
+// Replaces _k_getz_two (:185, math :111-130, _azc_from_aux :65).
+// S3 = S1 (x) S1 (x) S1 (cup3d_tpu/ops/tilesolve.py:53), so instead of the
+// TPU's (512,512) @ (512,C) matmul each tile runs three 8-point axis
+// transforms in shared memory, the divide by lam3, and three more: 48
+// fp32 FMAs per cell instead of ~1000, no tensor cores, no TF32 question.
+// One thread per cell (512 threads), one block per tile.  A zc is
+// rebuilt from the 6 per-tile face deltas in aux rows 0..5 (a face cell
+// adds its face's delta, an edge or corner cell one per axis), zc is
+// aux row 6; aux is (8, T) as the TPU driver ships it.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kCells)
+k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
+           const float* __restrict__ lam3, const float* __restrict__ aux,
+           float* __restrict__ y, float h2, int T) {
+  __shared__ float S1[64];
+  __shared__ float buf[2][kCells];
+  const int t = blockIdx.x;
+  const int c = threadIdx.x;
+  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
+  if (c < 64) S1[c] = s1g[c];
+
+  const float part0 = a == 0 ? aux[0 * T + t] : (a == 7 ? aux[1 * T + t] : 0.f);
+  const float part1 = b == 0 ? aux[2 * T + t] : (b == 7 ? aux[3 * T + t] : 0.f);
+  const float part2 = k == 0 ? aux[4 * T + t] : (k == 7 ? aux[5 * T + t] : 0.f);
+  const float azc = (part0 + part1) + part2;
+  const float zc = aux[6 * T + t];
+  buf[0][c] = -h2 * (w[(size_t)t * kCells + c] - azc);
+  __syncthreads();
+
+  float acc;
+  // forward transform: axis 0 (stride 64), axis 1 (stride 8), axis 2
+  acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) acc += S1[a * 8 + m] * buf[0][m * 64 + b * 8 + k];
+  buf[1][c] = acc;
+  __syncthreads();
+  acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) acc += S1[b * 8 + m] * buf[1][a * 64 + m * 8 + k];
+  buf[0][c] = acc;
+  __syncthreads();
+  acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) acc += S1[k * 8 + m] * buf[0][a * 64 + b * 8 + m];
+  buf[1][c] = acc / lam3[c];
+  __syncthreads();
+  // inverse transform (S1 is symmetric and orthogonal)
+  acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) acc += S1[a * 8 + m] * buf[1][m * 64 + b * 8 + k];
+  buf[0][c] = acc;
+  __syncthreads();
+  acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) acc += S1[b * 8 + m] * buf[0][a * 64 + m * 8 + k];
+  buf[1][c] = acc;
+  __syncthreads();
+  acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) acc += S1[k * 8 + m] * buf[1][a * 64 + b * 8 + m];
+  y[(size_t)t * kCells + c] = acc + zc;
+}
+
+// ---------------------------------------------------------------------------
+// B4 lap: Aw = 7-point Laplacian / h^2 with cross-tile face planes, plus
+// the per-tile partials sum(a * Aw) and sum(Aw * Aw).
+// Replaces _k_lap (:195, math :133-148 over stencils.laplacian_lanes_chunk).
+// The planes come from make_lane_planes (built by torch outside the
+// kernel, as the TPU driver builds them outside its kernel), tile-major
+// (T, 6, 8, 8): rows lo0, hi0, lo1, hi1, lo2, hi2, each indexed by the
+// two remaining in-tile axes.  The tile and its planes sit in shared
+// memory; each thread owns 4 consecutive cells along the last axis.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kVecThreads)
+k_lap(const float4* __restrict__ w, const float4* __restrict__ planes,
+      const float4* __restrict__ a, float4* __restrict__ aw,
+      float* __restrict__ pa, float* __restrict__ ps, float inv_h2) {
+  __shared__ __align__(16) float tile[kCells];
+  __shared__ __align__(16) float pl[6 * 64];
+  __shared__ float red_a[kWarps];
+  __shared__ float red_s[kWarps];
+  const size_t t = blockIdx.x;
+  const int tid = threadIdx.x;
+  reinterpret_cast<float4*>(tile)[tid] = w[t * (kCells / 4) + tid];
+  if (tid < 96) reinterpret_cast<float4*>(pl)[tid] = planes[t * 96 + tid];
+  __syncthreads();
+
+  const int cell0 = tid * 4;  // (ia*8 + ib)*8 + ic0, ic0 in {0, 4}
+  const int ia = cell0 >> 6, ib = (cell0 >> 3) & 7, ic0 = cell0 & 7;
+  float out[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ic = ic0 + q;
+    const int cc = cell0 + q;
+    const float xp = ia < 7 ? tile[cc + 64] : pl[1 * 64 + ib * 8 + ic];
+    const float xm = ia > 0 ? tile[cc - 64] : pl[0 * 64 + ib * 8 + ic];
+    const float yp = ib < 7 ? tile[cc + 8] : pl[3 * 64 + ia * 8 + ic];
+    const float ym = ib > 0 ? tile[cc - 8] : pl[2 * 64 + ia * 8 + ic];
+    const float zp = ic < 7 ? tile[cc + 1] : pl[5 * 64 + ia * 8 + ib];
+    const float zm = ic > 0 ? tile[cc - 1] : pl[4 * 64 + ia * 8 + ib];
+    float o = -6.f * tile[cc];
+    o = o + xp;
+    o = o + xm;
+    o = o + yp;
+    o = o + ym;
+    o = o + zp;
+    o = o + zm;
+    out[q] = o * inv_h2;
+  }
+  const float4 res = make_float4(out[0], out[1], out[2], out[3]);
+  aw[t * (kCells / 4) + tid] = res;
+  const float4 av = a[t * (kCells / 4) + tid];
+  const float sa = block_sum(hdot(av, res), red_a);
+  const float ss = block_sum(hdot(res, res), red_s);
+  if (tid == 0) {
+    pa[t] = sa;
+    ps[t] = ss;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B5 axpy: s = r - alpha v, per-tile sum s.  Replaces _k_axpy (:203).
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kVecThreads)
+k_axpy(const float4* __restrict__ r, const float4* __restrict__ v,
+       const float* __restrict__ scal, float4* __restrict__ s,
+       float* __restrict__ ts) {
+  __shared__ float red[kWarps];
+  const float alpha = scal[0];
+  const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
+  const float4 rr = r[i], vv = v[i];
+  const float4 ss = make_float4(rr.x - alpha * vv.x, rr.y - alpha * vv.y,
+                                rr.z - alpha * vv.z, rr.w - alpha * vv.w);
+  s[i] = ss;
+  const float sum = block_sum(hsum(ss), red);
+  if (threadIdx.x == 0) ts[blockIdx.x] = sum;
+}
+
+// ---------------------------------------------------------------------------
+// B6 finish: x += alpha y + omega z; r = s - omega t; per-tile partials
+// sum(r * r) and sum(rhat * r).  Replaces _k_finish (:209).  x is updated
+// in place; r is written into the buffer of s (the TPU stage aliases s
+// into r the same way): each thread reads its s before writing its r.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kVecThreads)
+k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
+         const float4* s, const float4* __restrict__ t,
+         const float4* __restrict__ rhat, const float* __restrict__ scal,
+         float4* r, float* __restrict__ prr, float* __restrict__ prh) {
+  __shared__ float red_r[kWarps];
+  __shared__ float red_h[kWarps];
+  const float alpha = scal[0], omega = scal[1];
+  const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
+  const float4 xx = x[i], yy = y[i], zz = z[i], sv = s[i], tv = t[i];
+  const float4 rh = rhat[i];
+  x[i] = make_float4(xx.x + alpha * yy.x + omega * zz.x,
+                     xx.y + alpha * yy.y + omega * zz.y,
+                     xx.z + alpha * yy.z + omega * zz.z,
+                     xx.w + alpha * yy.w + omega * zz.w);
+  const float4 rn = make_float4(sv.x - omega * tv.x, sv.y - omega * tv.y,
+                                sv.z - omega * tv.z, sv.w - omega * tv.w);
+  r[i] = rn;
+  const float a = block_sum(hdot(rn, rn), red_r);
+  const float b = block_sum(hdot(rh, rn), red_h);
+  if (threadIdx.x == 0) {
+    prr[blockIdx.x] = a;
+    prh[blockIdx.x] = b;
+  }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// plain C interface (loaded with ctypes); T = number of 8^3 tiles
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+int cup3d_update(const float* r, float* p, const float* v, float* rhat,
+                 const float* scal, float* ts, int T, void* stream) {
+  k_update<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)r, (float4*)p, (const float4*)v, (float4*)rhat, scal, ts);
+  return (int)cudaGetLastError();
+}
+
+int cup3d_getz_two(const float* w, const float* s1, const float* lam3,
+                   const float* aux, float* y, float h2, int T, void* stream) {
+  k_getz_two<<<T, kCells, 0, (cudaStream_t)stream>>>(w, s1, lam3, aux, y, h2, T);
+  return (int)cudaGetLastError();
+}
+
+int cup3d_lap(const float* w, const float* planes, const float* a, float* aw,
+              float* pa, float* ps, float inv_h2, int T, void* stream) {
+  k_lap<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)w, (const float4*)planes, (const float4*)a, (float4*)aw,
+      pa, ps, inv_h2);
+  return (int)cudaGetLastError();
+}
+
+int cup3d_axpy(const float* r, const float* v, const float* scal, float* s,
+               float* ts, int T, void* stream) {
+  k_axpy<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)r, (const float4*)v, scal, (float4*)s, ts);
+  return (int)cudaGetLastError();
+}
+
+int cup3d_finish(float* x, const float* y, const float* z, const float* s,
+                 const float* t, const float* rhat, const float* scal,
+                 float* r, float* prr, float* prh, int T, void* stream) {
+  k_finish<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
+      (float4*)x, (const float4*)y, (const float4*)z, (const float4*)s,
+      (const float4*)t, (const float4*)rhat, scal, (float4*)r, prr, prh);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,56 @@
+"""Diagnostic reductions (port of ``cup3d_tpu/ops/diagnostics.py``, the
+uniform-grid part): vorticity, divergence norms, dissipation, max
+velocity (the reference's ComputeVorticity main.cpp:8624-8745,
+ComputeDivergence 8789-8919, KernelDissipation 10347-10435, findMaxU
+8603-8623).  Results stay on the device; callers read them."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from cup3d_tpu_torch.grid.uniform import UniformGrid
+from cup3d_tpu_torch.ops import stencils as st
+
+
+def vorticity(grid: UniformGrid, u: torch.Tensor) -> torch.Tensor:
+    return st.curl(grid.pad_vector(u, 1), 1, grid.h)
+
+
+def divergence_field(grid: UniformGrid, u: torch.Tensor) -> torch.Tensor:
+    return st.divergence(grid.pad_vector(u, 1), 1, grid.h)
+
+
+def divergence_norms(grid: UniformGrid, u: torch.Tensor):
+    """(sum |div u| h^3, max |div u|)."""
+    d = divergence_field(grid, u)
+    vol = grid.h ** 3
+    return torch.sum(torch.abs(d)) * vol, torch.max(torch.abs(d))
+
+
+def max_velocity(u: torch.Tensor, uinf: torch.Tensor) -> torch.Tensor:
+    """max over cells of max-norm of lab-frame velocity (findMaxU)."""
+    return torch.max(torch.abs(u + uinf))
+
+
+def dissipation(grid: UniformGrid, u: torch.Tensor,
+                nu: float) -> Dict[str, torch.Tensor]:
+    """Kinetic energy 0.5 |u|^2, enstrophy 0.5 |omega|^2 and viscous
+    dissipation rate 2 nu S:S, each integrated with cell volume h^3."""
+    up = grid.pad_vector(u, 1)
+    h = grid.h
+    g = [[st.d1_central(up[..., c], 1, a, h) for a in range(3)]
+         for c in range(3)]
+    ss = torch.zeros_like(g[0][0])
+    for c in range(3):
+        for a in range(3):
+            s = 0.5 * (g[c][a] + g[a][c])
+            ss = ss + s * s
+    w = st.curl(up, 1, h)
+    vol = h ** 3
+    return {
+        "kinetic_energy": 0.5 * torch.sum(torch.sum(u * u, dim=-1)) * vol,
+        "enstrophy": 0.5 * torch.sum(torch.sum(w * w, dim=-1)) * vol,
+        "dissipation_rate": 2.0 * nu * torch.sum(ss) * vol,
+    }

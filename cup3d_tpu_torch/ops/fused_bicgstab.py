@@ -1,0 +1,409 @@
+"""Fused-iteration BiCGSTAB for the uniform pressure solve (port of
+``cup3d_tpu/ops/fused_bicgstab.py``).
+
+Each iteration runs five stages; on a CUDA tensor each is a hand-written
+kernel (csrc/fused_bicgstab.cu), beside it sits a plain PyTorch version
+of the same function (a port of the JAX package's ``*_math`` helpers):
+
+- ``update``  (B1) p/rhat recurrence + breakdown select + per-tile sum p
+- ``getz_two`` (B2) exact DST tile solve + the two-level coarse/face terms
+- ``lap``     (B4) cross-tile Laplacian apply + the iteration's dot partials
+- ``axpy``    (B5) s = r - alpha v + per-tile sum s
+- ``finish``  (B6) x/r updates + the residual/rho dot partials
+
+Layout: the stages take TILE-MAJOR vectors ``(T, 8, 8, 8)`` f32 (one tile
+contiguous, the JAX lane index as tile index); the public driver
+:func:`fused_bicgstab` takes and returns the JAX lanes layout and converts
+once at entry and exit.  Partials are per tile, ``(T,)`` f32, combined by
+one ``torch.sum`` (:func:`_combine`) — no float atomics, so reruns are
+bitwise equal.  Iteration scalars stay on the device: stages read them
+from an 8-float device row (:func:`_scalars`).
+
+Dispatch (the JAX ``kernels=`` argument): ``kernels=None`` launches the
+kernel for a CUDA tensor and runs the plain version for a CPU tensor;
+``kernels=False`` runs the plain version on any device (tests and the
+card comparisons); ``kernels=True`` on a CPU tensor raises.  A CUDA
+tensor never falls back to the plain version.
+
+The tile-only getZ stage (Pallas ``_k_getz_tile``, B3) is not ported:
+``two_level=False`` runs only with the plain versions and raises on the
+kernel path (ROADMAP queue B).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cup3d_tpu_torch.ops import krylov, tilesolve
+from cup3d_tpu_torch.ops.stencils import laplacian_faces
+
+_F32 = torch.float32
+BS = 8
+
+#: kernel launches per stage, counted by the wrappers where they launch
+launches = {"update": 0, "getz_two": 0, "lap": 0, "axpy": 0, "finish": 0}
+#: iterations the fused driver executed, chunk tails included: each runs
+#: update/axpy/finish once and getz_two/lap twice
+iterations = {"executed": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+    iterations["executed"] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (ports of the JAX *_math helpers), tile-major
+# ---------------------------------------------------------------------------
+
+
+def _cellsum(a: torch.Tensor) -> torch.Tensor:
+    """Per-tile partial: reduce the 512 cells of each tile -> (T,)."""
+    return torch.sum(a.to(_F32), dim=(1, 2, 3))
+
+
+def _azc_from_aux(aux: torch.Tensor, bs: int = BS) -> torch.Tensor:
+    """(8, T) coarse aux rows -> A zc tile-major (T, bs, bs, bs): rows
+    0..5 are the face deltas (lo0, hi0, lo1, hi1, lo2, hi2), row 6 zc.
+    Per axis (face, zeros, face) concatenation, summed over the axes."""
+    T = aux.shape[-1]
+    total = None
+    for ax in range(3):
+        shp_face = [T, bs, bs, bs]
+        shp_face[ax + 1] = 1
+        shp_mid = [T, bs, bs, bs]
+        shp_mid[ax + 1] = bs - 2
+        lo = aux[2 * ax][:, None, None, None].expand(shp_face)
+        hi = aux[2 * ax + 1][:, None, None, None].expand(shp_face)
+        mid = torch.zeros(shp_mid, dtype=aux.dtype, device=aux.device)
+        part = torch.cat([lo, mid, hi], dim=ax + 1)
+        total = part if total is None else total + part
+    return total
+
+
+def _update_math(r, p, v, rhat, beta, omega, broke):
+    """p/rhat recurrence with the breakdown re-seed folded in: on breakdown
+    p and v are selected to zero (not scaled by beta = 0, so a
+    non-finite p or v cannot leak through 0 * inf) and rhat = r."""
+    b = broke > 0.5
+    p_eff = torch.where(b, 0.0, p)
+    v_eff = torch.where(b, 0.0, v)
+    p_new = r + beta * (p_eff - omega * v_eff)
+    rhat_new = torch.where(b, r, rhat)
+    return p_new, rhat_new, _cellsum(p_new)
+
+
+def _getz_math(w, aux, S3, lam, h2, two_level):
+    """y = zc + tilesolve(-h2 (w - A zc)) (two-level) or
+    y = tilesolve(-h2 w) (tile-only); two (512, 512) f32 matmuls."""
+    if two_level:
+        b = -h2 * (w - _azc_from_aux(aux))
+    else:
+        b = -h2 * w
+    T = b.shape[0]
+    if b.is_cuda:
+        from cup3d_tpu_torch.ops import precision
+
+        precision.check_fp32_matmul()
+    # tile-major rows: b2 (T, 512); S3 symmetric, so rows @ S3 == S3 @ cols
+    t = b.reshape(T, -1) @ S3
+    t = t / lam
+    y = (t @ S3).reshape(b.shape)
+    if two_level:
+        y = y + aux[6][:, None, None, None]
+    return y
+
+
+def _lap_math(w, planes, a, inv_h2):
+    """Cross-tile Laplacian + per-tile partials of a . Aw and Aw . Aw;
+    ``planes`` (T, 6, bs, bs) from krylov.make_tile_planes."""
+    aw = laplacian_faces(w, [planes[:, k] for k in range(6)], inv_h2, first=1)
+    return aw, _cellsum(a * aw), _cellsum(aw * aw)
+
+
+def _axpy_math(r, v, alpha):
+    s = r - alpha * v
+    return s, _cellsum(s)
+
+
+def _finish_math(x, y, z, s, t, rhat, alpha, omega):
+    x_new = x + alpha * y + omega * z
+    r = s - omega * t
+    return x_new, r, _cellsum(r * r), _cellsum(rhat * r)
+
+
+# ---------------------------------------------------------------------------
+# stage wrappers: CUDA kernel for a CUDA tensor, plain version otherwise
+# ---------------------------------------------------------------------------
+
+
+def _use_kernel(t: torch.Tensor, kernels: Optional[bool]) -> bool:
+    if kernels is False:
+        return False
+    if t.is_cuda:
+        return True
+    if kernels:
+        raise ValueError("kernels=True needs CUDA tensors; the CUDA "
+                         "kernels do not run on the CPU")
+    return False
+
+
+def _check_vecs(*vecs: torch.Tensor) -> int:
+    """All stage vectors: CUDA f32, contiguous, 16-byte aligned, (T,8,8,8)
+    on one device.  Returns T."""
+    T = vecs[0].shape[0]
+    dev = vecs[0].device
+    for v in vecs:
+        if (v.device != dev or v.dtype != _F32 or not v.is_contiguous()
+                or tuple(v.shape) != (T, BS, BS, BS)
+                or v.data_ptr() % 16):
+            raise ValueError(
+                f"stage vector must be contiguous 16-byte aligned f32 "
+                f"(T,8,8,8) on {dev}; got {tuple(v.shape)} {v.dtype} "
+                f"{v.device} contiguous={v.is_contiguous()}")
+    if T < 1:
+        raise ValueError("empty vector")
+    return T
+
+
+def _check_small(t: torch.Tensor, shape, dev, aligned=False) -> None:
+    """A contiguous f32 ``shape`` on ``dev``; 16-byte aligned where the
+    kernel reads it as float4 (``aligned``)."""
+    if (t.device != dev or t.dtype != _F32 or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)
+            or (aligned and t.data_ptr() % 16)):
+        raise ValueError(f"expected contiguous f32 {tuple(shape)} on {dev}"
+                         f"{', 16-byte aligned' if aligned else ''}, got "
+                         f"{tuple(t.shape)} {t.dtype} {t.device} at "
+                         f"{t.data_ptr() % 16} bytes past 16")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _lib():
+    from cup3d_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.load()
+
+
+def update(r, p, v, rhat, scal, kernels=None):
+    """B1: (p_new, rhat_new, per-tile sum p_new); scal = (beta, omega,
+    broke, ...).  The kernel updates p and rhat in place (returned)."""
+    if not _use_kernel(r, kernels):
+        return _update_math(r, p, v, rhat, scal[0], scal[1], scal[2])
+    T = _check_vecs(r, p, v, rhat)
+    _check_small(scal, (8,), r.device)
+    if len({r.data_ptr(), p.data_ptr(), v.data_ptr(), rhat.data_ptr()}) < 4:
+        raise ValueError("update: r, p, v and rhat must not share memory")
+    ts = torch.empty(T, dtype=_F32, device=r.device)
+    _lib().call("cup3d_update", r.data_ptr(), p.data_ptr(), v.data_ptr(),
+                rhat.data_ptr(), scal.data_ptr(), ts.data_ptr(), T,
+                _stream(r.device))
+    launches["update"] += 1
+    return p, rhat, ts
+
+
+def getz_two(w, aux, h2, kernels=None):
+    """B2: y = zc + tilesolve(-h2 (w - A zc)); aux (8, T) = six face
+    deltas, zc, zero row."""
+    S3, lam, S1 = tilesolve.basis(BS, _F32, str(w.device))
+    if not _use_kernel(w, kernels):
+        return _getz_math(w, aux, S3, lam, h2, True)
+    T = _check_vecs(w)
+    _check_small(aux, (8, T), w.device)
+    y = torch.empty_like(w)
+    _lib().call("cup3d_getz_two", w.data_ptr(), S1.data_ptr(),
+                lam.data_ptr(), aux.data_ptr(), y.data_ptr(), float(h2), T,
+                _stream(w.device))
+    launches["getz_two"] += 1
+    return y
+
+
+def getz_tile(w, h2, kernels=None):
+    """Tile-only getZ, y = tilesolve(-h2 w): plain version only; its
+    kernel (Pallas ``_k_getz_tile``, B3) is not ported."""
+    if _use_kernel(w, kernels):
+        raise NotImplementedError(
+            "the tile-only getZ kernel (B3, cup3d_tpu/ops/fused_bicgstab.py"
+            "::_k_getz_tile) is not ported (ROADMAP queue B); run with "
+            "CUP3D_COARSE=1")
+    S3, lam, _ = tilesolve.basis(BS, _F32, str(w.device))
+    return _getz_math(w, None, S3, lam, h2, False)
+
+
+def lap(w, planes, a, inv_h2, kernels=None):
+    """B4: (Aw, per-tile a . Aw, per-tile Aw . Aw); planes (T,6,8,8)."""
+    if not _use_kernel(w, kernels):
+        return _lap_math(w, planes, a, inv_h2)
+    T = _check_vecs(w, a)
+    _check_small(planes, (T, 6, BS, BS), w.device, aligned=True)
+    aw = torch.empty_like(w)
+    pa = torch.empty(T, dtype=_F32, device=w.device)
+    ps = torch.empty(T, dtype=_F32, device=w.device)
+    _lib().call("cup3d_lap", w.data_ptr(), planes.data_ptr(), a.data_ptr(),
+                aw.data_ptr(), pa.data_ptr(), ps.data_ptr(), float(inv_h2),
+                T, _stream(w.device))
+    launches["lap"] += 1
+    return aw, pa, ps
+
+
+def axpy(r, v, scal, kernels=None):
+    """B5: (s = r - alpha v, per-tile sum s); scal = (alpha, ...)."""
+    if not _use_kernel(r, kernels):
+        return _axpy_math(r, v, scal[0])
+    T = _check_vecs(r, v)
+    _check_small(scal, (8,), r.device)
+    s = torch.empty_like(r)
+    ts = torch.empty(T, dtype=_F32, device=r.device)
+    _lib().call("cup3d_axpy", r.data_ptr(), v.data_ptr(), scal.data_ptr(),
+                s.data_ptr(), ts.data_ptr(), T, _stream(r.device))
+    launches["axpy"] += 1
+    return s, ts
+
+
+def finish(x, y, z, s, t, rhat, scal, kernels=None):
+    """B6: (x + alpha y + omega z, r = s - omega t, per-tile r . r,
+    per-tile rhat . r); scal = (alpha, omega, ...).  The kernel updates x
+    in place and writes r into the buffer of s (both returned)."""
+    if not _use_kernel(x, kernels):
+        return _finish_math(x, y, z, s, t, rhat, scal[0], scal[1])
+    T = _check_vecs(x, y, z, s, t, rhat)
+    _check_small(scal, (8,), x.device)
+    prr = torch.empty(T, dtype=_F32, device=x.device)
+    prh = torch.empty(T, dtype=_F32, device=x.device)
+    _lib().call("cup3d_finish", x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                s.data_ptr(), t.data_ptr(), rhat.data_ptr(), scal.data_ptr(),
+                s.data_ptr(), prr.data_ptr(), prh.data_ptr(), T,
+                _stream(x.device))
+    launches["finish"] += 1
+    return x, s, prr, prh
+
+
+def _scalars(*vals: torch.Tensor) -> torch.Tensor:
+    """Pack 0-dim device scalars into the 8-float row the stages read."""
+    row = torch.stack([v.to(_F32) for v in vals])
+    return torch.cat([row, row.new_zeros(8 - len(vals))])
+
+
+def _combine(part: torch.Tensor) -> torch.Tensor:
+    """Per-tile partials -> global scalar (f32)."""
+    return torch.sum(part, dtype=_F32)
+
+
+# ---------------------------------------------------------------------------
+# the fused solver driver
+# ---------------------------------------------------------------------------
+
+
+def fused_bicgstab_tiles(grid, b, *, tol_abs=1e-6, tol_rel=1e-4,
+                         maxiter=1000, rnorm_ref=None, x0=None,
+                         two_level=True, kernels=None):
+    """:func:`fused_bicgstab` on tile-major ``(T, 8, 8, 8)`` f32 ``b``/``x0``;
+    returns ``(x_best (T,8,8,8), rnorm_best, iterations)`` (0-dim device
+    tensors for the last two).  Tail iterations of the last chunk after
+    convergence may compute inf/NaN in the work vectors; they never touch
+    x_best, rnorm_best or the iteration count."""
+    bs = BS
+    h2 = float(grid.h * grid.h)
+    inv_h2 = 1.0 / h2
+    dev = b.device
+    planes_fn = krylov.make_tile_planes(grid, bs)
+    coarse_core = krylov._make_coarse_core(grid, bs) if two_level else None
+    deltas_fn = krylov.make_face_deltas(grid, bs) if two_level else None
+    T = b.shape[0]
+
+    def coarse_aux(tsum):
+        zc = coarse_core(tsum)
+        return torch.cat([deltas_fn(zc), zc[None, :],
+                          zc.new_zeros(1, T)], dim=0)
+
+    def getz(w, tsum):
+        if two_level:
+            return getz_two(w, coarse_aux(tsum), h2, kernels)
+        return getz_tile(w, h2, kernels)
+
+    b32 = b.to(_F32).contiguous()
+    x = (torch.zeros_like(b32) if x0 is None
+         else x0.to(_F32).contiguous().clone())
+    if x0 is None:
+        r = b32.clone()  # A(0) == 0 exactly; skip the apply
+    else:
+        r = b32 - krylov.make_laplacian_tiles(grid, bs)(x)
+    rr0 = krylov._dot(r, r)
+    rnorm0 = torch.sqrt(rr0)
+    ref = rnorm0 if rnorm_ref is None else rnorm_ref
+    target = torch.clamp(tol_rel * ref, min=tol_abs)
+    eps = torch.tensor(1e-30, dtype=_F32, device=dev)
+    one = torch.ones((), dtype=_F32, device=dev)
+
+    state = dict(
+        k=torch.zeros((), dtype=torch.int32, device=dev),
+        x=x, r=r, rhat=r.clone(), p=torch.zeros_like(r),
+        v=torch.zeros_like(r), rho=one, alpha=one, omega=one,
+        rnorm=rnorm0, rho_dot=rr0, x_best=x.clone(), rnorm_best=rnorm0,
+    )
+
+    def step(s, active):
+        rn2 = s["rnorm"] * s["rnorm"]
+        broke = torch.abs(s["rho_dot"]) < eps * torch.clamp(rn2, min=1.0)
+        rho_new = torch.where(broke, rn2, s["rho_dot"])
+        beta = (rho_new / krylov._safe(s["rho"])) * (
+            s["alpha"] / krylov._safe(s["omega"]))
+        beta = torch.where(broke, 0.0, beta)
+
+        p, rhat, ts_p = update(s["r"], s["p"], s["v"], s["rhat"],
+                               _scalars(beta, s["omega"], broke), kernels)
+        y = getz(p, ts_p)
+        v, d_rhv, _ = lap(y, planes_fn(y), rhat, inv_h2, kernels)
+        alpha = rho_new / krylov._safe(_combine(d_rhv))
+
+        svec, ts_s = axpy(s["r"], v, _scalars(alpha), kernels)
+        z = getz(svec, ts_s)
+        t, d_ts, d_tt = lap(z, planes_fn(z), svec, inv_h2, kernels)
+        omega = _combine(d_ts) / krylov._safe(_combine(d_tt))
+
+        x, r, p_rr, p_rhr = finish(s["x"], y, z, svec, t, rhat,
+                                   _scalars(alpha, omega), kernels)
+        rnorm = torch.sqrt(_combine(p_rr))
+        better = active & (rnorm < s["rnorm_best"])
+        # the best iterate is updated in place: x_best is its own buffer
+        torch.where(better, x, s["x_best"], out=s["x_best"])
+        return dict(
+            k=s["k"] + active.to(torch.int32), x=x, r=r, rhat=rhat, p=p,
+            v=v, rho=rho_new, alpha=alpha, omega=omega,
+            rnorm=torch.where(active, rnorm, s["rnorm"]),
+            rho_dot=_combine(p_rhr), x_best=s["x_best"],
+            rnorm_best=torch.where(
+                active, torch.minimum(rnorm, s["rnorm_best"]),
+                s["rnorm_best"]),
+        )
+
+    out, executed = krylov.iterate(state, step, maxiter, target)
+    iterations["executed"] += executed
+    return out["x_best"], out["rnorm_best"], out["k"]
+
+
+def fused_bicgstab(grid, b: torch.Tensor, *, tol_abs: float = 1e-6,
+                   tol_rel: float = 1e-4, maxiter: int = 1000,
+                   rnorm_ref=None, x0: Optional[torch.Tensor] = None,
+                   bs: int = 8, two_level: bool = True,
+                   kernels: Optional[bool] = None):
+    """Fused-iteration preconditioned BiCGSTAB on the lanes layout: the
+    production pressure system (A = the grid's 7-point Laplacian, M = the
+    exact getZ tile solve, plus the exact Galerkin coarse level when
+    ``two_level``).  ``b`` is the mean-removed rhs (bs,bs,bs,T) f32;
+    returns ``(x_best (lanes, f32), rnorm_best, iterations)``."""
+    if bs != BS:
+        raise ValueError(f"the fused driver is built for {BS}^3 tiles")
+    x0t = None if x0 is None else krylov.lanes_to_tiles(x0)
+    xt, rnorm, k = fused_bicgstab_tiles(
+        grid, krylov.lanes_to_tiles(b), tol_abs=tol_abs, tol_rel=tol_rel,
+        maxiter=maxiter, rnorm_ref=rnorm_ref, x0=x0t, two_level=two_level,
+        kernels=kernels)
+    return krylov.tiles_to_lanes(xt), rnorm, k
+

@@ -1,0 +1,66 @@
+"""Exact 8^3-tile Poisson solve by fast diagonalization — the getZ
+preconditioner (port of ``cup3d_tpu/ops/tilesolve.py``).
+
+The zero-Dirichlet 7-point Laplacian on a fixed bs^3 tile is
+diagonalized by the bs-point DST-I, so the exact tile inverse is
+``S3 diag(1/lam) S3`` with ``S3 = S1 (x) S1 (x) S1`` (S1 symmetric and
+orthogonal).  The plain version here applies it as two (512, 512) f32
+matmuls; the CUDA getZ kernel (csrc/fused_bicgstab.cu) applies the same
+operator as three 8-point axis transforms each way.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from cup3d_tpu_torch.ops import precision
+
+
+@lru_cache(maxsize=None)
+def _basis_np(bs: int, np_dtype: str):
+    """(S3, lam512, W) for the bs^3 zero-Dirichlet tile, built in f64 and
+    cast to ``np_dtype`` — the JAX package's construction."""
+    i = np.arange(1, bs + 1)
+    S1 = np.sqrt(2.0 / (bs + 1)) * np.sin(np.pi * np.outer(i, i) / (bs + 1))
+    lam1 = 4.0 * np.sin(np.pi * i / (2 * (bs + 1))) ** 2  # eig of -[1,-2,1]
+    lam3 = (lam1[:, None, None] + lam1[None, :, None]
+            + lam1[None, None, :]).reshape(bs ** 3)
+    S3 = np.einsum("ai,bj,ck->abcijk", S1, S1, S1).reshape(bs ** 3, bs ** 3)
+    W = (S3 * (1.0 / lam3)) @ S3.T
+    dt = np.dtype(np_dtype)
+    return (S3.astype(dt), lam3.astype(dt), W.astype(dt))
+
+
+@lru_cache(maxsize=None)
+def basis(bs: int, dtype: torch.dtype, device: str):
+    """(S3 (bs^3, bs^3), lam3 (bs^3,), S1 (bs, bs)) as tensors of
+    ``dtype`` on ``device``, uploaded once per device."""
+    S3, lam3, _ = _basis_np(bs, str(dtype).replace("torch.", ""))
+    i = np.arange(1, bs + 1)
+    S1 = np.sqrt(2.0 / (bs + 1)) * np.sin(np.pi * np.outer(i, i) / (bs + 1))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (S3, lam3, S1))
+
+
+def tile_solve_lanes(bt: torch.Tensor, shift=None) -> torch.Tensor:
+    """Solve (-lap_tile + shift) z = b exactly on every tile of the lanes
+    layout (bs, bs, bs, T).  ``shift``: None, scalar, or (T,) lanes."""
+    bs = bt.shape[0]
+    T = bt.shape[-1]
+    acc = precision.accum_dtype(bt.dtype)
+    S3, lam3, _ = basis(bs, acc, str(bt.device))
+    b2 = bt.reshape(bs ** 3, T).to(acc)
+    if shift is None:
+        sh = torch.zeros((1, T), dtype=acc, device=bt.device)
+    else:
+        sh = torch.broadcast_to(torch.as_tensor(shift, dtype=acc,
+                                                device=bt.device), (1, T))
+    if bt.is_cuda:
+        precision.check_fp32_matmul()
+    t = S3 @ b2
+    t = t / (lam3[:, None] + sh)
+    z = S3 @ t
+    return z.reshape(bt.shape).to(bt.dtype)

@@ -1,0 +1,142 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked ``cuda``: each test needs an NVIDIA GPU and ``nvcc`` and skips
+without them (the kernels have no CPU mode).  On a machine with a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Small shapes, other BCs and a non-cubic grid than chip_smoke.py's 256^3
+periodic run: each stage at T = 24 tiles within the bounds chip_smoke.py
+states (2e-6 elementwise, 1e-5 getz, partials 1e-5 of the per-tile sum
+of |terms|), the whole fused solve within +-1 iteration and 1e-4, and a
+short driver run whose launch counts match its iterations."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from cup3d_tpu_torch.grid.uniform import UniformGrid
+from cup3d_tpu_torch.ops import fused_bicgstab as fb
+from cup3d_tpu_torch.ops import krylov
+
+pytestmark = pytest.mark.cuda
+
+T = 24
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _vecs(dev, seed, n):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal((T, 8, 8, 8)),
+                            dtype=torch.float32, device=dev)
+            for _ in range(n)]
+
+
+def _row(dev, *vals):
+    return fb._scalars(*(torch.tensor(v, device=dev) for v in vals))
+
+
+def _close(got, want, rtol, scale=None):
+    scale = float(torch.max(torch.abs(want))) if scale is None else scale
+    err = float(torch.max(torch.abs(got - want)))
+    assert err <= rtol * scale, (err, scale)
+
+
+def _tile_abs_sum(x):
+    return float(torch.max(torch.sum(torch.abs(x), dim=(1, 2, 3))))
+
+
+def test_stage_kernels_match_plain_versions(dev):
+    fb.reset_launches()
+    r, p, v, rhat, w, a, x, y = _vecs(dev, 0, 8)
+    for vals in ((0.7, 1.3, 0.0), (0.0, 1.3, 1.0)):
+        want = fb.update(r, p.clone(), v, rhat.clone(), _row(dev, *vals),
+                         kernels=False)
+        got = fb.update(r, p.clone(), v, rhat.clone(), _row(dev, *vals))
+        _close(got[0], want[0], 2e-6)
+        _close(got[1], want[1], 2e-6)
+        _close(got[2], want[2], 1e-5, _tile_abs_sum(want[0]))
+    aux = torch.randn((8, T), device=dev)
+    _close(fb.getz_two(w, aux, 0.01), fb.getz_two(w, aux, 0.01,
+                                                  kernels=False), 1e-5)
+    planes = torch.randn((T, 6, 8, 8), device=dev)
+    want = fb.lap(w, planes, a, 100.0, kernels=False)
+    got = fb.lap(w, planes, a, 100.0)
+    _close(got[0], want[0], 2e-6)
+    _close(got[1], want[1], 1e-5, _tile_abs_sum(a * want[0]))
+    _close(got[2], want[2], 1e-5, _tile_abs_sum(want[0] * want[0]))
+    want = fb.axpy(r, v, _row(dev, 0.37), kernels=False)
+    got = fb.axpy(r, v, _row(dev, 0.37))
+    _close(got[0], want[0], 2e-6)
+    _close(got[1], want[1], 1e-5, _tile_abs_sum(want[0]))
+    sc = _row(dev, 0.37, 1.21)
+    want = fb.finish(x.clone(), y, w, r.clone(), v, rhat, sc, kernels=False)
+    got = fb.finish(x.clone(), y, w, r.clone(), v, rhat, sc)
+    _close(got[0], want[0], 2e-6)
+    _close(got[1], want[1], 2e-6)
+    _close(got[2], want[2], 1e-5, _tile_abs_sum(want[1] * want[1]))
+    _close(got[3], want[3], 1e-5, _tile_abs_sum(rhat * want[1]))
+    torch.cuda.synchronize()
+    assert fb.launches == {"update": 2, "getz_two": 1, "lap": 1, "axpy": 1,
+                           "finish": 1}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    r, v = _vecs(dev, 1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.axpy(r.transpose(1, 2), v, _row(dev, 0.5))
+    with pytest.raises(ValueError, match="f32"):
+        fb.axpy(r.double(), v.double(), _row(dev, 0.5))
+    with pytest.raises(NotImplementedError, match="B3"):
+        fb.getz_tile(r, 0.01)
+    # lap reads the face planes as float4: a view 4 bytes in is refused
+    planes = torch.zeros(T * 6 * 64 + 1, device=dev)[1:].view(T, 6, 8, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        fb.lap(r, planes, v, 1.0)
+
+
+@pytest.mark.parametrize("shape,bcs", [
+    ((32, 32, 32), ("periodic",) * 3),
+    ((16, 32, 16), ("wall", "periodic", "freespace")),
+])
+def test_fused_solve_kernels_match_plain(dev, shape, bcs):
+    grid = UniformGrid(shape, tuple(s / 16 for s in shape), bcs)
+    rng = np.random.default_rng(2)
+    rhs = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                          device=dev)
+    bt = krylov.to_lanes(rhs - torch.mean(rhs))
+    x_k, _, k_k = fb.fused_bicgstab(grid, bt, maxiter=200)
+    x_p, _, k_p = fb.fused_bicgstab(grid, bt, maxiter=200, kernels=False)
+    assert abs(int(k_k) - int(k_p)) <= 1
+    _close(x_k, x_p, 1e-4)
+
+
+def test_driver_launch_counts_match_iterations(dev, monkeypatch, tmp_path):
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    d = build_driver(
+        ("-bpdx 4 -bpdy 4 -bpdz 4 -extent 6.283185307179586 "
+         "-initCond taylorGreen -poissonSolver iterative -nu 1e-3 "
+         "-dt 1e-3 -tend 0 -nsteps 3 -verbose 0 -path4serialization "
+         f"{tmp_path}").split())
+    d.init()
+    fb.reset_launches()
+    d.simulate()
+    iters = [int(row["iters"]) for row in d.step_log]
+    executed = sum(krylov.ITER_CHUNK * math.ceil(k / krylov.ITER_CHUNK)
+                   for k in iters)
+    assert fb.iterations["executed"] == executed > 0
+    assert fb.launches == {"update": executed, "getz_two": 2 * executed,
+                           "lap": 2 * executed, "axpy": executed,
+                           "finish": executed}
+    assert torch.isfinite(d.sim.state["vel"]).all()
