@@ -14,19 +14,32 @@ each of which raises on a fault (nothing is caught):
    same seeded inputs (update also on its breakdown branch), then timed
    with CUDA events beside the plain version and its bound;
 4. one whole Poisson solve at 64^3, kernels against plain versions;
-5. the main path through the CLI entry: ``build_driver``, ``init()``,
-   ``simulate()`` of the 256^3 Taylor-Green vortex with the iterative
-   solver and ``CUP3D_FUSED=1`` for 20 steps, with the kernels' launch
-   counters set to 0 just before and read just after; then a few steps
-   with a synchronise after each operator for the step's time split, and
-   a few under ``torch.profiler`` for the device's busy share and its
-   time by kernel name.
+5. the uniform main path through the CLI entry: ``build_driver``,
+   ``init()``, ``simulate()`` of the 256^3 Taylor-Green vortex with the
+   iterative solver and ``CUP3D_FUSED=1`` for 20 steps, with the
+   kernels' launch counters set to 0 just before and read just after;
+   then a few steps with a synchronise after each operator for the
+   step's time split, and a few under ``torch.profiler`` for the
+   device's busy share and its time by kernel name;
+6. the AMR path's set-up through the CLI entry: ``build_driver`` of
+   BASELINE config #3 (Taylor-Green on a 2-level forest, bpd 16: a 128^3
+   base whose vortex cores refine to 256^3-equivalent) and ``init()``
+   (its adaptation rounds and table builds, timed), then the mesh is
+   frozen (``adapt_enabled = False``), as the static config defines;
+7. each of the five forest-BiCGSTAB kernels at that forest's block count
+   against its plain version (labs and reflux increments assembled from
+   the forest's own tables), timed beside the plain version and its bound;
+8. one whole forest solve, kernels against plain versions, and the same
+   kernel solve twice (bitwise-equal answers);
+9. the AMR main path: ``simulate()`` for 20 steps with the ``amr_*``
+   launch counters set to 0 just before and read just after, then the
+   solve's synchronised per-piece split and a ``torch.profiler`` window.
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
-Writes the per-step diagnostics, the profiler's kernel table
-(``kernels.txt``) and its Chrome trace (``trace.json``) under
-``runs/chip_smoke/`` (git-ignored).
+Writes the per-step diagnostics, the profiler's kernel tables
+(``kernels.txt``, ``amr_kernels.txt``) and Chrome traces (``trace.json``,
+``amr_trace.json``) under ``runs/chip_smoke/`` (git-ignored).
 """
 
 from __future__ import annotations
@@ -44,6 +57,13 @@ import torch
 N_MAIN = 256            # the main path's grid: 256^3 (bench_tgv_iterative)
 N_SOLVE = 64            # the whole-solve comparison
 STEPS = 20
+# the AMR main path: BASELINE config #3 at N = 256 (bench.py bench_amr_tgv,
+# bpd = N/16), iterative solve at the production tolerances
+AMR_ARGV = ("-bpdx 16 -bpdy 16 -bpdz 16 -levelMax 2 -levelStart 0 "
+            "-extent 6.283185307179586 -initCond taylorGreen -Rtol 1.8 "
+            "-Ctol 0.05 -CFL 0.4 -rampup 0 -nu 1e-3 -poissonSolver iterative "
+            f"-poissonTol 1e-6 -poissonTolRel 1e-4 -tend 0 -nsteps {STEPS}")
+AMR_DIV_GATE = 0.05     # max|div u| after projection (bench.py amr_tgv)
 SEED = 0
 TIMING_SAMPLES = 21     # median over samples of LAUNCHES_PER_SAMPLE launches
 LAUNCHES_PER_SAMPLE = 10
@@ -401,7 +421,7 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def _profile_window(d, steps: int = 3) -> None:
+def _profile_window(d, steps: int = 3, prefix: str = "") -> dict:
     """A few more steps of the same run under torch.profiler: the host wall
     per step, the device's busy share of it, and the device time by kernel
     name (the full table and a Chrome trace go to OUT_DIR)."""
@@ -416,10 +436,10 @@ def _profile_window(d, steps: int = 3) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = _busy_ms(prof.events())
-    with open(os.path.join(OUT_DIR, "kernels.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, prefix + "kernels.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40))
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace.json"))
+    prof.export_chrome_trace(os.path.join(OUT_DIR, prefix + "trace.json"))
     # device-side entries only: the CPU ops' rows repeat their kernels' time
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
@@ -435,6 +455,337 @@ def _profile_window(d, steps: int = 3) -> None:
         ms = e.self_device_time_total / 1e3 / steps
         log(f"  {e.key[:70]:<72}{e.count / steps:>11.1f}{ms:>10.3f}"
             f"{ms * steps / total:>8.1%}")
+    return dict(wall_ms=wall_ms / steps, busy_ms=busy / steps,
+                kernel_ms=total / steps)
+
+
+# ---------------------------------------------------------------------------
+# phases 6-9: the AMR forest path (BASELINE config #3)
+# ---------------------------------------------------------------------------
+
+
+def amr_setup_phase():
+    """build_driver + init() of the forest, timed with its table builds;
+    then the mesh is frozen.  Returns the driver."""
+    import numpy as np
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    os.environ["CUP3D_FUSED"] = "1"
+    out = os.path.join(OUT_DIR, "amr")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    d = build_driver(f"{AMR_ARGV} -verbose 0 -path4serialization {out}"
+                     .split())
+    d.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d.adapt_enabled = False
+    g = d.grid
+    counts = np.bincount(g.level, minlength=g.tree.cfg.level_max)
+    log(f"  build_driver + init: {init_s:.2f} s, of which table builds "
+        f"{sum(d.table_build_s):.2f} s over {len(d.table_build_s)} "
+        f"topologies ({', '.join(f'{t:.2f}' for t in d.table_build_s)} s)")
+    log(f"  forest: {g.nb} blocks ({g.nb * g.bs ** 3 / 1e6:.3f} M cells), "
+        f"per level {dict(enumerate(counts.tolist()))}")
+    if not (counts[0] > 0 and counts[1] > 0):
+        raise AssertionError(f"the forest is not two-level: {counts}")
+    return d
+
+
+def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
+    """B8, B9, B11, B12, B13 at the forest's block count against their
+    plain versions, then timed; labs and reflux increments are assembled
+    from the forest's own width-1 face and flux tables."""
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    g, dev = d.grid, d.device
+    n = g.nb
+    cells = n * 512
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+
+    def vec():
+        return torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+
+    def row(*vals):
+        return fb._scalars(*(torch.tensor(v, device=dev) for v in vals))
+
+    h = g.h_column(torch.float32, dev).reshape(n)
+    vol, h2 = (h ** 3).contiguous(), (h * h).contiguous()
+    inv_h2 = (1.0 / h2).contiguous()
+    results = {}
+
+    def record(name, errs, perrs, kernel_fn, plain_fn, nbytes, flops):
+        ms = time_ms(kernel_fn)
+        plain_ms = time_ms(plain_fn)
+        t_bytes = nbytes / bw * 1e3
+        t_ops = flops / fp32_flops * 1e3
+        results[name] = dict(
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None)
+        log(f"  {name:12s} err {max(errs):.3e} (partials {max(perrs):.3e})"
+            f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({results[name]['bound_by']}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+
+    # -- B8 update (in place on p, rhat: compare on clones) ---------------
+    r, p, v, rhat = vec(), vec(), vec(), vec()
+    errs, perrs = [], []
+    for vals in ((0.7, 1.3, 0.0), (0.0, 1.3, 1.0)):
+        sc = row(*vals)
+        want = fa.update(r, p.clone(), v, rhat.clone(), vol, sc,
+                         kernels=False)
+        got = fa.update(r, p.clone(), v, rhat.clone(), vol, sc)
+        for gt, wt in zip(got[:2], want[:2]):
+            errs.append(check_close("amr_update", gt, wt, VEC_RTOL))
+        perrs.append(check_close("amr_update partial", got[2], want[2],
+                                 PART_RTOL, part_scale(want[0] * vol[
+                                     :, None, None, None])))
+    sc = row(0.7, 1.3, 0.0)
+    pk, rk = p.clone(), rhat.clone()
+    record("amr_update", errs, perrs,
+           lambda: fa.update(r, pk, v, rk, vol, sc),
+           lambda: fa.update(r, p, v, rhat, vol, sc, kernels=False),
+           4 * 4 * cells, 5 * cells)
+
+    # -- B9 getz on -h2 (w - azf) with a real A zf -------------------------
+    w = vec()
+    zc = torch.randn(n, generator=gen, device=dev)
+    zf = zc[:, None, None, None].expand(n, 8, 8, 8)
+    azf = amr_ops.laplacian_blocks(g, zf, d._tab1, d._ftab).contiguous()
+    want = fa.getz_two(w, azf, zc, h2, kernels=False)
+    got = fa.getz_two(w, azf, zc, h2)
+    errs = [check_close("amr_getz_two", got, want, GETZ_RTOL)]
+    record("amr_getz_two", errs, [0.0],
+           lambda: fa.getz_two(w, azf, zc, h2),
+           lambda: fa.getz_two(w, azf, zc, h2, kernels=False),
+           3 * 4 * cells, 110 * cells)
+
+    # -- B11 lap on the forest's lab + reflux increment --------------------
+    w, a = vec(), vec()
+    lab = d._tab1.assemble_scalar(w, 8).contiguous()
+    inv_h = (1.0 / h)[:, None, None, None]
+    corr = d._ftab.apply(torch.zeros_like(w),
+                         amr_ops.face_fluxes(lab, 1, 8, inv_h)).contiguous()
+    want = fa.lap(lab, corr, a, inv_h2, kernels=False)
+    got = fa.lap(lab, corr, a, inv_h2)
+    errs = [check_close("amr_lap", got[0], want[0], VEC_RTOL)]
+    perrs = [check_close("amr_lap partial a.Aw", got[1], want[1], PART_RTOL,
+                         part_scale(a * want[0])),
+             check_close("amr_lap partial Aw.Aw", got[2], want[2], PART_RTOL,
+                         part_scale(want[0] * want[0]))]
+    record("amr_lap", errs, perrs,
+           lambda: fa.lap(lab, corr, a, inv_h2),
+           lambda: fa.lap(lab, corr, a, inv_h2, kernels=False),
+           (1000 / 512 + 3) * 4 * cells, 10 * cells)
+
+    # -- B12 axpy ------------------------------------------------------------
+    r, v = vec(), vec()
+    sc = row(0.37)
+    want = fa.axpy(r, v, vol, sc, kernels=False)
+    got = fa.axpy(r, v, vol, sc)
+    errs = [check_close("amr_axpy", got[0], want[0], VEC_RTOL)]
+    perrs = [check_close("amr_axpy partial", got[1], want[1], PART_RTOL,
+                         part_scale(want[0] * vol[:, None, None, None]))]
+    record("amr_axpy", errs, perrs, lambda: fa.axpy(r, v, vol, sc),
+           lambda: fa.axpy(r, v, vol, sc, kernels=False),
+           3 * 4 * cells, 4 * cells)
+
+    # -- B13 finish (the B6 kernel; in place on x, r into s) ----------------
+    x, y, z, s_, t, rh = (vec() for _ in range(6))
+    sc = row(0.37, 1.21)
+    want = fa.finish(x.clone(), y, z, s_.clone(), t, rh, sc, kernels=False)
+    got = fa.finish(x.clone(), y, z, s_.clone(), t, rh, sc)
+    errs = [check_close("amr_finish x", got[0], want[0], VEC_RTOL),
+            check_close("amr_finish r", got[1], want[1], VEC_RTOL)]
+    perrs = [check_close("amr_finish partial r.r", got[2], want[2],
+                         PART_RTOL, part_scale(want[1] * want[1])),
+             check_close("amr_finish partial rhat.r", got[3], want[3],
+                         PART_RTOL, part_scale(rh * want[1]))]
+    xk, sk = x.clone(), s_.clone()
+    record("amr_finish", errs, perrs,
+           lambda: fa.finish(xk, y, z, sk, t, rh, sc),
+           lambda: fa.finish(x, y, z, s_, t, rh, sc, kernels=False),
+           8 * 4 * cells, 10 * cells)
+    torch.cuda.synchronize()
+    return results
+
+
+def forest_solve_phase(d) -> None:
+    """One whole forest solve: kernels against plain versions (+-1
+    iteration, x within 1e-4), and the kernel solve twice (bitwise)."""
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    g, dev = d.grid, d.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    rhs = torch.randn((g.nb, 8, 8, 8), generator=gen, device=dev)
+    vol = d._vol
+    b = rhs - torch.sum(rhs * vol) / (torch.sum(vol) * 512)
+    kw = dict(tab=d._tab1, ftab=d._ftab, vol=vol, graph=d._graph,
+              tol_abs=1e-6, tol_rel=1e-4, maxiter=200)
+    t0 = time.perf_counter()
+    x_k, rn_k, k_k = fa.fused_amr_bicgstab(g, b, **kw)
+    k_k = int(k_k)
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_p, rn_p, k_p = fa.fused_amr_bicgstab(g, b, kernels=False, **kw)
+    k_p = int(k_p)
+    t_p = time.perf_counter() - t0
+    x_k2, _, k_k2 = fa.fused_amr_bicgstab(g, b, **kw)
+    rel = float(torch.max(torch.abs(x_k - x_p)) / torch.max(torch.abs(x_p)))
+    same = bool(torch.equal(x_k, x_k2)) and int(k_k2) == k_k
+    log(f"  forest solve ({g.nb} blocks): kernels {k_k} its in {t_k:.3f} s "
+        f"(resid {float(rn_k):.3e}), plain {k_p} its in {t_p:.3f} s (resid "
+        f"{float(rn_p):.3e}), x rel diff {rel:.3e}, rerun bitwise {same}")
+    if abs(k_k - k_p) > 1 or not rel <= 1e-4 or not same:
+        raise AssertionError(f"forest solve disagrees: its {k_k} vs {k_p}, "
+                             f"x rel {rel:.3e}, rerun bitwise {same}")
+
+
+def _kinetic_energy(d) -> float:
+    from cup3d_tpu_torch.ops import amr_ops
+
+    return float(amr_ops.dissipation_blocks(
+        d.grid, d.state["vel"], d.nu, d._tab1)["kinetic_energy"])
+
+
+def amr_main_path_phase(d) -> dict:
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import krylov
+
+    ke0 = _kinetic_energy(d)
+    maxiter = d._solver.maxiter
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    d.simulate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    executed = fa.iterations["executed"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    log(f"  step  blocks  wall_s     iters  resid       umax")
+    for r in d.step_log:
+        log(f"  {r['step']:4d}  {r['nb']:6d}  {r['wall_s']:.4f}"
+            f"  {int(r['iters']):5d}  {r['resid']:.3e}  {r['umax']:.6f}")
+    iters = [r["iters"] for r in d.step_log]
+    if len(iters) != STEPS:
+        raise AssertionError(f"ran {len(iters)} steps, expected {STEPS}")
+    if not all(math.isfinite(k) and 0 <= k <= maxiter for k in iters):
+        raise AssertionError(f"iteration counts out of range: {iters}")
+    ke = _kinetic_energy(d)
+    _, div_max = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+                                                 d._tab1)
+    div_max = float(div_max)
+    # the JAX bench's divergence gate for this config (bench.py:62-65)
+    if not (math.isfinite(ke) and ke < ke0 and div_max < AMR_DIV_GATE):
+        raise AssertionError(f"kinetic energy not finite or not decaying, "
+                             f"or divergence over {AMR_DIV_GATE}: KE0 {ke0}, "
+                             f"KE {ke}, max|div u| {div_max}")
+    chunk = krylov.ITER_CHUNK
+    want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
+    want = {"amr_update": executed, "amr_getz_two": 2 * executed,
+            "amr_lap": 2 * executed, "amr_axpy": executed,
+            "amr_finish": executed}
+    if executed != want_exec or launches != want or executed == 0:
+        raise AssertionError(f"launch counts {launches}, executed "
+                             f"{executed}, expected {want_exec} executed")
+    log(f"  {STEPS} steps in {wall:.3f} s ({wall / STEPS * 1e3:.2f} ms/step), "
+        f"{int(sum(iters))} iterations ({executed} executed, "
+        f"{sum(iters) / STEPS:.2f} per step), KE {ke0:.8e} -> {ke:.8e}, "
+        f"max|div u| {div_max:.3e}, peak memory {peak_gb:.2f} GB")
+    log(f"  launches: {launches}")
+    split = _amr_step_split(d)
+    pieces = _amr_solve_pieces(d)
+    prof = _profile_window(d, prefix="amr_")
+    return dict(launches=launches, wall=wall, iters=iters, split=split,
+                pieces=pieces, prof=prof)
+
+
+class _SyncProfiler:
+    """The driver's Profiler protocol with a synchronise at both ends of
+    each section, so section times are device-inclusive."""
+
+    def __init__(self):
+        self.totals: dict = {}
+
+    def __call__(self, name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def section():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                torch.cuda.synchronize()
+                self.totals[name] = self.totals.get(name, 0.0) + (
+                    time.perf_counter() - t0)
+        return section()
+
+
+def _amr_step_split(d, steps: int = 3) -> dict:
+    """A few more steps with the driver's sections synchronised: the
+    step's split between advection, the pressure projection and the
+    end-of-step read."""
+    prof, d.profiler = d.profiler, _SyncProfiler()
+    try:
+        for _ in range(steps):
+            d.advance(d.calc_max_timestep())
+        totals = d.profiler.totals
+    finally:
+        d.profiler = prof
+    split = {k: v / steps * 1e3 for k, v in totals.items()}
+    log("  per-step split (ms, synchronised): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    return split
+
+
+def _amr_solve_pieces(d) -> dict:
+    """Device time of each piece of one forest iteration at the main
+    path's shapes (CUDA events): the plain-torch glue between the
+    kernels (coarse graph solve, the refluxed A zf, lab + reflux
+    increment) beside the five kernels; an iteration runs each glue
+    piece and getz/lap twice, update/axpy/finish once."""
+    from cup3d_tpu_torch.ops import amr_ops, krylov
+
+    g, dev, n = d.grid, d.device, d.grid.nb
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    w = torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+    tsum = torch.randn(n, generator=gen, device=dev)
+    inv_h = 1.0 / g.h_column(torch.float32, dev)
+    zc = krylov.coarse_solve_graph(tsum, d._graph)
+    zf = zc[:, None, None, None].expand(n, 8, 8, 8)
+
+    def lab_corr():
+        lab = d._tab1.assemble_scalar(w, 8)
+        return d._ftab.apply(torch.zeros_like(w),
+                             amr_ops.face_fluxes(lab, 1, 8, inv_h))
+
+    pieces = {
+        "coarse_solve_graph": lambda: krylov.coarse_solve_graph(tsum,
+                                                                 d._graph),
+        "laplacian_blocks(zf)": lambda: amr_ops.laplacian_blocks(
+            g, zf, d._tab1, d._ftab),
+        "lab + reflux increment": lab_corr,
+    }
+    out = {k: time_ms(fn) for k, fn in pieces.items()}
+    per_iter = 2 * sum(out.values())
+    log("  one forest iteration, glue pieces (ms each, x2 per iteration): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+        + f"; glue {per_iter:.3f} ms per iteration")
+    out["glue_per_iteration"] = per_iter
+    return out
 
 
 KERNELS = (
@@ -444,6 +795,11 @@ KERNELS = (
     ("lap", "cup3d_tpu/ops/fused_bicgstab.py:195"),
     ("axpy", "cup3d_tpu/ops/fused_bicgstab.py:203"),
     ("finish", "cup3d_tpu/ops/fused_bicgstab.py:209"),
+    ("amr_update", "cup3d_tpu/ops/fused_amr_bicgstab.py:183"),
+    ("amr_getz_two", "cup3d_tpu/ops/fused_amr_bicgstab.py:195"),
+    ("amr_lap", "cup3d_tpu/ops/fused_amr_bicgstab.py:208"),
+    ("amr_axpy", "cup3d_tpu/ops/fused_amr_bicgstab.py:217"),
+    ("amr_finish", "cup3d_tpu/ops/fused_amr_bicgstab.py:224"),
 )
 
 
@@ -481,13 +837,24 @@ def main() -> int:
     solve_phase()
     log(f"phase 5: main path, {N_MAIN}^3 TGV, {STEPS} steps")
     run = main_path_phase()
+    torch.cuda.empty_cache()
+
+    log("phase 6: AMR path set-up (BASELINE config #3, bpd 16, levelMax 2)")
+    d = amr_setup_phase()
+    log(f"phase 7: forest kernels vs plain versions at {d.grid.nb} blocks")
+    per_kernel.update(forest_kernel_phase(d, bw, fp32_flops))
+    log("phase 8: one whole forest solve")
+    forest_solve_phase(d)
+    log(f"phase 9: AMR main path, {STEPS} steps")
+    amr_run = amr_main_path_phase(d)
+    launches = {**run["launches"], **amr_run["launches"]}
 
     rows = []
     for kname, replaces in KERNELS:
         rows.append(dict(
             name=kname, route="cuda",
             source="cup3d_tpu_torch/csrc/fused_bicgstab.cu",
-            replaces=replaces, launches=run["launches"][kname],
+            replaces=replaces, launches=launches[kname],
             **per_kernel[kname]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 """CLI entry point: ``python -m cup3d_tpu_torch -bpdx ... [-device cpu]``
-(port of ``cup3d_tpu/__main__.py`` for ``levelMax == 1``).
+(port of ``cup3d_tpu/__main__.py``: ``levelMax == 1`` builds the
+uniform-grid Simulation, ``levelMax > 1`` the AMRSimulation).
 
 Same flag grammar as the JAX package (config.parse_args; ``-conf FILE``
 pulls flags from a file at lower precedence).  One flag of the port's
@@ -58,8 +59,9 @@ def build_driver(argv: List[str]):
     args, device = _split_device(argv)
     cfg = parse_args(_expand_conf(args))
     if cfg.levelMax > 1:
-        raise NotImplementedError(
-            "levelMax > 1 needs the AMR driver, not ported yet (ROADMAP A6)")
+        from cup3d_tpu_torch.sim.amr import AMRSimulation
+
+        return AMRSimulation(cfg, device=device)
     from cup3d_tpu_torch.sim.simulation import Simulation
 
     return Simulation(cfg, device=device)

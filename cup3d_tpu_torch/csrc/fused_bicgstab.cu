@@ -1,31 +1,39 @@
-// Hopper (sm_90a) kernels for the five stages of the fused BiCGSTAB
-// iteration (cup3d_tpu_torch/ops/fused_bicgstab.py).
+// Hopper (sm_90a) kernels for the stages of the fused BiCGSTAB
+// iterations: the uniform grid's (cup3d_tpu_torch/ops/fused_bicgstab.py)
+// and the AMR forest's (cup3d_tpu_torch/ops/fused_amr_bicgstab.py).
 //
 // They replace the Pallas stage bodies of cup3d_tpu/ops/fused_bicgstab.py
 // (_k_update :173, _k_getz_two :185, _k_lap :195, _k_axpy :203,
-// _k_finish :209) and compute what those compute, not how: the TPU
-// stages stream lane-major (8,8,8,T) chunks of 256 tiles through VMEM;
-// here every vector is TILE-MAJOR, shape (T,8,8,8) in f32, so one 8^3
-// tile is 2 KB of contiguous memory and one thread block owns one tile.
-// The tile index t = (tx*NBy + ty)*NBz + tz is the JAX lane index, and
-// a cell (a,b,c) of tile t lives at t*512 + (a*8 + b)*8 + c.
+// _k_finish :209) and of cup3d_tpu/ops/fused_amr_bicgstab.py (_k_update
+// :183, _k_getz_two :195, _k_lap :208, _k_axpy :217, _k_finish :224), and
+// compute what those compute, not how: the TPU stages stream chunks of
+// 256 tiles or 64 blocks through VMEM; here every vector is BLOCK-MAJOR,
+// shape (T,8,8,8) in f32, so one 8^3 tile (a tile of the uniform grid or
+// a block of the forest) is 2 KB of contiguous memory and one thread
+// block owns one tile.  On the uniform grid the tile index
+// t = (tx*NBy + ty)*NBz + tz is the JAX lane index; on the forest it is
+// the block's slot.  A cell (a,b,c) of tile t lives at
+// t*512 + (a*8 + b)*8 + c.
 //
-// What bounds them on an H100: all five are memory-bound at 256^3
-// (T = 32768).  Per launch they move (f32):
+// What bounds them on an H100: all are memory-bound (T = 32768 tiles at
+// 256^3, ~10^4 blocks on the forest of BASELINE config #3).  Per launch
+// they move (f32):
 //   update  r, p, v in; p out                         4 x 4 B / cell
 //           (+ rhat out on a breakdown, when it is re-seeded from r)
 //   getz    w in, y out (+ 8 aux floats per tile)     2 x 4 B / cell
+//   getz_amr w, azf in; y out (+ 2 floats per block)  3 x 4 B / cell
 //   lap     w, a in; 6 face planes in; Aw out        3.75 x 4 B / cell
+//   lap_amr (10^3 lab)/8^3, corr, a in; Aw out  (1000/512 + 3) x 4 B / cell
 //   axpy    r, v in; s out                            3 x 4 B / cell
 //   finish  x, y, z, s, t, rhat in; x, r out         8 x 4 B / cell
-// plus O(T) partials.  The design keeps each tile's data in registers /
-// shared memory for the whole stage so every vector crosses device
-// memory exactly once per launch, loads and stores 16 B per thread
-// where the access is elementwise, and does the per-tile reductions in
-// the block (warp shuffles, then a fixed-order sum over the warps) so
-// partials are bitwise reproducible run to run -- no float atomics.
-// The per-tile partials are combined by one torch.sum on the caller's
-// side, exactly as the TPU driver's _combine does.
+// plus O(T) partials and per-block columns.  The design keeps each
+// tile's data in registers / shared memory for the whole stage so every
+// vector crosses device memory exactly once per launch, loads and stores
+// 16 B per thread where the access is elementwise, and does the per-tile
+// reductions in the block (warp shuffles, then a fixed-order sum over
+// the warps) so partials are bitwise reproducible run to run -- no float
+// atomics.  The per-tile partials are combined by one torch.sum on the
+// caller's side, exactly as the TPU drivers' _combine does.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -74,6 +82,13 @@ __device__ __forceinline__ float hdot(float4 a, float4 b) {
 // On breakdown (scal[2] > 0.5) p and v are SELECTED to zero (not scaled
 // by beta = 0), so a non-finite p or v cannot leak through 0 * inf, and
 // rhat is re-seeded to r.  p and rhat are updated in place.
+//
+// B8 (the forest's update) is the same kernel with a per-block weight
+// wt: the partial is sum(p * wt[t]) over the tile, the volume-weighted
+// coarse restriction of the forest's two-level preconditioner.  Replaces
+// _k_update (cup3d_tpu/ops/fused_amr_bicgstab.py:183, math :97-108).
+// wt == nullptr weighs every cell by 1.0f, which leaves B1's bits as
+// they were.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float upd1(float r, float p, float v, float beta,
@@ -83,12 +98,18 @@ __device__ __forceinline__ float upd1(float r, float p, float v, float beta,
   return r + beta * (pe - omega * ve);
 }
 
+__device__ __forceinline__ float4 scale4(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
 __global__ void __launch_bounds__(kVecThreads)
 k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
-         float4* rhat, const float* __restrict__ scal, float* __restrict__ ts) {
+         float4* rhat, const float* __restrict__ scal,
+         const float* __restrict__ wt, float* __restrict__ ts) {
   __shared__ float red[kWarps];
   const float beta = scal[0], omega = scal[1];
   const bool broke = scal[2] > 0.5f;
+  const float weight = wt ? wt[blockIdx.x] : 1.f;
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
   const float4 rr = r[i], pp = p[i], vv = v[i];
   float4 pn;
@@ -98,7 +119,7 @@ k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
   pn.w = upd1(rr.w, pp.w, vv.w, beta, omega, broke);
   p[i] = pn;
   if (broke) rhat[i] = rr;
-  const float s = block_sum(hsum(pn), red);
+  const float s = block_sum(hsum(scale4(pn, weight)), red);
   if (threadIdx.x == 0) ts[blockIdx.x] = s;
 }
 
@@ -115,25 +136,15 @@ k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
 // aux row 6; aux is (8, T) as the TPU driver ships it.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kCells)
-k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
-           const float* __restrict__ lam3, const float* __restrict__ aux,
-           float* __restrict__ y, float h2, int T) {
-  __shared__ float S1[64];
-  __shared__ float buf[2][kCells];
-  const int t = blockIdx.x;
-  const int c = threadIdx.x;
-  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
-  if (c < 64) S1[c] = s1g[c];
-
-  const float part0 = a == 0 ? aux[0 * T + t] : (a == 7 ? aux[1 * T + t] : 0.f);
-  const float part1 = b == 0 ? aux[2 * T + t] : (b == 7 ? aux[3 * T + t] : 0.f);
-  const float part2 = k == 0 ? aux[4 * T + t] : (k == 7 ? aux[5 * T + t] : 0.f);
-  const float azc = (part0 + part1) + part2;
-  const float zc = aux[6 * T + t];
-  buf[0][c] = -h2 * (w[(size_t)t * kCells + c] - azc);
-  __syncthreads();
-
+// The transform pair shared by B2 and B9.  On entry buf[0] holds the
+// tile's right-hand side and S1 the 1-D basis, both written by all 512
+// threads before a __syncthreads(); returns this thread's cell (a,b,k)
+// of S3 diag(1/lam3) S3 buf[0].
+__device__ __forceinline__ float tile_solve_cell(float (*buf)[kCells],
+                                                 const float* S1,
+                                                 const float* __restrict__ lam3,
+                                                 int a, int b, int k) {
+  const int c = (a * 8 + b) * 8 + k;
   float acc;
   // forward transform: axis 0 (stride 64), axis 1 (stride 8), axis 2
   acc = 0.f;
@@ -165,7 +176,56 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
   acc = 0.f;
 #pragma unroll
   for (int m = 0; m < 8; ++m) acc += S1[k * 8 + m] * buf[1][a * 64 + b * 8 + m];
-  y[(size_t)t * kCells + c] = acc + zc;
+  return acc;
+}
+
+__global__ void __launch_bounds__(kCells)
+k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
+           const float* __restrict__ lam3, const float* __restrict__ aux,
+           float* __restrict__ y, float h2, int T) {
+  __shared__ float S1[64];
+  __shared__ float buf[2][kCells];
+  const int t = blockIdx.x;
+  const int c = threadIdx.x;
+  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
+  if (c < 64) S1[c] = s1g[c];
+
+  const float part0 = a == 0 ? aux[0 * T + t] : (a == 7 ? aux[1 * T + t] : 0.f);
+  const float part1 = b == 0 ? aux[2 * T + t] : (b == 7 ? aux[3 * T + t] : 0.f);
+  const float part2 = k == 0 ? aux[4 * T + t] : (k == 7 ? aux[5 * T + t] : 0.f);
+  const float azc = (part0 + part1) + part2;
+  const float zc = aux[6 * T + t];
+  buf[0][c] = -h2 * (w[(size_t)t * kCells + c] - azc);
+  __syncthreads();
+  y[(size_t)t * kCells + c] = tile_solve_cell(buf, S1, lam3, a, b, k) + zc;
+}
+
+// ---------------------------------------------------------------------------
+// B9 getz (forest, two-level): y = zc_t + S3 diag(1/lam) S3 (-h2_t (w - azf))
+// at each block's own h^2.  Replaces _k_getz_two
+// (cup3d_tpu/ops/fused_amr_bicgstab.py:195, math :111-133).  On a forest
+// A zf is no sum of face deltas, so the caller assembles the full
+// refluxed Laplacian azf of the injected coarse correction between the
+// stages (as the TPU driver does) and this prologue reads it as a field,
+// with the per-block columns zc and h2; the transforms are B2's.  Moves
+// w and azf in, y out: 3 x 4 B / cell.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kCells)
+k_getz_amr(const float* __restrict__ w, const float* __restrict__ azf,
+           const float* __restrict__ s1g, const float* __restrict__ lam3,
+           const float* __restrict__ zc, const float* __restrict__ h2,
+           float* __restrict__ y) {
+  __shared__ float S1[64];
+  __shared__ float buf[2][kCells];
+  const size_t t = blockIdx.x;
+  const int c = threadIdx.x;
+  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
+  if (c < 64) S1[c] = s1g[c];
+  const size_t i = t * kCells + c;
+  buf[0][c] = -h2[t] * (w[i] - azf[i]);
+  __syncthreads();
+  y[i] = tile_solve_cell(buf, S1, lam3, a, b, k) + zc[t];
 }
 
 // ---------------------------------------------------------------------------
@@ -227,21 +287,84 @@ k_lap(const float4* __restrict__ w, const float4* __restrict__ planes,
 }
 
 // ---------------------------------------------------------------------------
+// B11 lap (forest): Aw = (7-point sum on the block's width-1 lab) / h_t^2
+// + corr, plus the per-block partials sum(a * Aw) and sum(Aw * Aw).
+// Replaces _k_lap (cup3d_tpu/ops/fused_amr_bicgstab.py:208, math
+// :136-158).  The lab (T, 10, 10, 10) comes from the face-table assembly
+// and corr (the dense coarse-fine reflux increment) from the flux
+// tables, both built by torch between the stages as the TPU driver
+// builds them outside its kernel.  The 4000-byte lab is 16-byte aligned
+// per block, so it is loaded as float4 into shared memory; each thread
+// owns 4 consecutive cells along the last axis, as in B4.  Moves
+// (1000/512 + 3) x 4 B / cell.
+// ---------------------------------------------------------------------------
+
+constexpr int kLab = 10;                // width-1 lab edge
+constexpr int kLabCells = kLab * kLab * kLab;
+
+__global__ void __launch_bounds__(kVecThreads)
+k_lap_amr(const float4* __restrict__ lab, const float4* __restrict__ corr,
+          const float4* __restrict__ a, const float* __restrict__ inv_h2,
+          float4* __restrict__ aw, float* __restrict__ pa,
+          float* __restrict__ ps) {
+  __shared__ __align__(16) float tile[kLabCells];
+  __shared__ float red_a[kWarps];
+  __shared__ float red_s[kWarps];
+  const size_t t = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int q = tid; q < kLabCells / 4; q += kVecThreads)
+    reinterpret_cast<float4*>(tile)[q] = lab[t * (kLabCells / 4) + q];
+  __syncthreads();
+
+  const float ih = inv_h2[t];
+  const int cell0 = tid * 4;  // (ia*8 + ib)*8 + ic0, ic0 in {0, 4}
+  const int ia = cell0 >> 6, ib = (cell0 >> 3) & 7, ic0 = cell0 & 7;
+  const float4 cc = corr[t * (kCells / 4) + tid];
+  const float cv[4] = {cc.x, cc.y, cc.z, cc.w};
+  float out[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int l = ((ia + 1) * kLab + (ib + 1)) * kLab + (ic0 + q + 1);
+    float s = -6.f * tile[l];
+    s = s + tile[l + kLab * kLab];
+    s = s + tile[l - kLab * kLab];
+    s = s + tile[l + kLab];
+    s = s + tile[l - kLab];
+    s = s + tile[l + 1];
+    s = s + tile[l - 1];
+    out[q] = s * ih + cv[q];
+  }
+  const float4 res = make_float4(out[0], out[1], out[2], out[3]);
+  aw[t * (kCells / 4) + tid] = res;
+  const float4 av = a[t * (kCells / 4) + tid];
+  const float sa = block_sum(hdot(av, res), red_a);
+  const float ss = block_sum(hdot(res, res), red_s);
+  if (tid == 0) {
+    pa[t] = sa;
+    ps[t] = ss;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B5 axpy: s = r - alpha v, per-tile sum s.  Replaces _k_axpy (:203).
+// B12 (the forest's axpy, fused_amr_bicgstab.py::_k_axpy :217, math
+// :161-163) is the same kernel with the per-block weight wt of B8:
+// partial sum(s * wt[t]); wt == nullptr gives B5.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kVecThreads)
 k_axpy(const float4* __restrict__ r, const float4* __restrict__ v,
-       const float* __restrict__ scal, float4* __restrict__ s,
-       float* __restrict__ ts) {
+       const float* __restrict__ scal, const float* __restrict__ wt,
+       float4* __restrict__ s, float* __restrict__ ts) {
   __shared__ float red[kWarps];
   const float alpha = scal[0];
+  const float weight = wt ? wt[blockIdx.x] : 1.f;
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
   const float4 rr = r[i], vv = v[i];
   const float4 ss = make_float4(rr.x - alpha * vv.x, rr.y - alpha * vv.y,
                                 rr.z - alpha * vv.z, rr.w - alpha * vv.w);
   s[i] = ss;
-  const float sum = block_sum(hsum(ss), red);
+  const float sum = block_sum(hsum(scale4(ss, weight)), red);
   if (threadIdx.x == 0) ts[blockIdx.x] = sum;
 }
 
@@ -281,15 +404,18 @@ k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// plain C interface (loaded with ctypes); T = number of 8^3 tiles
+// plain C interface (loaded with ctypes); T = number of 8^3 tiles or
+// blocks; wt may be nullptr (the uniform grid's B1 and B5)
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
 int cup3d_update(const float* r, float* p, const float* v, float* rhat,
-                 const float* scal, float* ts, int T, void* stream) {
+                 const float* scal, const float* wt, float* ts, int T,
+                 void* stream) {
   k_update<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)r, (float4*)p, (const float4*)v, (float4*)rhat, scal, ts);
+      (const float4*)r, (float4*)p, (const float4*)v, (float4*)rhat, scal, wt,
+      ts);
   return (int)cudaGetLastError();
 }
 
@@ -307,10 +433,10 @@ int cup3d_lap(const float* w, const float* planes, const float* a, float* aw,
   return (int)cudaGetLastError();
 }
 
-int cup3d_axpy(const float* r, const float* v, const float* scal, float* s,
-               float* ts, int T, void* stream) {
+int cup3d_axpy(const float* r, const float* v, const float* scal,
+               const float* wt, float* s, float* ts, int T, void* stream) {
   k_axpy<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)r, (const float4*)v, scal, (float4*)s, ts);
+      (const float4*)r, (const float4*)v, scal, wt, (float4*)s, ts);
   return (int)cudaGetLastError();
 }
 
@@ -320,6 +446,23 @@ int cup3d_finish(float* x, const float* y, const float* z, const float* s,
   k_finish<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
       (float4*)x, (const float4*)y, (const float4*)z, (const float4*)s,
       (const float4*)t, (const float4*)rhat, scal, (float4*)r, prr, prh);
+  return (int)cudaGetLastError();
+}
+
+int cup3d_getz_amr(const float* w, const float* azf, const float* s1,
+                   const float* lam3, const float* zc, const float* h2,
+                   float* y, int T, void* stream) {
+  k_getz_amr<<<T, kCells, 0, (cudaStream_t)stream>>>(w, azf, s1, lam3, zc, h2,
+                                                      y);
+  return (int)cudaGetLastError();
+}
+
+int cup3d_lap_amr(const float* lab, const float* corr, const float* a,
+                  const float* inv_h2, float* aw, float* pa, float* ps, int T,
+                  void* stream) {
+  k_lap_amr<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)lab, (const float4*)corr, (const float4*)a, inv_h2,
+      (float4*)aw, pa, ps);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,156 @@
+"""Conservative flux correction at coarse-fine faces (port of
+``cup3d_tpu/grid/flux.py``; reference FluxCorrection, main.cpp:555-802).
+
+Convention: operators emit *outward, per-unit-area* face fluxes as a
+``(nb, 6, bs, bs)`` array — faces ordered (-x, +x, -y, +y, -z, +z), the
+(bs, bs) plane indexed by the two remaining axes in ascending order.  The
+coarse side of every coarse-fine face is corrected by
+
+    out[coarse boundary cell] += (mean of 4 fine fluxes * (-1) - F_coarse)/h_c
+
+where the -1 re-orients the fine blocks' outward flux.  Only the coarse
+side is touched (reference FillBlockCases, main.cpp:729-801).
+
+The table build is the JAX package's numpy code.  Its scatter-add has
+repeated targets: a coarse edge or corner cell takes one correction from
+each of its coarse-fine faces.  A scatter-add with atomics would sum them
+in an order that changes from run to run, so the build groups the
+corrections by target cell into a fixed ``(ncell, K)`` table and
+:func:`apply_flux_correction` sums each group in that order and writes
+each target once: reruns are bitwise equal.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+_FACE_AXIS = (0, 0, 1, 1, 2, 2)
+_FACE_SIDE = (-1, 1, -1, 1, -1, 1)  # low/high
+
+
+@dataclass
+class FluxTables:
+    """Precomputed coarse-side correction (empty tables are valid)."""
+
+    tgt_flux: torch.Tensor  # (nc,) int64 flat index into (nb*6*bs^2) fluxes
+    src_flux: torch.Tensor  # (nc, 4) int64 fine-side flux indices
+    inv_hc: torch.Tensor  # (nc,) f32 1/h of the corrected (coarse) block
+    cells: torch.Tensor  # (ncell,) int64 distinct target cells
+    groups: torch.Tensor  # (ncell, K) int64 rows per cell, nc = no row
+    ncorr: int
+
+    def apply(self, out: torch.Tensor, fluxes: torch.Tensor) -> torch.Tensor:
+        return apply_flux_correction(out, fluxes, self)
+
+
+def build_flux_tables(grid, device="cpu") -> FluxTables:
+    """grid: BlockGrid.  Enumerates every (coarse block, face) whose
+    neighbor region is one level finer."""
+    bs = grid.bs
+    tree = grid.tree
+    tgt_cell, tgt_flux, src_flux, inv_hc = [], [], [], []
+
+    jj, kk = np.meshgrid(np.arange(bs), np.arange(bs), indexing="ij")
+    jj, kk = jj.ravel(), kk.ravel()  # coarse face-cell coords (bs^2,)
+
+    for s, (l, bi, bj, bk) in enumerate(grid.keys):
+        for face in range(6):
+            ax, side = _FACE_AXIS[face], _FACE_SIDE[face]
+            npos = [bi, bj, bk]
+            npos[ax] += side
+            w = tree.wrap(l, npos)
+            if w is None:
+                continue
+            # a KeyError from owner_level means a broken tree: skipping a
+            # coarse-fine face would silently lose conservation
+            own = tree.owner_level(l, w)
+            if own != l + 1:
+                continue
+            t1, t2 = [a for a in range(3) if a != ax]
+            cell = np.zeros((bs * bs, 3), np.int64)
+            cell[:, ax] = 0 if side < 0 else bs - 1
+            cell[:, t1] = jj
+            cell[:, t2] = kk
+            flat_cell = (
+                s * bs**3
+                + cell[:, 0] * bs * bs
+                + cell[:, 1] * bs
+                + cell[:, 2]
+            )
+            flat_flux = s * 6 * bs * bs + face * bs * bs + jj * bs + kk
+
+            # fine blocks: level l+1 positions 2*w + delta, delta[ax] fixed
+            # to the side facing back at us
+            fine_face = face + (1 if side < 0 else -1)  # their opposite face
+            quad1, quad2 = 2 * jj // bs, 2 * kk // bs  # which child
+            fpos = np.zeros((bs * bs, 3), np.int64)
+            fpos[:, ax] = 2 * w[ax] + (1 if side < 0 else 0)
+            fpos[:, t1] = 2 * w[t1] + quad1
+            fpos[:, t2] = 2 * w[t2] + quad2
+            fslot = grid._slot_maps[l + 1][fpos[:, 0], fpos[:, 1], fpos[:, 2]]
+            if np.any(fslot < 0):
+                raise KeyError("fine neighbor missing: unbalanced tree")
+            fj = (2 * jj) % bs
+            fk = (2 * kk) % bs
+            quads = []
+            for dj in (0, 1):
+                for dk in (0, 1):
+                    quads.append(
+                        fslot.astype(np.int64) * 6 * bs * bs
+                        + fine_face * bs * bs
+                        + (fj + dj) * bs
+                        + (fk + dk)
+                    )
+            tgt_cell.append(flat_cell)
+            tgt_flux.append(flat_flux)
+            src_flux.append(np.stack(quads, axis=-1))
+            inv_hc.append(np.full(bs * bs, 1.0 / grid.h[s], np.float32))
+
+    if tgt_cell:
+        tc = np.concatenate(tgt_cell)
+        tf = np.concatenate(tgt_flux)
+        sf = np.concatenate(src_flux)
+        ih = np.concatenate(inv_hc)
+    else:
+        tc = tf = np.zeros(0, np.int64)
+        sf = np.zeros((0, 4), np.int64)
+        ih = np.zeros(0, np.float32)
+    nc = tc.shape[0]
+    # group the rows by target cell, rows of one cell in table order
+    order = np.argsort(tc, kind="stable")
+    cells, first, counts = np.unique(tc[order], return_index=True,
+                                     return_counts=True)
+    K = int(counts.max()) if nc else 1
+    groups = np.full((cells.shape[0], K), nc, np.int64)
+    for k in range(K):
+        has = counts > k
+        groups[has, k] = order[first[has] + k]
+
+    def on(a, dtype):
+        return torch.as_tensor(a, device=device).to(dtype)
+
+    return FluxTables(
+        tgt_flux=on(tf, torch.int64), src_flux=on(sf, torch.int64),
+        inv_hc=on(ih, torch.float32), cells=on(cells, torch.int64),
+        groups=on(groups, torch.int64), ncorr=nc,
+    )
+
+
+def apply_flux_correction(out: torch.Tensor, fluxes: torch.Tensor,
+                          tab: FluxTables) -> torch.Tensor:
+    """out: (nb, bs,bs,bs) conservative-operator result; fluxes:
+    (nb, 6, bs, bs) outward per-unit-area face fluxes.  Returns corrected
+    out (a new tensor)."""
+    if tab.ncorr == 0:
+        return out
+    fflat = fluxes.reshape(-1)
+    fine_mean = torch.mean(fflat[tab.src_flux], dim=-1)
+    corr = (-fine_mean - fflat[tab.tgt_flux]) * tab.inv_hc
+    corr = torch.cat([corr, corr.new_zeros(1)]).to(out.dtype)
+    add = torch.sum(corr[tab.groups], dim=-1)
+    flat = out.reshape(-1).clone()
+    flat[tab.cells] = flat[tab.cells] + add
+    return flat.reshape(out.shape)

@@ -33,11 +33,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "cup3d_update": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     "cup3d_getz_two": [_P, _P, _P, _P, _P, _F, _I, _P],
     "cup3d_lap": [_P, _P, _P, _P, _P, _P, _F, _I, _P],
-    "cup3d_axpy": [_P, _P, _P, _P, _P, _I, _P],
+    "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _P],
     "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_getz_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_lap_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 

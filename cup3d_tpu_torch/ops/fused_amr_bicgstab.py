@@ -1,0 +1,342 @@
+"""Fused-iteration BiCGSTAB on the AMR block forest (port of
+``cup3d_tpu/ops/fused_amr_bicgstab.py``).
+
+The production pressure system of the forest: A = the refluxed 7-point
+Laplacian (face tables of width 1 + flux tables), M = the exact getZ tile
+solve at each block's own h, plus the block-graph coarse level.  Each
+iteration runs five stages over ``(nb, 8, 8, 8)`` f32 blocks — the same
+block-major layout as the uniform driver's tiles — and on a CUDA tensor
+each is a hand-written kernel (csrc/fused_bicgstab.cu); beside it sits a
+plain PyTorch version (a port of the JAX package's ``*_math`` helpers):
+
+- ``update``   (B8)  p/rhat recurrence + breakdown select + per-block
+                     sum p * vol (the coarse restriction of p)
+- ``getz_two`` (B9)  exact DST tile solve at the block's own h^2 on
+                     -h^2 (w - A zf), plus the coarse injection zc
+- ``lap``      (B11) 7-point stencil on the width-1 lab x per-block 1/h^2
+                     + the dense reflux increment + the dot partials
+- ``axpy``     (B12) s = r - alpha v + per-block sum s * vol
+- ``finish``   (B13) x/r updates + the residual/rho dot partials
+
+B8 and B12 are the uniform B1 and B5 kernels with a per-block weight;
+B13 is the uniform B6 kernel itself.  Their launches count under their
+own ``amr_*`` names so the two paths are held apart.
+
+Between the stages, in plain torch (the JAX package keeps the same
+pieces outside its kernels): the coarse solve (krylov.coarse_solve_graph,
+32 fixed CG sweeps on (nb,) vectors), the full refluxed Laplacian of the
+injected correction ``azf``, and the lab assembly with its reflux
+increment.  Partials are per block, combined by one ``torch.sum``: no
+float atomics, so reruns are bitwise equal.
+
+The forest runs unpadded: exactly ``nb`` blocks, real per-block volumes.
+The tile-only getZ (``graph=None``, Pallas ``_k_getz_tile``, B10) runs
+only with the plain versions and raises on the kernel path.  Dispatch
+follows ops/fused_bicgstab.py (``kernels`` None/False/True).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cup3d_tpu_torch.ops import fused_bicgstab as fb
+from cup3d_tpu_torch.ops import krylov, tilesolve
+
+_F32 = torch.float32
+BS = 8
+LAB = BS + 2  # width-1 lab edge
+
+#: kernel launches per stage, counted by the wrappers where they launch
+launches = {"amr_update": 0, "amr_getz_two": 0, "amr_lap": 0,
+            "amr_axpy": 0, "amr_finish": 0}
+#: iterations the fused driver executed, chunk tails included: each runs
+#: update/axpy/finish once and getz_two/lap twice
+iterations = {"executed": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+    iterations["executed"] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (ports of the JAX *_math helpers), block-major
+# ---------------------------------------------------------------------------
+
+
+def _col(c: torch.Tensor) -> torch.Tensor:
+    """(n,) per-block column -> (n, 1, 1, 1)."""
+    return c.reshape(-1, 1, 1, 1)
+
+
+def _update_math(r, p, v, rhat, vol, beta, omega, broke):
+    p_new, rhat_new, _ = fb._update_math(r, p, v, rhat, beta, omega, broke)
+    return p_new, rhat_new, fb._cellsum(p_new * _col(vol))
+
+
+def _getz_math(w, azf, zc, S3, lam, h2, two_level):
+    """y = zc + tilesolve(-h2 (w - azf)) (two-level) or
+    y = tilesolve(-h2 w) (tile-only), h2 per block; two (512, 512) f32
+    matmuls."""
+    if two_level:
+        b = -_col(h2) * (w - azf)
+    else:
+        b = -_col(h2) * w
+    n = b.shape[0]
+    if b.is_cuda:
+        from cup3d_tpu_torch.ops import precision
+
+        precision.check_fp32_matmul()
+    t = b.reshape(n, -1) @ S3
+    t = t / lam
+    y = (t @ S3).reshape(b.shape)
+    if two_level:
+        y = y + _col(zc)
+    return y
+
+
+def _lap_math(lab, corr, a, inv_h2):
+    """Refluxed 7-point Laplacian on width-1 labs (n, 10, 10, 10) + the
+    per-block partials of a . Aw and Aw . Aw."""
+    c = lab[:, 1:BS + 1, 1:BS + 1, 1:BS + 1]
+    s = -6.0 * c
+    s = s + lab[:, 2:BS + 2, 1:BS + 1, 1:BS + 1]
+    s = s + lab[:, 0:BS, 1:BS + 1, 1:BS + 1]
+    s = s + lab[:, 1:BS + 1, 2:BS + 2, 1:BS + 1]
+    s = s + lab[:, 1:BS + 1, 0:BS, 1:BS + 1]
+    s = s + lab[:, 1:BS + 1, 1:BS + 1, 2:BS + 2]
+    s = s + lab[:, 1:BS + 1, 1:BS + 1, 0:BS]
+    aw = s * _col(inv_h2) + corr
+    return aw, fb._cellsum(a * aw), fb._cellsum(aw * aw)
+
+
+def _axpy_math(r, v, vol, alpha):
+    s = r - alpha * v
+    return s, fb._cellsum(s * _col(vol))
+
+
+# ---------------------------------------------------------------------------
+# stage wrappers: CUDA kernel for a CUDA tensor, plain version otherwise
+# ---------------------------------------------------------------------------
+
+
+def _check_cols(n: int, dev, *cols: torch.Tensor) -> None:
+    for c in cols:
+        fb._check_small(c, (n,), dev)
+
+
+def update(r, p, v, rhat, vol, scal, kernels=None):
+    """B8: (p_new, rhat_new, per-block sum p_new * vol); vol (nb,).  The
+    kernel updates p and rhat in place (returned)."""
+    if not fb._use_kernel(r, kernels):
+        return _update_math(r, p, v, rhat, vol, scal[0], scal[1], scal[2])
+    n = fb._check_vecs(r, p, v, rhat)
+    fb._check_small(scal, (8,), r.device)
+    _check_cols(n, r.device, vol)
+    if len({r.data_ptr(), p.data_ptr(), v.data_ptr(), rhat.data_ptr()}) < 4:
+        raise ValueError("update: r, p, v and rhat must not share memory")
+    ts = torch.empty(n, dtype=_F32, device=r.device)
+    fb._lib().call("cup3d_update", r.data_ptr(), p.data_ptr(), v.data_ptr(),
+                   rhat.data_ptr(), scal.data_ptr(), vol.data_ptr(),
+                   ts.data_ptr(), n, fb._stream(r.device))
+    launches["amr_update"] += 1
+    return p, rhat, ts
+
+
+def getz_two(w, azf, zc, h2, kernels=None):
+    """B9: y = zc + tilesolve(-h2 (w - azf)) per block; azf (nb,8,8,8),
+    zc and h2 (nb,)."""
+    S3, lam, S1 = tilesolve.basis(BS, _F32, str(w.device))
+    if not fb._use_kernel(w, kernels):
+        return _getz_math(w, azf, zc, S3, lam, h2, True)
+    n = fb._check_vecs(w, azf)
+    _check_cols(n, w.device, zc, h2)
+    y = torch.empty_like(w)
+    fb._lib().call("cup3d_getz_amr", w.data_ptr(), azf.data_ptr(),
+                   S1.data_ptr(), lam.data_ptr(), zc.data_ptr(),
+                   h2.data_ptr(), y.data_ptr(), n, fb._stream(w.device))
+    launches["amr_getz_two"] += 1
+    return y
+
+
+def getz_tile(w, h2, kernels=None):
+    """Tile-only getZ at per-block h^2, y = tilesolve(-h2 w): plain
+    version only; its kernel (Pallas ``_k_getz_tile``, B10) is not
+    ported."""
+    if fb._use_kernel(w, kernels):
+        raise NotImplementedError(
+            "the forest tile-only getZ kernel (B10, cup3d_tpu/ops/"
+            "fused_amr_bicgstab.py::_k_getz_tile) is not ported (ROADMAP "
+            "queue B); run with CUP3D_COARSE=1")
+    S3, lam, _ = tilesolve.basis(BS, _F32, str(w.device))
+    return _getz_math(w, None, None, S3, lam, h2, False)
+
+
+def lap(lab, corr, a, inv_h2, kernels=None):
+    """B11: (Aw, per-block a . Aw, per-block Aw . Aw); lab (nb,10,10,10),
+    corr/a (nb,8,8,8), inv_h2 (nb,)."""
+    if not fb._use_kernel(lab, kernels):
+        return _lap_math(lab, corr, a, inv_h2)
+    n = fb._check_vecs(corr, a)
+    fb._check_small(lab, (n, LAB, LAB, LAB), a.device, aligned=True)
+    _check_cols(n, a.device, inv_h2)
+    aw = torch.empty_like(a)
+    pa = torch.empty(n, dtype=_F32, device=a.device)
+    ps = torch.empty(n, dtype=_F32, device=a.device)
+    fb._lib().call("cup3d_lap_amr", lab.data_ptr(), corr.data_ptr(),
+                   a.data_ptr(), inv_h2.data_ptr(), aw.data_ptr(),
+                   pa.data_ptr(), ps.data_ptr(), n, fb._stream(a.device))
+    launches["amr_lap"] += 1
+    return aw, pa, ps
+
+
+def axpy(r, v, vol, scal, kernels=None):
+    """B12: (s = r - alpha v, per-block sum s * vol); scal = (alpha, ...)."""
+    if not fb._use_kernel(r, kernels):
+        return _axpy_math(r, v, vol, scal[0])
+    n = fb._check_vecs(r, v)
+    fb._check_small(scal, (8,), r.device)
+    _check_cols(n, r.device, vol)
+    s = torch.empty_like(r)
+    ts = torch.empty(n, dtype=_F32, device=r.device)
+    fb._lib().call("cup3d_axpy", r.data_ptr(), v.data_ptr(), scal.data_ptr(),
+                   vol.data_ptr(), s.data_ptr(), ts.data_ptr(), n,
+                   fb._stream(r.device))
+    launches["amr_axpy"] += 1
+    return s, ts
+
+
+def finish(x, y, z, s, t, rhat, scal, kernels=None):
+    """B13: the B6 function on blocks (served by the B6 kernel): x +=
+    alpha y + omega z, r = s - omega t into the buffer of s, per-block
+    r . r and rhat . r."""
+    if not fb._use_kernel(x, kernels):
+        return fb._finish_math(x, y, z, s, t, rhat, scal[0], scal[1])
+    n = fb._check_vecs(x, y, z, s, t, rhat)
+    fb._check_small(scal, (8,), x.device)
+    prr = torch.empty(n, dtype=_F32, device=x.device)
+    prh = torch.empty(n, dtype=_F32, device=x.device)
+    fb._lib().call("cup3d_finish", x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                   s.data_ptr(), t.data_ptr(), rhat.data_ptr(),
+                   scal.data_ptr(), s.data_ptr(), prr.data_ptr(),
+                   prh.data_ptr(), n, fb._stream(x.device))
+    launches["amr_finish"] += 1
+    return x, s, prr, prh
+
+
+# ---------------------------------------------------------------------------
+# the fused solver driver
+# ---------------------------------------------------------------------------
+
+
+def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
+                       vol: torch.Tensor, graph=None, tol_abs: float = 1e-6,
+                       tol_rel: float = 1e-4, maxiter: int = 1000,
+                       rnorm_ref=None, x0: Optional[torch.Tensor] = None,
+                       kernels: Optional[bool] = None):
+    """Fused-iteration preconditioned BiCGSTAB on the forest ``geom`` (a
+    BlockGrid): ``b`` the mean-removed rhs (nb, 8, 8, 8), ``tab`` width-1
+    face tables, ``ftab`` flux tables, ``vol`` the (nb,1,1,1) cell volume,
+    ``graph`` the krylov.BlockGraph (None: tile-only getZ).  Returns
+    ``(x_best (nb,8,8,8) f32, rnorm_best, iterations)`` (0-dim device
+    tensors for the last two).  Tail iterations of the last chunk after
+    convergence never touch x_best, rnorm_best or the count."""
+    from cup3d_tpu_torch.ops import amr_ops
+
+    bs, nb = int(geom.bs), int(geom.nb)
+    if bs != BS:
+        raise ValueError(f"the fused forest driver is built for {BS}^3 blocks")
+    if tab.width != 1:
+        raise ValueError("fused AMR Laplacian needs width-1 lab tables")
+    dev = b.device
+    h_col = geom.h_column(_F32, dev)
+    inv_h = 1.0 / h_col
+    h2 = (h_col * h_col).reshape(nb).contiguous()
+    inv_h2 = (inv_h * inv_h).reshape(nb).contiguous()
+    vol_c = vol.to(_F32).reshape(nb).contiguous()
+    two_level = graph is not None
+    zeros = torch.zeros((nb, bs, bs, bs), dtype=_F32, device=dev)
+
+    def getz(w, tsum):
+        if not two_level:
+            return getz_tile(w, h2, kernels)
+        # the coarse solve of coarse_correct_blocks, its restriction taken
+        # from the update/axpy partials; then the full refluxed A zf
+        zc = krylov.coarse_solve_graph(tsum, graph).to(_F32).contiguous()
+        zf = zc[:, None, None, None].expand(nb, bs, bs, bs)
+        azf = amr_ops.laplacian_blocks(geom, zf, tab, ftab).contiguous()
+        return getz_two(w, azf, zc, h2, kernels)
+
+    def lab_corr(w):
+        """The width-1 halo lab of a direction and the dense coarse-fine
+        reflux increment: the two data-dependent pieces of A."""
+        lab = tab.assemble_scalar(w, bs).contiguous()
+        if ftab is not None and ftab.ncorr:
+            fl = amr_ops.face_fluxes(lab, 1, bs, inv_h)
+            return lab, ftab.apply(zeros, fl).contiguous()
+        return lab, zeros
+
+    b32 = b.to(_F32).contiguous()
+    x = (torch.zeros_like(b32) if x0 is None
+         else x0.to(_F32).contiguous().clone())
+    if x0 is None:
+        r = b32.clone()  # A(0) == 0 exactly; skip the apply
+    else:
+        r = (b32 - amr_ops.laplacian_blocks(geom, x, tab, ftab)).contiguous()
+    rr0 = krylov._dot(r, r)
+    rnorm0 = torch.sqrt(rr0)
+    ref = rnorm0 if rnorm_ref is None else rnorm_ref
+    target = torch.clamp(tol_rel * ref, min=tol_abs)
+    eps = torch.tensor(1e-30, dtype=_F32, device=dev)
+    one = torch.ones((), dtype=_F32, device=dev)
+
+    state = dict(
+        k=torch.zeros((), dtype=torch.int32, device=dev),
+        x=x, r=r, rhat=r.clone(), p=torch.zeros_like(r),
+        v=torch.zeros_like(r), rho=one, alpha=one, omega=one,
+        rnorm=rnorm0, rho_dot=rr0, x_best=x.clone(), rnorm_best=rnorm0,
+    )
+
+    def step(s, active):
+        rn2 = s["rnorm"] * s["rnorm"]
+        broke = torch.abs(s["rho_dot"]) < eps * torch.clamp(rn2, min=1.0)
+        rho_new = torch.where(broke, rn2, s["rho_dot"])
+        beta = (rho_new / krylov._safe(s["rho"])) * (
+            s["alpha"] / krylov._safe(s["omega"]))
+        beta = torch.where(broke, 0.0, beta)
+
+        p, rhat, ts_p = update(s["r"], s["p"], s["v"], s["rhat"], vol_c,
+                               fb._scalars(beta, s["omega"], broke), kernels)
+        y = getz(p, ts_p)
+        lab_y, corr_y = lab_corr(y)
+        v, d_rhv, _ = lap(lab_y, corr_y, rhat, inv_h2, kernels)
+        alpha = rho_new / krylov._safe(fb._combine(d_rhv))
+
+        svec, ts_s = axpy(s["r"], v, vol_c, fb._scalars(alpha), kernels)
+        z = getz(svec, ts_s)
+        lab_z, corr_z = lab_corr(z)
+        t, d_ts, d_tt = lap(lab_z, corr_z, svec, inv_h2, kernels)
+        omega = fb._combine(d_ts) / krylov._safe(fb._combine(d_tt))
+
+        x, r, p_rr, p_rhr = finish(s["x"], y, z, svec, t, rhat,
+                                   fb._scalars(alpha, omega), kernels)
+        rnorm = torch.sqrt(fb._combine(p_rr))
+        better = active & (rnorm < s["rnorm_best"])
+        # the best iterate is updated in place: x_best is its own buffer
+        torch.where(better, x, s["x_best"], out=s["x_best"])
+        return dict(
+            k=s["k"] + active.to(torch.int32), x=x, r=r, rhat=rhat, p=p,
+            v=v, rho=rho_new, alpha=alpha, omega=omega,
+            rnorm=torch.where(active, rnorm, s["rnorm"]),
+            rho_dot=fb._combine(p_rhr), x_best=s["x_best"],
+            rnorm_best=torch.where(
+                active, torch.minimum(rnorm, s["rnorm_best"]),
+                s["rnorm_best"]),
+        )
+
+    out, executed = krylov.iterate(state, step, maxiter, target)
+    iterations["executed"] += executed
+    return out["x_best"], out["rnorm_best"], out["k"]

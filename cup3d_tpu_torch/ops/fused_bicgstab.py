@@ -202,7 +202,7 @@ def update(r, p, v, rhat, scal, kernels=None):
         raise ValueError("update: r, p, v and rhat must not share memory")
     ts = torch.empty(T, dtype=_F32, device=r.device)
     _lib().call("cup3d_update", r.data_ptr(), p.data_ptr(), v.data_ptr(),
-                rhat.data_ptr(), scal.data_ptr(), ts.data_ptr(), T,
+                rhat.data_ptr(), scal.data_ptr(), None, ts.data_ptr(), T,
                 _stream(r.device))
     launches["update"] += 1
     return p, rhat, ts
@@ -261,7 +261,7 @@ def axpy(r, v, scal, kernels=None):
     s = torch.empty_like(r)
     ts = torch.empty(T, dtype=_F32, device=r.device)
     _lib().call("cup3d_axpy", r.data_ptr(), v.data_ptr(), scal.data_ptr(),
-                s.data_ptr(), ts.data_ptr(), T, _stream(r.device))
+                None, s.data_ptr(), ts.data_ptr(), T, _stream(r.device))
     launches["axpy"] += 1
     return s, ts
 

@@ -1,5 +1,7 @@
-"""Matrix-free Krylov machinery for the uniform pressure solve (port of
-``cup3d_tpu/ops/krylov.py``, the lane-layout part).
+"""Matrix-free Krylov machinery for the pressure solves (port of
+``cup3d_tpu/ops/krylov.py``: the lane-layout part of the uniform grid,
+and the blocks-layout getZ and block-graph coarse level of the AMR
+forest).
 
 Public functions keep the JAX package's lanes layout ``(bs, bs, bs, T)``
 with tile index t = (tx*NBy + ty)*NBz + tz.  The fused driver
@@ -21,7 +23,7 @@ the CG getZ (``CUP3D_GETZ=cg``, kernel B7) — ROADMAP queue A.
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -239,6 +241,15 @@ def getz_lanes(bt_scaled: torch.Tensor, shift=None,
     return tilesolve.tile_solve_lanes(bt_scaled, shift)
 
 
+def getz_blocks(b_scaled: torch.Tensor) -> torch.Tensor:
+    """getZ in the blocks layout (..., bs, bs, bs): the exact tile solve
+    of -lap_tile z = b_scaled on every block."""
+    from cup3d_tpu_torch.ops import tilesolve
+
+    _require_exact_getz()
+    return tilesolve.tile_solve_blocks(b_scaled)
+
+
 def use_coarse_correction() -> bool:
     """Two-level (tile + coarse) preconditioner unless CUP3D_COARSE=0."""
     return os.environ.get("CUP3D_COARSE", "1") != "0"
@@ -331,6 +342,148 @@ def make_twolevel_preconditioner_lanes(grid: UniformGrid, h2: float,
         return z + zc[None, None, None, :]
 
     return M
+
+
+# ---------------------------------------------------------------------------
+# AMR coarse level: one DOF per block over the forest's face graph
+# ---------------------------------------------------------------------------
+
+#: max face-neighbor entries per block under 26-neighbor 2:1 balance:
+#: 6 faces x up to 4 finer blocks per face
+GRAPH_K = 24
+
+
+class BlockGraph(NamedTuple):
+    """Face-adjacency graph of one forest topology, the coarse space of
+    the AMR two-level preconditioner.  ``idx``/``w``: (nb, K) neighbor
+    slots and couplings (w = 0 on unused entries); ``deg``: (nb,) row
+    sums.  The coarse operator is the graph Laplacian C z = deg*z - W z,
+    whose nullspace is the constant."""
+
+    idx: torch.Tensor
+    w: torch.Tensor
+    deg: torch.Tensor
+
+
+def block_graph_tables(grid, device="cpu",
+                       dtype=torch.float32) -> BlockGraph:
+    """Host-build the face graph of ``grid`` (a BlockGrid) — the JAX
+    package's numpy build.  Couplings are the finite-volume face
+    conductances A/d: w = bs^2 h for same-level faces (the exact Galerkin
+    P^T A P of the uniform limit) and shared area over the 1.5 h_f center
+    distance for coarse-fine faces (a symmetric, positive semidefinite
+    approximation of the interpolated rows)."""
+    tree = grid.tree
+    bs = grid.bs
+    nb = grid.nb
+    idx = np.zeros((nb, GRAPH_K), np.int64)
+    w = np.zeros((nb, GRAPH_K), np.float64)
+    fill = np.zeros(nb, np.int64)
+
+    def add(i, j, wij):
+        k = fill[i]
+        idx[i, k] = j
+        w[i, k] = wij
+        fill[i] = k + 1
+
+    offs2 = [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for s, (l, bi, bj, bk) in enumerate(grid.keys):
+        h = float(grid.h[s])
+        for ax in range(3):
+            t1, t2 = [a for a in range(3) if a != ax]
+            for side in (-1, 1):
+                npos = [bi, bj, bk]
+                npos[ax] += side
+                wp = tree.wrap(l, npos)
+                if wp is None:
+                    continue  # closed face: no coupling (zero-gradient)
+                own = tree.owner_level(l, wp)
+                if own == l:
+                    add(s, grid.slot[(l, *wp)], bs * bs * h)
+                elif own == l - 1:
+                    parent = (l - 1, wp[0] // 2, wp[1] // 2, wp[2] // 2)
+                    # fine side of a coarse-fine face: A = (bs h)^2,
+                    # d = (h + 2h)/2 -> w = bs^2 h / 1.5
+                    add(s, grid.slot[parent], bs * bs * h / 1.5)
+                else:  # own == l + 1: 4 finer blocks, h_f = h/2
+                    hf = 0.5 * h
+                    for o1, o2 in offs2:
+                        fpos = [0, 0, 0]
+                        fpos[ax] = 2 * wp[ax] + (1 if side < 0 else 0)
+                        fpos[t1] = 2 * wp[t1] + o1
+                        fpos[t2] = 2 * wp[t2] + o2
+                        fslot = grid._slot_maps[l + 1][tuple(fpos)]
+                        if fslot < 0:
+                            raise KeyError("fine neighbor missing: "
+                                           "unbalanced tree")
+                        add(s, int(fslot), bs * bs * hf / 1.5)
+    deg = w.sum(axis=1)
+    return BlockGraph(
+        idx=torch.as_tensor(idx, device=device),
+        w=torch.as_tensor(w, device=device).to(dtype),
+        deg=torch.as_tensor(deg, device=device).to(dtype),
+    )
+
+
+def _cg_graph(Cfun: Callable, b: torch.Tensor, iters: int,
+              rtol: float = 1e-6) -> torch.Tensor:
+    """Fixed-iteration CG on the (small) coarse system — fixed so the
+    preconditioner is a FIXED linear operator.  Updates freeze once the
+    relative residual drops below ``rtol``, and non-positive curvature
+    directions (noise / the nullspace of the PSD C) are skipped.  Every
+    scalar stays on the device: no host read."""
+    acc = precision.accum_dtype(b.dtype)
+
+    def dot(a, c):
+        return torch.sum(a * c, dtype=acc)
+
+    rs0 = dot(b, b)
+    z = torch.zeros_like(b)
+    r, p, rs = b, b, rs0
+    for _ in range(iters):
+        live = rs > (rtol * rtol) * rs0
+        ap = Cfun(p)
+        denom = dot(p, ap)
+        ok = live & (denom > 0.0)
+        alpha = torch.where(ok, rs / torch.where(ok, denom, 1.0), 0.0)
+        z = z + alpha * p
+        r = r - alpha * ap
+        rs_new = dot(r, r)
+        beta = torch.where(ok, rs_new / torch.where(rs > 0, rs, 1.0), 0.0)
+        p = r + beta * p
+        rs = rs_new
+    return z
+
+
+def coarse_solve_graph(rc: torch.Tensor, graph: BlockGraph,
+                       iters: int = 32) -> torch.Tensor:
+    """(nb,) restricted residual -> (nb,) per-block coarse correction:
+    deflate the constant nullspace, fixed-sweep CG on the graph
+    Laplacian, deflate again, and flip the sign (the fine A is the
+    NEGATIVE of the positive graph form)."""
+    rc = rc.to(graph.w.dtype)
+    # an isolated block (deg 0: one block between closed walls) is no
+    # coarse unknown and stays 0
+    m = (graph.deg > 0).to(rc.dtype)
+    nreal = torch.clamp(torch.sum(m), min=1.0)
+
+    def deflate(v):
+        return (v - torch.sum(v * m) / nreal) * m
+
+    def C(z):
+        return graph.deg * z - torch.sum(z[graph.idx] * graph.w, dim=-1)
+
+    return -deflate(_cg_graph(C, deflate(rc), iters))
+
+
+def coarse_correct_blocks(r: torch.Tensor, vol: torch.Tensor,
+                          graph: BlockGraph, iters: int = 32) -> torch.Tensor:
+    """Coarse correction over the block graph: volume-weighted restriction
+    R r = sum_cells r h^3 to one value per block, then
+    :func:`coarse_solve_graph`; the caller prolongs by constant
+    injection."""
+    rc = torch.sum(r * vol, dim=(1, 2, 3))
+    return coarse_solve_graph(rc, graph, iters).to(r.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ preconditioner (port of ``cup3d_tpu/ops/tilesolve.py``).
 The zero-Dirichlet 7-point Laplacian on a fixed bs^3 tile is
 diagonalized by the bs-point DST-I, so the exact tile inverse is
 ``S3 diag(1/lam) S3`` with ``S3 = S1 (x) S1 (x) S1`` (S1 symmetric and
-orthogonal).  The plain version here applies it as two (512, 512) f32
-matmuls; the CUDA getZ kernel (csrc/fused_bicgstab.cu) applies the same
+orthogonal).  The plain versions here apply it as two (512, 512) f32
+matmuls, on the lanes layout (uniform grid) or on blocks (the AMR
+forest); the CUDA getZ kernels (csrc/fused_bicgstab.cu) apply the same
 operator as three 8-point axis transforms each way.
 """
 
@@ -43,6 +44,21 @@ def basis(bs: int, dtype: torch.dtype, device: str):
     S1 = np.sqrt(2.0 / (bs + 1)) * np.sin(np.pi * np.outer(i, i) / (bs + 1))
     return tuple(torch.as_tensor(a, dtype=dtype, device=device)
                  for a in (S3, lam3, S1))
+
+
+def tile_solve_blocks(b: torch.Tensor) -> torch.Tensor:
+    """Solve -lap_tile z = b exactly on every trailing bs^3 tile of ``b``
+    (shape (..., bs, bs, bs))."""
+    bs = b.shape[-1]
+    acc = precision.accum_dtype(b.dtype)
+    S3, lam3, _ = basis(bs, acc, str(b.device))
+    b2 = b.reshape(-1, bs ** 3).to(acc)
+    if b.is_cuda:
+        precision.check_fp32_matmul()
+    t = b2 @ S3  # S3 symmetric: rows @ S3
+    t = t / lam3[None, :]
+    z = t @ S3
+    return z.reshape(b.shape).to(b.dtype)
 
 
 def tile_solve_lanes(bt: torch.Tensor, shift=None) -> torch.Tensor:

@@ -1,0 +1,375 @@
+"""AMR simulation driver (port of the non-pipelined, obstacle-free host
+path of ``cup3d_tpu/sim/amr.py``; reference Simulation + adaptMesh,
+main.cpp:15161-15326).
+
+- the fields live on a block forest as ``(nb, bs, bs, bs[, 3])`` tensors
+  that are *re-laid-out* on adaptation (grid/adapt.py);
+- the mesh adapts every ``ADAPT_EVERY`` steps and each of the first 10,
+  tagging on max |vorticity| per block (main.cpp:15314, 8540-8602), while
+  ``adapt_enabled`` is True (False freezes a converged mesh: the static
+  2-level run of BASELINE config #3);
+- startup runs up to 3*levelMax rounds of {adapt; re-IC}
+  (main.cpp:15172-15177);
+- the step is AdvectionDiffusion (RK3 on width-3 face labs) then
+  PressureProjection (getZ-preconditioned BiCGSTAB with the block-graph
+  coarse level; under ``CUP3D_FUSED=1`` the fused forest driver whose
+  stages are CUDA kernels), ending in ONE device-to-host read of the
+  solver's [residual, iterations] and max|u|.
+
+The forest is unpadded: every tensor has exactly ``nb`` blocks and every
+regrid rebuilds the tables (numpy) for the new topology.  Runs on CUDA
+unless the caller asks for the CPU.  Not ported yet, and raising with
+their ROADMAP item: obstacles, pipelined stepping and the megastep,
+dumps and checkpoints, implicit diffusion, forcing and mass-flux fixing.
+The JAX package's recovery engine (resilience ladder) is not ported
+either: a health-check failure raises SimulationFailure, as the JAX
+driver does with CUP3D_RECOVER=0.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from cup3d_tpu_torch.config import SimulationConfig
+from cup3d_tpu_torch.grid import adapt as ad
+from cup3d_tpu_torch.grid.blocks import BlockGrid
+from cup3d_tpu_torch.grid.flux import build_flux_tables
+from cup3d_tpu_torch.grid.octree import Octree, TreeConfig
+from cup3d_tpu_torch.grid.uniform import BC
+from cup3d_tpu_torch.io.logging import BufferedLogger, Profiler
+from cup3d_tpu_torch.ops import amr_ops, krylov
+from cup3d_tpu_torch.sim.simulation import SimulationFailure, resolve_device
+
+ADAPT_EVERY = 20  # reference cadence (main.cpp:15314)
+FIELDS = ("vel", "p")
+
+
+def _unsupported(cfg: SimulationConfig) -> Optional[str]:
+    if cfg.factory_content or cfg.factory:
+        return "obstacles on the forest (ROADMAP A6)"
+    if cfg.pipelined or cfg.scan_k:
+        return "pipelined AMR stepping and the megastep (ROADMAP A4)"
+    if cfg.implicitDiffusion:
+        return "implicit diffusion (ROADMAP A5)"
+    if cfg.uMax_forced > 0 or cfg.bFixMassFlux:
+        return "external forcing / mass-flux fixing (ROADMAP A5)"
+    if cfg.tdump > 0 or cfg.fdump > 0 or cfg.saveFreq > 0:
+        return "field dumps and checkpoints (ROADMAP A4)"
+    if cfg.initCond == "vorticity":
+        return "initCond vorticity on the forest (ROADMAP A5)"
+    return None
+
+
+class AMRSimulation:
+    def __init__(self, cfg: SimulationConfig, tree: Optional[Octree] = None,
+                 device=None):
+        missing = _unsupported(cfg)
+        if missing:
+            raise NotImplementedError(f"not ported yet: {missing}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        if tree is None:
+            periodic = tuple(b == "periodic" for b in cfg.bc)
+            tree = Octree(TreeConfig((cfg.bpdx, cfg.bpdy, cfg.bpdz),
+                                     cfg.levelMax, periodic), cfg.levelStart)
+        self.grid = BlockGrid(tree, cfg.extents,
+                              tuple(BC(b) for b in cfg.bc), cfg.block_size)
+        self.state: Dict[str, torch.Tensor] = {}
+        self.time = 0.0
+        self.step_idx = 0
+        self.dt = 0.0
+        self.uinf = np.asarray(cfg.uinf, np.float64)
+        self._uinf_src = None
+        self._uinf_dev = None
+        self.nu = cfg.nu
+        self.logger = BufferedLogger(cfg.path4serialization)
+        self.profiler = Profiler()
+        #: False freezes the mesh (no tagging, no re-layout)
+        self.adapt_enabled = True
+        self._pending_parts: List = []
+        self._umax_next: Optional[float] = None
+        #: one dict per finished step: step, time, dt, umax, resid, iters,
+        #: wall_s, nb
+        self.step_log: List[dict] = []
+        #: host seconds of the table builds of each topology (_rebuild)
+        self.table_build_s: List[float] = []
+        self._solver_core = amr_ops.build_amr_poisson_solver_dynamic(
+            self.grid.bs, tol_abs=cfg.poissonTol, tol_rel=cfg.poissonTolRel,
+            maxiter=1000, mean_constraint=cfg.bMeanConstraint)
+        self._rebuild()
+        self._alloc_fields()
+
+    # -- topology-dependent tables -----------------------------------------
+
+    def _rebuild(self) -> None:
+        """Tables, coarse graph and solver binding of the current grid."""
+        g, cfg, dev = self.grid, self.cfg, self.device
+        t0 = time.perf_counter()
+        self._tab1 = g.face_tables(1, dev)
+        self._tab3 = g.face_tables(3, dev)
+        self._ftab = build_flux_tables(g, dev)
+        coarse = (krylov.use_coarse_correction()
+                  and cfg.bMeanConstraint not in (1, 3))
+        self._graph = krylov.block_graph_tables(g, dev) if coarse else None
+        self.table_build_s.append(time.perf_counter() - t0)
+        # cell volume h^3 in f64 rounded to the field dtype (the JAX
+        # bucketed driver's values)
+        self._vol = torch.as_tensor((g.h ** 3).reshape(g.nb, 1, 1, 1),
+                                    dtype=self.dtype, device=dev)
+        self._slot0 = 0
+        if cfg.bMeanConstraint in (1, 3):
+            self._slot0 = int(np.lexsort(
+                (g.ijk[:, 2], g.ijk[:, 1], g.ijk[:, 0]))[0])
+        core, geom = self._solver_core, g
+        vol, graph, slot0 = self._vol, self._graph, self._slot0
+
+        def solver(rhs, x0=None, **kw):
+            return core(rhs, x0, geom=geom, vol=vol, graph=graph,
+                        slot0=slot0, **kw)
+
+        solver.supports_stats = True
+        solver.maxiter = core.maxiter
+        self._solver = solver
+
+    def _alloc_fields(self) -> None:
+        g = self.grid
+        kw = dict(dtype=self.dtype, device=self.device)
+        self.state = {"vel": g.zeros(3, **kw), "p": g.zeros(0, **kw)}
+
+    def uinf_device(self) -> torch.Tensor:
+        """Device copy of the frame velocity, uploaded when ``uinf`` is
+        reassigned (identity check) and reused otherwise."""
+        if self._uinf_src is not self.uinf:
+            self._uinf_dev = torch.as_tensor(self.uinf, dtype=self.dtype,
+                                             device=self.device)
+            self._uinf_src = self.uinf
+        return self._uinf_dev
+
+    def _maxu(self) -> torch.Tensor:
+        return torch.max(torch.abs(self.state["vel"] + self.uinf_device()))
+
+    # -- adaptation ----------------------------------------------------------
+
+    def adapt_mesh(self) -> bool:
+        """Tag on max |vorticity| per block (no bodies: the level cap is
+        levelMaxVorticity everywhere) and apply the validated states."""
+        g, cfg = self.grid, self.cfg
+        score = amr_ops.vorticity_score(g, self.state["vel"], self._tab1)
+        score = score.cpu().numpy().astype(np.float64)
+        cap = np.full(g.nb, cfg.levelMaxVorticity - 1)
+        return self._apply_states(
+            ad.tag_states(g, score, cfg.Rtol, cfg.Ctol, cap))
+
+    def _apply_states(self, states) -> bool:
+        """Plan -> transfer -> rebuild; False when nothing changes."""
+        g = self.grid
+        plan = ad.adapt(g, states)
+        if plan is None:
+            return False
+        for k in FIELDS:
+            self.state[k] = ad.transfer_field(g, plan, self.state[k])
+        self.grid = plan.new_grid
+        self._rebuild()
+        return True
+
+    # -- initialization ------------------------------------------------------
+
+    def _ic(self) -> None:
+        """Taylor-Green, or zero velocity for any other initCond (the JAX
+        driver's rule)."""
+        g, kw = self.grid, dict(dtype=self.dtype, device=self.device)
+        if self.cfg.initCond == "taylorGreen":
+            from cup3d_tpu_torch.utils.flows import taylor_green_2d
+
+            self.state["vel"] = taylor_green_2d(g, **kw)
+        else:
+            self.state["vel"] = g.zeros(3, **kw)
+        self.state["p"] = g.zeros(0, **kw)
+
+    def init(self) -> None:
+        """IC, then up to 3*levelMax adaptation rounds to converge the
+        initial grid (main.cpp:15163-15178)."""
+        self._ic()
+        for _ in range(3 * self.cfg.levelMax):
+            changed = self.adapt_mesh()
+            self._ic()
+            if not changed:
+                break
+
+    # -- stepping ------------------------------------------------------------
+
+    def calc_max_timestep(self) -> float:
+        """CFL dt with the diffusive cap and log ramp-up, from max|u| read
+        at the end of the previous step (or read now); aborts on a NaN or
+        runaway velocity and on a collapsed dt."""
+        from cup3d_tpu_torch.sim import dtpolicy
+
+        cfg = self.cfg
+        hmin = float(self.grid.h.min())
+        if self._umax_next is not None:
+            umax = self._umax_next
+            self._umax_next = None
+        else:
+            umax = float(self._maxu())
+        if not np.isfinite(umax) or umax > cfg.uMax_allowed:
+            self.logger.flush()
+            reason = ("nan-velocity" if not np.isfinite(umax)
+                      else "runaway-velocity")
+            raise SimulationFailure(
+                reason, f"runaway velocity: max|u|={umax:.3g}",
+                {"step": self.step_idx, "umax": umax})
+        if cfg.dt > 0:
+            self.dt = cfg.dt
+        else:
+            self.dt = dtpolicy.dt_host(hmin, self.nu, umax, cfg.CFL,
+                                       self.step_idx, cfg.rampup,
+                                       cfg.implicitDiffusion)
+            if cfg.tend > 0:
+                self.dt = min(self.dt, cfg.tend - self.time)
+        if not np.isfinite(self.dt) or self.dt <= 0:
+            raise SimulationFailure(
+                "dt-collapse", f"dt policy collapse: dt={self.dt:.3g}",
+                {"step": self.step_idx, "dt": self.dt, "umax": umax})
+        return self.dt
+
+    def advance(self, dt: float) -> None:
+        """One step of the host path (JAX ``_advance_host``)."""
+        s, prof = self.state, self.profiler
+        t0 = time.perf_counter()
+        dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
+        uinf = self.uinf_device()
+        if self.adapt_enabled and (
+                self.step_idx < 10 or self.step_idx % ADAPT_EVERY == 0):
+            with prof("AdaptMesh"):
+                self.adapt_mesh()
+        g = self.grid
+        with prof("AdvectionDiffusion"):
+            s["vel"] = amr_ops.rk3_step_blocks(g, s["vel"], dt_dev, self.nu,
+                                               uinf, self._tab3, self._ftab)
+        with prof("PressureProjection"):
+            # warm start from the previous pressure; after step_2nd_start
+            # the reference's increment form (main.cpp:15087-15100)
+            s["vel"], s["p"], psolve = amr_ops.project_blocks(
+                g, s["vel"], dt_dev, self._solver, self._tab1, self._ftab,
+                p_init=s["p"],
+                second_order=self.step_idx >= self.cfg.step_2nd_start,
+                with_stats=True)
+            self._pending_parts.append(("psolve", psolve))
+        self._log_diagnostics()
+        with prof("SyncQoI"):
+            row = self._consume_step_pack()
+        row.update(step=self.step_idx, time=self.time, dt=dt, nb=g.nb,
+                   wall_s=time.perf_counter() - t0)
+        self.step_log.append(row)
+        self.step_idx += 1
+        self.time += dt
+
+    def _consume_step_pack(self) -> dict:
+        """ONE blocking host read for everything the step produced: the
+        solver's [residual, iterations] and max|u| for the next dt."""
+        parts = self._pending_parts
+        self._pending_parts = []
+        parts.append(("umax", self._maxu().reshape(1)))
+        vals = torch.cat([v.reshape(-1).to(torch.float64)
+                          for _, v in parts]).cpu().tolist()
+        row, off = {}, 0
+        for name, v in parts:
+            seg = vals[off:off + v.numel()]
+            off += v.numel()
+            if name == "umax":
+                self._umax_next = seg[0]
+                row["umax"] = seg[0]
+            elif name == "psolve":
+                row["resid"], row["iters"] = seg[0], seg[1]
+        return row
+
+    def _log_diagnostics(self) -> None:
+        """div.txt/energy.txt rows every freqDiagnostics steps."""
+        freq = self.cfg.freqDiagnostics
+        if freq <= 0 or self.step_idx % freq:
+            return
+        with self.profiler("Diagnostics"):
+            g, vel = self.grid, self.state["vel"]
+            total, peak = amr_ops.divergence_norms_blocks(g, vel, self._tab1)
+            self.logger.write(
+                "div.txt",
+                f"{self.step_idx} {self.time:.8e} {float(total):.8e}"
+                f" {float(peak):.8e}\n")
+            d = amr_ops.dissipation_blocks(g, vel, self.nu, self._tab1)
+            self.logger.write(
+                "energy.txt",
+                f"{self.time:.8e} {float(d['kinetic_energy']):.8e} "
+                f"{float(d['enstrophy']):.8e}"
+                f" {float(d['dissipation_rate']):.8e}\n")
+
+    def simulate(self) -> None:
+        cfg = self.cfg
+        while True:
+            dt = self.calc_max_timestep()
+            if cfg.verbose:
+                print(f"cup3d_tpu_torch[amr]: step: {self.step_idx}, "
+                      f"time: {self.time:f}, dt: {dt:.3e}, "
+                      f"blocks: {self.grid.nb}")
+            self.advance(dt)
+            done_t = cfg.tend > 0 and self.time >= cfg.tend - 1e-12
+            done_n = cfg.nsteps > 0 and self.step_idx >= cfg.nsteps
+            if done_t or done_n:
+                break
+        self.logger.flush()
+
+
+# ---------------------------------------------------------------------------
+# carrying an AMR state between the packages
+# ---------------------------------------------------------------------------
+
+
+def state_to_numpy(sim: AMRSimulation):
+    """(arrays, scalars) in the form :func:`load_state_numpy` takes: the
+    octree's leaf keys in slot order ``keys`` (nb, 4) and the ``vel``/``p``
+    block fields, plus time/step/dt/uinf."""
+    arrays = {k: sim.state[k].detach().cpu().numpy() for k in FIELDS}
+    arrays["keys"] = np.asarray(sim.grid.keys, np.int64).reshape(-1, 4)
+    scalars = {"time": sim.time, "step": sim.step_idx, "dt": sim.dt,
+               "uinf": np.array(sim.uinf, dtype=np.float64)}
+    return arrays, scalars
+
+
+def load_state_numpy(sim: AMRSimulation, arrays: Dict[str, np.ndarray],
+                     scalars: Dict[str, object]) -> None:
+    """Set ``sim``'s forest and fields from numpy, e.g. a JAX run's
+    ``keys = np.asarray(jax_sim.grid.keys)``, ``vel``/``p`` (its unpadded
+    ``[:nb]`` rows, in its slot order) and its time/step/dt/uinf.  The
+    keys rebuild the octree; the fields must be in the order of those
+    keys, which is the Hilbert order both packages use."""
+    keys = [tuple(int(v) for v in k) for k in np.asarray(arrays["keys"])]
+    cfg = sim.grid.tree.cfg
+    tree = Octree(cfg, 0)
+    tree.leaves.clear()
+    for k in keys:
+        tree.leaves[k] = None
+    tree.assert_balanced()
+    grid = BlockGrid(tree, sim.grid.extent, sim.grid.bc, sim.grid.bs)
+    if grid.keys != keys:
+        raise ValueError("keys are not in the forest's Hilbert slot order")
+    bs = grid.bs
+    want = {"vel": (grid.nb, bs, bs, bs, 3), "p": (grid.nb, bs, bs, bs)}
+    for name in FIELDS:
+        a = np.asarray(arrays[name])
+        if a.shape != want[name]:
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{want[name]}")
+    sim.grid = grid
+    sim._rebuild()
+    for name in FIELDS:
+        sim.state[name] = torch.tensor(np.asarray(arrays[name]),
+                                       dtype=sim.dtype, device=sim.device)
+    sim.time = float(scalars["time"])
+    sim.step_idx = int(scalars["step"])
+    sim.dt = float(scalars["dt"])
+    sim.uinf = np.asarray(scalars["uinf"], dtype=np.float64).reshape(3)
+    sim._umax_next = None

@@ -10,7 +10,8 @@ Runs on CUDA unless the caller asks for the CPU (``device="cpu"``); with
 no GPU and no explicit device it raises.  Not ported yet, and raising:
 obstacles (ROADMAP A3), pipelined stepping and the scan megaloop (A4),
 dumps and checkpoints (A4), implicit diffusion, forcing and mass-flux
-fixing (A5), the resilience engine (A5), AMR (A6).
+fixing (A5), the resilience engine (A5).  ``levelMax > 1`` is the AMR
+driver's (sim/amr.py).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def resolve_device(device=None) -> torch.device:
 
 def _unsupported(cfg: SimulationConfig) -> Optional[str]:
     if cfg.levelMax > 1:
-        return "levelMax > 1 (AMR, ROADMAP A6)"
+        return "levelMax > 1 (the AMR driver, sim/amr.AMRSimulation)"
     if cfg.factory_content or cfg.factory:
         return "obstacles (ROADMAP A3)"
     if cfg.pipelined:

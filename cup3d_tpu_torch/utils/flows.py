@@ -1,15 +1,14 @@
 """Canonical analytic flow fields (port of ``cup3d_tpu/utils/flows.py``,
-the Taylor-Green part)."""
+the Taylor-Green part).  ``grid`` is a UniformGrid or an AMR BlockGrid:
+both give ``cell_centers(dtype, device)``."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from cup3d_tpu_torch.grid.uniform import UniformGrid
 
-
-def taylor_green_2d(grid: UniformGrid, t: float = 0.0, nu: float = 0.0,
+def taylor_green_2d(grid, t: float = 0.0, nu: float = 0.0,
                     dtype=torch.float32, device="cpu") -> torch.Tensor:
     """z-invariant Taylor-Green vortex — an *exact* unsteady NS solution
     (velocity decays as exp(-2 nu k^2 t))."""
@@ -21,8 +20,7 @@ def taylor_green_2d(grid: UniformGrid, t: float = 0.0, nu: float = 0.0,
     return torch.stack([u, v, torch.zeros_like(u)], dim=-1)
 
 
-def taylor_green_3d(grid: UniformGrid, dtype=torch.float32,
-                    device="cpu") -> torch.Tensor:
+def taylor_green_3d(grid, dtype=torch.float32, device="cpu") -> torch.Tensor:
     """Classic 3-D Taylor-Green initial condition — the reference's
     `-initCond taylorGreen` (main.cpp:12722)."""
     x = grid.cell_centers(dtype, device)

@@ -1,0 +1,175 @@
+"""The port's AMR driver against the JAX package's, end to end on the CPU.
+
+The configuration is BASELINE config #3 (Taylor-Green on a 2-level
+forest, Rtol 1.8, Ctol 0.05, extent 2 pi, the iterative solver under
+CUP3D_FUSED=1) at bpd 3 instead of 16: the vortex-core columns refine
+(4 of 9), so both levels are present, and every block's vorticity score
+lies at least 0.1 from either threshold, far outside rounding.
+
+- after ``init()`` the octree leaf keys are equal;
+- then 5 steps: kinetic energy within 1e-4 relative per step, solver
+  iterations within +-1, velocity within 1e-3 of max|u|;
+- ``build_driver`` with levelMax 2 and ``-device cpu`` gives the AMR
+  driver, and the default device is CUDA (raising without one);
+- the JAX state carries into the port through ``load_state_numpy`` and
+  steps on to the same answer.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from cup3d_tpu.config import SimulationConfig as JConfig
+from cup3d_tpu.sim.amr import AMRSimulation as JAMR
+from cup3d_tpu_torch import __main__ as tmain
+from cup3d_tpu_torch.config import SimulationConfig as TConfig
+from cup3d_tpu_torch.ops import amr_ops
+from cup3d_tpu_torch.sim import amr as tamr
+
+STEPS = 5
+ARGV = ("-bpdx 3 -bpdy 3 -bpdz 3 -levelMax 2 -levelStart 0 "
+        "-extent 6.283185307179586 -initCond taylorGreen -Rtol 1.8 "
+        "-Ctol 0.05 -CFL 0.4 -rampup 0 -nu 1e-3 -poissonSolver iterative "
+        "-poissonTol 1e-6 -poissonTolRel 1e-4 -tend 0 -verbose 0 "
+        f"-nsteps {STEPS}").split()
+
+
+def _cfg_kw(path):
+    return dict(bpdx=3, bpdy=3, bpdz=3, levelMax=2, levelStart=0,
+                extent=float(2 * np.pi), CFL=0.4, nu=1e-3, tend=0.0,
+                nsteps=STEPS, rampup=0, Rtol=1.8, Ctol=0.05,
+                poissonSolver="iterative", poissonTol=1e-6,
+                poissonTolRel=1e-4, initCond="taylorGreen", verbose=False,
+                path4serialization=str(path))
+
+
+def _ke(vel, h):
+    vel = np.asarray(vel, np.float64)
+    return 0.5 * np.sum(np.sum(vel ** 2, -1) * (h ** 3)[:, None, None, None])
+
+
+def _unpadded(js):
+    nb = js.grid.nb
+    return {k: np.asarray(js.state[k])[:nb] for k in ("vel", "p")}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both drivers: init, then STEPS steps; per step (KE, iterations,
+    velocity)."""
+    prev = os.environ.get("CUP3D_FUSED")
+    os.environ["CUP3D_FUSED"] = "1"
+    try:
+        js = JAMR(JConfig(**_cfg_kw(tmp_path_factory.mktemp("jax"))))
+        js.init()
+        ts = tamr.AMRSimulation(TConfig(**_cfg_kw(
+            tmp_path_factory.mktemp("torch"))), device="cpu")
+        ts.init()
+        out = dict(j_keys=list(js.grid.keys), t_keys=list(ts.grid.keys),
+                   j_init=_unpadded(js), j_scalars=None, t_sim=ts,
+                   score=amr_ops.vorticity_score(
+                       ts.grid, ts.state["vel"], ts._tab1).numpy())
+        j_iters = []
+        consume = js._consume_step_pack
+
+        def record():
+            for name, arr in js._pending_parts:
+                if name == "psolve":
+                    j_iters.append(float(np.asarray(arr)[1]))
+            return consume()
+
+        js._consume_step_pack = record
+        rows = []
+        for _ in range(STEPS):
+            if not rows:
+                out["j_scalars"] = dict(time=js.time, step=js.step_idx,
+                                        dt=js.dt, uinf=js.uinf)
+            js.advance(js.calc_max_timestep())
+            ts.advance(ts.calc_max_timestep())
+            jv = _unpadded(js)["vel"]
+            rows.append(dict(j_ke=_ke(jv, js.grid.h),
+                             t_ke=_ke(ts.state["vel"].numpy(), ts.grid.h),
+                             j_vel=jv, t_vel=ts.state["vel"].numpy().copy(),
+                             t_iters=ts.step_log[-1]["iters"]))
+        for row, k in zip(rows, j_iters):
+            row["j_iters"] = k
+        out["rows"] = rows
+        return out
+    finally:
+        if prev is None:
+            os.environ.pop("CUP3D_FUSED", None)
+        else:
+            os.environ["CUP3D_FUSED"] = prev
+
+
+def test_init_converges_to_the_same_forest(runs):
+    assert runs["t_keys"] == runs["j_keys"]
+    levels = {k[0] for k in runs["t_keys"]}
+    assert levels == {0, 1}
+    # no score within rounding of a threshold: the tags are robust
+    score = runs["score"]
+    assert np.min(np.abs(score - 1.8)) > 0.1
+    assert np.min(np.abs(score - 0.05)) > 0.1
+
+
+def test_steps_match_jax(runs):
+    rows = runs["rows"]
+    assert len(rows) == STEPS
+    for row in rows:
+        assert abs(row["t_ke"] - row["j_ke"]) <= 1e-4 * row["j_ke"]
+        assert abs(row["t_iters"] - row["j_iters"]) <= 1
+        umax = np.abs(row["j_vel"]).max()
+        assert np.abs(row["t_vel"] - row["j_vel"]).max() <= 1e-3 * umax
+    # KE decays (viscous TGV)
+    kes = [row["t_ke"] for row in rows]
+    assert all(b < a for a, b in zip(kes, kes[1:]))
+
+
+def test_state_carries_from_jax(runs, tmp_path, monkeypatch):
+    """The JAX post-init state, loaded into a fresh port driver, steps on
+    to the JAX package's first step."""
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    ts = tamr.AMRSimulation(TConfig(**_cfg_kw(tmp_path)), device="cpu")
+    arrays = dict(runs["j_init"], keys=np.asarray(runs["j_keys"]))
+    tamr.load_state_numpy(ts, arrays, runs["j_scalars"])
+    assert ts.grid.keys == runs["j_keys"]
+    ts.advance(ts.calc_max_timestep())
+    row = runs["rows"][0]
+    umax = np.abs(row["j_vel"]).max()
+    assert np.abs(ts.state["vel"].numpy() - row["j_vel"]).max() <= 1e-3 * umax
+    # and back out: state_to_numpy round-trips bitwise
+    a2, s2 = tamr.state_to_numpy(ts)
+    ts2 = tamr.AMRSimulation(TConfig(**_cfg_kw(tmp_path)), device="cpu")
+    tamr.load_state_numpy(ts2, a2, s2)
+    assert ts2.grid.keys == ts.grid.keys and ts2.step_idx == ts.step_idx == 1
+    for k in ("vel", "p"):
+        assert torch.equal(ts2.state[k], ts.state[k])
+    bad = dict(a2, p=a2["p"][:-1])
+    with pytest.raises(ValueError, match="shape"):
+        tamr.load_state_numpy(ts2, bad, s2)
+
+
+def test_build_driver_dispatch_and_device(tmp_path, monkeypatch):
+    argv = ARGV + ["-path4serialization", str(tmp_path)]
+    d = tmain.build_driver(argv + ["-device", "cpu"])
+    assert isinstance(d, tamr.AMRSimulation)
+    assert d.device == torch.device("cpu") and d.adapt_enabled
+    assert d.grid.nb == 27  # the base forest, before init adapts it
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmain.build_driver(argv)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["-factory-content", "sphere", "L=0.1"], "A6"),
+    (["-pipelined", "1"], "A4"),
+    (["-implicitDiffusion", "1"], "A5"),
+    (["-bFixMassFlux", "1"], "A5"),
+    (["-saveFreq", "5"], "A4"),
+])
+def test_unported_options_raise(tmp_path, flags, item):
+    argv = ARGV + ["-path4serialization", str(tmp_path), "-device", "cpu"]
+    with pytest.raises(NotImplementedError, match=item):
+        tmain.build_driver(argv + flags)

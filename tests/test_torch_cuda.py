@@ -9,7 +9,9 @@ Small shapes, other BCs and a non-cubic grid than chip_smoke.py's 256^3
 periodic run: each stage at T = 24 tiles within the bounds chip_smoke.py
 states (2e-6 elementwise, 1e-5 getz, partials 1e-5 of the per-tile sum
 of |terms|), the whole fused solve within +-1 iteration and 1e-4, and a
-short driver run whose launch counts match its iterations."""
+short driver run whose launch counts match its iterations.  The same for
+the AMR forest's kernels on a small two-level forest (periodic and
+closed), plus a bitwise-equal rerun of the kernel solve."""
 
 import math
 
@@ -140,3 +142,129 @@ def test_driver_launch_counts_match_iterations(dev, monkeypatch, tmp_path):
                            "lap": 2 * executed, "axpy": executed,
                            "finish": executed}
     assert torch.isfinite(d.sim.state["vel"]).all()
+
+
+# -- the AMR forest's kernels (B8, B9, B11, B12, B13) -------------------------
+
+
+def _forest(dev, bcs=("periodic",) * 3, nref=2):
+    """A 2x2x2 base forest, levelMax 2, ``nref`` octants refined, with
+    its width-1 face tables, flux tables and block graph on ``dev``."""
+    from cup3d_tpu_torch.grid.blocks import BlockGrid
+    from cup3d_tpu_torch.grid.flux import build_flux_tables
+    from cup3d_tpu_torch.grid.octree import Octree, TreeConfig
+
+    tree = Octree(TreeConfig((2, 2, 2), 2, tuple(b == "periodic"
+                                                  for b in bcs)), 0)
+    for leaf in sorted(tree.leaves)[:nref]:
+        tree.refine(leaf)
+    g = BlockGrid(tree, (1.0,) * 3, bcs, 8)
+    return (g, g.face_tables(1, dev), build_flux_tables(g, dev),
+            krylov.block_graph_tables(g, dev))
+
+
+def test_forest_stage_kernels_match_plain_versions(dev):
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    g, tab, ftab, _ = _forest(dev)
+    n = g.nb
+    rng = np.random.default_rng(5)
+
+    def vec():
+        return torch.as_tensor(rng.standard_normal((n, 8, 8, 8)),
+                               dtype=torch.float32, device=dev)
+
+    def col(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    vol, h2 = col(g.h ** 3), col(g.h ** 2)
+    inv_h2 = 1.0 / h2
+    fa.reset_launches()
+    r, p, v, rhat, w, azf, x, y = (vec() for _ in range(8))
+    for vals in ((0.7, 1.3, 0.0), (0.0, 1.3, 1.0)):
+        want = fa.update(r, p.clone(), v, rhat.clone(), vol, _row(dev, *vals),
+                         kernels=False)
+        got = fa.update(r, p.clone(), v, rhat.clone(), vol, _row(dev, *vals))
+        _close(got[0], want[0], 2e-6)
+        _close(got[1], want[1], 2e-6)
+        _close(got[2], want[2], 1e-5, _tile_abs_sum(want[0]) * float(vol.max()))
+    zc = col(rng.standard_normal(n))
+    _close(fa.getz_two(w, azf, zc, h2), fa.getz_two(w, azf, zc, h2,
+                                                    kernels=False), 1e-5)
+    lab = tab.assemble_scalar(w, 8).contiguous()
+    corr = vec()
+    want = fa.lap(lab, corr, rhat, inv_h2, kernels=False)
+    got = fa.lap(lab, corr, rhat, inv_h2)
+    _close(got[0], want[0], 2e-6)
+    _close(got[1], want[1], 1e-5, _tile_abs_sum(rhat * want[0]))
+    _close(got[2], want[2], 1e-5, _tile_abs_sum(want[0] * want[0]))
+    want = fa.axpy(r, v, vol, _row(dev, 0.37), kernels=False)
+    got = fa.axpy(r, v, vol, _row(dev, 0.37))
+    _close(got[0], want[0], 2e-6)
+    _close(got[1], want[1], 1e-5, _tile_abs_sum(want[0]) * float(vol.max()))
+    sc = _row(dev, 0.37, 1.21)
+    want = fa.finish(x.clone(), y, w, r.clone(), v, rhat, sc, kernels=False)
+    got = fa.finish(x.clone(), y, w, r.clone(), v, rhat, sc)
+    for gt, wt in zip(got[:2], want[:2]):
+        _close(gt, wt, 2e-6)
+    torch.cuda.synchronize()
+    assert fa.launches == {"amr_update": 2, "amr_getz_two": 1, "amr_lap": 1,
+                           "amr_axpy": 1, "amr_finish": 1}
+    with pytest.raises(NotImplementedError, match="B10"):
+        fa.getz_tile(w, h2)
+    with pytest.raises(ValueError, match="aligned"):
+        bad = torch.zeros(n * 1000 + 1, device=dev)[1:].view(n, 10, 10, 10)
+        fa.lap(bad, corr, rhat, inv_h2)
+
+
+@pytest.mark.parametrize("bcs", [("periodic",) * 3,
+                                 ("wall", "periodic", "freespace")])
+def test_forest_fused_solve_kernels_match_plain_and_rerun(dev, bcs):
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    g, tab, ftab, graph = _forest(dev, bcs)
+    vol = g.h_column(torch.float32, dev) ** 3
+    rng = np.random.default_rng(6)
+    rhs = torch.as_tensor(rng.standard_normal((g.nb, 8, 8, 8)),
+                          dtype=torch.float32, device=dev)
+    b = rhs - torch.sum(rhs * vol) / (torch.sum(vol) * 512)
+    kw = dict(tab=tab, ftab=ftab, vol=vol, graph=graph, maxiter=200)
+    _, _, k_k = fa.fused_amr_bicgstab(g, b, **kw)
+    _, _, k_p = fa.fused_amr_bicgstab(g, b, kernels=False, **kw)
+    assert abs(int(k_k) - int(k_p)) <= 1
+    # walls cut the coarse graph's couplings: at the 1e-4 stopping target
+    # two answers differ by ~5e-4 there, so x is compared once converged
+    tight = dict(kw, tol_abs=0.0, tol_rel=1e-6)
+    x_k, _, _ = fa.fused_amr_bicgstab(g, b, **tight)
+    x_p, _, _ = fa.fused_amr_bicgstab(g, b, kernels=False, **tight)
+    _close(x_k, x_p, 1e-4)
+    x_k2, _, _ = fa.fused_amr_bicgstab(g, b, **tight)
+    assert torch.equal(x_k, x_k2)
+
+
+def test_amr_driver_launch_counts_match_iterations(dev, monkeypatch,
+                                                   tmp_path):
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    d = build_driver(
+        ("-bpdx 3 -bpdy 3 -bpdz 3 -levelMax 2 -levelStart 0 "
+         "-extent 6.283185307179586 -initCond taylorGreen -Rtol 1.8 "
+         "-Ctol 0.05 -CFL 0.4 -rampup 0 -poissonSolver iterative "
+         "-nu 1e-3 -tend 0 -nsteps 3 -verbose 0 -path4serialization "
+         f"{tmp_path}").split())
+    d.init()
+    assert set(d.grid.level.tolist()) == {0, 1}
+    d.adapt_enabled = False
+    fa.reset_launches()
+    d.simulate()
+    iters = [int(row["iters"]) for row in d.step_log]
+    executed = sum(krylov.ITER_CHUNK * math.ceil(k / krylov.ITER_CHUNK)
+                   for k in iters)
+    assert fa.iterations["executed"] == executed > 0
+    assert fa.launches == {"amr_update": executed,
+                           "amr_getz_two": 2 * executed,
+                           "amr_lap": 2 * executed, "amr_axpy": executed,
+                           "amr_finish": executed}
+    assert torch.isfinite(d.state["vel"]).all()

@@ -112,8 +112,14 @@ def test_cli_device_flag_and_conf(tmp_path):
         parse_args(_expand_conf(argv)))
     with pytest.raises(ValueError, match="-device"):
         tmain.build_driver(argv + ["-device", "tpu"])
+    # levelMax > 1 builds the AMR driver; bodies on the forest wait (A6)
+    from cup3d_tpu_torch.sim.amr import AMRSimulation
+
+    amr = tmain.build_driver(argv + ["-levelMax", "2", "-device", "cpu"])
+    assert isinstance(amr, AMRSimulation)
     with pytest.raises(NotImplementedError, match="A6"):
-        tmain.build_driver(argv + ["-levelMax", "2", "-device", "cpu"])
+        tmain.build_driver(argv + ["-levelMax", "2", "-factory-content",
+                                   "sphere", "L=0.1", "-device", "cpu"])
     with pytest.raises(NotImplementedError, match="A4"):
         tmain.build_driver(argv + ["-pipelined", "1", "-device", "cpu"])
 
