@@ -33,7 +33,23 @@ each of which raises on a fault (nothing is caught):
    kernel solve twice (bitwise-equal answers);
 9. the AMR main path: ``simulate()`` for 20 steps with the ``amr_*``
    launch counters set to 0 just before and read just after, then the
-   solve's synchronised per-piece split and a ``torch.profiler`` window.
+   solve's synchronised per-piece split and a ``torch.profiler`` window;
+10. the tile-only getZ kernels B3 (at 256^3) and B10 (at the forest's
+    block count) and the CG getZ kernel B7 (at 256^3, lanes layout, with
+    a zero and a random per-tile shift) against their plain versions,
+    timed beside them and their bounds;
+11. the uniform self-healing loop: the 256^3 TGV through ``build_driver``
+    + ``simulate()`` with ``CUP3D_FAULT=solver.itercap@2:3``, so the
+    recovery engine walks warm-restart -> zero-guess -> tile-only and the
+    rebuilt fused solve runs B3 (its launches twice the iterations
+    executed after the rebuild, no getz_two there); kinetic energy held
+    to phase 5's at the same simulated time;
+12. the forest's: phase 9's driver on with the same fault plan, at least
+    3 steps past the tile-only rung (B10), the restore reusing the live
+    forest's tables;
+13. ``CUP3D_GETZ=cg``: 5 steps of the 256^3 TGV through the CLI's legacy
+    composition (B7's launches equal the preconditioner applications),
+    and one CG-getZ forest solve, kernels against plain versions.
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -64,6 +80,17 @@ AMR_ARGV = ("-bpdx 16 -bpdy 16 -bpdz 16 -levelMax 2 -levelStart 0 "
             "-Ctol 0.05 -CFL 0.4 -rampup 0 -nu 1e-3 -poissonSolver iterative "
             f"-poissonTol 1e-6 -poissonTolRel 1e-4 -tend 0 -nsteps {STEPS}")
 AMR_DIV_GATE = 0.05     # max|div u| after projection (bench.py amr_tgv)
+# uniform max|div u| after projection: the iterative solve's stopping
+# target (1e-6 abs / 1e-4 rel) leaves it residual-limited near 1e-5
+UNIFORM_DIV_GATE = 1e-4
+DT_MAIN = 1e-3          # the uniform main path's fixed dt
+LADDER_FAULT = "solver.itercap@{step}:3"  # 3 rollbacks: the rungs to tile-only
+LADDER_STEPS = 10       # the uniform ladder run's tend, in steps of DT_MAIN
+FOREST_LADDER_STEPS = 10  # forest steps from the ladder's start: the
+                          # rung's retry runs at dt/8 up to the fault's step
+                          # + 4 (recovery.py), then 3 steps at full dt
+CG_STEPS = 5            # CUP3D_GETZ=cg steps at 256^3
+CG_ITERS = 24           # B7 sweeps (precond_iters of the production routes)
 SEED = 0
 TIMING_SAMPLES = 21     # median over samples of LAUNCHES_PER_SAMPLE launches
 LAUNCHES_PER_SAMPLE = 10
@@ -106,9 +133,10 @@ def peaks_for(name: str):
     raise RuntimeError(f"no published peaks known for card {name!r}")
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, per_sample: int = LAUNCHES_PER_SAMPLE) -> float:
     """Median device time of one call: CUDA events around batches of
-    back-to-back calls, so host overhead hides behind the queue."""
+    ``per_sample`` back-to-back calls, so host overhead hides behind the
+    queue."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -117,11 +145,11 @@ def time_ms(fn) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        for _ in range(LAUNCHES_PER_SAMPLE):
+        for _ in range(per_sample):
             fn()
         e1.record()
         e1.synchronize()
-        samples.append(e0.elapsed_time(e1) / LAUNCHES_PER_SAMPLE)
+        samples.append(e0.elapsed_time(e1) / per_sample)
     return statistics.median(samples)
 
 
@@ -175,20 +203,8 @@ def kernel_phase(bw: float, fp32_flops: float, dev="cuda") -> dict:
     results = {}
 
     def record(name, errs, perrs, kernel_fn, plain_fn, nbytes, flops):
-        ms = time_ms(kernel_fn)
-        plain_ms = time_ms(plain_fn)
-        t_bytes = nbytes / bw * 1e3
-        t_ops = flops / fp32_flops * 1e3
-        results[name] = dict(
-            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None)
-        log(f"  {name:9s} err {max(errs):.3e} (partials {max(perrs):.3e})"
-            f"  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
-            f"({results[name]['bound_by']}: {nbytes / 1e6:.0f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
+        _record(results, name, errs, kernel_fn, plain_fn, nbytes, flops, bw,
+                fp32_flops, perrs=perrs)
 
     # -- B1 update (in place on p, rhat: compare on clones) ---------------
     r, p, v, rhat = vec(), vec(), vec(), vec()
@@ -311,7 +327,6 @@ def main_path_phase() -> dict:
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
     from cup3d_tpu_torch.ops import krylov
 
-    os.environ["CUP3D_FUSED"] = "1"
     os.makedirs(OUT_DIR, exist_ok=True)
     for name in ("energy.txt", "div.txt"):
         if os.path.exists(os.path.join(OUT_DIR, name)):
@@ -320,7 +335,7 @@ def main_path_phase() -> dict:
     argv = (f"-bpdx {nb} -bpdy {nb} -bpdz {nb} -levelMax 1 "
             "-extent 6.283185307179586 -initCond taylorGreen "
             "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
-            f"-nu 1e-3 -dt 1e-3 -tend 0 -nsteps {STEPS} -verbose 0 "
+            f"-nu 1e-3 -dt {DT_MAIN} -tend 0 -nsteps {STEPS} -verbose 0 "
             f"-freqDiagnostics 1 -path4serialization {OUT_DIR}").split()
     t0 = time.perf_counter()
     d = build_driver(argv)
@@ -357,13 +372,17 @@ def main_path_phase() -> dict:
     if not (all(math.isfinite(k) for k in kes) and kes[-1] < ke0):
         raise AssertionError(f"kinetic energy not finite or not decaying: "
                              f"KE0 {ke0}, per step {kes}")
+    div_max = max(r[3] for r in div)
+    if not div_max < UNIFORM_DIV_GATE:
+        raise AssertionError(f"max|div u| {div_max:.3e} over the gate "
+                             f"{UNIFORM_DIV_GATE:g}")
     # each executed iteration (chunk tails included) launches update,
     # axpy and finish once and getz_two and lap twice; a solve of k
     # iterations executes k rounded up to the chunk
     chunk = krylov.ITER_CHUNK
     want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
     want = {"update": executed, "axpy": executed, "finish": executed,
-            "getz_two": 2 * executed, "lap": 2 * executed}
+            "getz_two": 2 * executed, "getz_tile": 0, "lap": 2 * executed}
     if executed != want_exec or launches != want or executed == 0:
         raise AssertionError(f"launch counts {launches}, executed "
                              f"{executed}, expected {want_exec} executed")
@@ -373,7 +392,10 @@ def main_path_phase() -> dict:
     log(f"  launches: {launches}")
     split = _step_split(d)
     _profile_window(d)
-    return dict(launches=launches, wall=wall, iters=iters, split=split)
+    # KE at the end of each step (a row logs the step's start time)
+    ke_curve = [(0.0, ke0)] + [(e[0] + DT_MAIN, e[1]) for e in energy]
+    return dict(launches=launches, wall=wall, iters=iters, split=split,
+                ke_curve=ke_curve)
 
 
 def _read_table(path):
@@ -470,7 +492,6 @@ def amr_setup_phase():
     import numpy as np
     from cup3d_tpu_torch.__main__ import build_driver
 
-    os.environ["CUP3D_FUSED"] = "1"
     out = os.path.join(OUT_DIR, "amr")
     os.makedirs(out, exist_ok=True)
     t0 = time.perf_counter()
@@ -518,19 +539,8 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     results = {}
 
     def record(name, errs, perrs, kernel_fn, plain_fn, nbytes, flops):
-        ms = time_ms(kernel_fn)
-        plain_ms = time_ms(plain_fn)
-        t_bytes = nbytes / bw * 1e3
-        t_ops = flops / fp32_flops * 1e3
-        results[name] = dict(
-            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None)
-        log(f"  {name:12s} err {max(errs):.3e} (partials {max(perrs):.3e})"
-            f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({results[name]['bound_by']}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        _record(results, name, errs, kernel_fn, plain_fn, nbytes, flops, bw,
+                fp32_flops, perrs=perrs)
 
     # -- B8 update (in place on p, rhat: compare on clones) ---------------
     r, p, v, rhat = vec(), vec(), vec(), vec()
@@ -693,8 +703,8 @@ def amr_main_path_phase(d) -> dict:
     chunk = krylov.ITER_CHUNK
     want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
     want = {"amr_update": executed, "amr_getz_two": 2 * executed,
-            "amr_lap": 2 * executed, "amr_axpy": executed,
-            "amr_finish": executed}
+            "amr_getz_tile": 0, "amr_lap": 2 * executed,
+            "amr_axpy": executed, "amr_finish": executed}
     if executed != want_exec or launches != want or executed == 0:
         raise AssertionError(f"launch counts {launches}, executed "
                              f"{executed}, expected {want_exec} executed")
@@ -788,18 +798,432 @@ def _amr_solve_pieces(d) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-13: the tile-only and CG getZ kernels, the self-healing loop
+# ---------------------------------------------------------------------------
+
+
+def _record(results, name, errs, kernel_fn, plain_fn, nbytes, flops, bw,
+            fp32_flops, perrs=None,
+            plain_per_sample=LAUNCHES_PER_SAMPLE) -> None:
+    """Time a kernel and its plain version; store the kernel's row (its
+    bound from the bytes it must move and the operations it must do)."""
+    ms = time_ms(kernel_fn)
+    plain_ms = time_ms(plain_fn, plain_per_sample)
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / fp32_flops * 1e3
+    results[name] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)
+    parts = "" if perrs is None else f" (partials {max(perrs):.3e})"
+    log(f"  {name:13s} err {max(errs):.3e}{parts}  kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+        f"({results[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
+
+
+def getz_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
+    """B3 at 256^3, B10 at the forest's block count, B7 at 256^3 in the
+    lanes layout of the uniform legacy solve (shift 0, then a random
+    per-tile shift) and in the forest's blocks layout, each against its
+    plain version; then timed."""
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import getz_cg
+
+    dev = torch.device("cuda")
+    T = (N_MAIN // 8) ** 3
+    cells = T * 512
+    h2 = (2 * math.pi / N_MAIN) ** 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    results = {}
+
+    # -- B3: y = tilesolve(-h2 w), one h2; 6 axis transforms of 8 FMAs,
+    # the 1/lam scale and the -h2 prologue: ~98 flop/cell
+    w = torch.randn((T, 8, 8, 8), generator=gen, device=dev)
+    errs = [check_close("getz_tile", fb.getz_tile(w, h2),
+                        fb.getz_tile(w, h2, kernels=False), GETZ_RTOL)]
+    _record(results, "getz_tile", errs, lambda: fb.getz_tile(w, h2),
+            lambda: fb.getz_tile(w, h2, kernels=False), 2 * 4 * cells,
+            98 * cells, bw, fp32_flops)
+
+    # -- B10: the same at each block's own h^2 -----------------------------
+    g = d.grid
+    n = g.nb
+    h = g.h_column(torch.float32, dev).reshape(n)
+    h2c = (h * h).contiguous()
+    wf = torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+    errs = [check_close("amr_getz_tile", fa.getz_tile(wf, h2c),
+                        fa.getz_tile(wf, h2c, kernels=False), GETZ_RTOL)]
+    _record(results, "amr_getz_tile", errs, lambda: fa.getz_tile(wf, h2c),
+            lambda: fa.getz_tile(wf, h2c, kernels=False),
+            2 * 4 * n * 512 + 4 * n, 98 * n * 512, bw, fp32_flops)
+
+    # -- B7: CG_ITERS sweeps of 19 flop/cell (stencil 7, shifted apply 2,
+    # two dots 4, three axpys 6) plus the initial r.r ---------------------
+    bt = torch.randn((8, 8, 8, T), generator=gen, device=dev)
+    shift = torch.rand(T, generator=gen, device=dev)
+    errs = []
+    for sh in (0.0, shift):
+        errs.append(check_close(
+            "getz_cg", getz_cg.cg_tiles_lanes(bt, CG_ITERS, sh),
+            getz_cg.cg_tiles_lanes(bt, CG_ITERS, sh, kernels=False),
+            GETZ_RTOL))
+    hb = h2c[:, None, None, None]
+    errs.append(check_close(
+        "getz_cg blocks", getz_cg.cg_tiles_blocks(wf, CG_ITERS, hb),
+        getz_cg.cg_tiles_blocks(wf, CG_ITERS, hb, kernels=False),
+        GETZ_RTOL))
+    flops = (19 * CG_ITERS + 2) * cells
+    _record(results, "getz_cg", errs,
+            lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS, 0.0),
+            lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS, 0.0, kernels=False),
+            2 * 4 * cells, flops, bw, fp32_flops, plain_per_sample=1)
+    ms_shift = time_ms(lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS, shift))
+    ms_blocks = time_ms(lambda: getz_cg.cg_tiles_blocks(wf, CG_ITERS, hb))
+    log(f"  getz_cg with a per-tile shift {ms_shift:.4f} ms at {N_MAIN}^3; "
+        f"blocks layout at {n} blocks {ms_blocks:.4f} ms (bound "
+        f"{(19 * CG_ITERS + 2) * n * 512 / fp32_flops * 1e3:.4f} ms)")
+    torch.cuda.synchronize()
+    return results
+
+
+class _env:
+    """Set ``CUP3D_*`` variables for one phase; restore them (and clear
+    the process-global fault plan) on the way out."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        from cup3d_tpu_torch.resilience import faults
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.clear()
+        return False
+
+
+def _watch_recovery(d) -> dict:
+    """Wrap the driver's restore and solver-rebuild hooks: where in
+    ``step_log`` each rebuild happened, and each restore's time."""
+    marks = {"rebuild_at": [], "restore_s": []}
+    rebuild, restore = d._resilience_rebuild_poisson, d._resilience_restore
+
+    def rebuild_hook(*a, **kw):
+        marks["rebuild_at"].append(len(d.step_log))
+        rebuild(*a, **kw)
+
+    def restore_hook(payload):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(payload)
+        torch.cuda.synchronize()
+        marks["restore_s"].append(time.perf_counter() - t0)
+
+    d._resilience_rebuild_poisson = rebuild_hook
+    d._resilience_restore = restore_hook
+    return marks
+
+
+def _executed(rows) -> int:
+    """Iterations the chunked Krylov loop executed for these step rows."""
+    from cup3d_tpu_torch.ops import krylov
+
+    chunk = krylov.ITER_CHUNK
+    return sum(chunk * math.ceil(int(r["iters"]) / chunk) for r in rows)
+
+
+def _check_ladder(delta, marks, out_dir) -> None:
+    stages = {k.split("stage=")[1].rstrip("}"): v for k, v in delta.items()
+              if k.startswith("resilience.retries") and v}
+    flights = [f for f in os.listdir(out_dir) if f.startswith("flight_")]
+    if (delta.get("resilience.rollbacks") != 3 or stages != {
+            "warm-restart": 1, "zero-guess": 1, "tile-only": 1}
+            or delta.get("resilience.giveups", 0) or flights
+            or len(marks["rebuild_at"]) != 1):
+        raise AssertionError(f"ladder: rollbacks "
+                             f"{delta.get('resilience.rollbacks')}, stages "
+                             f"{stages}, giveups "
+                             f"{delta.get('resilience.giveups', 0)}, "
+                             f"postmortems {flights}, rebuilds {marks}")
+
+
+def uniform_ladder_phase(ke_curve) -> dict:
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.obs import metrics
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    out = os.path.join(OUT_DIR, "ladder")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    nb = N_MAIN // 8
+    tend = LADDER_STEPS * DT_MAIN
+    argv = (f"-bpdx {nb} -bpdy {nb} -bpdz {nb} -levelMax 1 "
+            "-extent 6.283185307179586 -initCond taylorGreen "
+            "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+            f"-nu 1e-3 -dt {DT_MAIN} -tend {tend} -nsteps 0 -verbose 0 "
+            f"-freqDiagnostics 1 -path4serialization {out}").split()
+    with _env(CUP3D_FUSED="1", CUP3D_FAULT=LADDER_FAULT.format(step=2)):
+        d = build_driver(argv)
+        d.init()
+        marks = _watch_recovery(d)
+        s = d.sim
+        ke0 = float(diag.dissipation(s.grid, s.state["vel"], s.nu)
+                    ["kinetic_energy"])
+        torch.cuda.synchronize()
+        m0 = metrics.snapshot()
+        fb.reset_launches()
+        t0 = time.perf_counter()
+        d.simulate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fb.launches)
+        executed = fb.iterations["executed"]
+        delta = metrics.delta(m0)
+    _check_ladder(delta, marks, out)
+    idx = marks["rebuild_at"][0]
+    before, after = d.step_log[:idx], d.step_log[idx:]
+    ex_b, ex_a = _executed(before), _executed(after)
+    want = {"update": executed, "getz_two": 2 * ex_b, "getz_tile": 2 * ex_a,
+            "lap": 2 * executed, "axpy": executed, "finish": executed}
+    if executed != ex_b + ex_a or launches != want or ex_a == 0:
+        raise AssertionError(f"ladder launches {launches}, executed "
+                             f"{executed}, expected {want}")
+    ke = float(diag.dissipation(s.grid, s.state["vel"], s.nu)
+               ["kinetic_energy"])
+    ke_ref = _interp(ke_curve, s.time)
+    div = _read_table(os.path.join(out, "div.txt"))[-1][3]
+    if not (math.isfinite(ke) and ke < ke0
+            and abs(ke - ke_ref) <= 0.05 * ke_ref and div < UNIFORM_DIV_GATE
+            and s.time >= tend - 1e-12):
+        raise AssertionError(f"ladder run: KE {ke} (start {ke0}, phase 5 "
+                             f"{ke_ref} at t={s.time}), max|div u| {div}")
+    log(f"  {len(d.step_log)} steps ({len(before)} before the tile-only "
+        f"rung, {len(after)} after) in {wall:.3f} s "
+        f"({wall / len(d.step_log) * 1e3:.2f} ms/step); to t={s.time:.6f}")
+    log(f"  iterations before the rung {[int(r['iters']) for r in before]}")
+    _log_after(after, ex_a, 2)
+    log(f"  KE {ke0:.8e} -> {ke:.8e} (phase 5 at t={s.time:.6f}: "
+        f"{ke_ref:.8e}, rel diff {abs(ke - ke_ref) / ke_ref:.3e}), "
+        f"max|div u| {div:.3e}; restores "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in marks['restore_s'])} ms")
+    log(f"  launches: {launches}")
+    return dict(launches=launches, wall=wall, before=before, after=after,
+                restore_s=marks["restore_s"])
+
+
+def _log_after(after, executed, fault_step) -> None:
+    """The tile-only steps: all of them, and those at full dt (the engine
+    scales dt by 0.5**attempt up to the fault's step + 4)."""
+    full = [r for r in after if r["step"] > fault_step + 4]
+    log(f"  tile-only iterations {[int(r['iters']) for r in after]} "
+        f"({executed} executed), ms/step after the rung "
+        f"{sum(r['wall_s'] for r in after) / len(after) * 1e3:.2f}")
+    if full:
+        log(f"  at full dt ({len(full)} steps): iterations "
+            f"{[int(r['iters']) for r in full]}, ms/step "
+            f"{sum(r['wall_s'] for r in full) / len(full) * 1e3:.2f}")
+
+
+def _interp(curve, t) -> float:
+    """Linear interpolation of [(t, value), ...] (sorted by t) at t."""
+    for (t0, v0), (t1, v1) in zip(curve, curve[1:]):
+        if t0 <= t <= t1:
+            return v0 + (v1 - v0) * (t - t0) / (t1 - t0)
+    raise AssertionError(f"t={t} outside the reference run's "
+                         f"[{curve[0][0]}, {curve[-1][0]}]")
+
+
+def forest_ladder_phase(d) -> dict:
+    """Phase 9's driver on through the ladder: the fault at its current
+    step + 2, FOREST_LADDER_STEPS steps from there."""
+    from cup3d_tpu_torch.obs import metrics
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    s0 = d.step_idx
+    d.cfg.nsteps = s0 + FOREST_LADDER_STEPS
+    out = d.cfg.path4serialization
+    for f in os.listdir(out):
+        if f.startswith("flight_"):
+            os.remove(os.path.join(out, f))
+    tables = len(d.table_build_s)
+    marks = _watch_recovery(d)
+    ke0 = _kinetic_energy(d)
+    log_start = len(d.step_log)
+    # the tile-only rung rebuilds the solver, reading CUP3D_FUSED again
+    with _env(CUP3D_FUSED="1", CUP3D_FAULT=LADDER_FAULT.format(step=s0 + 2)):
+        torch.cuda.synchronize()
+        m0 = metrics.snapshot()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        d.simulate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        executed = fa.iterations["executed"]
+        delta = metrics.delta(m0)
+    _check_ladder(delta, marks, out)
+    idx = marks["rebuild_at"][0]
+    before, after = d.step_log[log_start:idx], d.step_log[idx:]
+    ex_b, ex_a = _executed(before), _executed(after)
+    want = {"amr_update": executed, "amr_getz_two": 2 * ex_b,
+            "amr_getz_tile": 2 * ex_a, "amr_lap": 2 * executed,
+            "amr_axpy": executed, "amr_finish": executed}
+    if executed != ex_b + ex_a or launches != want or len(after) < 3:
+        raise AssertionError(f"forest ladder launches {launches}, executed "
+                             f"{executed}, expected {want}, {len(after)} "
+                             f"steps after the rung")
+    ke = _kinetic_energy(d)
+    _, div = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"], d._tab1)
+    div = float(div)
+    if not (math.isfinite(ke) and ke < ke0 and div < AMR_DIV_GATE
+            and d._graph is None and len(d.table_build_s) == tables
+            and d.step_idx == d.cfg.nsteps):
+        raise AssertionError(f"forest ladder: KE {ke} (start {ke0}), "
+                             f"max|div u| {div}, graph {d._graph is None}, "
+                             f"table builds {len(d.table_build_s)} vs "
+                             f"{tables}, step {d.step_idx}")
+    log(f"  {len(d.step_log) - log_start} steps ({len(before)} before the "
+        f"tile-only rung, {len(after)} after) in {wall:.3f} s")
+    log(f"  iterations before the rung {[int(r['iters']) for r in before]}")
+    _log_after(after, ex_a, s0 + 2)
+    log(f"  restores (live tables reused, no table build) "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in marks['restore_s'])} ms; "
+        f"KE {ke0:.8e} -> {ke:.8e}, max|div u| {div:.3e}")
+    log(f"  launches: {launches}")
+    return dict(launches=launches, wall=wall, before=before, after=after,
+                restore_s=marks["restore_s"])
+
+
+def cg_phase(d_forest, graph) -> dict:
+    """CUP3D_GETZ=cg: CG_STEPS steps of the 256^3 TGV through the CLI's
+    legacy composition, then one CG-getZ forest solve, kernels against
+    plain versions."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import getz_cg, krylov
+
+    out = os.path.join(OUT_DIR, "cg")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    nb = N_MAIN // 8
+    argv = (f"-bpdx {nb} -bpdy {nb} -bpdz {nb} -levelMax 1 "
+            "-extent 6.283185307179586 -initCond taylorGreen "
+            "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+            f"-nu 1e-3 -dt {DT_MAIN} -tend 0 -nsteps {CG_STEPS} -verbose 0 "
+            f"-freqDiagnostics 1 -path4serialization {out}").split()
+    with _env(CUP3D_FUSED="1", CUP3D_GETZ="cg"):
+        d = build_driver(argv)
+        d.init()
+        s = d.sim
+        ke0 = float(diag.dissipation(s.grid, s.state["vel"], s.nu)
+                    ["kinetic_energy"])
+        torch.cuda.synchronize()
+        getz_cg.reset_launches()
+        fb.reset_launches()
+        krylov.iterations["executed"] = 0
+        t0 = time.perf_counter()
+        d.simulate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(getz_cg.launches)
+        executed = krylov.iterations["executed"]
+        iters = [int(r["iters"]) for r in d.step_log]
+        ke = float(diag.dissipation(s.grid, s.state["vel"], s.nu)
+                   ["kinetic_energy"])
+        div = max(r[3] for r in _read_table(os.path.join(out, "div.txt")))
+        if (launches["getz_cg"] != 2 * executed or executed == 0
+                or fb.iterations["executed"] or len(iters) != CG_STEPS
+                or not (math.isfinite(ke) and ke < ke0)
+                or not div < UNIFORM_DIV_GATE):
+            raise AssertionError(f"CG-getZ run: launches {launches}, "
+                                 f"executed {executed}, fused "
+                                 f"{fb.iterations['executed']}, iterations "
+                                 f"{iters}, KE {ke0} -> {ke}, max|div u| "
+                                 f"{div}")
+        log(f"  {CG_STEPS} steps at {N_MAIN}^3 in {wall:.3f} s "
+            f"({wall / CG_STEPS * 1e3:.2f} ms/step), iterations {iters} "
+            f"({executed} executed), getz_cg launches {launches['getz_cg']} "
+            f"= 2 x executed; KE {ke0:.8e} -> {ke:.8e}, max|div u| "
+            f"{div:.3e}")
+        del d, s
+        torch.cuda.empty_cache()
+
+        # one forest solve with the CG getZ (two-level, legacy loop)
+        g, dev = d_forest.grid, d_forest.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 6)
+        rhs = torch.randn((g.nb, 8, 8, 8), generator=gen, device=dev)
+        kw = dict(tab_arg=d_forest._tab1, flux_arg=d_forest._ftab, geom=g,
+                  vol=d_forest._vol, graph=graph, with_stats=True)
+        res = {}
+        for name, kernels in (("kernels", None), ("plain", False)):
+            solve = amr_ops.build_amr_poisson_solver_dynamic(
+                8, maxiter=200, kernels=kernels)
+            getz_cg.reset_launches()
+            krylov.iterations["executed"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, st = solve(rhs, **kw)
+            k = int(st[1])
+            res[name] = (x, k, time.perf_counter() - t0,
+                         dict(getz_cg.launches),
+                         krylov.iterations["executed"])
+        (x_k, k_k, t_k, l_k, e_k), (x_p, k_p, t_p, l_p, _) = (
+            res["kernels"], res["plain"])
+        rel = float(torch.max(torch.abs(x_k - x_p))
+                    / torch.max(torch.abs(x_p)))
+        log(f"  forest CG-getZ solve ({g.nb} blocks): kernels {k_k} its in "
+            f"{t_k:.3f} s, plain {k_p} its in {t_p:.3f} s, x rel diff "
+            f"{rel:.3e}; getz_cg launches {l_k['getz_cg']} (plain run "
+            f"{l_p['getz_cg']})")
+        if (abs(k_k - k_p) > 1 or not rel <= 1e-4
+                or l_k["getz_cg"] != 2 * e_k or l_p["getz_cg"] != 0):
+            raise AssertionError(f"forest CG-getZ solve: its {k_k} vs {k_p}, "
+                                 f"x rel {rel:.3e}, launches {l_k} for "
+                                 f"{e_k} executed, plain {l_p}")
+    return dict(launches=launches, wall=wall, iters=iters)
+
+
 KERNELS = (
-    # name, TPU kernel body it replaces
-    ("update", "cup3d_tpu/ops/fused_bicgstab.py:173"),
-    ("getz_two", "cup3d_tpu/ops/fused_bicgstab.py:185"),
-    ("lap", "cup3d_tpu/ops/fused_bicgstab.py:195"),
-    ("axpy", "cup3d_tpu/ops/fused_bicgstab.py:203"),
-    ("finish", "cup3d_tpu/ops/fused_bicgstab.py:209"),
-    ("amr_update", "cup3d_tpu/ops/fused_amr_bicgstab.py:183"),
-    ("amr_getz_two", "cup3d_tpu/ops/fused_amr_bicgstab.py:195"),
-    ("amr_lap", "cup3d_tpu/ops/fused_amr_bicgstab.py:208"),
-    ("amr_axpy", "cup3d_tpu/ops/fused_amr_bicgstab.py:217"),
-    ("amr_finish", "cup3d_tpu/ops/fused_amr_bicgstab.py:224"),
+    # name, TPU kernel body it replaces, the port's source
+    ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
+    ("getz_two", "cup3d_tpu/ops/fused_bicgstab.py:185", "fused_bicgstab.cu"),
+    ("getz_tile", "cup3d_tpu/ops/fused_bicgstab.py:190", "fused_bicgstab.cu"),
+    ("lap", "cup3d_tpu/ops/fused_bicgstab.py:195", "fused_bicgstab.cu"),
+    ("axpy", "cup3d_tpu/ops/fused_bicgstab.py:203", "fused_bicgstab.cu"),
+    ("finish", "cup3d_tpu/ops/fused_bicgstab.py:209", "fused_bicgstab.cu"),
+    ("getz_cg", "cup3d_tpu/ops/getz_pallas.py:42", "getz_cg.cu"),
+    ("amr_update", "cup3d_tpu/ops/fused_amr_bicgstab.py:183",
+     "fused_bicgstab.cu"),
+    ("amr_getz_two", "cup3d_tpu/ops/fused_amr_bicgstab.py:195",
+     "fused_bicgstab.cu"),
+    ("amr_getz_tile", "cup3d_tpu/ops/fused_amr_bicgstab.py:202",
+     "fused_bicgstab.cu"),
+    ("amr_lap", "cup3d_tpu/ops/fused_amr_bicgstab.py:208",
+     "fused_bicgstab.cu"),
+    ("amr_axpy", "cup3d_tpu/ops/fused_amr_bicgstab.py:217",
+     "fused_bicgstab.cu"),
+    ("amr_finish", "cup3d_tpu/ops/fused_amr_bicgstab.py:224",
+     "fused_bicgstab.cu"),
 )
 
 
@@ -825,8 +1249,8 @@ def main() -> int:
     # -- phase 2 ----------------------------------------------------------
     t0 = time.perf_counter()
     lib = cuda_lib.load()
-    log(f"phase 2: built {lib.path.name} in {lib.build_s:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
+    log(f"phase 2: built {', '.join(p.name for p in lib.paths)} in "
+        f"{lib.build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
@@ -836,24 +1260,44 @@ def main() -> int:
     log(f"phase 4: whole solve at {N_SOLVE}^3")
     solve_phase()
     log(f"phase 5: main path, {N_MAIN}^3 TGV, {STEPS} steps")
-    run = main_path_phase()
+    with _env(CUP3D_FUSED="1"):
+        run = main_path_phase()
     torch.cuda.empty_cache()
 
     log("phase 6: AMR path set-up (BASELINE config #3, bpd 16, levelMax 2)")
-    d = amr_setup_phase()
+    with _env(CUP3D_FUSED="1"):  # read when the forest's solver is built
+        d = amr_setup_phase()
     log(f"phase 7: forest kernels vs plain versions at {d.grid.nb} blocks")
     per_kernel.update(forest_kernel_phase(d, bw, fp32_flops))
     log("phase 8: one whole forest solve")
     forest_solve_phase(d)
     log(f"phase 9: AMR main path, {STEPS} steps")
     amr_run = amr_main_path_phase(d)
-    launches = {**run["launches"], **amr_run["launches"]}
+    graph = d._graph  # the two-level forest's, for phase 13
+
+    log(f"phase 10: tile-only and CG getZ kernels vs plain versions "
+        f"({N_MAIN}^3, {d.grid.nb} blocks)")
+    per_kernel.update(getz_kernel_phase(d, bw, fp32_flops))
+    log(f"phase 11: uniform self-healing loop, {N_MAIN}^3 TGV with "
+        f"CUP3D_FAULT={LADDER_FAULT.format(step=2)}")
+    ladder = uniform_ladder_phase(run["ke_curve"])
+    torch.cuda.empty_cache()
+    log("phase 12: forest self-healing loop (phase 9's driver on)")
+    forest_ladder = forest_ladder_phase(d)
+    log("phase 13: CUP3D_GETZ=cg (uniform legacy composition, forest solve)")
+    cg_run = cg_phase(d, graph)
+    # each kernel's launches from its own path's run
+    launches = {**run["launches"], **amr_run["launches"],
+                "getz_tile": ladder["launches"]["getz_tile"],
+                "amr_getz_tile": forest_ladder["launches"]["amr_getz_tile"],
+                "getz_cg": cg_run["launches"]["getz_cg"]}
 
     rows = []
-    for kname, replaces in KERNELS:
+    for kname, replaces, src in KERNELS:
+        if not launches[kname] > 0:
+            raise AssertionError(f"{kname}: no launch on its path")
         rows.append(dict(
-            name=kname, route="cuda",
-            source="cup3d_tpu_torch/csrc/fused_bicgstab.cu",
+            name=kname, route="cuda", source=f"cup3d_tpu_torch/csrc/{src}",
             replaces=replaces, launches=launches[kname],
             **per_kernel[kname]))
     print(json.dumps({"kernels": rows}), flush=True)

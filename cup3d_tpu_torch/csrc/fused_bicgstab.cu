@@ -3,9 +3,10 @@
 // and the AMR forest's (cup3d_tpu_torch/ops/fused_amr_bicgstab.py).
 //
 // They replace the Pallas stage bodies of cup3d_tpu/ops/fused_bicgstab.py
-// (_k_update :173, _k_getz_two :185, _k_lap :195, _k_axpy :203,
-// _k_finish :209) and of cup3d_tpu/ops/fused_amr_bicgstab.py (_k_update
-// :183, _k_getz_two :195, _k_lap :208, _k_axpy :217, _k_finish :224), and
+// (_k_update :173, _k_getz_two :185, _k_getz_tile :190, _k_lap :195,
+// _k_axpy :203, _k_finish :209) and of cup3d_tpu/ops/fused_amr_bicgstab.py
+// (_k_update :183, _k_getz_two :195, _k_getz_tile :202, _k_lap :208,
+// _k_axpy :217, _k_finish :224), and
 // compute what those compute, not how: the TPU stages stream chunks of
 // 256 tiles or 64 blocks through VMEM; here every vector is BLOCK-MAJOR,
 // shape (T,8,8,8) in f32, so one 8^3 tile (a tile of the uniform grid or
@@ -21,6 +22,7 @@
 //   update  r, p, v in; p out                         4 x 4 B / cell
 //           (+ rhat out on a breakdown, when it is re-seeded from r)
 //   getz    w in, y out (+ 8 aux floats per tile)     2 x 4 B / cell
+//   getz_tile w in, y out (+ 1 h^2 per block)         2 x 4 B / cell
 //   getz_amr w, azf in; y out (+ 2 floats per block)  3 x 4 B / cell
 //   lap     w, a in; 6 face planes in; Aw out        3.75 x 4 B / cell
 //   lap_amr (10^3 lab)/8^3, corr, a in; Aw out  (1000/512 + 3) x 4 B / cell
@@ -229,6 +231,34 @@ k_getz_amr(const float* __restrict__ w, const float* __restrict__ azf,
 }
 
 // ---------------------------------------------------------------------------
+// B3 / B10 getz (tile-only): y = S3 diag(1/lam) S3 (-h2 w), the exact tile
+// solve without the coarse level.  Replaces _k_getz_tile of
+// cup3d_tpu/ops/fused_bicgstab.py (:190, math :111-130 with
+// two_level=False) and of cup3d_tpu/ops/fused_amr_bicgstab.py (:202).  One
+// kernel serves both: the uniform grid passes one h2 for every tile
+// (h2col == nullptr), the forest each block's own h^2 as a column, the way
+// B8/B12 take their null-able weight.  B2's transforms with no prologue
+// beyond the scale; moves w in, y out: 2 x 4 B / cell.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kCells)
+k_getz_tile(const float* __restrict__ w, const float* __restrict__ s1g,
+            const float* __restrict__ lam3, const float* __restrict__ h2col,
+            float h2, float* __restrict__ y) {
+  __shared__ float S1[64];
+  __shared__ float buf[2][kCells];
+  const size_t t = blockIdx.x;
+  const int c = threadIdx.x;
+  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
+  if (c < 64) S1[c] = s1g[c];
+  const size_t i = t * kCells + c;
+  const float h2t = h2col ? h2col[t] : h2;
+  buf[0][c] = -h2t * w[i];
+  __syncthreads();
+  y[i] = tile_solve_cell(buf, S1, lam3, a, b, k);
+}
+
+// ---------------------------------------------------------------------------
 // B4 lap: Aw = 7-point Laplacian / h^2 with cross-tile face planes, plus
 // the per-tile partials sum(a * Aw) and sum(Aw * Aw).
 // Replaces _k_lap (:195, math :133-148 over stencils.laplacian_lanes_chunk).
@@ -405,7 +435,8 @@ k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
 
 // ---------------------------------------------------------------------------
 // plain C interface (loaded with ctypes); T = number of 8^3 tiles or
-// blocks; wt may be nullptr (the uniform grid's B1 and B5)
+// blocks; wt may be nullptr (the uniform grid's B1 and B5), h2col too
+// (the uniform grid's B3)
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -422,6 +453,14 @@ int cup3d_update(const float* r, float* p, const float* v, float* rhat,
 int cup3d_getz_two(const float* w, const float* s1, const float* lam3,
                    const float* aux, float* y, float h2, int T, void* stream) {
   k_getz_two<<<T, kCells, 0, (cudaStream_t)stream>>>(w, s1, lam3, aux, y, h2, T);
+  return (int)cudaGetLastError();
+}
+
+int cup3d_getz_tile(const float* w, const float* s1, const float* lam3,
+                    const float* h2col, float h2, float* y, int T,
+                    void* stream) {
+  k_getz_tile<<<T, kCells, 0, (cudaStream_t)stream>>>(w, s1, lam3, h2col, h2,
+                                                       y);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,218 @@
+"""Checkpoint / restore of a full run (port of
+``cup3d_tpu/io/checkpoint.py``, the same on-disk format).
+
+A checkpoint is one pickled dict: ``version`` (:data:`FORMAT_VERSION`),
+``kind`` ("uniform" or "amr"), ``cfg`` as a plain dict, ``leaves`` (the
+octree leaf keys as an (nb, 4) int64 array on the forest, else None),
+``fields`` as numpy arrays in the JAX package's layouts, ``time``,
+``step``, ``dt``, ``uinf``, ``lambda_penal``, ``next_dump`` and
+``obstacles``.  An obstacle-free checkpoint written by either package
+restarts in the other: the port writes the forest's ``chi``/``udef`` as
+zeros, the fields it does not keep, and reads only ``vel`` and ``p``
+there.  Unpickling never imports the JAX package: a payload that names
+one of its classes (its obstacles) is refused with a clear error.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+from typing import Optional
+
+import numpy as np
+import torch
+
+FORMAT_VERSION = 1
+
+
+def _driver_kind(driver) -> str:
+    from cup3d_tpu_torch.sim.amr import AMRSimulation
+
+    return "amr" if isinstance(driver, AMRSimulation) else "uniform"
+
+
+def checkpoint_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"ckpt_{step:07d}.pkl")
+
+
+def build_payload(driver) -> dict:
+    """Everything a checkpoint needs, without reading the device:
+    ``fields`` holds references to the live tensors (the recovery engine
+    clones them; :func:`materialize_payload` reads them)."""
+    if _driver_kind(driver) == "amr":
+        kind, state = "amr", driver.state
+        time, step, dt = driver.time, driver.step_idx, driver.dt
+        uinf, lam = driver.uinf, driver.lambda_penal
+        leaves = np.asarray(driver.grid.keys, np.int64).reshape(-1, 4)
+    else:
+        s = driver.sim
+        kind, state = "uniform", s.state
+        time, step, dt = s.time, s.step, s.dt
+        uinf, lam = s.uinf, s.lambda_penal
+        leaves = None
+    return {
+        "version": FORMAT_VERSION,
+        "kind": kind,
+        "cfg": dataclasses.asdict(driver.cfg),
+        "leaves": leaves,
+        "fields": dict(state),
+        "time": float(time),
+        "step": int(step),
+        "dt": float(dt),
+        "uinf": np.asarray(uinf, np.float64),
+        "lambda_penal": float(lam),
+        # the port writes no dumps (ROADMAP A4): its dump cadence never
+        # leaves its start
+        "next_dump": 0.0,
+        "obstacles": [],
+    }
+
+
+def materialize_payload(payload: dict) -> dict:
+    """Read the field tensors of ``build_payload`` to numpy; on the
+    forest add the JAX package's ``chi``/``udef`` as zeros."""
+    out = dict(payload)
+    fields = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+              else np.asarray(v) for k, v in payload["fields"].items()}
+    if payload["kind"] == "amr":
+        fields.setdefault("chi", np.zeros_like(fields["p"]))
+        fields.setdefault("udef", np.zeros_like(fields["vel"]))
+    out["fields"] = fields
+    return out
+
+
+def write_payload(payload: dict, path: str) -> str:
+    """Atomic, retried write (tmp file + ``os.replace``, backoff on
+    failure): a kill or an armed ``ckpt.write_fail`` leaves the previous
+    complete file or none, never a truncated pickle."""
+    from cup3d_tpu_torch.resilience import faults, writeguard
+
+    def _write(tmp: str) -> None:
+        # fires on every retry while armed
+        faults.maybe_raise("ckpt.write_fail", payload.get("step"))
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    return writeguard.atomic_write(path, _write, site="ckpt")
+
+
+def save_checkpoint(driver, path: Optional[str] = None) -> str:
+    """Synchronous checkpoint to ``path`` (default
+    ``<path4serialization>/ckpt_<step>.pkl``)."""
+    payload = build_payload(driver)
+    if path is None:
+        path = checkpoint_path(driver.cfg.path4serialization,
+                               payload["step"])
+    return write_payload(materialize_payload(payload), path)
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module == "cup3d_tpu" or module.startswith("cup3d_tpu."):
+            raise ValueError(
+                f"the checkpoint holds {module}.{name} of the JAX package "
+                "(obstacles are not ported, ROADMAP A3)")
+        return super().find_class(module, name)
+
+
+def read_payload(path: str) -> dict:
+    """Unpickle and validate one checkpoint; a partial, corrupt or foreign
+    file raises ``ValueError``."""
+    try:
+        with open(path, "rb") as f:
+            payload = _Unpickler(f).load()
+    except OSError:
+        raise
+    except Exception as e:
+        raise ValueError(f"corrupt or truncated checkpoint {path!r}: "
+                         f"{type(e).__name__}: {e}") from e
+    if not isinstance(payload, dict) or "version" not in payload:
+        raise ValueError(f"not a cup3d_tpu checkpoint payload: {path!r}")
+    if payload["version"] != FORMAT_VERSION:
+        raise ValueError(f"unknown checkpoint version {payload['version']}")
+    missing = [k for k in ("kind", "cfg", "fields", "time", "step", "dt")
+               if k not in payload]
+    if missing:
+        raise ValueError(f"incomplete checkpoint {path!r}: missing keys "
+                         f"{missing}")
+    return payload
+
+
+def list_checkpoints(directory: str):
+    """``ckpt_*.pkl`` files under ``directory``, oldest step first."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    out = []
+    for n in names:
+        if n.startswith("ckpt_") and n.endswith(".pkl"):
+            try:
+                step = int(n[len("ckpt_"):-len(".pkl")])
+            except ValueError:
+                continue
+            out.append((step, os.path.join(directory, n)))
+    return [p for _, p in sorted(out)]
+
+
+def latest_valid_checkpoint(directory: str) -> Optional[str]:
+    """Newest checkpoint under ``directory`` whose payload validates."""
+    for path in reversed(list_checkpoints(directory)):
+        try:
+            read_payload(path)
+        except (ValueError, OSError):
+            continue
+        return path
+    return None
+
+
+def load_checkpoint(path: str, device=None):
+    """Rebuild the driver (AMRSimulation or Simulation) from a checkpoint,
+    ready to ``simulate()``, on ``device`` (None: CUDA, as every entry
+    point)."""
+    from cup3d_tpu_torch.config import SimulationConfig
+
+    payload = read_payload(path)
+    if payload.get("obstacles"):
+        raise NotImplementedError("checkpoints with obstacles are not "
+                                  "ported (ROADMAP A3)")
+    cfg = SimulationConfig(**payload["cfg"])
+    fields = payload["fields"]
+    if payload["kind"] == "amr":
+        from cup3d_tpu_torch.grid.octree import TreeConfig
+        from cup3d_tpu_torch.sim.amr import AMRSimulation, tree_from_keys
+
+        keys = [tuple(int(v) for v in k) for k in payload["leaves"]]
+        periodic = tuple(b == "periodic" for b in cfg.bc)
+        tree = tree_from_keys(TreeConfig((cfg.bpdx, cfg.bpdy, cfg.bpdz),
+                                         cfg.levelMax, periodic), keys)
+        driver = AMRSimulation(cfg, tree=tree, device=device)
+        if driver.grid.keys != keys:
+            raise ValueError("checkpoint leaves are not in the forest's "
+                             "Hilbert slot order")
+        driver.state = {k: torch.tensor(np.asarray(fields[k]),
+                                        dtype=driver.dtype,
+                                        device=driver.device)
+                        for k in ("vel", "p")}
+        driver.time = float(payload["time"])
+        driver.step_idx = int(payload["step"])
+        driver.dt = float(payload["dt"])
+        driver.uinf = np.asarray(payload["uinf"], np.float64)
+        driver.lambda_penal = float(payload["lambda_penal"])
+        return driver
+
+    from cup3d_tpu_torch.sim.simulation import Simulation
+
+    driver = Simulation(cfg, device=device)
+    s = driver.sim
+    s.state = {k: torch.tensor(np.asarray(v), dtype=s.dtype, device=s.device)
+               for k, v in fields.items()}
+    s.time = float(payload["time"])
+    s.step = int(payload["step"])
+    s.dt = float(payload["dt"])
+    s.uinf = np.asarray(payload["uinf"], np.float64)
+    s.lambda_penal = float(payload["lambda_penal"])
+    driver._setup_operators()
+    return driver
+

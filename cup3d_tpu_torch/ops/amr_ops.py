@@ -193,7 +193,9 @@ def forest_operator(geom, tab, flux_tab, vol: torch.Tensor,
 def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
                                      tol_rel: float = 1e-4,
                                      maxiter: int = 1000,
-                                     mean_constraint: int = 2):
+                                     precond_iters: int = 24,
+                                     mean_constraint: int = 2,
+                                     kernels: Optional[bool] = None):
     """getZ-preconditioned BiCGSTAB on the AMR forest (the analogue of
     PoissonSolverAMR, main.cpp:14363-14616), with the JAX package's call
     contract: ``solve(rhs, x0=None, tab_arg, flux_arg, rnorm_ref, geom,
@@ -206,12 +208,16 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
     mean, 2 (default) mean removal, 3 Dirichlet pin of the corner cell.
     ``CUP3D_FUSED=1`` with mean removal and the exact getZ runs the fused
     driver (ops/fused_amr_bicgstab.py: the CUDA kernels on CUDA
-    tensors); otherwise the legacy composition over krylov.bicgstab."""
+    tensors); otherwise the legacy composition over krylov.bicgstab,
+    whose getZ is ``precond_iters`` CG sweeps per block under
+    CUP3D_GETZ=cg (kernel B7 on CUDA tensors), with the block's own h^2
+    folded into the rhs.  ``kernels`` is passed to every kernel wrapper
+    (False: the plain versions on any device)."""
     from cup3d_tpu_torch.ops import krylov, precision
 
-    krylov._require_exact_getz()
     precision.check_policy(mean_constraint)
-    fused_on = precision.use_fused() and mean_constraint == 2
+    fused_on = (precision.use_fused() and mean_constraint == 2
+                and krylov.use_exact_getz())
 
     def solve(rhs, x0=None, tab_arg=None, flux_arg=None, rnorm_ref=None,
               geom=None, vol=None, pmask=None, graph=None, slot0=None,
@@ -232,10 +238,11 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
                 zc = krylov.coarse_correct_blocks(r, vol, graph)
                 zf = zc[:, None, None, None].expand(r.shape).to(r.dtype)
                 r2 = r - laplacian_blocks(geom, zf, t, ft)
-                return krylov.getz_blocks(-h2 * r2) + zf
+                return krylov.getz_blocks(-h2 * r2, precond_iters,
+                                          kernels) + zf
         else:
             def M(r):
-                return krylov.getz_blocks(-h2 * r)
+                return krylov.getz_blocks(-h2 * r, precond_iters, kernels)
 
         if mean_constraint == 2:
             b = rhs - wmean(rhs)
@@ -253,7 +260,7 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
             x, rnorm, k = _fused.fused_amr_bicgstab(
                 geom, b, tab=t, ftab=ft, vol=vol, graph=graph,
                 tol_abs=tol_abs, tol_rel=tol_rel, maxiter=maxiter,
-                rnorm_ref=rnorm_ref, x0=x0)
+                rnorm_ref=rnorm_ref, x0=x0, kernels=kernels)
         else:
             x, rnorm, k = krylov.bicgstab(
                 A, b, M=M, x0=x0, tol_abs=tol_abs, tol_rel=tol_rel,

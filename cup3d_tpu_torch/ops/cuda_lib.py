@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/fused_bicgstab.cu`` has a plain C interface; it is compiled with
-``nvcc`` for ``sm_90a`` into one shared library and loaded with
-``ctypes`` (no PyTorch headers, so the build takes seconds).  The build
-happens at first use, keyed on a hash of the sources and flags, into
+Each source under ``csrc/`` has a plain C interface; each is compiled
+with its own ``nvcc`` for ``sm_90a`` into a shared library, all sources
+at once (the compilers run in parallel), and loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The builds happen at first
+use, keyed on a hash of each source and the flags, into
 ``cup3d_tpu_torch/csrc/build/`` (listed in ``.gitignore``); a finished
 build is reused by later processes of the same checkout.
 
@@ -23,42 +24,52 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "fused_bicgstab.cu",)
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
-#: C entry point -> argtypes (every pointer and the stream as c_void_p)
-SIGNATURES = {
-    "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "cup3d_getz_two": [_P, _P, _P, _P, _P, _F, _I, _P],
-    "cup3d_lap": [_P, _P, _P, _P, _P, _P, _F, _I, _P],
-    "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _P],
-    "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "cup3d_getz_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "cup3d_lap_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+#: source -> {C entry point -> argtypes} (every pointer and the stream as
+#: c_void_p)
+SOURCES = {
+    CSRC / "fused_bicgstab.cu": {
+        "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "cup3d_getz_two": [_P, _P, _P, _P, _P, _F, _I, _P],
+        "cup3d_getz_tile": [_P, _P, _P, _P, _F, _P, _I, _P],
+        "cup3d_lap": [_P, _P, _P, _P, _P, _P, _F, _I, _P],
+        "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _P],
+        "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "cup3d_getz_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "cup3d_lap_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    },
+    CSRC / "getz_cg.cu": {
+        "cup3d_getz_cg": [_P, _P, _F, _P, _I, _L, _L, _I, _P],
+    },
 }
 
 
 class KernelLibrary:
-    """The loaded ``.so`` plus what its build reported."""
+    """The loaded libraries' entry points plus what their build reported."""
 
-    def __init__(self, path: Path, build_s: float, log: str):
-        self.path = path
-        self.build_s = build_s  # 0.0 when an existing build was reused
+    def __init__(self, paths: list, build_s: float, log: str):
+        self.paths = paths      # one .so per source
+        self.build_s = build_s  # wall seconds of the build, 0.0 if reused
         self.log = log          # nvcc / ptxas output of this build
-        self._lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(self._lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        self._fns = {}
+        for path, entries in zip(paths, SOURCES.values()):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                self._fns[name] = fn
 
     def call(self, name: str, *args) -> None:
         """Launch one entry point; raise if the launch was refused."""
-        err = getattr(self._lib, name)(*args)
+        err = self._fns[name](*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
@@ -75,38 +86,50 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
-    h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the sources unless a build of this exact source exists.
-    Returns (library path, build seconds, compiler log)."""
+def build() -> tuple[list, float, str]:
+    """Compile every source without a build of its exact text, one nvcc
+    per source, all started together.  Returns (library paths, build
+    seconds, compiler log)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libcup3d_kernels_{_digest()}.so"
-    if out.exists():
-        return out, 0.0, ""
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    outs = [_target(src) for src in SOURCES]
+    todo = [(src, out) for src, out in zip(SOURCES, outs)
+            if not out.exists()]
+    if not todo:
+        return outs, 0.0, ""
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    elapsed = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return out, elapsed, log
+    procs = []
+    for src, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, out, tmp, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+    return outs, time.perf_counter() - t0, log
 
 
 def load() -> KernelLibrary:
-    """The kernel library, built on first use (thread-safe)."""
+    """The kernel libraries, built on first use (thread-safe)."""
     global _loaded
     with _lock:
         if _loaded is None:
-            path, secs, log = build()
-            _loaded = KernelLibrary(path, secs, log)
+            paths, secs, log = build()
+            _loaded = KernelLibrary(paths, secs, log)
         return _loaded

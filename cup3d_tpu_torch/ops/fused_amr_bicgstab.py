@@ -13,13 +13,17 @@ plain PyTorch version (a port of the JAX package's ``*_math`` helpers):
                      sum p * vol (the coarse restriction of p)
 - ``getz_two`` (B9)  exact DST tile solve at the block's own h^2 on
                      -h^2 (w - A zf), plus the coarse injection zc
+- ``getz_tile`` (B10) the same tile solve without the coarse level
+                     (``graph=None``: ``CUP3D_COARSE=0`` and the recovery
+                     ladder's tile-only rung)
 - ``lap``      (B11) 7-point stencil on the width-1 lab x per-block 1/h^2
                      + the dense reflux increment + the dot partials
 - ``axpy``     (B12) s = r - alpha v + per-block sum s * vol
 - ``finish``   (B13) x/r updates + the residual/rho dot partials
 
-B8 and B12 are the uniform B1 and B5 kernels with a per-block weight;
-B13 is the uniform B6 kernel itself.  Their launches count under their
+B8 and B12 are the uniform B1 and B5 kernels with a per-block weight,
+B10 the uniform B3 kernel with a per-block h^2; B13 is the uniform B6
+kernel itself.  Their launches count under their
 own ``amr_*`` names so the two paths are held apart.
 
 Between the stages, in plain torch (the JAX package keeps the same
@@ -30,9 +34,7 @@ increment.  Partials are per block, combined by one ``torch.sum``: no
 float atomics, so reruns are bitwise equal.
 
 The forest runs unpadded: exactly ``nb`` blocks, real per-block volumes.
-The tile-only getZ (``graph=None``, Pallas ``_k_getz_tile``, B10) runs
-only with the plain versions and raises on the kernel path.  Dispatch
-follows ops/fused_bicgstab.py (``kernels`` None/False/True).
+Dispatch follows ops/fused_bicgstab.py (``kernels`` None/False/True).
 """
 
 from __future__ import annotations
@@ -49,10 +51,10 @@ BS = 8
 LAB = BS + 2  # width-1 lab edge
 
 #: kernel launches per stage, counted by the wrappers where they launch
-launches = {"amr_update": 0, "amr_getz_two": 0, "amr_lap": 0,
-            "amr_axpy": 0, "amr_finish": 0}
+launches = {"amr_update": 0, "amr_getz_two": 0, "amr_getz_tile": 0,
+            "amr_lap": 0, "amr_axpy": 0, "amr_finish": 0}
 #: iterations the fused driver executed, chunk tails included: each runs
-#: update/axpy/finish once and getz_two/lap twice
+#: update/axpy/finish once and getz (two-level or tile-only) and lap twice
 iterations = {"executed": 0}
 
 
@@ -163,16 +165,19 @@ def getz_two(w, azf, zc, h2, kernels=None):
 
 
 def getz_tile(w, h2, kernels=None):
-    """Tile-only getZ at per-block h^2, y = tilesolve(-h2 w): plain
-    version only; its kernel (Pallas ``_k_getz_tile``, B10) is not
-    ported."""
-    if fb._use_kernel(w, kernels):
-        raise NotImplementedError(
-            "the forest tile-only getZ kernel (B10, cup3d_tpu/ops/"
-            "fused_amr_bicgstab.py::_k_getz_tile) is not ported (ROADMAP "
-            "queue B); run with CUP3D_COARSE=1")
-    S3, lam, _ = tilesolve.basis(BS, _F32, str(w.device))
-    return _getz_math(w, None, None, S3, lam, h2, False)
+    """B10: tile-only getZ at per-block h^2, y = tilesolve(-h2 w); h2
+    (nb,).  The B3 kernel with the h^2 column."""
+    S3, lam, S1 = tilesolve.basis(BS, _F32, str(w.device))
+    if not fb._use_kernel(w, kernels):
+        return _getz_math(w, None, None, S3, lam, h2, False)
+    n = fb._check_vecs(w)
+    _check_cols(n, w.device, h2)
+    y = torch.empty_like(w)
+    fb._lib().call("cup3d_getz_tile", w.data_ptr(), S1.data_ptr(),
+                   lam.data_ptr(), h2.data_ptr(), 0.0, y.data_ptr(), n,
+                   fb._stream(w.device))
+    launches["amr_getz_tile"] += 1
+    return y
 
 
 def lap(lab, corr, a, inv_h2, kernels=None):

@@ -7,6 +7,9 @@ of the same function (a port of the JAX package's ``*_math`` helpers):
 
 - ``update``  (B1) p/rhat recurrence + breakdown select + per-tile sum p
 - ``getz_two`` (B2) exact DST tile solve + the two-level coarse/face terms
+- ``getz_tile`` (B3) the same tile solve without the coarse level
+  (``two_level=False``: ``CUP3D_COARSE=0`` and the recovery ladder's
+  tile-only rung)
 - ``lap``     (B4) cross-tile Laplacian apply + the iteration's dot partials
 - ``axpy``    (B5) s = r - alpha v + per-tile sum s
 - ``finish``  (B6) x/r updates + the residual/rho dot partials
@@ -24,10 +27,6 @@ kernel for a CUDA tensor and runs the plain version for a CPU tensor;
 ``kernels=False`` runs the plain version on any device (tests and the
 card comparisons); ``kernels=True`` on a CPU tensor raises.  A CUDA
 tensor never falls back to the plain version.
-
-The tile-only getZ stage (Pallas ``_k_getz_tile``, B3) is not ported:
-``two_level=False`` runs only with the plain versions and raises on the
-kernel path (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -43,9 +42,10 @@ _F32 = torch.float32
 BS = 8
 
 #: kernel launches per stage, counted by the wrappers where they launch
-launches = {"update": 0, "getz_two": 0, "lap": 0, "axpy": 0, "finish": 0}
+launches = {"update": 0, "getz_two": 0, "getz_tile": 0, "lap": 0,
+            "axpy": 0, "finish": 0}
 #: iterations the fused driver executed, chunk tails included: each runs
-#: update/axpy/finish once and getz_two/lap twice
+#: update/axpy/finish once and getz (two-level or tile-only) and lap twice
 iterations = {"executed": 0}
 
 
@@ -225,15 +225,17 @@ def getz_two(w, aux, h2, kernels=None):
 
 
 def getz_tile(w, h2, kernels=None):
-    """Tile-only getZ, y = tilesolve(-h2 w): plain version only; its
-    kernel (Pallas ``_k_getz_tile``, B3) is not ported."""
-    if _use_kernel(w, kernels):
-        raise NotImplementedError(
-            "the tile-only getZ kernel (B3, cup3d_tpu/ops/fused_bicgstab.py"
-            "::_k_getz_tile) is not ported (ROADMAP queue B); run with "
-            "CUP3D_COARSE=1")
-    S3, lam, _ = tilesolve.basis(BS, _F32, str(w.device))
-    return _getz_math(w, None, S3, lam, h2, False)
+    """B3: tile-only getZ, y = tilesolve(-h2 w), one h2 for every tile."""
+    S3, lam, S1 = tilesolve.basis(BS, _F32, str(w.device))
+    if not _use_kernel(w, kernels):
+        return _getz_math(w, None, S3, lam, h2, False)
+    T = _check_vecs(w)
+    y = torch.empty_like(w)
+    _lib().call("cup3d_getz_tile", w.data_ptr(), S1.data_ptr(),
+                lam.data_ptr(), None, float(h2), y.data_ptr(), T,
+                _stream(w.device))
+    launches["getz_tile"] += 1
+    return y
 
 
 def lap(w, planes, a, inv_h2, kernels=None):

@@ -15,9 +15,12 @@ The BiCGSTAB loops (here and in the fused driver) mirror the JAX
 chunk the iteration count, residual norm and best iterate only change
 while the predicate holds, so results equal the JAX loop's.
 
-Not ported yet (raise NotImplementedError): the dense fallback for grids
-not divisible by the tile size (``_build_iterative_solver_dense``) and
-the CG getZ (``CUP3D_GETZ=cg``, kernel B7) — ROADMAP queue A.
+``CUP3D_GETZ=cg`` selects the fixed-sweep CG getZ (``block_cg_tiles``;
+kernel B7 in ops/getz_cg.py) in place of the exact tile solve; it runs
+the legacy composition, as in the JAX package.  Still raising
+NotImplementedError: the dense fallback for grids the tile size does not
+divide (``_build_iterative_solver_dense``), whose reference crashes on
+every grid that reaches it (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ from cup3d_tpu_torch.ops.stencils import laplacian_faces, laplacian_lanes_chunk
 
 #: BiCGSTAB iterations between two host reads of the loop predicate
 ITER_CHUNK = 4
+#: iterations the legacy :func:`bicgstab` executed, chunk tails included:
+#: each applies the preconditioner twice
+iterations = {"executed": 0}
 
 
 def _dot(a, b):
@@ -221,33 +227,98 @@ def make_face_deltas(grid: UniformGrid, bs: int = 8) -> Callable:
 
 def use_exact_getz() -> bool:
     """The exact tile solve is the default; CUP3D_GETZ=cg selects the
-    fixed-sweep CG getZ, which is not ported (kernel B7)."""
+    fixed-sweep CG getZ (kernel B7)."""
     return os.environ.get("CUP3D_GETZ", "") != "cg"
-
-
-def _require_exact_getz() -> None:
-    if not use_exact_getz():
-        raise NotImplementedError(
-            "CUP3D_GETZ=cg: the CG getZ (Pallas kernel B7, "
-            "ops/getz_pallas.py) is not ported (ROADMAP queue B)")
 
 
 def getz_lanes(bt_scaled: torch.Tensor, shift=None,
                cg_iters: int = 24) -> torch.Tensor:
-    """getZ in the lanes layout: the exact DST tile solve."""
+    """getZ in the lanes layout (bs, bs, bs, T): the exact DST tile solve,
+    or ``cg_iters`` CG sweeps under CUP3D_GETZ=cg."""
+    from cup3d_tpu_torch.ops import getz_cg, tilesolve
+
+    if use_exact_getz():
+        return tilesolve.tile_solve_lanes(bt_scaled, shift)
+    return getz_cg.cg_tiles_lanes(bt_scaled, cg_iters,
+                                  0.0 if shift is None else shift)
+
+
+def getz_blocks(b_scaled: torch.Tensor, cg_iters: int = 24,
+                kernels: Optional[bool] = None) -> torch.Tensor:
+    """getZ in the blocks layout (..., bs, bs, bs): -lap_tile z = b_scaled
+    on every block, by the exact tile solve or (CUP3D_GETZ=cg)
+    ``cg_iters`` CG sweeps."""
     from cup3d_tpu_torch.ops import tilesolve
 
-    _require_exact_getz()
-    return tilesolve.tile_solve_lanes(bt_scaled, shift)
+    if use_exact_getz():
+        return tilesolve.tile_solve_blocks(b_scaled)
+    return block_cg_tiles(b_scaled, cg_iters, kernels=kernels)
 
 
-def getz_blocks(b_scaled: torch.Tensor) -> torch.Tensor:
-    """getZ in the blocks layout (..., bs, bs, bs): the exact tile solve
-    of -lap_tile z = b_scaled on every block."""
-    from cup3d_tpu_torch.ops import tilesolve
+def _block_lap(t: torch.Tensor) -> torch.Tensor:
+    """Per-tile 7-point Laplacian (h^2 scaled out) with an implicit
+    zero-Dirichlet halo, on the trailing bs^3 axes."""
+    z = torch.nn.functional.pad(t, (1, 1, 1, 1, 1, 1))
+    c = z[..., 1:-1, 1:-1, 1:-1]
+    return (z[..., 2:, 1:-1, 1:-1] + z[..., :-2, 1:-1, 1:-1]
+            + z[..., 1:-1, 2:, 1:-1] + z[..., 1:-1, :-2, 1:-1]
+            + z[..., 1:-1, 1:-1, 2:] + z[..., 1:-1, 1:-1, :-2]
+            - 6.0 * c)
 
-    _require_exact_getz()
-    return tilesolve.tile_solve_blocks(b_scaled)
+
+def block_cg_tiles(b: torch.Tensor, iters: int, shift=0.0,
+                   kernels: Optional[bool] = None) -> torch.Tensor:
+    """Solve (-block_lap + shift) z = b independently on every trailing
+    bs^3 tile of ``b`` with ``iters`` CG sweeps: kernel B7 on a CUDA
+    tensor (ops/getz_cg.py), :func:`block_cg_tiles_reference` on the
+    CPU."""
+    from cup3d_tpu_torch.ops import getz_cg
+
+    return getz_cg.cg_tiles_blocks(b, iters, shift, kernels)
+
+
+def block_cg_tiles_reference(b: torch.Tensor, iters: int,
+                             shift=0.0) -> torch.Tensor:
+    """The plain version of B7 (the JAX package's jnp reference): the
+    tile operator with its zero-Dirichlet halo is SPD for shift >= 0, so
+    plain CG applies; alpha = 0 when |p.Ap| <= 1e-30 and beta = 0 when
+    r.r <= 1e-30.  ``shift``: scalar or an array broadcastable to ``b``
+    (one value per tile)."""
+    acc = precision.accum_dtype(b.dtype)
+
+    def bdot(a, c):
+        return torch.sum(a * c, dim=(-1, -2, -3), keepdim=True, dtype=acc)
+
+    z = torch.zeros_like(b)
+    res, p = b, b
+    rs = bdot(b, b)
+    for _ in range(iters):
+        ap = -_block_lap(p) + shift * p
+        denom = bdot(p, ap)
+        ok = torch.abs(denom) > 1e-30
+        alpha = torch.where(ok, rs / torch.where(ok, denom, 1.0), 0.0)
+        z = z + alpha * p
+        res = res - alpha * ap
+        rs_new = bdot(res, res)
+        okr = rs > 1e-30
+        beta = torch.where(okr, rs_new / torch.where(okr, rs, 1.0), 0.0)
+        p = res + beta * p
+        rs = rs_new
+    return z
+
+
+def make_block_cg_preconditioner(bs: int = 8, iters: int = 24,
+                                 h: float = 1.0) -> Callable:
+    """z ~ A^{-1} r block-locally for A = lap/h^2 on a dense grid: tile
+    the grid into bs^3 blocks and run the getZ there, the h^2 scaling of A
+    folded into the per-tile rhs."""
+    h2 = h * h
+
+    def precond(r: torch.Tensor) -> torch.Tensor:
+        z = getz_blocks(-h2 * to_tiles(r, bs), cg_iters=iters)
+        return from_tiles(z, r.shape)
+
+    return precond
 
 
 def use_coarse_correction() -> bool:
@@ -576,7 +647,8 @@ def bicgstab(
                 s["rnorm_best"]),
         )
 
-    out, _ = iterate(init, step, maxiter, target)
+    out, executed = iterate(init, step, maxiter, target)
+    iterations["executed"] += executed
     return out["x_best"], out["rnorm_best"], out["k"]
 
 
@@ -602,14 +674,16 @@ def build_iterative_solver(
     references the cold RHS norm; ``with_stats`` also returns the (2,)
     f32 device vector [residual, iterations].
 
-    CUP3D_FUSED=1 with mean removal runs the fused driver (the CUDA
-    kernels on a CUDA tensor); otherwise the legacy composition."""
+    CUP3D_FUSED=1 with mean removal and the exact getZ runs the fused
+    driver (the CUDA kernels on a CUDA tensor); otherwise the legacy
+    composition (kernel B7 on a CUDA tensor under CUP3D_GETZ=cg)."""
     if any(s % precond_bs for s in grid.shape):
         raise NotImplementedError(
             f"grid {grid.shape} is not divisible by the tile size "
-            f"{precond_bs}: the dense-layout fallback is not ported "
-            "(ROADMAP queue A)")
-    _require_exact_getz()
+            f"{precond_bs}: the dense-layout fallback is not ported, "
+            "because the reference's crashes on every grid that reaches it "
+            "(its block-CG preconditioner tiles the same grid by the same "
+            "tile size; ROADMAP queue C)")
     precision.check_policy(mean_constraint)
     A0 = make_laplacian_lanes(grid, precond_bs)
     h2 = grid.h * grid.h
@@ -641,7 +715,9 @@ def build_iterative_solver(
         def M(r):
             return getz_lanes(-h2 * r, cg_iters=precond_iters)
 
-    if precision.use_fused() and mean_constraint == 2:
+    # the fused driver runs the exact getZ only: CUP3D_GETZ=cg keeps the
+    # legacy composition, as in the JAX package
+    if precision.use_fused() and mean_constraint == 2 and use_exact_getz():
         from cup3d_tpu_torch.ops import fused_bicgstab as _fused
 
         def solve(rhs: torch.Tensor, x0: Optional[torch.Tensor] = None,

@@ -16,14 +16,19 @@ main.cpp:15161-15326).
   stages are CUDA kernels), ending in ONE device-to-host read of the
   solver's [residual, iterations] and max|u|.
 
+``simulate()`` runs through the RecoveryEngine (resilience/recovery.py)
+unless ``CUP3D_RECOVER=0``, as the uniform driver does: a rollback
+restores the snapshot's forest (reusing the live tables when its leaf
+keys are the live forest's), and the ladder's tile-only rung drops the
+block graph, so the fused forest solve runs the tile-only getZ kernel
+B10.
+
 The forest is unpadded: every tensor has exactly ``nb`` blocks and every
 regrid rebuilds the tables (numpy) for the new topology.  Runs on CUDA
 unless the caller asks for the CPU.  Not ported yet, and raising with
 their ROADMAP item: obstacles, pipelined stepping and the megastep,
-dumps and checkpoints, implicit diffusion, forcing and mass-flux fixing.
-The JAX package's recovery engine (resilience ladder) is not ported
-either: a health-check failure raises SimulationFailure, as the JAX
-driver does with CUP3D_RECOVER=0.
+field dumps and periodic checkpoints, implicit diffusion, forcing and
+mass-flux fixing.
 """
 
 from __future__ import annotations
@@ -41,8 +46,13 @@ from cup3d_tpu_torch.grid.flux import build_flux_tables
 from cup3d_tpu_torch.grid.octree import Octree, TreeConfig
 from cup3d_tpu_torch.grid.uniform import BC
 from cup3d_tpu_torch.io.logging import BufferedLogger, Profiler
+from cup3d_tpu_torch.obs.flight import FlightRecorder
+from cup3d_tpu_torch.obs.trace import StepObserver
 from cup3d_tpu_torch.ops import amr_ops, krylov
-from cup3d_tpu_torch.sim.simulation import SimulationFailure, resolve_device
+from cup3d_tpu_torch.resilience import faults
+from cup3d_tpu_torch.resilience.recovery import (RecoveryEngine,
+                                                 SimulationFailure)
+from cup3d_tpu_torch.sim.simulation import resolve_device
 
 ADAPT_EVERY = 20  # reference cadence (main.cpp:15314)
 FIELDS = ("vel", "p")
@@ -58,7 +68,7 @@ def _unsupported(cfg: SimulationConfig) -> Optional[str]:
     if cfg.uMax_forced > 0 or cfg.bFixMassFlux:
         return "external forcing / mass-flux fixing (ROADMAP A5)"
     if cfg.tdump > 0 or cfg.fdump > 0 or cfg.saveFreq > 0:
-        return "field dumps and checkpoints (ROADMAP A4)"
+        return "field dumps and periodic checkpoints (ROADMAP A4)"
     if cfg.initCond == "vorticity":
         return "initCond vorticity on the forest (ROADMAP A5)"
     return None
@@ -84,6 +94,7 @@ class AMRSimulation:
         self.step_idx = 0
         self.dt = 0.0
         self.uinf = np.asarray(cfg.uinf, np.float64)
+        self.lambda_penal = cfg.lambda_penalization
         self._uinf_src = None
         self._uinf_dev = None
         self.nu = cfg.nu
@@ -94,17 +105,45 @@ class AMRSimulation:
         self._pending_parts: List = []
         self._umax_next: Optional[float] = None
         #: one dict per finished step: step, time, dt, umax, resid, iters,
-        #: wall_s, nb
+        #: wall_s, nb (steps a rollback abandoned included)
         self.step_log: List[dict] = []
         #: host seconds of the table builds of each topology (_rebuild)
         self.table_build_s: List[float] = []
-        self._solver_core = amr_ops.build_amr_poisson_solver_dynamic(
-            self.grid.bs, tol_abs=cfg.poissonTol, tol_rel=cfg.poissonTolRel,
-            maxiter=1000, mean_constraint=cfg.bMeanConstraint)
+        self.flight = FlightRecorder(directory=cfg.path4serialization,
+                                     run_config=cfg,
+                                     state_probe=self._flight_state)
+        self._obs = StepObserver(self.flight, kind="amr")
+        self._last_umax: Optional[float] = None
+        #: the RecoveryEngine while simulate() runs one (None otherwise)
+        self._resilience: Optional[RecoveryEngine] = None
+        # the Poisson ladder's overrides: None = the CUP3D_COARSE default
+        self._poisson_two_level: Optional[bool] = None
+        self._poisson_maxiter = 1000
+        self._build_solver_core()
         self._rebuild()
         self._alloc_fields()
 
+    def _flight_state(self) -> dict:
+        """Driver state for a postmortem (called only at dump time)."""
+        g = self.grid
+        return {"driver": "amr", "blocks": int(g.nb),
+                "levels": sorted(set(int(v) for v in g.level)),
+                "step": self.step_idx, "time": self.time, "dt": self.dt}
+
     # -- topology-dependent tables -----------------------------------------
+
+    def _coarse(self) -> bool:
+        """Whether the solve runs the block-graph coarse level."""
+        two = (krylov.use_coarse_correction()
+               if self._poisson_two_level is None
+               else bool(self._poisson_two_level))
+        return two and self.cfg.bMeanConstraint not in (1, 3)
+
+    def _build_solver_core(self) -> None:
+        cfg = self.cfg
+        self._solver_core = amr_ops.build_amr_poisson_solver_dynamic(
+            self.grid.bs, tol_abs=cfg.poissonTol, tol_rel=cfg.poissonTolRel,
+            maxiter=self._poisson_maxiter, mean_constraint=cfg.bMeanConstraint)
 
     def _rebuild(self) -> None:
         """Tables, coarse graph and solver binding of the current grid."""
@@ -113,9 +152,8 @@ class AMRSimulation:
         self._tab1 = g.face_tables(1, dev)
         self._tab3 = g.face_tables(3, dev)
         self._ftab = build_flux_tables(g, dev)
-        coarse = (krylov.use_coarse_correction()
-                  and cfg.bMeanConstraint not in (1, 3))
-        self._graph = krylov.block_graph_tables(g, dev) if coarse else None
+        self._graph = (krylov.block_graph_tables(g, dev) if self._coarse()
+                       else None)
         self.table_build_s.append(time.perf_counter() - t0)
         # cell volume h^3 in f64 rounded to the field dtype (the JAX
         # bucketed driver's values)
@@ -125,7 +163,11 @@ class AMRSimulation:
         if cfg.bMeanConstraint in (1, 3):
             self._slot0 = int(np.lexsort(
                 (g.ijk[:, 2], g.ijk[:, 1], g.ijk[:, 0]))[0])
-        core, geom = self._solver_core, g
+        self._bind_solver()
+
+    def _bind_solver(self) -> None:
+        """``self._solver``: the solver core bound to this topology."""
+        core, geom = self._solver_core, self.grid
         vol, graph, slot0 = self._vol, self._graph, self._slot0
 
         def solver(rhs, x0=None, **kw):
@@ -211,18 +253,22 @@ class AMRSimulation:
 
         cfg = self.cfg
         hmin = float(self.grid.h.min())
+        if faults.fire("step.nan_velocity", self.step_idx):
+            self._umax_next = float("nan")
         if self._umax_next is not None:
             umax = self._umax_next
             self._umax_next = None
         else:
             umax = float(self._maxu())
+        self._last_umax = umax
         if not np.isfinite(umax) or umax > cfg.uMax_allowed:
             self.logger.flush()
             reason = ("nan-velocity" if not np.isfinite(umax)
                       else "runaway-velocity")
+            extra = {"step": self.step_idx, "umax": umax}
+            self.flight.trigger(reason, extra=extra)
             raise SimulationFailure(
-                reason, f"runaway velocity: max|u|={umax:.3g}",
-                {"step": self.step_idx, "umax": umax})
+                reason, f"runaway velocity: max|u|={umax:.3g}", extra)
         if cfg.dt > 0:
             self.dt = cfg.dt
         else:
@@ -231,10 +277,16 @@ class AMRSimulation:
                                        cfg.implicitDiffusion)
             if cfg.tend > 0:
                 self.dt = min(self.dt, cfg.tend - self.time)
+        if self._resilience is not None:
+            self.dt = self._resilience.scale_dt(self.dt)
+        if faults.fire("dt.collapse", self.step_idx):
+            self.dt = float("nan")
         if not np.isfinite(self.dt) or self.dt <= 0:
+            extra = {"step": self.step_idx, "dt": self.dt, "umax": umax}
+            self.flight.trigger("dt-collapse", extra=extra)
             raise SimulationFailure(
                 "dt-collapse", f"dt policy collapse: dt={self.dt:.3g}",
-                {"step": self.step_idx, "dt": self.dt, "umax": umax})
+                extra)
         return self.dt
 
     def advance(self, dt: float) -> None:
@@ -266,12 +318,17 @@ class AMRSimulation:
         row.update(step=self.step_idx, time=self.time, dt=dt, nb=g.nb,
                    wall_s=time.perf_counter() - t0)
         self.step_log.append(row)
+        self.flight.record_step({"step": self.step_idx, "t": self.time,
+                                 "dt": dt, "umax": self._last_umax,
+                                 "nb": g.nb, "wall_s": row["wall_s"],
+                                 "solver": self._obs.last_solver})
         self.step_idx += 1
         self.time += dt
 
     def _consume_step_pack(self) -> dict:
         """ONE blocking host read for everything the step produced: the
-        solver's [residual, iterations] and max|u| for the next dt."""
+        solver's [residual, iterations] (on to the flight recorder) and
+        max|u| for the next dt."""
         parts = self._pending_parts
         self._pending_parts = []
         parts.append(("umax", self._maxu().reshape(1)))
@@ -286,6 +343,9 @@ class AMRSimulation:
                 row["umax"] = seg[0]
             elif name == "psolve":
                 row["resid"], row["iters"] = seg[0], seg[1]
+                self._obs.note_solver(
+                    self.step_idx, seg[1], seg[0],
+                    cap=getattr(self._solver, "maxiter", None))
         return row
 
     def _log_diagnostics(self) -> None:
@@ -307,25 +367,101 @@ class AMRSimulation:
                 f"{float(d['enstrophy']):.8e}"
                 f" {float(d['dissipation_rate']):.8e}\n")
 
+    # -- resilience hooks (resilience/recovery.py driver contract) ---------
+
+    def _resilience_restore(self, payload: dict) -> None:
+        """In-place rollback to a ``build_payload``-shaped snapshot: the
+        forest of its leaf keys (the live grid and its tables when the
+        keys are the live forest's, else a rebuild), its fields cloned in
+        (the snapshot survives repeated restores) and its scalars."""
+        keys = [tuple(int(v) for v in k) for k in payload["leaves"]]
+        if keys != self.grid.keys:
+            self.grid = grid_from_keys(self.grid, keys)
+            self._rebuild()
+        self.state = {k: torch.clone(v) for k, v in payload["fields"].items()}
+        self.time = float(payload["time"])
+        self.step_idx = int(payload["step"])
+        self.dt = float(payload["dt"])
+        self.uinf = np.asarray(payload["uinf"], np.float64)
+        self.lambda_penal = float(payload["lambda_penal"])
+        self._pending_parts = []
+        self._umax_next = None
+        self._last_umax = None
+
+    def _resilience_zero_pressure(self) -> None:
+        """Ladder stage 'zero-guess': the next solve starts from p = 0."""
+        self.state["p"] = torch.zeros_like(self.state["p"])
+
+    def _resilience_rebuild_poisson(self, two_level=None,
+                                    maxiter_mult: int = 1) -> None:
+        """Ladder stages 'tile-only' / 'iter-bump': rebuild the solver
+        with the block graph dropped (the fused forest solve then runs the
+        tile-only getZ kernel B10) and/or a bigger iteration budget.  The
+        face and flux tables do not depend on the solver and stay."""
+        self._poisson_two_level = two_level
+        self._poisson_maxiter = 1000 * int(maxiter_mult)
+        self._build_solver_core()
+        if not self._coarse():
+            self._graph = None
+        elif self._graph is None:
+            self._graph = krylov.block_graph_tables(self.grid, self.device)
+        self._bind_solver()
+
     def simulate(self) -> None:
+        """loop { calc_max_timestep; advance } to ``tend`` or ``nsteps``,
+        through the RecoveryEngine unless ``CUP3D_RECOVER=0``; only
+        SimulationFailures of a recoverable reason are retried."""
         cfg = self.cfg
-        while True:
-            dt = self.calc_max_timestep()
-            if cfg.verbose:
-                print(f"cup3d_tpu_torch[amr]: step: {self.step_idx}, "
-                      f"time: {self.time:f}, dt: {dt:.3e}, "
-                      f"blocks: {self.grid.nb}")
-            self.advance(dt)
-            done_t = cfg.tend > 0 and self.time >= cfg.tend - 1e-12
-            done_n = cfg.nsteps > 0 and self.step_idx >= cfg.nsteps
-            if done_t or done_n:
-                break
-        self.logger.flush()
+        eng = RecoveryEngine.install(self)
+        try:
+            while True:
+                if eng is not None and eng.on_loop_top():
+                    continue  # rolled back: restart the iteration
+                try:
+                    dt = self.calc_max_timestep()
+                    if cfg.verbose:
+                        print(f"cup3d_tpu_torch[amr]: step: {self.step_idx},"
+                              f" time: {self.time:f}, dt: {dt:.3e}, "
+                              f"blocks: {self.grid.nb}")
+                    self.advance(dt)
+                except Exception as e:
+                    if eng is not None and eng.handle_failure(e):
+                        continue  # rolled back: retry from the snapshot
+                    raise
+                done_t = cfg.tend > 0 and self.time >= cfg.tend - 1e-12
+                done_n = cfg.nsteps > 0 and self.step_idx >= cfg.nsteps
+                if done_t or done_n:
+                    break
+            self.logger.flush()
+        finally:
+            if eng is not None:
+                eng.uninstall()
 
 
 # ---------------------------------------------------------------------------
 # carrying an AMR state between the packages
 # ---------------------------------------------------------------------------
+
+
+def tree_from_keys(tree_cfg: TreeConfig, keys) -> Octree:
+    """The balanced octree whose leaves are ``keys`` (level, i, j, k)."""
+    tree = Octree(tree_cfg, 0)
+    tree.leaves.clear()
+    for k in keys:
+        tree.leaves[tuple(int(v) for v in k)] = None
+    tree.assert_balanced()
+    return tree
+
+
+def grid_from_keys(like: BlockGrid, keys) -> BlockGrid:
+    """A BlockGrid of ``like``'s extent, BCs and block size on the forest
+    of ``keys``, which must be in its Hilbert slot order."""
+    keys = [tuple(int(v) for v in k) for k in keys]
+    grid = BlockGrid(tree_from_keys(like.tree.cfg, keys), like.extent,
+                     like.bc, like.bs)
+    if grid.keys != keys:
+        raise ValueError("keys are not in the forest's Hilbert slot order")
+    return grid
 
 
 def state_to_numpy(sim: AMRSimulation):
@@ -346,16 +482,7 @@ def load_state_numpy(sim: AMRSimulation, arrays: Dict[str, np.ndarray],
     ``[:nb]`` rows, in its slot order) and its time/step/dt/uinf.  The
     keys rebuild the octree; the fields must be in the order of those
     keys, which is the Hilbert order both packages use."""
-    keys = [tuple(int(v) for v in k) for k in np.asarray(arrays["keys"])]
-    cfg = sim.grid.tree.cfg
-    tree = Octree(cfg, 0)
-    tree.leaves.clear()
-    for k in keys:
-        tree.leaves[k] = None
-    tree.assert_balanced()
-    grid = BlockGrid(tree, sim.grid.extent, sim.grid.bc, sim.grid.bs)
-    if grid.keys != keys:
-        raise ValueError("keys are not in the forest's Hilbert slot order")
+    grid = grid_from_keys(sim.grid, np.asarray(arrays["keys"]))
     bs = grid.bs
     want = {"vel": (grid.nb, bs, bs, bs, 3), "p": (grid.nb, bs, bs, bs)}
     for name in FIELDS:

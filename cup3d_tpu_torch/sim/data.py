@@ -55,6 +55,9 @@ class SimulationData:
         self.step: int = 0
         self.dt: float = 0.0
         self.uinf = np.asarray(cfg.uinf, dtype=np.float64)
+        # penalization lambda: no obstacles run yet (ROADMAP A3); kept for
+        # the checkpoint payload
+        self.lambda_penal = cfg.lambda_penalization
         self.nu = cfg.nu
         # device QoI produced during a step, read back in ONE host read at
         # the end of the step (Simulation.advance)

@@ -6,12 +6,20 @@ Simulation, main.cpp:15161-15326).
 ``nsteps``.  Each step ends in ONE device-to-host read that brings back
 the Poisson solver's [residual, iterations] and max|u| for the next dt.
 
+``simulate()`` runs through the RecoveryEngine (resilience/recovery.py)
+unless ``CUP3D_RECOVER=0``: health-check failures (NaN or runaway
+velocity, dt collapse, a Poisson solve that hits its iteration cap or
+returns a NaN residual) roll back to an in-memory snapshot and retry,
+walking the Poisson ladder warm-restart -> zero-guess -> tile-only ->
+iter-bump.  The flight recorder (obs/flight.py) keeps the recent steps
+and writes a postmortem when a failure is not recovered.
+
 Runs on CUDA unless the caller asks for the CPU (``device="cpu"``); with
 no GPU and no explicit device it raises.  Not ported yet, and raising:
 obstacles (ROADMAP A3), pipelined stepping and the scan megaloop (A4),
-dumps and checkpoints (A4), implicit diffusion, forcing and mass-flux
-fixing (A5), the resilience engine (A5).  ``levelMax > 1`` is the AMR
-driver's (sim/amr.py).
+field dumps and periodic checkpoints (A4; io/checkpoint.py writes and
+reads checkpoints), implicit diffusion, forcing and mass-flux fixing
+(A5).  ``levelMax > 1`` is the AMR driver's (sim/amr.py).
 """
 
 from __future__ import annotations
@@ -24,19 +32,14 @@ import numpy as np
 import torch
 
 from cup3d_tpu_torch.config import SimulationConfig
+from cup3d_tpu_torch.obs.flight import FlightRecorder
+from cup3d_tpu_torch.obs.trace import StepObserver
 from cup3d_tpu_torch.ops import diagnostics as diag
+from cup3d_tpu_torch.resilience import faults
+from cup3d_tpu_torch.resilience.recovery import (  # noqa: F401 (re-export)
+    RecoveryEngine, SimulationFailure)
 from cup3d_tpu_torch.sim import operators as ops
 from cup3d_tpu_torch.sim.data import SimulationData
-
-
-class SimulationFailure(RuntimeError):
-    """A run aborted by its own health checks (runaway velocity, dt
-    collapse), with a machine-readable ``reason``."""
-
-    def __init__(self, reason: str, message: str, extra: dict):
-        super().__init__(message)
-        self.reason = reason
-        self.extra = extra
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,7 +68,7 @@ def _unsupported(cfg: SimulationConfig) -> Optional[str]:
     if cfg.uMax_forced > 0 or cfg.bFixMassFlux:
         return "external forcing / mass-flux fixing (ROADMAP A5)"
     if cfg.tdump > 0 or cfg.fdump > 0 or cfg.saveFreq > 0:
-        return "field dumps and checkpoints (ROADMAP A4)"
+        return "field dumps and periodic checkpoints (ROADMAP A4)"
     return None
 
 
@@ -82,8 +85,17 @@ class Simulation:
         self._umax_next: Optional[float] = None
         self._last_umax: Optional[float] = None
         #: one dict per finished step: step, time, dt, umax, wall_s and,
-        #: for an iterative solver, resid and iters
+        #: for an iterative solver, resid and iters (steps a rollback
+        #: abandoned included)
         self.step_log: List[dict] = []
+        # the flight recorder's ring runs always; solver stats reach it
+        # from the step pack (_read_step_pack), never by a read of their own
+        self.flight = FlightRecorder(directory=cfg.path4serialization,
+                                     run_config=cfg,
+                                     state_probe=self._flight_state)
+        self._obs = StepObserver(self.flight, kind="uniform")
+        #: the RecoveryEngine while simulate() runs one (None otherwise)
+        self._resilience: Optional[RecoveryEngine] = None
 
     # -- setup (reference init(), main.cpp:15163-15178) --------------------
 
@@ -101,15 +113,26 @@ class Simulation:
             ops.ComputeDivergence(s),
         ]
 
+    def _flight_state(self) -> dict:
+        """Driver state for a postmortem (called only at dump time)."""
+        s = self.sim
+        return {"driver": "uniform", "shape": list(s.grid.shape),
+                "step": s.step, "time": s.time, "dt": s.dt,
+                "uinf": [float(v) for v in s.uinf]}
+
     # -- time stepping -----------------------------------------------------
 
     def calc_max_timestep(self) -> float:
         """CFL dt with diffusive cap and log ramp-up (main.cpp:15254-15305),
-        from max|u| read at the end of the previous step (or read now)."""
+        from max|u| read at the end of the previous step (or read now);
+        scaled by a recovering engine; a NaN or runaway max|u| and a
+        collapsed dt trigger the flight recorder and raise."""
         from cup3d_tpu_torch.sim import dtpolicy
 
         s, cfg = self.sim, self.cfg
         h = s.grid.h
+        if faults.fire("step.nan_velocity", s.step):
+            self._umax_next = float("nan")
         if self._umax_next is not None:
             umax = self._umax_next
             self._umax_next = None
@@ -120,12 +143,12 @@ class Simulation:
             s.logger.flush()
             reason = ("nan-velocity" if not np.isfinite(umax)
                       else "runaway-velocity")
+            extra = {"step": s.step, "umax": umax}
+            self.flight.trigger(reason, extra=extra)
             raise SimulationFailure(
                 reason,
                 f"runaway velocity: max|u|={umax:.3g} > "
-                f"uMax_allowed={cfg.uMax_allowed}",
-                {"step": s.step, "umax": umax},
-            )
+                f"uMax_allowed={cfg.uMax_allowed}", extra)
         if cfg.dt > 0:
             s.dt = cfg.dt
         else:
@@ -133,10 +156,17 @@ class Simulation:
                                     cfg.rampup, cfg.implicitDiffusion)
             if cfg.tend > 0:
                 s.dt = min(s.dt, cfg.tend - s.time)
+        if self._resilience is not None:
+            # the same float at scale 1.0: a fault-free armed run is
+            # bitwise the CUP3D_RECOVER=0 one
+            s.dt = self._resilience.scale_dt(s.dt)
+        if faults.fire("dt.collapse", s.step):
+            s.dt = float("nan")
         if not np.isfinite(s.dt) or s.dt <= 0:
+            extra = {"step": s.step, "dt": s.dt, "umax": umax}
+            self.flight.trigger("dt-collapse", extra=extra)
             raise SimulationFailure(
-                "dt-collapse", f"dt policy collapse: dt={s.dt:.3g}",
-                {"step": s.step, "dt": s.dt, "umax": umax})
+                "dt-collapse", f"dt policy collapse: dt={s.dt:.3g}", extra)
         return s.dt
 
     def advance(self, dt: float) -> None:
@@ -152,12 +182,17 @@ class Simulation:
         row.update(step=s.step, time=s.time, dt=dt,
                    wall_s=time.perf_counter() - t0)
         self.step_log.append(row)
+        self.flight.record_step({"step": s.step, "t": s.time, "dt": dt,
+                                 "umax": self._last_umax,
+                                 "wall_s": row["wall_s"],
+                                 "solver": self._obs.last_solver})
         s.step += 1
         s.time += dt
 
     def _read_step_pack(self) -> dict:
         """Concatenate the step's device QoI (solver stats) and max|u| into
-        one vector and read it back: the step's single device sync."""
+        one vector and read it back: the step's single device sync.  The
+        solver stats go on to the flight recorder (StepObserver)."""
         s = self.sim
         parts = s.pending_parts
         s.pending_parts = []
@@ -174,18 +209,77 @@ class Simulation:
                 row["umax"] = seg[0]
             elif name == "psolve":
                 row["resid"], row["iters"] = seg[0], seg[1]
+                self._obs.note_solver(
+                    s.step, seg[1], seg[0],
+                    cap=getattr(s.poisson_solver, "maxiter", None))
         return row
 
-    def simulate(self) -> None:
+    # -- resilience hooks (resilience/recovery.py driver contract) ---------
+
+    def _resilience_restore(self, payload: dict) -> None:
+        """In-place rollback to a ``build_payload``-shaped snapshot.  The
+        fields are cloned on the way in, so the snapshot survives repeated
+        restores."""
+        s = self.sim
+        s.state = {k: torch.clone(v) for k, v in payload["fields"].items()}
+        s.time = float(payload["time"])
+        s.step = int(payload["step"])
+        s.dt = float(payload["dt"])
+        s.uinf = np.asarray(payload["uinf"], np.float64)
+        s.lambda_penal = float(payload["lambda_penal"])
+        s.pending_parts = []
+        self._umax_next = None
+        self._last_umax = None
+
+    def _resilience_zero_pressure(self) -> None:
+        """Ladder stage 'zero-guess': the next solve starts from p = 0
+        (the projection warm-starts from the live pressure)."""
+        self.sim.state["p"] = torch.zeros_like(self.sim.state["p"])
+
+    def _resilience_rebuild_poisson(self, two_level=None,
+                                    maxiter_mult: int = 1) -> None:
+        """Ladder stages 'tile-only' / 'iter-bump': rebuild the Poisson
+        solve with the coarse level dropped (under CUP3D_FUSED=1 the fused
+        driver then runs the tile-only getZ kernel B3) and/or a bigger
+        iteration budget.  The spectral solver is direct and ignores
+        both."""
+        from cup3d_tpu_torch.ops.poisson import make_poisson_solver
+
         s, cfg = self.sim, self.cfg
-        while True:
-            dt = self.calc_max_timestep()
-            if cfg.verbose:
-                print(f"cup3d_tpu_torch: step: {s.step}, "
-                      f"time: {s.time:f}, dt: {dt:.3e}")
-            self.advance(dt)
-            done_t = cfg.tend > 0 and s.time >= cfg.tend - 1e-12
-            done_n = cfg.nsteps > 0 and s.step >= cfg.nsteps
-            if done_t or done_n:
-                break
-        s.logger.flush()
+        s.poisson_solver = make_poisson_solver(
+            s.grid, cfg.poissonSolver, s.dtype, tol_abs=cfg.poissonTol,
+            tol_rel=cfg.poissonTolRel, maxiter=1000 * int(maxiter_mult),
+            mean_constraint=cfg.bMeanConstraint, two_level=two_level)
+        for i, op in enumerate(self.pipeline):
+            if isinstance(op, ops.PressureProjection):
+                self.pipeline[i] = ops.PressureProjection(s)
+
+    def simulate(self) -> None:
+        """loop { calc_max_timestep; advance } to ``tend`` or ``nsteps``,
+        through the RecoveryEngine unless ``CUP3D_RECOVER=0``.  Only
+        SimulationFailures of a recoverable reason are retried: any other
+        exception (a kernel that fails to build or launch) ends the run."""
+        s, cfg = self.sim, self.cfg
+        eng = RecoveryEngine.install(self)
+        try:
+            while True:
+                if eng is not None and eng.on_loop_top():
+                    continue  # rolled back: restart the iteration
+                try:
+                    dt = self.calc_max_timestep()
+                    if cfg.verbose:
+                        print(f"cup3d_tpu_torch: step: {s.step}, "
+                              f"time: {s.time:f}, dt: {dt:.3e}")
+                    self.advance(dt)
+                except Exception as e:
+                    if eng is not None and eng.handle_failure(e):
+                        continue  # rolled back: retry from the snapshot
+                    raise
+                done_t = cfg.tend > 0 and s.time >= cfg.tend - 1e-12
+                done_n = cfg.nsteps > 0 and s.step >= cfg.nsteps
+                if done_t or done_n:
+                    break
+            s.logger.flush()
+        finally:
+            if eng is not None:
+                eng.uninstall()

@@ -35,6 +35,7 @@ from cup3d_tpu_torch.grid.flux import build_flux_tables as tflux
 from cup3d_tpu_torch.grid.octree import Octree as TTree
 from cup3d_tpu_torch.grid.octree import TreeConfig as TCfg
 from cup3d_tpu_torch.grid.uniform import BC as TBC
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BS = 8
 RTOL = 1e-6

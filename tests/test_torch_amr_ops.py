@@ -28,6 +28,7 @@ from cup3d_tpu_torch.grid.flux import build_flux_tables as tflux
 from cup3d_tpu_torch.ops import amr_ops as tops
 from cup3d_tpu_torch.ops import krylov as tk
 from test_torch_amr_grid import CLOSED, ONE, PERIODIC, TWO, forests
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BS = 8
 RTOL = 1e-5

@@ -27,6 +27,7 @@ from cup3d_tpu_torch import __main__ as tmain
 from cup3d_tpu_torch.config import SimulationConfig as TConfig
 from cup3d_tpu_torch.ops import amr_ops
 from cup3d_tpu_torch.sim import amr as tamr
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 5
 ARGV = ("-bpdx 3 -bpdy 3 -bpdz 3 -levelMax 2 -levelStart 0 "

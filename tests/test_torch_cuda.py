@@ -11,7 +11,11 @@ states (2e-6 elementwise, 1e-5 getz, partials 1e-5 of the per-tile sum
 of |terms|), the whole fused solve within +-1 iteration and 1e-4, and a
 short driver run whose launch counts match its iterations.  The same for
 the AMR forest's kernels on a small two-level forest (periodic and
-closed), plus a bitwise-equal rerun of the kernel solve."""
+closed), plus a bitwise-equal rerun of the kernel solve.  The tile-only
+getZ (B3, B10) in fused solves whose getz_tile launches are twice the
+executed iterations, and the CG getZ (B7) on both layouts, with a scalar
+and a per-tile shift, and in a CUP3D_GETZ=cg solve whose launches equal
+its preconditioner applications."""
 
 import math
 
@@ -88,8 +92,11 @@ def test_stage_kernels_match_plain_versions(dev):
     _close(got[2], want[2], 1e-5, _tile_abs_sum(want[1] * want[1]))
     _close(got[3], want[3], 1e-5, _tile_abs_sum(rhat * want[1]))
     torch.cuda.synchronize()
-    assert fb.launches == {"update": 2, "getz_two": 1, "lap": 1, "axpy": 1,
-                           "finish": 1}
+    _close(fb.getz_tile(w, 0.01), fb.getz_tile(w, 0.01, kernels=False),
+           1e-5)
+    torch.cuda.synchronize()
+    assert fb.launches == {"update": 2, "getz_two": 1, "getz_tile": 1,
+                           "lap": 1, "axpy": 1, "finish": 1}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -98,8 +105,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fb.axpy(r.transpose(1, 2), v, _row(dev, 0.5))
     with pytest.raises(ValueError, match="f32"):
         fb.axpy(r.double(), v.double(), _row(dev, 0.5))
-    with pytest.raises(NotImplementedError, match="B3"):
-        fb.getz_tile(r, 0.01)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.getz_tile(r.transpose(1, 2), 0.01)
     # lap reads the face planes as float4: a view 4 bytes in is refused
     planes = torch.zeros(T * 6 * 64 + 1, device=dev)[1:].view(T, 6, 8, 8)
     with pytest.raises(ValueError, match="aligned"):
@@ -139,8 +146,8 @@ def test_driver_launch_counts_match_iterations(dev, monkeypatch, tmp_path):
                    for k in iters)
     assert fb.iterations["executed"] == executed > 0
     assert fb.launches == {"update": executed, "getz_two": 2 * executed,
-                           "lap": 2 * executed, "axpy": executed,
-                           "finish": executed}
+                           "getz_tile": 0, "lap": 2 * executed,
+                           "axpy": executed, "finish": executed}
     assert torch.isfinite(d.sim.state["vel"]).all()
 
 
@@ -208,10 +215,11 @@ def test_forest_stage_kernels_match_plain_versions(dev):
     for gt, wt in zip(got[:2], want[:2]):
         _close(gt, wt, 2e-6)
     torch.cuda.synchronize()
-    assert fa.launches == {"amr_update": 2, "amr_getz_two": 1, "amr_lap": 1,
-                           "amr_axpy": 1, "amr_finish": 1}
-    with pytest.raises(NotImplementedError, match="B10"):
-        fa.getz_tile(w, h2)
+    _close(fa.getz_tile(w, h2), fa.getz_tile(w, h2, kernels=False), 1e-5)
+    torch.cuda.synchronize()
+    assert fa.launches == {"amr_update": 2, "amr_getz_two": 1,
+                           "amr_getz_tile": 1, "amr_lap": 1, "amr_axpy": 1,
+                           "amr_finish": 1}
     with pytest.raises(ValueError, match="aligned"):
         bad = torch.zeros(n * 1000 + 1, device=dev)[1:].view(n, 10, 10, 10)
         fa.lap(bad, corr, rhat, inv_h2)
@@ -264,7 +272,93 @@ def test_amr_driver_launch_counts_match_iterations(dev, monkeypatch,
                    for k in iters)
     assert fa.iterations["executed"] == executed > 0
     assert fa.launches == {"amr_update": executed,
-                           "amr_getz_two": 2 * executed,
+                           "amr_getz_two": 2 * executed, "amr_getz_tile": 0,
                            "amr_lap": 2 * executed, "amr_axpy": executed,
                            "amr_finish": executed}
     assert torch.isfinite(d.state["vel"]).all()
+
+
+# -- the tile-only getZ (B3, B10) and the CG getZ (B7) ----------------------
+
+
+def test_tile_only_fused_solves_launch_getz_tile(dev):
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    grid = UniformGrid((32, 32, 32), (2.0,) * 3)
+    rng = np.random.default_rng(7)
+    rhs = torch.as_tensor(rng.standard_normal((32, 32, 32)),
+                          dtype=torch.float32, device=dev)
+    bt = krylov.to_lanes(rhs - torch.mean(rhs))
+    fb.reset_launches()
+    _, _, k_k = fb.fused_bicgstab(grid, bt, maxiter=300, two_level=False)
+    ex = fb.iterations["executed"]
+    assert fb.launches["getz_tile"] == 2 * ex > 0
+    assert fb.launches["getz_two"] == 0
+    _, _, k_p = fb.fused_bicgstab(grid, bt, maxiter=300, two_level=False,
+                                  kernels=False)
+    # tile-only solves converge erratically in f32 (ROADMAP queue C)
+    assert abs(int(k_k) - int(k_p)) <= 3
+
+    g, tab, ftab, _ = _forest(dev)
+    vol = g.h_column(torch.float32, dev) ** 3
+    rhs = torch.as_tensor(rng.standard_normal((g.nb, 8, 8, 8)),
+                          dtype=torch.float32, device=dev)
+    b = rhs - torch.sum(rhs * vol) / (torch.sum(vol) * 512)
+    fa.reset_launches()
+    fa.fused_amr_bicgstab(g, b, tab=tab, ftab=ftab, vol=vol, graph=None,
+                          maxiter=300)
+    ex = fa.iterations["executed"]
+    assert fa.launches["amr_getz_tile"] == 2 * ex > 0
+    assert fa.launches["amr_getz_two"] == 0
+
+
+@pytest.mark.parametrize("n,iters,shift", [(22, 12, "tile"), (300, 24, 0.0)])
+def test_getz_cg_kernel_matches_plain_version(dev, n, iters, shift):
+    from cup3d_tpu_torch.ops import getz_cg
+
+    rng = np.random.default_rng(n)
+    b = torch.as_tensor(rng.standard_normal((n, 8, 8, 8)),
+                        dtype=torch.float32, device=dev)
+    if shift == "tile":
+        shift = torch.as_tensor(rng.random((n, 1, 1, 1)) + 0.5,
+                                dtype=torch.float32, device=dev)
+    getz_cg.reset_launches()
+    got = krylov.block_cg_tiles(b, iters, shift)
+    _close(got, krylov.block_cg_tiles(b, iters, shift, kernels=False), 1e-5)
+    # the lanes layout, read in place by the same kernel
+    bt = b.permute(1, 2, 3, 0).contiguous()
+    st = shift.reshape(n) if isinstance(shift, torch.Tensor) else shift
+    got_l = getz_cg.cg_tiles_lanes(bt, iters, st)
+    assert torch.equal(got_l, got.permute(1, 2, 3, 0))
+    assert torch.equal(krylov.block_cg_tiles(b, iters, shift), got)
+    torch.cuda.synchronize()
+    assert getz_cg.launches["getz_cg"] == 3
+
+
+def test_cg_getz_solve_launches_match_preconditioner_applications(
+        dev, monkeypatch):
+    from cup3d_tpu_torch.ops import getz_cg
+
+    monkeypatch.setenv("CUP3D_GETZ", "cg")
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    grid = UniformGrid((32, 32, 32), (2.0,) * 3)
+    rng = np.random.default_rng(8)
+    rhs = torch.as_tensor(rng.standard_normal((32, 32, 32)),
+                          dtype=torch.float32, device=dev)
+    solve = krylov.build_iterative_solver(grid, maxiter=200, two_level=False)
+    getz_cg.reset_launches()
+    fb.reset_launches()
+    krylov.iterations["executed"] = 0
+    x_k, st = solve(rhs, with_stats=True)
+    ex = krylov.iterations["executed"]
+    assert getz_cg.launches["getz_cg"] == 2 * ex > 0
+    assert fb.iterations["executed"] == 0  # the legacy composition ran
+    # the same tile-only solve with the plain getZ on the card
+    h2 = grid.h ** 2
+    A = krylov.make_laplacian_lanes(grid)
+    bt = krylov.to_lanes(rhs - torch.mean(rhs))
+    M = lambda r: getz_cg.cg_tiles_lanes(-h2 * r, 24, kernels=False)
+    _, _, k_p = krylov.bicgstab(A, bt, M=M, maxiter=200,
+                                rnorm_ref=torch.sqrt(torch.sum(bt * bt)))
+    assert abs(int(st[1]) - int(k_p)) <= 3
+    assert torch.isfinite(x_k).all()

@@ -29,6 +29,7 @@ from cup3d_tpu_torch.ops import fused_amr_bicgstab as tfa
 from cup3d_tpu_torch.ops import fused_bicgstab as tfb
 from cup3d_tpu_torch.ops import krylov as tk
 from test_torch_amr_grid import CLOSED, ONE, PERIODIC, TWO, forests
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BS = 8
 STAGE_RTOL = 2e-6

@@ -33,6 +33,7 @@ from cup3d_tpu_torch.grid.uniform import BC as TBC
 from cup3d_tpu_torch.grid.uniform import UniformGrid as TGrid
 from cup3d_tpu_torch.ops import fused_bicgstab as tfb
 from cup3d_tpu_torch.ops import krylov as tk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BS = 8
 T = 64
@@ -110,7 +111,7 @@ def test_getz_stage(mode):
                    lam3.reshape(BS ** 3, 1))
     got = tfb.getz_two(_tiles(w), torch.as_tensor(aux), H * H)
     _cmp_vec(got, want)
-    if mode == "twin":  # tile-only: plain version only (B3 not ported)
+    if mode == "twin":  # tile-only (B3): against the jnp twin
         want = st.getz(jnp.asarray(w), None, S3, lam3.reshape(BS ** 3, 1))
         _cmp_vec(tfb.getz_tile(_tiles(w), H * H), want)
 
@@ -356,9 +357,19 @@ def test_maxiter_cap_and_unported_knobs(monkeypatch):
     with pytest.raises(NotImplementedError, match="bf16"):
         tk.build_iterative_solver(tg)
     monkeypatch.delenv("CUP3D_KRYLOV_DTYPE")
+    # CUP3D_GETZ=cg builds the legacy composition even under
+    # CUP3D_FUSED=1 (the fused driver runs the exact getZ only), as the
+    # JAX package does; tests/test_torch_getz_cg.py holds its solves
     monkeypatch.setenv("CUP3D_GETZ", "cg")
-    with pytest.raises(NotImplementedError, match="B7"):
-        tk.build_iterative_solver(tg)
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    tfb.reset_launches()
+    tk.iterations["executed"] = 0
+    solve = tk.build_iterative_solver(tg, maxiter=3, tol_abs=0.0,
+                                      tol_rel=0.0)
+    _, st = solve(torch.as_tensor(rhs), with_stats=True)
+    assert int(st[1]) == 3 and tk.iterations["executed"] == tk.ITER_CHUNK
+    assert tfb.iterations["executed"] == 0
     monkeypatch.delenv("CUP3D_GETZ")
-    with pytest.raises(NotImplementedError, match="divisible"):
+    # the dense fallback stays unported: the reference's crashes
+    with pytest.raises(NotImplementedError, match="divisible.*queue C"):
         tk.build_iterative_solver(TGrid((12, 12, 12), (1.0,) * 3))

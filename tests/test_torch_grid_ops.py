@@ -29,6 +29,7 @@ from cup3d_tpu_torch.ops import poisson as tpo
 from cup3d_tpu_torch.ops import stencils as tst
 from cup3d_tpu_torch.ops import tilesolve as tts
 from cup3d_tpu_torch.utils import flows as tflows
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5
 BCS = ["periodic", "wall", "freespace"]

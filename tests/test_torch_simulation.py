@@ -21,6 +21,7 @@ from cup3d_tpu_torch.ops import diagnostics as tdiag
 from cup3d_tpu_torch.ops import fused_bicgstab as tfb
 from cup3d_tpu_torch.sim import data as tdata
 from cup3d_tpu_torch.sim.simulation import resolve_device
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARGV = ("-bpdx 4 -bpdy 4 -bpdz 4 -levelMax 1 -extent 6.283185307179586 "
         "-initCond taylorGreen -poissonSolver iterative -poissonTol 1e-6 "
