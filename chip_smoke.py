@@ -49,7 +49,8 @@ each of which raises on a fault (nothing is caught):
     forest's tables;
 13. ``CUP3D_GETZ=cg``: 5 steps of the 256^3 TGV through the CLI's legacy
     composition (B7's launches equal the preconditioner applications),
-    and one CG-getZ forest solve, kernels against plain versions.
+    then one uniform (256^3) and one forest CG-getZ solve, kernels
+    against plain versions (iterations +-1, x within 1e-4 relative).
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -1112,8 +1113,8 @@ def forest_ladder_phase(d) -> dict:
 
 def cg_phase(d_forest, graph) -> dict:
     """CUP3D_GETZ=cg: CG_STEPS steps of the 256^3 TGV through the CLI's
-    legacy composition, then one CG-getZ forest solve, kernels against
-    plain versions."""
+    legacy composition, then one uniform and one forest CG-getZ solve,
+    kernels against plain versions."""
     from cup3d_tpu_torch.__main__ import build_driver
     from cup3d_tpu_torch.ops import amr_ops
     from cup3d_tpu_torch.ops import diagnostics as diag
@@ -1164,7 +1165,38 @@ def cg_phase(d_forest, graph) -> dict:
             f"({executed} executed), getz_cg launches {launches['getz_cg']} "
             f"= 2 x executed; KE {ke0:.8e} -> {ke:.8e}, max|div u| "
             f"{div:.3e}")
-        del d, s
+        # one uniform solve of the same composition, kernels against the
+        # plain getZ on the card
+        gen = torch.Generator(device=s.device)
+        gen.manual_seed(SEED + 7)
+        rhs = torch.randn(s.grid.shape, generator=gen, device=s.device)
+        u_res = {}
+        for name, kernels in (("kernels", None), ("plain", False)):
+            solve = krylov.build_iterative_solver(
+                s.grid, tol_abs=1e-6, tol_rel=1e-4, maxiter=200,
+                kernels=kernels)
+            getz_cg.reset_launches()
+            krylov.iterations["executed"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, st = solve(rhs, with_stats=True)
+            k = int(st[1])
+            u_res[name] = (x, k, time.perf_counter() - t0,
+                           getz_cg.launches["getz_cg"],
+                           krylov.iterations["executed"])
+        (x_k, k_k, t_k, l_k, e_k), (x_p, k_p, t_p, l_p, _) = (
+            u_res["kernels"], u_res["plain"])
+        rel = float(torch.max(torch.abs(x_k - x_p))
+                    / torch.max(torch.abs(x_p)))
+        log(f"  uniform CG-getZ solve ({N_MAIN}^3): kernels {k_k} its in "
+            f"{t_k:.3f} s, plain {k_p} its in {t_p:.3f} s, x rel diff "
+            f"{rel:.3e}; getz_cg launches {l_k} (plain run {l_p})")
+        if (abs(k_k - k_p) > 1 or not rel <= 1e-4 or l_k != 2 * e_k
+                or l_p != 0):
+            raise AssertionError(f"uniform CG-getZ solve: its {k_k} vs "
+                                 f"{k_p}, x rel {rel:.3e}, launches {l_k} "
+                                 f"for {e_k} executed, plain {l_p}")
+        del d, s, u_res, x, x_k, x_p, rhs
         torch.cuda.empty_cache()
 
         # one forest solve with the CG getZ (two-level, legacy loop)

@@ -12,7 +12,7 @@ the Poisson getZ) or one value per tile.
 
 Dispatch follows ops/fused_bicgstab.py: ``kernels=None`` launches the
 kernel for a CUDA tensor and runs the plain version
-(``krylov.block_cg_tiles_reference``) for a CPU tensor; ``kernels=False``
+(:func:`block_cg_tiles_reference`) for a CPU tensor; ``kernels=False``
 runs the plain version anywhere; ``kernels=True`` on a CPU tensor
 raises.  A CUDA tensor never falls back to the plain version.
 """
@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from cup3d_tpu_torch.ops import fused_bicgstab as fb
+from cup3d_tpu_torch.ops import precision
 
 _F32 = torch.float32
 BS = 8
@@ -34,6 +35,47 @@ launches = {"getz_cg": 0}
 
 def reset_launches() -> None:
     launches["getz_cg"] = 0
+
+
+def _block_lap(t: torch.Tensor) -> torch.Tensor:
+    """Per-tile 7-point Laplacian (h^2 scaled out) with an implicit
+    zero-Dirichlet halo, on the trailing bs^3 axes."""
+    z = torch.nn.functional.pad(t, (1, 1, 1, 1, 1, 1))
+    c = z[..., 1:-1, 1:-1, 1:-1]
+    return (z[..., 2:, 1:-1, 1:-1] + z[..., :-2, 1:-1, 1:-1]
+            + z[..., 1:-1, 2:, 1:-1] + z[..., 1:-1, :-2, 1:-1]
+            + z[..., 1:-1, 1:-1, 2:] + z[..., 1:-1, 1:-1, :-2]
+            - 6.0 * c)
+
+
+def block_cg_tiles_reference(b: torch.Tensor, iters: int,
+                             shift=0.0) -> torch.Tensor:
+    """The plain version of B7 (the JAX package's jnp reference): the
+    tile operator with its zero-Dirichlet halo is SPD for shift >= 0, so
+    plain CG applies; alpha = 0 when |p.Ap| <= 1e-30 and beta = 0 when
+    r.r <= 1e-30.  ``shift``: scalar or an array broadcastable to ``b``
+    (one value per tile)."""
+    acc = precision.accum_dtype(b.dtype)
+
+    def bdot(a, c):
+        return torch.sum(a * c, dim=(-1, -2, -3), keepdim=True, dtype=acc)
+
+    z = torch.zeros_like(b)
+    res, p = b, b
+    rs = bdot(b, b)
+    for _ in range(iters):
+        ap = -_block_lap(p) + shift * p
+        denom = bdot(p, ap)
+        ok = torch.abs(denom) > 1e-30
+        alpha = torch.where(ok, rs / torch.where(ok, denom, 1.0), 0.0)
+        z = z + alpha * p
+        res = res - alpha * ap
+        rs_new = bdot(res, res)
+        okr = rs > 1e-30
+        beta = torch.where(okr, rs_new / torch.where(okr, rs, 1.0), 0.0)
+        p = res + beta * p
+        rs = rs_new
+    return z
 
 
 def _launch(b: torch.Tensor, iters: int, shift, n: int, cs: int,
@@ -65,10 +107,8 @@ def cg_tiles_blocks(b: torch.Tensor, iters: int, shift=0.0,
     solved independently.  ``shift``: scalar, or an array with one value
     per tile (e.g. (nb,1,1,1)).  The counterpart of the JAX package's
     ``block_cg_tiles_pallas``."""
-    from cup3d_tpu_torch.ops import krylov
-
     if not fb._use_kernel(b, kernels):
-        return krylov.block_cg_tiles_reference(b, iters, shift)
+        return block_cg_tiles_reference(b, iters, shift)
     if tuple(b.shape[-3:]) != (BS, BS, BS):
         raise ValueError(f"blocks must end in (8,8,8); got {tuple(b.shape)}")
     n = b.numel() // BS ** 3
@@ -81,14 +121,11 @@ def cg_tiles_lanes(bt: torch.Tensor, iters: int, shift=0.0,
                    kernels: Optional[bool] = None) -> torch.Tensor:
     """B7 on the lanes layout (bs, bs, bs, T), the uniform legacy solve's;
     ``shift``: scalar or (T,)."""
-    from cup3d_tpu_torch.ops import krylov
-
     T = bt.shape[-1]
     if not fb._use_kernel(bt, kernels):
         if isinstance(shift, torch.Tensor) and shift.dim() > 0:
             shift = shift.reshape(T, 1, 1, 1)
-        z = krylov.block_cg_tiles_reference(bt.permute(3, 0, 1, 2), iters,
-                                            shift)
+        z = block_cg_tiles_reference(bt.permute(3, 0, 1, 2), iters, shift)
         return z.permute(1, 2, 3, 0)
     if tuple(bt.shape[:3]) != (BS, BS, BS):
         raise ValueError(f"lanes tiles must be (8,8,8,T); got "

@@ -15,9 +15,9 @@ The BiCGSTAB loops (here and in the fused driver) mirror the JAX
 chunk the iteration count, residual norm and best iterate only change
 while the predicate holds, so results equal the JAX loop's.
 
-``CUP3D_GETZ=cg`` selects the fixed-sweep CG getZ (``block_cg_tiles``;
-kernel B7 in ops/getz_cg.py) in place of the exact tile solve; it runs
-the legacy composition, as in the JAX package.  Still raising
+``CUP3D_GETZ=cg`` selects the fixed-sweep CG getZ (kernel B7,
+ops/getz_cg.py) in place of the exact tile solve; it runs the legacy
+composition, as in the JAX package.  Still raising
 NotImplementedError: the dense fallback for grids the tile size does not
 divide (``_build_iterative_solver_dense``), whose reference crashes on
 every grid that reaches it (ROADMAP queue C).
@@ -231,8 +231,8 @@ def use_exact_getz() -> bool:
     return os.environ.get("CUP3D_GETZ", "") != "cg"
 
 
-def getz_lanes(bt_scaled: torch.Tensor, shift=None,
-               cg_iters: int = 24) -> torch.Tensor:
+def getz_lanes(bt_scaled: torch.Tensor, shift=None, cg_iters: int = 24,
+               kernels: Optional[bool] = None) -> torch.Tensor:
     """getZ in the lanes layout (bs, bs, bs, T): the exact DST tile solve,
     or ``cg_iters`` CG sweeps under CUP3D_GETZ=cg."""
     from cup3d_tpu_torch.ops import getz_cg, tilesolve
@@ -240,7 +240,7 @@ def getz_lanes(bt_scaled: torch.Tensor, shift=None,
     if use_exact_getz():
         return tilesolve.tile_solve_lanes(bt_scaled, shift)
     return getz_cg.cg_tiles_lanes(bt_scaled, cg_iters,
-                                  0.0 if shift is None else shift)
+                                  0.0 if shift is None else shift, kernels)
 
 
 def getz_blocks(b_scaled: torch.Tensor, cg_iters: int = 24,
@@ -248,77 +248,11 @@ def getz_blocks(b_scaled: torch.Tensor, cg_iters: int = 24,
     """getZ in the blocks layout (..., bs, bs, bs): -lap_tile z = b_scaled
     on every block, by the exact tile solve or (CUP3D_GETZ=cg)
     ``cg_iters`` CG sweeps."""
-    from cup3d_tpu_torch.ops import tilesolve
+    from cup3d_tpu_torch.ops import getz_cg, tilesolve
 
     if use_exact_getz():
         return tilesolve.tile_solve_blocks(b_scaled)
-    return block_cg_tiles(b_scaled, cg_iters, kernels=kernels)
-
-
-def _block_lap(t: torch.Tensor) -> torch.Tensor:
-    """Per-tile 7-point Laplacian (h^2 scaled out) with an implicit
-    zero-Dirichlet halo, on the trailing bs^3 axes."""
-    z = torch.nn.functional.pad(t, (1, 1, 1, 1, 1, 1))
-    c = z[..., 1:-1, 1:-1, 1:-1]
-    return (z[..., 2:, 1:-1, 1:-1] + z[..., :-2, 1:-1, 1:-1]
-            + z[..., 1:-1, 2:, 1:-1] + z[..., 1:-1, :-2, 1:-1]
-            + z[..., 1:-1, 1:-1, 2:] + z[..., 1:-1, 1:-1, :-2]
-            - 6.0 * c)
-
-
-def block_cg_tiles(b: torch.Tensor, iters: int, shift=0.0,
-                   kernels: Optional[bool] = None) -> torch.Tensor:
-    """Solve (-block_lap + shift) z = b independently on every trailing
-    bs^3 tile of ``b`` with ``iters`` CG sweeps: kernel B7 on a CUDA
-    tensor (ops/getz_cg.py), :func:`block_cg_tiles_reference` on the
-    CPU."""
-    from cup3d_tpu_torch.ops import getz_cg
-
-    return getz_cg.cg_tiles_blocks(b, iters, shift, kernels)
-
-
-def block_cg_tiles_reference(b: torch.Tensor, iters: int,
-                             shift=0.0) -> torch.Tensor:
-    """The plain version of B7 (the JAX package's jnp reference): the
-    tile operator with its zero-Dirichlet halo is SPD for shift >= 0, so
-    plain CG applies; alpha = 0 when |p.Ap| <= 1e-30 and beta = 0 when
-    r.r <= 1e-30.  ``shift``: scalar or an array broadcastable to ``b``
-    (one value per tile)."""
-    acc = precision.accum_dtype(b.dtype)
-
-    def bdot(a, c):
-        return torch.sum(a * c, dim=(-1, -2, -3), keepdim=True, dtype=acc)
-
-    z = torch.zeros_like(b)
-    res, p = b, b
-    rs = bdot(b, b)
-    for _ in range(iters):
-        ap = -_block_lap(p) + shift * p
-        denom = bdot(p, ap)
-        ok = torch.abs(denom) > 1e-30
-        alpha = torch.where(ok, rs / torch.where(ok, denom, 1.0), 0.0)
-        z = z + alpha * p
-        res = res - alpha * ap
-        rs_new = bdot(res, res)
-        okr = rs > 1e-30
-        beta = torch.where(okr, rs_new / torch.where(okr, rs, 1.0), 0.0)
-        p = res + beta * p
-        rs = rs_new
-    return z
-
-
-def make_block_cg_preconditioner(bs: int = 8, iters: int = 24,
-                                 h: float = 1.0) -> Callable:
-    """z ~ A^{-1} r block-locally for A = lap/h^2 on a dense grid: tile
-    the grid into bs^3 blocks and run the getZ there, the h^2 scaling of A
-    folded into the per-tile rhs."""
-    h2 = h * h
-
-    def precond(r: torch.Tensor) -> torch.Tensor:
-        z = getz_blocks(-h2 * to_tiles(r, bs), cg_iters=iters)
-        return from_tiles(z, r.shape)
-
-    return precond
+    return getz_cg.cg_tiles_blocks(b_scaled, cg_iters, kernels=kernels)
 
 
 def use_coarse_correction() -> bool:
@@ -390,7 +324,9 @@ def _make_coarse_solve_vec(grid: UniformGrid, bs: int = 8) -> Callable:
 
 def make_twolevel_preconditioner_lanes(grid: UniformGrid, h2: float,
                                        bs: int = 8,
-                                       precond_iters: int = 24) -> Callable:
+                                       precond_iters: int = 24,
+                                       kernels: Optional[bool] = None
+                                       ) -> Callable:
     """Multiplicative two-level preconditioner on the lanes layout:
     zc = P (P^T A P)^+ P^T r, z = zc + getZ(r - A zc), with A zc (nonzero
     only on tile faces, zc being constant per tile) from the face deltas."""
@@ -409,7 +345,8 @@ def make_twolevel_preconditioner_lanes(grid: UniformGrid, h2: float,
 
     def M(r: torch.Tensor) -> torch.Tensor:
         zc = coarse_vec(r)
-        z = getz_lanes(-h2 * (r - lap_tileconst(zc)), cg_iters=precond_iters)
+        z = getz_lanes(-h2 * (r - lap_tileconst(zc)),
+                       cg_iters=precond_iters, kernels=kernels)
         return z + zc[None, None, None, :]
 
     return M
@@ -666,6 +603,7 @@ def build_iterative_solver(
     precond_iters: int = 24,
     mean_constraint: int = 2,
     two_level: Optional[bool] = None,
+    kernels: Optional[bool] = None,
 ) -> Callable:
     """solve(rhs, x0=None, with_stats=False) -> p via getZ-preconditioned
     BiCGSTAB, with the JAX package's contract: ``mean_constraint`` 0 =
@@ -676,7 +614,9 @@ def build_iterative_solver(
 
     CUP3D_FUSED=1 with mean removal and the exact getZ runs the fused
     driver (the CUDA kernels on a CUDA tensor); otherwise the legacy
-    composition (kernel B7 on a CUDA tensor under CUP3D_GETZ=cg)."""
+    composition (kernel B7 on a CUDA tensor under CUP3D_GETZ=cg).
+    ``kernels`` is passed to every kernel wrapper (False: the plain
+    versions on any device)."""
     if any(s % precond_bs for s in grid.shape):
         raise NotImplementedError(
             f"grid {grid.shape} is not divisible by the tile size "
@@ -708,12 +648,13 @@ def build_iterative_solver(
                else bool(two_level))
     if use_two and mean_constraint not in (1, 3):
         M = make_twolevel_preconditioner_lanes(grid, h2, precond_bs,
-                                               precond_iters)
+                                               precond_iters, kernels)
     else:
         # the pinned rows make A nonsingular, which the coarse level's
         # pseudo-inverse would undo: tile-only getZ there
         def M(r):
-            return getz_lanes(-h2 * r, cg_iters=precond_iters)
+            return getz_lanes(-h2 * r, cg_iters=precond_iters,
+                              kernels=kernels)
 
     # the fused driver runs the exact getZ only: CUP3D_GETZ=cg keeps the
     # legacy composition, as in the JAX package
@@ -728,7 +669,7 @@ def build_iterative_solver(
             xt, rnorm, k = _fused.fused_bicgstab_tiles(
                 grid, bt, tol_abs=tol_abs, tol_rel=tol_rel,
                 maxiter=maxiter, rnorm_ref=torch.sqrt(_dot(bt, bt)),
-                x0=x0t, two_level=use_two,
+                x0=x0t, two_level=use_two, kernels=kernels,
             )
             x = from_tiles(xt, rhs.shape)
             x = x - torch.mean(x)

@@ -2,13 +2,13 @@
 keeps the JAX package's on-disk format).
 
 The JAX package steps a Taylor-Green run (16^3 uniform, or the bpd-2
-forest at level 1 of levelMax 2: 64 blocks) and writes a checkpoint with its own
-``save_checkpoint``; the port's ``load_checkpoint`` reads it, without
-importing ``cup3d_tpu``, into a driver on the CPU.  Both packages then
-step on from that file to the same ``nsteps``: velocity within 1e-5 of
-max|u|.  A port-written checkpoint round-trips bitwise in the port, and
-the atomic write leaves no file behind when ``ckpt.write_fail`` fires on
-every retry."""
+forest of levelMax 2 at level 0: 8 blocks; tests/test_torch_jax_twins.py)
+and writes a checkpoint with its own ``save_checkpoint``; the port's
+``load_checkpoint`` reads it, without importing ``cup3d_tpu``, into a
+driver on the CPU.  Both packages then step on from that file to the
+same ``nsteps``: velocity within 1e-5 of max|u|.  A port-written
+checkpoint round-trips bitwise in the port, and the atomic write leaves
+no file behind when ``ckpt.write_fail`` fires on every retry."""
 
 import os
 import pickle
@@ -17,19 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_jax_twins as twins
+from cup3d_tpu.resilience import faults as jfaults
 from cup3d_tpu_torch.io import checkpoint as tck
 from cup3d_tpu_torch.resilience import faults
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS_BEFORE, STEPS_TOTAL = 2, 4
-
-UNIFORM = ("-bpdx 2 -bpdy 2 -bpdz 2 -levelMax 1 -extent 6.283185307179586 "
-           "-initCond taylorGreen -poissonSolver iterative -nu 0.02 "
-           "-CFL 0.3 -rampup 0 -verbose 0")
-# the bpd-2 forest at level 1 (levelStart 1; Rtol/Ctol keep it there)
-FOREST = UNIFORM.replace("-levelMax 1", "-levelMax 2 -levelStart 1 "
-                         "-Rtol 100 -Ctol 0")
-
 
 
 @pytest.fixture(autouse=True)
@@ -37,42 +31,25 @@ def _env(monkeypatch):
     for var in ("CUP3D_FAULT", "CUP3D_FUSED", "CUP3D_GETZ", "CUP3D_COARSE"):
         monkeypatch.delenv(var, raising=False)
     faults.clear()
+    jfaults.clear()
     yield
     faults.clear()
-
-
-def _argv(kind, tmp):
-    base = UNIFORM if kind == "uniform" else FOREST
-    return (f"{base} -tend 0 -nsteps {STEPS_TOTAL} "
-            f"-path4serialization {tmp}").split()
-
-
-def _vel(d):
-    v = d.state["vel"] if hasattr(d, "step_idx") else d.sim.state["vel"]
-    if hasattr(d, "_unpad"):  # the JAX forest pads its block axis
-        v = d._unpad(v)
-    return np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
-
-
-def _step(d):
-    return d.step_idx if hasattr(d, "step_idx") else d.sim.step
+    jfaults.clear()
 
 
 @pytest.mark.parametrize("kind", ["uniform", "amr"])
 def test_jax_checkpoint_restarts_in_the_port(tmp_path, kind):
-    from cup3d_tpu.__main__ import build_driver as jax_build_driver
     from cup3d_tpu.io import checkpoint as jck
 
-    js = jax_build_driver(_argv(kind, tmp_path))
-    js.init()
+    js = twins.jax_driver(kind, tmp_path, STEPS_TOTAL)
     for _ in range(STEPS_BEFORE):
         js.advance(js.calc_max_timestep())
     path = jck.save_checkpoint(js)
 
     ts = tck.load_checkpoint(path, device="cpu")
     assert type(ts).__module__.startswith("cup3d_tpu_torch.")
-    assert _step(ts) == STEPS_BEFORE
-    np.testing.assert_array_equal(_vel(ts), _vel(js))
+    assert twins.step_of(ts) == STEPS_BEFORE
+    np.testing.assert_array_equal(twins.velocity(ts), twins.velocity(js))
     if kind == "amr":
         assert [tuple(k) for k in ts.grid.keys] == [tuple(k)
                                                     for k in js.grid.keys]
@@ -81,16 +58,18 @@ def test_jax_checkpoint_restarts_in_the_port(tmp_path, kind):
     # reproduces that trajectory: tests/test_checkpoint.py)
     js.simulate()
     ts.simulate()
-    assert _step(ts) == _step(js) == STEPS_TOTAL
-    want = _vel(js)
-    assert np.abs(_vel(ts) - want).max() <= 1e-5 * np.abs(want).max()
+    assert twins.step_of(ts) == twins.step_of(js) == STEPS_TOTAL
+    want = twins.velocity(js)
+    assert np.abs(twins.velocity(ts) - want).max() <= 1e-5 * np.abs(
+        want).max()
 
 
 @pytest.mark.parametrize("kind", ["uniform", "amr"])
 def test_port_checkpoint_round_trips_bitwise(tmp_path, kind):
     from cup3d_tpu_torch.__main__ import build_driver
 
-    d = build_driver(_argv(kind, tmp_path) + ["-device", "cpu"])
+    d = build_driver(twins.argv(kind, tmp_path, STEPS_TOTAL)
+                     + ["-device", "cpu"])
     d.init()
     d.advance(d.calc_max_timestep())
     path = tck.save_checkpoint(d)
@@ -103,7 +82,7 @@ def test_port_checkpoint_round_trips_bitwise(tmp_path, kind):
         assert payload["leaves"].dtype == np.int64
         assert payload["leaves"].shape == (d.grid.nb, 4)
     r = tck.load_checkpoint(path, device="cpu")
-    assert _step(r) == _step(d)
+    assert twins.step_of(r) == twins.step_of(d)
     want = d.state if kind == "amr" else d.sim.state
     got = r.state if kind == "amr" else r.sim.state
     for k in want:

@@ -3,6 +3,9 @@ flight recorder and both drivers' ``simulate()``), the twins of
 tests/test_resilience.py with shorter runs, on the CPU.
 
 - a ``CUP3D_FAULT`` plan parses as in the JAX package;
+- the port's engine and the JAX package's, on one configuration under
+  one fault plan, take the same rollbacks (stage, failing step, snapshot
+  step, dt scale) and end at the same step, time and velocity;
 - a one-shot ``step.nan_velocity`` recovers on the uniform grid and on
   the forest: one rollback, no postmortem, kinetic energy within 5% of
   the unfaulted run (the retry halves dt over a few steps);
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_jax_twins as twins
 from cup3d_tpu.resilience import faults as jfaults
 from cup3d_tpu_torch.config import SimulationConfig
 from cup3d_tpu_torch.obs import metrics as M
@@ -37,16 +41,41 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRIDS = ("uniform", "amr")
 
+#: the twin runs' plan, with a snapshot every 2 steps: a NaN velocity at
+#: step 1 (dt-halve, back to step 0, recovering through step 1 + 4), an
+#: iteration cap at step 5, the window's last step (the second attempt:
+#: zero-guess), and a NaN residual at step 10, past the next window (a
+#: first attempt again: warm-restart)
+TWIN_FAULT = "step.nan_velocity@1; solver.itercap@5; solver.nan_residual@10"
+TWIN_EVENTS = [("dt-halve", 1, 0, 0.5), ("zero-guess", 5, 4, 0.25),
+               ("warm-restart", 10, 10, 0.5)]
+TWIN_STEPS = 12
 
 
 @pytest.fixture(autouse=True)
 def _clean_faults(monkeypatch):
     for var in ("CUP3D_FAULT", "CUP3D_RECOVER", "CUP3D_FUSED",
-                "CUP3D_COARSE", "CUP3D_GETZ"):
+                "CUP3D_COARSE", "CUP3D_GETZ", "CUP3D_SNAP_EVERY"):
         monkeypatch.delenv(var, raising=False)
     faults.clear()
+    jfaults.clear()
     yield
     faults.clear()
+    jfaults.clear()
+
+
+@pytest.fixture(scope="module")
+def unfaulted(tmp_path_factory):
+    """grid -> the port's unfaulted run with the engine armed, made once
+    per module for the tests that compare against it."""
+    runs = {}
+
+    def get(grid):
+        if grid not in runs:
+            runs[grid] = _run(tmp_path_factory.mktemp(grid), grid)
+        return runs[grid]
+
+    return get
 
 
 def _cfg(tmp, grid, **kw):
@@ -135,8 +164,9 @@ def test_fault_plan_fire_counts_env_reload_and_maybe_raise(monkeypatch):
 
 
 @pytest.mark.parametrize("grid", GRIDS)
-def test_nan_velocity_fault_recovers_and_matches_ke(tmp_path, grid):
-    ref = _run(tmp_path / "ref", grid)
+def test_nan_velocity_fault_recovers_and_matches_ke(tmp_path, unfaulted,
+                                                    grid):
+    ref = unfaulted(grid)
     faults.arm("step.nan_velocity", 2, 1)
     s0 = M.snapshot()
     d = _run(tmp_path / "flt", grid)
@@ -152,8 +182,9 @@ def test_nan_velocity_fault_recovers_and_matches_ke(tmp_path, grid):
 
 
 @pytest.mark.parametrize("grid", GRIDS)
-def test_recover_armed_is_bitwise_vs_legacy(tmp_path, monkeypatch, grid):
-    armed = _run(tmp_path / "armed", grid)
+def test_recover_armed_is_bitwise_vs_legacy(tmp_path, monkeypatch, unfaulted,
+                                            grid):
+    armed = unfaulted(grid)
     monkeypatch.setenv("CUP3D_RECOVER", "0")
     legacy = _run(tmp_path / "legacy", grid)
     assert torch.equal(_vel(armed), _vel(legacy))
@@ -163,6 +194,38 @@ def test_recover_armed_is_bitwise_vs_legacy(tmp_path, monkeypatch, grid):
         d.simulate()
     files = _flight_files(tmp_path / "crash")
     assert len(files) == 1 and "nan-velocity" in files[0]
+
+
+def _events(d):
+    return [(e["stage"], e["failed_at_step"], e["rolled_back_to"],
+             e["dt_scale"]) for e in d.flight.recovery_events if "stage" in e]
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_recovery_matches_the_jax_engine(tmp_path, monkeypatch, grid):
+    """Both packages' drivers through ``simulate()`` on one 16^3
+    Taylor-Green configuration (tests/test_torch_jax_twins.py) under
+    TWIN_FAULT: the same recovery events, the same step and time, and
+    velocity within 1e-5 of max|u|."""
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    monkeypatch.setenv("CUP3D_SNAP_EVERY", "2")
+    monkeypatch.setenv(faults.ENV_VAR, TWIN_FAULT)
+    (tmp_path / "jax").mkdir()
+    js = twins.jax_driver(grid, tmp_path / "jax", TWIN_STEPS)
+    js.simulate()
+    ts = build_driver(twins.argv(grid, tmp_path, TWIN_STEPS)
+                      + ["-device", "cpu"])
+    ts.init()
+    ts.simulate()
+    assert _events(ts) == _events(js) == TWIN_EVENTS
+    assert _flight_files(tmp_path) == []
+    assert twins.step_of(ts) == twins.step_of(js) == TWIN_STEPS
+    t_j = twins.time_of(js)
+    assert abs(twins.time_of(ts) - t_j) <= 1e-6 * t_j
+    want = twins.velocity(js)
+    assert np.abs(twins.velocity(ts) - want).max() <= 1e-5 * np.abs(
+        want).max()
 
 
 def test_itercap_fault_takes_the_warm_restart_rung(tmp_path, monkeypatch):
