@@ -50,7 +50,25 @@ each of which raises on a fault (nothing is caught):
 13. ``CUP3D_GETZ=cg``: 5 steps of the 256^3 TGV through the CLI's legacy
     composition (B7's launches equal the preconditioner applications),
     then one uniform (256^3) and one forest CG-getZ solve, kernels
-    against plain versions (iterations +-1, x within 1e-4 relative).
+    against plain versions (iterations +-1, x within 1e-4 relative);
+14. the fish main path, BASELINE config #2 (bench.py bench_fish_uniform:
+    one self-propelled StefanFish on a uniform 128^3 grid, iterative
+    Poisson 1e-6/1e-4, non-pipelined, ``CUP3D_FUSED=1``): first the five
+    uniform kernels against their plain versions at its shape (T = 4096
+    tiles), then ``build_driver`` + ``init()`` + ``simulate()`` for
+    FISH_STEPS steps with the launch counters set to 0 just before and
+    read just after (each equal to the executed iterations times its
+    launches per iteration); the body volume sum(chi) of the first
+    step's CreateObstacles held against the port's own on the CPU
+    (1e-5 relative), max|div u| in the fluid against the JAX bench's
+    fish gate, the fields and the fish's velocity and position finite;
+    one step with torch's sync debug mode raising inside the body and
+    fluid operators; then the operator split, CreateObstacles in pieces
+    and a profiler window.
+
+The five uniform kernels' rows report their times at the fish path's
+shape and their launches on it (phase 14); the 256^3 times and the TGV
+path's launches ride in each row's ``tgv256``.
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -69,6 +87,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_MAIN = 256            # the main path's grid: 256^3 (bench_tgv_iterative)
@@ -92,6 +111,24 @@ FOREST_LADDER_STEPS = 10  # forest steps from the ladder's start: the
                           # + 4 (recovery.py), then 3 steps at full dt
 CG_STEPS = 5            # CUP3D_GETZ=cg steps at 256^3
 CG_ITERS = 24           # B7 sweeps (precond_iters of the production routes)
+# the fish main path: BASELINE config #2 (bench.py bench_fish_uniform) at
+# 128^3, non-pipelined (pipelined stepping is not ported), FISH_STEPS steps
+# inside the 100-step CFL ramp
+N_FISH = 128
+FISH_STEPS = 30
+FISH = ("StefanFish L=0.4 T=1.0 xpos=0.5 ypos=0.5 zpos=0.5 bFixFrameOfRef=1 "
+        "heightProfile=danio widthProfile=stefan")
+FISH_ARGV = (f"-bpdx {N_FISH // 8} -bpdy {N_FISH // 8} -bpdz {N_FISH // 8} "
+             "-levelMax 1 -levelStart 0 -extent 1 -CFL 0.4 -nu 1e-3 "
+             "-rampup 100 -poissonSolver iterative -poissonTol 1e-6 "
+             f"-poissonTolRel 1e-4 -tend 0 -nsteps {FISH_STEPS} -verbose 0 "
+             "-freqDiagnostics 1")
+CHI_RTOL = 1e-5         # body volume on the card against the CPU port's
+# max|div u| in the fluid (3 cells off the chi band) after the fish run:
+# the JAX package's bench gate for the 128^3 fish (bench.py:52-59, twice
+# its measured 0.017).  Inside the band the Brinkman forcing and the
+# body's div(udef) are imposed, so the whole-domain max is printed only.
+FISH_DIV_FLUID_GATE = 0.04
 SEED = 0
 TIMING_SAMPLES = 21     # median over samples of LAUNCHES_PER_SAMPLE launches
 LAUNCHES_PER_SAMPLE = 10
@@ -182,13 +219,14 @@ def part_scale(*terms) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(bw: float, fp32_flops: float, dev="cuda") -> dict:
+def kernel_phase(bw: float, fp32_flops: float, dev="cuda",
+                 n: int = N_MAIN) -> dict:
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
 
     dev = torch.device(dev)
-    T = (N_MAIN // 8) ** 3
+    T = (n // 8) ** 3
     cells = T * 512
-    h = 2 * math.pi / N_MAIN
+    h = 2 * math.pi / n
     h2 = h * h
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -478,6 +516,13 @@ def _profile_window(d, steps: int = 3, prefix: str = "") -> dict:
         ms = e.self_device_time_total / 1e3 / steps
         log(f"  {e.key[:70]:<72}{e.count / steps:>11.1f}{ms:>10.3f}"
             f"{ms * steps / total:>8.1%}")
+    # the port's own kernels, by device time per launch on this path
+    # (CUDA events around back-to-back launches read the host's launch
+    # rate instead when a kernel is shorter than its launch)
+    ours = [e for e in rows if "::k_" in e.key]
+    log("  port kernels on this path (device us per launch): " + ", ".join(
+        f"{e.key.split('::k_')[1].split('(')[0]} "
+        f"{e.self_device_time_total / e.count:.1f}" for e in ours))
     return dict(wall_ms=wall_ms / steps, busy_ms=busy / steps,
                 kernel_ms=total / steps)
 
@@ -1235,6 +1280,189 @@ def cg_phase(d_forest, graph) -> dict:
     return dict(launches=launches, wall=wall, iters=iters)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the fish main path (BASELINE config #2)
+# ---------------------------------------------------------------------------
+
+
+class _FirstChi:
+    """Stands in for the driver's CreateObstacles: runs it and keeps the
+    device sum of chi after its first call (read after the run)."""
+
+    def __init__(self, op):
+        self.op, self.name, self.first = op, op.name, None
+
+    def __call__(self, dt):
+        self.op(dt)
+        if self.first is None:
+            self.first = torch.sum(self.op.sim.state["chi"].double())
+
+
+def fish_argv(out_dir: str, device=None) -> list:
+    argv = FISH_ARGV.split() + ["-path4serialization", out_dir,
+                                "-factory-content", FISH]
+    return argv + (["-device", device] if device else [])
+
+
+def fish_cpu_chi() -> float:
+    """sum(chi) after the first step's CreateObstacles of the port on the
+    CPU, same config, same first dt."""
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    c = build_driver(fish_argv(os.path.join(OUT_DIR, "fish_cpu"), "cpu"))
+    c.init()
+    dt = c.calc_max_timestep()
+    c.pipeline[0](torch.tensor(dt, dtype=c.sim.dtype))
+    return float(torch.sum(c.sim.state["chi"].double()))
+
+
+def fish_phase() -> dict:
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import krylov
+
+    out = os.path.join(OUT_DIR, "fish")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    t0 = time.perf_counter()
+    d = build_driver(fish_argv(out))
+    d.init()
+    torch.cuda.synchronize()
+    s = d.sim
+    ob = s.obstacles[0]
+    log(f"  build_driver + init: {time.perf_counter() - t0:.2f} s; "
+        f"{s.grid.shape} cells, T = {s.grid.ncells // 512} tiles, midline "
+        f"{ob.myFish.Nm} points, window {ob._window_shape}")
+    watch = _FirstChi(d.pipeline[0])
+    d.pipeline[0] = watch
+    maxiter = next(op.solver_maxiter for op in d.pipeline
+                   if op.name == "PressureProjection")
+
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    t0 = time.perf_counter()
+    d.simulate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.launches)
+    executed = fb.iterations["executed"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    div = _read_table(os.path.join(out, "div.txt"))
+    forces = _read_table(os.path.join(out, "forces_0.txt"))
+    log("  step  wall_s     iters  resid       umax        max|div u|  "
+        "Fx")
+    for i, row in enumerate(d.step_log):
+        log(f"  {row['step']:4d}  {row['wall_s']:.4f}  {int(row['iters']):5d}"
+            f"  {row['resid']:.3e}  {row['umax']:.4e}  {div[i][3]:.3e}  "
+            f"{forces[i][1]:+.4e}")
+    iters = [row["iters"] for row in d.step_log]
+    if len(iters) != FISH_STEPS:
+        raise AssertionError(f"ran {len(iters)} steps, expected {FISH_STEPS}")
+    if not all(math.isfinite(k) and 0 <= k <= maxiter for k in iters):
+        raise AssertionError(f"iteration counts out of range: {iters}")
+    div_max = max(r[3] for r in div)
+    div_fluid = float(diag.fluid_divergence_max(s.grid, s.state["vel"],
+                                                s.state["chi"]))
+    if not div_fluid <= FISH_DIV_FLUID_GATE:
+        raise AssertionError(f"fish max|div u| in the fluid {div_fluid:.3e} "
+                             f"over the gate {FISH_DIV_FLUID_GATE:g}")
+    fields_ok = all(bool(torch.isfinite(s.state[k]).all())
+                    for k in ("vel", "p", "chi", "udef"))
+    kin = np.concatenate([ob.transVel, ob.angVel, ob.position, ob.force])
+    if not fields_ok or not np.all(np.isfinite(kin)):
+        raise AssertionError(f"non-finite fish run: fields {fields_ok}, "
+                             f"kinematics {kin}")
+    chunk = krylov.ITER_CHUNK
+    want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
+    want = {"update": executed, "axpy": executed, "finish": executed,
+            "getz_two": 2 * executed, "getz_tile": 0, "lap": 2 * executed}
+    if executed != want_exec or launches != want or executed == 0:
+        raise AssertionError(f"fish launch counts {launches}, executed "
+                             f"{executed}, expected {want_exec} executed")
+    chi_card = float(watch.first)
+    chi_cpu = fish_cpu_chi()
+    rel = abs(chi_card - chi_cpu) / chi_cpu
+    log(f"  sum(chi) at step 0: card {chi_card:.9e}, CPU port "
+        f"{chi_cpu:.9e} (rel {rel:.3e}; gate {CHI_RTOL:g})")
+    if not rel <= CHI_RTOL:
+        raise AssertionError(f"sum(chi) card {chi_card} vs CPU {chi_cpu}")
+    log(f"  {FISH_STEPS} steps in {wall:.3f} s ({wall / FISH_STEPS * 1e3:.2f} "
+        f"ms/step), {int(sum(iters))} iterations ({executed} executed), "
+        f"max|div u| {div_max:.3e} (in the fluid {div_fluid:.3e}, gate "
+        f"{FISH_DIV_FLUID_GATE:g}), peak memory {peak_gb:.2f} GB")
+    log(f"  fish: transVel {ob.transVel.tolist()}, angVel "
+        f"{ob.angVel.tolist()}, position {ob.position.tolist()}, "
+        f"force {ob.force.tolist()}, surface points {ob.n_surf_points:.0f}")
+    log(f"  launches: {launches}")
+    _no_sync_step(d)
+    split = _step_split(d)
+    _create_split(d)
+    _profile_window(d, prefix="fish_")
+    return dict(launches=launches, wall=wall, iters=iters, split=split)
+
+
+def _create_split(d, reps: int = 3) -> None:
+    """CreateObstacles in pieces, synchronised: the host midline (numpy),
+    the rasterizer on its window, the Towers chi and udef mask."""
+    from cup3d_tpu_torch.models.fish import rasterize
+    from cup3d_tpu_torch.ops.chi import towers_chi
+
+    s = d.sim
+    ob = s.obstacles[0]
+    tot = {"host midline": 0.0, "rasterize": 0.0, "chi + mask": 0.0}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ob.update_shape(s.time, s.dt)
+        t1 = time.perf_counter()
+        sdf, udef = ob.rasterize(s.time)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        chi = towers_chi(s.grid.pad_scalar(sdf, 1), s.grid.h)
+        udef = udef * (chi > 0)[..., None]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(tot, (t1 - t0, t2 - t1, t3 - t2)):
+            tot[k] += v
+    n = int(np.prod(ob._window_shape))
+    chunk = max(1, min(ob.myFish.Nm - 1, rasterize.CHUNK_ELEMS // n))
+    log("  CreateObstacles pieces (ms, synchronised): " + ", ".join(
+        f"{k} {v / reps * 1e3:.3f}" for k, v in tot.items())
+        + f" (window {ob._window_shape}, {ob.myFish.Nm - 1} segments in "
+        f"chunks of {chunk})")
+
+
+#: operators of the fish step that must never wait for the device (the
+#: projection's chunked Krylov loop reads its stop flag once a chunk, and
+#: the diagnostics read their sums: both by design)
+NO_SYNC_OPS = ("CreateObstacles", "AdvectionDiffusion", "UpdateObstacles",
+               "Penalization", "ComputeForces")
+
+
+def _no_sync_step(d) -> None:
+    """One more step with torch's sync debug mode set to raise inside the
+    body and fluid operators: a device read, a blocking copy or a
+    ``nonzero`` there fails the run."""
+    s = d.sim
+    dt = d.calc_max_timestep()
+    dt_dev = torch.tensor(dt, dtype=s.dtype, device=s.device)
+    for op in d.pipeline:
+        guard = op.name in NO_SYNC_OPS
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            op(dt_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    d._read_step_pack()
+    s.step += 1
+    s.time += dt
+    log(f"  no host sync in {', '.join(NO_SYNC_OPS)} (torch sync debug "
+        "mode 'error' around them for one step)")
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -1318,11 +1546,26 @@ def main() -> int:
     forest_ladder = forest_ladder_phase(d)
     log("phase 13: CUP3D_GETZ=cg (uniform legacy composition, forest solve)")
     cg_run = cg_phase(d, graph)
-    # each kernel's launches from its own path's run
-    launches = {**run["launches"], **amr_run["launches"],
+    del d, graph
+    torch.cuda.empty_cache()
+
+    log(f"phase 14: the fish main path, BASELINE config #2 at {N_FISH}^3: "
+        f"kernels vs plain versions at T = {(N_FISH // 8) ** 3} tiles, then "
+        f"{FISH_STEPS} steps")
+    fish_kernels = kernel_phase(bw, fp32_flops, n=N_FISH)
+    with _env(CUP3D_FUSED="1"):
+        fish_run = fish_phase()
+    # each kernel's launches from its own path's run: the five uniform
+    # kernels' from the fish path (this slice's main path), with their
+    # 256^3 numbers and the TGV path's launches beside them
+    launches = {**amr_run["launches"],
                 "getz_tile": ladder["launches"]["getz_tile"],
                 "amr_getz_tile": forest_ladder["launches"]["amr_getz_tile"],
                 "getz_cg": cg_run["launches"]["getz_cg"]}
+    for kname in fish_kernels:
+        launches[kname] = fish_run["launches"][kname]
+        per_kernel[kname] = dict(fish_kernels[kname], tgv256=dict(
+            per_kernel[kname], launches=run["launches"][kname]))
 
     rows = []
     for kname, replaces, src in KERNELS:

@@ -6,11 +6,14 @@ A checkpoint is one pickled dict: ``version`` (:data:`FORMAT_VERSION`),
 octree leaf keys as an (nb, 4) int64 array on the forest, else None),
 ``fields`` as numpy arrays in the JAX package's layouts, ``time``,
 ``step``, ``dt``, ``uinf``, ``lambda_penal``, ``next_dump`` and
-``obstacles``.  An obstacle-free checkpoint written by either package
-restarts in the other: the port writes the forest's ``chi``/``udef`` as
-zeros, the fields it does not keep, and reads only ``vel`` and ``p``
-there.  Unpickling never imports the JAX package: a payload that names
-one of its classes (its obstacles) is refused with a clear error.
+``obstacles`` (the obstacle objects, pickled with their host state only:
+chi/udef are rebuilt from it after a load).  An obstacle-free checkpoint
+written by either package restarts in the other: the port writes the
+forest's ``chi``/``udef`` as zeros, the fields it does not keep, and
+reads only ``vel`` and ``p`` there.  The port's own obstacles (the
+StefanFish) round-trip.  Unpickling never imports the JAX package: a
+payload that names one of its classes (its obstacles) is refused with a
+clear error.
 """
 
 from __future__ import annotations
@@ -45,12 +48,14 @@ def build_payload(driver) -> dict:
         time, step, dt = driver.time, driver.step_idx, driver.dt
         uinf, lam = driver.uinf, driver.lambda_penal
         leaves = np.asarray(driver.grid.keys, np.int64).reshape(-1, 4)
+        obstacles = []
     else:
         s = driver.sim
         kind, state = "uniform", s.state
         time, step, dt = s.time, s.step, s.dt
         uinf, lam = s.uinf, s.lambda_penal
         leaves = None
+        obstacles = s.obstacles
     return {
         "version": FORMAT_VERSION,
         "kind": kind,
@@ -65,7 +70,7 @@ def build_payload(driver) -> dict:
         # the port writes no dumps (ROADMAP A4): its dump cadence never
         # leaves its start
         "next_dump": 0.0,
-        "obstacles": [],
+        "obstacles": obstacles,
     }
 
 
@@ -111,8 +116,9 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module == "cup3d_tpu" or module.startswith("cup3d_tpu."):
             raise ValueError(
-                f"the checkpoint holds {module}.{name} of the JAX package "
-                "(obstacles are not ported, ROADMAP A3)")
+                f"the checkpoint holds {module}.{name} of the JAX package, "
+                "which the port does not import: only checkpoints of "
+                "obstacle-free runs restart across the packages")
         return super().find_class(module, name)
 
 
@@ -174,12 +180,12 @@ def load_checkpoint(path: str, device=None):
     from cup3d_tpu_torch.config import SimulationConfig
 
     payload = read_payload(path)
-    if payload.get("obstacles"):
-        raise NotImplementedError("checkpoints with obstacles are not "
-                                  "ported (ROADMAP A3)")
     cfg = SimulationConfig(**payload["cfg"])
     fields = payload["fields"]
     if payload["kind"] == "amr":
+        if payload.get("obstacles"):
+            raise NotImplementedError("obstacles on the forest are not "
+                                      "ported (ROADMAP A6 sub-slice 3)")
         from cup3d_tpu_torch.grid.octree import TreeConfig
         from cup3d_tpu_torch.sim.amr import AMRSimulation, tree_from_keys
 
@@ -213,6 +219,11 @@ def load_checkpoint(path: str, device=None):
     s.dt = float(payload["dt"])
     s.uinf = np.asarray(payload["uinf"], np.float64)
     s.lambda_penal = float(payload["lambda_penal"])
+    s.obstacles = list(payload.get("obstacles") or [])
+    for ob in s.obstacles:
+        ob.sim = s
     driver._setup_operators()
+    if s.obstacles:
+        driver.pipeline[0](0.0)  # CreateObstacles: rebuild chi/udef
     return driver
 

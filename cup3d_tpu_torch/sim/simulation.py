@@ -14,12 +14,19 @@ walking the Poisson ladder warm-restart -> zero-guess -> tile-only ->
 iter-bump.  The flight recorder (obs/flight.py) keeps the recent steps
 and writes a postmortem when a failure is not recovered.
 
+One self-propelled StefanFish runs in the reference's pipeline order
+(CreateObstacles, advection, UpdateObstacles, Penalization, projection,
+ComputeForces, models/pipeline.py); its rigid update, penalization force
+and surface forces ride the same end-of-step read.
+
 Runs on CUDA unless the caller asks for the CPU (``device="cpu"``); with
 no GPU and no explicit device it raises.  Not ported yet, and raising:
-obstacles (ROADMAP A3), pipelined stepping and the scan megaloop (A4),
-field dumps and periodic checkpoints (A4; io/checkpoint.py writes and
-reads checkpoints), implicit diffusion, forcing and mass-flux fixing
-(A5).  ``levelMax > 1`` is the AMR driver's (sim/amr.py).
+more than one obstacle and obstacles other than the StefanFish (the
+collision pass, the sphere and the foil: ROADMAP A5), pipelined stepping
+and the scan megaloop (A4), field dumps and periodic checkpoints (A4;
+io/checkpoint.py writes and reads checkpoints), implicit diffusion,
+forcing and mass-flux fixing (A5).  ``levelMax > 1`` is the AMR driver's
+(sim/amr.py).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from cup3d_tpu_torch.config import SimulationConfig
+from cup3d_tpu_torch.config import SimulationConfig, parse_factory
 from cup3d_tpu_torch.obs.flight import FlightRecorder
 from cup3d_tpu_torch.obs.trace import StepObserver
 from cup3d_tpu_torch.ops import diagnostics as diag
@@ -57,8 +64,17 @@ def resolve_device(device=None) -> torch.device:
 def _unsupported(cfg: SimulationConfig) -> Optional[str]:
     if cfg.levelMax > 1:
         return "levelMax > 1 (the AMR driver, sim/amr.AMRSimulation)"
-    if cfg.factory_content or cfg.factory:
-        return "obstacles (ROADMAP A3)"
+    content = cfg.resolved_factory_content()
+    if content:
+        specs = parse_factory(content)
+        if len(specs) > 1:
+            return ("more than one obstacle (the collision pass, ROADMAP "
+                    "A5: models/collisions.py)")
+        kinds = {sp["type"].lower() for sp in specs}
+        if kinds - {"stefanfish"}:
+            return (f"obstacle type {specs[0]['type']!r} (only the "
+                    "StefanFish is ported; the sphere and the foil are "
+                    "ROADMAP A5)")
     if cfg.pipelined:
         return "pipelined stepping (ROADMAP A4)"
     if cfg.scan_k or int(os.environ.get("CUP3D_SCAN_K", "0") or 0) > 1:
@@ -101,24 +117,44 @@ class Simulation:
 
     def init(self) -> None:
         self._setup_operators()
+        self._add_obstacles()
         ops.initial_conditions(self.sim)
 
     def _setup_operators(self) -> None:
         """Pipeline order is the reference's (main.cpp:15229-15246)."""
-        s = self.sim
-        self.pipeline = [
-            ops.AdvectionDiffusion(s),
-            ops.PressureProjection(s),
-            ops.ComputeDissipation(s),
-            ops.ComputeDivergence(s),
-        ]
+        s, cfg = self.sim, self.cfg
+        with_bodies = bool(s.obstacles or cfg.resolved_factory_content())
+        if with_bodies:
+            from cup3d_tpu_torch.models import pipeline as body_ops
+        pipe: List[ops.Operator] = []
+        if with_bodies:
+            pipe.append(body_ops.CreateObstacles(s))
+        pipe.append(ops.AdvectionDiffusion(s))
+        if with_bodies:
+            pipe.append(body_ops.UpdateObstacles(s))
+            pipe.append(body_ops.Penalization(s))
+        pipe.append(ops.PressureProjection(s))
+        if with_bodies:
+            pipe.append(body_ops.ComputeForces(s))
+        pipe.append(ops.ComputeDissipation(s))
+        pipe.append(ops.ComputeDivergence(s))
+        self.pipeline = pipe
+
+    def _add_obstacles(self) -> None:
+        content = self.cfg.resolved_factory_content()
+        if not content:
+            return
+        from cup3d_tpu_torch.models.factory import make_obstacles
+
+        self.sim.obstacles = make_obstacles(self.sim, parse_factory(content))
 
     def _flight_state(self) -> dict:
         """Driver state for a postmortem (called only at dump time)."""
         s = self.sim
         return {"driver": "uniform", "shape": list(s.grid.shape),
                 "step": s.step, "time": s.time, "dt": s.dt,
-                "uinf": [float(v) for v in s.uinf]}
+                "uinf": [float(v) for v in s.uinf],
+                "obstacles": [type(ob).__name__ for ob in s.obstacles]}
 
     # -- time stepping -----------------------------------------------------
 
@@ -137,7 +173,8 @@ class Simulation:
             umax = self._umax_next
             self._umax_next = None
         else:
-            umax = float(diag.max_velocity(s.state["vel"], s.uinf_device()))
+            # the first step's read (the pack brings it afterwards)
+            umax = float(self._umax_device())
         self._last_umax = umax
         if not np.isfinite(umax) or umax > cfg.uMax_allowed:
             s.logger.flush()
@@ -167,7 +204,20 @@ class Simulation:
             self.flight.trigger("dt-collapse", extra=extra)
             raise SimulationFailure(
                 "dt-collapse", f"dt policy collapse: dt={s.dt:.3g}", extra)
+        # lambda = DLM/dt each step (main.cpp:15302-15303)
+        if cfg.DLM > 0:
+            s.lambda_penal = cfg.DLM / s.dt
         return s.dt
+
+    def _umax_device(self) -> torch.Tensor:
+        """max|u + uinf| on the device, floored with max|udef| when bodies
+        swim: at full gait amplitude the tail's deformation velocity
+        reaches the advective limit a step before it shows in the fluid."""
+        s = self.sim
+        umax = diag.max_velocity(s.state["vel"], s.uinf_device())
+        if s.obstacles:
+            umax = torch.maximum(umax, torch.max(torch.abs(s.state["udef"])))
+        return umax
 
     def advance(self, dt: float) -> None:
         s = self.sim
@@ -190,27 +240,40 @@ class Simulation:
         s.time += dt
 
     def _read_step_pack(self) -> dict:
-        """Concatenate the step's device QoI (solver stats) and max|u| into
-        one vector and read it back: the step's single device sync.  The
+        """Concatenate the step's device QoI (the body's rigid state,
+        penalization force and surface forces, the solver stats) and max|u|
+        into one vector in the solver dtype and read it back: the step's
+        single device sync.  The host mirrors are refreshed from it; the
         solver stats go on to the flight recorder (StepObserver)."""
+        from cup3d_tpu_torch.models.base import (
+            log_forces, store_force_qoi, unpack_forces)
+
         s = self.sim
         parts = s.pending_parts
         s.pending_parts = []
-        umax = diag.max_velocity(s.state["vel"], s.uinf_device())
-        parts.append(("umax", umax.reshape(1)))
-        vals = torch.cat([v.reshape(-1).to(torch.float64)
-                          for _, v in parts]).cpu().tolist()
+        parts.append(("umax", self._umax_device().reshape(1)))
+        vals = torch.cat([v.reshape(-1).to(s.dtype)
+                          for _, v in parts]).cpu().to(torch.float64).numpy()
+        ob = s.obstacles[0] if s.obstacles else None
         row, off = {}, 0
         for name, v in parts:
             seg = vals[off:off + v.numel()]
             off += v.numel()
-            if name == "umax":
+            if name == "rigid":
+                ob.apply_rigid_pack(seg)
+            elif name == "penal":
+                ob.penal_force = seg[:3]
+                ob.penal_torque = seg[3:]
+            elif name == "forces":
+                store_force_qoi(ob, unpack_forces(seg))
+                log_forces(s.logger, 0, s.time, ob)
+            elif name == "umax":
                 self._umax_next = seg[0]
                 row["umax"] = seg[0]
             elif name == "psolve":
-                row["resid"], row["iters"] = seg[0], seg[1]
+                row["resid"], row["iters"] = float(seg[0]), float(seg[1])
                 self._obs.note_solver(
-                    s.step, seg[1], seg[0],
+                    s.step, row["iters"], row["resid"],
                     cap=getattr(s.poisson_solver, "maxiter", None))
         return row
 
@@ -219,7 +282,10 @@ class Simulation:
     def _resilience_restore(self, payload: dict) -> None:
         """In-place rollback to a ``build_payload``-shaped snapshot.  The
         fields are cloned on the way in, so the snapshot survives repeated
-        restores."""
+        restores; the obstacles are unpickled from their host state and
+        their chi/udef rebuilt by CreateObstacles(0.0)."""
+        import pickle
+
         s = self.sim
         s.state = {k: torch.clone(v) for k, v in payload["fields"].items()}
         s.time = float(payload["time"])
@@ -227,9 +293,17 @@ class Simulation:
         s.dt = float(payload["dt"])
         s.uinf = np.asarray(payload["uinf"], np.float64)
         s.lambda_penal = float(payload["lambda_penal"])
+        obstacles = payload.get("obstacles") or []
+        if isinstance(obstacles, bytes):
+            obstacles = pickle.loads(obstacles)
+        s.obstacles = list(obstacles)
+        for ob in s.obstacles:
+            ob.sim = s
         s.pending_parts = []
         self._umax_next = None
         self._last_umax = None
+        if s.obstacles:
+            self.pipeline[0](0.0)  # CreateObstacles: rebuild chi/udef
 
     def _resilience_zero_pressure(self) -> None:
         """Ladder stage 'zero-guess': the next solve starts from p = 0

@@ -15,7 +15,8 @@ closed), plus a bitwise-equal rerun of the kernel solve.  The tile-only
 getZ (B3, B10) in fused solves whose getz_tile launches are twice the
 executed iterations, and the CG getZ (B7) on both layouts, with a scalar
 and a per-tile shift, and in a CUP3D_GETZ=cg solve whose launches equal
-its preconditioner applications."""
+its preconditioner applications.  The fish (BASELINE config #2 at 32^3)
+for 3 steps on the card, held against the port on the CPU."""
 
 import math
 
@@ -149,6 +150,52 @@ def test_driver_launch_counts_match_iterations(dev, monkeypatch, tmp_path):
                            "getz_tile": 0, "lap": 2 * executed,
                            "axpy": executed, "finish": executed}
     assert torch.isfinite(d.sim.state["vel"]).all()
+
+
+FISH = ("StefanFish L=0.4 T=1.0 xpos=0.5 ypos=0.515625 zpos=0.515625 "
+        "bFixFrameOfRef=1 heightProfile=danio widthProfile=stefan")
+
+
+def test_fish_steps_match_the_port_on_the_cpu(dev, monkeypatch, tmp_path):
+    """BASELINE config #2 cut to 32^3 (the CPU tests' fish), 3 steps on
+    the card with the kernels and on the CPU with their plain versions:
+    the rigid pack within 1e-5, the force pack within 1e-4 of its largest
+    entry, velocity within 1e-5 of max|u|, iterations within +-1 a step,
+    and the card's launches equal to its executed iterations."""
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    argv = ("-bpdx 4 -bpdy 4 -bpdz 4 -extent 1 -CFL 0.4 -nu 1e-3 -rampup 100 "
+            "-poissonSolver iterative -tend 0 -nsteps 3 -verbose 0 "
+            f"-path4serialization {tmp_path}").split() + [
+                "-factory-content", FISH]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        d = build_driver(argv + ["-device", device])
+        d.init()
+        fb.reset_launches()
+        d.simulate()
+        runs[device] = d
+    card, cpu = runs["cuda"], runs["cpu"]
+    iters = [int(row["iters"]) for row in card.step_log]
+    executed = sum(krylov.ITER_CHUNK * math.ceil(k / krylov.ITER_CHUNK)
+                   for k in iters)
+    assert fb.iterations["executed"] == executed > 0
+    assert fb.launches["update"] == executed
+    assert fb.launches["getz_two"] == fb.launches["lap"] == 2 * executed
+    for a, b in zip(card.step_log, cpu.step_log):
+        assert abs(a["iters"] - b["iters"]) <= 1
+    oc, op = card.sim.obstacles[0], cpu.sim.obstacles[0]
+    vec = lambda ob, keys: np.concatenate(
+        [np.atleast_1d(np.asarray(getattr(ob, k), np.float64)) for k in keys])
+    rigid = ("transVel", "angVel", "position", "quaternion")
+    assert np.abs(vec(oc, rigid) - vec(op, rigid)).max() <= 1e-5
+    forces = ("pres_force", "visc_force", "torque", "pow_out", "thrust",
+              "drag", "def_power")
+    fp = vec(op, forces)
+    assert np.abs(vec(oc, forces) - fp).max() <= 1e-4 * np.abs(fp).max()
+    v = cpu.sim.state["vel"]
+    _close(card.sim.state["vel"].cpu(), v, 1e-5)
 
 
 # -- the AMR forest's kernels (B8, B9, B11, B12, B13) -------------------------

@@ -46,14 +46,21 @@ def test_no_module_imports_the_jax_package_or_jax():
 
 def test_every_module_imports_with_jax_blocked():
     mods = [m for _, m in _modules()]
-    # the walk finds the forest modules (the AMR slice) and the
-    # self-healing loop's (the resilience slice) too
+    # the walk finds the forest modules (the AMR slice), the
+    # self-healing loop's (the resilience slice) and the fish's too
     assert {f"cup3d_tpu_torch.{m}" for m in (
         "grid.sfc", "grid.octree", "grid.blocks", "grid.faces", "grid.flux",
         "grid.adapt", "ops.amr_ops", "ops.fused_amr_bicgstab", "sim.amr",
         "obs.metrics", "obs.flight", "obs.trace", "resilience",
         "resilience.faults", "resilience.writeguard", "resilience.recovery",
         "io.checkpoint", "ops.getz_cg",
+        # the fish slice's
+        "models", "models.base", "models.factory", "models.pipeline",
+        "models.fish", "models.fish.interpolation", "models.fish.schedulers",
+        "models.fish.frenet", "models.fish.shapes", "models.fish.midline",
+        "models.fish.curvature", "models.fish.rasterize",
+        "models.fish.stefanfish", "ops.chi", "ops.penalization",
+        "ops.surface",
     )} <= set(mods)
     code = (
         "import sys\n"

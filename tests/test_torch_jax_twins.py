@@ -1,14 +1,19 @@
 """JAX drivers shared by the port's twin tests (test_torch_checkpoint.py,
-test_torch_resilience.py), and the test of their reset.
+test_torch_resilience.py, test_torch_fish_sim.py), and the test of their
+reset.
 
 A new JAX driver compiles its step functions on its first steps, seconds
 on the CPU for each driver.  The twin tests therefore build one JAX
 driver per configuration and process, and take it back to its initial
 state before each use through the driver's own rollback hook
 (``_resilience_restore``, the recovery engine's), which keeps its
-compiled steps.  Both configurations are Taylor-Green runs of 16^3
-cells: the uniform grid, and the bpd-2 forest of levelMax 2 held at
-level 0 (8 blocks; Rtol/Ctol keep it there).
+compiled steps; the reset also puts back the Poisson solver a recovery
+ladder may have rebuilt.  Two configurations are Taylor-Green runs of
+16^3 cells: the uniform grid, and the bpd-2 forest of levelMax 2 held at
+level 0 (8 blocks; Rtol/Ctol keep it there).  The third, "fish", is
+BASELINE config #2 (one self-propelled StefanFish, iterative Poisson at
+1e-6/1e-4, non-pipelined) cut to 32^3, its centre on a cell centre (the
+body's section is thinner than a cell at 32^3).
 """
 
 import pickle
@@ -22,16 +27,24 @@ UNIFORM = ("-bpdx 2 -bpdy 2 -bpdz 2 -levelMax 1 -extent 6.283185307179586 "
            "-CFL 0.3 -rampup 0 -verbose 0")
 FOREST = UNIFORM.replace("-levelMax 1", "-levelMax 2 -levelStart 0 "
                          "-Rtol 100 -Ctol 0")
+FISH = ("-bpdx 4 -bpdy 4 -bpdz 4 -levelMax 1 -extent 1 -CFL 0.4 -nu 1e-3 "
+        "-rampup 100 -poissonSolver iterative -poissonTol 1e-6 "
+        "-poissonTolRel 1e-4 -verbose 0")
+FISH_BODY = ("StefanFish L=0.4 T=1.0 xpos=0.5 ypos=0.515625 zpos=0.515625 "
+             "bFixFrameOfRef=1 heightProfile=danio widthProfile=stefan")
 
 _drivers = {}
 
 
 def argv(kind: str, tmp, nsteps: int) -> list:
-    """The CLI arguments of ``kind`` ("uniform" or "amr"), stopping after
-    ``nsteps`` steps and writing under ``tmp``."""
-    base = UNIFORM if kind == "uniform" else FOREST
-    return (f"{base} -tend 0 -nsteps {nsteps} "
-            f"-path4serialization {tmp}").split()
+    """The CLI arguments of ``kind`` ("uniform", "amr" or "fish"),
+    stopping after ``nsteps`` steps and writing under ``tmp``."""
+    base = {"uniform": UNIFORM, "amr": FOREST, "fish": FISH}[kind]
+    out = (f"{base} -tend 0 -nsteps {nsteps} "
+           f"-path4serialization {tmp}").split()
+    if kind == "fish":
+        out += ["-factory-content", FISH_BODY]
+    return out
 
 
 def jax_driver(kind: str, tmp, nsteps: int):
@@ -50,8 +63,12 @@ def jax_driver(kind: str, tmp, nsteps: int):
         # the step jits donate the live fields: keep copies
         p["fields"] = {k: jnp.copy(v) for k, v in p["fields"].items()}
         p["obstacles"] = pickle.dumps(p["obstacles"])
-        _drivers[kind] = (d, p)
-    d, p = _drivers[kind]
+        solver = getattr(getattr(d, "sim", None), "poisson_solver", None)
+        _drivers[kind] = (d, p, solver, list(getattr(d, "pipeline", [])))
+    d, p, solver, pipeline = _drivers[kind]
+    if solver is not None:
+        d.sim.poisson_solver = solver
+        d.pipeline[:] = pipeline
     d._resilience_restore(p)
     d.cfg.path4serialization = str(tmp)
     d.cfg.nsteps = nsteps
