@@ -64,17 +64,35 @@ each of which raises on a fault (nothing is caught):
     fish gate, the fields and the fish's velocity and position finite;
     one step with torch's sync debug mode raising inside the body and
     fluid operators; then the operator split, CreateObstacles in pieces
-    and a profiler window.
+    and a profiler window;
+15. the block-sharded forest: BASELINE config #3 as
+    ``AMRSimulation(cfg, mesh=make_block_mesh([cuda] * SHARDS))`` with
+    ``CUP3D_RING_HALO=1`` (init's adaptation rounds each a re-shard, then
+    the mesh frozen); the ring-shift kernel B14 against its plain
+    per-shard copy, bitwise, at every exchange size of the config, an
+    odd byte count and misaligned slices, timed beside ``torch.roll``;
+    the unsharded port forest of the same state through the same static
+    tile-only solve as the reference: the first RK3 stage bitwise, one
+    solve (iterations in the reference's range under 1e-7 noise, +-1;
+    x within 1e-5 when both are solved to 1e-6 relative), 2 steps on the
+    ring and on the axis-swap transport bitwise, then SHARD_STEPS steps
+    through ``simulate()`` with B14's counter set to 0 just before and
+    read just after (velocity within 5e-3 of the reference's), the step
+    split, a profiler window and the sharded lanes Laplacian at 256^3
+    (1e-5 of max |ref|).
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
-path's launches ride in each row's ``tgv256``.
+path's launches ride in each row's ``tgv256``.  B14's row: its launches
+on phase 15's main path, its times at the Krylov loop's exchange (the
+largest exchange's in ``largest``).
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
 Writes the per-step diagnostics, the profiler's kernel tables
-(``kernels.txt``, ``amr_kernels.txt``) and Chrome traces (``trace.json``,
-``amr_trace.json``) under ``runs/chip_smoke/`` (git-ignored).
+(``kernels.txt``, ``amr_kernels.txt``, ``shard_kernels.txt``) and Chrome
+traces (``trace.json``, ``amr_trace.json``, ``shard_trace.json``) under
+``runs/chip_smoke/`` (git-ignored).
 """
 
 from __future__ import annotations
@@ -129,6 +147,14 @@ CHI_RTOL = 1e-5         # body volume on the card against the CPU port's
 # its measured 0.017).  Inside the band the Brinkman forcing and the
 # body's div(udef) are imposed, so the whole-domain max is printed only.
 FISH_DIV_FLUID_GATE = 0.04
+# the block-sharded forest: BASELINE config #3 on SHARDS shards of the card
+SHARDS = 4
+SHARD_STEPS = 5
+SHARD_X_ATOL = 1e-5     # one solve, sharded vs unsharded (test_forest.py)
+SHARD_TIGHT = 1e-6      # ... both solved to this relative residual
+SHARD_TIGHT_ITERS = 400
+SHARD_VEL_ATOL = 5e-3   # velocity after the steps (__graft_entry__.py)
+LAP_SHARD_RTOL = 1e-5   # sharded lanes Laplacian (test_sharding.py)
 SEED = 0
 TIMING_SAMPLES = 21     # median over samples of LAUNCHES_PER_SAMPLE launches
 LAUNCHES_PER_SAMPLE = 10
@@ -519,9 +545,9 @@ def _profile_window(d, steps: int = 3, prefix: str = "") -> dict:
     # the port's own kernels, by device time per launch on this path
     # (CUDA events around back-to-back launches read the host's launch
     # rate instead when a kernel is shorter than its launch)
-    ours = [e for e in rows if "::k_" in e.key]
+    ours = [e for e in rows if "::k_" in e.key or e.key.startswith("k_")]
     log("  port kernels on this path (device us per launch): " + ", ".join(
-        f"{e.key.split('::k_')[1].split('(')[0]} "
+        f"{e.key.split('k_', 1)[1].split('(')[0]} "
         f"{e.self_device_time_total / e.count:.1f}" for e in ours))
     return dict(wall_ms=wall_ms / steps, busy_ms=busy / steps,
                 kernel_ms=total / steps)
@@ -1463,6 +1489,331 @@ def _no_sync_step(d) -> None:
         "mode 'error' around them for one step)")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the block-sharded forest (BASELINE config #3 on SHARDS shards)
+# ---------------------------------------------------------------------------
+
+
+def _shard_argv(out_dir: str) -> list:
+    return (AMR_ARGV.replace(f"-nsteps {STEPS}", f"-nsteps {SHARD_STEPS}")
+            + f" -verbose 0 -path4serialization {out_dir}").split()
+
+
+def shard_setup_phase(dev="cuda"):
+    """AMRSimulation(cfg, mesh=make_block_mesh([dev] * SHARDS)) of BASELINE
+    config #3 and init(): each adaptation round builds a new ShardedForest
+    (a re-shard), timed with its table builds; then the mesh is frozen."""
+    from cup3d_tpu_torch.config import parse_args
+    from cup3d_tpu_torch.parallel.forest import make_block_mesh
+    from cup3d_tpu_torch.sim.amr import AMRSimulation
+
+    out = os.path.join(OUT_DIR, "shard")
+    os.makedirs(out, exist_ok=True)
+    cfg = parse_args(_shard_argv(out))
+    t0 = time.perf_counter()
+    d = AMRSimulation(cfg, mesh=make_block_mesh([torch.device(dev)]
+                                                * SHARDS))
+    d.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d.adapt_enabled = False
+    fo, g = d.forest, d.grid
+    tab1 = d._tab1
+    plans = [p for _, _, p in tab1.groups] + [tab1.final_plan]
+    log(f"  AMRSimulation(mesh) + init: {init_s:.2f} s, of which forest "
+        f"table builds {sum(d.table_build_s):.2f} s over "
+        f"{len(d.table_build_s)} topologies "
+        f"({', '.join(f'{t:.2f}' for t in d.table_build_s)} s)")
+    log(f"  {g.nb} blocks on {fo.D} shards of nbs {fo.nbs}: nb_pad "
+        f"{fo.nb_pad}, {fo.nb_pad - g.nb} padding blocks; width-1 face "
+        f"tables: {len(plans)} exchanges, M = "
+        f"{[p.M for p in plans]}, rows a shard {tab1.n_local}")
+    return d, cfg, init_s
+
+
+def _exchange_sizes(d) -> list:
+    """(M, C) of every exchange the step runs: the width-1 tables
+    assemble scalars (the solve) and vectors (the projection's
+    divergence, the scores), the width-3 tables vectors (RK3)."""
+    sizes = set()
+    for tab, comps in ((d._tab1, (1, 3)), (d._tab3, (3,))):
+        for _, _, plan in tuple(tab.groups) + ((None, None, tab.final_plan),):
+            if plan.send_rows is not None:
+                sizes.update((plan.M, c) for c in comps)
+    return sorted(sizes)
+
+
+def ring_kernel_phase(d, bw: float, dev="cuda") -> dict:
+    """B14 against its plain per-shard copy, bitwise, at every exchange
+    size the config produces (every shift the ring all-to-all uses), at
+    an odd byte count and on slices off 16- and 4-byte alignment; then
+    timed at the Krylov loop's exchange (the width-1 final exchange of
+    a scalar) beside the plain copy, torch.roll and the bound."""
+    from cup3d_tpu_torch.parallel import ring
+
+    D = d.forest.D
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    sizes = _exchange_sizes(d)
+    checked = []
+
+    def same(a, s, out=None):
+        got = ring.ring_shift_kernel(a, s, out=out)
+        if not torch.equal(got, ring.ring_shift_plain(a, s)):
+            raise AssertionError(f"ring_shift: kernel != plain at "
+                                 f"{tuple(a.shape)} {a.dtype} shift {s}")
+        checked.append((tuple(a.shape), str(a.dtype), s))
+
+    for M, C in sizes:
+        x = torch.randn((D, M, C, 8, 8, 8), generator=gen, device=dev)
+        for s in range(1, D):
+            same(x, s)
+    odd = torch.randint(0, 256, (D, 1001), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    same(odd, 1)
+    same(odd, -1)
+    for dtype, off in ((torch.float32, 1), (torch.uint8, 3)):
+        n = D * 4099
+        buf = torch.randint(0, 100, (n + 2 * off,), generator=gen,
+                            device=dev).to(dtype)
+        dst = torch.zeros_like(buf)
+        same(buf[off:off + n].view(D, -1), 1,
+             out=dst[off:off + n].view(D, -1))
+        if dst[:off].any() or dst[off + n:].any():
+            raise AssertionError("ring_shift: wrote outside the slice")
+    torch.cuda.synchronize()
+    log(f"  B14 bitwise equal to the plain copy: {len(checked)} cases, "
+        f"exchange sizes (M, C) {sizes}, shifts 1..{D - 1}, {D}x1001 "
+        "bytes, f32 and uint8 slices off alignment")
+    Mk = d._tab1.final_plan.M
+    x = torch.randn((D, Mk, 1, 8, 8, 8), generator=gen, device=dev)
+    nbytes = x.numel() * x.element_size()
+    res = dict(max_abs_err=0.0,
+               ms=time_ms(lambda: ring.ring_shift_kernel(x, 1)),
+               plain_ms=time_ms(lambda: ring.ring_shift_plain(x, 1)),
+               bound_ms=2 * nbytes / bw * 1e3, bound_by="bytes",
+               library_ms=time_ms(lambda: torch.roll(x, 1, 0)),
+               shape=list(x.shape))
+    Mb, Cb = max(sizes, key=lambda s: s[0] * s[1])
+    xb = torch.randn((D, Mb, Cb, 8, 8, 8), generator=gen, device=dev)
+    nb2 = xb.numel() * xb.element_size()
+    res["largest"] = dict(
+        shape=list(xb.shape),
+        ms=time_ms(lambda: ring.ring_shift_kernel(xb, 1)),
+        plain_ms=time_ms(lambda: ring.ring_shift_plain(xb, 1)),
+        library_ms=time_ms(lambda: torch.roll(xb, 1, 0)),
+        bound_ms=2 * nb2 / bw * 1e3)
+    for key, r, b in (("Krylov exchange", res, nbytes),
+                      ("largest exchange", res["largest"], nb2)):
+        log(f"  ring_shift at {key} {tuple(r['shape'])} ({b / 1e6:.3f} MB): "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"torch.roll {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            "ms (bytes)")
+    return res
+
+
+def _snapshot(d) -> dict:
+    from cup3d_tpu_torch.io.checkpoint import build_payload
+
+    payload = build_payload(d)
+    payload["fields"] = {k: v.clone() for k, v in payload["fields"].items()}
+    return payload
+
+
+def _steps(d, n: int) -> None:
+    for _ in range(n):
+        d.advance(d.calc_max_timestep())
+
+
+def shard_phase(d, cfg, bw: float, dev="cuda") -> dict:
+    """The sharded forest against the unsharded port forest of the same
+    state through the same static tile-only composition: the first RK3
+    stage (bitwise), one Poisson solve at the production tolerances (its
+    iterations in the reference's range under 1e-7 input noise widened
+    by one) and to SHARD_TIGHT (x within SHARD_X_ATOL), ring and
+    axis-swap transport (bitwise over 2 steps); then
+    the main path (SHARD_STEPS steps through simulate(), the B14 counter
+    set to 0 just before and read just after) against the reference's
+    (velocity within SHARD_VEL_ATOL); a profiler window; the sharded lanes
+    Laplacian at N_MAIN^3.  Every gate is checked and reported before
+    the phase fails."""
+    from cup3d_tpu_torch.grid.uniform import UniformGrid
+    from cup3d_tpu_torch.ops import amr_ops, krylov
+    from cup3d_tpu_torch.parallel import ring
+    from cup3d_tpu_torch.parallel.forest import make_block_mesh
+    from cup3d_tpu_torch.sim.amr import (AMRSimulation, load_state_numpy,
+                                         state_to_numpy)
+
+    fo, g = d.forest, d.grid
+    problems = []
+    s0 = _snapshot(d)
+    # -- the reference: the same state on the unsharded forest, with the
+    # static tile-only solve
+    t0 = time.perf_counter()
+    ref = AMRSimulation(cfg, device=dev)
+    load_state_numpy(ref, *state_to_numpy(d))
+    ref.adapt_enabled = False
+    ref._solver = amr_ops.build_amr_poisson_solver(
+        ref.grid, tol_abs=cfg.poissonTol, tol_rel=cfg.poissonTolRel,
+        maxiter=ref._poisson_maxiter, tab=ref._tab1, flux_tab=ref._ftab,
+        mean_constraint=cfg.bMeanConstraint, two_level=False, device=dev)
+    torch.cuda.synchronize()
+    log(f"  reference (unsharded forest, static tile-only solve) set up in "
+        f"{time.perf_counter() - t0:.2f} s; same forest: "
+        f"{ref.grid.keys == g.keys}")
+
+    # -- the first RK3 stage, then the step and one solve ----------------
+    dt = d.calc_max_timestep()
+    dt_dev = torch.tensor(dt, dtype=d.dtype, device=d.device)
+    uinf = d.uinf_device()
+    st_s = amr_ops.advdiff_rhs_blocks(fo.geom, d.state["vel"], d._tab3, d.nu,
+                                      uinf, d._ftab)
+    st_r = amr_ops.advdiff_rhs_blocks(g, ref.state["vel"], ref._tab3, ref.nu,
+                                      uinf, ref._ftab)
+    stage_eq = torch.equal(fo.unpad(st_s), st_r)
+    pad_zero = not st_s[g.nb:].any()
+    if not (stage_eq and pad_zero):
+        problems.append(f"first RK3 stage: bitwise {stage_eq}, padding "
+                        f"zero {pad_zero}, max diff "
+                        f"{float((fo.unpad(st_s) - st_r).abs().max()):.3e}")
+    v_s = amr_ops.rk3_step_blocks(fo.geom, d.state["vel"], dt_dev, d.nu,
+                                  uinf, d._tab3, d._ftab)
+    v_r = amr_ops.rk3_step_blocks(g, ref.state["vel"], dt_dev, ref.nu, uinf,
+                                  ref._tab3, ref._ftab)
+    rk3_diff = float((fo.unpad(v_s) - v_r).abs().max())
+    b_s = amr_ops.pressure_rhs_blocks(fo.geom, v_s, dt_dev, d._tab1, d._ftab)
+    b_r = amr_ops.pressure_rhs_blocks(g, v_r, dt_dev, ref._tab1, ref._ftab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_s, k_s = d._solver(b_s, None, tab_arg=d._tab1, flux_arg=d._ftab,
+                         with_stats=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_r, k_r = ref._solver(b_r, None, tab_arg=ref._tab1, flux_arg=ref._ftab,
+                           with_stats=True)
+    torch.cuda.synchronize()
+    solve_r = time.perf_counter() - t0
+    x_prod = float((fo.unpad(x_s) - x_r).abs().max())
+    k_s, k_r = int(k_s[1]), int(k_r[1])
+    # x held at convergence: both solved to SHARD_TIGHT (the trajectories
+    # of two f32 tile-only solves part at rounding level, so x at the
+    # production stopping point differs by up to its tolerance)
+    tight = dict(tol_abs=0.0, tol_rel=SHARD_TIGHT, maxiter=SHARD_TIGHT_ITERS)
+    xt_s, kt_s = fo.build_poisson_solver(**tight)(b_s, with_stats=True)
+    xt_r, kt_r = amr_ops.build_amr_poisson_solver(
+        g, tab=ref._tab1, flux_tab=ref._ftab, two_level=False, device=dev,
+        **tight)(b_r, with_stats=True)
+    x_diff = float((fo.unpad(xt_s) - xt_r).abs().max())
+    kt = (int(kt_s[1]), int(kt_r[1]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    noise = 1e-7 * float(b_r.abs().max())
+    ks = [k_r] + [int(ref._solver(
+        b_r + noise * torch.randn(b_r.shape, generator=gen, device=dev),
+        None, tab_arg=ref._tab1, flux_arg=ref._ftab, with_stats=True)[1][1])
+        for _ in range(4)]
+    log(f"  first RK3 stage bitwise {stage_eq} (padding rows zero "
+        f"{pad_zero}); the whole RK3 step max diff {rk3_diff:.3e}; one "
+        f"solve: sharded {k_s} its in {solve_s:.3f} s, unsharded {k_r} in "
+        f"{solve_r:.3f} s (under 1e-7 noise {ks[1:]}), max|x diff| "
+        f"{x_prod:.3e} (max|x| {float(x_r.abs().max()):.3e}); solved to "
+        f"{SHARD_TIGHT:g} relative ({kt[0]} and {kt[1]} its): max|x diff| "
+        f"{x_diff:.3e}")
+    if not x_diff <= SHARD_X_ATOL:
+        problems.append(f"converged solve x diff {x_diff:.3e} > "
+                        f"{SHARD_X_ATOL}")
+    if not min(ks) - 1 <= k_s <= max(ks) + 1:
+        problems.append(f"solve iterations {k_s} outside {ks} +-1")
+    del st_s, st_r, v_s, v_r, b_s, b_r, x_s, x_r, xt_s, xt_r
+
+    # -- ring and axis-swap transport: 2 steps each, bitwise -------------
+    fields, step_ms = {}, {}
+    for halo in ("1", "0"):
+        d._resilience_restore(s0)
+        with _env(CUP3D_RING_HALO=halo):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _steps(d, 2)
+            torch.cuda.synchronize()
+            step_ms[halo] = (time.perf_counter() - t0) / 2 * 1e3
+        fields[halo] = {k: v.clone() for k, v in d.state.items()}
+    swap_eq = all(torch.equal(fields["1"][k], fields["0"][k])
+                  for k in fields["1"])
+    log(f"  2 steps on the ring transport ({step_ms['1']:.2f} ms/step) and "
+        f"on the axis swap ({step_ms['0']:.2f} ms/step): bitwise equal "
+        f"{swap_eq}")
+    if not swap_eq:
+        problems.append("ring and axis-swap runs differ")
+    del fields
+
+    # -- the main path -----------------------------------------------------
+    d._resilience_restore(s0)
+    d.step_log.clear()
+    with _env(CUP3D_RING_HALO="1"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ring.reset_launches()
+        t0 = time.perf_counter()
+        d.simulate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ring.launches["ring_shift"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        ref.simulate()
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        vel_diff = float((fo.unpad(d.state["vel"])
+                          - ref.state["vel"]).abs().max())
+        iters = [int(r["iters"]) for r in d.step_log]
+        ref_iters = [int(r["iters"]) for r in ref.step_log]
+        maxiter = d._solver.maxiter
+        ke = float(amr_ops.dissipation_blocks(
+            fo.geom, d.state["vel"], d.nu, d._tab1)["kinetic_energy"])
+        _, div_max = amr_ops.divergence_norms_blocks(fo.geom, d.state["vel"],
+                                                     d._tab1)
+        div_max = float(div_max)
+        log(f"  {SHARD_STEPS} steps sharded in {wall:.3f} s "
+            f"({wall / SHARD_STEPS * 1e3:.2f} ms/step), iterations {iters}; "
+            f"unsharded reference {ref_wall / SHARD_STEPS * 1e3:.2f} ms/step, "
+            f"iterations {ref_iters}; max|vel diff| {vel_diff:.3e}; "
+            f"B14 launches {launches} ({launches / SHARD_STEPS:.1f} a step); "
+            f"KE {ke:.8e}, max|div u| {div_max:.3e}; peak memory "
+            f"{peak_gb:.2f} GB")
+        if len(iters) != SHARD_STEPS or not all(0 < k <= maxiter
+                                                for k in iters):
+            problems.append(f"iteration counts {iters}")
+        if not vel_diff <= SHARD_VEL_ATOL:
+            problems.append(f"velocity diff {vel_diff:.3e} > "
+                            f"{SHARD_VEL_ATOL}")
+        if not (launches > 0 and math.isfinite(ke)
+                and div_max < AMR_DIV_GATE):
+            problems.append(f"launches {launches}, KE {ke}, max|div u| "
+                            f"{div_max}")
+        split = _amr_step_split(d)
+        prof = _profile_window(d, prefix="shard_")
+    del ref
+    torch.cuda.empty_cache()
+
+    # -- the sharded lanes Laplacian at N_MAIN^3 ---------------------------
+    grid = UniformGrid((N_MAIN,) * 3, (2 * math.pi,) * 3)
+    t = krylov.to_lanes(torch.randn((N_MAIN,) * 3, generator=gen,
+                                    device=dev))
+    want = krylov.make_laplacian_lanes(grid)(t)
+    got = ring.make_laplacian_lanes_sharded(
+        grid, make_block_mesh([torch.device(dev)] * SHARDS))(t)
+    lap_err, lap_scale = max_err(got, want)
+    log(f"  sharded lanes Laplacian at {N_MAIN}^3 on {SHARDS} shards: max "
+        f"err {lap_err:.3e} ({lap_err / lap_scale:.2e} of max |ref|)")
+    if not lap_err <= LAP_SHARD_RTOL * lap_scale:
+        problems.append(f"sharded lanes Laplacian err {lap_err:.3e}")
+    if problems:
+        raise AssertionError("phase 15: " + "; ".join(problems))
+    return dict(launches=launches, wall=wall, ref_wall=ref_wall,
+                iters=iters, split=split, prof=prof)
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -1484,6 +1835,7 @@ KERNELS = (
      "fused_bicgstab.cu"),
     ("amr_finish", "cup3d_tpu/ops/fused_amr_bicgstab.py:224",
      "fused_bicgstab.cu"),
+    ("ring_shift", "cup3d_tpu/parallel/ring.py:89", "ring.cu"),
 )
 
 
@@ -1555,13 +1907,24 @@ def main() -> int:
     fish_kernels = kernel_phase(bw, fp32_flops, n=N_FISH)
     with _env(CUP3D_FUSED="1"):
         fish_run = fish_phase()
+    torch.cuda.empty_cache()
+
+    log(f"phase 15: the block-sharded forest, BASELINE config #3 on "
+        f"{SHARDS} shards of the card (CUP3D_RING_HALO=1)")
+    with _env(CUP3D_RING_HALO="1"):
+        d, cfg, _ = shard_setup_phase()
+    per_kernel["ring_shift"] = ring_kernel_phase(d, bw)
+    shard_run = shard_phase(d, cfg, bw)
+    del d
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
-    # kernels' from the fish path (this slice's main path), with their
-    # 256^3 numbers and the TGV path's launches beside them
+    # kernels' from the fish path, with their 256^3 numbers and the TGV
+    # path's launches beside them; B14's from the sharded forest's
     launches = {**amr_run["launches"],
                 "getz_tile": ladder["launches"]["getz_tile"],
                 "amr_getz_tile": forest_ladder["launches"]["amr_getz_tile"],
-                "getz_cg": cg_run["launches"]["getz_cg"]}
+                "getz_cg": cg_run["launches"]["getz_cg"],
+                "ring_shift": shard_run["launches"]}
     for kname in fish_kernels:
         launches[kname] = fish_run["launches"][kname]
         per_kernel[kname] = dict(fish_kernels[kname], tgv256=dict(

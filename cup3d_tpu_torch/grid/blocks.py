@@ -187,12 +187,18 @@ class BlockGrid:
     def lab_tables(self, width: int, device="cpu") -> LabTables:
         key = ("lab", width, str(torch.device(device)))
         if key not in self._cache:
-            np_key = ("lab_np", width)
-            if np_key not in self._cache:
-                self._cache[np_key] = self._build_lab_tables(width)
-            self._cache[key] = _lab_tables_on(self._cache[np_key], width,
-                                              device)
+            self._cache[key] = _lab_tables_on(self.lab_tables_np(width),
+                                              width, device)
         return self._cache[key]
+
+    def lab_tables_np(self, width: int) -> dict:
+        """The per-cell tables of ``width`` as host numpy arrays (built
+        once): ghost_xyz, g_idx, g_w, g_sign, mask_coarse, s_idx, s_w,
+        s_sign, interp_w, any_coarse."""
+        np_key = ("lab_np", width)
+        if np_key not in self._cache:
+            self._cache[np_key] = self._build_lab_tables(width)
+        return self._cache[np_key]
 
     def face_tables(self, width: int, device="cpu"):
         """Faces-only halo tables (grid/faces.py) for axis-stencil
@@ -431,10 +437,18 @@ def upsample(scratch: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
 def _assemble_comp(comp: torch.Tensor, t: LabTables, bs: int, c) -> torch.Tensor:
     """(nb, bs,bs,bs) -> (nb, L,L,L) lab; ``c`` the velocity component
     whose BC signs apply (None: scalar, zero-gradient ghosts)."""
+    flat = torch.cat([comp.reshape(-1), comp.new_zeros(1)])
+    return assemble_from(comp, flat, t, bs, c)
+
+
+def assemble_from(comp: torch.Tensor, flat: torch.Tensor, t: LabTables,
+                  bs: int, c) -> torch.Tensor:
+    """The lab of ``comp`` with its ghosts gathered from ``flat``, the
+    buffer ``t``'s indices address (the flattened field plus its zero
+    sentinel; the sharded forest passes its exchanged buffers)."""
     nb = comp.shape[0]
     w = t.width
     L = bs + 2 * w
-    flat = torch.cat([comp.reshape(-1), comp.new_zeros(1)])
     ghosts = gather_weighted(flat, t.g_idx, t.g_w)
     if c is not None:
         ghosts = ghosts * t.g_sign[..., c]

@@ -292,12 +292,22 @@ def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _restrict8(ch: torch.Tensor, bs: int) -> torch.Tensor:
     """(ns, 8, C, bs,bs,bs) child blocks -> (ns, C, bs,bs,bs) parent
-    restriction (exact hierarchical 8-to-1 average)."""
+    restriction (exact hierarchical 8-to-1 average).  The 8 fine cells of
+    a parent cell are summed by elementwise adds in one fixed order, so
+    every parent cell rounds alike whatever the batch (the sharded
+    forest restricts per shard what the unsharded one restricts at
+    once)."""
     ns, C = ch.shape[0], ch.shape[2]
-    c = ch.reshape(ns, 2, 2, 2, C, bs, bs, bs)
-    c = c.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(
-        ns, C, 2 * bs, 2 * bs, 2 * bs)
-    return c.reshape(ns, C, bs, 2, bs, 2, bs, 2).mean(dim=(3, 5, 7))
+    h = bs // 2
+    acc = None
+    for a in (0, 1):
+        for b in (0, 1):
+            for c in (0, 1):
+                part = ch[..., a::2, b::2, c::2]
+                acc = part if acc is None else acc + part
+    # (ns, di, dj, dk, C, h,h,h) -> (ns, C, di h, dj h, dk h)
+    acc = (acc * 0.125).reshape(ns, 2, 2, 2, C, h, h, h)
+    return acc.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(ns, C, bs, bs, bs)
 
 
 def _ext_buffer(t: FaceTables, fm: torch.Tensor) -> torch.Tensor:
@@ -331,11 +341,20 @@ def _place(lab: torch.Tensor, slab: torch.Tensor, a: int, hi: int, w: int,
 def _coarse_halo(t: FaceTables, ext: torch.Tensor, f: int) -> torch.Tensor:
     """(ncf, C, w, bs, bs) interpolated halo slabs for face f's coarse
     rows."""
+    return coarse_halo_rows(ext, f, t.cf_src[f], t.cf_toff[f], t.interp_t,
+                            t.interp_n_lo, t.interp_n_hi, t.bs)
+
+
+def coarse_halo_rows(ext: torch.Tensor, f: int, src8: torch.Tensor,
+                     toff: torch.Tensor, interp_t: torch.Tensor,
+                     interp_n_lo: torch.Tensor, interp_n_hi: torch.Tensor,
+                     bs: int) -> torch.Tensor:
+    """The coarse halo of face ``f`` for the rows whose 2x2x2 window
+    entries are ``src8`` (n, 8) (rows of ``ext``) and whose tangential
+    window offsets are ``toff`` (n, 2)."""
     a, hi = f // 2, f % 2
-    bs = t.bs
-    cw = t.interp_n_lo.shape[1] - 1
-    S = t.interp_t.shape[1]
-    src8 = t.cf_src[f]
+    cw = interp_n_lo.shape[1] - 1
+    S = interp_t.shape[1]
     n = src8.shape[0]
     C = ext.shape[1]
     # parent side: ONE plane adjacent to the face; neighbor side: cw planes
@@ -361,12 +380,12 @@ def _coarse_halo(t: FaceTables, ext: torch.Tensor, f: int) -> torch.Tensor:
     # per-row tangential window: slab16[r, :, :, o0:o0+S, o1:o1+S]
     D = slab16.shape[2]
     ar = torch.arange(S, device=ext.device)
-    i0 = (t.cf_toff[f][:, 0:1] + ar)[:, None, None, :, None]
-    i1 = (t.cf_toff[f][:, 1:2] + ar)[:, None, None, None, :]
+    i0 = (toff[:, 0:1] + ar)[:, None, None, :, None]
+    i1 = (toff[:, 1:2] + ar)[:, None, None, None, :]
     win = torch.gather(slab16, 3, i0.expand(n, C, D, S, 2 * bs))
     win = torch.gather(win, 4, i1.expand(n, C, D, S, S))
-    Tn = t.interp_n_hi if hi else t.interp_n_lo  # (w, cw+1)
-    Tt = t.interp_t  # (bs, S)
+    Tn = interp_n_hi if hi else interp_n_lo  # (w, cw+1)
+    Tt = interp_t  # (bs, S)
     from cup3d_tpu_torch.grid.blocks import require_fp32_matmuls
 
     require_fp32_matmuls(win)

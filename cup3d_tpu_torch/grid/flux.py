@@ -146,11 +146,33 @@ def apply_flux_correction(out: torch.Tensor, fluxes: torch.Tensor,
     out (a new tensor)."""
     if tab.ncorr == 0:
         return out
-    fflat = fluxes.reshape(-1)
-    fine_mean = torch.mean(fflat[tab.src_flux], dim=-1)
-    corr = (-fine_mean - fflat[tab.tgt_flux]) * tab.inv_hc
-    corr = torch.cat([corr, corr.new_zeros(1)]).to(out.dtype)
-    add = torch.sum(corr[tab.groups], dim=-1)
+    corr = corrections(fluxes.reshape(-1), tab.src_flux, tab.tgt_flux,
+                       tab.inv_hc)
     flat = out.reshape(-1).clone()
-    flat[tab.cells] = flat[tab.cells] + add
+    add_grouped(flat, tab.cells, tab.groups, corr)
     return flat.reshape(out.shape)
+
+
+def corrections(fflat: torch.Tensor, src_flux: torch.Tensor,
+                tgt_flux: torch.Tensor, inv_hc: torch.Tensor) -> torch.Tensor:
+    """Per correction row: (-(mean of its 4 fine fluxes) - its coarse
+    flux) / h_c, the mean an elementwise sum in one fixed order (rows
+    round alike whatever the batch, as the sharded forest needs)."""
+    q = fflat[src_flux]
+    fine_mean = (q[..., 0] + q[..., 1] + q[..., 2] + q[..., 3]) / 4
+    return (-fine_mean - fflat[tgt_flux]) * inv_hc
+
+
+def add_grouped(flat: torch.Tensor, cells: torch.Tensor,
+                groups: torch.Tensor, corr: torch.Tensor) -> None:
+    """flat[cells] += the corrections of each cell's group, summed in
+    table order (``groups`` index ``corr`` along its last axis with one
+    zero row appended; every target written once), in place."""
+    corr = torch.cat([corr, corr.new_zeros(corr.shape[:-1] + (1,))],
+                     dim=-1).to(flat.dtype)
+    corr = corr.reshape(-1)
+    add = None
+    for k in range(groups.shape[-1]):
+        part = corr[groups[..., k]]
+        add = part if add is None else add + part
+    flat[cells] = flat[cells] + add

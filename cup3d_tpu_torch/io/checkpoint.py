@@ -76,11 +76,15 @@ def build_payload(driver) -> dict:
 
 def materialize_payload(payload: dict) -> dict:
     """Read the field tensors of ``build_payload`` to numpy; on the
-    forest add the JAX package's ``chi``/``udef`` as zeros."""
+    forest keep the real blocks' rows and add the JAX package's
+    ``chi``/``udef`` as zeros."""
     out = dict(payload)
     fields = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
               else np.asarray(v) for k, v in payload["fields"].items()}
     if payload["kind"] == "amr":
+        # a block-sharded driver's fields carry zero padding rows
+        nb = len(payload["leaves"])
+        fields = {k: v[:nb] for k, v in fields.items()}
         fields.setdefault("chi", np.zeros_like(fields["p"]))
         fields.setdefault("udef", np.zeros_like(fields["vel"]))
     out["fields"] = fields

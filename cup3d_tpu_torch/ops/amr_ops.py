@@ -7,8 +7,10 @@ Fields are ``(nb, bs, bs, bs[, 3])`` block batches; halo'd labs come from
 the face tables (grid/faces.py), spatial derivatives are slices of the
 lab, and each block scales by its own spacing ``h``.  Conservative
 operators emit outward per-unit-area face fluxes for coarse-fine
-refluxing (grid/flux.py).  ``grid`` is a BlockGrid: the port runs
-unpadded forests.
+refluxing (grid/flux.py).  ``grid`` is a BlockGrid, or the block-sharded
+forest's padded geometry (parallel/forest.py) with its duck-typed tables:
+the operators call only the assembly protocol (``assemble_*``,
+``apply``) and the grid's ``nb``, ``bs`` and ``h_column``.
 
 Not ported yet (obstacles, ROADMAP A6): ``force_integrals_blocks``.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from cup3d_tpu_torch.ops.advection import RK3_A, RK3_B
@@ -190,12 +193,76 @@ def forest_operator(geom, tab, flux_tab, vol: torch.Tensor,
     return A
 
 
+def build_amr_poisson_solver(grid, tol_abs: float = 1e-6,
+                             tol_rel: float = 1e-4, maxiter: int = 1000,
+                             precond_iters: int = 24, tab=None,
+                             flux_tab=None,
+                             vol: Optional[torch.Tensor] = None,
+                             pmask: Optional[torch.Tensor] = None,
+                             mean_constraint: int = 2,
+                             two_level: Optional[bool] = None,
+                             device="cpu"):
+    """The static solver front-end (the JAX package's
+    ``build_amr_poisson_solver``): the legacy composition of
+    :func:`build_amr_poisson_solver_dynamic` (never the fused driver,
+    whatever CUP3D_FUSED says) bound to one forest.  The block-sharded
+    forest (parallel/forest.py) solves through it.
+
+    ``tab``/``flux_tab`` may be pre-built or the sharded forest's
+    duck-typed tables (default: the grid's faces-only tables of width 1
+    and its flux tables on ``device``); ``vol`` overrides the per-block
+    cell volume (the sharded forest passes zeros on padding) and
+    ``pmask`` zeroes padding blocks after the mean shifts, so they never
+    re-enter the iteration.  ``two_level`` overrides the CUP3D_COARSE
+    default; the block-graph coarse level needs the grid's tree (the
+    sharded forest's padded geometry has none, so its getZ is tile-only)
+    and is off for the pinned-row modes.  Call contract: ``solve(rhs,
+    x0=None, tab_arg=None, flux_arg=None, rnorm_ref=None,
+    with_stats=False)``."""
+    from cup3d_tpu_torch.grid.flux import build_flux_tables
+    from cup3d_tpu_torch.ops import krylov
+
+    if tab is None:
+        tab = grid.face_tables(1, device)
+    if flux_tab is None:
+        flux_tab = build_flux_tables(grid, device)
+    if vol is None:
+        vol = torch.as_tensor((grid.h ** 3).reshape(grid.nb, 1, 1, 1),
+                              dtype=torch.float32, device=device)
+    # corner block: the leaf covering the domain corner in Hilbert order
+    slot0 = int(np.lexsort((grid.ijk[:, 2], grid.ijk[:, 1],
+                            grid.ijk[:, 0]))[0]) \
+        if mean_constraint in (1, 3) else 0
+    use_two = (krylov.use_coarse_correction() if two_level is None
+               else bool(two_level))
+    graph = None
+    if (use_two and mean_constraint not in (1, 3)
+            and hasattr(grid, "tree")):
+        graph = krylov.block_graph_tables(grid, vol.device)
+    core = build_amr_poisson_solver_dynamic(
+        grid.bs, tol_abs=tol_abs, tol_rel=tol_rel, maxiter=maxiter,
+        precond_iters=precond_iters, mean_constraint=mean_constraint,
+        fused=False)
+
+    def solve(rhs, x0=None, tab_arg=None, flux_arg=None, rnorm_ref=None,
+              with_stats=False):
+        return core(rhs, x0, tab_arg=tab if tab_arg is None else tab_arg,
+                    flux_arg=flux_tab if flux_arg is None else flux_arg,
+                    rnorm_ref=rnorm_ref, geom=grid, vol=vol, pmask=pmask,
+                    graph=graph, slot0=slot0, with_stats=with_stats)
+
+    solve.supports_stats = True
+    solve.maxiter = maxiter
+    return solve
+
+
 def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
                                      tol_rel: float = 1e-4,
                                      maxiter: int = 1000,
                                      precond_iters: int = 24,
                                      mean_constraint: int = 2,
-                                     kernels: Optional[bool] = None):
+                                     kernels: Optional[bool] = None,
+                                     fused: Optional[bool] = None):
     """getZ-preconditioned BiCGSTAB on the AMR forest (the analogue of
     PoissonSolverAMR, main.cpp:14363-14616), with the JAX package's call
     contract: ``solve(rhs, x0=None, tab_arg, flux_arg, rnorm_ref, geom,
@@ -212,12 +279,14 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
     whose getZ is ``precond_iters`` CG sweeps per block under
     CUP3D_GETZ=cg (kernel B7 on CUDA tensors), with the block's own h^2
     folded into the rhs.  ``kernels`` is passed to every kernel wrapper
-    (False: the plain versions on any device)."""
+    (False: the plain versions on any device); ``fused=False`` keeps the
+    legacy composition whatever CUP3D_FUSED says (the static front-end,
+    :func:`build_amr_poisson_solver`)."""
     from cup3d_tpu_torch.ops import krylov, precision
 
     precision.check_policy(mean_constraint)
-    fused_on = (precision.use_fused() and mean_constraint == 2
-                and krylov.use_exact_getz())
+    fused_on = ((precision.use_fused() if fused is None else fused)
+                and mean_constraint == 2 and krylov.use_exact_getz())
 
     def solve(rhs, x0=None, tab_arg=None, flux_arg=None, rnorm_ref=None,
               geom=None, vol=None, pmask=None, graph=None, slot0=None,

@@ -48,6 +48,9 @@ SOURCES = {
     CSRC / "getz_cg.cu": {
         "cup3d_getz_cg": [_P, _P, _F, _P, _I, _L, _L, _I, _P],
     },
+    CSRC / "ring.cu": {
+        "cup3d_ring_shift": [_P, _P, _I, _L, _I, _P],
+    },
 }
 
 

@@ -24,11 +24,18 @@ block graph, so the fused forest solve runs the tile-only getZ kernel
 B10.
 
 The forest is unpadded: every tensor has exactly ``nb`` blocks and every
-regrid rebuilds the tables (numpy) for the new topology.  Runs on CUDA
-unless the caller asks for the CPU.  Not ported yet, and raising with
-their ROADMAP item: obstacles, pipelined stepping and the megastep,
-field dumps and periodic checkpoints, implicit diffusion, forcing and
-mass-flux fixing.
+regrid rebuilds the tables (numpy) for the new topology.  With ``mesh``
+(parallel/forest.make_block_mesh) the forest is block-sharded instead:
+every field is padded to the ShardedForest's ``nb_pad`` rows on every
+state-assignment path (zero padding rows), the operators take its
+padded geometry and duck-typed face and flux tables (the halo exchange
+between shards, on the ring transport under ``CUP3D_RING_HALO=1``), and
+the Poisson solve is the static tile-only composition
+(``ShardedForest.build_poisson_solver``), as the JAX package's mesh
+mode.  Runs on CUDA unless the caller asks for the CPU.  Not ported
+yet, and raising with their ROADMAP item: obstacles, pipelined stepping
+and the megastep, field dumps and periodic checkpoints, implicit
+diffusion, forcing and mass-flux fixing.
 """
 
 from __future__ import annotations
@@ -76,11 +83,19 @@ def _unsupported(cfg: SimulationConfig) -> Optional[str]:
 
 class AMRSimulation:
     def __init__(self, cfg: SimulationConfig, tree: Optional[Octree] = None,
-                 device=None):
+                 device=None, mesh=None):
         missing = _unsupported(cfg)
         if missing:
             raise NotImplementedError(f"not ported yet: {missing}")
         self.cfg = cfg
+        #: the 1-D block mesh (parallel/forest.BlockMesh) or None
+        self.mesh = mesh
+        self.forest = None
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         if tree is None:
@@ -128,12 +143,15 @@ class AMRSimulation:
         g = self.grid
         return {"driver": "amr", "blocks": int(g.nb),
                 "levels": sorted(set(int(v) for v in g.level)),
+                "shards": 1 if self.mesh is None else self.mesh.D,
                 "step": self.step_idx, "time": self.time, "dt": self.dt}
 
     # -- topology-dependent tables -----------------------------------------
 
     def _coarse(self) -> bool:
         """Whether the solve runs the block-graph coarse level."""
+        if self.mesh is not None:
+            return False  # the padded geometry carries no tree
         two = (krylov.use_coarse_correction()
                if self._poisson_two_level is None
                else bool(self._poisson_two_level))
@@ -149,6 +167,21 @@ class AMRSimulation:
         """Tables, coarse graph and solver binding of the current grid."""
         g, cfg, dev = self.grid, self.cfg, self.device
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            from cup3d_tpu_torch.parallel.forest import cached_forest
+
+            fo = self.forest = cached_forest(g, self.mesh)
+            self._geom = fo.geom
+            self._tab1 = fo.face_tables(1)
+            self._tab3 = fo.face_tables(3)
+            self._ftab = fo.flux_tables
+            self._graph = None
+            self.table_build_s.append(time.perf_counter() - t0)
+            self._vol = fo.vol.to(self.dtype)
+            self._slot0 = 0
+            self._bind_solver()
+            return
+        self._geom = g
         self._tab1 = g.face_tables(1, dev)
         self._tab3 = g.face_tables(3, dev)
         self._ftab = build_flux_tables(g, dev)
@@ -166,7 +199,15 @@ class AMRSimulation:
         self._bind_solver()
 
     def _bind_solver(self) -> None:
-        """``self._solver``: the solver core bound to this topology."""
+        """``self._solver``: the solver core bound to this topology (the
+        sharded forest's static solver on a mesh)."""
+        if self.forest is not None:
+            cfg = self.cfg
+            self._solver = self.forest.build_poisson_solver(
+                tol_abs=cfg.poissonTol, tol_rel=cfg.poissonTolRel,
+                maxiter=self._poisson_maxiter,
+                mean_constraint=cfg.bMeanConstraint)
+            return
         core, geom = self._solver_core, self.grid
         vol, graph, slot0 = self._vol, self._graph, self._slot0
 
@@ -181,7 +222,16 @@ class AMRSimulation:
     def _alloc_fields(self) -> None:
         g = self.grid
         kw = dict(dtype=self.dtype, device=self.device)
-        self.state = {"vel": g.zeros(3, **kw), "p": g.zeros(0, **kw)}
+        self.state = {"vel": self._pad(g.zeros(3, **kw)),
+                      "p": self._pad(g.zeros(0, **kw))}
+
+    def _pad(self, field: torch.Tensor) -> torch.Tensor:
+        """Block-axis padding to the sharded forest's nb_pad rows (zero
+        rows); the identity without a mesh."""
+        return field if self.forest is None else self.forest.pad(field)
+
+    def _unpad(self, field: torch.Tensor) -> torch.Tensor:
+        return field if self.forest is None else self.forest.unpad(field)
 
     def uinf_device(self) -> torch.Tensor:
         """Device copy of the frame velocity, uploaded when ``uinf`` is
@@ -193,7 +243,8 @@ class AMRSimulation:
         return self._uinf_dev
 
     def _maxu(self) -> torch.Tensor:
-        return torch.max(torch.abs(self.state["vel"] + self.uinf_device()))
+        vel = self._unpad(self.state["vel"])
+        return torch.max(torch.abs(vel + self.uinf_device()))
 
     # -- adaptation ----------------------------------------------------------
 
@@ -201,8 +252,9 @@ class AMRSimulation:
         """Tag on max |vorticity| per block (no bodies: the level cap is
         levelMaxVorticity everywhere) and apply the validated states."""
         g, cfg = self.grid, self.cfg
-        score = amr_ops.vorticity_score(g, self.state["vel"], self._tab1)
-        score = score.cpu().numpy().astype(np.float64)
+        score = amr_ops.vorticity_score(self._geom, self.state["vel"],
+                                        self._tab1)
+        score = score[: g.nb].cpu().numpy().astype(np.float64)
         cap = np.full(g.nb, cfg.levelMaxVorticity - 1)
         return self._apply_states(
             ad.tag_states(g, score, cfg.Rtol, cfg.Ctol, cap))
@@ -214,9 +266,12 @@ class AMRSimulation:
         if plan is None:
             return False
         for k in FIELDS:
-            self.state[k] = ad.transfer_field(g, plan, self.state[k])
+            self.state[k] = ad.transfer_field(g, plan,
+                                              self._unpad(self.state[k]))
         self.grid = plan.new_grid
-        self._rebuild()
+        self._rebuild()  # on a mesh: a new ShardedForest (a re-shard)
+        for k in FIELDS:
+            self.state[k] = self._pad(self.state[k])
         return True
 
     # -- initialization ------------------------------------------------------
@@ -228,10 +283,10 @@ class AMRSimulation:
         if self.cfg.initCond == "taylorGreen":
             from cup3d_tpu_torch.utils.flows import taylor_green_2d
 
-            self.state["vel"] = taylor_green_2d(g, **kw)
+            self.state["vel"] = self._pad(taylor_green_2d(g, **kw))
         else:
-            self.state["vel"] = g.zeros(3, **kw)
-        self.state["p"] = g.zeros(0, **kw)
+            self.state["vel"] = self._pad(g.zeros(3, **kw))
+        self.state["p"] = self._pad(g.zeros(0, **kw))
 
     def init(self) -> None:
         """IC, then up to 3*levelMax adaptation rounds to converge the
@@ -299,15 +354,16 @@ class AMRSimulation:
                 self.step_idx < 10 or self.step_idx % ADAPT_EVERY == 0):
             with prof("AdaptMesh"):
                 self.adapt_mesh()
-        g = self.grid
+        g, geom = self.grid, self._geom
         with prof("AdvectionDiffusion"):
-            s["vel"] = amr_ops.rk3_step_blocks(g, s["vel"], dt_dev, self.nu,
-                                               uinf, self._tab3, self._ftab)
+            s["vel"] = amr_ops.rk3_step_blocks(geom, s["vel"], dt_dev,
+                                               self.nu, uinf, self._tab3,
+                                               self._ftab)
         with prof("PressureProjection"):
             # warm start from the previous pressure; after step_2nd_start
             # the reference's increment form (main.cpp:15087-15100)
             s["vel"], s["p"], psolve = amr_ops.project_blocks(
-                g, s["vel"], dt_dev, self._solver, self._tab1, self._ftab,
+                geom, s["vel"], dt_dev, self._solver, self._tab1, self._ftab,
                 p_init=s["p"],
                 second_order=self.step_idx >= self.cfg.step_2nd_start,
                 with_stats=True)
@@ -354,7 +410,7 @@ class AMRSimulation:
         if freq <= 0 or self.step_idx % freq:
             return
         with self.profiler("Diagnostics"):
-            g, vel = self.grid, self.state["vel"]
+            g, vel = self._geom, self.state["vel"]
             total, peak = amr_ops.divergence_norms_blocks(g, vel, self._tab1)
             self.logger.write(
                 "div.txt",
@@ -378,7 +434,8 @@ class AMRSimulation:
         if keys != self.grid.keys:
             self.grid = grid_from_keys(self.grid, keys)
             self._rebuild()
-        self.state = {k: torch.clone(v) for k, v in payload["fields"].items()}
+        self.state = {k: self._pad(torch.clone(v))
+                      for k, v in payload["fields"].items()}
         self.time = float(payload["time"])
         self.step_idx = int(payload["step"])
         self.dt = float(payload["dt"])
@@ -403,7 +460,7 @@ class AMRSimulation:
         self._build_solver_core()
         if not self._coarse():
             self._graph = None
-        elif self._graph is None:
+        elif self._graph is None:  # (never on a mesh: no coarse level)
             self._graph = krylov.block_graph_tables(self.grid, self.device)
         self._bind_solver()
 
@@ -468,7 +525,8 @@ def state_to_numpy(sim: AMRSimulation):
     """(arrays, scalars) in the form :func:`load_state_numpy` takes: the
     octree's leaf keys in slot order ``keys`` (nb, 4) and the ``vel``/``p``
     block fields, plus time/step/dt/uinf."""
-    arrays = {k: sim.state[k].detach().cpu().numpy() for k in FIELDS}
+    arrays = {k: sim._unpad(sim.state[k]).detach().cpu().numpy()
+              for k in FIELDS}
     arrays["keys"] = np.asarray(sim.grid.keys, np.int64).reshape(-1, 4)
     scalars = {"time": sim.time, "step": sim.step_idx, "dt": sim.dt,
                "uinf": np.array(sim.uinf, dtype=np.float64)}
@@ -493,8 +551,8 @@ def load_state_numpy(sim: AMRSimulation, arrays: Dict[str, np.ndarray],
     sim.grid = grid
     sim._rebuild()
     for name in FIELDS:
-        sim.state[name] = torch.tensor(np.asarray(arrays[name]),
-                                       dtype=sim.dtype, device=sim.device)
+        sim.state[name] = sim._pad(torch.tensor(
+            np.asarray(arrays[name]), dtype=sim.dtype, device=sim.device))
     sim.time = float(scalars["time"])
     sim.step_idx = int(scalars["step"])
     sim.dt = float(scalars["dt"])

@@ -16,7 +16,9 @@ getZ (B3, B10) in fused solves whose getz_tile launches are twice the
 executed iterations, and the CG getZ (B7) on both layouts, with a scalar
 and a per-tile shift, and in a CUP3D_GETZ=cg solve whose launches equal
 its preconditioner applications.  The fish (BASELINE config #2 at 32^3)
-for 3 steps on the card, held against the port on the CPU."""
+for 3 steps on the card, held against the port on the CPU.  The ring
+shift (B14) against its plain per-shard copy, bitwise, at odd byte
+counts and misaligned slices, and inside ``ring_all_to_all``."""
 
 import math
 
@@ -413,3 +415,39 @@ def test_cg_getz_solve_launches_match_preconditioner_applications(
     assert torch.isfinite(x_k).all()
     err = float(torch.max(torch.abs(x_k - x_p)) / torch.max(torch.abs(x_p)))
     assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_ring_shift_kernel_matches_plain_version(dev, D):
+    """B14 (csrc/ring.cu) against its plain per-shard copy, bitwise: f32
+    and int32 shards, an odd byte count (uint8), and source and
+    destination slices off 16-byte (f32, 4 bytes in) and 4-byte (uint8,
+    1 byte in) alignment; each launch counted once."""
+    from cup3d_tpu_torch.parallel import ring
+
+    ring.reset_launches()
+    x = torch.randn((D, 7, 3, 8, 8, 8), device=dev)
+    xi = torch.randint(-2 ** 31, 2 ** 31 - 1, (D, 5, 3), device=dev,
+                       dtype=torch.int32)
+    odd = torch.randint(0, 255, (D, 37), device=dev, dtype=torch.uint8)
+    cases = [(x, s) for s in (1, -1, 3, -3)] + [(xi, 1), (odd, -3)]
+    for a, s in cases:
+        assert torch.equal(ring.ring_shift_kernel(a, s),
+                           ring.ring_shift_plain(a, s))
+    for dtype, off in ((torch.float32, 1), (torch.uint8, 1)):
+        n = D * 45
+        buf = torch.arange(n + 2 * off, device=dev).to(dtype)
+        src = buf[off:off + n].view(D, 45)
+        out_buf = torch.zeros(n + 2 * off, device=dev, dtype=dtype)
+        out = out_buf[off:off + n].view(D, 45)
+        ring.ring_shift_kernel(src, 3, out=out)
+        assert torch.equal(out, ring.ring_shift_plain(src, 3))
+        assert not out_buf[:off].any() and not out_buf[off + n:].any()
+    torch.cuda.synchronize()
+    assert ring.launches["ring_shift"] == len(cases) + 2
+    # the dispatch: CUDA shards take the kernel unless CUP3D_RING_DMA=0
+    ring.reset_launches()
+    send = torch.randn((D, D, 4, 3), device=dev)
+    assert torch.equal(ring.ring_all_to_all(send),
+                       send.transpose(0, 1).contiguous())
+    assert ring.launches["ring_shift"] == D - 1

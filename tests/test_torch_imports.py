@@ -47,7 +47,8 @@ def test_no_module_imports_the_jax_package_or_jax():
 def test_every_module_imports_with_jax_blocked():
     mods = [m for _, m in _modules()]
     # the walk finds the forest modules (the AMR slice), the
-    # self-healing loop's (the resilience slice) and the fish's too
+    # self-healing loop's (the resilience slice), the fish's and the
+    # sharded forest's too
     assert {f"cup3d_tpu_torch.{m}" for m in (
         "grid.sfc", "grid.octree", "grid.blocks", "grid.faces", "grid.flux",
         "grid.adapt", "ops.amr_ops", "ops.fused_amr_bicgstab", "sim.amr",
@@ -61,6 +62,9 @@ def test_every_module_imports_with_jax_blocked():
         "models.fish.curvature", "models.fish.rasterize",
         "models.fish.stefanfish", "ops.chi", "ops.penalization",
         "ops.surface",
+        # the sharded forest's
+        "grid.bucket", "parallel", "parallel.compat", "parallel.ring",
+        "parallel.forest", "parallel.faces",
     )} <= set(mods)
     code = (
         "import sys\n"
