@@ -68,9 +68,12 @@ each of which raises on a fault (nothing is caught):
 15. the block-sharded forest: BASELINE config #3 as
     ``AMRSimulation(cfg, mesh=make_block_mesh([cuda] * SHARDS))`` with
     ``CUP3D_RING_HALO=1`` (init's adaptation rounds each a re-shard, then
-    the mesh frozen); the ring-shift kernel B14 against its plain
-    per-shard copy, bitwise, at every exchange size of the config, an
-    odd byte count and misaligned slices, timed beside ``torch.roll``;
+    the mesh frozen); the ring-step kernel B14 against its plain
+    version, bitwise, at every exchange size of the config, an odd byte
+    count, misaligned slices, strided slab slices read in place and each
+    exchange's all-to-all landing in a view, timed beside ``torch.roll``,
+    and one whole exchange (one launch, the kernels on its profile
+    counted) beside D one-step launches and the axis swap;
     the unsharded port forest of the same state through the same static
     tile-only solve as the reference: the first RK3 stage bitwise, one
     solve (iterations in the reference's range under 1e-7 noise, +-1;
@@ -85,7 +88,9 @@ The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
 path's launches ride in each row's ``tgv256``.  B14's row: its launches
 on phase 15's main path, its times at the Krylov loop's exchange (the
-largest exchange's in ``largest``).
+largest exchange's in ``largest``, one whole exchange's in
+``exchange``).  B2 and B14 were redesigned after their port: their rows
+carry ``redesigned`` (the PR).
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -1544,12 +1549,19 @@ def _exchange_sizes(d) -> list:
 
 
 def ring_kernel_phase(d, bw: float, dev="cuda") -> dict:
-    """B14 against its plain per-shard copy, bitwise, at every exchange
-    size the config produces (every shift the ring all-to-all uses), at
-    an odd byte count and on slices off 16- and 4-byte alignment; then
-    timed at the Krylov loop's exchange (the width-1 final exchange of
-    a scalar) beside the plain copy, torch.roll and the bound."""
-    from cup3d_tpu_torch.parallel import ring
+    """B14 against its plain version, bitwise, at every exchange size
+    the config produces (every shift), at an odd byte count, on slices
+    off 16- and 4-byte alignment, on strided slab slices (read in place)
+    and as each exchange's all-to-all landing in a view of a wider
+    buffer; then timed at the Krylov loop's exchange (the width-1 final
+    exchange of a scalar) beside the plain version, torch.roll and the
+    bound, with its device time a launch on the profile and its time
+    into a given out (no allocation: the exchange's form); and one whole
+    exchange of that size: one launch against D one-step launches and
+    the axis swap, its kernels counted on a fresh process's profile
+    (one: the gathers and landings around the ring steps are the
+    kernel's own reads and writes)."""
+    from cup3d_tpu_torch.parallel import compat, ring
 
     D = d.forest.D
     gen = torch.Generator(device=dev)
@@ -1581,19 +1593,80 @@ def ring_kernel_phase(d, bw: float, dev="cuda") -> dict:
              out=dst[off:off + n].view(D, -1))
         if dst[:off].any() or dst[off + n:].any():
             raise AssertionError("ring_shift: wrote outside the slice")
+    # strided reads: a slab's x-ghost slice and one component of a vector
+    # slab (words at a 12-byte stride), as _pad_slab_x reads them
+    f = torch.randn((D, 16, 64, 64), generator=gen, device=dev)
+    u = torch.randn((D, 16, 64, 64, 3), generator=gen, device=dev)
+    for a in (f[:, 13:], f[:, :3], u[..., 1][:, 13:]):
+        for s in (1, -1):
+            got = ring.ring_shift(a, s)
+            if not torch.equal(got, ring.ring_shift_plain(a, s)):
+                raise AssertionError(f"ring_shift: strided {a.stride()} "
+                                     f"shift {s}: kernel != plain")
+            checked.append((tuple(a.shape), "strided", s))
+    # the all-to-all in one launch, reading each chunk in place and
+    # landing it in a view of a wider buffer (faces.py's recv region)
+    for M, C in sizes:
+        send = torch.randn((D, D, M, C, 8, 8, 8), generator=gen, device=dev)
+        want = ring.ring_steps_plain(send, torch.empty_like(send), 0, D,
+                                     True)
+        ext = torch.zeros((D, D * M + 5, C, 8, 8, 8), device=dev)
+        region = ext[:, 5:].unflatten(1, (D, M))
+        ring.ring_all_to_all(send, out=region)
+        if not (torch.equal(region, want) and torch.equal(
+                want, compat.all_to_all(send)) and not ext[:, :5].any()):
+            raise AssertionError(f"ring_all_to_all at M={M}, C={C}: kernel "
+                                 "!= plain / swap, or wrote outside")
+        checked.append(((D, D, M, C), "all_to_all", 0))
     torch.cuda.synchronize()
     log(f"  B14 bitwise equal to the plain copy: {len(checked)} cases, "
         f"exchange sizes (M, C) {sizes}, shifts 1..{D - 1}, {D}x1001 "
-        "bytes, f32 and uint8 slices off alignment")
+        "bytes, f32 and uint8 slices off alignment, strided slab slices, "
+        "each exchange's all-to-all into a view")
     Mk = d._tab1.final_plan.M
     x = torch.randn((D, Mk, 1, 8, 8, 8), generator=gen, device=dev)
     nbytes = x.numel() * x.element_size()
+    pre = torch.empty_like(x)
     res = dict(max_abs_err=0.0,
                ms=time_ms(lambda: ring.ring_shift_kernel(x, 1)),
+               into_ms=time_ms(lambda: ring.ring_steps_kernel(x, pre, 1)),
                plain_ms=time_ms(lambda: ring.ring_shift_plain(x, 1)),
                bound_ms=2 * nbytes / bw * 1e3, bound_by="bytes",
                library_ms=time_ms(lambda: torch.roll(x, 1, 0)),
                shape=list(x.shape))
+    # one whole exchange of the Krylov loop's size: B14 in one launch, in
+    # D launches of one step each, and the axis swap; its kernels on the
+    # profile
+    send = torch.randn((D, D, Mk, 1, 8, 8, 8), generator=gen, device=dev)
+    sb = send.numel() * send.element_size()
+
+    def by_steps():
+        out = torch.empty_like(send)
+        for k in range(D):
+            ring.ring_steps_kernel(send, out, k, 1, chunked=True)
+        return out
+
+    # its launches: B14's from the wrapper's count; every kernel (gathers
+    # and landings included) and the device times from torch.profiler in
+    # a fresh process at this exchange's size (tools/kernel_ab.py: a
+    # profiler window late in this long process can miss kernel records)
+    ring.reset_launches()
+    ring.ring_all_to_all(send)
+    torch.cuda.synchronize()
+    b14 = ring.launches["ring_shift"]
+    ab = subprocess.run(
+        [sys.executable, os.path.join("cup3d_tpu_torch", "tools",
+                                      "kernel_ab.py"), "--child", ".",
+         str(Mk)], capture_output=True, text=True, check=True, timeout=600)
+    prof = json.loads(ab.stdout.strip().splitlines()[-1])
+    res["device_us"] = prof["ring_shift"]["device_us"]
+    res["exchange"] = dict(
+        shape=list(send.shape), ms=time_ms(lambda: ring.ring_all_to_all(send)),
+        steps_ms=time_ms(by_steps),
+        swap_ms=time_ms(lambda: compat.all_to_all(send)),
+        bound_ms=2 * sb / bw * 1e3,
+        device_us=prof["all_to_all"]["ring_device_us"], launches=b14,
+        kernels=prof["all_to_all"]["kernels"])
     Mb, Cb = max(sizes, key=lambda s: s[0] * s[1])
     xb = torch.randn((D, Mb, Cb, 8, 8, 8), generator=gen, device=dev)
     nb2 = xb.numel() * xb.element_size()
@@ -1609,6 +1682,21 @@ def ring_kernel_phase(d, bw: float, dev="cuda") -> dict:
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"torch.roll {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
             "ms (bytes)")
+    e = res["exchange"]
+
+    def us(v):
+        return "not measured" if v is None else f"{v:.2f} us"
+
+    log(f"  device {us(res['device_us'])} a launch; into a given out "
+        f"{res['into_ms']:.4f} ms a call; one ring_all_to_all "
+        f"{tuple(e['shape'])} ({sb / 1e6:.3f} MB): {e['ms']:.4f} ms in one "
+        f"launch ({us(e['device_us'])} on the device), {e['steps_ms']:.4f}"
+        f" ms in {D} one-step launches, the swap {e['swap_ms']:.4f} ms, "
+        f"bound {e['bound_ms']:.4f} ms; {e['launches']} B14 launch(es), "
+        f"{e['kernels']:g} kernel(s) in all on its profile")
+    if not (e["launches"] == 1 and 0 < e["kernels"] <= D):
+        raise AssertionError(f"one exchange launched {e['kernels']} kernels "
+                             f"({e['launches']} B14)")
     return res
 
 
@@ -1837,6 +1925,8 @@ KERNELS = (
      "fused_bicgstab.cu"),
     ("ring_shift", "cup3d_tpu/parallel/ring.py:89", "ring.cu"),
 )
+# kernels redesigned after their port, by the PR of the redesign
+REDESIGNED = {"getz_two": 6, "ring_shift": 6}
 
 
 def main() -> int:
@@ -1934,10 +2024,12 @@ def main() -> int:
     for kname, replaces, src in KERNELS:
         if not launches[kname] > 0:
             raise AssertionError(f"{kname}: no launch on its path")
-        rows.append(dict(
-            name=kname, route="cuda", source=f"cup3d_tpu_torch/csrc/{src}",
-            replaces=replaces, launches=launches[kname],
-            **per_kernel[kname]))
+        row = dict(name=kname, route="cuda",
+                   source=f"cup3d_tpu_torch/csrc/{src}", replaces=replaces,
+                   launches=launches[kname], **per_kernel[kname])
+        if kname in REDESIGNED:
+            row["redesigned"] = REDESIGNED[kname]
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

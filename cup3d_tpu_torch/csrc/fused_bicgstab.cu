@@ -127,18 +127,20 @@ k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
 
 // ---------------------------------------------------------------------------
 // B2 getz (two-level): y = zc + S3 diag(1/lam) S3 (-h2 (w - A zc)).
-// Replaces _k_getz_two (:185, math :111-130, _azc_from_aux :65).
+// Replaces _k_getz_two (:185, math :111-130, _azc_from_aux :65); the
+// kernel, k_getz_two, is further down (a persistent design of its own).
 // S3 = S1 (x) S1 (x) S1 (cup3d_tpu/ops/tilesolve.py:53), so instead of the
 // TPU's (512,512) @ (512,C) matmul each tile runs three 8-point axis
-// transforms in shared memory, the divide by lam3, and three more: 48
-// fp32 FMAs per cell instead of ~1000, no tensor cores, no TF32 question.
-// One thread per cell (512 threads), one block per tile.  A zc is
-// rebuilt from the 6 per-tile face deltas in aux rows 0..5 (a face cell
-// adds its face's delta, an edge or corner cell one per axis), zc is
-// aux row 6; aux is (8, T) as the TPU driver ships it.
+// transforms, the divide by lam3, and three more: no tensor cores, no
+// TF32 question.  B9 and B3/B10 below keep the first port's core: one
+// thread per cell (512 threads), one block per tile, the transforms in
+// shared memory (tile_solve_cell).  A zc is rebuilt from the 6 per-tile
+// face deltas in aux rows 0..5 (a face cell adds its face's delta, an
+// edge or corner cell one per axis), zc is aux row 6; aux is (8, T) as
+// the TPU driver ships it.
 // ---------------------------------------------------------------------------
 
-// The transform pair shared by B2 and B9.  On entry buf[0] holds the
+// The transform pair of B9 and B3/B10.  On entry buf[0] holds the
 // tile's right-hand side and S1 the 1-D basis, both written by all 512
 // threads before a __syncthreads(); returns this thread's cell (a,b,k)
 // of S3 diag(1/lam3) S3 buf[0].
@@ -181,26 +183,8 @@ __device__ __forceinline__ float tile_solve_cell(float (*buf)[kCells],
   return acc;
 }
 
-__global__ void __launch_bounds__(kCells)
-k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
-           const float* __restrict__ lam3, const float* __restrict__ aux,
-           float* __restrict__ y, float h2, int T) {
-  __shared__ float S1[64];
-  __shared__ float buf[2][kCells];
-  const int t = blockIdx.x;
-  const int c = threadIdx.x;
-  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
-  if (c < 64) S1[c] = s1g[c];
-
-  const float part0 = a == 0 ? aux[0 * T + t] : (a == 7 ? aux[1 * T + t] : 0.f);
-  const float part1 = b == 0 ? aux[2 * T + t] : (b == 7 ? aux[3 * T + t] : 0.f);
-  const float part2 = k == 0 ? aux[4 * T + t] : (k == 7 ? aux[5 * T + t] : 0.f);
-  const float azc = (part0 + part1) + part2;
-  const float zc = aux[6 * T + t];
-  buf[0][c] = -h2 * (w[(size_t)t * kCells + c] - azc);
-  __syncthreads();
-  y[(size_t)t * kCells + c] = tile_solve_cell(buf, S1, lam3, a, b, k) + zc;
-}
+// The two-level getZ itself (B2) is a persistent, pipelined kernel of its
+// own; the note and the code follow B9 and B3 below.
 
 // ---------------------------------------------------------------------------
 // B9 getz (forest, two-level): y = zc_t + S3 diag(1/lam) S3 (-h2_t (w - azf))
@@ -431,6 +415,314 @@ k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B2 getz (two-level), redesigned: a persistent, pipelined tile solve.
+// Replaces _k_getz_two (cup3d_tpu/ops/fused_bicgstab.py:185, math
+// :111-130) and the first port's k_getz_two (one block of 512 threads a
+// tile, six 512-thread barriers, at most 4 tiles in flight an SM).
+//
+// Floors on an H100 (3.35 TB/s, 67 TFLOP/s f32 = 33.5 T FMA/s): the
+// kernel must read w and write y, 8 B a cell (+ 28 B of aux a tile).  At
+// T = 32,768 tiles (256^3) that is 134 MB, 40.1 us; at T = 4,096 (the
+// 128^3 fish) 16.8 MB, 5.0 us.  Six dense 8-point transforms are 48 FMA
+// a cell, 805 M FMA (24 us) at T = 32,768, 101 M (3 us) at 4,096: the
+// compute floor sits close to the byte floor, so the design keeps the
+// loads in flight while the FMA pipes work, and cuts the FMAs:
+//
+// - A warp owns a tile, a thread two 8-cell pencils in registers: the
+//   transform along a pencil runs in registers, and a tile changes its
+//   pencil axis through a shared-memory buffer, synchronised by
+//   __syncwarp() alone (no block barrier after the prologue).  The
+//   buffer is padded, cell (a,b,k) at 92a + 12b + k: the k-pencils move
+//   as 16-byte vectors, the b- and a-pencils as words, and each of the
+//   three access patterns hits 32 distinct banks, each with compile-time
+//   offsets from one per-thread base.
+// - Persistent CTAs (4 warps, as many CTAs as fit) walk the tiles.  A
+//   warp's next tile's w (2 KB, contiguous) comes into a ring of kStages
+//   shared-memory stages by one TMA 1-D bulk copy (cp.async.bulk, issued
+//   by one lane, completion counted in bytes on the stage's mbarrier)
+//   while the current tile computes; the aux column (7 floats at stride
+//   T) comes into registers of lanes 0..6 a tile ahead.  Two builds: 2
+//   stages when a warp walks many tiles (T = 32,768); 1 stage and 8 CTAs
+//   an SM when one round of resident warps takes every tile (T = 4,096).
+//   (16-byte cp.async into the padded buffer, the other way to fill the
+//   ring, moved the same bytes more slowly on this card.)
+// - -h2 / lam3 (512 floats, in the padded layout) is formed once a CTA
+//   into shared memory while the first loads fly (the scale by -h2 moves
+//   from the right-hand side to the middle of the solve: 8 multiplies a
+//   pencil fewer); the 8-point DST-I basis is compile-time structure over
+//   4 magnitudes S1[0][0..3] held in registers: S1 is even/odd symmetric
+//   (S1[i][7-j] = (-1)^i S1[i][j]), so a transform is 4 sums, 4
+//   differences and 30 FMAs (S1[2][2] and S1[5][2] are sin(pi) and
+//   sin(2 pi): 0) instead of 64: 28.5 FMA-class operations a cell for the
+//   six transforms.  The order of the arithmetic differs from the plain
+//   twin's matmuls, as the first port's did; both stay well inside
+//   GETZ_RTOL.
+// - Stores are y's k-pencils, 2 x 16 bytes a pencil; the tile-major
+//   (T, 8, 8, 8) layout and f32 are as before.
+// ---------------------------------------------------------------------------
+
+constexpr int kGzWarps = 4;                 // tiles in flight a CTA
+constexpr int kGzThreads = 32 * kGzWarps;
+constexpr int kPadA = 92, kPadB = 12;       // padded cell (a,b,k) offset
+constexpr int kPad = 7 * kPadA + 7 * kPadB + 8;  // 736 floats a tile
+constexpr unsigned kTileBytes = kCells * 4;
+
+__host__ __device__ constexpr int pad_off(int a, int b, int k) {
+  return a * kPadA + b * kPadB + k;
+}
+
+// S1[i][j] = c sin(pi (i+1)(j+1) / 9): its sign and which of the four
+// magnitudes c sin(pi m / 9), m = 1..4, it is (0: the coefficient is 0)
+__host__ __device__ constexpr int dst_n(int i, int j) {
+  return ((i + 1) * (j + 1)) % 18;
+}
+__host__ __device__ constexpr int dst_sign(int i, int j) {
+  return dst_n(i, j) % 9 == 0 ? 0 : (dst_n(i, j) < 9 ? 1 : -1);
+}
+__host__ __device__ constexpr int dst_mag(int i, int j) {
+  return (dst_n(i, j) % 9) <= 4 ? (dst_n(i, j) % 9) : 9 - (dst_n(i, j) % 9);
+}
+
+// x <- S1 x in place (S1 symmetric and orthogonal: the same map forward
+// and back); s[m] = c sin(pi m / 9), s[0] unused
+__device__ __forceinline__ void dst8(float (&x)[8], const float (&s)[5]) {
+  float u[4], v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    u[j] = x[j] + x[7 - j];
+    v[j] = x[j] - x[7 - j];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (dst_sign(i, j) != 0) {
+        const float c = dst_sign(i, j) > 0 ? s[dst_mag(i, j)]
+                                           : -s[dst_mag(i, j)];
+        acc = fmaf(c, (i & 1) ? v[j] : u[j], acc);
+      }
+    }
+    x[i] = acc;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// one tile's w (2 KB) into a stage by a TMA 1-D bulk copy, completing on
+// the stage's mbarrier; the fence orders the warp's earlier reads of the
+// stage (generic proxy) before the copy's writes (async proxy)
+__device__ __forceinline__ void tile_load(unsigned dst, const float* src,
+                                          unsigned bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(kTileBytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(kTileBytes), "r"(bar)
+      : "memory");
+}
+
+// wait until the mbarrier's phase of this parity has completed
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+template <int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(kGzThreads, kMinBlocks)
+k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
+           const float* __restrict__ lam3, const float* __restrict__ aux,
+           float* __restrict__ y, float h2, int T) {
+  __shared__ __align__(128) float stages[kGzWarps][kStages][kCells];
+  __shared__ __align__(16) float pads[kGzWarps][kPad];
+  __shared__ __align__(16) float scale[kPad];  // -h2 / lam3
+  __shared__ __align__(8) unsigned long long bars[kGzWarps][kStages];
+  __shared__ float auxs[kGzWarps][8];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = gridDim.x * kGzWarps;
+  const int t0 = blockIdx.x * kGzWarps + warp;
+  // the first tiles' loads fly while -h2 / lam3 is formed
+  if (lane == 0) {
+    for (int q = 0; q < kStages; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          smem_addr(&bars[warp][q])));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int q = 0; q + 1 < kStages; ++q)
+      if (t0 + q * nw < T)
+        tile_load(smem_addr(stages[warp][q]), w + (size_t)(t0 + q * nw) * kCells,
+                  smem_addr(&bars[warp][q]));
+  }
+  float ra = 0.f;  // lanes 0..6: aux row `lane` of the warp's next tile
+  if (lane < 7 && t0 < T) ra = __ldg(aux + (size_t)lane * T + t0);
+  for (int c = threadIdx.x; c < kCells; c += kGzThreads)
+    scale[pad_off(c >> 6, (c >> 3) & 7, c & 7)] = -h2 * __frcp_rn(lam3[c]);
+  const float s[5] = {0.f, s1g[0], s1g[1], s1g[2], s1g[3]};
+  __syncthreads();
+
+  // this lane's pencils in the three phases (set j = 0, 1):
+  //   K: (a, b) = (4j + lane/8, lane%8), along k, 16-byte vectors
+  //   B: (a, k) = (lane/4, 4j + lane%4), along b
+  //   A: (b, k) = (lane/4, 4j + lane%4), along a
+  const int ka = lane >> 3, kb = lane & 7;
+  const int r4 = lane >> 2, c4 = lane & 3;
+  float* buf = pads[warp];
+  const float* ax = auxs[warp];
+  int i = 0;
+  for (int t = t0; t < T; t += nw, ++i) {
+    const int slot = i % kStages;
+    __syncwarp();  // every lane is done with the stage refilled next
+    {
+      // tile i + kStages - 1 into the stage tile i - 1 left (with one
+      // stage: tile i itself)
+      const int tn = t + (kStages - 1) * nw;
+      const int sn = (i + kStages - 1) % kStages;
+      if (lane == 0 && tn < T)
+        tile_load(smem_addr(stages[warp][sn]), w + (size_t)tn * kCells,
+                  smem_addr(&bars[warp][sn]));
+      if (lane < 7) {
+        auxs[warp][lane] = ra;
+        if (t + nw < T) ra = __ldg(aux + (size_t)lane * T + t + nw);
+      }
+    }
+    bar_wait(smem_addr(&bars[warp][slot]), (unsigned)((i / kStages) & 1));
+    __syncwarp();
+    const float* st = stages[warp][slot];
+    const float zc = ax[6];
+    float x[2][8];
+
+    // -- K: load, the right-hand side, the k transform ------------------
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int a = 4 * j + ka;
+      const float* g = st + (a * 8 + kb) * 8;
+      const float4 lo = *reinterpret_cast<const float4*>(g);
+      const float4 hi = *reinterpret_cast<const float4*>(g + 4);
+      const float wv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const float part0 = a == 0 ? ax[0] : (a == 7 ? ax[1] : 0.f);
+      const float part1 = kb == 0 ? ax[2] : (kb == 7 ? ax[3] : 0.f);
+      const float p01 = part0 + part1;
+      // w - A zc; -h2 rides in the scale of the middle of the solve
+      x[j][0] = wv[0] - (p01 + ax[4]);
+#pragma unroll
+      for (int k = 1; k < 7; ++k) x[j][k] = wv[k] - p01;
+      x[j][7] = wv[7] - (p01 + ax[5]);
+      dst8(x[j], s);
+      float* p = buf + pad_off(a, kb, 0);
+      *reinterpret_cast<float4*>(p) =
+          make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      *reinterpret_cast<float4*>(p + 4) =
+          make_float4(x[j][4], x[j][5], x[j][6], x[j][7]);
+    }
+    __syncwarp();
+    // -- B: the b transform ---------------------------------------------
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* p = buf + pad_off(r4, 0, 4 * j + c4);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) x[j][m] = p[m * kPadB];
+      dst8(x[j], s);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) p[m * kPadB] = x[j][m];
+    }
+    __syncwarp();
+    // -- A: the a transform, -h2 / lam3, the inverse a transform ---------
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int o = pad_off(0, r4, 4 * j + c4);
+      float* p = buf + o;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) x[j][m] = p[m * kPadA];
+      dst8(x[j], s);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) x[j][m] *= scale[o + m * kPadA];
+      dst8(x[j], s);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) p[m * kPadA] = x[j][m];
+    }
+    __syncwarp();
+    // -- B: the inverse b transform ---------------------------------------
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* p = buf + pad_off(r4, 0, 4 * j + c4);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) x[j][m] = p[m * kPadB];
+      dst8(x[j], s);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) p[m * kPadB] = x[j][m];
+    }
+    __syncwarp();
+    // -- K: the inverse k transform, + zc, store ---------------------------
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int a = 4 * j + ka;
+      const float* p = buf + pad_off(a, kb, 0);
+      const float4 lo = *reinterpret_cast<const float4*>(p);
+      const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      dst8(v, s);
+      float4* out = reinterpret_cast<float4*>(
+          y + (size_t)t * kCells + (a * 8 + kb) * 8);
+      out[0] = make_float4(v[0] + zc, v[1] + zc, v[2] + zc, v[3] + zc);
+      out[1] = make_float4(v[4] + zc, v[5] + zc, v[6] + zc, v[7] + zc);
+    }
+  }
+}
+
+// CTAs of one build that fit on card `dev` at once (cached; 0 on error)
+template <int kStages, int kMinBlocks>
+int getz_two_capacity(int dev) {
+  static int cached[64] = {0};
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    auto kern = k_getz_two<kStages, kMinBlocks>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kGzThreads, 0) !=
+            cudaSuccess)
+      return 0;
+    cached[dev] = sms * per_sm;
+  }
+  return cached[dev];
+}
+
+// the persistent launch: the one-stage build when its resident warps
+// take every tile in one round, else the two-stage ring; as many CTAs as
+// fit (fewer when T needs fewer)
+int launch_getz_two(const float* w, const float* s1, const float* lam3,
+                    const float* aux, float* y, float h2, int T,
+                    cudaStream_t stream) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return (int)cudaErrorInvalidDevice;
+  const int need = (T + kGzWarps - 1) / kGzWarps;
+  const int small = getz_two_capacity<1, 8>(dev);
+  if (small < 1) return (int)cudaErrorInvalidConfiguration;
+  if (need <= small) {
+    k_getz_two<1, 8><<<need, kGzThreads, 0, stream>>>(w, s1, lam3, aux, y,
+                                                     h2, T);
+  } else {
+    const int deep = getz_two_capacity<2, 1>(dev);
+    if (deep < 1) return (int)cudaErrorInvalidConfiguration;
+    k_getz_two<2, 1><<<need < deep ? need : deep, kGzThreads, 0, stream>>>(
+        w, s1, lam3, aux, y, h2, T);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -452,8 +744,7 @@ int cup3d_update(const float* r, float* p, const float* v, float* rhat,
 
 int cup3d_getz_two(const float* w, const float* s1, const float* lam3,
                    const float* aux, float* y, float h2, int T, void* stream) {
-  k_getz_two<<<T, kCells, 0, (cudaStream_t)stream>>>(w, s1, lam3, aux, y, h2, T);
-  return (int)cudaGetLastError();
+  return launch_getz_two(w, s1, lam3, aux, y, h2, T, (cudaStream_t)stream);
 }
 
 int cup3d_getz_tile(const float* w, const float* s1, const float* lam3,

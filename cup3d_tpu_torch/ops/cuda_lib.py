@@ -33,7 +33,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: source -> {C entry point -> argtypes} (every pointer and the stream as
-#: c_void_p)
+#: c_void_p); None: a hot-path entry point taking ctypes arrays (passed by
+#: pointer, no per-argument conversion), bound with the GIL held
+#: (KernelLibrary.fast)
 SOURCES = {
     CSRC / "fused_bicgstab.cu": {
         "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -49,9 +51,13 @@ SOURCES = {
         "cup3d_getz_cg": [_P, _P, _F, _P, _I, _L, _L, _I, _P],
     },
     CSRC / "ring.cu": {
-        "cup3d_ring_shift": [_P, _P, _I, _L, _I, _P],
+        "cup3d_ring_steps": None,
     },
 }
+
+
+SOURCES_ARGTYPES = {name: a for entries in SOURCES.values()
+                    for name, a in entries.items()}
 
 
 class KernelLibrary:
@@ -63,12 +69,20 @@ class KernelLibrary:
         self.log = log          # nvcc / ptxas output of this build
         self._fns = {}
         for path, entries in zip(paths, SOURCES.values()):
-            lib = ctypes.CDLL(str(path))
+            lib, plib = ctypes.CDLL(str(path)), ctypes.PyDLL(str(path))
             for name, argtypes in entries.items():
-                fn = getattr(lib, name)
+                fn = getattr(lib if argtypes is not None else plib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 self._fns[name] = fn
+
+    def fast(self, name: str):
+        """A hot-path entry point itself (no argtypes; returns the CUDA
+        error code).  It keeps the GIL (ctypes.PyDLL): the call is a
+        launch, shorter than releasing and retaking the GIL."""
+        if SOURCES_ARGTYPES[name] is not None:
+            raise ValueError(f"{name} takes typed arguments: use call()")
+        return self._fns[name]
 
     def call(self, name: str, *args) -> None:
         """Launch one entry point; raise if the launch was refused."""

@@ -151,12 +151,12 @@ def _exchange_entries(ext: torch.Tensor, plan: _ExchangePlan) -> None:
     the recv region, in place.  ext: (D, n_local, C, bs, bs, bs)."""
     D = ext.shape[0]
     send = take_rows(ext, plan.send_rows)  # (D_src, D_dst, M, C, bs^3)
+    region = ext[:, plan.recv_off:plan.recv_off + D * plan.M]
     if ring.use_ring_halo():
-        recv = ring.ring_all_to_all(send)
+        # the ring steps land each chunk in the recv region themselves
+        ring.ring_all_to_all(send, out=region.unflatten(1, (D, plan.M)))
     else:
-        recv = all_to_all(send)
-    ext[:, plan.recv_off:plan.recv_off + D * plan.M] = recv.reshape(
-        (D, D * plan.M) + tuple(ext.shape[2:]))
+        region.copy_(all_to_all(send).reshape(region.shape))
 
 
 @dataclass

@@ -6,15 +6,19 @@ ring permute by k is the rotation of that axis by k: shard s's array
 lands on shard (s + k) mod D.
 
 - :func:`ring_shift` -- one ring step.  CUDA shards (CUP3D_RING_DMA
-  ``auto`` or ``1``): kernel B14, one launch for every shard's chunk;
-  CPU shards, or ``CUP3D_RING_DMA=0``: the plain per-shard copy
-  (:func:`ring_shift_plain`).  ``CUP3D_RING_DMA=1`` on CPU shards
+  ``auto`` or ``1``): kernel B14 (:func:`ring_steps_kernel`), one
+  launch for every shard, the source read through its strides; CPU
+  shards, or ``CUP3D_RING_DMA=0``: the plain indexed copy
+  (:func:`ring_steps_plain`).  ``CUP3D_RING_DMA=1`` on CPU shards
   raises.  A kernel that fails to build or launch raises: no fallback.
-- :func:`ring_all_to_all` -- the halo exchange's ``all_to_all`` built
-  from D-1 ring steps, each chunk chosen and landed outside the kernel
-  as the JAX package does; bitwise equal to the axis swap
+- :func:`ring_all_to_all` -- the halo exchange's ``all_to_all`` as
+  ring steps 0 .. D-1, step k carrying shard s's chunk for shard
+  (s+k) mod D: on CUDA shards ONE launch of B14, which reads each chunk
+  from the send buffer and lands it in the receiver's row through their
+  strides (the JAX package's gather before a step and landing after it
+  are the kernel's own reads and writes); bitwise equal to the axis swap
   (``compat.all_to_all``).  parallel/faces.py takes it under
-  ``CUP3D_RING_HALO=1``.
+  ``CUP3D_RING_HALO=1``, landing straight in the recv region.
 - :func:`pad_slab_scalar` / :func:`pad_slab_vector` -- the uniform
   grid's ghost padding of x-slabs, the cross-shard x-ghosts from ring
   steps, elementwise equal to slicing the unsharded padded field.
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -85,89 +90,195 @@ def use_ring_halo() -> bool:
     return os.environ.get("CUP3D_RING_HALO", "0") in ("1", "true", "yes")
 
 
+def ring_steps_plain(src: torch.Tensor, out: torch.Tensor, k0: int,
+                     nsteps: int = 1, chunked: bool = False) -> torch.Tensor:
+    """The plain version of B14: ring steps k0 .. k0+nsteps-1 of the D
+    shards of ``src`` into ``out``, one indexed copy a step.  A ring
+    shift (``chunked=False``, src (D, ...)): out[(s+k) mod D] = src[s].
+    A step of the all-to-all (``chunked=True``, src (D, D, ...)):
+    out[(s+k) mod D, s] = src[s, (s+k) mod D], shard s's chunk for shard
+    (s+k) mod D landing at its source row there."""
+    D = src.shape[0]
+    ar = torch.arange(D, device=src.device)
+    for k in range(k0, k0 + nsteps):
+        to = (ar + k) % D
+        if chunked:
+            out[to, ar] = src[ar, to]
+        else:
+            out[to] = src
+    return out
+
+
 def ring_shift_plain(x: torch.Tensor, shift: int) -> torch.Tensor:
-    """The plain version of B14: out[(s + shift) mod D] = x[s], one copy
-    per shard."""
-    D = x.shape[0]
-    out = torch.empty_like(x)
-    for s in range(D):
-        out[(s + shift) % D] = x[s]
+    """out[(s + shift) mod D] = x[s] by the plain version of B14."""
+    return ring_steps_plain(x, torch.empty_like(x), shift % x.shape[0])
+
+
+def _row_layout(shape, strides):
+    """A chunk of ``shape`` in each of the tensors of element ``strides``
+    as rows: (rows, row length, each tensor's row stride), every row
+    contiguous in every tensor; None when the strides give no such
+    form."""
+    dims = []
+    for i, n in enumerate(shape):
+        if n == 1:
+            continue
+        st = [t[i] for t in strides]
+        if dims and all(p == q * n for p, q in zip(dims[-1][1], st)):
+            dims[-1] = (dims[-1][0] * n, st)
+        else:
+            dims.append((n, st))
+    if not dims:
+        return 1, 1, [1] * len(strides)
+    if len(dims) == 1:
+        n, st = dims[0]
+        return (1, n, [n] * len(strides)) if all(q == 1 for q in st) \
+            else (n, 1, st)
+    if len(dims) == 2 and all(q == 1 for q in dims[1][1]):
+        return dims[0][0], dims[1][0], dims[0][1]
+    return None
+
+
+def _last_byte(t: torch.Tensor) -> int:
+    """Offset of the last byte of t's elements from its first."""
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return (last + 1) * t.element_size() - 1
+
+
+def _layout(src: torch.Tensor, out: torch.Tensor, chunked: bool) -> tuple:
+    """The checked layout of a ring step of src into out: (the C side's
+    RingArgs as a ctypes array, src's and out's last byte, empty)."""
+    lead = 2 if chunked else 1
+    D = src.shape[0] if src.dim() else 0
+    if (src.dim() < lead or out.shape != src.shape or out.dtype != src.dtype
+            or (chunked and src.shape[1] != D) or not 1 <= D <= 64):
+        raise ValueError(f"ring step: src {tuple(src.shape)} {src.dtype} "
+                         f"and out {tuple(out.shape)} {out.dtype} must be "
+                         f"(D, {'D, ' if chunked else ''}...) of one dtype, "
+                         "1 <= D <= 64")
+    if any(n > 1 and st == 0 for n, st in zip(out.shape, out.stride())):
+        raise ValueError("ring step: out repeats elements (a zero stride)")
+    rows = _row_layout(src.shape[lead:], (src.stride()[lead:],
+                                          out.stride()[lead:]))
+    if rows is None:
+        raise ValueError(
+            f"ring step: a chunk of strides {src.stride()[lead:]} -> "
+            f"{out.stride()[lead:]} is not rows of contiguous elements")
+    es = src.element_size()
+    n_rows, row_len, (s_row, d_row) = rows
+    args = (ctypes.c_longlong * 9)(
+        src.stride(0) * es, src.stride(1) * es if chunked else 0, s_row * es,
+        out.stride(0) * es, out.stride(1) * es if chunked else 0, d_row * es,
+        n_rows, row_len * es, D)
+    empty = src.numel() == 0
+    return (args, -1 if empty else _last_byte(src),
+            -1 if empty else _last_byte(out), empty)
+
+
+#: checked layouts by (src shape, strides, dtype, chunked) and, for a
+#: given out, out's (shape, strides, dtype); an out of
+#: torch.empty_like(src) has strides that follow from src's (_NEW; a
+#: contiguous src keyed without its strides).  A run has few layouts, so
+#: a call after the first does no Python loop.
+_LAYOUT: Dict[tuple, tuple] = {}
+_NEW: Dict[tuple, tuple] = {}
+_TLS = threading.local()  # a thread's per-call argument block
+_STEPS = None  # the bound C entry point, at first launch
+
+
+def _bind():
+    global _STEPS
+    from cup3d_tpu_torch.ops import cuda_lib
+
+    _STEPS = cuda_lib.load().fast("cup3d_ring_steps")
+    return _STEPS
+
+
+def ring_steps_kernel(src: torch.Tensor, out: torch.Tensor = None,
+                      k0: int = 1, nsteps: int = 1,
+                      chunked: bool = False) -> torch.Tensor:
+    """Kernel B14: :func:`ring_steps_plain`'s function in one launch, on
+    CUDA shards of any dtype (k0 taken mod D).  src and out are read and
+    written through their strides: a chunk (a shard's array, or one of
+    its D chunks when ``chunked``) must be rows of contiguous elements in
+    both, and out may not overlap src.  ``out=None``: a new tensor (of
+    src's layout where src is dense).
+
+    The launch takes two int64 blocks, the cached layout and this call's
+    (src, dst, k0, nsteps, stream): ctypes passes arrays by pointer with
+    no per-argument conversion, which is most of a small call's host
+    time."""
+    dev = src.get_device()
+    if out is None:
+        if dev < 0:
+            raise ValueError("ring_steps_kernel needs CUDA shards")
+        out = torch.empty_like(src)
+        # a contiguous src's layout follows from its shape
+        key = (src.shape, src.dtype, chunked) if src.is_contiguous() else (
+            src.shape, src.stride(), src.dtype, chunked)
+        lay = _NEW.get(key)
+        if lay is None:
+            lay = _NEW[key] = _layout(src, out, chunked)
+    else:
+        key = (src.shape, src.stride(), src.dtype, chunked, out.shape,
+               out.stride(), out.dtype)
+        lay = _LAYOUT.get(key)
+        if lay is None:
+            lay = _LAYOUT[key] = _layout(src, out, chunked)
+        s0, o0 = src.data_ptr(), out.data_ptr()
+        if not lay[3] and s0 <= o0 + lay[2] and o0 <= s0 + lay[1]:
+            raise ValueError("ring step: out overlaps src")
+        if dev < 0 or out.get_device() != dev:
+            raise ValueError("ring_steps_kernel needs CUDA shards (src and "
+                             "out on one card)")
+    if lay[3]:
+        return out
+    blk = getattr(_TLS, "blk", None)
+    if blk is None:
+        blk = _TLS.blk = (ctypes.c_longlong * 5)()
+    blk[0] = src.data_ptr()
+    blk[1] = out.data_ptr()
+    blk[2] = k0
+    blk[3] = nsteps
+    blk[4] = torch._C._cuda_getCurrentRawStream(dev)
+    err = (_STEPS or _bind())(lay[0], blk)
+    if err:
+        raise RuntimeError(f"cup3d_ring_steps: CUDA error {err} at launch")
+    launches["ring_shift"] += 1
     return out
 
 
 def ring_shift_kernel(x: torch.Tensor, shift: int,
                       out: torch.Tensor = None) -> torch.Tensor:
-    """Kernel B14 on CUDA shards: x (D, ...) contiguous, any dtype; the
-    result in ``out`` (a new tensor by default; any contiguous tensor of
-    x's shape and dtype that does not overlap x)."""
-    from cup3d_tpu_torch.ops import cuda_lib
+    """Kernel B14 as a ring shift: out[(s + shift) mod D] = x[s], x (D,
+    ...) read through its strides; ``out`` a new tensor by default."""
+    return ring_steps_kernel(x, out, shift)
 
-    if not x.is_cuda:
-        raise ValueError("ring_shift_kernel needs CUDA shards")
-    if not x.is_contiguous() or x.dim() < 1:
-        raise ValueError(f"ring_shift_kernel takes contiguous (D, ...) "
-                         f"shards; got {tuple(x.shape)}")
+
+def _ring_steps(src, out, k0, nsteps, chunked):
+    if use_ring_dma(src.device):
+        return ring_steps_kernel(src, out, k0, nsteps, chunked)
     if out is None:
-        out = torch.empty_like(x)
-    elif (out.shape != x.shape or out.dtype != x.dtype
-          or out.device != x.device or not out.is_contiguous()):
-        raise ValueError("ring_shift_kernel: out must be contiguous, of "
-                         "x's shape, dtype and device")
-    D = x.shape[0]
-    nbytes = x[0].numel() * x.element_size() if D else 0
-    if D == 0 or nbytes == 0:
-        return out
-    lo, hi = x.data_ptr(), out.data_ptr()
-    if lo < hi + D * nbytes and hi < lo + D * nbytes:
-        raise ValueError("ring_shift_kernel: out overlaps x")
-    src = (ctypes.c_uint64 * D)(*(lo + s * nbytes for s in range(D)))
-    dst = (ctypes.c_uint64 * D)(*(hi + s * nbytes for s in range(D)))
-    cuda_lib.load().call(
-        "cup3d_ring_shift", ctypes.cast(src, ctypes.c_void_p),
-        ctypes.cast(dst, ctypes.c_void_p), D, nbytes, int(shift),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    launches["ring_shift"] += 1
-    return out
+        out = torch.empty_like(src)
+    return ring_steps_plain(src, out, k0, nsteps, chunked)
 
 
 def ring_shift(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     """Rotate the shard axis of ``x`` (D, ...) by ``shift``: each shard
-    receives the array of shard (me - shift) mod D."""
-    if use_ring_dma(x.device):
-        return ring_shift_kernel(x.contiguous(), shift)
-    return ring_shift_plain(x, shift)
+    receives the array of shard (me - shift) mod D (a new tensor; x is
+    read through its strides)."""
+    return _ring_steps(x, None, shift % x.shape[0], 1, False)
 
 
-_AR: Dict[Tuple[int, str], Tuple[torch.Tensor, ...]] = {}
-
-
-def _shard_index(D: int, device) -> Tuple[torch.Tensor, ...]:
-    """(arange(D), and per ring step k the rows (s+k) mod D and
-    (s-k) mod D) on ``device``, uploaded once."""
-    key = (D, str(device))
-    if key not in _AR:
-        ar = np.arange(D)
-        rows = [ar] + [(ar + k) % D for k in range(1, D)] \
-            + [(ar - k) % D for k in range(1, D)]
-        _AR[key] = tuple(torch.as_tensor(r, device=device) for r in rows)
-    return _AR[key]
-
-
-def ring_all_to_all(send: torch.Tensor) -> torch.Tensor:
+def ring_all_to_all(send: torch.Tensor,
+                    out: torch.Tensor = None) -> torch.Tensor:
     """Drop-in for ``compat.all_to_all`` on send (D_src, D_dst, M, ...):
-    D-1 ring steps, each carrying one shard-to-shard chunk; the diagonal
-    (own) chunk never leaves its shard."""
-    D = send.shape[0]
-    idx = _shard_index(D, send.device)
-    ar, fwd, back = idx[0], idx[1:D], idx[D:]
-    out = torch.empty_like(send)
-    out[ar, ar] = send[ar, ar]
-    for k in range(1, D):
-        # shard s sends its chunk for shard s+k; the chunk from shard
-        # s-k arrives and lands at its source row
-        got = ring_shift(send[ar, fwd[k - 1]], shift=k)
-        out[ar, back[k - 1]] = got
-    return out
+    ring steps 0 .. D-1, step k carrying shard s's chunk for shard
+    (s+k) mod D into its row s there (step 0 the diagonal, which stays
+    on its shard).  On CUDA shards the whole exchange is one launch of
+    B14, reading send and writing ``out`` (a new tensor by default, or
+    a view of the caller's buffer) through their strides."""
+    return _ring_steps(send, out, 0, send.shape[0], True)
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,7 @@ FIELDS = ("vel", "p")
 def _unsupported(cfg: SimulationConfig) -> Optional[str]:
     if cfg.factory_content or cfg.factory:
         return "obstacles on the forest (ROADMAP A6)"
-    if cfg.pipelined or cfg.scan_k:
+    if cfg.pipelined:
         return "pipelined AMR stepping and the megastep (ROADMAP A4)"
     if cfg.implicitDiffusion:
         return "implicit diffusion (ROADMAP A5)"

@@ -61,6 +61,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def resolve_scan_k(cfg: SimulationConfig) -> int:
+    """Effective K of the scan megaloop (the JAX package's
+    ``sim/megaloop.resolve_scan_k``): CUP3D_SCAN_K overrides cfg.scan_k,
+    a malformed value falls back to cfg.scan_k; K <= 1 is the per-step
+    loop."""
+    env = os.environ.get("CUP3D_SCAN_K")
+    if env is not None:
+        try:
+            return max(0, int(env))
+        except ValueError:
+            pass
+    return max(0, int(cfg.scan_k))
+
+
 def _unsupported(cfg: SimulationConfig) -> Optional[str]:
     if cfg.levelMax > 1:
         return "levelMax > 1 (the AMR driver, sim/amr.AMRSimulation)"
@@ -76,9 +90,7 @@ def _unsupported(cfg: SimulationConfig) -> Optional[str]:
                     "StefanFish is ported; the sphere and the foil are "
                     "ROADMAP A5)")
     if cfg.pipelined:
-        return "pipelined stepping (ROADMAP A4)"
-    if cfg.scan_k or int(os.environ.get("CUP3D_SCAN_K", "0") or 0) > 1:
-        return "the scan megaloop (ROADMAP A4)"
+        return "pipelined stepping and the scan megaloop (ROADMAP A4)"
     if cfg.implicitDiffusion:
         return "implicit diffusion (ROADMAP A5)"
     if cfg.uMax_forced > 0 or cfg.bFixMassFlux:
@@ -112,6 +124,8 @@ class Simulation:
         self._obs = StepObserver(self.flight, kind="uniform")
         #: the RecoveryEngine while simulate() runs one (None otherwise)
         self._resilience: Optional[RecoveryEngine] = None
+        #: K of the scan megaloop, resolved at init(); 0 = the per-step loop
+        self._scan_k = 0
 
     # -- setup (reference init(), main.cpp:15163-15178) --------------------
 
@@ -119,6 +133,11 @@ class Simulation:
         self._setup_operators()
         self._add_obstacles()
         ops.initial_conditions(self.sim)
+        # the megaloop needs pipelined stepping, which _unsupported
+        # refuses: as in the JAX package, a run it does not take keeps
+        # the per-step loop with K = 0, whatever scan_k asks
+        k = resolve_scan_k(self.cfg)
+        self._scan_k = k if (k >= 1 and self.cfg.pipelined) else 0
 
     def _setup_operators(self) -> None:
         """Pipeline order is the reference's (main.cpp:15229-15246)."""

@@ -1,0 +1,213 @@
+"""A/B timing of kernels B2 (getz_two) and B14 (the ring step) between
+checkouts of the port, on one CUDA card.
+
+    python cup3d_tpu_torch/tools/kernel_ab.py [TREE ...]
+
+Each TREE is the root of a checkout of the repository (default: this
+one).  The trees run in the order given, each in a process of its own
+(every checkout's package has the same name), so ``A B B A`` gives each
+two samples, in turns, on one card and one host.  Each process builds
+its tree's kernels and prints one JSON line (``"tree"`` and):
+
+- ``getz_two``: B2 at T = 32,768 tiles (the 256^3 TGV) and T = 4,096
+  (the 128^3 fish): CUDA-event time a call (median of 21 samples of 10
+  calls) and the device time a launch on ``torch.profiler``;
+- ``ring_shift``: B14 on phase 15's Krylov exchange array (4 shards x
+  449 entries x 1 component x 8^3 f32): event time a call, device time
+  a launch, ``torch.roll`` on the shard axis;
+- ``all_to_all``: one ``ring_all_to_all`` of the (4, 4, 449, 1, 8,8,8)
+  send buffer beside ``compat.all_to_all`` (the axis swap): event times
+  and the device kernels one exchange launches on the profile;
+- ``host_us``: the host cost of the pieces of a ring-step call, each
+  timed with ``time.perf_counter`` over 1,000 calls: the ctypes address
+  tables built from Python generators, ``cuda_lib.load()``,
+  ``torch.cuda.current_stream(dev).cuda_stream``, the raw stream
+  lookup, the shape and overlap checks, ``torch.empty_like``, the whole
+  ``ring_shift_kernel`` call, and ``torch.roll``; on a tree with the
+  strided ring step also the call into a given ``out`` and the C entry
+  point alone (the launch).
+
+Prints the card's ``nvidia-smi`` name and power limit first.  ``python
+cup3d_tpu_torch/tools/kernel_ab.py --child TREE [M]`` measures one tree
+in this process (M entries an exchange) and prints its line alone
+(chip_smoke.py phase 15 reads the exchange's profile from it: a fresh
+process's profiler).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+D, MK = 4, 449           # phase 15's Krylov exchange: shards, entries
+HOST_CALLS = 1000
+SAMPLES, PER_SAMPLE = 21, 10
+
+
+def _events_ms(torch, fn) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(SAMPLES):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(PER_SAMPLE):
+            fn()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1) / PER_SAMPLE)
+    return statistics.median(out)
+
+
+def _profile(torch, fn, calls: int, match: str, windows: int = 3):
+    """(device us a launch of the kernels whose name holds ``match``,
+    launches of them a call, device kernels of any name a call), from the
+    one of ``windows`` profiler windows that saw the most kernels (a
+    window can miss some of its kernels' records, never add any)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if best is None or len(dev) > len(best):
+            best = dev
+    ours = [e for e in best if match in e.name]
+    us = (sum(e.time_range.elapsed_us() for e in ours) / len(ours)
+          if ours else None)
+    return us, len(ours) / calls, len(best) / calls
+
+
+def _host_us(fn, calls: int = HOST_CALLS) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def child(tree: str, mk: int = MK) -> dict:
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from cup3d_tpu_torch.ops import cuda_lib
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.parallel import compat, ring
+
+    dev = torch.device("cuda")
+    for line in cuda_lib.load().log.splitlines():  # ptxas: registers, spills
+        if "Compiling" in line or "registers" in line or "spill" in line:
+            print(f"[{tree}] {line.strip()}", file=sys.stderr)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"tree": tree, "getz_two": {}}
+    for T in (32768, 4096):
+        w = torch.randn((T, 8, 8, 8), generator=gen, device=dev)
+        aux = torch.randn((8, T), generator=gen, device=dev)
+        aux[7] = 0.0
+        want = fb.getz_two(w, aux, 1e-3, kernels=False)
+        err = float((fb.getz_two(w, aux, 1e-3) - want).abs().max()
+                    / want.abs().max())
+        us, n, _ = _profile(torch, lambda: fb.getz_two(w, aux, 1e-3), 20,
+                            "getz_two")
+        out["getz_two"][T] = dict(
+            ms=_events_ms(torch, lambda: fb.getz_two(w, aux, 1e-3)),
+            device_us=us, launches_a_call=n, rel_err=err)
+        del w, aux, want
+
+    x = torch.randn((D, mk, 1, 8, 8, 8), generator=gen, device=dev)
+    if not torch.equal(ring.ring_shift_kernel(x, 1),
+                       ring.ring_shift_plain(x, 1)):
+        raise AssertionError("ring_shift_kernel != plain")
+    us, _, _ = _profile(torch, lambda: ring.ring_shift_kernel(x, 1), 20,
+                        "ring")
+    out["ring_shift"] = dict(
+        ms=_events_ms(torch, lambda: ring.ring_shift_kernel(x, 1)),
+        device_us=us,
+        roll_ms=_events_ms(torch, lambda: torch.roll(x, 1, 0)))
+    send = torch.randn((D, D, mk, 1, 8, 8, 8), generator=gen, device=dev)
+    if not torch.equal(ring.ring_all_to_all(send), compat.all_to_all(send)):
+        raise AssertionError("ring_all_to_all != the swap")
+    us, n, kernels = _profile(torch, lambda: ring.ring_all_to_all(send), 5,
+                              "ring")
+    out["all_to_all"] = dict(
+        ms=_events_ms(torch, lambda: ring.ring_all_to_all(send)),
+        swap_ms=_events_ms(torch, lambda: compat.all_to_all(send)),
+        ring_launches=n, kernels=kernels, ring_device_us=us)
+
+    # the pieces of a ring-step call on the host
+    nbytes = x[0].numel() * x.element_size()
+    lo, hi = x.data_ptr(), x.data_ptr() + D * nbytes
+
+    def tables():
+        src = (ctypes.c_uint64 * D)(*(lo + s * nbytes for s in range(D)))
+        dst = (ctypes.c_uint64 * D)(*(hi + s * nbytes for s in range(D)))
+        return src, dst
+
+    def checks():
+        if not x.is_cuda or not x.is_contiguous() or x.dim() < 1:
+            raise ValueError
+        n = x[0].numel() * x.element_size()
+        a, b = x.data_ptr(), hi
+        return a < b + D * n and b < a + D * n
+
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    out["host_us"] = dict(
+        tables=_host_us(tables),
+        load=_host_us(cuda_lib.load),
+        current_stream=_host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        raw_stream=_host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        checks=_host_us(checks),
+        empty_like=_host_us(lambda: torch.empty_like(x)),
+        call=_host_us(lambda: ring.ring_shift_kernel(x, 1)),
+        roll=_host_us(lambda: torch.roll(x, 1, 0)))
+    if hasattr(ring, "ring_steps_kernel"):  # the strided ring step's pieces
+        pre = torch.empty_like(x)
+        ring.ring_steps_kernel(x, pre, 1)
+        lay = next(iter(ring._LAYOUT.values()))[0]
+        blk = ring._TLS.blk
+        out["host_us"].update(
+            call_into=_host_us(lambda: ring.ring_steps_kernel(x, pre, 1)),
+            c_launch=_host_us(lambda: ring._STEPS(lay, blk)))
+    torch.cuda.synchronize()
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) > 1 and argv[0] == "--child":  # [--child TREE [M]]
+        mk = int(argv[2]) if len(argv) > 2 else MK
+        print(json.dumps(child(argv[1], mk)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    for tree in argv or ["."]:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--child", tree], check=True, timeout=900)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -174,3 +174,23 @@ def test_unported_options_raise(tmp_path, flags, item):
     argv = ARGV + ["-path4serialization", str(tmp_path), "-device", "cpu"]
     with pytest.raises(NotImplementedError, match=item):
         tmain.build_driver(argv + flags)
+
+
+def test_scan_k_runs_on_the_forest(tmp_path):
+    """The forest driver never reads scan_k (as in the JAX package):
+    scan_k=8 runs and gives the scan_k=0 run's fields bitwise."""
+    kw = dict(bpdx=2, bpdy=2, bpdz=2, levelMax=2, levelStart=0,
+              extent=float(2 * np.pi), Rtol=100.0, Ctol=0.0, nu=0.02,
+              CFL=0.3, rampup=0, tend=0.0, nsteps=2, initCond="taylorGreen",
+              poissonSolver="iterative", verbose=False)
+    fields = []
+    for k in (8, 0):
+        d = tamr.AMRSimulation(TConfig(
+            scan_k=k, path4serialization=str(tmp_path / f"k{k}"), **kw),
+            device="cpu")
+        d.init()
+        d.simulate()
+        assert d.grid.nb <= 27 and d.step_idx == 2
+        fields.append({n: v.clone() for n, v in d.state.items()})
+    for n in fields[0]:
+        assert torch.equal(fields[0][n], fields[1][n]), n

@@ -17,8 +17,10 @@ executed iterations, and the CG getZ (B7) on both layouts, with a scalar
 and a per-tile shift, and in a CUP3D_GETZ=cg solve whose launches equal
 its preconditioner applications.  The fish (BASELINE config #2 at 32^3)
 for 3 steps on the card, held against the port on the CPU.  The ring
-shift (B14) against its plain per-shard copy, bitwise, at odd byte
-counts and misaligned slices, and inside ``ring_all_to_all``."""
+shift (B14) against its plain version, bitwise, at odd byte counts and
+misaligned slices, and inside ``ring_all_to_all`` (one launch); its
+strided reads and landings; the two-level getZ (B2) at ragged tile
+counts."""
 
 import math
 
@@ -445,9 +447,73 @@ def test_ring_shift_kernel_matches_plain_version(dev, D):
         assert not out_buf[:off].any() and not out_buf[off + n:].any()
     torch.cuda.synchronize()
     assert ring.launches["ring_shift"] == len(cases) + 2
-    # the dispatch: CUDA shards take the kernel unless CUP3D_RING_DMA=0
+    # the dispatch: CUDA shards take the kernel unless CUP3D_RING_DMA=0;
+    # the whole exchange is one launch
     ring.reset_launches()
     send = torch.randn((D, D, 4, 3), device=dev)
     assert torch.equal(ring.ring_all_to_all(send),
                        send.transpose(0, 1).contiguous())
-    assert ring.launches["ring_shift"] == D - 1
+    assert ring.launches["ring_shift"] == 1
+
+
+@pytest.mark.parametrize("T_", [1, 7, 4099, 40001])
+def test_getz_two_at_ragged_tile_counts(dev, T_):
+    """B2's persistent grid at tile counts it does not divide (fewer
+    tiles than a CTA's warps; one round of the 2-stage build; a ragged
+    last round of the 3-stage build), against the plain version within
+    the getz bound (1e-5 of max |plain|)."""
+    rng = np.random.default_rng(T_)
+    w = torch.as_tensor(rng.standard_normal((T_, 8, 8, 8)),
+                        dtype=torch.float32, device=dev)
+    aux = torch.as_tensor(rng.standard_normal((8, T_)), dtype=torch.float32,
+                          device=dev)
+    aux[7] = 0.0
+    h2 = (2 * math.pi / 64) ** 2
+    fb.reset_launches()
+    got = fb.getz_two(w, aux, h2)
+    torch.cuda.synchronize()
+    assert fb.launches["getz_two"] == 1
+    _close(got, fb.getz_two(w, aux, h2, kernels=False), 1e-5)
+
+
+def _wide(t: torch.Tensor, pad: int = 3) -> torch.Tensor:
+    """t's values as a view inside wider rows of a larger buffer."""
+    big = torch.full(t.shape[:-1] + (t.shape[-1] + 2 * pad,), float("nan"),
+                     device=t.device, dtype=t.dtype)
+    big[..., pad:pad + t.shape[-1]] = t
+    return big[..., pad:pad + t.shape[-1]]
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_ring_steps_strided_and_in_place(dev, D):
+    """B14's strided reads and landings against its plain version,
+    bitwise: the all-to-all from a strided send buffer into a view of a
+    wider buffer (faces.py's recv region) in one launch, and in D
+    launches of one step each; a slab's x-ghost slice and one component
+    of a vector slab (words at a 12-byte stride), read in place."""
+    from cup3d_tpu_torch.parallel import compat, ring
+
+    send = torch.randn((D, D, 5, 3, 8), device=dev)
+    want = compat.all_to_all(send)
+    for src in (send, _wide(send)):
+        ext = torch.full((D, D * 5 + 3, 3, 8), float("nan"), device=dev)
+        region = ext[:, 2:2 + D * 5].unflatten(1, (D, 5))
+        ring.reset_launches()
+        ring.ring_all_to_all(src, out=region)
+        assert ring.launches["ring_shift"] == 1
+        assert torch.equal(region, want)
+        assert ext[:, :2].isnan().all() and ext[:, 2 + D * 5:].isnan().all()
+        steps = torch.empty_like(send)
+        for k in range(D):
+            ring.ring_steps_kernel(src, steps, k, 1, chunked=True)
+        assert torch.equal(steps, want)
+        assert torch.equal(
+            ring.ring_steps_plain(src, torch.empty_like(send), 0, D, True),
+            want)
+    f = torch.randn((D, 6, 9, 10), device=dev)
+    u = torch.randn((D, 6, 9, 10, 3), device=dev)
+    for x in (f[:, 4:], f[:, :2], u[..., 1][:, 3:], u[..., 2]):
+        for k in (1, -1):
+            assert torch.equal(ring.ring_shift(x, k),
+                               ring.ring_shift_plain(x, k))
+    torch.cuda.synchronize()

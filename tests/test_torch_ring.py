@@ -9,7 +9,10 @@ The same numpy inputs go through both:
 
 - ``ring_shift`` at D = 2, 4, 8 and shifts +-1, +-3, and
   ``ring_all_to_all``: bitwise equal to JAX (pure data movement), and
-  ``ring_all_to_all`` bitwise equal to the port's axis swap;
+  ``ring_all_to_all`` bitwise equal to the port's axis swap, from
+  contiguous and strided sources, into new tensors and into views;
+- the kernel wrapper's refusals, which it checks before it looks at the
+  device (so they show on the CPU);
 - ``pad_slab_scalar`` / ``pad_slab_vector`` at widths 1 and 3 on a
   64x16x16 grid cut into 8 x-slabs, periodic and wall: bitwise equal to
   JAX and to slices of the port's unsharded padding;
@@ -73,23 +76,69 @@ def jax_ring():
     return out
 
 
+def _strided(t: torch.Tensor, pad: int = 2) -> torch.Tensor:
+    """t's values as a view whose last axis sits inside wider rows (a
+    chunk of it is rows, not one contiguous run)."""
+    big = torch.full(t.shape[:-1] + (t.shape[-1] + 2 * pad,), float("nan"))
+    big[..., pad:pad + t.shape[-1]] = t
+    return big[..., pad:pad + t.shape[-1]]
+
+
 @pytest.mark.parametrize("D", DS)
 def test_ring_shift_matches_jax(jax_ring, D):
+    """Contiguous and strided shards (a chunk of rows, read in place by
+    the kernel): the same function."""
     x, _, want = jax_ring[D]
     xt = torch.as_tensor(x).reshape(D, 6, 5)
     for k, w in zip(SHIFTS, want):
-        got = ring.ring_shift(xt, k)
-        np.testing.assert_array_equal(got.reshape(D * 6, 5).numpy(), w)
-        assert torch.equal(got, torch.roll(xt, k, dims=0))
+        for src in (xt, _strided(xt)):
+            got = ring.ring_shift(src, k)
+            np.testing.assert_array_equal(got.reshape(D * 6, 5).numpy(), w)
+            assert torch.equal(got, torch.roll(xt, k, dims=0))
 
 
 @pytest.mark.parametrize("D", DS)
 def test_ring_all_to_all_matches_jax_and_the_swap(jax_ring, D):
+    """Out of place and into a view of a wider buffer (the recv region
+    of faces.py), from a contiguous and a strided send buffer, all
+    steps at once and one step a call: the same function."""
     _, send, want = jax_ring[D]
     st = torch.as_tensor(send).reshape(D, D, 3, 4)
     got = ring.ring_all_to_all(st)
     np.testing.assert_array_equal(got.reshape(D * D, 3, 4).numpy(), want[-1])
     assert torch.equal(got, compat.all_to_all(st))
+    for src in (st, _strided(st)):
+        ext = torch.full((D, D * 3 + 2, 4), float("nan"))
+        region = ext[:, 1:1 + D * 3].unflatten(1, (D, 3))
+        ring.ring_all_to_all(src, out=region)
+        assert torch.equal(region, got)
+        assert ext[:, 0].isnan().all() and ext[:, -1].isnan().all()
+        steps = torch.empty_like(st)
+        for k in range(D):
+            ring.ring_steps_plain(src, steps, k, 1, chunked=True)
+        assert torch.equal(steps, got)
+
+
+@pytest.mark.parametrize("case", ["cpu", "overlap", "stride", "repeat",
+                                  "shape"])
+def test_ring_step_kernel_refusals(case):
+    """The kernel's wrapper refuses, before any launch: CPU shards, an
+    out that overlaps the source, a chunk that is not rows of contiguous
+    elements, an out that repeats elements, mismatched shapes."""
+    x = torch.arange(4 * 6 * 6, dtype=torch.float32).reshape(4, 6, 6)
+    out, chunked, match = torch.empty_like(x), False, "CUDA"
+    if case == "overlap":
+        out, match = x, "overlaps"
+    elif case == "stride":
+        x, match = x[:, ::2, ::2], "rows"
+        out = torch.empty_like(x)
+    elif case == "repeat":
+        out, match = torch.zeros(1, 6, 6).expand(4, 6, 6), "repeats"
+    elif case == "shape":
+        out, chunked, match = torch.empty(4, 4, 6, 6), True, "D, D"
+    with pytest.raises(ValueError, match=match):
+        ring.ring_steps_kernel(x, out, 1, chunked=chunked)
+    assert ring.launches["ring_shift"] == 0
 
 
 def test_ring_dma_knob_on_cpu_shards(monkeypatch):

@@ -132,3 +132,53 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmain.build_driver(["-bpdx", "1", "-bpdy", "1", "-bpdz", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# -- scan_k without pipelined: the per-step loop, as in the JAX package ---
+
+SCAN_CFG = dict(bpdx=2, bpdy=2, bpdz=2, levelMax=1, nsteps=2, tend=0.0,
+                initCond="taylorGreen", verbose=False)
+
+
+def test_scan_k_without_pipelined_runs_the_per_step_loop(tmp_path):
+    """scan_k=8 without pipelined runs (the megaloop needs pipelined
+    stepping) and gives the scan_k=0 run's fields bitwise; the JAX
+    driver's init() resolves the same config to K = 0."""
+    from cup3d_tpu.config import SimulationConfig as JConfig
+    from cup3d_tpu.sim.simulation import Simulation as JSimulation
+    from cup3d_tpu_torch.config import SimulationConfig
+    from cup3d_tpu_torch.sim.simulation import Simulation
+
+    fields = []
+    for k in (8, 0):
+        d = Simulation(SimulationConfig(
+            scan_k=k, path4serialization=str(tmp_path / f"k{k}"),
+            **SCAN_CFG), device="cpu")
+        d.init()
+        d.simulate()
+        assert d._scan_k == 0 and d.sim.step == 2
+        fields.append({n: v.clone() for n, v in d.sim.state.items()})
+    for n in fields[0]:
+        assert torch.equal(fields[0][n], fields[1][n]), n
+    js = JSimulation(JConfig(scan_k=8, path4serialization=str(tmp_path),
+                             **SCAN_CFG))
+    js.init()
+    assert js._scan_k == 0
+
+
+@pytest.mark.parametrize("env", [None, "4", "1", "-3", "eight", ""])
+def test_resolve_scan_k_matches_jax(monkeypatch, env):
+    """CUP3D_SCAN_K overrides cfg.scan_k; a malformed value falls back
+    to cfg.scan_k, as in the JAX package's megaloop.resolve_scan_k."""
+    from cup3d_tpu.config import SimulationConfig as JConfig
+    from cup3d_tpu.sim.megaloop import resolve_scan_k as jax_resolve
+    from cup3d_tpu_torch.config import SimulationConfig
+    from cup3d_tpu_torch.sim.simulation import resolve_scan_k
+
+    if env is None:
+        monkeypatch.delenv("CUP3D_SCAN_K", raising=False)
+    else:
+        monkeypatch.setenv("CUP3D_SCAN_K", env)
+    want = jax_resolve(JConfig(scan_k=8))
+    assert resolve_scan_k(SimulationConfig(scan_k=8)) == want
+    assert want == {None: 8, "4": 4, "1": 1, "-3": 0, "eight": 8, "": 8}[env]
