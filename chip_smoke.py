@@ -37,7 +37,8 @@ each of which raises on a fault (nothing is caught):
 10. the tile-only getZ kernels B3 (at 256^3) and B10 (at the forest's
     block count) and the CG getZ kernel B7 (at 256^3, lanes layout, with
     a zero and a random per-tile shift) against their plain versions,
-    timed beside them and their bounds;
+    timed beside them and their bounds, B3 and B10 beside their library
+    calls;
 11. the uniform self-healing loop: the 256^3 TGV through ``build_driver``
     + ``simulate()`` with ``CUP3D_FAULT=solver.itercap@2:3``, so the
     recovery engine walks warm-restart -> zero-guess -> tile-only and the
@@ -89,8 +90,10 @@ shape and their launches on it (phase 14); the 256^3 times and the TGV
 path's launches ride in each row's ``tgv256``.  B14's row: its launches
 on phase 15's main path, its times at the Krylov loop's exchange (the
 largest exchange's in ``largest``, one whole exchange's in
-``exchange``).  B2 and B14 were redesigned after their port: their rows
-carry ``redesigned`` (the PR).
+``exchange``).  B2, B14, B3/B10 and B7 were redesigned after their
+port: their rows carry ``redesigned`` (the change that did it).  B3's row
+carries ``library_ms``: one ``torch.matmul`` by the dense tile operator;
+B10's one ``torch.einsum`` by it and the column of -h^2.
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -908,7 +911,7 @@ def getz_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     plain version; then timed."""
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
-    from cup3d_tpu_torch.ops import getz_cg
+    from cup3d_tpu_torch.ops import getz_cg, tilesolve
 
     dev = torch.device("cuda")
     T = (N_MAIN // 8) ** 3
@@ -926,6 +929,14 @@ def getz_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     _record(results, "getz_tile", errs, lambda: fb.getz_tile(w, h2),
             lambda: fb.getz_tile(w, h2, kernels=False), 2 * 4 * cells,
             98 * cells, bw, fp32_flops)
+    # its library yardstick: one product of the (T, 512) rows by the dense
+    # tile operator S3 diag(1/lam3) S3 times -h2, built once, TF32 off
+    W = tilesolve.dense_operator(8, torch.float32, str(dev))
+    M = -h2 * W
+    lib_ms = time_ms(lambda: torch.matmul(w.view(T, 512), M))
+    results["getz_tile"]["library_ms"] = lib_ms
+    log(f"  getz_tile library: torch.matmul by the 512 x 512 tile operator "
+        f"{lib_ms:.4f} ms")
 
     # -- B10: the same at each block's own h^2 -----------------------------
     g = d.grid
@@ -938,6 +949,14 @@ def getz_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     _record(results, "amr_getz_tile", errs, lambda: fa.getz_tile(wf, h2c),
             lambda: fa.getz_tile(wf, h2c, kernels=False),
             2 * 4 * n * 512 + 4 * n, 98 * n * 512, bw, fp32_flops)
+    # its library yardstick: one einsum of the (n, 512) rows, the tile
+    # operator and the column of -h^2 (negated outside the timed call)
+    neg_h2 = -h2c
+    lib_ms = time_ms(lambda: torch.einsum("tc,cd,t->td", wf.view(n, 512), W,
+                                          neg_h2))
+    results["amr_getz_tile"]["library_ms"] = lib_ms
+    log(f"  amr_getz_tile library: torch.einsum by the tile operator and "
+        f"the -h^2 column {lib_ms:.4f} ms")
 
     # -- B7: CG_ITERS sweeps of 19 flop/cell (stencil 7, shifted apply 2,
     # two dots 4, three axpys 6) plus the initial r.r ---------------------
@@ -1926,7 +1945,8 @@ KERNELS = (
     ("ring_shift", "cup3d_tpu/parallel/ring.py:89", "ring.cu"),
 )
 # kernels redesigned after their port, by the PR of the redesign
-REDESIGNED = {"getz_two": 6, "ring_shift": 6}
+REDESIGNED = {"getz_two": 6, "ring_shift": 6, "getz_tile": 7,
+              "amr_getz_tile": 7, "getz_cg": 7}
 
 
 def main() -> int:

@@ -132,15 +132,15 @@ k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
 // S3 = S1 (x) S1 (x) S1 (cup3d_tpu/ops/tilesolve.py:53), so instead of the
 // TPU's (512,512) @ (512,C) matmul each tile runs three 8-point axis
 // transforms, the divide by lam3, and three more: no tensor cores, no
-// TF32 question.  B9 and B3/B10 below keep the first port's core: one
-// thread per cell (512 threads), one block per tile, the transforms in
-// shared memory (tile_solve_cell).  A zc is rebuilt from the 6 per-tile
+// TF32 question.  B9 below keeps the first port's core: one thread per
+// cell (512 threads), one block per tile, the transforms in shared memory
+// (tile_solve_cell).  A zc is rebuilt from the 6 per-tile
 // face deltas in aux rows 0..5 (a face cell adds its face's delta, an
 // edge or corner cell one per axis), zc is aux row 6; aux is (8, T) as
 // the TPU driver ships it.
 // ---------------------------------------------------------------------------
 
-// The transform pair of B9 and B3/B10.  On entry buf[0] holds the
+// The transform pair of B9.  On entry buf[0] holds the
 // tile's right-hand side and S1 the 1-D basis, both written by all 512
 // threads before a __syncthreads(); returns this thread's cell (a,b,k)
 // of S3 diag(1/lam3) S3 buf[0].
@@ -184,7 +184,8 @@ __device__ __forceinline__ float tile_solve_cell(float (*buf)[kCells],
 }
 
 // The two-level getZ itself (B2) is a persistent, pipelined kernel of its
-// own; the note and the code follow B9 and B3 below.
+// own, shared by the tile-only getZ (B3, B10); the note and the code
+// follow B9 below.
 
 // ---------------------------------------------------------------------------
 // B9 getz (forest, two-level): y = zc_t + S3 diag(1/lam) S3 (-h2_t (w - azf))
@@ -212,34 +213,6 @@ k_getz_amr(const float* __restrict__ w, const float* __restrict__ azf,
   buf[0][c] = -h2[t] * (w[i] - azf[i]);
   __syncthreads();
   y[i] = tile_solve_cell(buf, S1, lam3, a, b, k) + zc[t];
-}
-
-// ---------------------------------------------------------------------------
-// B3 / B10 getz (tile-only): y = S3 diag(1/lam) S3 (-h2 w), the exact tile
-// solve without the coarse level.  Replaces _k_getz_tile of
-// cup3d_tpu/ops/fused_bicgstab.py (:190, math :111-130 with
-// two_level=False) and of cup3d_tpu/ops/fused_amr_bicgstab.py (:202).  One
-// kernel serves both: the uniform grid passes one h2 for every tile
-// (h2col == nullptr), the forest each block's own h^2 as a column, the way
-// B8/B12 take their null-able weight.  B2's transforms with no prologue
-// beyond the scale; moves w in, y out: 2 x 4 B / cell.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kCells)
-k_getz_tile(const float* __restrict__ w, const float* __restrict__ s1g,
-            const float* __restrict__ lam3, const float* __restrict__ h2col,
-            float h2, float* __restrict__ y) {
-  __shared__ float S1[64];
-  __shared__ float buf[2][kCells];
-  const size_t t = blockIdx.x;
-  const int c = threadIdx.x;
-  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
-  if (c < 64) S1[c] = s1g[c];
-  const size_t i = t * kCells + c;
-  const float h2t = h2col ? h2col[t] : h2;
-  buf[0][c] = -h2t * w[i];
-  __syncthreads();
-  y[i] = tile_solve_cell(buf, S1, lam3, a, b, k);
 }
 
 // ---------------------------------------------------------------------------
@@ -421,6 +394,17 @@ k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
 // :111-130) and the first port's k_getz_two (one block of 512 threads a
 // tile, six 512-thread barriers, at most 4 tiles in flight an SM).
 //
+// B3 / B10 getz (tile-only), y = S3 diag(1/lam) S3 (-h2 w), run on the
+// same core as instances of the same template (kGzTile, kGzTileCol).
+// Replaces _k_getz_tile of cup3d_tpu/ops/fused_bicgstab.py (:190, math
+// :111-130 with two_level=False) and of cup3d_tpu/ops/fused_amr_bicgstab.py
+// (:202).  The uniform grid (B3) passes one h2 for every tile, folded into
+// the shared scale table as B2's is; the forest (B10) passes each block's
+// own h^2 as a column: the table holds 1/lam3 and the tile's -h2[t],
+// fetched into a register a tile ahead like B2's aux, multiplies where B2
+// applies its scale.  No aux, no face deltas, no + zc; moves w in, y out
+// (+ 4 B of h^2 a block): 2 x 4 B / cell.
+//
 // Floors on an H100 (3.35 TB/s, 67 TFLOP/s f32 = 33.5 T FMA/s): the
 // kernel must read w and write y, 8 B a cell (+ 28 B of aux a tile).  At
 // T = 32,768 tiles (256^3) that is 134 MB, 40.1 us; at T = 4,096 (the
@@ -539,20 +523,30 @@ __device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
       : "memory");
 }
 
-template <int kStages, int kMinBlocks>
-__global__ void __launch_bounds__(kGzThreads, kMinBlocks)
-k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
-           const float* __restrict__ lam3, const float* __restrict__ aux,
-           float* __restrict__ y, float h2, int T) {
+// the prologue of an instance of the shared core: B2's two-level aux, or
+// the tile-only solve at one h2 (B3) or at a column of per-block h^2 (B10)
+enum GzMode { kGzTwo, kGzTile, kGzTileCol };
+
+// the body of every instance; the kernels below name the instances, so
+// that a profile tells B2 (k_getz_two) from B3/B10 (k_getz_tile)
+template <int kMode, int kStages>
+__device__ __forceinline__ void getz_core(const float* __restrict__ w,
+                                          const float* __restrict__ s1g,
+                                          const float* __restrict__ lam3,
+                                          const float* __restrict__ aux,
+                                          const float* __restrict__ h2col,
+                                          float* __restrict__ y, float h2,
+                                          int T) {
   __shared__ __align__(128) float stages[kGzWarps][kStages][kCells];
   __shared__ __align__(16) float pads[kGzWarps][kPad];
-  __shared__ __align__(16) float scale[kPad];  // -h2 / lam3
+  // -h2 / lam3 (B2, B3); 1 / lam3 (B10: -h2[t] multiplies apart)
+  __shared__ __align__(16) float scale[kPad];
   __shared__ __align__(8) unsigned long long bars[kGzWarps][kStages];
   __shared__ float auxs[kGzWarps][8];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = gridDim.x * kGzWarps;
   const int t0 = blockIdx.x * kGzWarps + warp;
-  // the first tiles' loads fly while -h2 / lam3 is formed
+  // the first tiles' loads fly while the scale table is formed
   if (lane == 0) {
     for (int q = 0; q < kStages; ++q)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
@@ -563,10 +557,19 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
         tile_load(smem_addr(stages[warp][q]), w + (size_t)(t0 + q * nw) * kCells,
                   smem_addr(&bars[warp][q]));
   }
-  float ra = 0.f;  // lanes 0..6: aux row `lane` of the warp's next tile
-  if (lane < 7 && t0 < T) ra = __ldg(aux + (size_t)lane * T + t0);
-  for (int c = threadIdx.x; c < kCells; c += kGzThreads)
-    scale[pad_off(c >> 6, (c >> 3) & 7, c & 7)] = -h2 * __frcp_rn(lam3[c]);
+  float ra = 0.f;  // B2, lanes 0..6: aux row `lane` of the warp's next tile
+  if constexpr (kMode == kGzTwo)
+    if (lane < 7 && t0 < T) ra = __ldg(aux + (size_t)lane * T + t0);
+  float hn = 0.f;  // B10: h^2 of the warp's next tile, in every lane
+  if constexpr (kMode == kGzTileCol)
+    if (t0 < T) hn = __ldg(h2col + t0);
+  for (int c = threadIdx.x; c < kCells; c += kGzThreads) {
+    const int o = pad_off(c >> 6, (c >> 3) & 7, c & 7);
+    if constexpr (kMode == kGzTileCol)
+      scale[o] = __frcp_rn(lam3[c]);
+    else
+      scale[o] = -h2 * __frcp_rn(lam3[c]);
+  }
   const float s[5] = {0.f, s1g[0], s1g[1], s1g[2], s1g[3]};
   __syncthreads();
 
@@ -581,6 +584,7 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
   int i = 0;
   for (int t = t0; t < T; t += nw, ++i) {
     const int slot = i % kStages;
+    float nh2 = 0.f;  // B10: this tile's -h^2
     __syncwarp();  // every lane is done with the stage refilled next
     {
       // tile i + kStages - 1 into the stage tile i - 1 left (with one
@@ -590,15 +594,20 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
       if (lane == 0 && tn < T)
         tile_load(smem_addr(stages[warp][sn]), w + (size_t)tn * kCells,
                   smem_addr(&bars[warp][sn]));
-      if (lane < 7) {
-        auxs[warp][lane] = ra;
-        if (t + nw < T) ra = __ldg(aux + (size_t)lane * T + t + nw);
+      if constexpr (kMode == kGzTwo) {
+        if (lane < 7) {
+          auxs[warp][lane] = ra;
+          if (t + nw < T) ra = __ldg(aux + (size_t)lane * T + t + nw);
+        }
+      }
+      if constexpr (kMode == kGzTileCol) {
+        nh2 = -hn;
+        if (t + nw < T) hn = __ldg(h2col + t + nw);
       }
     }
     bar_wait(smem_addr(&bars[warp][slot]), (unsigned)((i / kStages) & 1));
     __syncwarp();
     const float* st = stages[warp][slot];
-    const float zc = ax[6];
     float x[2][8];
 
     // -- K: load, the right-hand side, the k transform ------------------
@@ -609,14 +618,19 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
       const float4 lo = *reinterpret_cast<const float4*>(g);
       const float4 hi = *reinterpret_cast<const float4*>(g + 4);
       const float wv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      const float part0 = a == 0 ? ax[0] : (a == 7 ? ax[1] : 0.f);
-      const float part1 = kb == 0 ? ax[2] : (kb == 7 ? ax[3] : 0.f);
-      const float p01 = part0 + part1;
-      // w - A zc; -h2 rides in the scale of the middle of the solve
-      x[j][0] = wv[0] - (p01 + ax[4]);
+      if constexpr (kMode == kGzTwo) {
+        const float part0 = a == 0 ? ax[0] : (a == 7 ? ax[1] : 0.f);
+        const float part1 = kb == 0 ? ax[2] : (kb == 7 ? ax[3] : 0.f);
+        const float p01 = part0 + part1;
+        // w - A zc; -h2 rides in the scale of the middle of the solve
+        x[j][0] = wv[0] - (p01 + ax[4]);
 #pragma unroll
-      for (int k = 1; k < 7; ++k) x[j][k] = wv[k] - p01;
-      x[j][7] = wv[7] - (p01 + ax[5]);
+        for (int k = 1; k < 7; ++k) x[j][k] = wv[k] - p01;
+        x[j][7] = wv[7] - (p01 + ax[5]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) x[j][k] = wv[k];
+      }
       dst8(x[j], s);
       float* p = buf + pad_off(a, kb, 0);
       *reinterpret_cast<float4*>(p) =
@@ -636,7 +650,7 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
       for (int m = 0; m < 8; ++m) p[m * kPadB] = x[j][m];
     }
     __syncwarp();
-    // -- A: the a transform, -h2 / lam3, the inverse a transform ---------
+    // -- A: the a transform, the scale, the inverse a transform ----------
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int o = pad_off(0, r4, 4 * j + c4);
@@ -645,7 +659,10 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
       for (int m = 0; m < 8; ++m) x[j][m] = p[m * kPadA];
       dst8(x[j], s);
 #pragma unroll
-      for (int m = 0; m < 8; ++m) x[j][m] *= scale[o + m * kPadA];
+      for (int m = 0; m < 8; ++m) {
+        x[j][m] *= scale[o + m * kPadA];
+        if constexpr (kMode == kGzTileCol) x[j][m] *= nh2;
+      }
       dst8(x[j], s);
 #pragma unroll
       for (int m = 0; m < 8; ++m) p[m * kPadA] = x[j][m];
@@ -662,7 +679,7 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
       for (int m = 0; m < 8; ++m) p[m * kPadB] = x[j][m];
     }
     __syncwarp();
-    // -- K: the inverse k transform, + zc, store ---------------------------
+    // -- K: the inverse k transform, (B2: + zc), store --------------------
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int a = 4 * j + ka;
@@ -673,19 +690,54 @@ k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
       dst8(v, s);
       float4* out = reinterpret_cast<float4*>(
           y + (size_t)t * kCells + (a * 8 + kb) * 8);
-      out[0] = make_float4(v[0] + zc, v[1] + zc, v[2] + zc, v[3] + zc);
-      out[1] = make_float4(v[4] + zc, v[5] + zc, v[6] + zc, v[7] + zc);
+      if constexpr (kMode == kGzTwo) {
+        const float zc = ax[6];
+        out[0] = make_float4(v[0] + zc, v[1] + zc, v[2] + zc, v[3] + zc);
+        out[1] = make_float4(v[4] + zc, v[5] + zc, v[6] + zc, v[7] + zc);
+      } else {
+        out[0] = make_float4(v[0], v[1], v[2], v[3]);
+        out[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
     }
   }
 }
 
-// CTAs of one build that fit on card `dev` at once (cached; 0 on error)
 template <int kStages, int kMinBlocks>
-int getz_two_capacity(int dev) {
+__global__ void __launch_bounds__(kGzThreads, kMinBlocks)
+k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
+           const float* __restrict__ lam3, const float* __restrict__ aux,
+           const float* __restrict__ h2col, float* __restrict__ y, float h2,
+           int T) {
+  getz_core<kGzTwo, kStages>(w, s1g, lam3, aux, h2col, y, h2, T);
+}
+
+template <int kMode, int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(kGzThreads, kMinBlocks)
+k_getz_tile(const float* __restrict__ w, const float* __restrict__ s1g,
+            const float* __restrict__ lam3, const float* __restrict__ aux,
+            const float* __restrict__ h2col, float* __restrict__ y, float h2,
+            int T) {
+  getz_core<kMode, kStages>(w, s1g, lam3, aux, h2col, y, h2, T);
+}
+
+using GetzKernel = void (*)(const float*, const float*, const float*,
+                            const float*, const float*, float*, float, int);
+
+template <int kMode, int kStages, int kMinBlocks>
+constexpr GetzKernel getz_kernel() {
+  if constexpr (kMode == kGzTwo)
+    return k_getz_two<kStages, kMinBlocks>;
+  else
+    return k_getz_tile<kMode, kStages, kMinBlocks>;
+}
+
+// CTAs of one build that fit on card `dev` at once (cached; 0 on error)
+template <int kMode, int kStages, int kMinBlocks>
+int getz_core_capacity(int dev) {
   static int cached[64] = {0};
   if (cached[dev] == 0) {
     int sms = 0, per_sm = 0;
-    auto kern = k_getz_two<kStages, kMinBlocks>;
+    const GetzKernel kern = getz_kernel<kMode, kStages, kMinBlocks>();
     cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -699,26 +751,27 @@ int getz_two_capacity(int dev) {
   return cached[dev];
 }
 
-// the persistent launch: the one-stage build when its resident warps
-// take every tile in one round, else the two-stage ring; as many CTAs as
-// fit (fewer when T needs fewer)
-int launch_getz_two(const float* w, const float* s1, const float* lam3,
-                    const float* aux, float* y, float h2, int T,
-                    cudaStream_t stream) {
+// the persistent launch of one instance: the one-stage build when its
+// resident warps take every tile in one round, else the two-stage ring;
+// as many CTAs as fit (fewer when T needs fewer)
+template <int kMode>
+int launch_getz_core(const float* w, const float* s1, const float* lam3,
+                     const float* aux, const float* h2col, float* y, float h2,
+                     int T, cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return (int)cudaErrorInvalidDevice;
   const int need = (T + kGzWarps - 1) / kGzWarps;
-  const int small = getz_two_capacity<1, 8>(dev);
+  const int small = getz_core_capacity<kMode, 1, 8>(dev);
   if (small < 1) return (int)cudaErrorInvalidConfiguration;
   if (need <= small) {
-    k_getz_two<1, 8><<<need, kGzThreads, 0, stream>>>(w, s1, lam3, aux, y,
-                                                     h2, T);
+    getz_kernel<kMode, 1, 8>()<<<need, kGzThreads, 0, stream>>>(
+        w, s1, lam3, aux, h2col, y, h2, T);
   } else {
-    const int deep = getz_two_capacity<2, 1>(dev);
+    const int deep = getz_core_capacity<kMode, 2, 1>(dev);
     if (deep < 1) return (int)cudaErrorInvalidConfiguration;
-    k_getz_two<2, 1><<<need < deep ? need : deep, kGzThreads, 0, stream>>>(
-        w, s1, lam3, aux, y, h2, T);
+    getz_kernel<kMode, 2, 1>()<<<need < deep ? need : deep, kGzThreads, 0,
+                                 stream>>>(w, s1, lam3, aux, h2col, y, h2, T);
   }
   return (int)cudaGetLastError();
 }
@@ -744,15 +797,18 @@ int cup3d_update(const float* r, float* p, const float* v, float* rhat,
 
 int cup3d_getz_two(const float* w, const float* s1, const float* lam3,
                    const float* aux, float* y, float h2, int T, void* stream) {
-  return launch_getz_two(w, s1, lam3, aux, y, h2, T, (cudaStream_t)stream);
+  return launch_getz_core<kGzTwo>(w, s1, lam3, aux, nullptr, y, h2, T,
+                                  (cudaStream_t)stream);
 }
 
 int cup3d_getz_tile(const float* w, const float* s1, const float* lam3,
                     const float* h2col, float h2, float* y, int T,
                     void* stream) {
-  k_getz_tile<<<T, kCells, 0, (cudaStream_t)stream>>>(w, s1, lam3, h2col, h2,
-                                                       y);
-  return (int)cudaGetLastError();
+  if (h2col)
+    return launch_getz_core<kGzTileCol>(w, s1, lam3, nullptr, h2col, y, 0.f,
+                                        T, (cudaStream_t)stream);
+  return launch_getz_core<kGzTile>(w, s1, lam3, nullptr, nullptr, y, h2, T,
+                                   (cudaStream_t)stream);
 }
 
 int cup3d_lap(const float* w, const float* planes, const float* a, float* aw,

@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,6 +60,17 @@ SOURCES = {
 
 SOURCES_ARGTYPES = {name: a for entries in SOURCES.values()
                     for name, a in entries.items()}
+
+
+def stream(device) -> int:
+    """The current stream of a CUDA device (a ``torch.device`` or its
+    index) as the raw handle every entry point takes: the direct lookup,
+    a twentieth of ``torch.cuda.current_stream``'s host time
+    (tools/kernel_ab.py's host split)."""
+    idx = device if isinstance(device, int) else device.index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
 class KernelLibrary:

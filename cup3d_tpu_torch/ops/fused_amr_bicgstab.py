@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 
 from cup3d_tpu_torch.ops import fused_bicgstab as fb
-from cup3d_tpu_torch.ops import krylov, tilesolve
+from cup3d_tpu_torch.ops import cuda_lib, krylov, tilesolve
 
 _F32 = torch.float32
 BS = 8
@@ -143,7 +143,7 @@ def update(r, p, v, rhat, vol, scal, kernels=None):
     ts = torch.empty(n, dtype=_F32, device=r.device)
     fb._lib().call("cup3d_update", r.data_ptr(), p.data_ptr(), v.data_ptr(),
                    rhat.data_ptr(), scal.data_ptr(), vol.data_ptr(),
-                   ts.data_ptr(), n, fb._stream(r.device))
+                   ts.data_ptr(), n, cuda_lib.stream(r.device))
     launches["amr_update"] += 1
     return p, rhat, ts
 
@@ -159,7 +159,7 @@ def getz_two(w, azf, zc, h2, kernels=None):
     y = torch.empty_like(w)
     fb._lib().call("cup3d_getz_amr", w.data_ptr(), azf.data_ptr(),
                    S1.data_ptr(), lam.data_ptr(), zc.data_ptr(),
-                   h2.data_ptr(), y.data_ptr(), n, fb._stream(w.device))
+                   h2.data_ptr(), y.data_ptr(), n, cuda_lib.stream(w.device))
     launches["amr_getz_two"] += 1
     return y
 
@@ -175,7 +175,7 @@ def getz_tile(w, h2, kernels=None):
     y = torch.empty_like(w)
     fb._lib().call("cup3d_getz_tile", w.data_ptr(), S1.data_ptr(),
                    lam.data_ptr(), h2.data_ptr(), 0.0, y.data_ptr(), n,
-                   fb._stream(w.device))
+                   cuda_lib.stream(w.device))
     launches["amr_getz_tile"] += 1
     return y
 
@@ -193,7 +193,7 @@ def lap(lab, corr, a, inv_h2, kernels=None):
     ps = torch.empty(n, dtype=_F32, device=a.device)
     fb._lib().call("cup3d_lap_amr", lab.data_ptr(), corr.data_ptr(),
                    a.data_ptr(), inv_h2.data_ptr(), aw.data_ptr(),
-                   pa.data_ptr(), ps.data_ptr(), n, fb._stream(a.device))
+                   pa.data_ptr(), ps.data_ptr(), n, cuda_lib.stream(a.device))
     launches["amr_lap"] += 1
     return aw, pa, ps
 
@@ -209,7 +209,7 @@ def axpy(r, v, vol, scal, kernels=None):
     ts = torch.empty(n, dtype=_F32, device=r.device)
     fb._lib().call("cup3d_axpy", r.data_ptr(), v.data_ptr(), scal.data_ptr(),
                    vol.data_ptr(), s.data_ptr(), ts.data_ptr(), n,
-                   fb._stream(r.device))
+                   cuda_lib.stream(r.device))
     launches["amr_axpy"] += 1
     return s, ts
 
@@ -227,7 +227,7 @@ def finish(x, y, z, s, t, rhat, scal, kernels=None):
     fb._lib().call("cup3d_finish", x.data_ptr(), y.data_ptr(), z.data_ptr(),
                    s.data_ptr(), t.data_ptr(), rhat.data_ptr(),
                    scal.data_ptr(), s.data_ptr(), prr.data_ptr(),
-                   prh.data_ptr(), n, fb._stream(x.device))
+                   prh.data_ptr(), n, cuda_lib.stream(x.device))
     launches["amr_finish"] += 1
     return x, s, prr, prh
 

@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from cup3d_tpu_torch.ops import krylov, tilesolve
+from cup3d_tpu_torch.ops import cuda_lib, krylov, tilesolve
 from cup3d_tpu_torch.ops.stencils import laplacian_faces
 
 _F32 = torch.float32
@@ -181,13 +181,7 @@ def _check_small(t: torch.Tensor, shape, dev, aligned=False) -> None:
                          f"{t.data_ptr() % 16} bytes past 16")
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _lib():
-    from cup3d_tpu_torch.ops import cuda_lib
-
     return cuda_lib.load()
 
 
@@ -203,7 +197,7 @@ def update(r, p, v, rhat, scal, kernels=None):
     ts = torch.empty(T, dtype=_F32, device=r.device)
     _lib().call("cup3d_update", r.data_ptr(), p.data_ptr(), v.data_ptr(),
                 rhat.data_ptr(), scal.data_ptr(), None, ts.data_ptr(), T,
-                _stream(r.device))
+                cuda_lib.stream(r.device))
     launches["update"] += 1
     return p, rhat, ts
 
@@ -219,7 +213,7 @@ def getz_two(w, aux, h2, kernels=None):
     y = torch.empty_like(w)
     _lib().call("cup3d_getz_two", w.data_ptr(), S1.data_ptr(),
                 lam.data_ptr(), aux.data_ptr(), y.data_ptr(), float(h2), T,
-                _stream(w.device))
+                cuda_lib.stream(w.device))
     launches["getz_two"] += 1
     return y
 
@@ -233,7 +227,7 @@ def getz_tile(w, h2, kernels=None):
     y = torch.empty_like(w)
     _lib().call("cup3d_getz_tile", w.data_ptr(), S1.data_ptr(),
                 lam.data_ptr(), None, float(h2), y.data_ptr(), T,
-                _stream(w.device))
+                cuda_lib.stream(w.device))
     launches["getz_tile"] += 1
     return y
 
@@ -249,7 +243,7 @@ def lap(w, planes, a, inv_h2, kernels=None):
     ps = torch.empty(T, dtype=_F32, device=w.device)
     _lib().call("cup3d_lap", w.data_ptr(), planes.data_ptr(), a.data_ptr(),
                 aw.data_ptr(), pa.data_ptr(), ps.data_ptr(), float(inv_h2),
-                T, _stream(w.device))
+                T, cuda_lib.stream(w.device))
     launches["lap"] += 1
     return aw, pa, ps
 
@@ -263,7 +257,8 @@ def axpy(r, v, scal, kernels=None):
     s = torch.empty_like(r)
     ts = torch.empty(T, dtype=_F32, device=r.device)
     _lib().call("cup3d_axpy", r.data_ptr(), v.data_ptr(), scal.data_ptr(),
-                None, s.data_ptr(), ts.data_ptr(), T, _stream(r.device))
+                None, s.data_ptr(), ts.data_ptr(), T,
+                cuda_lib.stream(r.device))
     launches["axpy"] += 1
     return s, ts
 
@@ -281,7 +276,7 @@ def finish(x, y, z, s, t, rhat, scal, kernels=None):
     _lib().call("cup3d_finish", x.data_ptr(), y.data_ptr(), z.data_ptr(),
                 s.data_ptr(), t.data_ptr(), rhat.data_ptr(), scal.data_ptr(),
                 s.data_ptr(), prr.data_ptr(), prh.data_ptr(), T,
-                _stream(x.device))
+                cuda_lib.stream(x.device))
     launches["finish"] += 1
     return x, s, prr, prh
 

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from cup3d_tpu_torch.ops import fused_bicgstab as fb
-from cup3d_tpu_torch.ops import precision
+from cup3d_tpu_torch.ops import cuda_lib, precision
 
 _F32 = torch.float32
 BS = 8
@@ -96,7 +96,7 @@ def _launch(b: torch.Tensor, iters: int, shift, n: int, cs: int,
     fb._lib().call("cup3d_getz_cg", b.data_ptr(),
                    None if col is None else col.data_ptr(), val,
                    z.data_ptr(), n, cs, ts, int(iters),
-                   fb._stream(b.device))
+                   cuda_lib.stream(b.device))
     launches["getz_cg"] += 1
     return z
 

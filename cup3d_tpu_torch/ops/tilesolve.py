@@ -46,6 +46,15 @@ def basis(bs: int, dtype: torch.dtype, device: str):
                  for a in (S3, lam3, S1))
 
 
+def dense_operator(bs: int, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """The exact tile inverse ``S3 diag(1/lam) S3`` as one dense (bs^3,
+    bs^3) matrix (symmetric): a row of tile values times it is the tile
+    solve, so one ``torch.matmul`` computes the tile-only getZ's function
+    (the library yardstick of chip_smoke.py and tools/kernel_ab.py)."""
+    W = _basis_np(bs, str(dtype).replace("torch.", ""))[2]
+    return torch.as_tensor(W, dtype=dtype, device=device)
+
+
 def tile_solve_blocks(b: torch.Tensor) -> torch.Tensor:
     """Solve -lap_tile z = b exactly on every trailing bs^3 tile of ``b``
     (shape (..., bs, bs, bs))."""

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from cup3d_tpu_torch.grid.uniform import BC, UniformGrid
+from cup3d_tpu_torch.ops import cuda_lib
 
 __all__ = [
     "use_ring_dma",
@@ -188,8 +189,6 @@ _STEPS = None  # the bound C entry point, at first launch
 
 def _bind():
     global _STEPS
-    from cup3d_tpu_torch.ops import cuda_lib
-
     _STEPS = cuda_lib.load().fast("cup3d_ring_steps")
     return _STEPS
 
@@ -240,7 +239,7 @@ def ring_steps_kernel(src: torch.Tensor, out: torch.Tensor = None,
     blk[1] = out.data_ptr()
     blk[2] = k0
     blk[3] = nsteps
-    blk[4] = torch._C._cuda_getCurrentRawStream(dev)
+    blk[4] = cuda_lib.stream(dev)
     err = (_STEPS or _bind())(lay[0], blk)
     if err:
         raise RuntimeError(f"cup3d_ring_steps: CUDA error {err} at launch")

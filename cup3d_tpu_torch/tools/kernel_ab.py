@@ -1,5 +1,5 @@
-"""A/B timing of kernels B2 (getz_two) and B14 (the ring step) between
-checkouts of the port, on one CUDA card.
+"""A/B timing of kernels B2 (getz_two), B3/B10 (getz_tile), B7 (getz_cg)
+and B14 (the ring step) between checkouts of the port, on one CUDA card.
 
     python cup3d_tpu_torch/tools/kernel_ab.py [TREE ...]
 
@@ -11,7 +11,19 @@ its tree's kernels and prints one JSON line (``"tree"`` and):
 
 - ``getz_two``: B2 at T = 32,768 tiles (the 256^3 TGV) and T = 4,096
   (the 128^3 fish): CUDA-event time a call (median of 21 samples of 10
-  calls) and the device time a launch on ``torch.profiler``;
+  calls), the device time a launch on ``torch.profiler``, and the first
+  16 hex digits of the SHA-1 of its output (equal digests: equal bits);
+- ``getz_tile``: B3 at T = 32,768 tiles and one h2, and B10 on the
+  forest of BASELINE config #3 after init's adaptation (chip_smoke.py's
+  ``AMR_ARGV``: 9,472 blocks) with its column of per-block h^2: event
+  time and device time a launch, as above, and the library yardstick
+  (TF32 off; B3: one ``torch.matmul`` of the (T, 512) rows by the dense
+  512 x 512 tile operator; B10: one ``torch.einsum`` of the rows, the
+  operator and the column of -h^2), on trees whose ``tilesolve`` has
+  ``dense_operator``;
+- ``getz_cg``: B7 at 256^3 in the lanes layout (8, 8, 8, 32768), 24
+  sweeps, shift 0: event time, device time a launch, and whether a
+  rerun is bitwise;
 - ``ring_shift``: B14 on phase 15's Krylov exchange array (4 shards x
   449 entries x 1 component x 8^3 f32): event time a call, device time
   a launch, ``torch.roll`` on the shard axis;
@@ -37,7 +49,9 @@ process's profiler).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -47,6 +61,7 @@ import time
 D, MK = 4, 449           # phase 15's Krylov exchange: shards, entries
 HOST_CALLS = 1000
 SAMPLES, PER_SAMPLE = 21, 10
+CG_ITERS = 24            # the CG getZ's sweeps (ops/krylov.py)
 
 
 def _events_ms(torch, fn) -> float:
@@ -100,6 +115,26 @@ def _host_us(fn, calls: int = HOST_CALLS) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _forest_h2(torch, tree: str, dev):
+    """The per-block h^2 column of BASELINE config #3's forest after
+    init's adaptation: ``build_driver`` of chip_smoke.py's ``AMR_ARGV``
+    (the forest chip_smoke.py's phase 10 times B10 on)."""
+    import chip_smoke
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    out = os.path.join(os.path.abspath(tree), "runs", "kernel_ab")
+    os.makedirs(out, exist_ok=True)
+    d = build_driver(f"{chip_smoke.AMR_ARGV} -verbose 0 "
+                     f"-path4serialization {out}".split())
+    d.init()
+    h = d.grid.h_column(torch.float32, dev).reshape(d.grid.nb)
+    return (h * h).contiguous()
+
+
 def child(tree: str, mk: int = MK) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -120,14 +155,61 @@ def child(tree: str, mk: int = MK) -> dict:
         aux = torch.randn((8, T), generator=gen, device=dev)
         aux[7] = 0.0
         want = fb.getz_two(w, aux, 1e-3, kernels=False)
-        err = float((fb.getz_two(w, aux, 1e-3) - want).abs().max()
-                    / want.abs().max())
+        got = fb.getz_two(w, aux, 1e-3)
+        err = _rel(got, want)
+        digest = hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()[:16]
         us, n, _ = _profile(torch, lambda: fb.getz_two(w, aux, 1e-3), 20,
                             "getz_two")
         out["getz_two"][T] = dict(
             ms=_events_ms(torch, lambda: fb.getz_two(w, aux, 1e-3)),
-            device_us=us, launches_a_call=n, rel_err=err)
-        del w, aux, want
+            device_us=us, launches_a_call=n, rel_err=err, sha1=digest)
+        del w, aux, want, got
+
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import getz_cg, tilesolve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, h2 = 32768, (2 * math.pi / 256) ** 2
+    w = torch.randn((T, 8, 8, 8), generator=gen, device=dev)
+    W = (tilesolve.dense_operator(8, torch.float32, str(dev))
+         if hasattr(tilesolve, "dense_operator") else None)
+    want = fb.getz_tile(w, h2, kernels=False)
+    us, n, _ = _profile(torch, lambda: fb.getz_tile(w, h2), 20, "getz_tile")
+    out["getz_tile"] = {T: dict(
+        ms=_events_ms(torch, lambda: fb.getz_tile(w, h2)), device_us=us,
+        launches_a_call=n, rel_err=_rel(fb.getz_tile(w, h2), want))}
+    if W is not None:  # -h2 W built once, outside the timed call
+        M = -h2 * W
+        out["getz_tile"][T]["library_ms"] = _events_ms(
+            torch, lambda: torch.matmul(w.view(T, 512), M))
+    del w, want
+    h2c = _forest_h2(torch, tree, dev)
+    nf = h2c.numel()
+    wf = torch.randn((nf, 8, 8, 8), generator=gen, device=dev)
+    us, n, _ = _profile(torch, lambda: fa.getz_tile(wf, h2c), 20,
+                        "getz_tile")
+    out["getz_tile"][nf] = dict(
+        ms=_events_ms(torch, lambda: fa.getz_tile(wf, h2c)), device_us=us,
+        launches_a_call=n, rel_err=_rel(fa.getz_tile(wf, h2c),
+                                        fa.getz_tile(wf, h2c, kernels=False)))
+    if W is not None:
+        neg_h2 = -h2c
+        out["getz_tile"][nf]["library_ms"] = _events_ms(
+            torch, lambda: torch.einsum("tc,cd,t->td", wf.view(nf, 512), W,
+                                        neg_h2))
+    del wf
+    bt = torch.randn((8, 8, 8, T), generator=gen, device=dev)
+    got = getz_cg.cg_tiles_lanes(bt, CG_ITERS)
+    us, n, _ = _profile(torch, lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS),
+                        5, "getz_cg")
+    out["getz_cg"] = {T: dict(
+        ms=_events_ms(torch, lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS)),
+        device_us=us, launches_a_call=n,
+        rel_err=_rel(got, getz_cg.cg_tiles_lanes(bt, CG_ITERS,
+                                                 kernels=False)),
+        rerun_bitwise=bool(torch.equal(getz_cg.cg_tiles_lanes(bt, CG_ITERS),
+                                       got)))}
+    del bt, got
 
     x = torch.randn((D, mk, 1, 8, 8, 8), generator=gen, device=dev)
     if not torch.equal(ring.ring_shift_kernel(x, 1),

@@ -20,7 +20,11 @@ for 3 steps on the card, held against the port on the CPU.  The ring
 shift (B14) against its plain version, bitwise, at odd byte counts and
 misaligned slices, and inside ``ring_all_to_all`` (one launch); its
 strided reads and landings; the two-level getZ (B2) at ragged tile
-counts."""
+counts, and the tile-only getZ (B3, B10) on its core at the same counts,
+at one h2 and at a column of distinct h^2; the CG getZ (B7) at lanes-layout
+tile counts that leave a CTA's 8 tiles ragged, at 0, 1 and 24 sweeps, and
+on right-hand sides that are nonzero on one face or one edge of each tile
+(every face and edge of the tile in turn); bitwise reruns of all four."""
 
 import math
 
@@ -363,27 +367,63 @@ def test_tile_only_fused_solves_launch_getz_tile(dev):
     assert fa.launches["amr_getz_two"] == 0
 
 
-@pytest.mark.parametrize("n,iters,shift", [(22, 12, "tile"), (300, 24, 0.0)])
-def test_getz_cg_kernel_matches_plain_version(dev, n, iters, shift):
+def _face_or_edge_rhs(rng, n, kind):
+    """(n, 8, 8, 8) right-hand sides nonzero on one face (``face``: tile t
+    on face t % 6) or one edge (``edge``: tile t on edge t % 12) only."""
+    b = np.zeros((n, 8, 8, 8))
+    for t in range(n):
+        if kind == "face":
+            axis, side = divmod(t % 6, 2)
+            idx = [slice(None)] * 3
+            idx[axis] = 7 * side
+        else:
+            axis, corner = divmod(t % 12, 4)
+            idx = [7 * (corner & 1), 7 * (corner >> 1)]
+            idx.insert(axis, slice(None))
+        b[(t, *idx)] = rng.standard_normal(b[(t, *idx)].shape)
+    return b
+
+
+@pytest.mark.parametrize("n,iters,shift,rhs", [
+    (22, 12, "tile", "random"), (300, 24, 0.0, "random"),
+    # lanes-layout tile counts that leave a CTA's 8 tiles ragged
+    *[(n, 24, sh, "random") for n in (1, 7, 9, 4099) for sh in (0.0, "tile")],
+    # 0, 1 and 24 sweeps; right-hand sides nonzero on one face or one edge
+    # of each tile (a wrong source lane at a tile face shows there)
+    *[(37, it, "tile", rhs) for it in (0, 1, 24)
+      for rhs in ("random", "face", "edge")]])
+def test_getz_cg_kernel_matches_plain_version(dev, n, iters, shift, rhs):
+    """B7 in the blocks and the lanes layout against the plain version
+    (1e-5 of max |plain|; exact zeros at 0 sweeps), the lanes layout
+    bitwise equal to the blocks layout, reruns bitwise."""
     from cup3d_tpu_torch.ops import getz_cg
 
     rng = np.random.default_rng(n)
-    b = torch.as_tensor(rng.standard_normal((n, 8, 8, 8)),
-                        dtype=torch.float32, device=dev)
+    b = (rng.standard_normal((n, 8, 8, 8)) if rhs == "random"
+         else _face_or_edge_rhs(rng, n, rhs))
+    b = torch.as_tensor(b, dtype=torch.float32, device=dev)
     if shift == "tile":
         shift = torch.as_tensor(rng.random((n, 1, 1, 1)) + 0.5,
                                 dtype=torch.float32, device=dev)
     getz_cg.reset_launches()
     got = getz_cg.cg_tiles_blocks(b, iters, shift)
-    _close(got, getz_cg.cg_tiles_blocks(b, iters, shift, kernels=False), 1e-5)
+    want = getz_cg.cg_tiles_blocks(b, iters, shift, kernels=False)
+    if iters == 0:
+        assert torch.equal(got, torch.zeros_like(b))
+    else:
+        _close(got, want, 1e-5)
     # the lanes layout, read in place by the same kernel
     bt = b.permute(1, 2, 3, 0).contiguous()
     st = shift.reshape(n) if isinstance(shift, torch.Tensor) else shift
     got_l = getz_cg.cg_tiles_lanes(bt, iters, st)
     assert torch.equal(got_l, got.permute(1, 2, 3, 0))
+    if iters:
+        _close(got_l, getz_cg.cg_tiles_lanes(bt, iters, st, kernels=False),
+               1e-5)
     assert torch.equal(getz_cg.cg_tiles_blocks(b, iters, shift), got)
+    assert torch.equal(getz_cg.cg_tiles_lanes(bt, iters, st), got_l)
     torch.cuda.synchronize()
-    assert getz_cg.launches["getz_cg"] == 3
+    assert getz_cg.launches["getz_cg"] == 4
 
 
 def test_cg_getz_solve_launches_match_preconditioner_applications(
@@ -456,24 +496,46 @@ def test_ring_shift_kernel_matches_plain_version(dev, D):
     assert ring.launches["ring_shift"] == 1
 
 
-@pytest.mark.parametrize("T_", [1, 7, 4099, 40001])
-def test_getz_two_at_ragged_tile_counts(dev, T_):
-    """B2's persistent grid at tile counts it does not divide (fewer
-    tiles than a CTA's warps; one round of the 2-stage build; a ragged
-    last round of the 3-stage build), against the plain version within
-    the getz bound (1e-5 of max |plain|)."""
+@pytest.mark.parametrize("form", ["two", "tile", "column"])
+@pytest.mark.parametrize("T_", [1, 7, 4099, 9472, 40001])
+def test_getz_two_at_ragged_tile_counts(dev, T_, form):
+    """B2's persistent grid and the tile-only getZ on its core, B3 (one
+    h2) and B10 (a column of distinct per-block h^2), at tile counts it
+    does not divide (fewer tiles than a CTA's warps; one round of the
+    1-stage build; the 2-stage ring at config #3's block count and past
+    one round), against the plain version within the getz bound (1e-5 of
+    max |plain|), and a rerun bitwise."""
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
     rng = np.random.default_rng(T_)
     w = torch.as_tensor(rng.standard_normal((T_, 8, 8, 8)),
                         dtype=torch.float32, device=dev)
-    aux = torch.as_tensor(rng.standard_normal((8, T_)), dtype=torch.float32,
-                          device=dev)
-    aux[7] = 0.0
     h2 = (2 * math.pi / 64) ** 2
+    if form == "two":
+        aux = torch.as_tensor(rng.standard_normal((8, T_)),
+                              dtype=torch.float32, device=dev)
+        aux[7] = 0.0
+        counts, name = fb.launches, "getz_two"
+
+        def getz(kernels=None):
+            return fb.getz_two(w, aux, h2, kernels=kernels)
+    else:
+        if form == "column":
+            h2 = torch.as_tensor(rng.uniform(1e-4, 4e-3, T_),
+                                 dtype=torch.float32, device=dev)
+        mod = fb if form == "tile" else fa
+        counts = mod.launches
+        name = "getz_tile" if form == "tile" else "amr_getz_tile"
+
+        def getz(kernels=None):
+            return mod.getz_tile(w, h2, kernels=kernels)
     fb.reset_launches()
-    got = fb.getz_two(w, aux, h2)
+    fa.reset_launches()
+    got = getz()
     torch.cuda.synchronize()
-    assert fb.launches["getz_two"] == 1
-    _close(got, fb.getz_two(w, aux, h2, kernels=False), 1e-5)
+    assert counts[name] == 1
+    _close(got, getz(kernels=False), 1e-5)
+    assert torch.equal(getz(), got)
 
 
 def _wide(t: torch.Tensor, pad: int = 3) -> torch.Tensor:

@@ -75,6 +75,24 @@ def test_lanes_match_and_cpu_dispatch():
                                 kernels=True)
 
 
+def test_lanes_per_tile_shift_at_ragged_tile_count():
+    """The lanes entry at a tile count that is no multiple of the kernel's
+    8-tile CTA, with one shift a tile, against the JAX Pallas kernel in
+    interpret mode and the JAX lanes entry (its jnp reference here)."""
+    rng = np.random.default_rng(13)
+    n = 13
+    bt = rng.standard_normal((8, 8, 8, n)).astype(np.float32)
+    shift = (rng.random(n) + 0.5).astype(np.float32)
+    got = getz_cg.cg_tiles_lanes(torch.as_tensor(bt), 24,
+                                 torch.as_tensor(shift))
+    sj = jnp.asarray(shift.reshape(n, 1, 1, 1))
+    want = jgp.block_cg_tiles_fast(jnp.moveaxis(jnp.asarray(bt), -1, 0), 24,
+                                   shift=sj, interpret=True)
+    _close(got, np.moveaxis(np.asarray(want), 0, -1))
+    _close(got, jgp.cg_tiles_lanes(jnp.asarray(bt), 24, sj))
+    assert all(v == 0 for v in getz_cg.launches.values())
+
+
 def _rel(got, want):
     want = np.asarray(want)
     return float(np.abs(np.asarray(got) - want).max()) / float(
