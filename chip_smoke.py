@@ -29,6 +29,8 @@ each of which raises on a fault (nothing is caught):
 7. each of the five forest-BiCGSTAB kernels at that forest's block count
    against its plain version (labs and reflux increments assembled from
    the forest's own tables), timed beside the plain version and its bound;
+   B9 also at a ragged block count and rerun bitwise, beside its library
+   call and its time before its redesign;
 8. one whole forest solve, kernels against plain versions, and the same
    kernel solve twice (bitwise-equal answers);
 9. the AMR main path: ``simulate()`` for 20 steps with the ``amr_*``
@@ -83,17 +85,32 @@ each of which raises on a fault (nothing is caught):
     through ``simulate()`` with B14's counter set to 0 just before and
     read just after (velocity within 5e-3 of the reference's), the step
     split, a profiler window and the sharded lanes Laplacian at 256^3
-    (1e-5 of max |ref|).
+    (1e-5 of max |ref|);
+16. BASELINE config #2 as the bench runs it (bench.py bench_fish_uniform
+    and _megaloop_split): ``build_driver`` with ``-pipelined 1`` for
+    FISH_STEPS steps (launch counters against the executed iterations,
+    the QoI stream's counters printed), then ``-scan_k 8``: K = 8
+    megaloops from the start, 2 untimed and 4 timed in each of a
+    synchronised and a back-to-back window (wall/device ratio, launch
+    counters against the executed iterations), the device midline's time
+    alone and a profiler window over one megaloop; K = 1 against K = 8
+    over 16 steps (mean KE within 1e-6 relative); the fluid's max|div u|
+    under the fish gate and the fields, transVel and position finite
+    after each run; the ms/step of phase 14's non-pipelined step, the
+    pipelined step and the megaloop side by side; then the 256^3 TGV
+    through ``-pipelined 1 -scan_k 8`` for 16 steps beside phase 5's
+    ms/step.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
 path's launches ride in each row's ``tgv256``.  B14's row: its launches
 on phase 15's main path, its times at the Krylov loop's exchange (the
 largest exchange's in ``largest``, one whole exchange's in
-``exchange``).  B2, B14, B3/B10 and B7 were redesigned after their
+``exchange``).  B2, B14, B3/B10, B7 and B9 were redesigned after their
 port: their rows carry ``redesigned`` (the change that did it).  B3's row
 carries ``library_ms``: one ``torch.matmul`` by the dense tile operator;
-B10's one ``torch.einsum`` by it and the column of -h^2.
+B10's one ``torch.einsum`` by it and the column of -h^2, B9's the same
+on the rows of w - azf.
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -138,8 +155,8 @@ FOREST_LADDER_STEPS = 10  # forest steps from the ladder's start: the
 CG_STEPS = 5            # CUP3D_GETZ=cg steps at 256^3
 CG_ITERS = 24           # B7 sweeps (precond_iters of the production routes)
 # the fish main path: BASELINE config #2 (bench.py bench_fish_uniform) at
-# 128^3, non-pipelined (pipelined stepping is not ported), FISH_STEPS steps
-# inside the 100-step CFL ramp
+# 128^3, non-pipelined in phase 14 (pipelined in phase 16), FISH_STEPS
+# steps inside the 100-step CFL ramp
 N_FISH = 128
 FISH_STEPS = 30
 FISH = ("StefanFish L=0.4 T=1.0 xpos=0.5 ypos=0.5 zpos=0.5 bFixFrameOfRef=1 "
@@ -155,6 +172,31 @@ CHI_RTOL = 1e-5         # body volume on the card against the CPU port's
 # its measured 0.017).  Inside the band the Brinkman forcing and the
 # body's div(udef) are imposed, so the whole-domain max is printed only.
 FISH_DIV_FLUID_GATE = 0.04
+# phase 16: config #2 as the bench runs it (bench.py bench_fish_uniform,
+# then _megaloop_split, on one driver): pipelined, no per-step
+# diagnostics rows, FISH_STEPS steps; then SCAN_WARM untimed megaloops
+# and SCAN_DISPATCHES timed in each window; K = 1 against K = 8 over
+# SCAN_STEPS steps; the 256^3 TGV pipelined on the device dt chain and
+# as K = 8 megaloops, TGV_SCAN_STEPS steps each at a CFL whose dt is
+# phase 5's 1e-3 (max|u| = 1)
+SCAN_K = 8
+SCAN_WARM = 2
+SCAN_DISPATCHES = 4
+SCAN_STEPS = 16
+SCAN_KE_RTOL = 1e-6     # fish K = 1 against K = 8 (tests/test_megaloop.py)
+# the megaloop after the pipelined steps against the per-step port from the
+# same state at the same dts: the same operations but the device midline
+# in f32 (the host's in f64), grown over 80 steps: max|div u| in the fluid
+# (a max of a difference quotient) within 10%, mean KE within 1e-4 (the
+# ROADMAP's lane-vs-solo bound)
+SCAN_DIV_RTOL = 0.1
+SCAN_WITNESS_KE_RTOL = 1e-4
+TGV_SCAN_STEPS = 16
+TGV_SCAN_CFL = 0.04     # dt ~ 0.04 h / max|u| = 0.98e-3 at 256^3
+MIDLINE_REPS = 5
+# the Frenet kernel against its plain loop: ~100 dependent Euler steps,
+# each renormalised, in another operation order -> 1e-5 of max |plain|
+FRENET_RTOL = 1e-5
 # the block-sharded forest: BASELINE config #3 on SHARDS shards of the card
 SHARDS = 4
 SHARD_STEPS = 5
@@ -177,6 +219,10 @@ OUT_DIR = os.path.join("runs", "chip_smoke")
 VEC_RTOL = 2e-6
 GETZ_RTOL = 1e-5
 PART_RTOL = 1e-5
+# B9 by CUDA events at config #3's 9,472 blocks before its redesign onto
+# the shared getZ core (one 512-thread block a tile, six block barriers;
+# NVIDIA H100 80GB HBM3, 700 W), printed beside its time now
+B9_EARLIER_MS = 0.0685
 
 # Published peaks of the H100 SXM (NVIDIA data sheet): memory bytes/s, f32
 # FLOP/s outside the tensor cores.  Keyed on a substring of the nvidia-smi
@@ -398,7 +444,6 @@ def main_path_phase() -> dict:
     from cup3d_tpu_torch.__main__ import build_driver
     from cup3d_tpu_torch.ops import diagnostics as diag
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
-    from cup3d_tpu_torch.ops import krylov
 
     os.makedirs(OUT_DIR, exist_ok=True)
     for name in ("energy.txt", "div.txt"):
@@ -449,16 +494,7 @@ def main_path_phase() -> dict:
     if not div_max < UNIFORM_DIV_GATE:
         raise AssertionError(f"max|div u| {div_max:.3e} over the gate "
                              f"{UNIFORM_DIV_GATE:g}")
-    # each executed iteration (chunk tails included) launches update,
-    # axpy and finish once and getz_two and lap twice; a solve of k
-    # iterations executes k rounded up to the chunk
-    chunk = krylov.ITER_CHUNK
-    want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
-    want = {"update": executed, "axpy": executed, "finish": executed,
-            "getz_two": 2 * executed, "getz_tile": 0, "lap": 2 * executed}
-    if executed != want_exec or launches != want or executed == 0:
-        raise AssertionError(f"launch counts {launches}, executed "
-                             f"{executed}, expected {want_exec} executed")
+    _check_launches("TGV", iters, launches, executed)
     log(f"  {STEPS} steps in {wall:.3f} s ({wall / STEPS * 1e3:.2f} ms/step), "
         f"{int(sum(iters))} iterations ({executed} executed), "
         f"KE {ke0:.8e} -> {kes[-1]:.8e}, peak memory {peak_gb:.2f} GB")
@@ -469,6 +505,21 @@ def main_path_phase() -> dict:
     ke_curve = [(0.0, ke0)] + [(e[0] + DT_MAIN, e[1]) for e in energy]
     return dict(launches=launches, wall=wall, iters=iters, split=split,
                 ke_curve=ke_curve)
+
+
+def _check_launches(tag, iters, launches, executed) -> None:
+    """Each executed iteration (chunk tails included) launches update,
+    axpy and finish once and getz_two and lap twice; a solve of k
+    iterations executes k rounded up to the chunk."""
+    from cup3d_tpu_torch.ops import krylov
+
+    chunk = krylov.ITER_CHUNK
+    want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
+    want = {"update": executed, "axpy": executed, "finish": executed,
+            "getz_two": 2 * executed, "getz_tile": 0, "lap": 2 * executed}
+    if executed != want_exec or launches != want or executed == 0:
+        raise AssertionError(f"{tag} launch counts {launches}, executed "
+                             f"{executed}, expected {want_exec} executed")
 
 
 def _read_table(path):
@@ -485,6 +536,7 @@ def _step_split(d, steps: int = 3) -> dict:
     for _ in range(steps):
         dt = d.calc_max_timestep()
         dt_dev = torch.tensor(dt, dtype=s.dtype, device=s.device)
+        t_step = time.perf_counter()
         for op in d.pipeline:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -492,9 +544,7 @@ def _step_split(d, steps: int = 3) -> dict:
             torch.cuda.synchronize()
             totals[op.name] = totals.get(op.name, 0.0) + (
                 time.perf_counter() - t0)
-        d._read_step_pack()
-        s.step += 1
-        s.time += dt
+        d.end_step(dt, dt_dev, t_step)
     split = {k: v / steps * 1e3 for k, v in totals.items()}
     log("  per-step split (ms, synchronised): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()))
@@ -516,18 +566,22 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def _profile_window(d, steps: int = 3, prefix: str = "") -> dict:
+def _profile_window(d, steps: int = 3, prefix: str = "", run=None) -> dict:
     """A few more steps of the same run under torch.profiler: the host wall
     per step, the device's busy share of it, and the device time by kernel
-    name (the full table and a Chrome trace go to OUT_DIR)."""
+    name (the full table and a Chrome trace go to OUT_DIR).  ``run``, when
+    given, takes the ``steps`` steps itself (a megaloop)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            d.advance(d.calc_max_timestep())
+        if run is not None:
+            run()
+        else:
+            for _ in range(steps):
+                d.advance(d.calc_max_timestep())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = _busy_ms(prof.events())
@@ -597,7 +651,7 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     """B8, B9, B11, B12, B13 at the forest's block count against their
     plain versions, then timed; labs and reflux increments are assembled
     from the forest's own width-1 face and flux tables."""
-    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import amr_ops, tilesolve
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
 
@@ -650,10 +704,30 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     want = fa.getz_two(w, azf, zc, h2, kernels=False)
     got = fa.getz_two(w, azf, zc, h2)
     errs = [check_close("amr_getz_two", got, want, GETZ_RTOL)]
+    if not torch.equal(fa.getz_two(w, azf, zc, h2), got):
+        raise AssertionError("amr_getz_two: a rerun differs")
+    # a ragged block count (not a multiple of the warps of a CTA), on the
+    # same columns
+    m = n - 3
+    args = (w[:m].contiguous(), azf[:m].contiguous(), zc[:m].contiguous(),
+            h2[:m].contiguous())
+    errs.append(check_close("amr_getz_two ragged", fa.getz_two(*args),
+                            fa.getz_two(*args, kernels=False), GETZ_RTOL))
     record("amr_getz_two", errs, [0.0],
            lambda: fa.getz_two(w, azf, zc, h2),
            lambda: fa.getz_two(w, azf, zc, h2, kernels=False),
-           3 * 4 * cells, 110 * cells)
+           3 * 4 * cells + 8 * n, 110 * cells)
+    # its library yardstick: one einsum of the precomputed (n, 512) rows
+    # of w - azf, the dense tile operator and the -h^2 column (TF32 off);
+    # the product only, not the + zc
+    W = tilesolve.dense_operator(8, torch.float32, str(dev))
+    rows_ = (w - azf).view(n, 512)
+    neg_h2 = -h2
+    lib_ms = time_ms(lambda: torch.einsum("tc,cd,t->td", rows_, W, neg_h2))
+    results["amr_getz_two"]["library_ms"] = lib_ms
+    log(f"  amr_getz_two library: torch.einsum by the tile operator and the "
+        f"-h^2 column {lib_ms:.4f} ms; before its redesign "
+        f"{B9_EARLIER_MS} ms")
 
     # -- B11 lap on the forest's lab + reflux increment --------------------
     w, a = vec(), vec()
@@ -1370,7 +1444,6 @@ def fish_phase() -> dict:
     from cup3d_tpu_torch.__main__ import build_driver
     from cup3d_tpu_torch.ops import diagnostics as diag
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
-    from cup3d_tpu_torch.ops import krylov
 
     out = os.path.join(OUT_DIR, "fish")
     os.makedirs(out, exist_ok=True)
@@ -1425,13 +1498,7 @@ def fish_phase() -> dict:
     if not fields_ok or not np.all(np.isfinite(kin)):
         raise AssertionError(f"non-finite fish run: fields {fields_ok}, "
                              f"kinematics {kin}")
-    chunk = krylov.ITER_CHUNK
-    want_exec = sum(chunk * math.ceil(int(k) / chunk) for k in iters)
-    want = {"update": executed, "axpy": executed, "finish": executed,
-            "getz_two": 2 * executed, "getz_tile": 0, "lap": 2 * executed}
-    if executed != want_exec or launches != want or executed == 0:
-        raise AssertionError(f"fish launch counts {launches}, executed "
-                             f"{executed}, expected {want_exec} executed")
+    _check_launches("fish", iters, launches, executed)
     chi_card = float(watch.first)
     chi_cpu = fish_cpu_chi()
     rel = abs(chi_card - chi_cpu) / chi_cpu
@@ -1498,6 +1565,7 @@ def _no_sync_step(d) -> None:
     s = d.sim
     dt = d.calc_max_timestep()
     dt_dev = torch.tensor(dt, dtype=s.dtype, device=s.device)
+    t0 = time.perf_counter()
     for op in d.pipeline:
         guard = op.name in NO_SYNC_OPS
         if guard:
@@ -1506,11 +1574,361 @@ def _no_sync_step(d) -> None:
             op(dt_dev)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    d._read_step_pack()
-    s.step += 1
-    s.time += dt
+    d.end_step(dt, dt_dev, t0)
     log(f"  no host sync in {', '.join(NO_SYNC_OPS)} (torch sync debug "
         "mode 'error' around them for one step)")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: config #2 as the bench runs it (pipelined, megaloops)
+# ---------------------------------------------------------------------------
+
+
+def _set_flag(argv: list, flag: str, value) -> list:
+    out = list(argv)
+    if flag in out:
+        out[out.index(flag) + 1] = str(value)
+    else:
+        out += [flag, str(value)]
+    return out
+
+
+def _bench_fish_argv(out_dir: str, nsteps: int, scan_k: int) -> list:
+    argv = fish_argv(out_dir)
+    for flag, value in (("-freqDiagnostics", 0), ("-nsteps", nsteps),
+                        ("-pipelined", 1), ("-scan_k", scan_k)):
+        argv = _set_flag(argv, flag, value)
+    return argv
+
+
+def _mean_ke(vel) -> float:
+    return float(torch.mean(torch.sum(vel.double() ** 2, dim=-1)))
+
+
+def _check_fish(d, tag: str) -> float:
+    """Fields, transVel and position finite; max|div u| in the fluid
+    under the bench's gate.  Returns that divergence."""
+    from cup3d_tpu_torch.ops import diagnostics as diag
+
+    s = d.sim
+    ob = s.obstacles[0]
+    fields_ok = all(bool(torch.isfinite(s.state[k]).all())
+                    for k in ("vel", "p", "chi", "udef"))
+    kin = np.concatenate([ob.transVel, ob.position])
+    if not fields_ok or not np.all(np.isfinite(kin)):
+        raise AssertionError(f"{tag}: non-finite run: fields {fields_ok}, "
+                             f"transVel and position {kin}")
+    div_fluid = float(diag.fluid_divergence_max(s.grid, s.state["vel"],
+                                                s.state["chi"]))
+    if not div_fluid <= FISH_DIV_FLUID_GATE:
+        raise AssertionError(f"{tag}: max|div u| in the fluid "
+                             f"{div_fluid:.3e} over {FISH_DIV_FLUID_GATE:g}")
+    return div_fluid
+
+
+def _scan_rows(d, n0: int):
+    rows = d.step_log[n0:]
+    if not rows or not all(r.get("scan") for r in rows):
+        raise AssertionError("megaloop rows missing from the step log")
+    return [r["iters"] for r in rows]
+
+
+def frenet_kernel_phase(gait, bw: float, fp32_flops: float) -> dict:
+    """The Frenet kernel against its plain loop on the gait's curvature at
+    a few times of the first period (the main path's Nm), bitwise rerun,
+    timed beside the loop and its bound."""
+    from cup3d_tpu_torch.models.fish import device_midline as dm
+
+    rs = gait["rs"]
+    n = int(rs.shape[0])
+    keys = ("r", "v", "nor", "vnor", "bin", "vbin")
+    errs = []
+    for t in (0.05, 0.3, 0.7):
+        rk, vk = dm._curvature_dev(gait, torch.tensor(t, device=rs.device))
+        got = dm._frenet_scan_dev(rs, rk, vk)
+        want = dm._frenet_scan_dev(rs, rk, vk, kernels=False)
+        for k in keys:
+            errs.append(check_close(f"frenet {k} at t={t}", got[k], want[k],
+                                    FRENET_RTOL))
+        again = dm._frenet_scan_dev(rs, rk, vk)
+        if not all(torch.equal(again[k], got[k]) for k in keys):
+            raise AssertionError("frenet: a rerun differs")
+    results = {}
+    # reads rs, curv, dcurv, writes (n, 6, 3); ~60 flop a point
+    _record(results, "frenet", errs, lambda: dm._frenet_scan_dev(rs, rk, vk),
+            lambda: dm._frenet_scan_dev(rs, rk, vk, kernels=False),
+            (3 + 18) * 4 * n, 60 * n, bw, fp32_flops, plain_per_sample=1)
+    return results["frenet"]
+
+
+def _fluid_div(d) -> float:
+    from cup3d_tpu_torch.ops import diagnostics as diag
+
+    s = d.sim
+    return float(diag.fluid_divergence_max(s.grid, s.state["vel"],
+                                           s.state["chi"]))
+
+
+def _snapshot_fish(d) -> dict:
+    """The driver's state as the recovery engine keeps it (fields cloned,
+    the obstacle pickled from its host mirrors, which a flush made
+    current), for another driver's ``_resilience_restore``."""
+    import pickle
+
+    from cup3d_tpu_torch.io.checkpoint import build_payload
+
+    p = build_payload(d)
+    p["fields"] = {k: torch.clone(v) for k, v in p["fields"].items()}
+    p["obstacles"] = pickle.dumps(p["obstacles"])
+    return p
+
+
+def _witness(out: str, snap: dict, t_end: float = 0.0, dts=()) -> tuple:
+    """The per-step non-pipelined port from ``snap``: with the megaloop's
+    ``dts`` (each step's dt set as calc_max_timestep sets it), or with its
+    own dt policy up to ``t_end``.  Its (step, t, max|div u| in the
+    fluid) every SCAN_K steps and at its end, and its mean KE."""
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    w = build_driver(_set_flag(_set_flag(fish_argv(out), "-freqDiagnostics",
+                                         0), "-nsteps", 10 ** 6))
+    w.init()
+    w._resilience_restore(snap)
+    s = w.sim
+    curve = []
+    dts = list(dts)
+    while (s.step - snap["step"] < len(dts)) if dts else s.time < t_end:
+        if dts:
+            s.dt = dts[s.step - snap["step"]]
+            if w.cfg.DLM > 0:
+                s.lambda_penal = w.cfg.DLM / s.dt
+            w.advance(s.dt)
+        else:
+            w.advance(w.calc_max_timestep())
+        if (s.step - snap["step"]) % SCAN_K == 0:
+            curve.append((s.step, s.time, _fluid_div(w)))
+    if not curve or curve[-1][0] != s.step:
+        curve.append((s.step, s.time, _fluid_div(w)))
+    return curve, _mean_ke(s.state["vel"])
+
+
+def bench_fish_phase(bw: float, fp32_flops: float) -> dict:
+    """Config #2 as bench.py runs it, on ONE driver: FISH_STEPS pipelined
+    per-step steps (bench_fish_uniform), a flush, then K-step megaloops
+    (_megaloop_split's windows); the fluid's divergence gate after each
+    part, beside the per-step non-pipelined port from the same state."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.models.fish import device_midline as dm
+    from cup3d_tpu_torch.obs import metrics
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    out = os.path.join(OUT_DIR, "fish16")
+    os.makedirs(out, exist_ok=True)
+    nscan = (SCAN_WARM + 2 * SCAN_DISPATCHES) * SCAN_K
+    d = build_driver(_bench_fish_argv(out, FISH_STEPS + nscan, SCAN_K))
+    d.init()
+    s = d.sim
+    if d._scan_k != SCAN_K:
+        raise AssertionError("the fish megaloop is not eligible")
+    # -- pipelined per step, as bench_fish_uniform steps it ---------------
+    torch.cuda.synchronize()
+    m0 = metrics.snapshot()
+    fb.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(FISH_STEPS):
+        d.advance(d.calc_max_timestep())
+    d.flush_packs()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, executed = dict(fb.launches), fb.iterations["executed"]
+    iters = [r["iters"] for r in d.step_log]
+    if len(iters) != FISH_STEPS:
+        raise AssertionError(f"pipelined: {len(iters)} steps, expected "
+                             f"{FISH_STEPS}")
+    _check_launches("pipelined fish", iters, launches, executed)
+    stream = {k: v for k, v in metrics.delta(m0).items()
+              if k.startswith("stream.") and k.endswith("{stream=qoi}")}
+    div_p = _check_fish(d, "pipelined")
+    pipe_ms = wall / FISH_STEPS * 1e3
+    log(f"  pipelined: {FISH_STEPS} steps in {wall:.3f} s ({pipe_ms:.2f} "
+        f"ms/step) to t={s.time:.4f}, {int(sum(iters))} iterations "
+        f"({executed} executed), max|div u| in the fluid {div_p:.3e}; "
+        f"launches {launches}")
+    log("  stream: " + ", ".join(
+        f"{k.split('{')[0][7:]} {v:.4g}" for k, v in sorted(stream.items())))
+    snap = _snapshot_fish(d)
+
+    # -- K-step megaloops on the same driver (_megaloop_split's windows) ---
+    if not d._scan_ready():
+        raise AssertionError("the fish megaloop is not ready")
+    ob = s.obstacles[0]
+    gait = dm.freeze_gait(ob, s.time, s.dtype)
+    frenet = frenet_kernel_phase(gait, bw, fp32_flops)
+    n0 = len(d.step_log)
+    fb.reset_launches()
+    dm.launches["frenet"] = 0
+    curve = []
+    for _ in range(SCAN_WARM):
+        d.advance_megaloop()
+        curve.append((s.step, _fluid_div(d)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SCAN_DISPATCHES):
+        d.advance_megaloop()
+        torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) / (SCAN_DISPATCHES * SCAN_K) * 1e3
+    curve.append((s.step, _fluid_div(d)))
+    host = 0.0
+    t0 = time.perf_counter()
+    for _ in range(SCAN_DISPATCHES):
+        t1 = time.perf_counter()
+        d.advance_megaloop()
+        host += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / (SCAN_DISPATCHES * SCAN_K) * 1e3
+    d.flush_packs()
+    launches, executed = dict(fb.launches), fb.iterations["executed"]
+    frenet["launches"] = dm.launches["frenet"]
+    scan_iters = _scan_rows(d, n0)
+    if len(scan_iters) != nscan or frenet["launches"] != nscan:
+        raise AssertionError(f"megaloops: {len(scan_iters)} rows, "
+                             f"{frenet['launches']} Frenet launches")
+    _check_launches("fish megaloop", scan_iters, launches, executed)
+    curve.append((s.step, _fluid_div(d)))
+    log(f"  megaloop K={SCAN_K}: wall {wall_ms:.2f} ms/step, synchronised "
+        f"each dispatch {device_ms:.2f} ms/step (wall/device "
+        f"{wall_ms / device_ms:.3f}), host dispatch "
+        f"{host / (SCAN_DISPATCHES * SCAN_K) * 1e3:.2f} ms/step; "
+        f"{nscan} steps to t={s.time:.4f}, {int(sum(scan_iters))} "
+        f"iterations ({executed} executed); launches {launches}")
+    # the megaloop against the per-step port from the same state: at the
+    # megaloop's dts it must read what the megaloop reads; at its own dt
+    # policy it shows how far the reading moves with the dt sequence
+    same_dt, ke_w = _witness(os.path.join(out, "witness"), snap,
+                             dts=[r["dt"] for r in d.step_log[n0:]])
+    own_dt, _ = _witness(os.path.join(out, "witness_own"), snap,
+                         t_end=s.time)
+    ke = _mean_ke(s.state["vel"])
+    log("  max|div u| in the fluid, (step, value): megaloops " + ", ".join(
+        f"({k}, {v:.4e})" for k, v in curve) + f"; the per-step port from "
+        f"step {snap['step']} at the megaloop's dts " + ", ".join(
+        f"({k}, {v:.4e})" for k, _, v in same_dt) + ", at its own dts "
+        "(step, t, value) " + ", ".join(
+        f"({k}, {t:.4f}, {v:.4e})" for k, t, v in own_dt) + f"; mean KE "
+        f"{ke:.9e} against the per-step port's {ke_w:.9e}")
+    fields_ok = all(bool(torch.isfinite(s.state[k]).all())
+                    for k in ("vel", "p", "chi", "udef"))
+    kin = np.concatenate([ob.transVel, ob.position])
+    if not fields_ok or not np.all(np.isfinite(kin)):
+        raise AssertionError(f"megaloop: non-finite run: fields {fields_ok}, "
+                             f"transVel and position {kin}")
+    want = {k: v for k, _, v in same_dt}
+    for k, v in curve:
+        if k in want and not abs(v - want[k]) <= SCAN_DIV_RTOL * want[k]:
+            raise AssertionError(
+                f"megaloop: max|div u| in the fluid {v:.4e} at step {k}, "
+                f"the per-step port's at the same dts {want[k]:.4e}")
+    if not abs(ke - ke_w) <= SCAN_WITNESS_KE_RTOL * ke_w:
+        raise AssertionError(f"megaloop: mean KE {ke} against the per-step "
+                             f"port's {ke_w} at the same dts")
+    # the device midline alone, synchronised: with the Frenet kernel, and
+    # the recurrence's plain loop alone
+    carry = d._scan_carry
+    samples = []
+    for _ in range(MIDLINE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dm.midline_state_device(gait, carry["time"], carry["dt"],
+                                carry["qint"])
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    midline_ms = statistics.median(samples)
+    log(f"  device midline ({ob.myFish.Nm} points): {midline_ms:.3f} ms a "
+        f"call, synchronised (median of {MIDLINE_REPS}); its Frenet loop "
+        f"alone, plain: {frenet['plain_ms']:.3f} ms, kernel "
+        f"{frenet['ms']:.4f} ms")
+    prof = _profile_window(d, steps=SCAN_K, prefix="fish_scan_", run=lambda: (
+        d.advance_megaloop(), d.flush_packs()))
+    d._scan_carry = None
+
+    # -- K = 1 against K = 8 on the card -----------------------------------
+    kes = {}
+    for k in (1, SCAN_K):
+        dk = build_driver(_bench_fish_argv(os.path.join(out, f"k{k}"),
+                                           SCAN_STEPS, k))
+        dk.init()
+        dk.simulate()
+        if dk._scan_k != k or dk.sim.step != SCAN_STEPS:
+            raise AssertionError(f"K={k}: scan_k {dk._scan_k}, step "
+                                 f"{dk.sim.step}")
+        _check_fish(dk, f"K={k}")
+        kes[k] = _mean_ke(dk.sim.state["vel"])
+        del dk
+    dke = abs(kes[1] - kes[SCAN_K])
+    log(f"  K=1 against K={SCAN_K} over {SCAN_STEPS} steps: mean KE "
+        f"{kes[1]:.9e} / {kes[SCAN_K]:.9e} (|diff| {dke:.3e}, gate "
+        f"{SCAN_KE_RTOL:g} relative)")
+    if not dke <= SCAN_KE_RTOL * max(abs(kes[1]), 1e-12):
+        raise AssertionError(f"fish K=1 vs K={SCAN_K}: KE {kes}")
+    return dict(pipelined_ms=pipe_ms, scan_wall_ms=wall_ms,
+                scan_device_ms=device_ms, midline_ms=midline_ms,
+                busy=prof["busy_ms"] / max(prof["wall_ms"], 1e-9),
+                frenet=frenet)
+
+
+def tgv_scan_phase(phase5_ms: float) -> dict:
+    """The 256^3 TGV through build_driver, pipelined: per step on the
+    device dt chain (-scan_k 0), then as K = 8 megaloops; for each,
+    launch counts, decaying KE, max|div u| and ms/step, beside phase 5's
+    (non-pipelined, fixed dt 1e-3, diagnostics every step)."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    nb = N_MAIN // 8
+    out = {}
+    for tag, k in (("dt chain", 0), (f"K={SCAN_K} megaloop", SCAN_K)):
+        argv = (f"-bpdx {nb} -bpdy {nb} -bpdz {nb} -levelMax 1 "
+                "-extent 6.283185307179586 -initCond taylorGreen "
+                "-poissonSolver iterative -poissonTol 1e-6 "
+                f"-poissonTolRel 1e-4 -nu 1e-3 -CFL {TGV_SCAN_CFL} "
+                f"-rampup 0 -tend 0 -nsteps {TGV_SCAN_STEPS} -verbose 0 "
+                f"-freqDiagnostics 0 -pipelined 1 -scan_k {k} "
+                "-path4serialization "
+                f"{os.path.join(OUT_DIR, f'tgv_scan{k}')}").split()
+        d = build_driver(argv)
+        d.init()
+        s = d.sim
+        if d._scan_k != k or not (k or d._dt_chain):
+            raise AssertionError(f"TGV {tag}: K {d._scan_k}, dt chain "
+                                 f"{d._dt_chain}")
+        ke0 = _mean_ke(s.state["vel"])
+        torch.cuda.synchronize()
+        fb.reset_launches()
+        t0 = time.perf_counter()
+        d.simulate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, executed = dict(fb.launches), fb.iterations["executed"]
+        iters = _scan_rows(d, 0) if k else [r["iters"] for r in d.step_log]
+        if len(iters) != TGV_SCAN_STEPS:
+            raise AssertionError(f"TGV {tag}: {len(iters)} steps")
+        _check_launches(f"TGV {tag}", iters, launches, executed)
+        ke = _mean_ke(s.state["vel"])
+        _, div = diag.divergence_norms(s.grid, s.state["vel"])
+        if not (math.isfinite(ke) and ke < ke0
+                and float(div) < UNIFORM_DIV_GATE):
+            raise AssertionError(f"TGV {tag}: KE {ke0} -> {ke}, max|div u| "
+                                 f"{float(div)}")
+        out[k] = wall / TGV_SCAN_STEPS * 1e3
+        dts = [r["dt"] for r in d.step_log]
+        log(f"  {tag}: {TGV_SCAN_STEPS} steps in {wall:.3f} s "
+            f"({out[k]:.2f} ms/step; phase 5, fixed dt 1e-3: "
+            f"{phase5_ms:.2f}), dt {min(dts):.4e}..{max(dts):.4e}, "
+            f"{int(sum(iters))} iterations ({executed} executed), KE "
+            f"{ke0:.8e} -> {ke:.8e}, max|div u| {float(div):.3e}")
+        del d
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1943,10 +2361,12 @@ KERNELS = (
     ("amr_finish", "cup3d_tpu/ops/fused_amr_bicgstab.py:224",
      "fused_bicgstab.cu"),
     ("ring_shift", "cup3d_tpu/parallel/ring.py:89", "ring.cu"),
+    # no Pallas kernel: the lax.scan of the JAX device midline
+    ("frenet", "cup3d_tpu/models/fish/device_midline.py:158", "frenet.cu"),
 )
 # kernels redesigned after their port, by the PR of the redesign
 REDESIGNED = {"getz_two": 6, "ring_shift": 6, "getz_tile": 7,
-              "amr_getz_tile": 7, "getz_cg": 7}
+              "amr_getz_tile": 7, "getz_cg": 7, "amr_getz_two": 8}
 
 
 def main() -> int:
@@ -2027,6 +2447,22 @@ def main() -> int:
     shard_run = shard_phase(d, cfg, bw)
     del d
     torch.cuda.empty_cache()
+
+    log(f"phase 16: BASELINE config #2 as the bench runs it at {N_FISH}^3: "
+        f"pipelined, then K={SCAN_K} megaloops on the same driver; the "
+        f"{N_MAIN}^3 TGV pipelined on the device dt chain and as megaloops")
+    with _env(CUP3D_FUSED="1"):
+        bench_run = bench_fish_phase(bw, fp32_flops)
+        log(f"  config #2 ms/step: non-pipelined (phase 14) "
+            f"{fish_run['wall'] / FISH_STEPS * 1e3:.2f}, pipelined "
+            f"{bench_run['pipelined_ms']:.2f}, K={SCAN_K} megaloop "
+            f"{bench_run['scan_wall_ms']:.2f}")
+        tgv = tgv_scan_phase(run["wall"] / STEPS * 1e3)
+        log(f"  {N_MAIN}^3 TGV ms/step: phase 5 "
+            f"{run['wall'] / STEPS * 1e3:.2f}, "
+            f"pipelined on the device dt chain {tgv[0]:.2f}, K={SCAN_K} "
+            f"megaloop {tgv[SCAN_K]:.2f}")
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -2035,6 +2471,8 @@ def main() -> int:
                 "amr_getz_tile": forest_ladder["launches"]["amr_getz_tile"],
                 "getz_cg": cg_run["launches"]["getz_cg"],
                 "ring_shift": shard_run["launches"]}
+    per_kernel["frenet"] = bench_run["frenet"]
+    launches["frenet"] = bench_run["frenet"].pop("launches")
     for kname in fish_kernels:
         launches[kname] = fish_run["launches"][kname]
         per_kernel[kname] = dict(fish_kernels[kname], tgv256=dict(

@@ -6,7 +6,9 @@ Same flag grammar as the JAX package (config.parse_args; ``-conf FILE``
 pulls flags from a file at lower precedence).  One flag of the port's
 own, ``-device cpu|cuda`` (default cuda), is spliced out before parsing,
 so both packages parse the rest of the argv to equal configs.  The
-parsed config is recorded to ``argumentparser.log``.
+parsed config is recorded to ``argumentparser.log``.  ``-pipelined 1``
+streams the step packs (sim/simulation.py), ``-scan_k K`` with it runs
+K-step megaloops (sim/megaloop.py), as in the JAX CLI.
 """
 
 from __future__ import annotations

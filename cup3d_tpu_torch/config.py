@@ -57,14 +57,14 @@ class SimulationConfig:
     # the CFL dt is computed ON DEVICE from the previous step's max|u|
     # (exactly the non-pipelined one-step-lag policy, no staleness margin)
     # and never read back — the steady-state step issues zero blocking
-    # transfers.  -1 = auto (on for TPU backends when eligible), 0 = off,
+    # transfers.  -1 = auto (on for a CUDA device when eligible), 0 = off,
     # 1 = force on (tests).  Obstacle runs keep the host dt: fish midline
     # kinematics consume host time each step.
     dtDevice: int = -1
-    # K-step scan megaloop (sim/megaloop.py): wrap K whole timesteps —
-    # dt policy, fish midline, rasterization, rigid update, penalization,
-    # projection, force probe — in one jitted lax.scan, emitting the QoI
-    # as one (K, ROW) packed block.  0 = off (the per-step loop, seed
+    # K-step megaloop (sim/megaloop.py): run K whole timesteps — dt
+    # policy, fish midline, rasterization, rigid update, penalization,
+    # projection, force probe — from a device carry with no QoI read,
+    # emitting the QoI as one (K, ROW) packed block.  0 = off (the per-step loop, seed
     # behavior); the CUP3D_SCAN_K env var overrides.  Requires pipelined
     # mode, free dt, a step-count stop, and either no obstacles or a
     # single frozen-gait StefanFish (megaloop eligibility in

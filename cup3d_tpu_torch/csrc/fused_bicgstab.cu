@@ -126,96 +126,6 @@ k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// B2 getz (two-level): y = zc + S3 diag(1/lam) S3 (-h2 (w - A zc)).
-// Replaces _k_getz_two (:185, math :111-130, _azc_from_aux :65); the
-// kernel, k_getz_two, is further down (a persistent design of its own).
-// S3 = S1 (x) S1 (x) S1 (cup3d_tpu/ops/tilesolve.py:53), so instead of the
-// TPU's (512,512) @ (512,C) matmul each tile runs three 8-point axis
-// transforms, the divide by lam3, and three more: no tensor cores, no
-// TF32 question.  B9 below keeps the first port's core: one thread per
-// cell (512 threads), one block per tile, the transforms in shared memory
-// (tile_solve_cell).  A zc is rebuilt from the 6 per-tile
-// face deltas in aux rows 0..5 (a face cell adds its face's delta, an
-// edge or corner cell one per axis), zc is aux row 6; aux is (8, T) as
-// the TPU driver ships it.
-// ---------------------------------------------------------------------------
-
-// The transform pair of B9.  On entry buf[0] holds the
-// tile's right-hand side and S1 the 1-D basis, both written by all 512
-// threads before a __syncthreads(); returns this thread's cell (a,b,k)
-// of S3 diag(1/lam3) S3 buf[0].
-__device__ __forceinline__ float tile_solve_cell(float (*buf)[kCells],
-                                                 const float* S1,
-                                                 const float* __restrict__ lam3,
-                                                 int a, int b, int k) {
-  const int c = (a * 8 + b) * 8 + k;
-  float acc;
-  // forward transform: axis 0 (stride 64), axis 1 (stride 8), axis 2
-  acc = 0.f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) acc += S1[a * 8 + m] * buf[0][m * 64 + b * 8 + k];
-  buf[1][c] = acc;
-  __syncthreads();
-  acc = 0.f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) acc += S1[b * 8 + m] * buf[1][a * 64 + m * 8 + k];
-  buf[0][c] = acc;
-  __syncthreads();
-  acc = 0.f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) acc += S1[k * 8 + m] * buf[0][a * 64 + b * 8 + m];
-  buf[1][c] = acc / lam3[c];
-  __syncthreads();
-  // inverse transform (S1 is symmetric and orthogonal)
-  acc = 0.f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) acc += S1[a * 8 + m] * buf[1][m * 64 + b * 8 + k];
-  buf[0][c] = acc;
-  __syncthreads();
-  acc = 0.f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) acc += S1[b * 8 + m] * buf[0][a * 64 + m * 8 + k];
-  buf[1][c] = acc;
-  __syncthreads();
-  acc = 0.f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) acc += S1[k * 8 + m] * buf[1][a * 64 + b * 8 + m];
-  return acc;
-}
-
-// The two-level getZ itself (B2) is a persistent, pipelined kernel of its
-// own, shared by the tile-only getZ (B3, B10); the note and the code
-// follow B9 below.
-
-// ---------------------------------------------------------------------------
-// B9 getz (forest, two-level): y = zc_t + S3 diag(1/lam) S3 (-h2_t (w - azf))
-// at each block's own h^2.  Replaces _k_getz_two
-// (cup3d_tpu/ops/fused_amr_bicgstab.py:195, math :111-133).  On a forest
-// A zf is no sum of face deltas, so the caller assembles the full
-// refluxed Laplacian azf of the injected coarse correction between the
-// stages (as the TPU driver does) and this prologue reads it as a field,
-// with the per-block columns zc and h2; the transforms are B2's.  Moves
-// w and azf in, y out: 3 x 4 B / cell.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kCells)
-k_getz_amr(const float* __restrict__ w, const float* __restrict__ azf,
-           const float* __restrict__ s1g, const float* __restrict__ lam3,
-           const float* __restrict__ zc, const float* __restrict__ h2,
-           float* __restrict__ y) {
-  __shared__ float S1[64];
-  __shared__ float buf[2][kCells];
-  const size_t t = blockIdx.x;
-  const int c = threadIdx.x;
-  const int a = c >> 6, b = (c >> 3) & 7, k = c & 7;
-  if (c < 64) S1[c] = s1g[c];
-  const size_t i = t * kCells + c;
-  buf[0][c] = -h2[t] * (w[i] - azf[i]);
-  __syncthreads();
-  y[i] = tile_solve_cell(buf, S1, lam3, a, b, k) + zc[t];
-}
-
-// ---------------------------------------------------------------------------
 // B4 lap: Aw = 7-point Laplacian / h^2 with cross-tile face planes, plus
 // the per-tile partials sum(a * Aw) and sum(Aw * Aw).
 // Replaces _k_lap (:195, math :133-148 over stencils.laplacian_lanes_chunk).
@@ -389,10 +299,17 @@ k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
 }
 
 // ---------------------------------------------------------------------------
-// B2 getz (two-level), redesigned: a persistent, pipelined tile solve.
-// Replaces _k_getz_two (cup3d_tpu/ops/fused_bicgstab.py:185, math
-// :111-130) and the first port's k_getz_two (one block of 512 threads a
-// tile, six 512-thread barriers, at most 4 tiles in flight an SM).
+// B2 getz (two-level), redesigned: a persistent, pipelined tile solve,
+// y = zc + S3 diag(1/lam) S3 (-h2 (w - A zc)).  Replaces _k_getz_two
+// (cup3d_tpu/ops/fused_bicgstab.py:185, math :111-130, _azc_from_aux :65)
+// and the first port's k_getz_two (one block of 512 threads a tile, six
+// 512-thread barriers, at most 4 tiles in flight an SM).  S3 = S1 (x) S1
+// (x) S1 (cup3d_tpu/ops/tilesolve.py:53), so instead of the TPU's
+// (512,512) @ (512,C) matmul each tile runs three 8-point axis
+// transforms, the scale, and three more: no tensor cores, no TF32
+// question.  A zc is rebuilt from the 6 per-tile face deltas in aux rows
+// 0..5 (a face cell adds its face's delta, an edge or corner cell one per
+// axis), zc is aux row 6; aux is (8, T) as the TPU driver ships it.
 //
 // B3 / B10 getz (tile-only), y = S3 diag(1/lam) S3 (-h2 w), run on the
 // same core as instances of the same template (kGzTile, kGzTileCol).
@@ -404,6 +321,24 @@ k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
 // fetched into a register a tile ahead like B2's aux, multiplies where B2
 // applies its scale.  No aux, no face deltas, no + zc; moves w in, y out
 // (+ 4 B of h^2 a block): 2 x 4 B / cell.
+//
+// B9 getz (forest, two-level), y = zc_t + S3 diag(1/lam) S3 (-h2_t (w -
+// azf)), is the fourth instance (kGzAmr), kernel k_getz_amr.  Replaces
+// _k_getz_two of cup3d_tpu/ops/fused_amr_bicgstab.py (:195, math
+// :111-133) and the first port's k_getz_amr (B2's old core: a 512-thread
+// block a tile, six block barriers).  On a forest A zf is no sum of face
+// deltas, so the caller assembles the refluxed Laplacian azf of the
+// injected coarse correction between the stages (as the TPU driver does)
+// and the kernel reads it as a field: a stage holds two tiles, the warp's
+// next block's w and azf, brought in by two bulk copies that complete on
+// the stage's one mbarrier (expecting 4 KB), and the warp forms w - azf
+// in registers before the first transform.  As B10 it keeps 1/lam3 in the
+// table and multiplies by the block's -h2 in the middle of the solve;
+// the block's zc is added at the store.  h2 and zc are prefetched a block
+// ahead into every lane.  Moves w and azf in, y out (+ 8 B a block):
+// 3 x 4 B / cell.  Its stages double the ring's shared memory (4 warps x
+// kStages x 4 KB), so fewer CTAs fit an SM than for B10 (4 of the
+// two-stage build, against 7).
 //
 // Floors on an H100 (3.35 TB/s, 67 TFLOP/s f32 = 33.5 T FMA/s): the
 // kernel must read w and write y, 8 B a cell (+ 28 B of aux a tile).  At
@@ -496,21 +431,30 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// one tile's w (2 KB) into a stage by a TMA 1-D bulk copy, completing on
-// the stage's mbarrier; the fence orders the warp's earlier reads of the
-// stage (generic proxy) before the copy's writes (async proxy)
-__device__ __forceinline__ void tile_load(unsigned dst, const float* src,
+__device__ __forceinline__ void bulk_copy(unsigned dst, const float* src,
                                           unsigned bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(kTileBytes)
-      : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(kTileBytes), "r"(bar)
       : "memory");
+}
+
+// one tile's w (2 KB), and for B9 the same block's azf (2 KB more, right
+// behind it), into a stage by TMA 1-D bulk copies that complete on the
+// stage's mbarrier, which expects the bytes of both; the fence orders the
+// warp's earlier reads of the stage (generic proxy) before the copies'
+// writes (async proxy)
+template <int kBufs>
+__device__ __forceinline__ void tile_load(unsigned dst, const float* src,
+                                          const float* src2, unsigned bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(kBufs * kTileBytes)
+      : "memory");
+  bulk_copy(dst, src, bar);
+  if constexpr (kBufs == 2) bulk_copy(dst + kTileBytes, src2, bar);
 }
 
 // wait until the mbarrier's phase of this parity has completed
@@ -523,29 +467,42 @@ __device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
       : "memory");
 }
 
-// the prologue of an instance of the shared core: B2's two-level aux, or
-// the tile-only solve at one h2 (B3) or at a column of per-block h^2 (B10)
-enum GzMode { kGzTwo, kGzTile, kGzTileCol };
+// the prologue of an instance of the shared core: B2's two-level aux, the
+// tile-only solve at one h2 (B3) or at a column of per-block h^2 (B10),
+// or the forest's two-level solve on w - azf at that column, + zc (B9)
+enum GzMode { kGzTwo, kGzTile, kGzTileCol, kGzAmr };
 
 // the body of every instance; the kernels below name the instances, so
-// that a profile tells B2 (k_getz_two) from B3/B10 (k_getz_tile)
+// that a profile tells B2 (k_getz_two) from B3/B10 (k_getz_tile) and B9
+// (k_getz_amr)
 template <int kMode, int kStages>
 __device__ __forceinline__ void getz_core(const float* __restrict__ w,
                                           const float* __restrict__ s1g,
                                           const float* __restrict__ lam3,
                                           const float* __restrict__ aux,
                                           const float* __restrict__ h2col,
+                                          const float* __restrict__ azf,
+                                          const float* __restrict__ zccol,
                                           float* __restrict__ y, float h2,
                                           int T) {
-  __shared__ __align__(128) float stages[kGzWarps][kStages][kCells];
+  constexpr bool kCol = kMode == kGzTileCol || kMode == kGzAmr;
+  constexpr int kBufs = kMode == kGzAmr ? 2 : 1;  // tiles a stage holds
+  __shared__ __align__(128) float stages[kGzWarps][kStages][kBufs * kCells];
   __shared__ __align__(16) float pads[kGzWarps][kPad];
-  // -h2 / lam3 (B2, B3); 1 / lam3 (B10: -h2[t] multiplies apart)
+  // -h2 / lam3 (B2, B3); 1 / lam3 (B10, B9: -h2[t] multiplies apart)
   __shared__ __align__(16) float scale[kPad];
   __shared__ __align__(8) unsigned long long bars[kGzWarps][kStages];
   __shared__ float auxs[kGzWarps][8];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = gridDim.x * kGzWarps;
   const int t0 = blockIdx.x * kGzWarps + warp;
+  // tile tt into stage q (lane 0 only); azf is read for B9 alone
+  auto load = [&](int q, int tt) {
+    const size_t off = (size_t)tt * kCells;
+    tile_load<kBufs>(smem_addr(stages[warp][q]), w + off,
+                     kBufs == 2 ? azf + off : nullptr,
+                     smem_addr(&bars[warp][q]));
+  };
   // the first tiles' loads fly while the scale table is formed
   if (lane == 0) {
     for (int q = 0; q < kStages; ++q)
@@ -553,19 +510,20 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
           smem_addr(&bars[warp][q])));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int q = 0; q + 1 < kStages; ++q)
-      if (t0 + q * nw < T)
-        tile_load(smem_addr(stages[warp][q]), w + (size_t)(t0 + q * nw) * kCells,
-                  smem_addr(&bars[warp][q]));
+      if (t0 + q * nw < T) load(q, t0 + q * nw);
   }
   float ra = 0.f;  // B2, lanes 0..6: aux row `lane` of the warp's next tile
   if constexpr (kMode == kGzTwo)
     if (lane < 7 && t0 < T) ra = __ldg(aux + (size_t)lane * T + t0);
-  float hn = 0.f;  // B10: h^2 of the warp's next tile, in every lane
-  if constexpr (kMode == kGzTileCol)
+  // B10, B9: h^2 (and B9's zc) of the warp's next tile, in every lane
+  float hn = 0.f, zn = 0.f;
+  if constexpr (kCol)
     if (t0 < T) hn = __ldg(h2col + t0);
+  if constexpr (kMode == kGzAmr)
+    if (t0 < T) zn = __ldg(zccol + t0);
   for (int c = threadIdx.x; c < kCells; c += kGzThreads) {
     const int o = pad_off(c >> 6, (c >> 3) & 7, c & 7);
-    if constexpr (kMode == kGzTileCol)
+    if constexpr (kCol)
       scale[o] = __frcp_rn(lam3[c]);
     else
       scale[o] = -h2 * __frcp_rn(lam3[c]);
@@ -584,25 +542,28 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
   int i = 0;
   for (int t = t0; t < T; t += nw, ++i) {
     const int slot = i % kStages;
-    float nh2 = 0.f;  // B10: this tile's -h^2
+    float nh2 = 0.f;  // B10, B9: this tile's -h^2
+    float zct = 0.f;  // B9: this tile's zc
     __syncwarp();  // every lane is done with the stage refilled next
     {
       // tile i + kStages - 1 into the stage tile i - 1 left (with one
       // stage: tile i itself)
       const int tn = t + (kStages - 1) * nw;
       const int sn = (i + kStages - 1) % kStages;
-      if (lane == 0 && tn < T)
-        tile_load(smem_addr(stages[warp][sn]), w + (size_t)tn * kCells,
-                  smem_addr(&bars[warp][sn]));
+      if (lane == 0 && tn < T) load(sn, tn);
       if constexpr (kMode == kGzTwo) {
         if (lane < 7) {
           auxs[warp][lane] = ra;
           if (t + nw < T) ra = __ldg(aux + (size_t)lane * T + t + nw);
         }
       }
-      if constexpr (kMode == kGzTileCol) {
+      if constexpr (kCol) {
         nh2 = -hn;
         if (t + nw < T) hn = __ldg(h2col + t + nw);
+      }
+      if constexpr (kMode == kGzAmr) {
+        zct = zn;
+        if (t + nw < T) zn = __ldg(zccol + t + nw);
       }
     }
     bar_wait(smem_addr(&bars[warp][slot]), (unsigned)((i / kStages) & 1));
@@ -627,6 +588,15 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
 #pragma unroll
         for (int k = 1; k < 7; ++k) x[j][k] = wv[k] - p01;
         x[j][7] = wv[7] - (p01 + ax[5]);
+      } else if constexpr (kMode == kGzAmr) {
+        // w - azf; -h2 multiplies in the middle of the solve
+        const float* ga = g + kCells;
+        const float4 alo = *reinterpret_cast<const float4*>(ga);
+        const float4 ahi = *reinterpret_cast<const float4*>(ga + 4);
+        const float av[8] = {alo.x, alo.y, alo.z, alo.w,
+                             ahi.x, ahi.y, ahi.z, ahi.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) x[j][k] = wv[k] - av[k];
       } else {
 #pragma unroll
         for (int k = 0; k < 8; ++k) x[j][k] = wv[k];
@@ -661,7 +631,7 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
 #pragma unroll
       for (int m = 0; m < 8; ++m) {
         x[j][m] *= scale[o + m * kPadA];
-        if constexpr (kMode == kGzTileCol) x[j][m] *= nh2;
+        if constexpr (kCol) x[j][m] *= nh2;
       }
       dst8(x[j], s);
 #pragma unroll
@@ -679,7 +649,7 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
       for (int m = 0; m < 8; ++m) p[m * kPadB] = x[j][m];
     }
     __syncwarp();
-    // -- K: the inverse k transform, (B2: + zc), store --------------------
+    // -- K: the inverse k transform, (B2, B9: + zc), store ----------------
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int a = 4 * j + ka;
@@ -690,8 +660,8 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
       dst8(v, s);
       float4* out = reinterpret_cast<float4*>(
           y + (size_t)t * kCells + (a * 8 + kb) * 8);
-      if constexpr (kMode == kGzTwo) {
-        const float zc = ax[6];
+      if constexpr (kMode == kGzTwo || kMode == kGzAmr) {
+        const float zc = kMode == kGzTwo ? ax[6] : zct;
         out[0] = make_float4(v[0] + zc, v[1] + zc, v[2] + zc, v[3] + zc);
         out[1] = make_float4(v[4] + zc, v[5] + zc, v[6] + zc, v[7] + zc);
       } else {
@@ -702,31 +672,41 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
   }
 }
 
+#define GZ_PARAMS                                                         \
+  const float *__restrict__ w, const float *__restrict__ s1g,              \
+      const float *__restrict__ lam3, const float *__restrict__ aux,       \
+      const float *__restrict__ h2col, const float *__restrict__ azf,      \
+      const float *__restrict__ zccol, float *__restrict__ y, float h2, int T
+#define GZ_ARGS w, s1g, lam3, aux, h2col, azf, zccol, y, h2, T
+
 template <int kStages, int kMinBlocks>
 __global__ void __launch_bounds__(kGzThreads, kMinBlocks)
-k_getz_two(const float* __restrict__ w, const float* __restrict__ s1g,
-           const float* __restrict__ lam3, const float* __restrict__ aux,
-           const float* __restrict__ h2col, float* __restrict__ y, float h2,
-           int T) {
-  getz_core<kGzTwo, kStages>(w, s1g, lam3, aux, h2col, y, h2, T);
+k_getz_two(GZ_PARAMS) {
+  getz_core<kGzTwo, kStages>(GZ_ARGS);
 }
 
 template <int kMode, int kStages, int kMinBlocks>
 __global__ void __launch_bounds__(kGzThreads, kMinBlocks)
-k_getz_tile(const float* __restrict__ w, const float* __restrict__ s1g,
-            const float* __restrict__ lam3, const float* __restrict__ aux,
-            const float* __restrict__ h2col, float* __restrict__ y, float h2,
-            int T) {
-  getz_core<kMode, kStages>(w, s1g, lam3, aux, h2col, y, h2, T);
+k_getz_tile(GZ_PARAMS) {
+  getz_core<kMode, kStages>(GZ_ARGS);
+}
+
+template <int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(kGzThreads, kMinBlocks)
+k_getz_amr(GZ_PARAMS) {
+  getz_core<kGzAmr, kStages>(GZ_ARGS);
 }
 
 using GetzKernel = void (*)(const float*, const float*, const float*,
-                            const float*, const float*, float*, float, int);
+                            const float*, const float*, const float*,
+                            const float*, float*, float, int);
 
 template <int kMode, int kStages, int kMinBlocks>
 constexpr GetzKernel getz_kernel() {
   if constexpr (kMode == kGzTwo)
     return k_getz_two<kStages, kMinBlocks>;
+  else if constexpr (kMode == kGzAmr)
+    return k_getz_amr<kStages, kMinBlocks>;
   else
     return k_getz_tile<kMode, kStages, kMinBlocks>;
 }
@@ -756,8 +736,9 @@ int getz_core_capacity(int dev) {
 // as many CTAs as fit (fewer when T needs fewer)
 template <int kMode>
 int launch_getz_core(const float* w, const float* s1, const float* lam3,
-                     const float* aux, const float* h2col, float* y, float h2,
-                     int T, cudaStream_t stream) {
+                     const float* aux, const float* h2col, const float* azf,
+                     const float* zccol, float* y, float h2, int T,
+                     cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return (int)cudaErrorInvalidDevice;
@@ -766,12 +747,13 @@ int launch_getz_core(const float* w, const float* s1, const float* lam3,
   if (small < 1) return (int)cudaErrorInvalidConfiguration;
   if (need <= small) {
     getz_kernel<kMode, 1, 8>()<<<need, kGzThreads, 0, stream>>>(
-        w, s1, lam3, aux, h2col, y, h2, T);
+        w, s1, lam3, aux, h2col, azf, zccol, y, h2, T);
   } else {
     const int deep = getz_core_capacity<kMode, 2, 1>(dev);
     if (deep < 1) return (int)cudaErrorInvalidConfiguration;
     getz_kernel<kMode, 2, 1>()<<<need < deep ? need : deep, kGzThreads, 0,
-                                 stream>>>(w, s1, lam3, aux, h2col, y, h2, T);
+                                 stream>>>(w, s1, lam3, aux, h2col, azf,
+                                           zccol, y, h2, T);
   }
   return (int)cudaGetLastError();
 }
@@ -797,18 +779,19 @@ int cup3d_update(const float* r, float* p, const float* v, float* rhat,
 
 int cup3d_getz_two(const float* w, const float* s1, const float* lam3,
                    const float* aux, float* y, float h2, int T, void* stream) {
-  return launch_getz_core<kGzTwo>(w, s1, lam3, aux, nullptr, y, h2, T,
-                                  (cudaStream_t)stream);
+  return launch_getz_core<kGzTwo>(w, s1, lam3, aux, nullptr, nullptr,
+                                  nullptr, y, h2, T, (cudaStream_t)stream);
 }
 
 int cup3d_getz_tile(const float* w, const float* s1, const float* lam3,
                     const float* h2col, float h2, float* y, int T,
                     void* stream) {
   if (h2col)
-    return launch_getz_core<kGzTileCol>(w, s1, lam3, nullptr, h2col, y, 0.f,
-                                        T, (cudaStream_t)stream);
-  return launch_getz_core<kGzTile>(w, s1, lam3, nullptr, nullptr, y, h2, T,
-                                   (cudaStream_t)stream);
+    return launch_getz_core<kGzTileCol>(w, s1, lam3, nullptr, h2col, nullptr,
+                                        nullptr, y, 0.f, T,
+                                        (cudaStream_t)stream);
+  return launch_getz_core<kGzTile>(w, s1, lam3, nullptr, nullptr, nullptr,
+                                   nullptr, y, h2, T, (cudaStream_t)stream);
 }
 
 int cup3d_lap(const float* w, const float* planes, const float* a, float* aw,
@@ -838,9 +821,8 @@ int cup3d_finish(float* x, const float* y, const float* z, const float* s,
 int cup3d_getz_amr(const float* w, const float* azf, const float* s1,
                    const float* lam3, const float* zc, const float* h2,
                    float* y, int T, void* stream) {
-  k_getz_amr<<<T, kCells, 0, (cudaStream_t)stream>>>(w, azf, s1, lam3, zc, h2,
-                                                      y);
-  return (int)cudaGetLastError();
+  return launch_getz_core<kGzAmr>(w, s1, lam3, nullptr, h2, azf, zc, y, 0.f,
+                                  T, (cudaStream_t)stream);
 }
 
 int cup3d_lap_amr(const float* lab, const float* corr, const float* a,

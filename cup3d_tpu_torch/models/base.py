@@ -10,9 +10,12 @@ package; the device works in the solver dtype.
 
 Single-obstacle fast path: ``rigid_update_device`` runs moments -> 6x6
 solve (block-diagonal about the centre of mass) -> position/quaternion
-update on the device, and its (RIGID_PACK,) result joins the step's one
-end-of-step read (sim/simulation.py ``_read_step_pack``), which then
-refreshes the host mirrors.  Nothing here reads the device.
+update on the device, and its (RIGID_PACK,) result joins the step's QoI
+pack (sim/simulation.py ``_emit_step_pack``), whose read refreshes the
+host mirrors.  Pipelined stepping chains the device output into the next
+step (``rigid_state_dev``, ``pos_rot_device``) while the mirrors trail
+(``apply_rigid_pack(..., clear_dev=False)``).  Nothing here reads the
+device.
 """
 
 from __future__ import annotations
@@ -276,10 +279,14 @@ class Obstacle:
         )
 
     def rigid_state_dev(self, dtype) -> torch.Tensor:
-        """(RIGID_STATE,) device input for rigid_update_device, from the
-        host mirrors (the non-pipelined step refreshes them every step;
-        chaining the device output across steps is pipelined stepping's,
-        ROADMAP A4)."""
+        """(RIGID_STATE,) device input for rigid_update_device: chains from
+        the previous step's device output when it exists (pipelined
+        stepping keeps the rigid trajectory on the device), else uploads
+        the host mirrors (the non-pipelined step clears the chain when its
+        read refreshes them)."""
+        d = self._dev_rigid
+        if d is not None:
+            return d["pack"][:RIGID_STATE]
         return upload(self.rigid_state_vec(), dtype, self.sim.device)
 
     def forced_mask_dev(self) -> torch.Tensor:
@@ -300,16 +307,23 @@ class Obstacle:
         return self._block_dev_cache
 
     def pos_rot_device(self, dtype):
-        """(position, rotation matrix) on the device for rasterization,
-        from the host mirrors (the non-pipelined step refreshes them at
-        every step's end)."""
+        """(position, rotation matrix) on the device for rasterization:
+        from the device rigid pack while the pipelined chain runs (the
+        host mirrors trail it), else from the host mirrors."""
+        d = self._dev_rigid
+        if d is not None and self.sim.cfg.pipelined:
+            pack = d["pack"]
+            return pack[6:9], quat_to_rot_dev(pack[15:19])
         host = np.concatenate([self.position,
                                quat_to_rot(self.quaternion).reshape(9)])
         dev = upload(host, dtype, self.sim.device)
         return dev[0:3], dev[3:12].reshape(3, 3)
 
-    def apply_rigid_pack(self, row: np.ndarray) -> None:
-        """(RIGID_PACK,) output of rigid_update_device -> host mirrors."""
+    def apply_rigid_pack(self, row: np.ndarray,
+                         clear_dev: bool = True) -> None:
+        """(RIGID_PACK,) output of rigid_update_device -> host mirrors.
+        ``clear_dev=False`` (pipelined stepping) keeps the device chain:
+        the trailing mirrors must not replace it."""
         row = np.asarray(row, np.float64)
         self.transVel = row[0:3]
         self.angVel = row[3:6]
@@ -320,7 +334,8 @@ class Obstacle:
         if row[19] > 0:
             self.mass = float(row[19])
             self.J = row[20:29].reshape(3, 3)
-        self._dev_rigid = None
+        if clear_dev:
+            self._dev_rigid = None
 
     # -- rigid-body dynamics ----------------------------------------------
 

@@ -28,25 +28,29 @@ from cup3d_tpu_torch.models.fish.rasterize import rasterize_midline
 from cup3d_tpu_torch.models.fish.shapes import compute_widths_heights
 
 
-def _raster_window_dense(pos, rot, midline, pos_host, half, h, grid_shape,
-                         window_shape, dtype, device):
-    """Window snap + midline rasterization + dense placement.  The window
-    corner is computed on the host in the device's dtype from the host
-    mirror of the position (the JAX package computes the same f32 values
-    on its device), so the placement needs no device read."""
-    npd = np.float32 if dtype == torch.float32 else np.float64
-    lim = np.asarray(grid_shape) - np.asarray(window_shape)
-    q = (np.asarray(pos_host).astype(npd) - np.asarray(half).astype(npd)) \
-        / npd(h)
-    idx0 = np.clip(np.floor(q).astype(np.int64), 0, lim)
-    origin = tuple(float(npd(i) * npd(h)) for i in idx0)
-    sdf_w, udef_w = rasterize_midline(origin, float(npd(h)), window_shape,
-                                      midline, pos, rot)
-    sl = tuple(slice(int(i), int(i) + int(w))
-               for i, w in zip(idx0, window_shape))
-    sdf = torch.full(tuple(grid_shape), -1.0, dtype=dtype, device=device)
+def _raster_window_dense(pos, rot, midline, half, h, grid_shape,
+                         window_shape):
+    """Window snap, midline rasterization and dense placement.  The window
+    corner is snapped on the device from the device position (the host
+    mirror trails it under pipelined stepping and in the megaloop) in the
+    solver dtype, as the JAX package does, and the window is placed
+    through an advanced index: no device read.  ``half`` the window's
+    half extent as a device tensor, ``h`` the spacing in the solver
+    dtype."""
+    from cup3d_tpu_torch.ops.surface import window_index
+
+    dtype, dev = pos.dtype, pos.device
+    lim = upload(np.asarray(grid_shape) - np.asarray(window_shape),
+                 torch.long, dev)
+    idx0 = torch.minimum(torch.clamp_min(
+        torch.floor((pos - half) / h).to(torch.long), 0), lim)
+    origin = idx0.to(dtype) * h
+    sdf_w, udef_w = rasterize_midline(origin, h, window_shape, midline, pos,
+                                      rot)
+    sl = window_index(idx0, window_shape)
+    sdf = torch.full(tuple(grid_shape), -1.0, dtype=dtype, device=dev)
     sdf[sl] = sdf_w
-    udef = torch.zeros(tuple(grid_shape) + (3,), dtype=dtype, device=device)
+    udef = torch.zeros(tuple(grid_shape) + (3,), dtype=dtype, device=dev)
     udef[sl] = udef_w
     return sdf, udef
 
@@ -183,15 +187,21 @@ class StefanFish(Obstacle):
             "width": dev[:, 18], "height": dev[:, 19],
         }
 
+    def window_half(self) -> torch.Tensor:
+        """Half extent of the rasterization window, in the solver dtype on
+        the device (the device snap's operand)."""
+        s = self.sim
+        half = 0.5 * np.asarray(self._window_shape) * s.grid.h
+        return upload(half, s.dtype, s.device)
+
     def rasterize(self, t: float):
         s = self.sim
-        grid = s.grid
-        h = grid.h
-        half = 0.5 * np.asarray(self._window_shape) * h
+        npd = np.float32 if s.dtype == torch.float32 else np.float64
         pos, rot = self.pos_rot_device(s.dtype)
         return _raster_window_dense(
-            pos, rot, self._midline_device(), self.position, half, h,
-            tuple(grid.shape), tuple(self._window_shape), s.dtype, s.device)
+            pos, rot, self._midline_device(), self.window_half(),
+            float(npd(s.grid.h)), tuple(s.grid.shape),
+            tuple(self._window_shape))
 
     def create(self, t: float) -> None:
         from cup3d_tpu_torch.ops.chi import towers_chi

@@ -4,10 +4,11 @@ CreateObstacles -> ... -> UpdateObstacles -> Penalization ->
 PressureProjection -> ComputeForces.
 
 Single obstacle: the rigid update, the penalization force and the surface
-forces stay on the device and join the step's one end-of-step read
-(``pending_parts``: "rigid", "penal", "forces").  An obstacle whose update
-has a host-only branch (roll correction) takes the host path, which reads
-its moments and forces at once.  More than one body needs the collision
+forces stay on the device and join the step's QoI pack
+(``pending_parts``: "rigid", "penal", "forces"); pipelined stepping
+chains the device rigid state from step to step (models/base.py).  An
+obstacle whose update has a host-only branch (roll correction) takes the
+host path, which reads its moments and forces at once.  More than one body needs the collision
 pass (ROADMAP A5) and is refused by the driver.
 """
 
@@ -74,12 +75,18 @@ class CreateObstacles(Operator):
     def _update_uinf(self):
         """Frame-fixed swimming: uinf counteracts the tracked obstacle's
         translational velocity (ObstacleVector::updateUinf,
-        main.cpp:8507-8519), from the host mirrors."""
+        main.cpp:8507-8519), from the host mirrors; while the pipelined
+        chain runs, the device value comes from the chain (the host
+        mirror trails it and feeds only logs)."""
         s = self.sim
         fixed = [ob for ob in s.obstacles if ob.bFixFrameOfRef]
         if not fixed:
             return
         s.uinf = -np.mean([ob.transVel for ob in fixed], axis=0)
+        devs = [ob._dev_rigid for ob in fixed]
+        if s.cfg.pipelined and all(d is not None for d in devs):
+            s._uinf_dev = -sum(d["trans"] for d in devs) / len(devs)
+            s._uinf_src = s.uinf
 
 
 class UpdateObstacles(Operator):
@@ -96,8 +103,13 @@ class UpdateObstacles(Operator):
 
     def __call__(self, dt):
         s = self.sim
-        cms = upload(np.stack([ob.centerOfMass for ob in s.obstacles]),
-                     s.dtype, s.device)
+        devs = [ob._dev_rigid for ob in s.obstacles]
+        if all(d is not None for d in devs):
+            # pipelined chain: the fresh centre of mass is on the device
+            cms = torch.stack([d["cm"] for d in devs])
+        else:
+            cms = upload(np.stack([ob.centerOfMass for ob in s.obstacles]),
+                         s.dtype, s.device)
         M = self._moments(s.state["vel"], cms)
         if len(s.obstacles) == 1 and s.obstacles[0].supports_device_update():
             ob = s.obstacles[0]

@@ -9,14 +9,17 @@ keys (``resilience.retries{stage=tile-only}``, ``faults.injected{site=
 solver.itercap}``).  Values entering the registry are host scalars: an
 ``inc`` never reads a device tensor.
 
-Not ported (nothing in the port reads them yet): histogram buckets and
-their quantiles, per-instance collectors and the exporter (ROADMAP A9).
+Per-instance collectors (``register_collector``: the QoI streams'
+``stats`` views, held by weakref) merge into every snapshot.  Not ported
+(nothing in the port reads them yet): histogram buckets and their
+quantiles and the exporter (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
 
 _Key = Tuple[str, Tuple[Tuple[str, str], ...]]
 
@@ -118,6 +121,7 @@ class MetricsRegistry:
 
     def __init__(self) -> None:
         self._metrics: Dict[_Key, _Metric] = {}
+        self._collectors: List[Tuple[object, Callable]] = []
         self._lock = threading.Lock()
 
     def _get(self, cls, name: str, labels: Dict[str, object]) -> _Metric:
@@ -140,10 +144,25 @@ class MetricsRegistry:
     def histogram(self, name: str, **labels) -> Histogram:
         return self._get(Histogram, name, labels)
 
+    def register_collector(self, fn: Callable[[], Dict[str, float]],
+                           owner: object = None) -> None:
+        """``fn()`` -> {flat_name: number} merged into every snapshot;
+        ``owner`` is held by weakref (when it dies the collector drops
+        out).  Equal keys from several live collectors sum."""
+        ref = weakref.ref(owner) if owner is not None else (lambda: self)
+        with self._lock:
+            self._collectors.append((ref, fn))
+
     def snapshot(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
         for m in list(self._metrics.values()):
             out.update(m.sample())
+        with self._lock:
+            live = [(r, fn) for r, fn in self._collectors if r() is not None]
+            self._collectors = live
+        for _, fn in live:
+            for k, v in fn().items():
+                out[k] = out[k] + v if k in out else v
         return out
 
     def delta(self, prev: Dict[str, float],
@@ -173,6 +192,11 @@ def gauge(name: str, **labels) -> Gauge:
 
 def histogram(name: str, **labels) -> Histogram:
     return REGISTRY.histogram(name, **labels)
+
+
+def register_collector(fn: Callable[[], Dict[str, float]],
+                       owner: object = None) -> None:
+    REGISTRY.register_collector(fn, owner)
 
 
 def snapshot() -> Dict[str, float]:

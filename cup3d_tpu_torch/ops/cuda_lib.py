@@ -55,6 +55,9 @@ SOURCES = {
     CSRC / "ring.cu": {
         "cup3d_ring_steps": None,
     },
+    CSRC / "frenet.cu": {
+        "cup3d_frenet": [_P, _P, _P, _P, _I, _P],
+    },
 }
 
 

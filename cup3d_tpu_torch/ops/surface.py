@@ -308,13 +308,24 @@ def obstacle_probe_budget(ob, h) -> int:
     return b
 
 
+def window_index(idx0: torch.Tensor, shape):
+    """Advanced-index tuple of the window of ``shape`` cells whose corner
+    is the device tensor ``idx0`` (3,) long: gathers and scatters through
+    it need no device read."""
+    dev = idx0.device
+    r = [idx0[a] + torch.arange(int(shape[a]), device=dev) for a in range(3)]
+    return r[0][:, None, None], r[1][None, :, None], r[2][None, None, :]
+
+
 def _uniform_window_probe(vel, p, chi, sdf, udef, idx0, h, nu, cm, u_trans,
                           omega, wcells: int, max_points=None):
-    sl = tuple(slice(int(i), int(i) + wcells) for i in idx0)
+    """``idx0``: the window corner, a device (3,) long tensor (the
+    megaloop's, from the device position): the window is gathered
+    without a read."""
     dtype, dev = vel.dtype, vel.device
     loc = torch.arange(wcells, dtype=dtype, device=dev) + 0.5
-    axes = [(float(np.asarray(i, np.float32 if dtype == torch.float32
-                              else np.float64)) + loc) * h for i in idx0]
+    sl = window_index(idx0, (wcells,) * 3)
+    axes = [(idx0[a].to(dtype) + loc) * h for a in range(3)]
     xc = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
     return surface_force_window(
         vel[sl], p[sl], chi[sl], sdf[sl], udef[sl], xc, h, nu, cm, u_trans,
@@ -333,7 +344,10 @@ def force_integrals_probe_uniform(grid, ob, vel, p, chi, sdf, udef, nu, cm,
     idx0 = np.clip(np.floor((pos - half) / grid.h).astype(np.int64), 0, n - w)
     if max_points is None:
         max_points = obstacle_probe_budget(ob, grid.h)
+    from cup3d_tpu_torch.models.base import upload
+
     npd = np.float32 if vel.dtype == torch.float32 else np.float64
     return _uniform_window_probe(
-        vel, p, chi, sdf, udef, idx0, float(npd(grid.h)), nu, cm, u_trans,
-        omega, wcells=w, max_points=max_points)
+        vel, p, chi, sdf, udef, upload(idx0, torch.long, vel.device),
+        float(npd(grid.h)), nu, cm, u_trans, omega, wcells=w,
+        max_points=max_points)

@@ -16,9 +16,11 @@ solver.itercap       ``obs.trace.StepObserver.note_solver``: the consumed
                      iteration count hits the solver's cap
 ckpt.write_fail      ``io.checkpoint.write_payload``: the checkpoint
                      write raises (every retry re-fires while armed)
+stream.stall         ``stream.qoi.QoIStream.emit``: sleeps ``STALL_S``
+                     (a simulated stall, counted in the stream's stall_s)
 ==================== ======================================================
 
-The other sites (``dump.write_fail``, ``stream.stall``, ``fleet.*``,
+The other sites (``dump.write_fail``, ``fleet.*``,
 ``journal.write_fail``, ``server.crash``, ``aot.store_corrupt``,
 ``compile.service_die``) parse and arm, and fire nowhere yet: their seams
 are in modules the port does not have (ROADMAP A4, A8).
@@ -33,6 +35,7 @@ matches every step >= s); every firing is counted in the obs registry as
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -56,6 +59,8 @@ SITES = (
 )
 
 ENV_VAR = "CUP3D_FAULT"
+#: seconds a firing ``stream.stall`` sleeps
+STALL_S = 0.02
 
 
 class InjectedFault(IOError):
@@ -171,3 +176,11 @@ def maybe_raise(site: str, step=None) -> None:
     if PLAN.fire(site, step):
         raise InjectedFault(site, step)
 
+
+def maybe_stall(site: str = "stream.stall", step=None) -> bool:
+    """Sleep :data:`STALL_S` when ``site`` fires (stream seams); True when
+    it fired."""
+    if PLAN.fire(site, step):
+        time.sleep(STALL_S)
+        return True
+    return False

@@ -216,3 +216,39 @@ def load_obstacle_state_numpy(sim, state: dict) -> None:
             _assign(ob, k, v)
         ob._dev_rigid = None
         ob._ubody_cache = None
+
+
+def scan_carry_to_numpy(carry: dict) -> dict:
+    """A megaloop carry of either package (vel, p, [chi, udef, rigid,
+    qint,] umax, dt, time) as numpy arrays, for
+    :func:`load_scan_carry_numpy`."""
+    return {k: _host_copy(v) for k, v in carry.items()}
+
+
+def load_scan_carry_numpy(driver, carry: dict) -> None:
+    """Make a carry from :func:`scan_carry_to_numpy` (a JAX run's, say) the
+    port driver's megaloop carry, and its fields the driver's fields: the
+    next ``advance_megaloop`` continues from it.  The host scalars follow
+    its (dt, time) chain."""
+    s = driver.sim
+    dev = {k: upload(np.asarray(v), s.dtype, s.device)
+           for k, v in carry.items()}
+    for name in ("vel", "p", "chi", "udef"):
+        if name in dev:
+            want = tuple(s.state[name].shape)
+            if tuple(dev[name].shape) != want:
+                raise ValueError(f"{name}: shape {tuple(dev[name].shape)}, "
+                                 f"expected {want}")
+            s.state[name] = dev[name]
+    s.time = float(np.asarray(carry["time"]))
+    s.dt = float(np.asarray(carry["dt"]))
+    driver._scan_carry = dev
+
+
+def gait_from_numpy(gait: dict, dtype, device) -> dict:
+    """A frozen gait (models/fish/device_midline.freeze_gait) of either
+    package on the port's device: arrays become tensors in ``dtype``,
+    Python scalars stay."""
+    return {k: (upload(np.asarray(v, np.float64), dtype, device)
+                if np.ndim(v) > 0 else float(v))
+            for k, v in gait.items()}

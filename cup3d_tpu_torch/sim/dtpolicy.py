@@ -1,5 +1,5 @@
-"""Timestep policy (port of ``cup3d_tpu/sim/dtpolicy.py``, the host part;
-the reference's calcMaxTimestep, main.cpp:15268-15292):
+"""Timestep policy (port of ``cup3d_tpu/sim/dtpolicy.py``; the
+reference's calcMaxTimestep, main.cpp:15268-15292):
 
   dtDiffusion = (implicitDiffusion && step > 10) ? 0.1
               : (1/6) h^2 / (nu + (1/6) h uMax)
@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["ramped_cfl", "diffusion_cap", "dt_host"]
+import torch
+
+__all__ = ["ramped_cfl", "diffusion_cap", "dt_host", "dt_device"]
 
 
 def ramped_cfl(cfl: float, step: int, rampup: int) -> float:
@@ -38,3 +40,10 @@ def dt_host(h: float, nu: float, umax: float, cfl: float, step: int,
     dt_adv = h / (umax + 1e-8)
     return float(min(diffusion_cap(h, nu, umax, implicit, step),
                      cfl_eff * dt_adv))
+
+
+def dt_device(umax, cfl_eff, h: float, nu: float):
+    """The same dt (explicit diffusion) from a device max|u| tensor, as a
+    device tensor: the pipelined driver's dt chain never reads it."""
+    cap = (h * h / 6.0) / (nu + (h / 6.0) * umax)
+    return torch.minimum(cfl_eff * h / (umax + 1e-8), cap)

@@ -1,5 +1,6 @@
-"""A/B timing of kernels B2 (getz_two), B3/B10 (getz_tile), B7 (getz_cg)
-and B14 (the ring step) between checkouts of the port, on one CUDA card.
+"""A/B timing of kernels B2 (getz_two), B3/B10 (getz_tile), B9 (the
+forest's getz_two), B7 (getz_cg) and B14 (the ring step) between
+checkouts of the port, on one CUDA card.
 
     python cup3d_tpu_torch/tools/kernel_ab.py [TREE ...]
 
@@ -21,6 +22,11 @@ its tree's kernels and prints one JSON line (``"tree"`` and):
   512 x 512 tile operator; B10: one ``torch.einsum`` of the rows, the
   operator and the column of -h^2), on trees whose ``tilesolve`` has
   ``dense_operator``;
+- ``getz_amr``: B9 on the same forest and h^2 column, with random w, azf
+  and zc: event time, device time a launch (kernels named ``getz_amr``),
+  the error against the plain version, whether a rerun is bitwise, and
+  the library yardstick (one ``torch.einsum`` of the rows of w - azf,
+  the tile operator and the column of -h^2; the product, not the + zc);
 - ``getz_cg``: B7 at 256^3 in the lanes layout (8, 8, 8, 32768), 24
   sweeps, shift 0: event time, device time a launch, and whether a
   rerun is bitwise;
@@ -197,7 +203,21 @@ def child(tree: str, mk: int = MK) -> dict:
         out["getz_tile"][nf]["library_ms"] = _events_ms(
             torch, lambda: torch.einsum("tc,cd,t->td", wf.view(nf, 512), W,
                                         neg_h2))
-    del wf
+    azf = torch.randn((nf, 8, 8, 8), generator=gen, device=dev)
+    zc = torch.randn(nf, generator=gen, device=dev)
+    got = fa.getz_two(wf, azf, zc, h2c)
+    us, n, _ = _profile(torch, lambda: fa.getz_two(wf, azf, zc, h2c), 20,
+                        "getz_amr")
+    out["getz_amr"] = {nf: dict(
+        ms=_events_ms(torch, lambda: fa.getz_two(wf, azf, zc, h2c)),
+        device_us=us, launches_a_call=n,
+        rel_err=_rel(got, fa.getz_two(wf, azf, zc, h2c, kernels=False)),
+        bitwise_rerun=bool(torch.equal(fa.getz_two(wf, azf, zc, h2c), got)))}
+    if W is not None:
+        rows, neg_h2 = (wf - azf).view(nf, 512), -h2c
+        out["getz_amr"][nf]["library_ms"] = _events_ms(
+            torch, lambda: torch.einsum("tc,cd,t->td", rows, W, neg_h2))
+    del wf, azf, got
     bt = torch.randn((8, 8, 8, T), generator=gen, device=dev)
     got = getz_cg.cg_tiles_lanes(bt, CG_ITERS)
     us, n, _ = _profile(torch, lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS),

@@ -24,7 +24,11 @@ counts, and the tile-only getZ (B3, B10) on its core at the same counts,
 at one h2 and at a column of distinct h^2; the CG getZ (B7) at lanes-layout
 tile counts that leave a CTA's 8 tiles ragged, at 0, 1 and 24 sweeps, and
 on right-hand sides that are nonzero on one face or one edge of each tile
-(every face and edge of the tile in turn); bitwise reruns of all four."""
+(every face and edge of the tile in turn); bitwise reruns of all four.
+The forest's two-level getZ (B9) on the shared core at 8, 27, 9,472 and
+a ragged block count, rerun bitwise; the device midline's Frenet kernel
+against its plain loop; the fish pipelined on the card against the port
+on the CPU."""
 
 import math
 
@@ -536,6 +540,97 @@ def test_getz_two_at_ragged_tile_counts(dev, T_, form):
     assert counts[name] == 1
     _close(got, getz(kernels=False), 1e-5)
     assert torch.equal(getz(), got)
+
+
+@pytest.mark.parametrize("n", [8, 27, 9472, 9473])
+def test_forest_getz_two_on_the_shared_core(dev, n):
+    """B9 (the shared core's kGzAmr instance): the 1-stage build at 8 and
+    27 blocks, the 2-stage ring at config #3's 9,472 and at a count its
+    CTAs' warps do not divide; per-block h^2 of three levels and zc;
+    within the getz bound of the plain version, a rerun bitwise."""
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    rng = np.random.default_rng(n)
+    w, azf = (torch.as_tensor(rng.standard_normal((n, 8, 8, 8)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    zc = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                         device=dev)
+    lev = rng.integers(0, 3, n)
+    h2 = torch.as_tensor((2 * math.pi / 128 / 2.0 ** lev) ** 2,
+                         dtype=torch.float32, device=dev)
+    fa.reset_launches()
+    got = fa.getz_two(w, azf, zc, h2)
+    torch.cuda.synchronize()
+    assert fa.launches["amr_getz_two"] == 1
+    _close(got, fa.getz_two(w, azf, zc, h2, kernels=False), 1e-5)
+    assert torch.equal(fa.getz_two(w, azf, zc, h2), got)
+
+
+@pytest.mark.parametrize("n", [41, 105])
+def test_frenet_kernel_matches_plain_version(dev, n):
+    """The device midline's Frenet recurrence (csrc/frenet.cu) against its
+    plain loop at the fish's midline sizes (32^3 and 128^3), on a gait-like
+    curvature: within 1e-5 of max |plain|, one launch, a rerun bitwise."""
+    from cup3d_tpu_torch.models.fish import device_midline as dm
+
+    rng = np.random.default_rng(n)
+    s = np.linspace(0.0, 1.0, n)
+    rs = np.cumsum(rng.uniform(0.002, 0.006, n))
+    rk = 20.0 * s * np.sin(2 * np.pi * (s - 0.3))
+    vk = 40.0 * s * np.cos(2 * np.pi * (s - 0.3))
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in (rs, rk, vk))
+    dm.launches["frenet"] = 0
+    got = dm._frenet_scan_dev(*args)
+    torch.cuda.synchronize()
+    assert dm.launches["frenet"] == 1
+    want = dm._frenet_scan_dev(*args, kernels=False)
+    for k in ("r", "v", "nor", "vnor", "bin", "vbin"):
+        _close(got[k], want[k], 1e-5)
+    again = dm._frenet_scan_dev(*args)
+    assert all(torch.equal(again[k], got[k]) for k in got)
+
+
+def test_pipelined_fish_matches_the_port_on_the_cpu(dev, monkeypatch,
+                                                     tmp_path):
+    """The 32^3 fish pipelined (the rigid state chained on the device,
+    the packs read through the QoI stream) for 6 steps on the card and on
+    the CPU: the rigid state within 1e-5, velocity within 1e-5 of
+    max|u|, iterations +-1 a step; the card's launches equal to its
+    executed iterations."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.stream.qoi import QoIStream
+
+    # reads at backpressure only: the same staleness on both devices
+    monkeypatch.setattr(QoIStream, "_ready", staticmethod(lambda b: False))
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    argv = ("-bpdx 4 -bpdy 4 -bpdz 4 -extent 1 -CFL 0.4 -nu 1e-3 -rampup 100 "
+            "-poissonSolver iterative -tend 0 -nsteps 6 -verbose 0 "
+            f"-pipelined 1 -path4serialization {tmp_path}").split() + [
+                "-factory-content", FISH]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        d = build_driver(argv + ["-device", device])
+        d.init()
+        fb.reset_launches()
+        d.simulate()
+        runs[device] = d
+    card, cpu = runs["cuda"], runs["cpu"]
+    iters = [int(row["iters"]) for row in card.step_log]
+    assert len(iters) == 6
+    executed = sum(krylov.ITER_CHUNK * math.ceil(k / krylov.ITER_CHUNK)
+                   for k in iters)
+    assert fb.iterations["executed"] == executed > 0
+    assert fb.launches["getz_two"] == fb.launches["lap"] == 2 * executed
+    for a, b in zip(card.step_log, cpu.step_log):
+        assert abs(a["iters"] - b["iters"]) <= 1
+        assert a["dt"] == pytest.approx(b["dt"], rel=1e-5)
+    oc, op = card.sim.obstacles[0], cpu.sim.obstacles[0]
+    for k in ("transVel", "angVel", "position", "quaternion"):
+        assert np.abs(np.asarray(getattr(oc, k))
+                      - np.asarray(getattr(op, k))).max() <= 1e-5, k
+    _close(card.sim.state["vel"].cpu(), cpu.sim.state["vel"], 1e-5)
 
 
 def _wide(t: torch.Tensor, pad: int = 3) -> torch.Tensor:

@@ -65,6 +65,9 @@ def test_every_module_imports_with_jax_blocked():
         # the sharded forest's
         "grid.bucket", "parallel", "parallel.compat", "parallel.ring",
         "parallel.forest", "parallel.faces",
+        # the pipelined stepping and the megaloop
+        "stream", "stream.qoi", "sim.megaloop",
+        "models.fish.device_midline",
     )} <= set(mods)
     code = (
         "import sys\n"

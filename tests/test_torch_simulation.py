@@ -121,8 +121,12 @@ def test_cli_device_flag_and_conf(tmp_path):
     with pytest.raises(NotImplementedError, match="A6"):
         tmain.build_driver(argv + ["-levelMax", "2", "-factory-content",
                                    "sphere", "L=0.1", "-device", "cpu"])
+    # pipelined stepping and the megaloop run; dumps wait (A4, 2nd part)
+    d = tmain.build_driver(argv + ["-pipelined", "1", "-scan_k", "8",
+                                   "-device", "cpu"])
+    assert d.cfg.pipelined and d.cfg.scan_k == 8
     with pytest.raises(NotImplementedError, match="A4"):
-        tmain.build_driver(argv + ["-pipelined", "1", "-device", "cpu"])
+        tmain.build_driver(argv + ["-saveFreq", "5", "-device", "cpu"])
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
