@@ -99,11 +99,36 @@ each of which raises on a fault (nothing is caught):
     after each run; the ms/step of phase 14's non-pipelined step, the
     pipelined step and the megaloop side by side; then the 256^3 TGV
     through ``-pipelined 1 -scan_k 8`` for 16 steps beside phase 5's
-    ms/step.
+    ms/step;
+17. BASELINE config #5 (bench.py bench_channel: 128x64x64, walls in y,
+    uMax_forced 0.5, bFixMassFlux, iterative Poisson 1e-6/1e-4) through
+    ``build_driver`` under ``CUP3D_FUSED=1``: B2 and B4 against their
+    plain versions on its wall-bounded lanes (T = 1,024, reruns bitwise),
+    the bench's window (3 warm-up steps, 10 timed: ms/step, iterations a
+    step, max|div u| under phase 5's gate, the flux.txt bulk velocity
+    within 5% of its target); the bench's state stays a streamwise u(y)
+    whose solves converge at iteration 0, so the kernels' launches on the
+    walls are counted on a run from a seeded divergent state, its
+    velocity held to the legacy solve's from the same state (1e-3 of
+    max|u|, iterations +-1);
+18. the output path on config #5: two dumps through the async sharded
+    writer, their bytes equal to the single writer's of the same fields;
+    an injected ``dump.write_fail`` (dropped and counted, the run goes
+    on); the step time with and without a dump in a 10-step window; an
+    async checkpoint of the perturbed run restored and resumed bitwise;
+19. ``-implicitDiffusion 1`` on phase 5's 256^3 TGV for 10 steps (KE
+    finite and decaying, max|div u| under phase 5's gate);
+20. ``-initCond vorticity`` at 128^3: the init's time and max|div u|;
+21. bodies on config #2's 128^3 box: the two StefanFish of run.sh for 20
+    non-pipelined steps (the collision pass's pair checks and collisions
+    counted), a towed sphere and a towed NACA foil for 10 steps each,
+    launch counters against the executed iterations, the fluid's
+    max|div u| under the fish gate, fields and kinematics finite.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
-path's launches ride in each row's ``tgv256``.  B14's row: its launches
+path's launches ride in each row's ``tgv256``, config #5's launches (the
+perturbed run, phase 17) in ``channel_launches``.  B14's row: its launches
 on phase 15's main path, its times at the Krylov loop's exchange (the
 largest exchange's in ``largest``, one whole exchange's in
 ``exchange``).  B2, B14, B3/B10, B7 and B9 were redesigned after their
@@ -125,6 +150,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2339,6 +2365,399 @@ def shard_phase(d, cfg, bw: float, dev="cuda") -> dict:
                 iters=iters, split=split, prof=prof)
 
 
+# ---------------------------------------------------------------------------
+# phases 17-21: the uniform driver complete and the output path
+# ---------------------------------------------------------------------------
+
+# BASELINE config #5 (bench.py bench_channel): 128 x 64 x 64, walls in y
+CHANNEL_ARGV = ("-bpdx 16 -bpdy 8 -bpdz 8 -levelMax 1 -levelStart 0 "
+                "-extent 2 -CFL 0.4 -nu 1e-3 -tend 0 -nsteps 1000000000 "
+                "-rampup 0 -BC_y wall -uMax_forced 0.5 -bFixMassFlux 1 "
+                "-poissonSolver iterative -poissonTol 1e-6 "
+                "-poissonTolRel 1e-4 -verbose 0 -freqDiagnostics 0 "
+                "-dumpVelocity 1 -dumpOmega 1")
+CH_WARM, CH_TIMED = 3, 10   # bench.py _time_steps(warmup=3, iters=10)
+CH_FLUX_RTOL = 0.05         # bulk velocity vs target (tests/test_massflux.py)
+# the channel from a seeded divergent state (the bench's own state stays
+# u(y), div u = 0, every solve at iteration 0): the kernels on wall faces,
+# the fused solve against the legacy one (ROADMAP rule 2: its bound on
+# the velocity through the drivers, tests/test_torch_simulation.py)
+CH_PERTURB = 0.05
+CH_PERTURB_STEPS = 5
+CH_VEL_RTOL = 1e-3
+CH_RESUME_STEPS = 3
+# -implicitDiffusion 1 on phase 5's 256^3 TGV
+IMPLICIT_STEPS = 10
+# bodies: config #2's 128^3 box
+TWO_FISH = ("StefanFish L=0.4 T=1.0 xpos=0.2 ypos=0.5 zpos=0.5 "
+            "planarAngle=180 heightProfile=danio widthProfile=stefan "
+            "bFixFrameOfRef=1\n"
+            "StefanFish L=0.4 T=1.0 xpos=0.7 ypos=0.5 zpos=0.5 "
+            "heightProfile=danio widthProfile=stefan")  # baseline/run_baseline.sh
+TWO_FISH_STEPS = 20
+# towed at 0.1 through the box (a free body in fluid at rest stays at
+# rest): the sphere's drag, the foil's lift at 10 degrees
+RIGID_BODIES = ("sphere L=0.2 xpos=0.5 ypos=0.5 zpos=0.5 xvel=0.1 "
+                "bForcedInSimFrame=1",
+                "naca L=0.4 xpos=0.5 ypos=0.5 zpos=0.5 planarAngle=10 "
+                "xvel=0.1 bForcedInSimFrame=1")
+RIGID_STEPS = 10
+
+
+def _fresh_dir(out: str) -> str:
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    return out
+
+
+def _channel_driver(out: str, extra: str = ""):
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    _fresh_dir(out)
+    return build_driver(f"{CHANNEL_ARGV} {extra} -path4serialization "
+                        f"{out}".split())
+
+
+def _steps_ms(d, n: int) -> float:
+    """Mean host wall of ``n`` steps between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        d.advance(d.calc_max_timestep())
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _wall_lanes(grid, gen):
+    """Seeded tile-major w with the wall grid's face planes (B4) and
+    coarse aux (B2), built as the fused driver builds them."""
+    from cup3d_tpu_torch.ops import krylov
+
+    T = grid.ncells // 512
+    w = torch.randn((T, 8, 8, 8), generator=gen, device="cuda")
+    planes = krylov.make_tile_planes(grid, 8)(w)
+    zc = krylov._make_coarse_core(grid, 8)(torch.sum(w, dim=(1, 2, 3)))
+    aux = torch.cat([krylov.make_face_deltas(grid, 8)(zc), zc[None, :],
+                     zc.new_zeros(1, T)], dim=0)
+    return w, planes, aux
+
+
+def channel_wall_kernels(grid) -> dict:
+    """B2 and B4 on config #5's wall-bounded lanes against their plain
+    versions, and each rerun bitwise."""
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    w, planes, aux = _wall_lanes(grid, gen)
+    a = torch.randn(w.shape, generator=gen, device="cuda")
+    h2 = grid.h * grid.h
+    got = fb.getz_two(w, aux, h2)
+    errs = {"getz_two": check_close("getz_two (walls)", got,
+                                    fb.getz_two(w, aux, h2, kernels=False),
+                                    GETZ_RTOL)}
+    same = torch.equal(got, fb.getz_two(w, aux, h2))
+    got = fb.lap(w, planes, a, 1.0 / h2)
+    want = fb.lap(w, planes, a, 1.0 / h2, kernels=False)
+    errs["lap"] = check_close("lap (walls)", got[0], want[0], VEC_RTOL)
+    check_close("lap partial (walls)", got[1], want[1], PART_RTOL,
+                part_scale(a * want[0]))
+    again = fb.lap(w, planes, a, 1.0 / h2)
+    same = same and all(torch.equal(x, y) for x, y in zip(got, again))
+    if not same:
+        raise AssertionError("B2/B4 on wall lanes: rerun not bitwise")
+    log(f"  B2, B4 on the wall-bounded lanes (T = {w.shape[0]}): max abs "
+        f"err {errs['getz_two']:.3e}, {errs['lap']:.3e}; reruns bitwise")
+    return errs
+
+
+def channel_phase() -> dict:
+    """BASELINE config #5 as the bench runs it (its window and gates), B2
+    and B4 on its wall-bounded lanes, then the run from a seeded
+    divergent state: the kernels' launches on the walls, the fused solve
+    against the legacy one."""
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    out = os.path.join(OUT_DIR, "channel")
+    t0 = time.perf_counter()
+    d = _channel_driver(out)
+    d.init()
+    torch.cuda.synchronize()
+    s = d.sim
+    log(f"  build_driver + init: {time.perf_counter() - t0:.2f} s; "
+        f"{s.grid.shape} cells, BCs {[b.value for b in s.grid.bc]}")
+    errs = channel_wall_kernels(s.grid)
+
+    # -- as the bench runs it: 3 warm-up steps, 10 timed -----------------
+    fb.reset_launches()
+    for _ in range(CH_WARM):
+        d.advance(d.calc_max_timestep())
+    ms = _steps_ms(d, CH_TIMED)
+    iters = [r["iters"] for r in d.step_log]
+    _, div_max = diag.divergence_norms(s.grid, s.state["vel"])
+    div_max = float(div_max)
+    s.logger.flush()
+    flux = _read_table(os.path.join(out, "flux.txt"))
+    target = 2.0 / 3.0 * d.cfg.uMax_forced
+    u_bulk = flux[-1][2]
+    log(f"  bench window: {ms:.3f} ms/step over {CH_TIMED} steps after "
+        f"{CH_WARM}; iterations a step {iters}; max|div u| {div_max:.3e}; "
+        f"flux.txt last {flux[-1]} (target {target:.6f})")
+    if not (div_max < UNIFORM_DIV_GATE and abs(u_bulk - target)
+            < CH_FLUX_RTOL * target and len(flux) == CH_WARM + CH_TIMED):
+        raise AssertionError(f"config #5: max|div u| {div_max:.3e}, bulk "
+                             f"{u_bulk} vs {target}, {len(flux)} rows")
+    if not bool(torch.isfinite(s.state["vel"]).all()):
+        raise AssertionError("config #5: non-finite velocity")
+
+    # -- from a seeded divergent state: the kernels on the walls ----------
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    vel0 = s.state["vel"] + CH_PERTURB * torch.randn(
+        s.state["vel"].shape, generator=gen, device="cuda")
+    runs = {}
+    for fused in ("1", "0"):
+        with _env(CUP3D_FUSED=fused):
+            r = _channel_driver(os.path.join(out, f"fused{fused}"))
+        r.init()
+        r.sim.state["vel"] = vel0.clone()
+        r.sim.time, r.sim.step = s.time, s.step
+        fb.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CH_PERTURB_STEPS):
+            r.advance(r.calc_max_timestep())
+        torch.cuda.synchronize()
+        runs[fused] = dict(
+            d=r, wall=time.perf_counter() - t0, launches=dict(fb.launches),
+            executed=fb.iterations["executed"],
+            iters=[x["iters"] for x in r.step_log])
+    f1, f0 = runs["1"], runs["0"]
+    _check_launches("channel", f1["iters"], f1["launches"], f1["executed"])
+    v1, v0 = f1["d"].sim.state["vel"], f0["d"].sim.state["vel"]
+    rel = float(torch.max(torch.abs(v1 - v0)) / torch.max(torch.abs(v0)))
+    log(f"  from a perturbed state ({CH_PERTURB_STEPS} steps): fused "
+        f"iterations {f1['iters']}, legacy {f0['iters']}; fused "
+        f"{f1['wall'] / CH_PERTURB_STEPS * 1e3:.2f} ms/step; velocity "
+        f"fused vs legacy {rel:.3e} of max|u| (gate {CH_VEL_RTOL:g}); "
+        f"launches {f1['launches']}")
+    if not (rel <= CH_VEL_RTOL and all(
+            abs(a - b) <= 1 for a, b in zip(f1["iters"], f0["iters"]))):
+        raise AssertionError("config #5 perturbed: fused and legacy differ")
+    return dict(d=d, perturbed=f1["d"], ms=ms, iters=iters, div_max=div_max,
+                launches=f1["launches"], errs=errs)
+
+
+def output_phase(d, r) -> dict:
+    """The output path on config #5's drivers: two dumps (bytes equal to
+    the single writer's of the same fields), an injected dump.write_fail,
+    the step time with and without a dump in the window, and an async
+    checkpoint of the perturbed run restored and resumed bitwise."""
+    from cup3d_tpu_torch.io import dump as dmp
+    from cup3d_tpu_torch.io.checkpoint import load_checkpoint
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.resilience import faults
+
+    s = d.sim
+    out = d.cfg.path4serialization
+    out_ref = os.path.join(out, "single")
+    os.makedirs(out_ref, exist_ok=True)
+    sizes = []
+    for _ in range(2):
+        d.dump_fields()
+        d.drain_streams()
+        prefix = f"dump_{s.step:07d}"
+        # the same fields, read and written by the single writer
+        host = dmp.collect_dump_fields(
+            d.cfg, s.state, lambda v: diag.vorticity_magnitude(s.grid, v))
+        dmp.dump_fields(os.path.join(out_ref, prefix), s.time, s.grid, host)
+        names = sorted(n for n in os.listdir(out) if n.startswith(prefix))
+        for n in names:
+            with open(os.path.join(out, n), "rb") as f1, \
+                    open(os.path.join(out_ref, n), "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"dump {n}: bytes differ from the "
+                                         "single writer's")
+        sizes.append({n: os.path.getsize(os.path.join(out, n))
+                      for n in names})
+        d.advance(d.calc_max_timestep())
+    log(f"  two dumps, bytes equal to the single writer's: {sizes[0]} "
+        f"(and {len(sizes[1])} files at the second)")
+    faults.arm("dump.write_fail", s.step, count=d._dumper.retries + 1)
+    d.dump_fields()
+    d.drain_streams()
+    faults.clear()
+    d.advance(d.calc_max_timestep())
+    h = d._dumper.health()
+    if h["dropped"] != 1 or h["write_failures"] != d._dumper.retries + 1:
+        raise AssertionError(f"injected dump.write_fail: health {h}")
+    log(f"  injected dump.write_fail: the step after it ran; dumper {h}")
+    # step time with one dump in a window of CH_TIMED steps: the driver's
+    # dumper (one writer thread), then one writer a core (the JAX
+    # package's default)
+    from cup3d_tpu_torch.stream.dump import AsyncDumper
+
+    ms_plain = _steps_ms(d, CH_TIMED)
+    windows, own = {}, d._dumper
+    for tag, dumper in (("one writer", own),
+                        ("a writer a core", AsyncDumper(nshards=0))):
+        d._dumper = dumper
+        s.cadence.fdump = CH_TIMED
+        while s.step % CH_TIMED != CH_TIMED // 2:
+            d.advance(d.calc_max_timestep())
+        n_dumps = dumper.stats["dumps"]
+        windows[tag] = _steps_ms(d, CH_TIMED)
+        s.cadence.fdump = 0
+        d.drain_streams()
+        if dumper.stats["dumps"] != n_dumps + 1:
+            raise AssertionError("the dump window held no dump")
+        log(f"  {CH_TIMED} steps with one dump ({tag}): "
+            f"{windows[tag]:.3f} ms/step ({windows[tag] - ms_plain:+.3f} "
+            f"against {ms_plain:.3f} without); staging "
+            f"{dumper.stats['submit_s'] * 1e3:.2f} ms over "
+            f"{dumper.stats['dumps']} dumps, writing "
+            f"{dumper.stats['write_s'] * 1e3:.1f} ms on the writer threads")
+    ms_dump = windows["one writer"]
+    d._dumper = own
+
+    # -- an async checkpoint, restored and resumed bitwise ----------------
+    path = r._checkpointer.save(r)
+    r.drain_streams()
+    back = load_checkpoint(path)
+    for drv in (r, back):
+        for _ in range(CH_RESUME_STEPS):
+            drv.advance(drv.calc_max_timestep())
+    same = all(torch.equal(r.sim.state[k], back.sim.state[k])
+               for k in ("vel", "p"))
+    log(f"  async checkpoint {os.path.getsize(path) / 1e6:.1f} MB, "
+        f"snapshot {r._checkpointer.stats['snapshot_s'] * 1e3:.2f} ms; "
+        f"resumed {CH_RESUME_STEPS} steps bitwise: {same}")
+    if not same or back.sim.time != r.sim.time:
+        raise AssertionError("resumed checkpoint run differs")
+    return dict(ms_plain=ms_plain, ms_dump=ms_dump,
+                ms_dump_cores=windows["a writer a core"])
+
+
+def implicit_phase() -> dict:
+    """Phase 5's 256^3 TGV with -implicitDiffusion 1 (explicit Euler
+    advection, the spectral Helmholtz solve) for IMPLICIT_STEPS steps."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import diagnostics as diag
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "implicit"))
+    nb = N_MAIN // 8
+    d = build_driver(
+        f"-bpdx {nb} -bpdy {nb} -bpdz {nb} -levelMax 1 -extent "
+        "6.283185307179586 -initCond taylorGreen -implicitDiffusion 1 "
+        "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+        f"-nu 1e-3 -dt {DT_MAIN} -tend 0 -nsteps {IMPLICIT_STEPS} -verbose 0 "
+        f"-freqDiagnostics 1 -path4serialization {out}".split())
+    d.init()
+    s = d.sim
+    ke0 = float(diag.dissipation(s.grid, s.state["vel"], s.nu)
+                ["kinetic_energy"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d.simulate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    energy = _read_table(os.path.join(out, "energy.txt"))
+    div = _read_table(os.path.join(out, "div.txt"))
+    kes = [e[1] for e in energy]
+    div_max = max(r[3] for r in div)
+    ms = wall / IMPLICIT_STEPS * 1e3
+    log(f"  {IMPLICIT_STEPS} steps in {wall:.3f} s ({ms:.2f} ms/step), "
+        f"KE {ke0:.8e} -> {kes[-1]:.8e}, max|div u| "
+        f"{div_max:.3e}, iterations {[r['iters'] for r in d.step_log]}")
+    if not (all(math.isfinite(k) for k in kes) and kes[-1] < ke0
+            and div_max < UNIFORM_DIV_GATE):
+        raise AssertionError(f"implicit diffusion: KE {ke0} -> {kes}, "
+                             f"max|div u| {div_max:.3e}")
+    return dict(ms=ms)
+
+
+def vorticity_phase() -> dict:
+    """initCond vorticity at 128^3: the coil's nearest-point search in
+    chunks and three spectral solves, timed; max|div u| of the result."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import diagnostics as diag
+
+    d = build_driver(f"-bpdx {N_FISH // 8} -bpdy {N_FISH // 8} -bpdz "
+                     f"{N_FISH // 8} -levelMax 1 -extent 2 -initCond vorticity "
+                     f"-nu 1e-3 -tend 0 -nsteps 1 -verbose 0 -path4serialization "
+                     f"{os.path.join(OUT_DIR, 'vorticity')}".split())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    vel = d.sim.state["vel"]
+    _, div_max = diag.divergence_norms(d.sim.grid, vel)
+    umax = float(torch.max(torch.abs(vel)))
+    log(f"  init {init_s:.3f} s; max|u| {umax:.4e}, max|div u| "
+        f"{float(div_max):.3e}")
+    if not (math.isfinite(umax) and umax > 0
+            and float(div_max) < UNIFORM_DIV_GATE):
+        raise AssertionError(f"vorticity IC: max|u| {umax}, max|div u| "
+                             f"{float(div_max)}")
+    return dict(init_s=init_s)
+
+
+def _body_run(body: str, nsteps: int, tag: str):
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    out = _fresh_dir(os.path.join(OUT_DIR, tag))
+    argv = _set_flag(FISH_ARGV.split(), "-nsteps", nsteps)
+    d = build_driver(_set_flag(argv, "-freqDiagnostics", 0)
+                     + ["-path4serialization", out, "-factory-content", body])
+    d.init()
+    pen = next(op for op in d.pipeline if op.name == "Penalization")
+    fb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d.simulate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = d.sim
+    iters = [r["iters"] for r in d.step_log]
+    _check_launches(tag, iters, dict(fb.launches), fb.iterations["executed"])
+    div_fluid = float(diag.fluid_divergence_max(s.grid, s.state["vel"],
+                                                s.state["chi"]))
+    ok = all(bool(torch.isfinite(s.state[k]).all())
+             for k in ("vel", "p", "chi", "udef"))
+    towed = np.any(s.obstacles[0].bForcedInSimFrame)
+    for ob in s.obstacles:
+        kin = np.concatenate([ob.transVel, ob.angVel, ob.position, ob.force])
+        ok = ok and bool(np.all(np.isfinite(kin)))
+        if towed:  # the drag opposes the tow
+            ok = ok and float(np.dot(ob.force, ob.transVel)) < 0
+        log(f"  {type(ob).__name__}: sum(chi) {float(torch.sum(ob.chi)):.1f}, "
+            f"transVel {ob.transVel.tolist()}, force {ob.force.tolist()}")
+    # the fish gate is the JAX bench's for swimmers; a body towed from
+    # rest starts impulsively and has no gate in the JAX package
+    gate = math.inf if towed else FISH_DIV_FLUID_GATE
+    log(f"  {nsteps} steps in {wall:.3f} s ({wall / nsteps * 1e3:.2f} "
+        f"ms/step), {int(sum(iters))} iterations, max|div u| in the fluid "
+        f"{div_fluid:.3e} (gate {gate:g}); collision pass: "
+        f"{len(s.obstacles) * (len(s.obstacles) - 1) // 2 * nsteps} pair "
+        f"checks, {pen.collisions} steps with a collision")
+    if not ok or not div_fluid <= gate:
+        raise AssertionError(f"{tag}: finite {ok}, fluid div {div_fluid}")
+    return dict(ms=wall / nsteps * 1e3, collisions=pen.collisions,
+                launches=dict(fb.launches))
+
+
+def bodies_phase() -> dict:
+    out = {"two_fish": _body_run(TWO_FISH, TWO_FISH_STEPS, "two_fish")}
+    for body in RIGID_BODIES:
+        kind = body.split()[0]
+        out[kind] = _body_run(body, RIGID_STEPS, kind)
+    return out
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -2463,6 +2882,35 @@ def main() -> int:
             f"pipelined on the device dt chain {tgv[0]:.2f}, K={SCAN_K} "
             f"megaloop {tgv[SCAN_K]:.2f}")
     torch.cuda.empty_cache()
+
+    log("phase 17: BASELINE config #5 at 128x64x64 (forced channel, walls "
+        "in y, CUP3D_FUSED=1) through the CLI: the bench's window, B2 and "
+        "B4 on its wall-bounded lanes, the run from a perturbed state")
+    with _env(CUP3D_FUSED="1"):
+        channel = channel_phase()
+        log("phase 18: the output path on config #5: dumps, an injected "
+            "dump.write_fail, a dump in the step window, an async "
+            "checkpoint resumed")
+        output = output_phase(channel.pop("d"), channel.pop("perturbed"))
+    log(f"  config #5: {channel['ms']:.3f} ms/step as the bench runs it "
+        f"(iterations {channel['iters'][-1]:.0f} a step, max|div u| "
+        f"{channel['div_max']:.3e}); {output['ms_plain']:.3f} without a "
+        f"dump, {output['ms_dump']:.3f} with one in the window (one writer; "
+        f"{output['ms_dump_cores']:.3f} with a writer a core); {smi}")
+    torch.cuda.empty_cache()
+    log(f"phase 19: -implicitDiffusion 1 on the {N_MAIN}^3 TGV, "
+        f"{IMPLICIT_STEPS} steps")
+    with _env(CUP3D_FUSED="1"):
+        implicit_phase()
+    torch.cuda.empty_cache()
+    log(f"phase 20: initCond vorticity at {N_FISH}^3")
+    vorticity_phase()
+    log(f"phase 21: bodies at {N_FISH}^3: two StefanFish (run.sh's lines) "
+        f"for {TWO_FISH_STEPS} steps, a sphere and a NACA foil for "
+        f"{RIGID_STEPS} each")
+    with _env(CUP3D_FUSED="1"):
+        bodies_phase()
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -2476,7 +2924,8 @@ def main() -> int:
     for kname in fish_kernels:
         launches[kname] = fish_run["launches"][kname]
         per_kernel[kname] = dict(fish_kernels[kname], tgv256=dict(
-            per_kernel[kname], launches=run["launches"][kname]))
+            per_kernel[kname], launches=run["launches"][kname]),
+            channel_launches=channel["launches"][kname])
 
     rows = []
     for kname, replaces, src in KERNELS:

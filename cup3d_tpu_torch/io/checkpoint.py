@@ -49,6 +49,7 @@ def build_payload(driver) -> dict:
         uinf, lam = driver.uinf, driver.lambda_penal
         leaves = np.asarray(driver.grid.keys, np.int64).reshape(-1, 4)
         obstacles = []
+        next_dump = driver._cadence.next_dump
     else:
         s = driver.sim
         kind, state = "uniform", s.state
@@ -56,6 +57,7 @@ def build_payload(driver) -> dict:
         uinf, lam = s.uinf, s.lambda_penal
         leaves = None
         obstacles = s.obstacles
+        next_dump = s.cadence.next_dump
     return {
         "version": FORMAT_VERSION,
         "kind": kind,
@@ -67,9 +69,7 @@ def build_payload(driver) -> dict:
         "dt": float(dt),
         "uinf": np.asarray(uinf, np.float64),
         "lambda_penal": float(lam),
-        # the port writes no dumps (ROADMAP A4): its dump cadence never
-        # leaves its start
-        "next_dump": 0.0,
+        "next_dump": float(next_dump),
         "obstacles": obstacles,
     }
 
@@ -210,6 +210,7 @@ def load_checkpoint(path: str, device=None):
         driver.dt = float(payload["dt"])
         driver.uinf = np.asarray(payload["uinf"], np.float64)
         driver.lambda_penal = float(payload["lambda_penal"])
+        driver._cadence.next_dump = float(payload["next_dump"])
         return driver
 
     from cup3d_tpu_torch.sim.simulation import Simulation
@@ -223,6 +224,7 @@ def load_checkpoint(path: str, device=None):
     s.dt = float(payload["dt"])
     s.uinf = np.asarray(payload["uinf"], np.float64)
     s.lambda_penal = float(payload["lambda_penal"])
+    s.cadence.next_dump = float(payload["next_dump"])
     s.obstacles = list(payload.get("obstacles") or [])
     for ob in s.obstacles:
         ob.sim = s

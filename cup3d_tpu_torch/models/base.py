@@ -162,9 +162,10 @@ def rigid_update_device(mom, state, forced_mask, block_mask, uinf, dt):
 
 
 class Obstacle:
-    """One immersed body.  Subclasses implement ``update_shape()`` and
-    ``create()`` (SDF -> chi, udef and sdf fields; the StefanFish's is in
-    models/fish/stefanfish.py)."""
+    """One immersed body.  Subclasses implement ``rasterize()`` (the
+    sphere, the foil) or their own ``create()`` (the StefanFish's, in
+    models/fish/stefanfish.py), and ``update_shape()`` where the body
+    deforms."""
 
     def __init__(self, sim, spec: Dict[str, str]):
         self.sim = sim
@@ -223,6 +224,11 @@ class Obstacle:
         self.EffPDefBnd = 0.0
         self.penal_force = np.zeros(3)
         self.penal_torque = np.zeros(3)
+        # collision latch (reference collision_counter/u_collision,
+        # main.cpp:7546-7552, 13069-13077)
+        self.collision_counter = 0.0
+        self.collision_vel = np.zeros(3)
+        self.collision_angvel = np.zeros(3)
         # this step's device rigid update (UpdateObstacles), consumed by
         # body_velocity_field, Penalization and ComputeForces; cleared
         # when the step's read refreshes the host mirrors
@@ -253,6 +259,28 @@ class Obstacle:
 
     # -- geometry ---------------------------------------------------------
 
+    def rasterize(self, t: float):
+        """(sdf, udef) dense fields; sdf > 0 inside, udef (..., 3) or None
+        for a rigid body."""
+        raise NotImplementedError
+
+    def update_shape(self, t: float, dt: float) -> None:
+        """Advance internal deformation kinematics (the fish's midline)."""
+
+    def create(self, t: float) -> None:
+        """SDF -> chi + udef (reference Obstacle::create + chi kernel).
+        The SDF is kept: the surface-point force probe (ops/surface.py)
+        takes its outward normals from grad(phi)."""
+        from cup3d_tpu_torch.ops.chi import towers_chi
+
+        sdf, udef = self.rasterize(t)
+        self.sdf = sdf
+        self.chi = towers_chi(self.sim.grid.pad_scalar(sdf, 1),
+                              self.sim.grid.h)
+        self.udef = udef if udef is not None else torch.zeros(
+            tuple(self.sim.grid.shape) + (3,), dtype=self.sim.dtype,
+            device=self.sim.device)
+
     def max_body_speed(self, uinf=None) -> float:
         """Host bound on the body's material speed in the sim frame: rigid
         translation (+ frame velocity) + rotation at the body radius (+
@@ -266,10 +294,10 @@ class Obstacle:
     # -- device fast path --------------------------------------------------
 
     def supports_device_update(self) -> bool:
-        """True when the rigid update has no host-only branch (the
-        collision latch that adds one in the JAX package comes with the
-        multi-body collision pass, ROADMAP A5)."""
-        return True
+        """True when the rigid update has no host-only branch this step
+        (an active collision latch takes the host path; subclasses add
+        their own vetoes, e.g. the StefanFish's roll correction)."""
+        return self.collision_counter <= 0
 
     def rigid_state_vec(self) -> np.ndarray:
         """Host mirrors -> (RIGID_STATE,) input for rigid_update_device."""
@@ -382,6 +410,12 @@ class Obstacle:
         new_ut, new_om = sol[:3], sol[3:]
         self.transVel = np.where(self.bForcedInSimFrame, self.transVel, new_ut)
         self.angVel = np.where(self.bBlockRotation, self.angVel, new_om)
+        # a fresh collision overrides the fluid-coupled solve for one step
+        # (reference main.cpp:13069-13077)
+        if self.collision_counter > 0:
+            self.collision_counter -= self.sim.dt
+            self.transVel = self.collision_vel.copy()
+            self.angVel = self.collision_angvel.copy()
 
     def update(self, dt: float) -> None:
         """Advance position/orientation on the host (main.cpp:13116-13204)."""

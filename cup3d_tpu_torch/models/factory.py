@@ -1,7 +1,6 @@
 """Obstacle factory (port of ``cup3d_tpu/models/factory.py``; the
 reference's ObstacleFactory, main.cpp:13247-13289): factory-content
-lines -> obstacle instances.  Only the StefanFish is ported; the sphere
-and the NACA foil wait for ROADMAP A5."""
+lines -> obstacle instances (sphere, StefanFish, NACA foil)."""
 
 from __future__ import annotations
 
@@ -12,14 +11,18 @@ def make_obstacles(sim, specs: List[Dict[str, str]]) -> List:
     obstacles = []
     for spec in specs:
         kind = spec["type"].lower()
-        if kind == "stefanfish":
+        if kind == "sphere":
+            from cup3d_tpu_torch.models.sphere import Sphere
+
+            obstacles.append(Sphere(sim, spec))
+        elif kind == "stefanfish":
             from cup3d_tpu_torch.models.fish import StefanFish
 
             obstacles.append(StefanFish(sim, spec))
-        elif kind in ("sphere", "naca"):
-            raise NotImplementedError(
-                f"obstacle type {spec['type']!r} is not ported yet "
-                "(ROADMAP A5)")
+        elif kind == "naca":
+            from cup3d_tpu_torch.models.naca import Naca
+
+            obstacles.append(Naca(sim, spec))
         else:
             raise ValueError(f"unknown obstacle type {spec['type']!r}")
     return obstacles

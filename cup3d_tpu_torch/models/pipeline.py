@@ -8,8 +8,9 @@ forces stay on the device and join the step's QoI pack
 (``pending_parts``: "rigid", "penal", "forces"); pipelined stepping
 chains the device rigid state from step to step (models/base.py).  An
 obstacle whose update has a host-only branch (roll correction) takes the
-host path, which reads its moments and forces at once.  More than one body needs the collision
-pass (ROADMAP A5) and is refused by the driver.
+host path, which reads its moments and forces at once.  More than one
+body takes the host path every step, and the collision pass
+(models/collisions.py) runs before the penalization.
 """
 
 from __future__ import annotations
@@ -130,14 +131,15 @@ class UpdateObstacles(Operator):
 
 
 class Penalization(Operator):
-    """Brinkman forcing toward the combined body velocity field
-    (reference Penalization, main.cpp:14326-14341).  The collision pass
-    that runs first for more than one body is not ported (ROADMAP A5:
-    models/collisions.py)."""
+    """Collision handling, then Brinkman forcing toward the combined body
+    velocity field (reference Penalization, main.cpp:14326-14341:
+    preventCollidingObstacles runs first, main.cpp:14330)."""
 
     def __init__(self, sim):
         super().__init__(sim)
         self._h3 = sim.grid.h ** 3
+        #: steps whose collision pass fired
+        self.collisions = 0
 
     def _penal_force(self, vn, vo, chis, dt, cms):
         return per_obstacle_penalization_force(vn, vo, chis, dt, self._h3,
@@ -147,11 +149,20 @@ class Penalization(Operator):
         s = self.sim
         if not s.obstacles:
             return
-        if len(s.obstacles) > 1:
-            raise NotImplementedError(
-                "more than one obstacle needs the collision pass "
-                "(ROADMAP A5: models/collisions.py)")
         ubs = [ob.body_velocity_field() for ob in s.obstacles]
+        if len(s.obstacles) > 1:
+            from functools import partial
+
+            from cup3d_tpu_torch.models.collisions import (
+                prevent_colliding_obstacles)
+            from cup3d_tpu_torch.ops.chi import grad_chi
+
+            if prevent_colliding_obstacles(
+                    s.obstacles, ubs, partial(grad_chi, s.grid), s.xc,
+                    _host_dt(s, dt)):
+                # the collision overrode rigid velocities: rebuild
+                self.collisions += 1
+                ubs = [ob.body_velocity_field() for ob in s.obstacles]
         chis = torch.stack([ob.chi for ob in s.obstacles])
         num = sum(ob.chi[..., None] * ub for ob, ub in zip(s.obstacles, ubs))
         den = torch.clamp_min(torch.sum(chis, dim=0), _EPS)[..., None]

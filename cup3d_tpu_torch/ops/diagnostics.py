@@ -18,6 +18,12 @@ def vorticity(grid: UniformGrid, u: torch.Tensor) -> torch.Tensor:
     return st.curl(grid.pad_vector(u, 1), 1, grid.h)
 
 
+def vorticity_magnitude(grid: UniformGrid, u: torch.Tensor) -> torch.Tensor:
+    """|curl u| per cell (the dumps' omega field)."""
+    om = vorticity(grid, u)
+    return torch.sqrt(torch.sum(om * om, dim=-1))
+
+
 def divergence_field(grid: UniformGrid, u: torch.Tensor) -> torch.Tensor:
     return st.divergence(grid.pad_vector(u, 1), 1, grid.h)
 

@@ -498,4 +498,4 @@ class ShardedForest:
     def build_helmholtz_solver(self, **kw):
         raise NotImplementedError(
             "not ported yet: the sharded implicit-diffusion Helmholtz "
-            "solve (ROADMAP A5)")
+            "solve (ROADMAP A6; A5 ported the uniform grid's)")

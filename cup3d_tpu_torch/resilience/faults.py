@@ -16,14 +16,17 @@ solver.itercap       ``obs.trace.StepObserver.note_solver``: the consumed
                      iteration count hits the solver's cap
 ckpt.write_fail      ``io.checkpoint.write_payload``: the checkpoint
                      write raises (every retry re-fires while armed)
+dump.write_fail      ``stream.dump.AsyncDumper._write``: the dump write
+                     raises (every retry re-fires while armed; a dump
+                     whose retries all fail is dropped and counted)
 stream.stall         ``stream.qoi.QoIStream.emit``: sleeps ``STALL_S``
                      (a simulated stall, counted in the stream's stall_s)
 ==================== ======================================================
 
-The other sites (``dump.write_fail``, ``fleet.*``,
-``journal.write_fail``, ``server.crash``, ``aot.store_corrupt``,
-``compile.service_die``) parse and arm, and fire nowhere yet: their seams
-are in modules the port does not have (ROADMAP A4, A8).
+The other sites (``fleet.*``, ``journal.write_fail``, ``server.crash``,
+``aot.store_corrupt``, ``compile.service_die``) parse and arm, and fire
+nowhere yet: their seams are in modules the port does not have (ROADMAP
+A8).
 
 Arming is via ``CUP3D_FAULT="site@step[:count]"`` (``;``-separated for
 several; ``step`` may be ``*`` for any step) or :func:`arm`.  A site

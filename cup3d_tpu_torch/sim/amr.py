@@ -32,10 +32,13 @@ padded geometry and duck-typed face and flux tables (the halo exchange
 between shards, on the ring transport under ``CUP3D_RING_HALO=1``), and
 the Poisson solve is the static tile-only composition
 (``ShardedForest.build_poisson_solver``), as the JAX package's mesh
-mode.  Runs on CUDA unless the caller asks for the CPU.  Not ported
-yet, and raising with their ROADMAP item: obstacles, pipelined stepping
-and the megastep, field dumps and periodic checkpoints, implicit
-diffusion, forcing and mass-flux fixing.
+mode.  Field dumps (``tdump``/``fdump``) and periodic checkpoints
+(``saveFreq``) run off the step loop, through the same sharded writer
+and async checkpointer as the uniform driver (stream/).  Runs on CUDA
+unless the caller asks for the CPU.  Not ported yet, and raising with
+their ROADMAP item: obstacles, pipelined stepping and the megastep,
+implicit diffusion, forcing and mass-flux fixing, and the vorticity
+initial condition.
 """
 
 from __future__ import annotations
@@ -70,14 +73,16 @@ def _unsupported(cfg: SimulationConfig) -> Optional[str]:
         return "obstacles on the forest (ROADMAP A6)"
     if cfg.pipelined:
         return "pipelined AMR stepping and the megastep (ROADMAP A4)"
+    # the uniform grid's versions of these are ported (ROADMAP A5)
     if cfg.implicitDiffusion:
-        return "implicit diffusion (ROADMAP A5)"
+        return ("implicit diffusion on the forest (ROADMAP A6; A5 ported "
+                "the uniform grid's)")
     if cfg.uMax_forced > 0 or cfg.bFixMassFlux:
-        return "external forcing / mass-flux fixing (ROADMAP A5)"
-    if cfg.tdump > 0 or cfg.fdump > 0 or cfg.saveFreq > 0:
-        return "field dumps and periodic checkpoints (ROADMAP A4)"
+        return ("external forcing / mass-flux fixing on the forest (ROADMAP "
+                "A6; A5 ported the uniform grid's)")
     if cfg.initCond == "vorticity":
-        return "initCond vorticity on the forest (ROADMAP A5)"
+        return ("initCond vorticity on the forest (ROADMAP A6; A5 ported "
+                "the uniform grid's)")
     return None
 
 
@@ -134,6 +139,14 @@ class AMRSimulation:
         # the Poisson ladder's overrides: None = the CUP3D_COARSE default
         self._poisson_two_level: Optional[bool] = None
         self._poisson_maxiter = 1000
+        # off-critical-path output (stream/dump.py, stream/checkpoint.py)
+        from cup3d_tpu_torch.io.dump import OutputCadence
+        from cup3d_tpu_torch.stream.checkpoint import AsyncCheckpointer
+        from cup3d_tpu_torch.stream.dump import AsyncDumper
+
+        self._cadence = OutputCadence(cfg.tdump, cfg.fdump, cfg.saveFreq)
+        self._dumper = AsyncDumper()
+        self._checkpointer = AsyncCheckpointer()
         self._build_solver_core()
         self._rebuild()
         self._alloc_fields()
@@ -144,7 +157,9 @@ class AMRSimulation:
         return {"driver": "amr", "blocks": int(g.nb),
                 "levels": sorted(set(int(v) for v in g.level)),
                 "shards": 1 if self.mesh is None else self.mesh.D,
-                "step": self.step_idx, "time": self.time, "dt": self.dt}
+                "step": self.step_idx, "time": self.time, "dt": self.dt,
+                "checkpointer": self._checkpointer.health(),
+                "dumper": self._dumper.health()}
 
     # -- topology-dependent tables -----------------------------------------
 
@@ -344,10 +359,64 @@ class AMRSimulation:
                 extra)
         return self.dt
 
+    # -- output ------------------------------------------------------------
+
+    def _maybe_dump_save(self) -> None:
+        if self._cadence.dump_due(self.time, self.step_idx):
+            self.dump_fields()
+        if self._cadence.save_due(self.step_idx):
+            with self.profiler("Checkpoint"):
+                self._save_checkpoint_guarded()
+
+    def _save_checkpoint_guarded(self) -> None:
+        """The uniform driver's policy (stream/checkpoint.py
+        ``save_guarded``)."""
+        from cup3d_tpu_torch.stream.checkpoint import save_guarded
+
+        save_guarded(self._checkpointer, self)
+
+    def dump_fields(self) -> None:
+        """Stage this step's forest fields (block-major, the real blocks'
+        rows) for the sharded writer.  The forest carries no body, so its
+        chi is zero, as the JAX package's obstacle-free forest's."""
+        import os
+
+        from cup3d_tpu_torch.io import dump as dmp
+
+        vel = self._unpad(self.state["vel"])
+        view = {"vel": vel, "chi": torch.zeros_like(vel[..., 0])}
+
+        def omega_mag(_vel):
+            om = amr_ops.curl_blocks(
+                self._geom,
+                self._tab1.assemble_vector(self.state["vel"], self.grid.bs),
+                self._tab1.width)
+            return self._unpad(torch.sqrt(torch.sum(om * om, dim=-1)))
+
+        fields = dmp.collect_dump_fields_device(self.cfg, view, omega_mag)
+        if fields:
+            prefix = os.path.join(self.cfg.path4serialization,
+                                  f"dump_{self.step_idx:07d}")
+            with self.profiler("Dump"):
+                # the grid handed over is this step's: adaptation replaces
+                # the BlockGrid, never mutates it
+                self._dumper.submit(prefix, self.time, self.grid, fields,
+                                    step=self.step_idx)
+
+    def drain_streams(self) -> None:
+        """Join all pending dumps and checkpoints (run end, and anything
+        that must observe the files on disk)."""
+        from cup3d_tpu_torch.stream.checkpoint import drain
+
+        drain(self._dumper, self._checkpointer, self)
+
+    # -- the step ----------------------------------------------------------
+
     def advance(self, dt: float) -> None:
         """One step of the host path (JAX ``_advance_host``)."""
         s, prof = self.state, self.profiler
         t0 = time.perf_counter()
+        self._maybe_dump_save()
         dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
         uinf = self.uinf_device()
         if self.adapt_enabled and (
@@ -441,6 +510,7 @@ class AMRSimulation:
         self.dt = float(payload["dt"])
         self.uinf = np.asarray(payload["uinf"], np.float64)
         self.lambda_penal = float(payload["lambda_penal"])
+        self._cadence.next_dump = float(payload["next_dump"])
         self._pending_parts = []
         self._umax_next = None
         self._last_umax = None
@@ -489,6 +559,7 @@ class AMRSimulation:
                 done_n = cfg.nsteps > 0 and self.step_idx >= cfg.nsteps
                 if done_t or done_n:
                     break
+            self.drain_streams()
             self.logger.flush()
         finally:
             if eng is not None:

@@ -75,6 +75,9 @@ class SimulationData:
 
         self.logger = BufferedLogger(cfg.path4serialization)
         self.profiler = Profiler()
+        from cup3d_tpu_torch.io.dump import OutputCadence
+
+        self.cadence = OutputCadence(cfg.tdump, cfg.fdump, cfg.saveFreq)
 
     @property
     def vel(self) -> torch.Tensor:
@@ -151,7 +154,8 @@ def state_to_numpy(sim: SimulationData):
 OBSTACLE_KEYS = ("position", "quaternion", "transVel", "angVel",
                  "centerOfMass", "absPos", "origC", "mass", "J",
                  "penal_force", "penal_torque",
-                 "n_surf_points", "_probe_budget", "r_axis")
+                 "n_surf_points", "_probe_budget", "r_axis",
+                 "collision_counter", "collision_vel", "collision_angvel")
 
 
 def _host_copy(v):

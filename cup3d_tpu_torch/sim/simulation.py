@@ -1,6 +1,6 @@
-"""Simulation driver: init + timestep loop (port of the per-step,
-obstacle-free part of ``cup3d_tpu/sim/simulation.py``; reference
-Simulation, main.cpp:15161-15326).
+"""Simulation driver: init + timestep loop (port of
+``cup3d_tpu/sim/simulation.py``; reference Simulation,
+main.cpp:15161-15326).
 
 ``simulate()`` = loop { calc_max_timestep; advance } until ``tend`` or
 ``nsteps``.  Each step's device QoI (the Poisson solver's [residual,
@@ -28,19 +28,25 @@ walking the Poisson ladder warm-restart -> zero-guess -> tile-only ->
 iter-bump.  The flight recorder (obs/flight.py) keeps the recent steps
 and writes a postmortem when a failure is not recovered.
 
-One self-propelled StefanFish runs in the reference's pipeline order
-(CreateObstacles, advection, UpdateObstacles, Penalization, projection,
-ComputeForces, models/pipeline.py); its rigid update, penalization force
-and surface forces ride the same end-of-step read.
+Bodies (StefanFish, sphere, NACA foil) run in the reference's pipeline
+order (CreateObstacles, advection, forcing, UpdateObstacles, the
+collision pass and Penalization, projection, ComputeForces,
+models/pipeline.py); one body's rigid update, penalization force and
+surface forces ride the same end-of-step read, several bodies take the
+host path.  Forcing (``uMax_forced``) and mass-flux fixing
+(``bFixMassFlux``) follow advection, which is explicit RK3 or, with
+``implicitDiffusion``, explicit Euler advection and the exact spectral
+Helmholtz solve (ops/diffusion.py).
+
+Output runs off the step loop: field dumps every ``tdump`` of simulated
+time or ``fdump`` steps go to the sharded writer (stream/dump.py), and a
+checkpoint every ``saveFreq`` steps to the async checkpointer
+(stream/checkpoint.py); ``drain_streams()`` joins both at the run's end.
 
 Runs on CUDA unless the caller asks for the CPU (``device="cpu"``); with
-no GPU and no explicit device it raises.  Not ported yet, and raising:
-more than one obstacle and obstacles other than the StefanFish (the
-collision pass, the sphere and the foil: ROADMAP A5), field dumps and
-periodic checkpoints (ROADMAP A4, second part: the sharded dumps and the
-async checkpointer; io/checkpoint.py writes and reads checkpoints),
-implicit diffusion, forcing and mass-flux fixing (A5).  ``levelMax > 1``
-is the AMR driver's (sim/amr.py).
+no GPU and no explicit device it raises.  ``levelMax > 1`` is the AMR
+driver's (sim/amr.py); pipelined stepping with more than one body is
+refused at ``init()``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -93,24 +99,6 @@ def resolve_scan_k(cfg: SimulationConfig) -> int:
 def _unsupported(cfg: SimulationConfig) -> Optional[str]:
     if cfg.levelMax > 1:
         return "levelMax > 1 (the AMR driver, sim/amr.AMRSimulation)"
-    content = cfg.resolved_factory_content()
-    if content:
-        specs = parse_factory(content)
-        if len(specs) > 1:
-            return ("more than one obstacle (the collision pass, ROADMAP "
-                    "A5: models/collisions.py)")
-        kinds = {sp["type"].lower() for sp in specs}
-        if kinds - {"stefanfish"}:
-            return (f"obstacle type {specs[0]['type']!r} (only the "
-                    "StefanFish is ported; the sphere and the foil are "
-                    "ROADMAP A5)")
-    if cfg.implicitDiffusion:
-        return "implicit diffusion (ROADMAP A5)"
-    if cfg.uMax_forced > 0 or cfg.bFixMassFlux:
-        return "external forcing / mass-flux fixing (ROADMAP A5)"
-    if cfg.tdump > 0 or cfg.fdump > 0 or cfg.saveFreq > 0:
-        return ("field dumps and periodic checkpoints (ROADMAP A4, second "
-                "part: the sharded dumps and the async checkpointer)")
     return None
 
 
@@ -153,6 +141,12 @@ class Simulation:
         self._scan_k = 0
         self._megaloop = None  # (megaloop fn, row width) once built
         self._scan_carry = None  # the device carry between megaloops
+        # off-critical-path output (stream/dump.py, stream/checkpoint.py)
+        from cup3d_tpu_torch.stream.checkpoint import AsyncCheckpointer
+        from cup3d_tpu_torch.stream.dump import AsyncDumper
+
+        self._dumper = AsyncDumper()
+        self._checkpointer = AsyncCheckpointer()
 
     # -- setup (reference init(), main.cpp:15163-15178) --------------------
 
@@ -160,6 +154,11 @@ class Simulation:
         self._setup_operators()
         self._add_obstacles()
         if self.cfg.pipelined:
+            if len(self.sim.obstacles) > 1:
+                raise ValueError(
+                    "pipelined mode requires a single obstacle (the device "
+                    "rigid chain has no multi-body collision path) — run "
+                    "without -pipelined")
             for ob in self.sim.obstacles:
                 # position/depth controllers read trailing host mirrors
                 # (gentle, clipped: they tolerate the lag); roll
@@ -178,12 +177,15 @@ class Simulation:
     def _use_device_dt(self) -> bool:
         """The device dt chain: pipelined obstacle-free runs stopped by a
         step count (the fish's host midline needs the host time), with no
-        fixed dt and no per-step diagnostics rows.  ``dtDevice`` -1 turns
-        it on for the card, 1 everywhere, 0 nowhere."""
+        fixed dt, no per-step diagnostics or flux.txt rows and no dump
+        cadence by time.  ``dtDevice`` -1 turns it on for the card, 1
+        everywhere, 0 nowhere."""
         cfg = self.cfg
         if not cfg.pipelined or self.sim.obstacles:
             return False
         if cfg.dt > 0 or cfg.tend > 0 or cfg.nsteps <= 0:
+            return False
+        if cfg.tdump > 0 or cfg.bFixMassFlux:
             return False
         if cfg.freqDiagnostics > 0 or cfg.dtDevice == 0:
             return False
@@ -248,7 +250,14 @@ class Simulation:
         pipe: List[ops.Operator] = []
         if with_bodies:
             pipe.append(body_ops.CreateObstacles(s))
-        pipe.append(ops.AdvectionDiffusion(s))
+        if cfg.implicitDiffusion:
+            pipe.append(ops.AdvectionDiffusionImplicit(s))
+        else:
+            pipe.append(ops.AdvectionDiffusion(s))
+        if cfg.uMax_forced > 0 and not cfg.bFixMassFlux:
+            pipe.append(ops.ExternalForcing(s))
+        if cfg.bFixMassFlux:
+            pipe.append(ops.FixMassFlux(s))
         if with_bodies:
             pipe.append(body_ops.UpdateObstacles(s))
             pipe.append(body_ops.Penalization(s))
@@ -274,7 +283,9 @@ class Simulation:
                 "step": s.step, "time": s.time, "dt": s.dt,
                 "uinf": [float(v) for v in s.uinf],
                 "obstacles": [type(ob).__name__ for ob in s.obstacles],
-                "stream": self._pack_reader.snapshot()}
+                "stream": self._pack_reader.snapshot(),
+                "checkpointer": self._checkpointer.health(),
+                "dumper": self._dumper.health()}
 
     # -- time stepping -----------------------------------------------------
 
@@ -398,11 +409,59 @@ class Simulation:
             umax = torch.maximum(umax, torch.max(torch.abs(s.state["udef"])))
         return umax
 
+    # -- output ------------------------------------------------------------
+
+    def _maybe_dump_save(self) -> None:
+        s = self.sim
+        if s.cadence.dump_due(s.time, s.step):
+            self.flush_packs()  # host mirrors current before output
+            self.dump_fields()
+        if s.cadence.save_due(s.step):
+            self.flush_packs()
+            with s.profiler("Checkpoint"):
+                self._save_checkpoint_guarded()
+
+    def _save_checkpoint_guarded(self) -> None:
+        """Async checkpoint; under recovery a failed write falls back to
+        one synchronous write, then drops and counts
+        (stream/checkpoint.py ``save_guarded``)."""
+        from cup3d_tpu_torch.stream.checkpoint import save_guarded
+
+        save_guarded(self._checkpointer, self)
+
+    def dump_fields(self) -> None:
+        """Stage this step's dump fields (chi, velocity components, |omega|
+        by the dump flags) for the sharded writer; no blocking read."""
+        from functools import partial
+
+        from cup3d_tpu_torch.io import dump as dmp
+
+        s, cfg = self.sim, self.cfg
+        fields = dmp.collect_dump_fields_device(
+            cfg, s.state, partial(diag.vorticity_magnitude, s.grid))
+        if fields:
+            prefix = os.path.join(cfg.path4serialization,
+                                  f"dump_{s.step:07d}")
+            with s.profiler("Dump"):
+                self._dumper.submit(prefix, s.time, s.grid, fields,
+                                    step=s.step)
+
+    def drain_streams(self) -> None:
+        """Join all off-critical-path output (pending dumps and
+        checkpoints): at the run's end, and before anything that must
+        observe the files on disk."""
+        from cup3d_tpu_torch.stream.checkpoint import drain
+
+        drain(self._dumper, self._checkpointer, self)
+
+    # -- the step ----------------------------------------------------------
+
     def advance(self, dt) -> None:
         """One step of the pipeline.  ``dt`` a host float, or the device
         dt of the dt chain."""
         s = self.sim
         t0 = time.perf_counter()
+        self._maybe_dump_save()
         if isinstance(dt, torch.Tensor):
             dt_dev = dt
         else:
@@ -518,6 +577,7 @@ class Simulation:
         fn, row_w = self._megaloop
         base_step = s.step
         t0 = time.perf_counter()
+        self._maybe_dump_save()
         if self._scan_carry is None:
             # carry (re)seed from the host mirrors: cold start, after a
             # rollback or a per-step tail, never per step.  Pipelined
@@ -637,6 +697,7 @@ class Simulation:
         s.dt = float(payload["dt"])
         s.uinf = np.asarray(payload["uinf"], np.float64)
         s.lambda_penal = float(payload["lambda_penal"])
+        s.cadence.next_dump = float(payload["next_dump"])
         obstacles = payload.get("obstacles") or []
         if isinstance(obstacles, bytes):
             obstacles = pickle.loads(obstacles)
@@ -731,6 +792,7 @@ class Simulation:
                 if done_t or done_n:
                     break
             self.flush_packs()
+            self.drain_streams()
             s.logger.flush()
         finally:
             if eng is not None:

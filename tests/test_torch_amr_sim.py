@@ -168,7 +168,7 @@ def test_build_driver_dispatch_and_device(tmp_path, monkeypatch):
     (["-pipelined", "1"], "A4"),
     (["-implicitDiffusion", "1"], "A5"),
     (["-bFixMassFlux", "1"], "A5"),
-    (["-saveFreq", "5"], "A4"),
+    (["-uMax_forced", "0.5"], "A6"),
 ])
 def test_unported_options_raise(tmp_path, flags, item):
     argv = ARGV + ["-path4serialization", str(tmp_path), "-device", "cpu"]

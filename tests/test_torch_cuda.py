@@ -28,7 +28,8 @@ on right-hand sides that are nonzero on one face or one edge of each tile
 The forest's two-level getZ (B9) on the shared core at 8, 27, 9,472 and
 a ragged block count, rerun bitwise; the device midline's Frenet kernel
 against its plain loop; the fish pipelined on the card against the port
-on the CPU."""
+on the CPU; the two-level getZ (B2) and the Laplacian (B4) on
+wall-bounded lanes (BASELINE config #5's walls), rerun bitwise."""
 
 import math
 
@@ -674,3 +675,34 @@ def test_ring_steps_strided_and_in_place(dev, D):
             assert torch.equal(ring.ring_shift(x, k),
                                ring.ring_shift_plain(x, k))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bcs", [("periodic", "wall", "periodic"),
+                                 ("wall",) * 3])
+def test_getz_two_and_lap_on_wall_bounded_lanes(dev, bcs):
+    """B2 and B4 on a wall-bounded grid's lanes (BASELINE config #5's
+    walls in y, and walls everywhere): the face planes and the coarse aux
+    built as the fused driver builds them, against the plain versions,
+    and each rerun bitwise."""
+    grid = UniformGrid((64, 32, 32), (2.0, 1.0, 1.0), bcs)
+    rng = np.random.default_rng(23)
+    T = grid.ncells // 512
+    w, a = (torch.as_tensor(rng.standard_normal((T, 8, 8, 8)),
+                            dtype=torch.float32, device=dev)
+            for _ in range(2))
+    planes = krylov.make_tile_planes(grid, 8)(w)
+    zc = krylov._make_coarse_core(grid, 8)(torch.sum(w, dim=(1, 2, 3)))
+    aux = torch.cat([krylov.make_face_deltas(grid, 8)(zc), zc[None, :],
+                     zc.new_zeros(1, T)], dim=0)
+    h2 = grid.h * grid.h
+    got = fb.getz_two(w, aux, h2)
+    _close(got, fb.getz_two(w, aux, h2, kernels=False), 1e-5)
+    assert torch.equal(got, fb.getz_two(w, aux, h2))
+    got = fb.lap(w, planes, a, 1.0 / h2)
+    want = fb.lap(w, planes, a, 1.0 / h2, kernels=False)
+    _close(got[0], want[0], 2e-6)
+    for k in (1, 2):
+        _close(got[k], want[k], 1e-5, _tile_abs_sum(
+            (a if k == 1 else want[0]) * want[0]))
+    again = fb.lap(w, planes, a, 1.0 / h2)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))

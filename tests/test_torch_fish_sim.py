@@ -230,7 +230,17 @@ def test_checkpoint_round_trip_with_the_fish(tmp_path):
 @pytest.mark.parametrize("body", [twins.FISH_BODY + "\n" + twins.FISH_BODY,
                                   "sphere L=0.1", "naca L=0.2"])
 def test_other_bodies_are_refused(tmp_path, body):
+    """Two fish, the sphere and the foil run on the uniform grid (ROADMAP
+    A5, tests/test_torch_bodies.py); the forest still refuses every body
+    (A6)."""
     argv = twins.argv("fish", tmp_path, 1)
     argv[-1] = body
-    with pytest.raises(NotImplementedError, match="A5"):
-        build_driver(argv + ["-device", "cpu"])
+    d = build_driver(argv + ["-device", "cpu"])
+    d.init()
+    assert len(d.sim.obstacles) == len(body.splitlines())
+    import dataclasses
+
+    from cup3d_tpu_torch.sim.amr import AMRSimulation
+
+    with pytest.raises(NotImplementedError, match="A6"):
+        AMRSimulation(dataclasses.replace(d.cfg, levelMax=2), device="cpu")

@@ -121,12 +121,14 @@ def test_cli_device_flag_and_conf(tmp_path):
     with pytest.raises(NotImplementedError, match="A6"):
         tmain.build_driver(argv + ["-levelMax", "2", "-factory-content",
                                    "sphere", "L=0.1", "-device", "cpu"])
-    # pipelined stepping and the megaloop run; dumps wait (A4, 2nd part)
+    # pipelined stepping and the megaloop run, and so do dumps and
+    # periodic checkpoints
     d = tmain.build_driver(argv + ["-pipelined", "1", "-scan_k", "8",
                                    "-device", "cpu"])
     assert d.cfg.pipelined and d.cfg.scan_k == 8
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmain.build_driver(argv + ["-saveFreq", "5", "-device", "cpu"])
+    d = tmain.build_driver(argv + ["-saveFreq", "5", "-tdump", "0.1",
+                                   "-device", "cpu"])
+    assert d.sim.cadence.save_freq == 5 and d.sim.cadence.tdump == 0.1
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
