@@ -123,12 +123,36 @@ each of which raises on a fault (nothing is caught):
     non-pipelined steps (the collision pass's pair checks and collisions
     counted), a towed sphere and a towed NACA foil for 10 steps each,
     launch counters against the executed iterations, the fluid's
-    max|div u| under the fish gate, fields and kinematics finite.
+    max|div u| under the fish gate, fields and kinematics finite;
+22. BASELINE config #4 (bench.py bench_two_fish_amr, run.sh's flags: two
+    StefanFish on the adapting forest, levelMax 4, levelStart 3) on the
+    host path under ``CUP3D_FUSED=1`` through ``build_driver``:
+    ``init()`` (every interface block at level 3), the bench's first
+    step, 24 warm-up and 20 timed steps with the forest kernels'
+    counters set to 0 just before and read just after (each equal to the
+    executed iterations times its launches per iteration), per step the
+    blocks, the levels, the regrids, the iterations and the ms; the
+    window's ms/step as the bench takes it (trimmed mean); the fluid's
+    max|div u| under the bench's 0.01, both fish finite and moving; the
+    step's split by section and a profiler window; B8, B9, B11-B13
+    against their plain versions on its forest and rerun bitwise; 5
+    steps of the fused solve against the legacy one from one state
+    (iterations +-1, velocity within 1e-4 of max|u|);
+    ``CUP3D_FAULT=solver.itercap`` on the same driver (B10 on the
+    tile-only rung, both fish restored at each rollback); an async
+    checkpoint with both fish resumed bitwise.  Then one StefanFish towed
+    through the same forest for 45 steps: its regrids after step 10
+    change the block count, the kernels' launches against its executed
+    iterations, and the five against their plain versions (rerun
+    bitwise) on the topology of its last regrid.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
 path's launches ride in each row's ``tgv256``, config #5's launches (the
-perturbed run, phase 17) in ``channel_launches``.  B14's row: its launches
+perturbed run, phase 17) in ``channel_launches``; the forest rows carry
+config #4's launches a step (``fish_amr_launches_per_step``, B10's
+ladder launches in ``fish_amr_launches``) and their times on its forest
+(``fish_amr``) and on the towed forest (``tow_amr``).  B14's row: its launches
 on phase 15's main path, its times at the Krylov loop's exchange (the
 largest exchange's in ``largest``, one whole exchange's in
 ``exchange``).  B2, B14, B3/B10, B7 and B9 were redesigned after their
@@ -2758,6 +2782,408 @@ def bodies_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: BASELINE config #4 (bodies on the adapting forest)
+# ---------------------------------------------------------------------------
+
+# run.sh's flags (README.md "Running") with the bench's two factory lines
+# (bench.py bench_two_fish_amr: levelMax 4, levelStart 3, Rtol 5, Ctol
+# 0.1, CFL 0.4, nu 1e-3, rampup 100, iterative Poisson 1e-6/1e-4);
+# non-pipelined here (the host path), CUP3D_FUSED=1
+FISH_AMR_ARGV = ("-bpdx 1 -bpdy 1 -bpdz 1 -levelMax 4 -levelStart 3 "
+                 "-extent 1 -Rtol 5 -Ctol 0.1 -CFL 0.4 -nu 0.001 "
+                 "-rampup 100 -poissonSolver iterative -poissonTol 1e-6 "
+                 "-poissonTolRel 1e-4 -tend 0 -nsteps 1000000000 -verbose 0 "
+                 "-freqDiagnostics 0")
+BENCH_TWO_FISH = ("StefanFish L=0.4 T=1.0 xpos=0.3 ypos=0.5 zpos=0.5 "
+                  "planarAngle=180 heightProfile=danio widthProfile=stefan "
+                  "bFixFrameOfRef=1\n"
+                  "StefanFish L=0.4 T=1.0 xpos=0.7 ypos=0.5 zpos=0.5 "
+                  "heightProfile=danio widthProfile=stefan")
+FA_WARM, FA_TIMED = 24, 20  # bench.py: its first step, warmup=24, iters=20
+FA_DIV_GATE = 0.01          # bench.py:61 ("two_fish_amr")
+FA_LEGACY_STEPS = 5         # the fused solve against the legacy one
+FA_VEL_RTOL = 1e-4
+FA_LADDER_STEPS = 10
+FA_RESUME_STEPS = 3
+# a forest that regrids while it steps: one StefanFish towed at 1.0
+# through config #4's forest (fixed dt, CFL 0.32 at h = 1/64); its body
+# leaves blocks and enters others between the adaptations at steps 20
+# and 40 (tests/test_torch_amr_sim.py tows one at levelMax 3)
+TOW_AMR_ARGV = FISH_AMR_ARGV.replace("-rampup 100", "-rampup 0 -dt 0.005")
+TOWED_FISH = ("StefanFish L=0.4 T=1.0 xpos=0.3 ypos=0.5 zpos=0.5 xvel=1.0 "
+              "bForcedInSimFrame=1 heightProfile=danio widthProfile=stefan")
+TOW_STEPS = 45
+
+
+def _forest_want(executed: int, tile: int = 0) -> dict:
+    """The forest kernels' launches for ``executed`` iterations, ``tile``
+    of them on the tile-only rung."""
+    return {"amr_update": executed, "amr_getz_two": 2 * (executed - tile),
+            "amr_getz_tile": 2 * tile, "amr_lap": 2 * executed,
+            "amr_axpy": executed, "amr_finish": executed}
+
+
+def _levels(g) -> list:
+    return np.bincount(g.level, minlength=g.tree.cfg.level_max).tolist()
+
+
+def _watch_regrids(d) -> list:
+    """Record (step, nb before, nb after, levels) at each regrid that
+    changed the forest."""
+    log_ = []
+    apply = d._apply_states
+
+    def hook(states):
+        nb = d.grid.nb
+        changed = apply(states)
+        if changed:
+            log_.append((d.step_idx, nb, d.grid.nb, _levels(d.grid)))
+        return changed
+
+    d._apply_states = hook
+    return log_
+
+
+def _interface_levels(d) -> np.ndarray:
+    """Levels of the blocks that touch a body's interface."""
+    _, near = d.scores()
+    return d.grid.level[near.cpu().numpy()]
+
+
+def _fish_ok(d) -> bool:
+    ok = all(bool(torch.isfinite(d.state[k]).all())
+             for k in ("vel", "p", "chi", "udef"))
+    for ob in d.obstacles:
+        kin = np.concatenate([ob.transVel, ob.angVel, ob.position, ob.force])
+        ok = ok and bool(np.all(np.isfinite(kin)))
+        ok = ok and float(np.linalg.norm(ob.transVel)) > 0
+    return ok
+
+
+def _fish_snapshot(d) -> dict:
+    """The recovery engine's snapshot of the driver: fields cloned, the
+    bodies pickled."""
+    import pickle
+
+    payload = _snapshot(d)
+    payload["obstacles"] = pickle.dumps(payload["obstacles"])
+    return payload
+
+
+def _forest_reruns_bitwise(d) -> None:
+    """Each of B8, B9, B11, B12, B13 twice on the same inputs at the
+    forest's current topology: the outputs bitwise equal."""
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    g, dev, n = d.grid, d.device, d.grid.nb
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+
+    def vec():
+        return torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+
+    def sc(*v):
+        return fb._scalars(*(torch.tensor(x, device=dev) for x in v))
+
+    h = g.h_column(torch.float32, dev).reshape(n)
+    vol, h2 = (h ** 3).contiguous(), (h * h).contiguous()
+    r, p, v, rh, w, a, x, y, z, s_, t = (vec() for _ in range(11))
+    zc = torch.randn(n, generator=gen, device=dev)
+    azf = amr_ops.laplacian_blocks(
+        g, zc[:, None, None, None].expand(n, 8, 8, 8), d._tab1,
+        d._ftab).contiguous()
+    lab = d._tab1.assemble_scalar(w, 8).contiguous()
+    inv_h = (1.0 / h)[:, None, None, None]
+    corr = d._ftab.apply(torch.zeros_like(w), amr_ops.face_fluxes(
+        lab, 1, 8, inv_h)).contiguous()
+    calls = {
+        "amr_update": lambda: fa.update(r, p.clone(), v, rh.clone(), vol,
+                                        sc(0.7, 1.3, 0.0)),
+        "amr_getz_two": lambda: (fa.getz_two(w, azf, zc, h2),),
+        "amr_lap": lambda: fa.lap(lab, corr, a, (1.0 / h2).contiguous()),
+        "amr_axpy": lambda: fa.axpy(r, v, vol, sc(0.37)),
+        "amr_finish": lambda: fa.finish(x.clone(), y, z, s_.clone(), t, rh,
+                                        sc(0.37, 1.21)),
+    }
+    for name, call in calls.items():
+        first, again = call(), call()
+        if not all(torch.equal(u, w_) for u, w_ in zip(first, again)):
+            raise AssertionError(f"{name}: a rerun on the forest of {n} "
+                                 "blocks differs")
+    log(f"  B8, B9, B11, B12, B13 rerun bitwise on this forest ({n} blocks)")
+
+
+FOREST_NO_SYNC = ("CreateObstacles", "Penalization", "ComputeForces")
+
+
+class _NoSyncSections:
+    """The driver's Profiler protocol with torch's sync debug mode set to
+    raise inside the named sections."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def __call__(self, name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def section():
+            if name in self.names:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return section()
+
+
+def _forest_no_sync_step(d) -> None:
+    """One step with a device read, a blocking copy or a ``nonzero``
+    inside the forest's body sections failing the run (their reads ride
+    the step's moments read and its end-of-step read)."""
+    prof, d.profiler = d.profiler, _NoSyncSections(FOREST_NO_SYNC)
+    try:
+        d.advance(d.calc_max_timestep())
+    finally:
+        d.profiler = prof
+    log(f"  no host sync in {', '.join(FOREST_NO_SYNC)} (torch sync debug "
+        "mode 'error' around them for one step)")
+
+
+def _timed_steps(d, n: int) -> list:
+    """``n`` steps, the host wall of each (each ends in the step's read)."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        d.advance(d.calc_max_timestep())
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return walls
+
+
+def fish_amr_phase(bw: float, fp32_flops: float) -> dict:
+    """BASELINE config #4 on the host path (see the module docstring,
+    phase 22); CUP3D_FUSED=1 is set by the caller."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.io.checkpoint import load_checkpoint
+    from cup3d_tpu_torch.obs import metrics
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "fish_amr"))
+    t0 = time.perf_counter()
+    d = build_driver(FISH_AMR_ARGV.split() + [
+        "-path4serialization", out, "-factory-content", BENCH_TWO_FISH])
+    d.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lv = _interface_levels(d)
+    log(f"  build_driver + init: {init_s:.2f} s ({len(d.table_build_s)} "
+        f"topologies, tables {sum(d.table_build_s):.2f} s); forest "
+        f"{d.grid.nb} blocks, per level {_levels(d.grid)}; {lv.size} "
+        f"interface blocks at levels {sorted(set(lv.tolist()))}")
+    finest = d.cfg.levelMax - 1
+    if not (lv.size > 0 and np.all(lv == finest)):
+        raise AssertionError(f"interface blocks off the finest level: {lv}")
+    regrids = _watch_regrids(d)
+    maxiter = d._solver.maxiter
+    # -- the main path: the bench's first step, 24 warm-up, 20 timed -------
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    walls = _timed_steps(d, 1 + FA_WARM + FA_TIMED)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    executed = fa.iterations["executed"]
+    rows = d.step_log[-(1 + FA_WARM + FA_TIMED):]
+    hist = {0: _levels(d.grid)}
+    for step, _, _, lvls in regrids:
+        hist[step] = lvls
+    log("  step  blocks  levels            regrid  iters  ms")
+    for r, w in zip(rows, walls):
+        at = [x for x in regrids if x[0] == r["step"]]
+        lv_now = [v for k, v in sorted(hist.items()) if k <= r["step"]][-1]
+        log(f"  {r['step']:4d}  {r['nb']:6d}  {str(lv_now):16s}  "
+            f"{(str(at[0][1]) + '->' + str(at[0][2])) if at else '-':6s}  "
+            f"{int(r['iters']):5d}  {w * 1e3:.2f}")
+    iters = [r["iters"] for r in rows]
+    if not all(math.isfinite(k) and 0 <= k <= maxiter for k in iters):
+        raise AssertionError(f"iteration counts out of range: {iters}")
+    want = _forest_want(executed)
+    if executed != _executed(rows) or launches != want or executed == 0:
+        raise AssertionError(f"config #4 launch counts {launches}, executed "
+                             f"{executed}, expected {want}")
+    tw = np.sort(np.asarray(walls[-FA_TIMED:]))
+    keep = max(1, int(np.ceil(len(tw) * 0.9)))
+    ms = float(tw[:keep].mean()) * 1e3
+    div = float(diag.fluid_divergence_max_blocks(
+        d.grid, d.state["vel"], d.state["chi"], d._tab1))
+    lv = _interface_levels(d)
+    late = [x for x in regrids if x[0] > 10]
+    log(f"  {len(rows)} steps in {wall:.3f} s; the bench's window "
+        f"({FA_TIMED} steps after {1 + FA_WARM}): {ms:.2f} ms/step "
+        f"(trimmed mean; mean {tw.mean() * 1e3:.2f}, max "
+        f"{tw.max() * 1e3:.2f}); first step {walls[0] * 1e3:.2f} ms; "
+        f"{sum(iters) / len(iters):.2f} iterations a step ({executed} "
+        f"executed); fluid max|div u| {div:.3e} (gate {FA_DIV_GATE}); "
+        f"regrids that changed the forest: {len(regrids)} "
+        f"({len(late)} after step 10)")
+    log(f"  launches: {launches} (per step: "
+        f"{ {k: v / len(rows) for k, v in launches.items()} })")
+    for i, ob in enumerate(d.obstacles):
+        log(f"  fish {i}: transVel {ob.transVel.tolist()}, position "
+            f"{ob.position.tolist()}, force {ob.force.tolist()}")
+    if not (div < FA_DIV_GATE and _fish_ok(d) and np.all(lv == finest)):
+        raise AssertionError(f"config #4: fluid div {div}, fish finite and "
+                             f"moving {_fish_ok(d)}, interface levels "
+                             f"{sorted(set(lv.tolist()))}")
+    split = _amr_step_split(d)
+    _forest_no_sync_step(d)
+    prof = _profile_window(d, prefix="fish_amr_")
+
+    # -- the kernels on this run's (last) topology ------------------------
+    log(f"  the five forest kernels against their plain versions on this "
+        f"forest ({d.grid.nb} blocks)")
+    kernels = forest_kernel_phase(d, bw, fp32_flops)
+    _forest_reruns_bitwise(d)
+
+    # -- the fused solve against the legacy one from one state -------------
+    snap = _fish_snapshot(d)
+    runs = {}
+    for tag, fused in (("fused", "1"), ("legacy", "0"), ("fused", "1")):
+        d._resilience_restore(snap)
+        with _env(CUP3D_FUSED=fused):
+            d._build_solver_core()
+            d._bind_solver()
+        _steps(d, FA_LEGACY_STEPS)
+        runs[tag] = ([r["iters"] for r in d.step_log[-FA_LEGACY_STEPS:]],
+                     d.state["vel"].clone())
+    (it_f, v_f), (it_l, v_l) = runs["fused"], runs["legacy"]
+    rel = float(torch.max(torch.abs(v_f - v_l)) / torch.max(torch.abs(v_l)))
+    log(f"  {FA_LEGACY_STEPS} steps from one state: iterations fused {it_f},"
+        f" legacy {it_l}; velocity max diff {rel:.3e} of max|u|")
+    if max(abs(a - b) for a, b in zip(it_f, it_l)) > 1 or \
+            not rel <= FA_VEL_RTOL:
+        raise AssertionError(f"fused against legacy: iterations {it_f} vs "
+                             f"{it_l}, velocity {rel:.3e}")
+
+    # -- the self-healing loop with both fish (B10 on the ladder) ----------
+    s0 = d.step_idx
+    d.cfg.nsteps = s0 + FA_LADDER_STEPS
+    marks = _watch_recovery(d)
+    restored = []
+    restore = d._resilience_restore
+
+    def restore_check(payload):
+        import pickle
+
+        restore(payload)
+        want_pos = [ob.position for ob in pickle.loads(payload["obstacles"])]
+        restored.append(len(d.obstacles) == 2 and all(
+            ob.sim is d and np.array_equal(ob.position, w)
+            for ob, w in zip(d.obstacles, want_pos)))
+
+    d._resilience_restore = restore_check
+    log_start = len(d.step_log)
+    with _env(CUP3D_FUSED="1", CUP3D_FAULT=LADDER_FAULT.format(step=s0 + 2)):
+        torch.cuda.synchronize()
+        m0 = metrics.snapshot()
+        fa.reset_launches()
+        d.simulate()
+        torch.cuda.synchronize()
+        l_launches = dict(fa.launches)
+        l_executed = fa.iterations["executed"]
+        delta = metrics.delta(m0)
+    d._resilience_restore = restore
+    _check_ladder(delta, marks, out)
+    idx = marks["rebuild_at"][0]
+    before, after = d.step_log[log_start:idx], d.step_log[idx:]
+    ex_a = _executed(after)
+    want = _forest_want(l_executed, ex_a)
+    if (l_launches != want or l_executed != _executed(before) + ex_a
+            or len(after) < 3 or not restored or not all(restored)
+            or not _fish_ok(d) or d.step_idx != d.cfg.nsteps):
+        raise AssertionError(f"config #4 ladder: launches {l_launches} "
+                             f"(expected {want}), {len(after)} steps after "
+                             f"the rung, fish restored {restored}")
+    log(f"  ladder (fault at step {s0 + 2}): {len(before)} steps before the "
+        f"tile-only rung, {len(after)} after; both fish restored at each "
+        f"of {len(restored)} rollbacks; B10 launches "
+        f"{l_launches['amr_getz_tile']}")
+
+    # -- an async checkpoint with both fish, resumed bitwise ---------------
+    with _env(CUP3D_FUSED="1"):
+        d._resilience_rebuild_poisson()  # back to the two-level solve
+        snap = _fish_snapshot(d)
+        path = d._checkpointer.save(d)
+        d.drain_streams()
+        back = load_checkpoint(path)
+    # a restore re-creates the bodies at the restored time (the frame
+    # velocity from the updated fish, as the JAX package's loader): the
+    # live run takes the same state through its in-memory rollback
+    d._resilience_restore(snap)
+    for drv in (d, back):
+        _steps(drv, FA_RESUME_STEPS)
+    same = all(torch.equal(d.state[k], back.state[k])
+               for k in ("vel", "p", "chi", "udef")) and all(
+        np.array_equal(a.position, b.position)
+        and np.array_equal(a.transVel, b.transVel)
+        for a, b in zip(d.obstacles, back.obstacles))
+    log(f"  async checkpoint with both fish ({os.path.getsize(path) / 1e6:.1f}"
+        f" MB) resumed {FA_RESUME_STEPS} steps bitwise: {same}")
+    if not same or back.time != d.time:
+        raise AssertionError("the resumed config #4 checkpoint differs")
+    return dict(ms=ms, first_ms=walls[0] * 1e3, init_s=init_s,
+                nb=d.grid.nb, levels=_levels(d.grid), iters=iters,
+                launches=launches, executed=executed, steps=len(rows),
+                tile_launches=l_launches["amr_getz_tile"], split=split,
+                prof=prof, kernels=kernels, regrids=len(regrids))
+
+
+def tow_amr_phase(bw: float, fp32_flops: float) -> dict:
+    """One StefanFish towed through config #4's forest: the forest regrids
+    while stepping, the kernels' launches against the executed
+    iterations, and the five held against their plain versions on the
+    topology of its last regrid."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "tow_amr"))
+    d = build_driver(TOW_AMR_ARGV.split() + [
+        "-path4serialization", out, "-factory-content", TOWED_FISH])
+    d.init()
+    regrids = _watch_regrids(d)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    walls = _timed_steps(d, TOW_STEPS)
+    launches = dict(fa.launches)
+    executed = fa.iterations["executed"]
+    rows = d.step_log[-TOW_STEPS:]
+    want = _forest_want(executed)
+    late = [x for x in regrids if x[0] > 10]
+    for step, a, b, lvls in regrids:
+        log(f"  regrid at step {step}: {a} -> {b} blocks, per level {lvls}")
+    log(f"  {TOW_STEPS} steps, {sum(walls) / len(walls) * 1e3:.2f} ms/step, "
+        f"blocks {sorted(set(r['nb'] for r in rows))}, iterations "
+        f"{[int(r['iters']) for r in rows]}; launches {launches}")
+    if executed != _executed(rows) or launches != want or executed == 0:
+        raise AssertionError(f"towed forest launch counts {launches}, "
+                             f"executed {executed}, expected {want}")
+    ok = all(bool(torch.isfinite(d.state[k]).all()) for k in d.state)
+    if not (late and any(a != b for _, a, b, _ in late) and ok):
+        raise AssertionError(f"towed forest: regrids after step 10 "
+                             f"{late}, fields finite {ok}")
+    log(f"  the five forest kernels against their plain versions after the "
+        f"last regrid (step {regrids[-1][0]}, {d.grid.nb} blocks)")
+    kernels = forest_kernel_phase(d, bw, fp32_flops)
+    _forest_reruns_bitwise(d)
+    return dict(regrids=regrids, launches=launches, kernels=kernels,
+                ms=sum(walls) / len(walls) * 1e3)
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -2911,6 +3337,20 @@ def main() -> int:
     with _env(CUP3D_FUSED="1"):
         bodies_phase()
     torch.cuda.empty_cache()
+    log("phase 22: BASELINE config #4 (run.sh's two StefanFish on the "
+        "adapting levelMax-4 forest, host path, CUP3D_FUSED=1): init, the "
+        f"bench's {1 + FA_WARM + FA_TIMED} steps, the kernels on its forest, "
+        "fused against legacy, the ladder, a checkpoint resumed; then a "
+        "towed fish on the same forest, regridding while it steps")
+    with _env(CUP3D_FUSED="1"):
+        fish_amr = fish_amr_phase(bw, fp32_flops)
+        torch.cuda.empty_cache()
+        tow = tow_amr_phase(bw, fp32_flops)
+    log(f"  config #4: {fish_amr['ms']:.2f} ms/step over the bench's window "
+        f"({fish_amr['nb']} blocks, per level {fish_amr['levels']}, "
+        f"{sum(fish_amr['iters']) / len(fish_amr['iters']):.2f} iterations "
+        f"a step); {smi}")
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -2926,6 +3366,18 @@ def main() -> int:
         per_kernel[kname] = dict(fish_kernels[kname], tgv256=dict(
             per_kernel[kname], launches=run["launches"][kname]),
             channel_launches=channel["launches"][kname])
+    # the forest kernels on config #4 (phase 22): their launches a step on
+    # its main path, their times on its forest and on the towed forest
+    # after its last regrid
+    for kname in _forest_want(0):
+        row = per_kernel[kname]
+        if kname == "amr_getz_tile":
+            row["fish_amr_launches"] = fish_amr["tile_launches"]
+        else:
+            row["fish_amr_launches_per_step"] = (
+                fish_amr["launches"][kname] / fish_amr["steps"])
+            row["fish_amr"] = fish_amr["kernels"][kname]
+            row["tow_amr"] = tow["kernels"][kname]
 
     rows = []
     for kname, replaces, src in KERNELS:

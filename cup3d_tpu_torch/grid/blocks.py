@@ -156,6 +156,12 @@ class BlockGrid:
 
     # -- geometry ----------------------------------------------------------
 
+    @property
+    def hmin(self) -> float:
+        """Spacing at the deepest allowed level (reference hmin,
+        main.cpp:15402): the resolution bodies are rasterized at."""
+        return self.h0 / (1 << (self.tree.cfg.level_max - 1))
+
     def cell_centers(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
         """(nb, bs, bs, bs, 3) physical cell-center coordinates, computed
         in f64 and rounded to ``dtype`` (the JAX package's values)."""

@@ -8,10 +8,12 @@ octree leaf keys as an (nb, 4) int64 array on the forest, else None),
 ``step``, ``dt``, ``uinf``, ``lambda_penal``, ``next_dump`` and
 ``obstacles`` (the obstacle objects, pickled with their host state only:
 chi/udef are rebuilt from it after a load).  An obstacle-free checkpoint
-written by either package restarts in the other: the port writes the
-forest's ``chi``/``udef`` as zeros, the fields it does not keep, and
-reads only ``vel`` and ``p`` there.  The port's own obstacles (the
-StefanFish) round-trip.  Unpickling never imports the JAX package: a
+written by either package restarts in the other: the port writes an
+obstacle-free forest's ``chi``/``udef`` as zeros, the fields it does not
+keep, and reads only ``vel`` and ``p`` there.  The port's own obstacles
+round-trip on both layouts (the forest's with the JAX package's layout
+of the payload: its obstacles, then CreateObstacles(0.0) rebuilds chi,
+udef and sdf).  Unpickling never imports the JAX package: a
 payload that names one of its classes (its obstacles) is refused with a
 clear error.
 """
@@ -48,7 +50,7 @@ def build_payload(driver) -> dict:
         time, step, dt = driver.time, driver.step_idx, driver.dt
         uinf, lam = driver.uinf, driver.lambda_penal
         leaves = np.asarray(driver.grid.keys, np.int64).reshape(-1, 4)
-        obstacles = []
+        obstacles = driver.obstacles
         next_dump = driver._cadence.next_dump
     else:
         s = driver.sim
@@ -187,9 +189,6 @@ def load_checkpoint(path: str, device=None):
     cfg = SimulationConfig(**payload["cfg"])
     fields = payload["fields"]
     if payload["kind"] == "amr":
-        if payload.get("obstacles"):
-            raise NotImplementedError("obstacles on the forest are not "
-                                      "ported (ROADMAP A6 sub-slice 3)")
         from cup3d_tpu_torch.grid.octree import TreeConfig
         from cup3d_tpu_torch.sim.amr import AMRSimulation, tree_from_keys
 
@@ -204,13 +203,17 @@ def load_checkpoint(path: str, device=None):
         driver.state = {k: torch.tensor(np.asarray(fields[k]),
                                         dtype=driver.dtype,
                                         device=driver.device)
-                        for k in ("vel", "p")}
+                        for k in driver.state}
         driver.time = float(payload["time"])
         driver.step_idx = int(payload["step"])
         driver.dt = float(payload["dt"])
         driver.uinf = np.asarray(payload["uinf"], np.float64)
         driver.lambda_penal = float(payload["lambda_penal"])
         driver._cadence.next_dump = float(payload["next_dump"])
+        driver.obstacles = list(payload.get("obstacles") or [])
+        for ob in driver.obstacles:
+            ob.sim = driver
+        driver.create_obstacles(0.0)  # rebuild chi/udef/sdf
         return driver
 
     from cup3d_tpu_torch.sim.simulation import Simulation

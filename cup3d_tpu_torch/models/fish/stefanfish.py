@@ -9,9 +9,9 @@ main.cpp:8960-8978, 15668-15981, on top of Fish, 7586-7617,
   (gamma) and roll toward the spawn point;
 - the RL interface: ``act()``, ``state()`` (25 values, 3 shear sensors).
 
-The SDF/udef rasterization runs on a dense window around the body
-(models/fish/rasterize.py).  The forest layout (``_rasterize_blocks``)
-waits for the fish on the forest (ROADMAP A6 sub-slice 3).
+The SDF/udef rasterization runs on a dense window around the body on
+the uniform grid, and on the candidate blocks around it on the forest
+(``_rasterize_blocks``), both through models/fish/rasterize.py.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ import torch
 
 from cup3d_tpu_torch.models.base import Obstacle, quat_to_rot, upload
 from cup3d_tpu_torch.models.fish.curvature import CurvatureDefinedFishData
-from cup3d_tpu_torch.models.fish.rasterize import rasterize_midline
+from cup3d_tpu_torch.models.fish.rasterize import (rasterize_midline,
+                                                   rasterize_points)
 from cup3d_tpu_torch.models.fish.shapes import compute_widths_heights
 
 
@@ -52,6 +53,27 @@ def _raster_window_dense(pos, rot, midline, half, h, grid_shape,
     sdf[sl] = sdf_w
     udef = torch.zeros(tuple(grid_shape) + (3,), dtype=dtype, device=dev)
     udef[sl] = udef_w
+    return sdf, udef
+
+
+def _raster_scatter_blocks(xc, idx, mpad: int, midline, position, rot):
+    """Gather the candidate blocks' cell centres, rasterize the midline
+    there and scatter into full forest arrays (sdf -1, udef 0 off the
+    candidates).  ``idx``: the candidate slots; the pass runs on
+    ``mpad`` rows, the rest taking far-away centres as the JAX package's
+    out-of-range gather fills them, and drops them."""
+    dtype, dev = xc.dtype, xc.device
+    m = idx.shape[0]
+    centers = xc[idx]
+    if mpad > m:
+        far = torch.full((mpad - m,) + tuple(xc.shape[1:]), 1e6,
+                         dtype=dtype, device=dev)
+        centers = torch.cat([centers, far])
+    sdf_c, udef_c = rasterize_points(centers, midline, position, rot)
+    sdf = torch.full(tuple(xc.shape[:4]), -1.0, dtype=dtype, device=dev)
+    sdf[idx] = sdf_c[:m]
+    udef = torch.zeros(tuple(xc.shape[:4]) + (3,), dtype=dtype, device=dev)
+    udef[idx] = udef_c[:m]
     return sdf, udef
 
 
@@ -98,10 +120,13 @@ class StefanFish(Obstacle):
         self.origC = self.position.copy()  # PID target (spawn point)
         self.r_axis: deque = deque()  # roll-axis history for bCorrectRoll
 
-        # a static rasterization window: the deformed fish stays within
-        # ~0.6 L of its centre; margin for the mollified band
-        nw = int(np.ceil(1.25 * self.length / h)) + 8
-        self._window_shape = tuple(min(nw, n) for n in sim.grid.shape)
+        # uniform layout: a static rasterization window (the deformed
+        # fish stays within ~0.6 L of its centre; margin for the mollified
+        # band); block layout: candidate blocks are found per call
+        self._is_blocks = not hasattr(sim.grid, "shape")
+        if not self._is_blocks:
+            nw = int(np.ceil(1.25 * self.length / h)) + 8
+            self._window_shape = tuple(min(nw, n) for n in sim.grid.shape)
 
     # -- geometry pipeline (Fish::create, main.cpp:10952-10958) ------------
 
@@ -194,7 +219,33 @@ class StefanFish(Obstacle):
         half = 0.5 * np.asarray(self._window_shape) * s.grid.h
         return upload(half, s.dtype, s.device)
 
+    def _rasterize_blocks(self, t: float):
+        """Forest rasterization: candidate blocks by box intersection on
+        the host (the reference's prepare_segPerBlock,
+        main.cpp:10672-10717) with the body's box padded at each block's
+        own h (ops/surface.probe_margin), one midline pass over their
+        cells, gathered from the driver's cached centres ``sim._xc``,
+        scattered into (nb, bs, bs, bs) arrays.  The candidate count is
+        padded to a multiple of 16 as in the JAX package."""
+        from cup3d_tpu_torch.ops.surface import probe_margin
+
+        s = self.sim
+        grid = s.grid
+        half = probe_margin(self.length, grid.h)  # (nb,)
+        lo = grid.origin
+        hi = grid.origin + (grid.bs * grid.h)[:, None]
+        cand = (np.all(hi > self.position - half[:, None], axis=1)
+                & np.all(lo < self.position + half[:, None], axis=1))
+        idx = np.where(cand)[0]
+        mpad = max(16, -(-len(idx) // 16) * 16)
+        pos, rot = self.pos_rot_device(s.dtype)
+        return _raster_scatter_blocks(
+            s._xc, upload(idx, torch.long, s.device), mpad,
+            self._midline_device(), pos, rot)
+
     def rasterize(self, t: float):
+        if self._is_blocks:
+            return self._rasterize_blocks(t)
         s = self.sim
         npd = np.float32 if s.dtype == torch.float32 else np.float64
         pos, rot = self.pos_rot_device(s.dtype)
@@ -335,14 +386,40 @@ class StefanFish(Obstacle):
         """Viscous traction nu (grad u + grad u^T) . n_hat at a point, with
         n_hat the outward normal from -grad(chi) (getShear,
         main.cpp:15933-15981).  Reads a 4^3 patch of the device fields: an
-        RL accessor, never called by the step."""
+        RL accessor, never called by the step.  On the forest the patch
+        lies in the leaf holding ``pos``, finest level first
+        (holdingBlockID), clamped to its interior (sensors sit on the
+        body's surface, whose blocks are at the finest level, so the
+        clamp moves it at most one cell)."""
         s = self.sim
         grid = s.grid
         pos = np.asarray(pos, np.float64)
-        h = grid.h
-        idx = np.clip(np.floor(pos / h - 0.5).astype(int), 1,
-                      np.asarray(grid.shape) - 3)
-        sl = tuple(slice(int(i) - 1, int(i) + 3) for i in idx)
+        if self._is_blocks:
+            bs = grid.bs
+            slot = -1
+            for l in range(grid.tree.cfg.level_max - 1, -1, -1):
+                hl = grid.h0 / (1 << l)
+                bpos = np.floor(pos / (bs * hl)).astype(int)
+                n = grid.tree.blocks_per_dim(l)
+                if np.any(bpos < 0) or np.any(bpos >= np.asarray(n)):
+                    continue
+                sl_ = grid._slot_maps[l][tuple(bpos)]
+                if sl_ >= 0:
+                    slot, h = int(sl_), hl
+                    bcell0 = bpos * bs
+                    break
+            if slot < 0:
+                return np.zeros(3)
+            gidx = np.floor(pos / h - 0.5).astype(int)
+            lidx = np.clip(gidx - bcell0, 1, bs - 3)
+            idx = bcell0 + lidx
+            sl = (slot,) + tuple(slice(int(i) - 1, int(i) + 3)
+                                 for i in lidx)
+        else:
+            h = grid.h
+            idx = np.clip(np.floor(pos / h - 0.5).astype(int), 1,
+                          np.asarray(grid.shape) - 3)
+            sl = tuple(slice(int(i) - 1, int(i) + 3) for i in idx)
         pv = s.state["vel"][sl].detach().cpu().numpy().astype(np.float64)
         pc = s.state["chi"][sl].detach().cpu().numpy().astype(np.float64)
         gv = np.stack(np.gradient(pv, h, axis=(0, 1, 2)), axis=-1)[1:3, 1:3, 1:3]

@@ -12,7 +12,9 @@ forest's padded geometry (parallel/forest.py) with its duck-typed tables:
 the operators call only the assembly protocol (``assemble_*``,
 ``apply``) and the grid's ``nb``, ``bs`` and ``h_column``.
 
-Not ported yet (obstacles, ROADMAP A6): ``force_integrals_blocks``.
+Not ported: ``force_integrals_blocks``, the chi-band force measure,
+which no driver of the JAX package calls (its forest's ComputeForces is
+the surface probe, ops/surface.py ``force_integrals_probe_blocks``).
 """
 
 from __future__ import annotations

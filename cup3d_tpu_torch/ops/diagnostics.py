@@ -1,6 +1,6 @@
-"""Diagnostic reductions (port of ``cup3d_tpu/ops/diagnostics.py``, the
-uniform-grid part): vorticity, divergence norms, dissipation, max
-velocity (the reference's ComputeVorticity main.cpp:8624-8745,
+"""Diagnostic reductions (port of ``cup3d_tpu/ops/diagnostics.py``):
+vorticity, divergence norms, dissipation, max velocity, the fluid's
+divergence away from the bodies on both layouts (the reference's ComputeVorticity main.cpp:8624-8745,
 ComputeDivergence 8789-8919, KernelDissipation 10347-10435, findMaxU
 8603-8623).  Results stay on the device; callers read them."""
 
@@ -92,3 +92,19 @@ def fluid_divergence_max(grid: UniformGrid, u: torch.Tensor,
         grow = g
     d = divergence_field(grid, u)
     return torch.max(torch.where(grow, torch.zeros_like(d), torch.abs(d)))
+
+
+def fluid_divergence_max_blocks(grid, vel: torch.Tensor, chi: torch.Tensor,
+                                tab) -> torch.Tensor:
+    """The forest's twin of :func:`fluid_divergence_max`: max |div u| over
+    the blocks whose chi lab (the block and its ghost halo) vanishes
+    everywhere, so at least a stencil's width from the band (the JAX
+    package's bench gate of BASELINE config #4, bench.py:1492-1502)."""
+    from cup3d_tpu_torch.ops import amr_ops
+
+    vlab = tab.assemble_vector(vel, grid.bs)
+    d = amr_ops.div_blocks(grid, vlab, tab.width)
+    clab = tab.assemble_scalar(chi, grid.bs)
+    fluid = torch.amax(clab.reshape(grid.nb, -1), dim=1) < 1e-6
+    return torch.max(torch.where(fluid[:, None, None, None], torch.abs(d),
+                                 torch.zeros_like(d)))

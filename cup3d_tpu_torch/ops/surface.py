@@ -19,8 +19,10 @@ On a dense window around the body:
 - tractions f = -P n dS + (nu/h) (grad u . n dS) and the reference's
   reductions (force/torque, thrust/drag, Pout, defPower, pLocom).
 
-The forest's block-window variants wait for the fish on the forest
-(ROADMAP A6 sub-slice 3).
+On the forest the window is gathered from the finest-level blocks
+around the body (``force_integrals_probe_blocks``); its cells that no
+finest-level block owns are invalid, and the stencils that would reach
+them fall back to shorter ones, as the reference's lab-range cascade.
 """
 
 from __future__ import annotations
@@ -59,14 +61,14 @@ def _central(f, axis):
     return 0.5 * (hi - lo)
 
 
-def surface_force_window(vel, p, chi, sdf, udef, xc, h, nu: float, cm,
-                         u_trans, omega,
+def surface_force_window(vel, p, chi, sdf, udef, valid, xc, h, nu: float,
+                         cm, u_trans, omega,
                          max_points=None) -> Dict[str, torch.Tensor]:
     """The reference's KernelComputeForces on a dense uniform window.
-    vel/udef (Wx,Wy,Wz,3), p/chi/sdf (Wx,Wy,Wz), xc (Wx,Wy,Wz,3) cell
-    centres, h the spacing, cm/u_trans/omega (3,).  Every window cell
-    holds field data (the JAX package's ``valid`` mask marks the holes of
-    a forest window, which the forest's probe brings back, ROADMAP A6).
+    vel/udef (Wx,Wy,Wz,3), p/chi/sdf (Wx,Wy,Wz), ``valid`` (Wx,Wy,Wz)
+    bool: the cell holds field data (all true on the uniform grid; false
+    in a forest window's cells that no finest-level block owns), xc
+    (Wx,Wy,Wz,3) cell centres, h the spacing, cm/u_trans/omega (3,).
     ``max_points`` (static) compacts the band to that many slots.
     Returns the force/torque/power dict ``pack_forces`` packs, with the
     surface-cell count n_surf."""
@@ -79,7 +81,7 @@ def surface_force_window(vel, p, chi, sdf, udef, xc, h, nu: float, cm,
     gphi2 = torch.sum(gphi * gphi, -1) + _EPS
     dS_w = torch.sum(gH * gphi, -1) / gphi2 * (h * h * h)
     nhat_w = -gphi / torch.sqrt(gphi2)[..., None]
-    surf_w = dS_w > 1e-12
+    surf_w = (dS_w > 1e-12) & valid
 
     # -- compact the band to K static slots (top K by dS, then in flat
     # index order) -------------------------------------------------------
@@ -111,6 +113,7 @@ def surface_force_window(vel, p, chi, sdf, udef, xc, h, nu: float, cm,
     base = (iflat0 // s1, (iflat0 // s2) % shape[1], iflat0 % s2)
     chif = chi.reshape(-1)
     velf = vel.reshape(-1, 3)
+    validf = valid.reshape(-1)
     hi = [n - 1 for n in shape]
 
     def flat(ix, iy, iz):
@@ -119,12 +122,14 @@ def surface_force_window(vel, p, chi, sdf, udef, xc, h, nu: float, cm,
                 + torch.clamp(iz, 0, hi[2]))
 
     def inwin(ix, iy, iz):
-        return ((ix >= 0) & (ix < shape[0]) & (iy >= 0) & (iy < shape[1])
-                & (iz >= 0) & (iz < shape[2]))
+        geo = ((ix >= 0) & (ix < shape[0]) & (iy >= 0) & (iy < shape[1])
+               & (iz >= 0) & (iz < shape[2]))
+        return geo & validf[flat(ix, iy, iz)]
 
     def nbhd_ok(ix, iy, iz):
         """The candidate cell and its +-1 neighbourhood are in the window
-        (the reference's lab-range check for the centred stencils)."""
+        and hold data (the reference's lab-range check for the centred
+        stencils)."""
         ok = inwin(ix, iy, iz)
         for a in range(3):
             o = [ix, iy, iz]
@@ -327,9 +332,10 @@ def _uniform_window_probe(vel, p, chi, sdf, udef, idx0, h, nu, cm, u_trans,
     sl = window_index(idx0, (wcells,) * 3)
     axes = [(idx0[a].to(dtype) + loc) * h for a in range(3)]
     xc = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    valid = torch.ones((wcells,) * 3, dtype=torch.bool, device=dev)
     return surface_force_window(
-        vel[sl], p[sl], chi[sl], sdf[sl], udef[sl], xc, h, nu, cm, u_trans,
-        omega, max_points=max_points)
+        vel[sl], p[sl], chi[sl], sdf[sl], udef[sl], valid, xc, h, nu, cm,
+        u_trans, omega, max_points=max_points)
 
 
 def force_integrals_probe_uniform(grid, ob, vel, p, chi, sdf, udef, nu, cm,
@@ -351,3 +357,84 @@ def force_integrals_probe_uniform(grid, ob, vel, p, chi, sdf, udef, nu, cm,
         vel, p, chi, sdf, udef, upload(idx0, torch.long, vel.device),
         float(npd(grid.h)), nu, cm, u_trans, omega, wcells=w,
         max_points=max_points)
+
+
+# ---------------------------------------------------------------------------
+# the forest: a window of finest-level blocks around the body
+# ---------------------------------------------------------------------------
+
+
+def block_window_slots(grid, position: np.ndarray, length: float):
+    """Host: the finest-level block slots covering the body's box.
+    Returns (slots (nbx,nby,nbz) int32, -1 where the finest level holds
+    no block there; the window's block origin (3,); the finest h).  The
+    window's size depends only on (length, h, domain), never on the
+    position."""
+    lmax = len(grid._slot_maps) - 1
+    h = grid.h0 / (1 << lmax)
+    bs = grid.bs
+    nbd = np.asarray(grid.tree.blocks_per_dim(lmax))
+    half = probe_margin(length, h)
+    nwin = np.minimum(int(np.ceil(2.0 * half / (bs * h))) + 1, nbd)
+    b0 = np.floor((position - half) / (bs * h)).astype(np.int64)
+    b0 = np.clip(b0, 0, nbd - nwin)
+    rng = [np.arange(b0[a], b0[a] + nwin[a]) for a in range(3)]
+    slots = grid._slot_maps[lmax][np.ix_(*rng)].astype(np.int32)
+    return slots, b0, h
+
+
+def gather_block_window(field: torch.Tensor, slots: torch.Tensor,
+                        shape) -> torch.Tensor:
+    """(nb, bs, bs, bs[, C]) + (nbx*nby*nbz,) device slots of a window of
+    ``shape`` = (nbx, nby, nbz) blocks -> the dense window; rows of slot
+    -1 are zeros."""
+    nbx, nby, nbz = shape
+    bs = field.shape[1]
+    trail = tuple(field.shape[4:])
+    ok = (slots >= 0).reshape((-1,) + (1,) * (field.ndim - 1))
+    flat = torch.where(ok, field[torch.clamp_min(slots, 0)],
+                       torch.zeros((), dtype=field.dtype,
+                                   device=field.device))
+    wi = flat.reshape((nbx, nby, nbz, bs, bs, bs) + trail)
+    wi = wi.movedim(3, 1).movedim(4, 3)  # (nbx, bs, nby, bs, nbz, bs, ...)
+    return wi.reshape((nbx * bs, nby * bs, nbz * bs) + trail)
+
+
+def probe_blocks_core(vel, p, ob_chi, ob_sdf, ob_udef, slots, shape, b0, h,
+                      nu, cm, u_trans, omega, max_points=None):
+    """The forest's probe: the finest-level blocks of ``slots`` (device
+    (nbx*nby*nbz,) long, -1 where the finest level holds no block) as a
+    dense window of ``shape`` blocks whose origin is ``b0`` (3,) in
+    finest-block units, then the surface probe on it, its cells of slot
+    -1 invalid."""
+    bs = vel.shape[1]
+    win = [gather_block_window(f, slots, shape)
+           for f in (vel, p, ob_chi, ob_sdf, ob_udef)]
+    ok = (slots >= 0).reshape(shape)
+    valid = ok.repeat_interleave(bs, 0).repeat_interleave(
+        bs, 1).repeat_interleave(bs, 2)
+    dtype, dev = vel.dtype, vel.device
+    # (b0 bs + i + 1/2) h in the field dtype, as the JAX package's
+    axes = [(int(b0[a]) * bs + torch.arange(shape[a] * bs, dtype=dtype,
+                                            device=dev) + 0.5) * h
+            for a in range(3)]
+    xc = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    return surface_force_window(*win[:5], valid, xc, h, nu, cm, u_trans,
+                                omega, max_points=max_points)
+
+
+def force_integrals_probe_blocks(grid, vel, p, ob_chi, ob_sdf, ob_udef, nu,
+                                 position, length, cm, u_trans, omega,
+                                 max_points=None):
+    """The forest's entry: the window's slots from the host mirror of the
+    position (no device read), the probe on the device."""
+    from cup3d_tpu_torch.models.base import upload
+
+    slots, b0, h = block_window_slots(grid, np.asarray(position), length)
+    if max_points is None:
+        max_points = probe_max_points(length, h)
+    npd = np.float32 if vel.dtype == torch.float32 else np.float64
+    return probe_blocks_core(
+        vel, p, ob_chi, ob_sdf, ob_udef,
+        upload(slots.reshape(-1), torch.long, vel.device), slots.shape,
+        b0, float(npd(h)), nu, cm, u_trans, omega, max_points=max_points)

@@ -1,20 +1,28 @@
-"""AMR simulation driver (port of the non-pipelined, obstacle-free host
-path of ``cup3d_tpu/sim/amr.py``; reference Simulation + adaptMesh,
+"""AMR simulation driver (port of the non-pipelined host path of
+``cup3d_tpu/sim/amr.py``; reference Simulation + adaptMesh,
 main.cpp:15161-15326).
 
 - the fields live on a block forest as ``(nb, bs, bs, bs[, 3])`` tensors
   that are *re-laid-out* on adaptation (grid/adapt.py);
 - the mesh adapts every ``ADAPT_EVERY`` steps and each of the first 10,
-  tagging on max |vorticity| per block (main.cpp:15314, 8540-8602), while
-  ``adapt_enabled`` is True (False freezes a converged mesh: the static
-  2-level run of BASELINE config #3);
-- startup runs up to 3*levelMax rounds of {adapt; re-IC}
-  (main.cpp:15172-15177);
-- the step is AdvectionDiffusion (RK3 on width-3 face labs) then
-  PressureProjection (getZ-preconditioned BiCGSTAB with the block-graph
-  coarse level; under ``CUP3D_FUSED=1`` the fused forest driver whose
-  stages are CUDA kernels), ending in ONE device-to-host read of the
-  solver's [residual, iterations] and max|u|.
+  tagging on max |vorticity| per block, with the blocks that touch a
+  body's interface forced to the finest level (main.cpp:15314,
+  8540-8602), while ``adapt_enabled`` is True (False freezes a converged
+  mesh: the static 2-level run of BASELINE config #3);
+- startup runs up to 3*levelMax rounds of {adapt; re-create the bodies;
+  re-IC} (main.cpp:15172-15177);
+- the step is CreateObstacles (each body's SDF on its candidate blocks,
+  the Towers chi from SDF labs assembled through the face tables),
+  AdvectionDiffusion (RK3 on width-3 face labs), UpdateObstacles (the
+  bodies' moments and the pairwise overlap counts in ONE host read, the
+  6x6 solves on the host), Penalization (the collision pass, then
+  Brinkman), PressureProjection (getZ-preconditioned BiCGSTAB with the
+  block-graph coarse level; under ``CUP3D_FUSED=1`` the fused forest
+  driver whose stages are CUDA kernels) and ComputeForces (the surface
+  probe on a window of finest-level blocks), ending in ONE
+  device-to-host read of the penalization forces, the force QoI, the
+  solver's [residual, iterations] and max|u| (BASELINE config #4: two
+  StefanFish on the adapting forest).
 
 ``simulate()`` runs through the RecoveryEngine (resilience/recovery.py)
 unless ``CUP3D_RECOVER=0``, as the uniform driver does: a rollback
@@ -36,9 +44,9 @@ mode.  Field dumps (``tdump``/``fdump``) and periodic checkpoints
 (``saveFreq``) run off the step loop, through the same sharded writer
 and async checkpointer as the uniform driver (stream/).  Runs on CUDA
 unless the caller asks for the CPU.  Not ported yet, and raising with
-their ROADMAP item: obstacles, pipelined stepping and the megastep,
-implicit diffusion, forcing and mass-flux fixing, and the vorticity
-initial condition.
+their ROADMAP item: pipelined stepping and the megastep, implicit
+diffusion, forcing and mass-flux fixing, the vorticity initial
+condition, and bodies on the sharded forest.
 """
 
 from __future__ import annotations
@@ -49,30 +57,46 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from cup3d_tpu_torch.config import SimulationConfig
+from cup3d_tpu_torch.config import SimulationConfig, parse_factory
 from cup3d_tpu_torch.grid import adapt as ad
 from cup3d_tpu_torch.grid.blocks import BlockGrid
 from cup3d_tpu_torch.grid.flux import build_flux_tables
 from cup3d_tpu_torch.grid.octree import Octree, TreeConfig
 from cup3d_tpu_torch.grid.uniform import BC
 from cup3d_tpu_torch.io.logging import BufferedLogger, Profiler
+from cup3d_tpu_torch.models.base import (FORCE_PACK, log_forces,
+                                         momentum_integrals_core,
+                                         pack_forces, pack_moments,
+                                         store_force_qoi, unpack_forces,
+                                         unpack_moments,
+                                         update_penalization_forces, upload)
 from cup3d_tpu_torch.obs.flight import FlightRecorder
 from cup3d_tpu_torch.obs.trace import StepObserver
 from cup3d_tpu_torch.ops import amr_ops, krylov
+from cup3d_tpu_torch.ops.chi import towers_chi
+from cup3d_tpu_torch.ops.penalization import (penalize,
+                                              per_obstacle_penalization_force)
 from cup3d_tpu_torch.resilience import faults
 from cup3d_tpu_torch.resilience.recovery import (RecoveryEngine,
                                                  SimulationFailure)
+from cup3d_tpu_torch.sim.data import (SimulationData,
+                                      load_obstacle_state_numpy,
+                                      obstacle_state_to_numpy)
 from cup3d_tpu_torch.sim.simulation import resolve_device
 
 ADAPT_EVERY = 20  # reference cadence (main.cpp:15314)
 FIELDS = ("vel", "p")
+#: the fields a run with bodies adds: the combined chi and udef
+BODY_FIELDS = ("chi", "udef")
+_EPS = 1e-6
 
 
-def _unsupported(cfg: SimulationConfig) -> Optional[str]:
-    if cfg.factory_content or cfg.factory:
-        return "obstacles on the forest (ROADMAP A6)"
+def _unsupported(cfg: SimulationConfig, mesh=None) -> Optional[str]:
     if cfg.pipelined:
-        return "pipelined AMR stepping and the megastep (ROADMAP A4)"
+        return ("pipelined AMR stepping and the megastep (ROADMAP A6, the "
+                "pipelined forest; A4 ported the uniform grid's)")
+    if mesh is not None and (cfg.factory_content or cfg.factory):
+        return "obstacles on the sharded forest (ROADMAP A6/A7)"
     # the uniform grid's versions of these are ported (ROADMAP A5)
     if cfg.implicitDiffusion:
         return ("implicit diffusion on the forest (ROADMAP A6; A5 ported "
@@ -89,7 +113,7 @@ def _unsupported(cfg: SimulationConfig) -> Optional[str]:
 class AMRSimulation:
     def __init__(self, cfg: SimulationConfig, tree: Optional[Octree] = None,
                  device=None, mesh=None):
-        missing = _unsupported(cfg)
+        missing = _unsupported(cfg, mesh)
         if missing:
             raise NotImplementedError(f"not ported yet: {missing}")
         self.cfg = cfg
@@ -110,6 +134,14 @@ class AMRSimulation:
         self.grid = BlockGrid(tree, cfg.extents,
                               tuple(BC(b) for b in cfg.bc), cfg.block_size)
         self.state: Dict[str, torch.Tensor] = {}
+        #: the bodies (models/), built by init() from the factory lines
+        self.obstacles: List = []
+        self._with_bodies = bool(cfg.resolved_factory_content())
+        #: steps whose collision pass fired
+        self.collisions = 0
+        self._dlm_dev_cache = None
+        self._lambda_dev_cache = None
+        self._lambda_dev_val = None
         self.time = 0.0
         self.step_idx = 0
         self.dt = 0.0
@@ -158,6 +190,7 @@ class AMRSimulation:
                 "levels": sorted(set(int(v) for v in g.level)),
                 "shards": 1 if self.mesh is None else self.mesh.D,
                 "step": self.step_idx, "time": self.time, "dt": self.dt,
+                "obstacles": [type(ob).__name__ for ob in self.obstacles],
                 "checkpointer": self._checkpointer.health(),
                 "dumper": self._dumper.health()}
 
@@ -207,6 +240,11 @@ class AMRSimulation:
         # bucketed driver's values)
         self._vol = torch.as_tensor((g.h ** 3).reshape(g.nb, 1, 1, 1),
                                     dtype=self.dtype, device=dev)
+        # the bodies' per-block spacing and cell centres (f64 rounded to
+        # the field dtype, the JAX package's values)
+        self._h_col = g.h_column(self.dtype, dev)
+        self._xc = (g.cell_centers(self.dtype, dev) if self._with_bodies
+                    else None)
         self._slot0 = 0
         if cfg.bMeanConstraint in (1, 3):
             self._slot0 = int(np.lexsort(
@@ -239,6 +277,25 @@ class AMRSimulation:
         kw = dict(dtype=self.dtype, device=self.device)
         self.state = {"vel": self._pad(g.zeros(3, **kw)),
                       "p": self._pad(g.zeros(0, **kw))}
+        if self._with_bodies:
+            self.state["chi"] = g.zeros(0, **kw)
+            self.state["udef"] = g.zeros(3, **kw)
+
+    # -- the surface the bodies address as their ``sim`` ---------------------
+
+    @property
+    def step(self) -> int:
+        """The step counter under SimulationData's name (the fish's PID)."""
+        return self.step_idx
+
+    @property
+    def xc(self) -> torch.Tensor:
+        """The forest's cell centres (nb, bs, bs, bs, 3) on the device."""
+        return self._xc
+
+    # the uniform grid's, over this forest's ``xc`` and lambda caches
+    ubody = SimulationData.ubody
+    lambda_device = SimulationData.lambda_device
 
     def _pad(self, field: torch.Tensor) -> torch.Tensor:
         """Block-axis padding to the sharded forest's nb_pad rows (zero
@@ -258,36 +315,186 @@ class AMRSimulation:
         return self._uinf_dev
 
     def _maxu(self) -> torch.Tensor:
+        """max|u + uinf| over the fluid and, with bodies, max|udef| (the
+        body kinematics bound the CFL at once)."""
         vel = self._unpad(self.state["vel"])
-        return torch.max(torch.abs(vel + self.uinf_device()))
+        umax = torch.max(torch.abs(vel + self.uinf_device()))
+        if self.obstacles:
+            umax = torch.maximum(umax,
+                                 torch.max(torch.abs(self.state["udef"])))
+        return umax
 
     # -- adaptation ----------------------------------------------------------
 
+    def scores(self):
+        """(nb,) max |vorticity| per block and, with bodies, (nb,) bool:
+        the block's chi lab has a gradient (it touches an interface;
+        None without bodies), on the device."""
+        vort = amr_ops.vorticity_score(self._geom, self.state["vel"],
+                                       self._tab1)
+        if not self.obstacles:
+            return vort, None
+        return vort, amr_ops.gradchi_mask(self._geom, self.state["chi"],
+                                          self._tab1)
+
     def adapt_mesh(self) -> bool:
-        """Tag on max |vorticity| per block (no bodies: the level cap is
-        levelMaxVorticity everywhere) and apply the validated states."""
+        """Tag on max |vorticity| per block, the blocks at a body's
+        interface forced to refine (bAdaptChiGradient) up to levelMax,
+        the others capped at levelMaxVorticity; apply the validated
+        states."""
         g, cfg = self.grid, self.cfg
-        score = amr_ops.vorticity_score(self._geom, self.state["vel"],
-                                        self._tab1)
-        score = score[: g.nb].cpu().numpy().astype(np.float64)
-        cap = np.full(g.nb, cfg.levelMaxVorticity - 1)
+        vort, near = self.scores()
+        if near is None:
+            score = vort[: g.nb].cpu().numpy().astype(np.float64)
+            near = np.zeros(g.nb, bool)
+        else:  # one read of both
+            both = torch.cat([vort[: g.nb], near[: g.nb].to(vort.dtype)])
+            both = both.cpu().numpy().astype(np.float64)
+            score, near = both[: g.nb], both[g.nb:] > 0.5
+        if cfg.bAdaptChiGradient and near.any():
+            score = np.where(near, np.inf, score)
+        cap = np.where(near, cfg.levelMax - 1, cfg.levelMaxVorticity - 1)
         return self._apply_states(
             ad.tag_states(g, score, cfg.Rtol, cfg.Ctol, cap))
 
     def _apply_states(self, states) -> bool:
-        """Plan -> transfer -> rebuild; False when nothing changes."""
+        """Plan -> transfer -> rebuild; False when nothing changes.  Every
+        field of the state is carried, the bodies' chi and udef too (the
+        next CreateObstacles rasterizes them anew)."""
         g = self.grid
         plan = ad.adapt(g, states)
         if plan is None:
             return False
-        for k in FIELDS:
+        for k in self.state:
             self.state[k] = ad.transfer_field(g, plan,
                                               self._unpad(self.state[k]))
         self.grid = plan.new_grid
         self._rebuild()  # on a mesh: a new ShardedForest (a re-shard)
-        for k in FIELDS:
+        for k in self.state:
             self.state[k] = self._pad(self.state[k])
         return True
+
+    # -- bodies ----------------------------------------------------------------
+
+    def _add_obstacles(self) -> None:
+        content = self.cfg.resolved_factory_content()
+        if not content:
+            return
+        from cup3d_tpu_torch.models.factory import make_obstacles
+
+        self.obstacles = make_obstacles(self, parse_factory(content))
+
+    def create_obstacles(self, dt: float = 0.0) -> None:
+        """The reference's CreateObstacles (main.cpp:13589-13621) on the
+        forest: each body's shape kinematics and SDF on its blocks, its
+        Towers chi from the SDF lab assembled through the face tables
+        (the ghosts interpolated across coarse-fine faces), its udef
+        masked to chi > 0, then the chi-weighted combined fields."""
+        if not self.obstacles:
+            return
+        fixed = [ob for ob in self.obstacles if ob.bFixFrameOfRef]
+        if fixed:
+            self.uinf = -np.mean([ob.transVel for ob in fixed], axis=0)
+        bs = self.grid.bs
+        chis, udefs = [], []
+        for ob in self.obstacles:
+            ob.update_shape(self.time, dt)
+            sdf, udef = ob.rasterize(self.time)
+            chi = towers_chi(self._tab1.assemble_scalar(sdf, bs),
+                             self._h_col)
+            if udef is None:
+                udef = torch.zeros_like(self._xc)
+            else:
+                udef = udef * (chi > 0)[..., None]
+            ob.sdf, ob.chi, ob.udef = sdf, chi, udef
+            chis.append(chi)
+            udefs.append(udef)
+        stack = torch.stack(chis)
+        self.state["chi"] = torch.amax(stack, dim=0)
+        den = torch.clamp_min(torch.sum(stack, dim=0), _EPS)[..., None]
+        self.state["udef"] = torch.sum(
+            stack[..., None] * torch.stack(udefs), dim=0) / den
+
+    def _body_velocity(self) -> torch.Tensor:
+        """The chi-weighted combined body velocity field."""
+        chis = torch.stack([ob.chi for ob in self.obstacles])
+        num = sum(ob.chi[..., None] * ob.body_velocity_field()
+                  for ob in self.obstacles)
+        den = torch.clamp_min(torch.sum(chis, dim=0), _EPS)[..., None]
+        return num / den
+
+    def _update_obstacles(self, dt: float) -> dict:
+        """UpdateObstacles: every body's 19 moments and the pairwise
+        overlap counts (the collision pre-check) in ONE host read, then
+        the host 6x6 solves and rigid updates.  Returns the pre-check
+        counts by pair."""
+        from cup3d_tpu_torch.models.collisions import overlap_count
+
+        obs, vel = self.obstacles, self.state["vel"]
+        n = len(obs)
+        cms = upload(np.stack([ob.centerOfMass for ob in obs]), self.dtype,
+                     self.device)
+        parts = [pack_moments(momentum_integrals_core(
+            self._xc, self._vol, ob.chi, vel, cms[i]))
+            for i, ob in enumerate(obs)]
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        parts += [overlap_count(obs[i].chi, obs[j].chi).to(self.dtype)
+                  .reshape(1) for i, j in pairs]
+        vals = torch.cat(parts).cpu().numpy().astype(np.float64)
+        precheck = {p: float(v) for p, v in zip(pairs, vals[n * 19:])}
+        for ob, row in zip(obs, vals[: n * 19].reshape(n, 19)):
+            ob.compute_velocities(unpack_moments(row))
+            ob.update(dt)
+        return precheck
+
+    def _penalization(self, dt: float, dt_dev, precheck: dict) -> None:
+        """The collision pass (more than one body), then Brinkman toward
+        the combined body velocity and the penalization forces (their
+        rows join the step's read)."""
+        s, obs = self.state, self.obstacles
+        if len(obs) > 1:
+            from cup3d_tpu_torch.models.collisions import (
+                prevent_colliding_obstacles)
+
+            def gradchi(chi):
+                lab = self._tab1.assemble_scalar(chi, self.grid.bs)
+                return amr_ops.grad_blocks(self._geom, lab, self._tab1.width)
+
+            if prevent_colliding_obstacles(
+                    obs, [ob.body_velocity_field() for ob in obs], gradchi,
+                    self._xc, dt, precheck_counts=precheck):
+                self.collisions += 1
+        vel_old = s["vel"]
+        s["vel"] = penalize(vel_old, s["chi"], self._body_velocity(),
+                            self.lambda_device(dt_dev), dt_dev)
+
+        def penal_force(vn, vo, chis, dt_, cms):
+            return per_obstacle_penalization_force(vn, vo, chis, dt_,
+                                                   self._vol, self._xc, cms)
+
+        PF = update_penalization_forces(obs, penal_force, s["vel"], vel_old,
+                                        dt_dev, self.dtype)
+        self._pending_parts.append(("penal", PF.reshape(-1)))
+
+    def _compute_forces(self) -> None:
+        """ComputeForces: each body's force/torque/power QoI from the
+        surface probe on a window of finest-level blocks (reference
+        ComputeForces, main.cpp:12250-12503); the rows join the step's
+        read."""
+        from cup3d_tpu_torch.ops.surface import (
+            force_integrals_probe_blocks, obstacle_probe_budget)
+
+        s, obs = self.state, self.obstacles
+        h_fine = float(self.grid.h.min())
+        kin = upload(np.stack([np.stack([ob.centerOfMass, ob.transVel,
+                                         ob.angVel]) for ob in obs]),
+                     self.dtype, self.device)
+        rows = [pack_forces(force_integrals_probe_blocks(
+            self.grid, s["vel"], s["p"], ob.chi, ob.sdf, ob.udef, self.nu,
+            ob.position, ob.length, kin[i, 0], kin[i, 1], kin[i, 2],
+            max_points=obstacle_probe_budget(ob, h_fine)))
+            for i, ob in enumerate(obs)]
+        self._pending_parts.append(("forces", torch.stack(rows).reshape(-1)))
 
     # -- initialization ------------------------------------------------------
 
@@ -304,11 +511,15 @@ class AMRSimulation:
         self.state["p"] = self._pad(g.zeros(0, **kw))
 
     def init(self) -> None:
-        """IC, then up to 3*levelMax adaptation rounds to converge the
-        initial grid (main.cpp:15163-15178)."""
+        """The bodies, the IC, then up to 3*levelMax rounds of {adapt;
+        re-create the bodies; re-IC} to converge the initial grid onto
+        them (main.cpp:15163-15178)."""
+        self._add_obstacles()
+        self.create_obstacles()
         self._ic()
         for _ in range(3 * self.cfg.levelMax):
             changed = self.adapt_mesh()
+            self.create_obstacles()
             self._ic()
             if not changed:
                 break
@@ -357,6 +568,8 @@ class AMRSimulation:
             raise SimulationFailure(
                 "dt-collapse", f"dt policy collapse: dt={self.dt:.3g}",
                 extra)
+        if cfg.DLM > 0:
+            self.lambda_penal = cfg.DLM / self.dt
         return self.dt
 
     # -- output ------------------------------------------------------------
@@ -377,14 +590,16 @@ class AMRSimulation:
 
     def dump_fields(self) -> None:
         """Stage this step's forest fields (block-major, the real blocks'
-        rows) for the sharded writer.  The forest carries no body, so its
-        chi is zero, as the JAX package's obstacle-free forest's."""
+        rows) for the sharded writer; chi is zero without bodies, as the
+        JAX package's obstacle-free forest's."""
         import os
 
         from cup3d_tpu_torch.io import dump as dmp
 
         vel = self._unpad(self.state["vel"])
-        view = {"vel": vel, "chi": torch.zeros_like(vel[..., 0])}
+        chi = self.state.get("chi")
+        view = {"vel": vel, "chi": (torch.zeros_like(vel[..., 0])
+                                    if chi is None else chi)}
 
         def omega_mag(_vel):
             om = amr_ops.curl_blocks(
@@ -418,25 +633,41 @@ class AMRSimulation:
         t0 = time.perf_counter()
         self._maybe_dump_save()
         dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
+        # the frame velocity of the step's start: CreateObstacles moves
+        # the swimming frame for the rigid update, not for the advection
+        # (the JAX host path's order)
         uinf = self.uinf_device()
         if self.adapt_enabled and (
                 self.step_idx < 10 or self.step_idx % ADAPT_EVERY == 0):
             with prof("AdaptMesh"):
                 self.adapt_mesh()
+        if self.obstacles:
+            with prof("CreateObstacles"):
+                self.create_obstacles(dt)
         g, geom = self.grid, self._geom
         with prof("AdvectionDiffusion"):
             s["vel"] = amr_ops.rk3_step_blocks(geom, s["vel"], dt_dev,
                                                self.nu, uinf, self._tab3,
                                                self._ftab)
+        if self.obstacles:
+            with prof("UpdateObstacles"):
+                precheck = self._update_obstacles(dt)
+            with prof("Penalization"):
+                self._penalization(dt, dt_dev, precheck)
         with prof("PressureProjection"):
             # warm start from the previous pressure; after step_2nd_start
             # the reference's increment form (main.cpp:15087-15100)
             s["vel"], s["p"], psolve = amr_ops.project_blocks(
                 geom, s["vel"], dt_dev, self._solver, self._tab1, self._ftab,
+                chi=s.get("chi") if self.obstacles else None,
+                udef=s.get("udef") if self.obstacles else None,
                 p_init=s["p"],
                 second_order=self.step_idx >= self.cfg.step_2nd_start,
                 with_stats=True)
             self._pending_parts.append(("psolve", psolve))
+        if self.obstacles:
+            with prof("ComputeForces"):
+                self._compute_forces()
         self._log_diagnostics()
         with prof("SyncQoI"):
             row = self._consume_step_pack()
@@ -452,6 +683,7 @@ class AMRSimulation:
 
     def _consume_step_pack(self) -> dict:
         """ONE blocking host read for everything the step produced: the
+        penalization forces and the force QoI (forces_<i>.txt), the
         solver's [residual, iterations] (on to the flight recorder) and
         max|u| for the next dt."""
         parts = self._pending_parts
@@ -471,6 +703,15 @@ class AMRSimulation:
                 self._obs.note_solver(
                     self.step_idx, seg[1], seg[0],
                     cap=getattr(self._solver, "maxiter", None))
+            elif name == "penal":
+                for i, ob in enumerate(self.obstacles):
+                    ob.penal_force = np.asarray(seg[6 * i:6 * i + 3])
+                    ob.penal_torque = np.asarray(seg[6 * i + 3:6 * i + 6])
+            elif name == "forces":
+                for i, ob in enumerate(self.obstacles):
+                    store_force_qoi(ob, unpack_forces(
+                        seg[FORCE_PACK * i:FORCE_PACK * (i + 1)]))
+                    log_forces(self.logger, i, self.time, ob)
         return row
 
     def _log_diagnostics(self) -> None:
@@ -498,7 +739,11 @@ class AMRSimulation:
         """In-place rollback to a ``build_payload``-shaped snapshot: the
         forest of its leaf keys (the live grid and its tables when the
         keys are the live forest's, else a rebuild), its fields cloned in
-        (the snapshot survives repeated restores) and its scalars."""
+        (the snapshot survives repeated restores), its scalars, and its
+        bodies unpickled from their host state, their chi/udef/sdf
+        rebuilt by CreateObstacles(0.0)."""
+        import pickle
+
         keys = [tuple(int(v) for v in k) for k in payload["leaves"]]
         if keys != self.grid.keys:
             self.grid = grid_from_keys(self.grid, keys)
@@ -511,9 +756,17 @@ class AMRSimulation:
         self.uinf = np.asarray(payload["uinf"], np.float64)
         self.lambda_penal = float(payload["lambda_penal"])
         self._cadence.next_dump = float(payload["next_dump"])
+        obstacles = payload.get("obstacles") or []
+        if isinstance(obstacles, bytes):
+            obstacles = pickle.loads(obstacles)
+        self.obstacles = list(obstacles)
+        for ob in self.obstacles:
+            ob.sim = self
         self._pending_parts = []
         self._umax_next = None
         self._last_umax = None
+        if self.obstacles:
+            self.create_obstacles(0.0)
 
     def _resilience_zero_pressure(self) -> None:
         """Ladder stage 'zero-guess': the next solve starts from p = 0."""
@@ -594,38 +847,50 @@ def grid_from_keys(like: BlockGrid, keys) -> BlockGrid:
 
 def state_to_numpy(sim: AMRSimulation):
     """(arrays, scalars) in the form :func:`load_state_numpy` takes: the
-    octree's leaf keys in slot order ``keys`` (nb, 4) and the ``vel``/``p``
-    block fields, plus time/step/dt/uinf."""
-    arrays = {k: sim._unpad(sim.state[k]).detach().cpu().numpy()
-              for k in FIELDS}
+    octree's leaf keys in slot order ``keys`` (nb, 4) and the block
+    fields (``vel``/``p``, and ``chi``/``udef`` with bodies), plus
+    time/step/dt/uinf and, with bodies, ``bodies``: their host state
+    (sim/data.obstacle_state_to_numpy: rigid mirrors, gait, PID)."""
+    arrays = {k: sim._unpad(v).detach().cpu().numpy()
+              for k, v in sim.state.items()}
     arrays["keys"] = np.asarray(sim.grid.keys, np.int64).reshape(-1, 4)
     scalars = {"time": sim.time, "step": sim.step_idx, "dt": sim.dt,
                "uinf": np.array(sim.uinf, dtype=np.float64)}
+    if sim.obstacles:
+        scalars["bodies"] = obstacle_state_to_numpy(sim)
     return arrays, scalars
 
 
 def load_state_numpy(sim: AMRSimulation, arrays: Dict[str, np.ndarray],
                      scalars: Dict[str, object]) -> None:
-    """Set ``sim``'s forest and fields from numpy, e.g. a JAX run's
-    ``keys = np.asarray(jax_sim.grid.keys)``, ``vel``/``p`` (its unpadded
-    ``[:nb]`` rows, in its slot order) and its time/step/dt/uinf.  The
-    keys rebuild the octree; the fields must be in the order of those
-    keys, which is the Hilbert order both packages use."""
+    """Set ``sim``'s forest, fields and bodies from numpy, e.g. a JAX
+    run's ``keys = np.asarray(jax_sim.grid.keys)``, its unpadded
+    ``[:nb]`` rows of ``vel``/``p`` (and ``chi``/``udef`` when ``sim``
+    has bodies), in its slot order, its time/step/dt/uinf and, with
+    bodies, ``scalars["bodies"]`` =
+    ``sim.data.obstacle_state_to_numpy(jax_sim)``.  The keys rebuild the
+    octree; the fields must be in the order of those keys, which is the
+    Hilbert order both packages use.  The bodies' own chi/udef/sdf are
+    rebuilt by the next step's CreateObstacles."""
     grid = grid_from_keys(sim.grid, np.asarray(arrays["keys"]))
     bs = grid.bs
-    want = {"vel": (grid.nb, bs, bs, bs, 3), "p": (grid.nb, bs, bs, bs)}
-    for name in FIELDS:
+    names = FIELDS + (BODY_FIELDS if sim._with_bodies else ())
+    want = {"vel": (grid.nb, bs, bs, bs, 3), "p": (grid.nb, bs, bs, bs),
+            "chi": (grid.nb, bs, bs, bs), "udef": (grid.nb, bs, bs, bs, 3)}
+    for name in names:
         a = np.asarray(arrays[name])
         if a.shape != want[name]:
             raise ValueError(f"{name}: shape {a.shape}, expected "
                              f"{want[name]}")
     sim.grid = grid
     sim._rebuild()
-    for name in FIELDS:
+    for name in names:
         sim.state[name] = sim._pad(torch.tensor(
             np.asarray(arrays[name]), dtype=sim.dtype, device=sim.device))
     sim.time = float(scalars["time"])
     sim.step_idx = int(scalars["step"])
     sim.dt = float(scalars["dt"])
     sim.uinf = np.asarray(scalars["uinf"], dtype=np.float64).reshape(3)
+    if scalars.get("bodies") is not None:
+        load_obstacle_state_numpy(sim, scalars["bodies"])
     sim._umax_next = None

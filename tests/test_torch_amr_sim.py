@@ -12,7 +12,13 @@ lies at least 0.1 from either threshold, far outside rounding.
 - ``build_driver`` with levelMax 2 and ``-device cpu`` gives the AMR
   driver, and the default device is CUDA (raising without one);
 - the JAX state carries into the port through ``load_state_numpy`` and
-  steps on to the same answer.
+  steps on to the same answer;
+- regrids while stepping, held to JAX: one StefanFish towed at 1.0
+  through a bpd-1 forest of levelMax 3 (finest h 1/32, fixed dt 0.01)
+  leaves the periodic image of one octant and enters another within 4
+  steps, so the forest coarsens and refines again; after each regrid the
+  leaf keys are equal and the transferred vel, p, chi and udef within
+  1e-5 of their scales.
 """
 
 import os
@@ -164,7 +170,7 @@ def test_build_driver_dispatch_and_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-factory-content", "sphere", "L=0.1"], "A6"),
+    (["-factory-content", "sphere L=0.1", "-pipelined", "1"], "A6"),
     (["-pipelined", "1"], "A4"),
     (["-implicitDiffusion", "1"], "A5"),
     (["-bFixMassFlux", "1"], "A5"),
@@ -194,3 +200,98 @@ def test_scan_k_runs_on_the_forest(tmp_path):
         fields.append({n: v.clone() for n, v in d.state.items()})
     for n in fields[0]:
         assert torch.equal(fields[0][n], fields[1][n]), n
+
+
+TOW_ARGV = ("-bpdx 1 -bpdy 1 -bpdz 1 -levelMax 3 -levelStart 2 -extent 1 "
+            "-Rtol 5 -Ctol 0.1 -nu 1e-3 -rampup 0 -dt 0.01 "
+            "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+            "-tend 0 -nsteps 4 -verbose 0").split()
+TOWED = ("StefanFish L=0.4 T=1.0 xpos=0.2 ypos=0.265625 zpos=0.265625 "
+         "xvel=1.0 bForcedInSimFrame=1 heightProfile=danio "
+         "widthProfile=stefan")
+TOW_STEPS = 4
+
+
+def _watch_regrids(d, log):
+    """Record (step, stepping, keys, unpadded fields) after each regrid
+    that changed the forest."""
+    apply = d._apply_states
+
+    def hook(states):
+        changed = apply(states)
+        if changed:
+            nb = d.grid.nb
+            fields = {k: np.array(np.asarray(d._unpad(d.state[k])))[:nb]
+                      for k in ("vel", "p", "chi", "udef")}
+            log.append((d.step_idx, getattr(d, "_stepping", False),
+                        list(d.grid.keys), fields))
+        return changed
+
+    d._apply_states = hook
+
+
+@pytest.fixture(scope="module")
+def towed(tmp_path_factory):
+    """The towed fish on both drivers: init, then TOW_STEPS steps, every
+    regrid recorded; the port's tag scores at every adaptation."""
+    saved = {k: os.environ.get(k) for k in ("CUP3D_FUSED", "CUP3D_BUCKET")}
+    os.environ.pop("CUP3D_FUSED", None)
+    os.environ["CUP3D_BUCKET"] = "0"  # the JAX package's unpadded path
+    try:
+        from cup3d_tpu.__main__ import build_driver as jbuild
+
+        js = jbuild(TOW_ARGV + ["-path4serialization",
+                                str(tmp_path_factory.mktemp("jax")),
+                                "-factory-content", TOWED])
+        os.environ["CUP3D_FUSED"] = "1"
+        ts = tmain.build_driver(TOW_ARGV + [
+            "-path4serialization", str(tmp_path_factory.mktemp("torch")),
+            "-factory-content", TOWED, "-device", "cpu"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {"j": [], "t": [], "scores": [], "t_nb": [], "j_nb": []}
+    _watch_regrids(js, out["j"])
+    _watch_regrids(ts, out["t"])
+    adapt = ts.adapt_mesh
+
+    def adapt_hook():
+        vort, near = ts.scores()
+        out["scores"].append((vort.numpy().copy(), near.numpy().copy()))
+        return adapt()
+
+    ts.adapt_mesh = adapt_hook
+    js.init()
+    ts.init()
+    js._stepping = ts._stepping = True
+    for _ in range(TOW_STEPS):
+        for d, nbs in ((js, out["j_nb"]), (ts, out["t_nb"])):
+            d.advance(d.calc_max_timestep())
+            nbs.append(d.grid.nb)
+    return out
+
+
+def test_regrids_while_stepping_match_jax(towed):
+    j, t = towed["j"], towed["t"]
+    assert towed["t_nb"] == towed["j_nb"]
+    during = [r for r in t if r[1]]
+    # the forest changed while stepping (not only in init), both ways
+    assert len(during) >= 2 and len(set(towed["t_nb"])) >= 2
+    assert [(r[0], r[1]) for r in t] == [(r[0], r[1]) for r in j]
+    for (_, stepping, jk, jf), (_, _, tk, tf) in zip(j, t):
+        assert tk == jk
+        for k in ("vel", "p", "chi", "udef"):
+            scale = np.abs(jf[k]).max()
+            # while stepping every field is non-zero (in init the fluid
+            # is at rest: equal zeros)
+            assert scale > 0 or not stepping, k
+            assert np.abs(tf[k] - jf[k]).max() <= 1e-5 * scale, k
+    # no tag decision within rounding of a threshold: away from the
+    # bodies every score is at least 1% off Rtol 5 and Ctol 0.1
+    for vort, near in towed["scores"]:
+        free = vort[~near]
+        assert np.min(np.abs(free - 5.0)) > 0.05
+        assert np.min(np.abs(free - 0.1)) > 1e-3

@@ -17,7 +17,8 @@ state), and back.  Then:
   rollbacks as the JAX engine (warm-restart, zero-guess, tile-only), the
   same step and time, velocity within 1e-5 of max|u|;
 - a checkpoint round trip with the fish on the port;
-- more than one body, and bodies other than the fish, are refused.
+- two fish, the sphere and the foil build on the forest too; pipelined
+  stepping with a body on the forest is refused (ROADMAP A6).
 """
 
 import pickle
@@ -231,8 +232,10 @@ def test_checkpoint_round_trip_with_the_fish(tmp_path):
                                   "sphere L=0.1", "naca L=0.2"])
 def test_other_bodies_are_refused(tmp_path, body):
     """Two fish, the sphere and the foil run on the uniform grid (ROADMAP
-    A5, tests/test_torch_bodies.py); the forest still refuses every body
-    (A6)."""
+    A5, tests/test_torch_bodies.py) and now build on the forest as well:
+    its init() rasterizes each onto the finest level; only pipelined
+    stepping with a body on the forest is still refused (A6, the
+    pipelined forest)."""
     argv = twins.argv("fish", tmp_path, 1)
     argv[-1] = body
     d = build_driver(argv + ["-device", "cpu"])
@@ -242,5 +245,18 @@ def test_other_bodies_are_refused(tmp_path, body):
 
     from cup3d_tpu_torch.sim.amr import AMRSimulation
 
+    cfg = dataclasses.replace(d.cfg, levelMax=2, levelStart=1, bpdx=2,
+                              bpdy=2, bpdz=2)
+    f = AMRSimulation(cfg, device="cpu")
+    f.init()
+    assert len(f.obstacles) == len(body.splitlines())
+    # the body's volume is the uniform grid's at the same finest h (the
+    # foil is thinner than a cell there: no cell of either is inside)
+    vol = float(torch.sum(f.state["chi"] * f.grid.h_column() ** 3))
+    d.pipeline[0](0.0)  # the uniform grid's CreateObstacles at t = 0
+    want = float(d.sim.state["chi"].sum()) * d.sim.grid.h ** 3
+    assert abs(vol - want) <= 1e-5 * want
+    near = f.scores()[1].numpy()
+    assert near.any() == (want > 0) and np.all(f.grid.level[near] == 1)
     with pytest.raises(NotImplementedError, match="A6"):
-        AMRSimulation(dataclasses.replace(d.cfg, levelMax=2), device="cpu")
+        AMRSimulation(dataclasses.replace(cfg, pipelined=True), device="cpu")

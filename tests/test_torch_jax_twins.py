@@ -13,8 +13,15 @@ ladder may have rebuilt.  Two configurations are Taylor-Green runs of
 level 0 (8 blocks; Rtol/Ctol keep it there).  The third, "fish", is
 BASELINE config #2 (one self-propelled StefanFish, iterative Poisson at
 1e-6/1e-4, non-pipelined) cut to 32^3, its centre on a cell centre (the
-body's section is thinner than a cell at 32^3).
+body's section is thinner than a cell at 32^3).  The fourth,
+"amr_fish", is BASELINE config #4 (run.sh's two StefanFish on the
+adapting forest, the bench's factory lines) cut to bpd 1, levelMax 3,
+levelStart 2 (finest h 1/32, the fish twin's), the bodies' centres on
+cell centres in y and z; its JAX driver runs the unpadded host path
+(``CUP3D_BUCKET=0``, the JAX package's equivalence baseline).
 """
+
+import os
 
 import pickle
 
@@ -33,17 +40,31 @@ FISH = ("-bpdx 4 -bpdy 4 -bpdz 4 -levelMax 1 -extent 1 -CFL 0.4 -nu 1e-3 "
 FISH_BODY = ("StefanFish L=0.4 T=1.0 xpos=0.5 ypos=0.515625 zpos=0.515625 "
              "bFixFrameOfRef=1 heightProfile=danio widthProfile=stefan")
 
+AMR_FISH = ("-bpdx 1 -bpdy 1 -bpdz 1 -levelMax 3 -levelStart 2 -extent 1 "
+            "-Rtol 5 -Ctol 0.1 -CFL 0.4 -nu 0.001 -rampup 100 "
+            "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+            "-verbose 0")
+TWO_FISH = ("StefanFish L=0.4 T=1.0 xpos=0.3 ypos=0.515625 zpos=0.515625 "
+            "planarAngle=180 heightProfile=danio widthProfile=stefan "
+            "bFixFrameOfRef=1\n"
+            "StefanFish L=0.4 T=1.0 xpos=0.7 ypos=0.515625 zpos=0.515625 "
+            "heightProfile=danio widthProfile=stefan")
+
 _drivers = {}
 
 
 def argv(kind: str, tmp, nsteps: int) -> list:
-    """The CLI arguments of ``kind`` ("uniform", "amr" or "fish"),
-    stopping after ``nsteps`` steps and writing under ``tmp``."""
-    base = {"uniform": UNIFORM, "amr": FOREST, "fish": FISH}[kind]
+    """The CLI arguments of ``kind`` ("uniform", "amr", "fish" or
+    "amr_fish"), stopping after ``nsteps`` steps and writing under
+    ``tmp``."""
+    base = {"uniform": UNIFORM, "amr": FOREST, "fish": FISH,
+            "amr_fish": AMR_FISH}[kind]
     out = (f"{base} -tend 0 -nsteps {nsteps} "
            f"-path4serialization {tmp}").split()
     if kind == "fish":
         out += ["-factory-content", FISH_BODY]
+    elif kind == "amr_fish":
+        out += ["-factory-content", TWO_FISH]
     return out
 
 
@@ -57,7 +78,16 @@ def jax_driver(kind: str, tmp, nsteps: int):
     from cup3d_tpu.io.checkpoint import build_payload
 
     if kind not in _drivers:
-        d = build_driver(argv(kind, tmp, nsteps))
+        prev = os.environ.get("CUP3D_BUCKET")
+        if kind == "amr_fish":  # read when the driver is built
+            os.environ["CUP3D_BUCKET"] = "0"
+        try:
+            d = build_driver(argv(kind, tmp, nsteps))
+        finally:
+            if prev is None:
+                os.environ.pop("CUP3D_BUCKET", None)
+            else:
+                os.environ["CUP3D_BUCKET"] = prev
         d.init()
         p = build_payload(d)
         # the step jits donate the live fields: keep copies
