@@ -146,13 +146,52 @@ each of which raises on a fault (nothing is caught):
     iterations, and the five against their plain versions (rerun
     bitwise) on the topology of its last regrid.
 
+23. BASELINE config #3 as the bench runs it (bench.py bench_amr_tgv:
+    ``-pipelined 1``, the mesh frozen after init, on the device dt chain
+    on the card): the bench's first step, 9 warm-up and 10 timed steps
+    (the trimmed mean of its _time_steps_robust) beside phase 9's host
+    path, with the forest kernels' counters set to 0 just before and
+    read just after (each equal to the executed iterations times its
+    launches per iteration); max|div u| under 0.05; the QoI stream's
+    bytes (streamed and staged) and stall, a profiler window; the
+    bench's regrid probe (adaptation on, 2 warm-up and 22 timed steps,
+    steady and regrid steps apart, blocks, regrids, the scores
+    prefetch's hits and misses); 5 fixed-dt steps pipelined and on the
+    host path from one state, kinetic energy within 1e-4 relative; the
+    host path's step in the same window from the same state;
+24. BASELINE config #4 as the bench runs it (bench.py bench_two_fish_amr,
+    ``-pipelined 1``: the bodies' rigid state chained on the device):
+    the bench's first step, 24 warm-up and 20 timed steps beside phase
+    22's host path, the launches against the executed iterations, the
+    fluid's max|div u| under 0.01, the collision fallbacks taken, the
+    stream's reads and stalls; one forest solve on
+    the pressure RHS of the run's last state, B8, B9, B11-B13 against
+    their plain versions, and their reruns bitwise;
+25. the forest's physics at smaller depths: a walled forest channel
+    (128x64x64 cells at level 1, FixMassFlux at uMax_forced 0.5, fixed
+    dt) on the host path and pipelined, the bulk velocity within 5% of
+    its target and the two paths' flux.txt rows equal; config #3's
+    forest at bpd 4 with ``-implicitDiffusion 1`` under
+    ``CUP3D_GETZ=cg`` from a perturbed state: B7 with the per-block
+    shift column against its plain version on the Helmholtz's own input,
+    the Helmholtz iterations a component, B7's launches twice the
+    executed Krylov iterations; the vorticity IC on a 2-level forest
+    (its init time and max|div u|); the obstacle-free pipelined step on
+    4 shards of the card under ``CUP3D_RING_HALO=1`` (config #3's forest
+    at bpd 8, 5 fixed-dt steps): bitwise the sharded host path, within
+    5e-3 of the unsharded pipelined forest, B14's launches a step.
+
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
 path's launches ride in each row's ``tgv256``, config #5's launches (the
 perturbed run, phase 17) in ``channel_launches``; the forest rows carry
 config #4's launches a step (``fish_amr_launches_per_step``, B10's
 ladder launches in ``fish_amr_launches``) and their times on its forest
-(``fish_amr``) and on the towed forest (``tow_amr``).  B14's row: its launches
+(``fish_amr``) and on the towed forest (``tow_amr``), and their launches
+a step on the pipelined configs #3 and #4 (``pipe_amr_launches_per_step``,
+``pipe_fish_amr_launches_per_step``); B7's row its launches a step on the
+forest Helmholtz (``helmholtz_launches_per_step``), B14's on the sharded
+pipelined step (``pipe_shard_launches_per_step``).  B14's row: its launches
 on phase 15's main path, its times at the Krylov loop's exchange (the
 largest exchange's in ``largest``, one whole exchange's in
 ``exchange``).  B2, B14, B3/B10, B7 and B9 were redesigned after their
@@ -616,11 +655,13 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def _profile_window(d, steps: int = 3, prefix: str = "", run=None) -> dict:
+def _profile_window(d, steps: int = 3, prefix: str = "", run=None,
+                    trace: bool = True) -> dict:
     """A few more steps of the same run under torch.profiler: the host wall
     per step, the device's busy share of it, and the device time by kernel
-    name (the full table and a Chrome trace go to OUT_DIR).  ``run``, when
-    given, takes the ``steps`` steps itself (a megaloop)."""
+    name (the full table and, with ``trace``, a Chrome trace go to
+    OUT_DIR).  ``run``, when given, takes the ``steps`` steps itself (a
+    megaloop)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -638,7 +679,9 @@ def _profile_window(d, steps: int = 3, prefix: str = "", run=None) -> dict:
     with open(os.path.join(OUT_DIR, prefix + "kernels.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40))
-    prof.export_chrome_trace(os.path.join(OUT_DIR, prefix + "trace.json"))
+    if trace:
+        prof.export_chrome_trace(os.path.join(OUT_DIR,
+                                              prefix + "trace.json"))
     # device-side entries only: the CPU ops' rows repeat their kernels' time
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
@@ -829,15 +872,17 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     return results
 
 
-def forest_solve_phase(d) -> None:
+def forest_solve_phase(d, rhs=None) -> None:
     """One whole forest solve: kernels against plain versions (+-1
-    iteration, x within 1e-4), and the kernel solve twice (bitwise)."""
+    iteration, x within 1e-4), and the kernel solve twice (bitwise).
+    ``rhs``: the right-hand side (default: seeded noise)."""
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
 
     g, dev = d.grid, d.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 3)
-    rhs = torch.randn((g.nb, 8, 8, 8), generator=gen, device=dev)
+    if rhs is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 3)
+        rhs = torch.randn((g.nb, 8, 8, 8), generator=gen, device=dev)
     vol = d._vol
     b = rhs - torch.sum(rhs * vol) / (torch.sum(vol) * 512)
     kw = dict(tab=d._tab1, ftab=d._ftab, vol=vol, graph=d._graph,
@@ -3184,6 +3229,417 @@ def tow_amr_phase(bw: float, fp32_flops: float) -> dict:
                 ms=sum(walls) / len(walls) * 1e3)
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the pipelined forest (BASELINE configs #3 and #4 as the
+# bench runs them) and the forest's physics
+# ---------------------------------------------------------------------------
+
+PIPE_WARM, PIPE_TIMED = 9, 10      # bench.py bench_amr_tgv's window
+REGRID_WARM, REGRID_TIMED = 2, 22  # its regrid probe
+PIPE_KE_STEPS = 5                  # fixed-dt steps, pipelined vs host
+PIPE_KE_DT = 1e-3
+PIPE_KE_RTOL = 1e-4
+FOREST_CHANNEL_ARGV = ("-bpdx 8 -bpdy 4 -bpdz 4 -levelMax 2 -levelStart 1 "
+                       "-extent 2 -BC_y wall -Rtol 100 -Ctol 0 -dt 0.01 "
+                       "-nu 1e-3 -rampup 0 -uMax_forced 0.5 "
+                       "-bFixMassFlux 1 -poissonSolver iterative "
+                       "-poissonTol 1e-6 -poissonTolRel 1e-4 -tend 0 "
+                       "-verbose 0")
+FOREST_CHANNEL_STEPS = 10
+IMPLICIT_AMR_STEPS = 3
+IMPLICIT_AMR_DT = 0.01
+IMPLICIT_PERTURB = 0.05  # seeded noise: gives the Helmholtz solves work
+VORT_AMR_ARGV = ("-bpdx 8 -bpdy 8 -bpdz 8 -levelMax 2 -levelStart 0 "
+                 "-extent 2 -initCond vorticity -Rtol 0.5 -Ctol 0.01 "
+                 "-nu 1e-3 -poissonSolver iterative -poissonTol 1e-6 "
+                 "-poissonTolRel 1e-4 -tend 0 -nsteps 1 -verbose 0")
+PIPE_SHARD_STEPS = 5
+
+
+def _bench_window(d, warm: int, iters: int, regrid_log=None):
+    """bench.py's _time_steps_robust: ``warm`` steps, then ``iters``
+    timed ones, the last synchronised; the trimmed mean (the top 10% of
+    samples out).  With ``regrid_log`` (``_watch_regrids``' list) the
+    walls are split into steady and regrid steps as
+    _time_steps_split_regrid does."""
+    for _ in range(warm):
+        d.advance(d.calc_max_timestep())
+    torch.cuda.synchronize()
+    walls, flags = [], []
+    for i in range(iters):
+        n0 = len(regrid_log) if regrid_log is not None else 0
+        t0 = time.perf_counter()
+        d.advance(d.calc_max_timestep())
+        if i == iters - 1:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        flags.append(regrid_log is not None and len(regrid_log) > n0)
+    w, f = np.asarray(walls), np.asarray(flags)
+    steady = np.sort(w[~f]) if (~f).any() else np.sort(w)
+    keep = max(1, int(np.ceil(steady.size * 0.9)))
+    return dict(ms=float(steady[:keep].mean()) * 1e3,
+                mean_ms=float(steady.mean()) * 1e3,
+                max_ms=float(steady.max()) * 1e3,
+                regrid_ms=[float(x) * 1e3 for x in w[f]])
+
+
+def _stream_line(d) -> str:
+    st = d._pack_reader.snapshot()
+    return (f"stream: {st['packs_emitted']} packs in {st['groups_read']} "
+            f"reads, {st['bytes_streamed']} B streamed + "
+            f"{st['bytes_staged']} B staged, stall "
+            f"{st['stall_s'] * 1e3:.2f} ms, read {st['read_s'] * 1e3:.2f} ms,"
+            f" kicks {st['kicks']}")
+
+
+def _check_forest_launches(tag, d, launches, executed, rows) -> None:
+    want = _forest_want(executed)
+    if executed != _executed(rows) or launches != want or executed == 0:
+        raise AssertionError(f"{tag} launch counts {launches}, executed "
+                             f"{executed} (rows {_executed(rows)}), "
+                             f"expected {want}")
+
+
+def pipe_amr_phase(host_ms: float) -> dict:
+    """BASELINE config #3 as the bench runs it (see the module docstring,
+    phase 23); CUP3D_FUSED=1 is set by the caller."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "pipe_amr"))
+    t0 = time.perf_counter()
+    d = build_driver(f"-pipelined 1 -freqDiagnostics 0 {AMR_ARGV} "
+                     f"-verbose 0 -path4serialization {out}".split())
+    d.init()
+    d.adapt_enabled = False
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if not d._dt_chain:
+        raise AssertionError("config #3 pipelined is not on the device dt "
+                             "chain on the card")
+    log(f"  build_driver + init: {init_s:.2f} s; {d.grid.nb} blocks, per "
+        f"level {_levels(d.grid)}; the device dt chain on")
+    # -- the main path: the bench's first step, 9 warm-up, 10 timed --------
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    d.advance(d.calc_max_timestep())
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    win = _bench_window(d, PIPE_WARM, PIPE_TIMED)
+    d.flush_packs()
+    launches = dict(fa.launches)
+    executed = fa.iterations["executed"]
+    rows = d.step_log[-(1 + PIPE_WARM + PIPE_TIMED):]
+    _check_forest_launches("config #3 pipelined", d, launches, executed,
+                           rows)
+    _, div_max = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+                                                 d._tab1)
+    div_max = float(div_max)
+    iters = [r["iters"] for r in rows]
+    log(f"  the bench's window: {win['ms']:.2f} ms/step pipelined (trimmed "
+        f"mean; mean {win['mean_ms']:.2f}, max {win['max_ms']:.2f}); the "
+        f"host path (phase 9) {host_ms:.2f} ms/step; first step "
+        f"{first_ms:.2f} ms; {sum(iters) / len(iters):.2f} iterations a "
+        f"step ({executed} executed), dt {rows[-1]['dt']:.4e}, max|div u| "
+        f"{div_max:.3e} (gate {AMR_DIV_GATE})")
+    log(f"  launches: {launches} (per step "
+        f"{ {k: v / len(rows) for k, v in launches.items()} }); "
+        + _stream_line(d))
+    if not (div_max < AMR_DIV_GATE and all(math.isfinite(k) for k in iters)):
+        raise AssertionError(f"config #3 pipelined: max|div u| {div_max}")
+    t0 = time.perf_counter()
+    prof = _profile_window(d, prefix="pipe_amr_", trace=False)
+    log(f"  (profiler window {time.perf_counter() - t0:.1f} s)")
+    d.flush_packs()
+    # -- the bench's regrid probe: adaptation on, 2 warm-up, 22 timed ------
+    d.adapt_enabled = True
+    d.prefetch = {"hits": 0, "misses": 0}
+    regrids = _watch_regrids(d)
+    nb0 = d.grid.nb
+    probe = _bench_window(d, REGRID_WARM, REGRID_TIMED, regrid_log=regrids)
+    d.flush_packs()
+    log(f"  regrid probe ({REGRID_WARM} + {REGRID_TIMED} steps, adaptation "
+        f"on): steady {probe['ms']:.2f} ms/step (mean {probe['mean_ms']:.2f},"
+        f" max {probe['max_ms']:.2f}), regrid steps "
+        f"{[round(x, 2) for x in probe['regrid_ms']]} ms; blocks {nb0} -> "
+        f"{d.grid.nb}, regrids that changed the forest {len(regrids)}; "
+        f"scores prefetch {d.prefetch}; " + _stream_line(d))
+    if d.prefetch["hits"] < 1:
+        raise AssertionError(f"the scores prefetch was never used: "
+                             f"{d.prefetch}")
+    # -- pipelined against the host path: the same fixed-dt steps ----------
+    d.adapt_enabled = False
+    snap = _snapshot(d)
+    ke = {}
+    for tag, pipe in (("pipelined", True), ("host", False)):
+        d._resilience_restore(snap)
+        d.cfg.pipelined = pipe
+        for _ in range(PIPE_KE_STEPS):
+            d.advance(PIPE_KE_DT)
+        d.flush_packs()
+        ke[tag] = _kinetic_energy(d)
+    rel = abs(ke["pipelined"] - ke["host"]) / abs(ke["host"])
+    log(f"  {PIPE_KE_STEPS} steps at dt {PIPE_KE_DT} from one state: KE "
+        f"pipelined {ke['pipelined']:.8e}, host path {ke['host']:.8e} "
+        f"(rel {rel:.2e}, gate {PIPE_KE_RTOL})")
+    if not rel <= PIPE_KE_RTOL:
+        raise AssertionError(f"config #3 pipelined KE {ke} (rel {rel})")
+    # -- the host path's step in the bench's window, from the same state
+    # (the chain's dt policy is the host path's) --------------------------
+    d._resilience_restore(snap)
+    d._dt_chain = False
+    host = _bench_window(d, PIPE_WARM, PIPE_TIMED)
+    log(f"  the host path from the window's end state, the same window: "
+        f"{host['ms']:.2f} ms/step (mean {host['mean_ms']:.2f}, max "
+        f"{host['max_ms']:.2f}); pipelined {win['ms']:.2f}")
+    return dict(ms=win["ms"], host_ms=host["ms"], first_ms=first_ms,
+                init_s=init_s,
+                launches=launches, steps=len(rows), executed=executed,
+                div_max=div_max, prof=prof, probe=probe,
+                prefetch=dict(d.prefetch), nb=d.grid.nb)
+
+
+def pipe_fish_amr_phase(host_ms: float) -> dict:
+    """BASELINE config #4 as the bench runs it (see the module docstring,
+    phase 24); CUP3D_FUSED=1 is set by the caller."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "pipe_fish_amr"))
+    t0 = time.perf_counter()
+    d = build_driver(["-pipelined", "1"] + FISH_AMR_ARGV.split() + [
+        "-path4serialization", out, "-factory-content", BENCH_TWO_FISH])
+    d.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"  build_driver + init: {init_s:.2f} s; forest {d.grid.nb} blocks, "
+        f"per level {_levels(d.grid)}")
+    regrids = _watch_regrids(d)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    d.advance(d.calc_max_timestep())
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    win = _bench_window(d, FA_WARM, FA_TIMED)
+    d.flush_packs()
+    launches = dict(fa.launches)
+    executed = fa.iterations["executed"]
+    rows = d.step_log[-(1 + FA_WARM + FA_TIMED):]
+    _check_forest_launches("config #4 pipelined", d, launches, executed,
+                           rows)
+    div = float(diag.fluid_divergence_max_blocks(
+        d.grid, d.state["vel"], d.state["chi"], d._tab1))
+    iters = [r["iters"] for r in rows]
+    log(f"  the bench's window ({FA_TIMED} steps after {1 + FA_WARM}): "
+        f"{win['ms']:.2f} ms/step pipelined (trimmed mean; mean "
+        f"{win['mean_ms']:.2f}, max {win['max_ms']:.2f}); the host path "
+        f"(phase 22) {host_ms:.2f} ms/step; first step {first_ms:.2f} ms; "
+        f"{sum(iters) / len(iters):.2f} iterations a step ({executed} "
+        f"executed); fluid max|div u| {div:.3e} (gate {FA_DIV_GATE}); "
+        f"collision fallbacks {d.collision_fallbacks}; regrids that changed "
+        f"the forest {len(regrids)}; scores prefetch {d.prefetch}")
+    log(f"  launches: {launches} (per step "
+        f"{ {k: v / len(rows) for k, v in launches.items()} }); "
+        + _stream_line(d))
+    for i, ob in enumerate(d.obstacles):
+        log(f"  fish {i}: transVel {ob.transVel.tolist()}, position "
+            f"{ob.position.tolist()}")
+    if not (div < FA_DIV_GATE and _fish_ok(d)):
+        raise AssertionError(f"config #4 pipelined: fluid div {div}, fish "
+                             f"finite and moving {_fish_ok(d)}")
+    # -- the five forest kernels on one pipelined step's state -------------
+    s = d.state
+    rhs = amr_ops.pressure_rhs_blocks(
+        d.grid, s["vel"], torch.tensor(d.dt, device=d.device), d._tab1,
+        d._ftab, s["chi"], s["udef"])
+    log(f"  one forest solve on this state's pressure RHS ({d.grid.nb} "
+        f"blocks): B8, B9, B11-B13 against their plain versions")
+    forest_solve_phase(d, rhs)
+    _forest_reruns_bitwise(d)
+    return dict(ms=win["ms"], first_ms=first_ms, init_s=init_s,
+                launches=launches, steps=len(rows), executed=executed,
+                div=div, fallbacks=d.collision_fallbacks, nb=d.grid.nb)
+
+
+def _forest_channel(extra: str, out: str):
+    from cup3d_tpu_torch.__main__ import build_driver
+
+    _fresh_dir(out)
+    d = build_driver(f"{extra} {FOREST_CHANNEL_ARGV} -nsteps "
+                     f"{FOREST_CHANNEL_STEPS} -path4serialization {out}"
+                     .split())
+    d.init()
+    return d
+
+
+def forest_physics_phase() -> dict:
+    """The forest's physics that the megastep carries (see the module
+    docstring, phase 25); CUP3D_FUSED=1 is set by the caller."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import amr_ops, getz_cg, krylov
+    from cup3d_tpu_torch.parallel import ring
+
+    res = {}
+    # -- (a) the walled forest channel: FixMassFlux, pipelined and not -----
+    rows = {}
+    for tag, extra in (("host", "-pipelined 0"), ("pipelined",
+                                                   "-pipelined 1")):
+        out = os.path.join(OUT_DIR, f"forest_channel_{tag}")
+        d = _forest_channel(extra, out)
+        t0 = time.perf_counter()
+        d.simulate()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / FOREST_CHANNEL_STEPS * 1e3
+        rows[tag] = _read_table(os.path.join(out, "flux.txt"))
+        u, target = rows[tag][-1][2], rows[tag][-1][3]
+        log(f"  forest channel ({d.grid.nb} blocks, walls in y) {tag}: "
+            f"{ms:.2f} ms/step, bulk {u:.6f} against {target:.6f}; flux.txt "
+            f"rows {rows[tag]}")
+        if not (len(rows[tag]) == FOREST_CHANNEL_STEPS
+                and abs(u - target) < CH_FLUX_RTOL * target):
+            raise AssertionError(f"forest channel {tag}: bulk {u}, target "
+                                 f"{target}, {len(rows[tag])} rows")
+        res[f"channel_{tag}_ms"] = ms
+    if rows["host"] != rows["pipelined"]:
+        raise AssertionError("the pipelined flux.txt rows differ from the "
+                             "host path's")
+    log("  the pipelined step's flux.txt rows equal the host path's")
+    del d
+    # -- (b) implicit diffusion under CUP3D_GETZ=cg: B7 with a shift column
+    with _env(CUP3D_GETZ="cg"):
+        out = _fresh_dir(os.path.join(OUT_DIR, "implicit_amr"))
+        argv = (f"-pipelined 1 -implicitDiffusion 1 -dt {IMPLICIT_AMR_DT} "
+                f"{AMR_ARGV} -verbose 0 -path4serialization {out}").split()
+        for ax in ("-bpdx", "-bpdy", "-bpdz"):
+            argv[argv.index(ax) + 1] = "4"
+        d = build_driver(argv)
+        d.init()
+        d.adapt_enabled = False
+        gen = torch.Generator(device=d.device)
+        gen.manual_seed(SEED + 9)
+        vel = d.state["vel"]
+        d.state["vel"] = vel + IMPLICIT_PERTURB * torch.randn(
+            vel.shape, generator=gen, device=d.device)
+        # B7 on the Helmholtz's own input: the preconditioner's first
+        # application, shift h^2/(nu dt) a block
+        from cup3d_tpu_torch.ops import diffusion as dif
+
+        nudt = d.nu * IMPLICIT_AMR_DT
+        ustar = dif.advect_euler_blocks(d._geom, d.state["vel"],
+                                        IMPLICIT_AMR_DT, d.uinf_device(),
+                                        d._tab3)
+        h2 = (d.grid.h_column(torch.float32, d.device)) ** 2
+        shift = h2 / nudt
+        b = ustar[..., 0]
+        r0 = b - dif.helmholtz_comp_blocks(d._geom, b, d._tab1, nudt, 0,
+                                           d._ftab)
+        x = (shift * r0).contiguous()
+        err = check_close("getz_cg (Helmholtz)",
+                          getz_cg.cg_tiles_blocks(x, CG_ITERS, shift),
+                          getz_cg.cg_tiles_blocks(x, CG_ITERS, shift,
+                                                  kernels=False), GETZ_RTOL)
+        getz_cg.launches["getz_cg"] = 0
+        krylov.iterations["executed"] = 0
+        t0 = time.perf_counter()
+        helm_iters = []
+        for _ in range(IMPLICIT_AMR_STEPS):
+            d.advance(d.calc_max_timestep())
+            helm_iters.append([int(s_[1]) for s_ in d._helm.last_stats])
+        d.flush_packs()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / IMPLICIT_AMR_STEPS * 1e3
+        b7 = getz_cg.launches["getz_cg"]
+        executed = krylov.iterations["executed"]
+        _, div = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+                                                 d._tab1)
+        log(f"  implicit diffusion on config #3's forest at bpd 4 "
+            f"({d.grid.nb} blocks, CUP3D_GETZ=cg, perturbed by "
+            f"{IMPLICIT_PERTURB}): B7 with the per-block shift column "
+            f"against its plain version err {err:.3e}; {ms:.2f} ms/step; "
+            f"Helmholtz iterations a component {helm_iters}; B7 launches "
+            f"{b7} (2 x {executed} executed Krylov iterations, Helmholtz "
+            f"and Poisson); max|div u| {float(div):.3e}")
+        if not (b7 == 2 * executed and min(min(h) for h in helm_iters) > 0
+                and bool(torch.isfinite(d.state["vel"]).all())):
+            raise AssertionError(f"implicit forest: B7 {b7}, executed "
+                                 f"{executed}, Helmholtz {helm_iters}")
+        res.update(helmholtz_iters=helm_iters, b7_launches=b7,
+                   b7_per_step=b7 / IMPLICIT_AMR_STEPS, implicit_ms=ms)
+        del d
+    # -- (c) the vorticity IC on a 2-level forest --------------------------
+    out = _fresh_dir(os.path.join(OUT_DIR, "vort_amr"))
+    t0 = time.perf_counter()
+    d = build_driver(f"{VORT_AMR_ARGV} -path4serialization {out}".split())
+    d.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _, div = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+                                             d._tab1)
+    umax = float(d.state["vel"].abs().max())
+    log(f"  vorticity IC: init {init_s:.2f} s, {d.grid.nb} blocks per level "
+        f"{_levels(d.grid)}, max|u| {umax:.4f}, max|div u| "
+        f"{float(div):.3e}")
+    if not (len([c for c in _levels(d.grid) if c]) == 2
+            and math.isfinite(float(div))):
+        raise AssertionError(f"vorticity IC forest {_levels(d.grid)}")
+    res.update(vort_init_s=init_s, vort_div=float(div))
+    del d
+    # -- (d) the obstacle-free pipelined step on 4 shards of the card ------
+    from cup3d_tpu_torch.config import parse_args
+    from cup3d_tpu_torch.parallel.forest import make_block_mesh
+    from cup3d_tpu_torch.sim.amr import AMRSimulation
+
+    vels = {}
+    with _env(CUP3D_RING_HALO="1"):
+        for tag, pipe, shards in (("sharded pipelined", 1, SHARDS),
+                                  ("sharded host", 0, SHARDS),
+                                  ("unsharded pipelined", 1, 0)):
+            out = _fresh_dir(os.path.join(OUT_DIR, "pipe_shard"))
+            argv = (f"-pipelined {pipe} -dt {PIPE_KE_DT} {AMR_ARGV} "
+                    f"-verbose 0 -path4serialization {out}").split()
+            for ax in ("-bpdx", "-bpdy", "-bpdz"):
+                argv[argv.index(ax) + 1] = "8"
+            argv[argv.index("-nsteps") + 1] = str(PIPE_SHARD_STEPS)
+            mesh = (make_block_mesh([torch.device("cuda")] * shards)
+                    if shards else None)
+            d = AMRSimulation(parse_args(argv), mesh=mesh)
+            d.init()
+            d.adapt_enabled = False
+            torch.cuda.synchronize()
+            ring.reset_launches()
+            t0 = time.perf_counter()
+            d.simulate()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / PIPE_SHARD_STEPS * 1e3
+            vels[tag] = d._unpad(d.state["vel"]).clone()
+            b14 = ring.launches["ring_shift"]
+            log(f"  {tag} ({d.grid.nb} blocks): {ms:.2f} ms/step, B14 "
+                f"launches {b14} ({b14 / PIPE_SHARD_STEPS:.1f} a step)")
+            if tag == "sharded pipelined":
+                res.update(shard_ms=ms, b14_launches=b14,
+                           b14_per_step=b14 / PIPE_SHARD_STEPS)
+                if not (b14 > 0 and not d.state["vel"][d.grid.nb:].any()):
+                    raise AssertionError("sharded pipelined: no B14 launch "
+                                         "or nonzero padding rows")
+            del d
+    same = bool(torch.equal(vels["sharded pipelined"], vels["sharded host"]))
+    diff = float(torch.max(torch.abs(vels["sharded pipelined"]
+                                     - vels["unsharded pipelined"])))
+    log(f"  sharded pipelined against the sharded host path (the same "
+        f"arithmetic): bitwise {same}; against the unsharded pipelined "
+        f"forest (tile-only against two-level solve): max diff {diff:.3e} "
+        f"(gate {SHARD_VEL_ATOL})")
+    if not (same and diff <= SHARD_VEL_ATOL):
+        raise AssertionError(f"sharded pipelined: bitwise {same}, diff "
+                             f"{diff}")
+    return res
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -3351,6 +3807,34 @@ def main() -> int:
         f"{sum(fish_amr['iters']) / len(fish_amr['iters']):.2f} iterations "
         f"a step); {smi}")
     torch.cuda.empty_cache()
+    log("phase 23: BASELINE config #3 as the bench runs it (-pipelined 1, "
+        f"the device dt chain): {PIPE_WARM} warm-up and {PIPE_TIMED} timed "
+        f"steps, the regrid probe ({REGRID_WARM} + {REGRID_TIMED} steps), "
+        f"{PIPE_KE_STEPS} fixed-dt steps against the host path")
+    t0 = time.perf_counter()
+    with _env(CUP3D_FUSED="1"):
+        pipe_amr = pipe_amr_phase(amr_run["wall"] / STEPS * 1e3)
+    log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log("phase 24: BASELINE config #4 as the bench runs it (-pipelined 1): "
+        f"{FA_WARM} warm-up and {FA_TIMED} timed steps")
+    t0 = time.perf_counter()
+    with _env(CUP3D_FUSED="1"):
+        pipe_fish = pipe_fish_amr_phase(fish_amr["ms"])
+    log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log("phase 25: the forest's physics: FixMassFlux on a walled forest "
+        "channel, implicit diffusion under CUP3D_GETZ=cg, the vorticity IC, "
+        f"the pipelined step on {SHARDS} shards of the card")
+    t0 = time.perf_counter()
+    with _env(CUP3D_FUSED="1"):
+        physics = forest_physics_phase()
+    log(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
+    log(f"  ms/step, host path -> pipelined: config #3 "
+        f"{amr_run['wall'] / STEPS * 1e3:.2f} (phase 9; the same window "
+        f"from one state {pipe_amr['host_ms']:.2f}) -> {pipe_amr['ms']:.2f}; "
+        f"config #4 {fish_amr['ms']:.2f} -> {pipe_fish['ms']:.2f}; {smi}")
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -3378,6 +3862,16 @@ def main() -> int:
                 fish_amr["launches"][kname] / fish_amr["steps"])
             row["fish_amr"] = fish_amr["kernels"][kname]
             row["tow_amr"] = tow["kernels"][kname]
+            # the pipelined configs #3 and #4 (phases 23, 24)
+            row["pipe_amr_launches_per_step"] = (
+                pipe_amr["launches"][kname] / pipe_amr["steps"])
+            row["pipe_fish_amr_launches_per_step"] = (
+                pipe_fish["launches"][kname] / pipe_fish["steps"])
+    # B7 on the forest Helmholtz, B14 on the sharded pipelined step (25)
+    per_kernel["getz_cg"]["helmholtz_launches_per_step"] = (
+        physics["b7_per_step"])
+    per_kernel["ring_shift"]["pipe_shard_launches_per_step"] = (
+        physics["b14_per_step"])
 
     rows = []
     for kname, replaces, src in KERNELS:

@@ -161,6 +161,16 @@ def rigid_update_device(mom, state, forced_mask, block_mask, uinf, dt):
     return torch.cat([ut, om, pos, absp, cm, q, m.reshape(1), J.reshape(9)])
 
 
+def rigid_update_bodies(moms, states, forced, blocked, uinf, dt):
+    """:func:`rigid_update_device` for n bodies at once: (n, 19) moments,
+    (n, RIGID_STATE) states and (n, 3) bool masks -> (n, RIGID_PACK), one
+    body after the other with the same arithmetic (the JAX package vmaps
+    the function over the bodies)."""
+    return torch.stack([rigid_update_device(moms[i], states[i], forced[i],
+                                            blocked[i], uinf, dt)
+                        for i in range(moms.shape[0])])
+
+
 class Obstacle:
     """One immersed body.  Subclasses implement ``rasterize()`` (the
     sphere, the foil) or their own ``create()`` (the StefanFish's, in

@@ -15,8 +15,14 @@ and DST-II (sign-flip ghosts: a wall face, or a freespace face on its
 normal component), the choice per (axis, component) mirroring
 ``UniformGrid`` padding.  The solve is six dense per-axis products and
 one elementwise scale, in true f32 (``precision.check_fp32_matmul``:
-never TF32).  The forest's Helmholtz BiCGSTAB is not ported (ROADMAP
-A6).
+never TF32).
+
+On the AMR forest there is no such basis: the Helmholtz system is solved
+per component by BiCGSTAB (the reference DiffusionSolver,
+main.cpp:6896-7146) with the BC sign ghosts and diffusive-flux
+refluxing in its operator, preconditioned by the shifted getZ (the tile
+solve of -lap + h^2/(nu dt) on every block; kernel B7 with a per-block
+shift column under CUP3D_GETZ=cg).
 """
 
 from __future__ import annotations
@@ -124,3 +130,109 @@ def implicit_step(grid: UniformGrid, u: torch.Tensor, dt, nu: float,
     explicit advection, then the exact implicit diffusion solve."""
     ustar = advect_euler(grid, u, dt, uinf)
     return helmholtz(ustar, nu * dt)
+
+
+# ---------------------------------------------------------------------------
+# AMR forest: Helmholtz BiCGSTAB with the shifted getZ
+# ---------------------------------------------------------------------------
+
+
+def helmholtz_comp_blocks(grid, x: torch.Tensor, tab, nudt, comp: int,
+                          flux_tab=None, inv_h=None) -> torch.Tensor:
+    """(I - nudt lap) x on one velocity component of the forest, with the
+    component's BC sign ghosts and diffusive-flux refluxing (reference
+    DiffusionSolver LHS, main.cpp:6726-6801).  ``grid``: a BlockGrid or
+    the sharded forest's padded geometry, with its tables."""
+    from cup3d_tpu_torch.ops.amr_ops import _hcol, face_fluxes, stencil7
+
+    bs, w = grid.bs, tab.width
+    if inv_h is None:
+        inv_h = 1.0 / _hcol(grid, x)
+    lab = tab.assemble_component(x, bs, comp)
+    lap = stencil7(lab, w, bs) * inv_h * inv_h
+    if flux_tab is not None and flux_tab.ncorr:
+        lap = flux_tab.apply(lap, face_fluxes(lab, w, bs, inv_h))
+    return x - nudt * lap
+
+
+def build_amr_helmholtz_solver(grid, tol_abs: float = 1e-6,
+                               tol_rel: float = 1e-4, maxiter: int = 1000,
+                               precond_iters: int = 24, tab=None,
+                               flux_tab=None, device="cpu") -> Callable:
+    """solve(u, nudt) -> (I - nudt lap)^{-1} u per component on the forest:
+    BiCGSTAB from x0 = u, its relative tolerance against the cold RHS
+    norm, preconditioned by the shifted getZ with shift = h^2/(nu dt) per
+    block.  ``tab``/``flux_tab`` may be pre-built or the sharded forest's
+    duck-typed tables (default: the grid's width-1 face tables and flux
+    tables on ``device``).  The last call's per-component [residual,
+    iterations] device vectors stay in ``solve.last_stats``."""
+    from cup3d_tpu_torch.grid.flux import build_flux_tables
+    from cup3d_tpu_torch.ops import krylov
+
+    if tab is None:
+        tab = grid.face_tables(1, device)
+    if flux_tab is None:
+        flux_tab = build_flux_tables(grid, device)
+    # h^2 in f64 rounded to f32, as the JAX package's
+    h2 = torch.as_tensor((np.asarray(grid.h, np.float64) ** 2).reshape(
+        grid.nb, 1, 1, 1), dtype=torch.float32, device=device)
+    inv_h = 1.0 / torch.sqrt(h2)
+
+    def solve(u: torch.Tensor, nudt) -> torch.Tensor:
+        shift = h2 / nudt  # the reference's coefficient -6 - h^2/(nu dt)
+        outs, stats = [], []
+        for c in range(3):
+            b = u[..., c]
+
+            def A(x, _c=c):
+                return helmholtz_comp_blocks(grid, x, tab, nudt, _c,
+                                             flux_tab, inv_h)
+
+            def M(r):
+                return krylov.getz_blocks(shift * r, precond_iters,
+                                          shift=shift)
+
+            # x0 = b is a warm start: the relative tolerance stays on the
+            # cold RHS norm
+            x, rnorm, k = krylov.bicgstab(
+                A, b, M=M, x0=b, tol_abs=tol_abs, tol_rel=tol_rel,
+                maxiter=maxiter,
+                rnorm_ref=torch.sqrt(torch.sum(b * b, dtype=torch.float32)))
+            outs.append(x)
+            stats.append(krylov.solver_stats(rnorm, k))
+        solve.last_stats = stats
+        return torch.stack(outs, dim=-1)
+
+    solve.last_stats = []
+    return solve
+
+
+def advect_euler_blocks(grid, vel: torch.Tensor, dt, uinf: torch.Tensor,
+                        tab) -> torch.Tensor:
+    """Explicit advection-only Euler stage on the forest (KernelAdvect):
+    u* = u - dt (u + uinf) . grad u, upwind5 on the face labs."""
+    from cup3d_tpu_torch.ops.amr_ops import _hcol, _sh, _upwind_d1
+
+    bs, w = grid.bs, tab.width
+    vlab = tab.assemble_vector(vel, bs)
+    inv_h = 1.0 / _hcol(grid, vel)
+    adv_u = _sh(vlab, w, bs) + uinf
+    out = []
+    for c in range(3):
+        lab_c = vlab[..., c]
+        conv = 0.0
+        for a in range(3):
+            conv = conv + adv_u[..., a] * _upwind_d1(
+                lab_c, w, bs, a, adv_u[..., a], inv_h)
+        out.append(vel[..., c] - dt * conv)
+    return torch.stack(out, dim=-1)
+
+
+def implicit_step_blocks(grid, vel: torch.Tensor, dt, nu: float,
+                         uinf: torch.Tensor, tab,
+                         solver: Callable) -> torch.Tensor:
+    """AdvectionDiffusionImplicit on the forest (main.cpp:10030-10118):
+    explicit Euler advection on ``tab`` (width 3), then ``solver(u*, nu
+    dt)``."""
+    ustar = advect_euler_blocks(grid, vel, dt, uinf, tab)
+    return solver(ustar, nu * dt)

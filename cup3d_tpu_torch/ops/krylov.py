@@ -244,15 +244,18 @@ def getz_lanes(bt_scaled: torch.Tensor, shift=None, cg_iters: int = 24,
 
 
 def getz_blocks(b_scaled: torch.Tensor, cg_iters: int = 24,
-                kernels: Optional[bool] = None) -> torch.Tensor:
-    """getZ in the blocks layout (..., bs, bs, bs): -lap_tile z = b_scaled
-    on every block, by the exact tile solve or (CUP3D_GETZ=cg)
-    ``cg_iters`` CG sweeps."""
+                kernels: Optional[bool] = None, shift=None) -> torch.Tensor:
+    """getZ in the blocks layout (..., bs, bs, bs): (-lap_tile + shift) z
+    = b_scaled on every block, by the exact tile solve or (CUP3D_GETZ=cg)
+    ``cg_iters`` CG sweeps.  ``shift``: None (the Poisson getZ), a scalar
+    or a per-block column (the forest Helmholtz's h^2/(nu dt))."""
     from cup3d_tpu_torch.ops import getz_cg, tilesolve
 
     if use_exact_getz():
-        return tilesolve.tile_solve_blocks(b_scaled)
-    return getz_cg.cg_tiles_blocks(b_scaled, cg_iters, kernels=kernels)
+        return tilesolve.tile_solve_blocks(b_scaled, shift)
+    return getz_cg.cg_tiles_blocks(b_scaled, cg_iters,
+                                   0.0 if shift is None else shift,
+                                   kernels=kernels)
 
 
 def use_coarse_correction() -> bool:

@@ -30,7 +30,7 @@ def krylov_dtype():
     if key in _BF16_KEYS:
         raise NotImplementedError(
             "CUP3D_KRYLOV_DTYPE=bf16: bf16 Krylov storage is not ported to "
-            "the CUDA kernels yet (ROADMAP queue A, 'bf16 Krylov storage')"
+            "the CUDA kernels yet (ROADMAP queue B, 'bf16 Krylov storage')"
         )
     raise ValueError(
         f"CUP3D_KRYLOV_DTYPE={key!r}: expected one of "

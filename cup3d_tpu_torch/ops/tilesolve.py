@@ -55,17 +55,27 @@ def dense_operator(bs: int, dtype: torch.dtype, device: str) -> torch.Tensor:
     return torch.as_tensor(W, dtype=dtype, device=device)
 
 
-def tile_solve_blocks(b: torch.Tensor) -> torch.Tensor:
-    """Solve -lap_tile z = b exactly on every trailing bs^3 tile of ``b``
-    (shape (..., bs, bs, bs))."""
+def tile_solve_blocks(b: torch.Tensor, shift=None) -> torch.Tensor:
+    """Solve (-lap_tile + shift) z = b exactly on every trailing bs^3 tile
+    of ``b`` (shape (..., bs, bs, bs)).  ``shift``: None (the Poisson
+    getZ), a scalar, or a tensor broadcastable over the leading dims (the
+    forest Helmholtz's per-block h^2/(nu dt), (nb, 1, 1, 1))."""
     bs = b.shape[-1]
+    lead = tuple(b.shape[:-3])
+    n = int(np.prod(lead)) if lead else 1
     acc = precision.accum_dtype(b.dtype)
     S3, lam3, _ = basis(bs, acc, str(b.device))
-    b2 = b.reshape(-1, bs ** 3).to(acc)
+    b2 = b.reshape(n, bs ** 3).to(acc)
     if b.is_cuda:
         precision.check_fp32_matmul()
     t = b2 @ S3  # S3 symmetric: rows @ S3
-    t = t / lam3[None, :]
+    if shift is None:
+        t = t / lam3[None, :]
+    else:
+        sh = torch.broadcast_to(
+            torch.as_tensor(shift, dtype=acc, device=b.device),
+            lead + (1, 1, 1)).reshape(n, 1)
+        t = t / (lam3[None, :] + sh)
     z = t @ S3
     return z.reshape(b.shape).to(b.dtype)
 

@@ -496,6 +496,12 @@ class ShardedForest:
             vol=self.vol, pmask=self.pmask, device=self.device, **kw)
 
     def build_helmholtz_solver(self, **kw):
-        raise NotImplementedError(
-            "not ported yet: the sharded implicit-diffusion Helmholtz "
-            "solve (ROADMAP A6; A5 ported the uniform grid's)")
+        """The sharded implicit-diffusion Helmholtz solve (the distributed
+        DiffusionSolver, main.cpp:6896-7146): the forest builder over the
+        padded geometry and the duck-typed tables; padding blocks stay
+        zero (their labs assemble to zero)."""
+        from cup3d_tpu_torch.ops.diffusion import build_amr_helmholtz_solver
+
+        return build_amr_helmholtz_solver(
+            self.geom, tab=self.face_tables(1), flux_tab=self.flux_tables,
+            device=self.device, **kw)

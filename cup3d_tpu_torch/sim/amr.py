@@ -1,6 +1,5 @@
-"""AMR simulation driver (port of the non-pipelined host path of
-``cup3d_tpu/sim/amr.py``; reference Simulation + adaptMesh,
-main.cpp:15161-15326).
+"""AMR simulation driver (port of ``cup3d_tpu/sim/amr.py``; reference
+Simulation + adaptMesh, main.cpp:15161-15326).
 
 - the fields live on a block forest as ``(nb, bs, bs, bs[, 3])`` tensors
   that are *re-laid-out* on adaptation (grid/adapt.py);
@@ -10,26 +9,43 @@ main.cpp:15161-15326).
   8540-8602), while ``adapt_enabled`` is True (False freezes a converged
   mesh: the static 2-level run of BASELINE config #3);
 - startup runs up to 3*levelMax rounds of {adapt; re-create the bodies;
-  re-IC} (main.cpp:15172-15177);
-- the step is CreateObstacles (each body's SDF on its candidate blocks,
-  the Towers chi from SDF labs assembled through the face tables),
-  AdvectionDiffusion (RK3 on width-3 face labs), UpdateObstacles (the
+  re-IC} (main.cpp:15172-15177); the IC is Taylor-Green, the coiled
+  vorticity (three forest Poisson solves of -curl omega) or rest;
+- the host path's step (``_advance_host``) is CreateObstacles (each
+  body's SDF on its candidate blocks, the Towers chi from SDF labs
+  assembled through the face tables), AdvectionDiffusion (RK3 on width-3
+  face labs, or with ``implicitDiffusion`` Euler advection and a
+  Helmholtz BiCGSTAB a component, ops/diffusion.py), UpdateObstacles (the
   bodies' moments and the pairwise overlap counts in ONE host read, the
   6x6 solves on the host), Penalization (the collision pass, then
-  Brinkman), PressureProjection (getZ-preconditioned BiCGSTAB with the
-  block-graph coarse level; under ``CUP3D_FUSED=1`` the fused forest
-  driver whose stages are CUDA kernels) and ComputeForces (the surface
-  probe on a window of finest-level blocks), ending in ONE
-  device-to-host read of the penalization forces, the force QoI, the
-  solver's [residual, iterations] and max|u| (BASELINE config #4: two
-  StefanFish on the adapting forest).
+  Brinkman), the forcing (``uMax_forced``, or ``bFixMassFlux``'s
+  parabolic profile and its flux.txt row), PressureProjection
+  (getZ-preconditioned BiCGSTAB with the block-graph coarse level; under
+  ``CUP3D_FUSED=1`` the fused forest driver whose stages are CUDA
+  kernels) and ComputeForces (the surface probe on a window of
+  finest-level blocks), ending in ONE device-to-host read of the
+  penalization forces, the force QoI, the solver's [residual,
+  iterations] and max|u| (BASELINE config #4: two StefanFish on the
+  adapting forest);
+- pipelined (``cfg.pipelined``), the step is one megastep: the same
+  operators in the same order with the bodies' rigid update on the
+  device (``models/base.rigid_update_bodies``, chained from step to
+  step), no collision pass, and the step's QoI pack handed to the QoI
+  stream (stream/qoi.py), whose grouped reads trail the stepping.  dt
+  comes from a stale max|u| (a 1.5x margin, a 1.03x growth bound, the
+  bodies' host speed as a floor) or, obstacle-free and stopped by a step
+  count, from the device dt chain (no read at all, ``dtDevice``).  The
+  next step's adaptation scores are staged one step early (the scores
+  prefetch).  A stale overlap count in a pack latches
+  ``_collision_hot``, which routes the steps to the host path until its
+  fresh pre-check is clear (the collision fallback).
 
 ``simulate()`` runs through the RecoveryEngine (resilience/recovery.py)
 unless ``CUP3D_RECOVER=0``, as the uniform driver does: a rollback
 restores the snapshot's forest (reusing the live tables when its leaf
-keys are the live forest's), and the ladder's tile-only rung drops the
-block graph, so the fused forest solve runs the tile-only getZ kernel
-B10.
+keys are the live forest's) and abandons the stream's packs, and the
+ladder's tile-only rung drops the block graph, so the fused forest solve
+runs the tile-only getZ kernel B10.
 
 The forest is unpadded: every tensor has exactly ``nb`` blocks and every
 regrid rebuilds the tables (numpy) for the new topology.  With ``mesh``
@@ -40,13 +56,12 @@ padded geometry and duck-typed face and flux tables (the halo exchange
 between shards, on the ring transport under ``CUP3D_RING_HALO=1``), and
 the Poisson solve is the static tile-only composition
 (``ShardedForest.build_poisson_solver``), as the JAX package's mesh
-mode.  Field dumps (``tdump``/``fdump``) and periodic checkpoints
-(``saveFreq``) run off the step loop, through the same sharded writer
-and async checkpointer as the uniform driver (stream/).  Runs on CUDA
-unless the caller asks for the CPU.  Not ported yet, and raising with
-their ROADMAP item: pipelined stepping and the megastep, implicit
-diffusion, forcing and mass-flux fixing, the vorticity initial
-condition, and bodies on the sharded forest.
+mode; its pipelined step takes a host dt.  Field dumps
+(``tdump``/``fdump``) and periodic checkpoints (``saveFreq``) run off
+the step loop, through the same sharded writer and async checkpointer as
+the uniform driver (stream/).  Runs on CUDA unless the caller asks for
+the CPU.  Not ported yet, and raising with its ROADMAP item: bodies on
+the sharded forest.
 """
 
 from __future__ import annotations
@@ -64,9 +79,11 @@ from cup3d_tpu_torch.grid.flux import build_flux_tables
 from cup3d_tpu_torch.grid.octree import Octree, TreeConfig
 from cup3d_tpu_torch.grid.uniform import BC
 from cup3d_tpu_torch.io.logging import BufferedLogger, Profiler
-from cup3d_tpu_torch.models.base import (FORCE_PACK, log_forces,
+from cup3d_tpu_torch.models.base import (FORCE_PACK, RIGID_PACK,
+                                         log_forces,
                                          momentum_integrals_core,
                                          pack_forces, pack_moments,
+                                         rigid_update_bodies,
                                          store_force_qoi, unpack_forces,
                                          unpack_moments,
                                          update_penalization_forces, upload)
@@ -83,6 +100,7 @@ from cup3d_tpu_torch.sim.data import (SimulationData,
                                       load_obstacle_state_numpy,
                                       obstacle_state_to_numpy)
 from cup3d_tpu_torch.sim.simulation import resolve_device
+from cup3d_tpu_torch.stream.qoi import PackPolicy, QoIStream
 
 ADAPT_EVERY = 20  # reference cadence (main.cpp:15314)
 FIELDS = ("vel", "p")
@@ -92,21 +110,8 @@ _EPS = 1e-6
 
 
 def _unsupported(cfg: SimulationConfig, mesh=None) -> Optional[str]:
-    if cfg.pipelined:
-        return ("pipelined AMR stepping and the megastep (ROADMAP A6, the "
-                "pipelined forest; A4 ported the uniform grid's)")
     if mesh is not None and (cfg.factory_content or cfg.factory):
-        return "obstacles on the sharded forest (ROADMAP A6/A7)"
-    # the uniform grid's versions of these are ported (ROADMAP A5)
-    if cfg.implicitDiffusion:
-        return ("implicit diffusion on the forest (ROADMAP A6; A5 ported "
-                "the uniform grid's)")
-    if cfg.uMax_forced > 0 or cfg.bFixMassFlux:
-        return ("external forcing / mass-flux fixing on the forest (ROADMAP "
-                "A6; A5 ported the uniform grid's)")
-    if cfg.initCond == "vorticity":
-        return ("initCond vorticity on the forest (ROADMAP A6; A5 ported "
-                "the uniform grid's)")
+        return "obstacles on the sharded forest (ROADMAP A7)"
     return None
 
 
@@ -148,6 +153,8 @@ class AMRSimulation:
         self.uinf = np.asarray(cfg.uinf, np.float64)
         self.lambda_penal = cfg.lambda_penalization
         self._uinf_src = None
+        self._uinf_cache = None
+        #: the frame velocity the megastep chains on the device
         self._uinf_dev = None
         self.nu = cfg.nu
         self.logger = BufferedLogger(cfg.path4serialization)
@@ -179,6 +186,24 @@ class AMRSimulation:
         self._cadence = OutputCadence(cfg.tdump, cfg.fdump, cfg.saveFreq)
         self._dumper = AsyncDumper()
         self._checkpointer = AsyncCheckpointer()
+        # pipelined stepping: the step packs' reader (grouped, deferred),
+        # the device dt chain's max|u| and time, the frame velocity
+        # chained from the megastep, the collision fallback's latch and
+        # the next adaptation's staged scores
+        self._pack_reader = QoIStream(
+            self._consume_entry,
+            policy=PackPolicy.for_cells(self.grid.nb * self.grid.bs ** 3),
+            profiler=self.profiler)
+        self._dt_chain = False
+        self._umax_dev: Optional[torch.Tensor] = None
+        self._time_dev: Optional[torch.Tensor] = None
+        self._collision_hot = False
+        #: pipelined steps the collision fallback routed to the host path
+        self.collision_fallbacks = 0
+        self._scores_prefetch = None
+        #: adaptations that used the staged scores, and pipelined ones that
+        #: computed them anew (none staged, or the forest changed since)
+        self.prefetch = {"hits": 0, "misses": 0}
         self._build_solver_core()
         self._rebuild()
         self._alloc_fields()
@@ -191,6 +216,8 @@ class AMRSimulation:
                 "shards": 1 if self.mesh is None else self.mesh.D,
                 "step": self.step_idx, "time": self.time, "dt": self.dt,
                 "obstacles": [type(ob).__name__ for ob in self.obstacles],
+                "collision_hot": bool(self._collision_hot),
+                "stream": self._pack_reader.snapshot(),
                 "checkpointer": self._checkpointer.health(),
                 "dumper": self._dumper.health()}
 
@@ -227,6 +254,7 @@ class AMRSimulation:
             self.table_build_s.append(time.perf_counter() - t0)
             self._vol = fo.vol.to(self.dtype)
             self._slot0 = 0
+            self._build_physics()
             self._bind_solver()
             return
         self._geom = g
@@ -249,7 +277,33 @@ class AMRSimulation:
         if cfg.bMeanConstraint in (1, 3):
             self._slot0 = int(np.lexsort(
                 (g.ijk[:, 2], g.ijk[:, 1], g.ijk[:, 0]))[0])
+        self._build_physics()
         self._bind_solver()
+
+    def _build_physics(self) -> None:
+        """The topology's implicit-diffusion Helmholtz solve and
+        FixMassFlux profile (the reference's avgUx_nonUniform and
+        parabolic add, main.cpp:12199-12249: the volume-weighted mean of
+        u + uinf over ``vol_total``, then u += delta * 6 eta (1 - eta),
+        eta = y/H, zero on the sharded forest's padding rows)."""
+        g, cfg = self.grid, self.cfg
+        self._helm = None
+        if cfg.implicitDiffusion:
+            kw = dict(tol_abs=cfg.diffusionTol, tol_rel=cfg.diffusionTolRel)
+            if self.forest is not None:
+                self._helm = self.forest.build_helmholtz_solver(**kw)
+            else:
+                from cup3d_tpu_torch.ops import diffusion as dif
+
+                self._helm = dif.build_amr_helmholtz_solver(
+                    g, tab=self._tab1, flux_tab=self._ftab,
+                    device=self.device, **kw)
+        self._flux_profile = None
+        if cfg.bFixMassFlux:
+            self._vol_total = float(np.sum(g.h ** 3) * g.bs ** 3)
+            eta = g.cell_centers(self.dtype, self.device)[..., 1] / \
+                g.extent[1]
+            self._flux_profile = self._pad(6.0 * eta * (1.0 - eta))
 
     def _bind_solver(self) -> None:
         """``self._solver``: the solver core bound to this topology (the
@@ -309,10 +363,10 @@ class AMRSimulation:
         """Device copy of the frame velocity, uploaded when ``uinf`` is
         reassigned (identity check) and reused otherwise."""
         if self._uinf_src is not self.uinf:
-            self._uinf_dev = torch.as_tensor(self.uinf, dtype=self.dtype,
-                                             device=self.device)
+            self._uinf_cache = torch.as_tensor(self.uinf, dtype=self.dtype,
+                                               device=self.device)
             self._uinf_src = self.uinf
-        return self._uinf_dev
+        return self._uinf_cache
 
     def _maxu(self) -> torch.Tensor:
         """max|u + uinf| over the fluid and, with bodies, max|udef| (the
@@ -341,21 +395,35 @@ class AMRSimulation:
         """Tag on max |vorticity| per block, the blocks at a body's
         interface forced to refine (bAdaptChiGradient) up to levelMax,
         the others capped at levelMaxVorticity; apply the validated
-        states."""
+        states.  The scores come from the pipelined step's prefetch when
+        it was staged on this forest, else they are computed and read
+        now (one read of both)."""
         g, cfg = self.grid, self.cfg
-        vort, near = self.scores()
-        if near is None:
-            score = vort[: g.nb].cpu().numpy().astype(np.float64)
-            near = np.zeros(g.nb, bool)
-        else:  # one read of both
-            both = torch.cat([vort[: g.nb], near[: g.nb].to(vort.dtype)])
-            both = both.cpu().numpy().astype(np.float64)
-            score, near = both[: g.nb], both[g.nb:] > 0.5
+        pf, self._scores_prefetch = self._scores_prefetch, None
+        if pf is not None and pf[1] == g.nb:
+            self.prefetch["hits"] += 1
+            vals = pf[0].values()
+        else:
+            if cfg.pipelined:
+                self.prefetch["misses"] += 1
+            vals = self._scores_flat().cpu().numpy().astype(np.float64)
+        score = vals[: g.nb]
+        near = (vals[g.nb:] > 0.5 if vals.shape[0] > g.nb
+                else np.zeros(g.nb, bool))
         if cfg.bAdaptChiGradient and near.any():
             score = np.where(near, np.inf, score)
         cap = np.where(near, cfg.levelMax - 1, cfg.levelMaxVorticity - 1)
         return self._apply_states(
             ad.tag_states(g, score, cfg.Rtol, cfg.Ctol, cap))
+
+    def _scores_flat(self) -> torch.Tensor:
+        """The real blocks' vorticity scores and, with bodies, their
+        near-body flags after them, as one device vector."""
+        nb = self.grid.nb
+        vort, near = self.scores()
+        if near is None:
+            return vort[:nb]
+        return torch.cat([vort[:nb], near[:nb].to(vort.dtype)])
 
     def _apply_states(self, states) -> bool:
         """Plan -> transfer -> rebuild; False when nothing changes.  Every
@@ -384,12 +452,13 @@ class AMRSimulation:
 
         self.obstacles = make_obstacles(self, parse_factory(content))
 
-    def create_obstacles(self, dt: float = 0.0) -> None:
+    def create_obstacles(self, dt: float = 0.0, combine: bool = True) -> None:
         """The reference's CreateObstacles (main.cpp:13589-13621) on the
         forest: each body's shape kinematics and SDF on its blocks, its
         Towers chi from the SDF lab assembled through the face tables
         (the ghosts interpolated across coarse-fine faces), its udef
-        masked to chi > 0, then the chi-weighted combined fields."""
+        masked to chi > 0, then the chi-weighted combined fields (the
+        megastep combines them itself: ``combine=False``)."""
         if not self.obstacles:
             return
         fixed = [ob for ob in self.obstacles if ob.bFixFrameOfRef]
@@ -409,6 +478,8 @@ class AMRSimulation:
             ob.sdf, ob.chi, ob.udef = sdf, chi, udef
             chis.append(chi)
             udefs.append(udef)
+        if not combine:
+            return
         stack = torch.stack(chis)
         self.state["chi"] = torch.amax(stack, dim=0)
         den = torch.clamp_min(torch.sum(stack, dim=0), _EPS)[..., None]
@@ -499,13 +570,26 @@ class AMRSimulation:
     # -- initialization ------------------------------------------------------
 
     def _ic(self) -> None:
-        """Taylor-Green, or zero velocity for any other initCond (the JAX
-        driver's rule)."""
+        """Taylor-Green, the coiled vorticity (reference IC_vorticity,
+        main.cpp:12506-12668: omega from the coil, then u_d =
+        lap^-1(-(curl omega)_d) by three forest Poisson solves), or zero
+        velocity for any other initCond (the JAX driver's rule)."""
         g, kw = self.grid, dict(dtype=self.dtype, device=self.device)
         if self.cfg.initCond == "taylorGreen":
             from cup3d_tpu_torch.utils.flows import taylor_green_2d
 
             self.state["vel"] = self._pad(taylor_green_2d(g, **kw))
+        elif self.cfg.initCond == "vorticity":
+            from cup3d_tpu_torch.utils.flows import coil_vorticity
+
+            om = self._pad(coil_vorticity(g.cell_centers(**kw)))
+            curl = amr_ops.curl_blocks(
+                self._geom, self._tab1.assemble_vector(om, g.bs),
+                self._tab1.width)
+            self.state["vel"] = torch.stack(
+                [self._solver(-curl[..., d], tab_arg=self._tab1,
+                              flux_arg=self._ftab) for d in range(3)],
+                dim=-1)
         else:
             self.state["vel"] = self._pad(g.zeros(3, **kw))
         self.state["p"] = self._pad(g.zeros(0, **kw))
@@ -513,8 +597,17 @@ class AMRSimulation:
     def init(self) -> None:
         """The bodies, the IC, then up to 3*levelMax rounds of {adapt;
         re-create the bodies; re-IC} to converge the initial grid onto
-        them (main.cpp:15163-15178)."""
+        them (main.cpp:15163-15178).  Pipelined, a roll-corrected fish is
+        refused (its host angVel correction cannot ride the device rigid
+        chain)."""
         self._add_obstacles()
+        if self.cfg.pipelined:
+            for ob in self.obstacles:
+                if getattr(ob, "bCorrectRoll", False):
+                    raise ValueError(
+                        "pipelined mode cannot run roll-corrected "
+                        "obstacles (host-side angVel mutation) — run "
+                        "without -pipelined")
         self.create_obstacles()
         self._ic()
         for _ in range(3 * self.cfg.levelMax):
@@ -523,39 +616,113 @@ class AMRSimulation:
             self._ic()
             if not changed:
                 break
+        self._dt_chain = self._use_device_dt()
+        self.prefetch = {"hits": 0, "misses": 0}  # count the steps' only
 
     # -- stepping ------------------------------------------------------------
 
-    def calc_max_timestep(self) -> float:
-        """CFL dt with the diffusive cap and log ramp-up, from max|u| read
-        at the end of the previous step (or read now); aborts on a NaN or
-        runaway velocity and on a collapsed dt."""
+    def _use_device_dt(self) -> bool:
+        """The device dt chain: pipelined obstacle-free runs on the
+        unsharded forest stopped by a step count, with no fixed dt, no
+        diagnostics or flux.txt rows and no dump cadence by time (the
+        uniform driver's rule; the JAX package keeps the sharded forest on
+        the host dt).  ``dtDevice`` -1 turns it on for the card, 1
+        everywhere, 0 nowhere."""
+        cfg = self.cfg
+        if not cfg.pipelined or self.obstacles or self.forest is not None:
+            return False
+        if cfg.dt > 0 or cfg.tend > 0 or cfg.nsteps <= 0:
+            return False
+        if cfg.tdump > 0 or cfg.bFixMassFlux:
+            return False
+        if cfg.freqDiagnostics > 0 or cfg.dtDevice == 0:
+            return False
+        return cfg.dtDevice == 1 or self.device.type == "cuda"
+
+    def _runaway(self, umax: float) -> None:
+        self.logger.flush()
+        reason = ("nan-velocity" if not np.isfinite(umax)
+                  else "runaway-velocity")
+        extra = {"step": self.step_idx, "umax": umax}
+        self.flight.trigger(reason, extra=extra)
+        raise SimulationFailure(
+            reason, f"runaway velocity: max|u|={umax:.3g}", extra)
+
+    def _calc_dt_device(self) -> torch.Tensor:
+        """The CFL dt from the previous step's DEVICE max|u|: the
+        non-pipelined one-step-lag policy (no margin, no growth bound),
+        with no read.  The runaway abort checks the freshest consumed
+        host mirror (an abort tolerates lag; the dt does not)."""
         from cup3d_tpu_torch.sim import dtpolicy
 
         cfg = self.cfg
+        if faults.fire("step.nan_velocity", self.step_idx):
+            self._umax_next = float("nan")
+        um = self._umax_next
+        if um is not None and (not np.isfinite(um) or um > cfg.uMax_allowed):
+            self._runaway(um)
+        if self._umax_dev is None:
+            self._umax_dev = self._maxu()
+        if self._time_dev is None:
+            self._time_dev = upload(np.float64(self.time), self.dtype,
+                                    self.device)
+        cfl = dtpolicy.ramped_cfl(cfg.CFL, self.step_idx, cfg.rampup)
+        hmin = float(self.grid.h.min())
+        if cfg.implicitDiffusion:
+            dt = dtpolicy.dt_device_implicit(self._umax_dev, cfl, hmin,
+                                             self.nu, self.step_idx > 10)
+        else:
+            dt = dtpolicy.dt_device(self._umax_dev, cfl, hmin, self.nu)
+        eng = self._resilience
+        if eng is not None and eng.dt_scale != 1.0:
+            # retry halving on the device, floored as scale_dt floors
+            dt = torch.maximum(dt * eng.dt_scale,
+                               torch.clamp_max(dt, eng.dt_floor))
+        self._last_umax = um
+        return dt
+
+    def calc_max_timestep(self):
+        """CFL dt with the diffusive cap and log ramp-up, from max|u| read
+        at the end of the previous step (or read now); aborts on a NaN or
+        runaway velocity and on a collapsed dt.  Pipelined, max|u| is the
+        latest consumed one (floored by the bodies' host speed) with a
+        1.5x staleness margin and a 1.03x growth bound; on the device dt
+        chain the dt is a device tensor (no read)."""
+        from cup3d_tpu_torch.sim import dtpolicy
+
+        cfg = self.cfg
+        if self._dt_chain:
+            return self._calc_dt_device()
         hmin = float(self.grid.h.min())
         if faults.fire("step.nan_velocity", self.step_idx):
             self._umax_next = float("nan")
         if self._umax_next is not None:
             umax = self._umax_next
-            self._umax_next = None
+            if not cfg.pipelined:
+                self._umax_next = None
+            else:
+                # keep the latest consumed max|u| (the reader may still be
+                # in flight), floored by the fresh host body speed: a gait
+                # spin-up outruns the stale mirror
+                for ob in self.obstacles:
+                    umax = max(umax, ob.max_body_speed(self.uinf))
         else:
             umax = float(self._maxu())
         self._last_umax = umax
         if not np.isfinite(umax) or umax > cfg.uMax_allowed:
-            self.logger.flush()
-            reason = ("nan-velocity" if not np.isfinite(umax)
-                      else "runaway-velocity")
-            extra = {"step": self.step_idx, "umax": umax}
-            self.flight.trigger(reason, extra=extra)
-            raise SimulationFailure(
-                reason, f"runaway velocity: max|u|={umax:.3g}", extra)
+            self._runaway(umax)
         if cfg.dt > 0:
             self.dt = cfg.dt
         else:
+            prev_dt = self.dt
+            if cfg.pipelined:
+                # the stale-max|u| margin (see sim/simulation.py)
+                umax = 1.5 * umax
             self.dt = dtpolicy.dt_host(hmin, self.nu, umax, cfg.CFL,
                                        self.step_idx, cfg.rampup,
                                        cfg.implicitDiffusion)
+            if cfg.pipelined and prev_dt > 0:
+                self.dt = min(self.dt, 1.03 * prev_dt)
             if cfg.tend > 0:
                 self.dt = min(self.dt, cfg.tend - self.time)
         if self._resilience is not None:
@@ -576,8 +743,10 @@ class AMRSimulation:
 
     def _maybe_dump_save(self) -> None:
         if self._cadence.dump_due(self.time, self.step_idx):
+            self.flush_packs()  # host mirrors current before output
             self.dump_fields()
         if self._cadence.save_due(self.step_idx):
+            self.flush_packs()
             with self.profiler("Checkpoint"):
                 self._save_checkpoint_guarded()
 
@@ -627,8 +796,29 @@ class AMRSimulation:
 
     # -- the step ----------------------------------------------------------
 
-    def advance(self, dt: float) -> None:
-        """One step of the host path (JAX ``_advance_host``)."""
+    def advance(self, dt) -> None:
+        """One step: the pipelined megastep (with or without bodies) unless
+        the collision fallback is latched, else the host path.  ``dt`` a
+        host float, or the device dt of the dt chain."""
+        if self.cfg.pipelined and not self._collision_hot:
+            if self.obstacles:
+                return self.advance_pipelined(dt)
+            return self.advance_pipelined_free(dt)
+        if self.cfg.pipelined and self.obstacles:
+            self.collision_fallbacks += 1
+        return self._advance_host(dt)
+
+    def _advance_host(self, dt: float) -> None:
+        """One step of the host path (JAX ``_advance_host``); also the
+        collision fallback of pipelined stepping."""
+        if self.cfg.pipelined or self._pack_reader:
+            # entering the host path from pipelined stepping: the mirrors
+            # must be current and the device chains dropped (also when a
+            # flush has already emptied the stream)
+            self.flush_packs()
+            for ob in self.obstacles:
+                ob._dev_rigid = None
+            self._uinf_dev = None
         s, prof = self.state, self.profiler
         t0 = time.perf_counter()
         self._maybe_dump_save()
@@ -637,8 +827,7 @@ class AMRSimulation:
         # the swimming frame for the rigid update, not for the advection
         # (the JAX host path's order)
         uinf = self.uinf_device()
-        if self.adapt_enabled and (
-                self.step_idx < 10 or self.step_idx % ADAPT_EVERY == 0):
+        if self._adapt_due(self.step_idx):
             with prof("AdaptMesh"):
                 self.adapt_mesh()
         if self.obstacles:
@@ -646,14 +835,21 @@ class AMRSimulation:
                 self.create_obstacles(dt)
         g, geom = self.grid, self._geom
         with prof("AdvectionDiffusion"):
-            s["vel"] = amr_ops.rk3_step_blocks(geom, s["vel"], dt_dev,
-                                               self.nu, uinf, self._tab3,
-                                               self._ftab)
+            s["vel"] = self._advdiff(s["vel"], dt_dev, uinf)
+        overlap_now = False
         if self.obstacles:
             with prof("UpdateObstacles"):
                 precheck = self._update_obstacles(dt)
+                overlap_now = any(v > 0 for v in precheck.values())
             with prof("Penalization"):
                 self._penalization(dt, dt_dev, precheck)
+        if self.cfg.bFixMassFlux or self.cfg.uMax_forced > 0:
+            with prof("FixMassFlux" if self.cfg.bFixMassFlux
+                      else "ExternalForcing"):
+                s["vel"], u_msr = self._forcing(s["vel"], self.uinf_device(),
+                                                dt)
+                if u_msr is not None:
+                    self._log_flux(self.step_idx, self.time, float(u_msr))
         with prof("PressureProjection"):
             # warm start from the previous pressure; after step_2nd_start
             # the reference's increment form (main.cpp:15087-15100)
@@ -670,49 +866,349 @@ class AMRSimulation:
                 self._compute_forces()
         self._log_diagnostics()
         with prof("SyncQoI"):
-            row = self._consume_step_pack()
-        row.update(step=self.step_idx, time=self.time, dt=dt, nb=g.nb,
-                   wall_s=time.perf_counter() - t0)
-        self.step_log.append(row)
-        self.flight.record_step({"step": self.step_idx, "t": self.time,
-                                 "dt": dt, "umax": self._last_umax,
-                                 "nb": g.nb, "wall_s": row["wall_s"],
-                                 "solver": self._obs.last_solver})
+            # ONE blocking read of everything the step produced: the
+            # penalization forces, the force QoI, the solver's [residual,
+            # iterations] and max|u| for the next dt
+            parts = self._pending_parts + [("umax", self._maxu().reshape(1))]
+            self._pending_parts = []
+            self._consume_entry(self._pack_reader.pack_parts(
+                parts, self.dtype, time=self.time, step=self.step_idx,
+                nb=g.nb, dt=dt, umax_dt=self._last_umax, wall_s=None))
+            self.step_log[-1]["wall_s"] = time.perf_counter() - t0
+        # the collision fallback: the host path just measured fresh
+        # overlap counts; resume the pipelined step once they are clear
+        if self._collision_hot:
+            latched = any(ob.collision_counter > 0 for ob in self.obstacles)
+            if not latched and not overlap_now:
+                self._collision_hot = False
         self.step_idx += 1
         self.time += dt
 
-    def _consume_step_pack(self) -> dict:
-        """ONE blocking host read for everything the step produced: the
-        penalization forces and the force QoI (forces_<i>.txt), the
-        solver's [residual, iterations] (on to the flight recorder) and
-        max|u| for the next dt."""
-        parts = self._pending_parts
-        self._pending_parts = []
-        parts.append(("umax", self._maxu().reshape(1)))
-        vals = torch.cat([v.reshape(-1).to(torch.float64)
-                          for _, v in parts]).cpu().tolist()
-        row, off = {}, 0
-        for name, v in parts:
-            seg = vals[off:off + v.numel()]
-            off += v.numel()
-            if name == "umax":
-                self._umax_next = seg[0]
-                row["umax"] = seg[0]
-            elif name == "psolve":
-                row["resid"], row["iters"] = seg[0], seg[1]
-                self._obs.note_solver(
-                    self.step_idx, seg[1], seg[0],
-                    cap=getattr(self._solver, "maxiter", None))
+    def _adapt_due(self, step: int) -> bool:
+        return self.adapt_enabled and (step < 10 or step % ADAPT_EVERY == 0)
+
+    # -- the stages the host path and the megastep share ---------------------
+
+    def _advdiff(self, vel: torch.Tensor, dt, uinf) -> torch.Tensor:
+        """AdvectionDiffusion: RK3, or with ``implicitDiffusion`` Euler
+        advection and the Helmholtz solve a component."""
+        if self._helm is not None:
+            from cup3d_tpu_torch.ops import diffusion as dif
+
+            return dif.implicit_step_blocks(self._geom, vel, dt, self.nu,
+                                            uinf, self._tab3, self._helm)
+        return amr_ops.rk3_step_blocks(self._geom, vel, dt, self.nu, uinf,
+                                       self._tab3, self._ftab)
+
+    def _forcing(self, vel: torch.Tensor, uinf, dt):
+        """FixMassFlux, or the constant streamwise acceleration of
+        ``uMax_forced`` (ExternalForcing, main.cpp:10581-10596; the
+        sharded forest's padding rows stay 0).  Returns (vel, the measured
+        bulk velocity as a 0-dim tensor, or None)."""
+        cfg = self.cfg
+        if cfg.bFixMassFlux:
+            u_target = 2.0 / 3.0 * cfg.uMax_forced
+            u_msr = torch.sum((vel[..., 0] + uinf[0]) * self._vol) / \
+                self._vol_total
+            add = (u_target - u_msr) * self._flux_profile
+            return torch.cat([vel[..., :1] + add[..., None], vel[..., 1:]],
+                             dim=-1), u_msr
+        if cfg.uMax_forced > 0:
+            H = self.grid.extent[1]
+            add = 8.0 * self.nu * cfg.uMax_forced / (H * H) * dt
+            if self.forest is not None:
+                add = add * self.forest.pmask[..., 0]
+                return torch.cat([vel[..., :1] + add[..., None],
+                                  vel[..., 1:]], dim=-1), None
+            return torch.cat([vel[..., :1] + add, vel[..., 1:]],
+                             dim=-1), None
+        return vel, None
+
+    def _log_flux(self, step: int, t: float, u_msr: float) -> None:
+        """flux.txt row ``step time u_bulk target`` (the producing step's
+        index and time on both paths)."""
+        u_target = 2.0 / 3.0 * self.cfg.uMax_forced
+        self.logger.write("flux.txt",
+                          f"{step} {t:.8e} {u_msr:.8e} {u_target:.8e}\n")
+
+    # -- pipelined stepping: the megastep and the QoI stream ----------------
+
+    def _prefetch_scores(self) -> None:
+        """Stage the next step's adaptation scores when it adapts: their
+        compute and host copy overlap this step's host work."""
+        if self._adapt_due(self.step_idx + 1):
+            self._scores_prefetch = (
+                self._pack_reader.stage(self._scores_flat()), self.grid.nb)
+
+    def _emit(self, parts: list, dt, dt_dev, t0: float) -> None:
+        """The step's QoI pack into the stream, the step counter and, off
+        the dt chain, the host time advanced.  On the chain the pack
+        carries the step's dt and the time after it."""
+        if isinstance(dt, torch.Tensor):
+            self._time_dev = self._time_dev + dt_dev
+            parts += [("dt", dt_dev.reshape(1)),
+                      ("time", self._time_dev.reshape(1))]
+        entry = self._pack_reader.pack_parts(
+            parts, self.dtype, time=self.time, step=self.step_idx,
+            nb=self.grid.nb, umax_dt=self._last_umax,
+            dt=None if isinstance(dt, torch.Tensor) else dt,
+            wall_s=time.perf_counter() - t0)
+        self._pack_reader.emit(entry)
+        self.step_idx += 1
+        if not isinstance(dt, torch.Tensor):
+            self.time += dt
+
+    def _megastep_free(self, vel, p, uinf, dt):
+        """The obstacle-free megastep: advection, forcing, projection and
+        max|u|.  Returns (vel, p, pack parts)."""
+        vel = self._advdiff(vel, dt, uinf)
+        vel, flux_msr = self._forcing(vel, uinf, dt)
+        vel, p, psolve = amr_ops.project_blocks(
+            self._geom, vel, dt, self._solver, self._tab1, self._ftab,
+            p_init=p, second_order=self.step_idx >= self.cfg.step_2nd_start,
+            with_stats=True)
+        umax = torch.max(torch.abs(self._unpad(vel) + uinf)).reshape(1)
+        return vel, p, self._pack_tail(flux_msr, umax, psolve, vel)
+
+    def _pack_tail(self, flux_msr, umax, psolve, like) -> list:
+        flux = (torch.zeros(1, dtype=like.dtype, device=like.device)
+                if flux_msr is None else flux_msr.reshape(1))
+        return [("flux", flux), ("umax", umax), ("psolve", psolve)]
+
+    def advance_pipelined_free(self, dt) -> None:
+        """The obstacle-free pipelined step: one megastep, its pack into
+        the stream, the next adaptation's scores staged."""
+        s = self.state
+        t0 = time.perf_counter()
+        dt_dev = (dt if isinstance(dt, torch.Tensor) else
+                  torch.tensor(dt, dtype=self.dtype, device=self.device))
+        self._maybe_dump_save()
+        if self._adapt_due(self.step_idx):
+            with self.profiler("AdaptMesh"):
+                self.adapt_mesh()
+        with self.profiler("Megastep"):
+            uinf = (self._uinf_dev if self._uinf_dev is not None
+                    else self.uinf_device())
+            s["vel"], s["p"], parts = self._megastep_free(
+                s["vel"], s["p"], uinf, dt_dev)
+            # the device dt chain: the next step's CFL scale, never read
+            self._umax_dev = dict(parts)["umax"][0]
+            self._prefetch_scores()
+        self._log_diagnostics()
+        with self.profiler("SyncQoI"):
+            self._emit(parts, dt, dt_dev, t0)
+
+    def _megastep(self, vel, p, chis, udefs, sdfs, rigid, forced, blocked,
+                  fixmask, windows, budgets, uinf, dt, lam):
+        """The megastep with bodies (JAX ``mega``): advection, every
+        body's rigid update on the device, Brinkman penalization toward
+        the combined body velocity, forcing, projection, the surface
+        probe of each body, the pairwise overlap counts and the next
+        step's frame velocity.  Returns (vel, p, chi, udef, uinf_next,
+        pack parts)."""
+        n = chis.shape[0]
+        xc, vol = self._xc, self._vol
+        chi = torch.amax(chis, dim=0)
+        den = torch.clamp_min(torch.sum(chis, dim=0), _EPS)[..., None]
+        udef = torch.sum(chis[..., None] * udefs, dim=0) / den
+
+        vel = self._advdiff(vel, dt, uinf)
+
+        cms = rigid[:, 12:15]
+        M = torch.stack([pack_moments(momentum_integrals_core(
+            xc, vol, chis[i], vel, cms[i])) for i in range(n)])
+        out = rigid_update_bodies(M, rigid, forced, blocked, uinf, dt)
+        cm_new = out[:, 12:15]
+        ub = torch.stack([self.ubody(udefs[i], out[i, 12:15], out[i, 0:3],
+                                     out[i, 3:6]) for i in range(n)])
+        ubody = torch.sum(chis[..., None] * ub, dim=0) / den
+
+        vel_old = vel
+        vel = penalize(vel, chi, ubody, lam, dt)
+        PF = -per_obstacle_penalization_force(
+            vel, vel_old, tuple(chis[i] for i in range(n)), dt, vol, xc,
+            cm_new)
+
+        vel, flux_msr = self._forcing(vel, uinf, dt)
+
+        vel, p, psolve = amr_ops.project_blocks(
+            self._geom, vel, dt, self._solver, self._tab1, self._ftab, chi,
+            udef, p_init=p,
+            second_order=self.step_idx >= self.cfg.step_2nd_start,
+            with_stats=True)
+
+        from cup3d_tpu_torch.models.collisions import overlap_count
+        from cup3d_tpu_torch.ops.surface import probe_blocks_core
+
+        F = torch.stack([pack_forces(probe_blocks_core(
+            vel, p, chis[i], sdfs[i], udefs[i], slots, shape, b0, h,
+            self.nu, cm_new[i], out[i, 0:3], out[i, 3:6],
+            max_points=budgets[i]))
+            for i, (slots, shape, b0, h) in enumerate(windows)])
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        overlaps = (torch.stack([overlap_count(chis[i], chis[j])
+                                 .to(self.dtype) for i, j in pairs])
+                    if pairs else torch.zeros(0, dtype=self.dtype,
+                                              device=self.device))
+        # the next step's frame velocity from the NEW rigid state
+        nfix = torch.sum(fixmask)
+        mean_tv = torch.sum(out[:, 0:3] * fixmask[:, None], dim=0) / \
+            torch.clamp_min(nfix, 1.0)
+        uinf_next = torch.where(nfix > 0, -mean_tv, uinf)
+        umax = torch.maximum(torch.max(torch.abs(vel + uinf_next)),
+                             torch.max(torch.abs(udef))).reshape(1)
+        parts = [("rigid", out.reshape(-1)),
+                 ("penal", PF.reshape(-1).to(self.dtype)),
+                 ("forces", F.reshape(-1)), ("overlap", overlaps)]
+        parts += self._pack_tail(flux_msr, umax, psolve, vel)
+        return vel, p, chi, udef, uinf_next, parts
+
+    def advance_pipelined(self, dt: float) -> None:
+        """The pipelined step with bodies: CreateObstacles, one megastep,
+        its pack into the stream (read a few steps later), the bodies'
+        rigid state chained on the device, the next adaptation's scores
+        staged; when the host mirrors show two bodies near contact, an
+        early read."""
+        from cup3d_tpu_torch.ops.surface import (block_window_slots,
+                                                 obstacle_probe_budget)
+
+        s, obs = self.state, self.obstacles
+        t0 = time.perf_counter()
+        dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
+        self._maybe_dump_save()
+        if self._adapt_due(self.step_idx):
+            with self.profiler("AdaptMesh"):
+                # no flush: the packs stay readable after a re-layout and
+                # the rigid chains do not depend on the field layout
+                self.adapt_mesh()
+        with self.profiler("CreateObstacles"):
+            self.create_obstacles(dt, combine=False)
+        with self.profiler("Megastep"):
+            g = self.grid
+            h_fine = float(g.h0 / (1 << (len(g._slot_maps) - 1)))
+            # the probe's slot budgets of this step (the JAX package
+            # retraces its megastep when they move)
+            budgets = tuple(obstacle_probe_budget(ob, h_fine) for ob in obs)
+            windows = []
+            for ob in obs:
+                slots, b0, h = block_window_slots(
+                    g, np.asarray(ob.position), ob.length)
+                windows.append((upload(slots.reshape(-1), torch.long,
+                                       self.device), slots.shape, b0,
+                                float(np.float32(h))))
+            rigid = torch.stack([ob.rigid_state_dev(self.dtype)
+                                 for ob in obs])
+            forced = torch.stack([ob.forced_mask_dev() for ob in obs])
+            blocked = torch.stack([ob.block_mask_dev() for ob in obs])
+            fixmask = upload(np.array([1.0 if ob.bFixFrameOfRef else 0.0
+                                       for ob in obs]), self.dtype,
+                             self.device)
+            uinf = (self._uinf_dev if self._uinf_dev is not None
+                    else self.uinf_device())
+            (s["vel"], s["p"], s["chi"], s["udef"], self._uinf_dev,
+             parts) = self._megastep(
+                s["vel"], s["p"], torch.stack([ob.chi for ob in obs]),
+                torch.stack([ob.udef for ob in obs]),
+                torch.stack([ob.sdf for ob in obs]), rigid, forced, blocked,
+                fixmask, windows, budgets, uinf, dt_dev,
+                self.lambda_device(dt_dev))
+            out = dict(parts)["rigid"].reshape(len(obs), RIGID_PACK)
+            for i, ob in enumerate(obs):
+                row = out[i]
+                ob._dev_rigid = {"step": self.step_idx, "pack": row,
+                                 "trans": row[0:3], "ang": row[3:6],
+                                 "cm": row[12:15]}
+                ob._ubody_cache = None
+            self._prefetch_scores()
+        self._log_diagnostics()
+        with self.profiler("SyncQoI"):
+            self._emit(parts, dt, dt_dev, t0)
+            # the overlap counts in the packs are read a few steps late:
+            # when the (stale) mirrors put two bodies within a few fine
+            # cells of contact, start the read now
+            if len(obs) > 1 and self._mirrors_near_contact():
+                self._pack_reader.kick()
+
+    def _mirrors_near_contact(self, margin_cells: float = 6.0) -> bool:
+        h_fine = float(self.grid.h.min())
+        obs = self.obstacles
+        for i in range(len(obs)):
+            for j in range(i + 1, len(obs)):
+                half = 0.5 * (obs[i].length + obs[j].length)
+                d = np.abs(np.asarray(obs[i].position)
+                           - np.asarray(obs[j].position))
+                if np.all(d < half + margin_cells * h_fine):
+                    return True
+        return False
+
+    def flush_packs(self) -> None:
+        """Drain the in-flight reads and pending packs so the host mirrors
+        are current (output, snapshots, the host path's entry)."""
+        self._pack_reader.flush()
+
+    def _consume_entry(self, entry: dict) -> None:
+        """Apply one step's pack (read now on the host path, by the stream
+        when pipelined): the bodies' rigid mirrors (the device chain
+        kept), their forces and force log, the collision latch, the
+        flux.txt row and the solver stats of the PRODUCING step, max|u|
+        for the next dt and, on the dt chain, the host dt and time; then
+        the step's ``step_log`` row and flight record."""
+        vals = entry.get("vals")
+        if vals is None:
+            vals = entry["pack"].cpu().to(torch.float64).numpy()
+        obs = self.obstacles
+        step = int(entry["step"])
+        row = {"step": step, "time": entry["time"], "dt": entry["dt"],
+               "nb": entry["nb"], "wall_s": entry["wall_s"]}
+        off = 0
+        for name, size in entry["layout"]:
+            seg = vals[off:off + size]
+            off += size
+            if name == "rigid":
+                for i, ob in enumerate(obs):
+                    ob.apply_rigid_pack(
+                        seg[RIGID_PACK * i:RIGID_PACK * (i + 1)],
+                        clear_dev=False)
             elif name == "penal":
-                for i, ob in enumerate(self.obstacles):
-                    ob.penal_force = np.asarray(seg[6 * i:6 * i + 3])
-                    ob.penal_torque = np.asarray(seg[6 * i + 3:6 * i + 6])
+                for i, ob in enumerate(obs):
+                    ob.penal_force = seg[6 * i:6 * i + 3]
+                    ob.penal_torque = seg[6 * i + 3:6 * i + 6]
             elif name == "forces":
-                for i, ob in enumerate(self.obstacles):
+                for i, ob in enumerate(obs):
                     store_force_qoi(ob, unpack_forces(
                         seg[FORCE_PACK * i:FORCE_PACK * (i + 1)]))
-                    log_forces(self.logger, i, self.time, ob)
-        return row
+                    log_forces(self.logger, i, entry["time"], ob)
+            elif name == "overlap":
+                if np.any(seg > 0):
+                    # a stale contact signal: the host path (its fresh
+                    # pre-check and collision pass) until it is clear
+                    self._collision_hot = True
+            elif name == "flux":
+                if self.cfg.bFixMassFlux:
+                    self._log_flux(step, entry["time"], float(seg[0]))
+            elif name == "umax":
+                self._umax_next = row["umax"] = float(seg[0])
+            elif name == "psolve":
+                row["resid"], row["iters"] = float(seg[0]), float(seg[1])
+                self._obs.note_solver(
+                    step, row["iters"], row["resid"],
+                    cap=getattr(self._solver, "maxiter", None))
+            elif name == "dt":
+                self.dt = row["dt"] = float(seg[0])
+            elif name == "time":
+                self.time = float(seg[0])
+                row["time"] = self.time - row["dt"]
+        # the host frame velocity from the mirrors a pipelined pack
+        # refreshed (logs, dumps; the host path keeps the one its
+        # CreateObstacles set)
+        fixed = [ob for ob in obs if ob.bFixFrameOfRef]
+        if fixed and entry["layout"][0][0] == "rigid":
+            self.uinf = -np.mean([ob.transVel for ob in fixed], axis=0)
+        self.step_log.append(row)
+        self.flight.record_step({"step": step, "t": row["time"],
+                                 "dt": row["dt"], "umax": entry["umax_dt"],
+                                 "nb": row["nb"], "wall_s": row["wall_s"],
+                                 "solver": self._obs.last_solver})
 
     def _log_diagnostics(self) -> None:
         """div.txt/energy.txt rows every freqDiagnostics steps."""
@@ -765,6 +1261,11 @@ class AMRSimulation:
         self._pending_parts = []
         self._umax_next = None
         self._last_umax = None
+        self._umax_dev = self._time_dev = self._uinf_dev = None
+        self._scores_prefetch = None
+        self._collision_hot = False
+        # packs of the abandoned trajectory must never apply
+        self._pack_reader.abandon()
         if self.obstacles:
             self.create_obstacles(0.0)
 
@@ -790,18 +1291,29 @@ class AMRSimulation:
     def simulate(self) -> None:
         """loop { calc_max_timestep; advance } to ``tend`` or ``nsteps``,
         through the RecoveryEngine unless ``CUP3D_RECOVER=0``; only
-        SimulationFailures of a recoverable reason are retried."""
+        SimulationFailures of a recoverable reason are retried.
+        Pipelined, the stream is drained before each snapshot (the
+        snapshot pickles the host mirrors, which must equal the device
+        chains' state) and at the end."""
         cfg = self.cfg
         eng = RecoveryEngine.install(self)
         try:
             while True:
+                if (eng is not None and cfg.pipelined
+                        and eng.snapshot_due(self.step_idx)):
+                    try:
+                        self.flush_packs()
+                    except Exception as e:
+                        if eng.handle_failure(e):
+                            continue
+                        raise
                 if eng is not None and eng.on_loop_top():
                     continue  # rolled back: restart the iteration
                 try:
                     dt = self.calc_max_timestep()
                     if cfg.verbose:
                         print(f"cup3d_tpu_torch[amr]: step: {self.step_idx},"
-                              f" time: {self.time:f}, dt: {dt:.3e}, "
+                              f" time: {self.time:f}, dt: {float(dt):.3e}, "
                               f"blocks: {self.grid.nb}")
                     self.advance(dt)
                 except Exception as e:
@@ -812,6 +1324,7 @@ class AMRSimulation:
                 done_n = cfg.nsteps > 0 and self.step_idx >= cfg.nsteps
                 if done_t or done_n:
                     break
+            self.flush_packs()
             self.drain_streams()
             self.logger.flush()
         finally:
@@ -894,3 +1407,5 @@ def load_state_numpy(sim: AMRSimulation, arrays: Dict[str, np.ndarray],
     if scalars.get("bodies") is not None:
         load_obstacle_state_numpy(sim, scalars["bodies"])
     sim._umax_next = None
+    sim._umax_dev = sim._time_dev = sim._uinf_dev = None
+    sim._scores_prefetch = None

@@ -14,7 +14,8 @@ import math
 
 import torch
 
-__all__ = ["ramped_cfl", "diffusion_cap", "dt_host", "dt_device"]
+__all__ = ["ramped_cfl", "diffusion_cap", "dt_host", "dt_device",
+           "dt_device_implicit"]
 
 
 def ramped_cfl(cfl: float, step: int, rampup: int) -> float:
@@ -46,4 +47,16 @@ def dt_device(umax, cfl_eff, h: float, nu: float):
     """The same dt (explicit diffusion) from a device max|u| tensor, as a
     device tensor: the pipelined driver's dt chain never reads it."""
     cap = (h * h / 6.0) / (nu + (h / 6.0) * umax)
+    return torch.minimum(cfl_eff * h / (umax + 1e-8), cap)
+
+
+def dt_device_implicit(umax, cfl_eff, h: float, nu: float,
+                       past_warmup: bool):
+    """The device dt under implicit diffusion: the absolute 0.1 cap once
+    step > 10 (``past_warmup``; main.cpp:15270-15271), the combined cap
+    before that."""
+    if past_warmup:
+        cap = torch.full_like(umax, 0.1)
+    else:
+        cap = (h * h / 6.0) / (nu + (h / 6.0) * umax)
     return torch.minimum(cfl_eff * h / (umax + 1e-8), cap)

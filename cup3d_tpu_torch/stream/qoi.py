@@ -21,8 +21,9 @@ steps; the driver's dt policy guards stability against the stale max|u|
 dt chain).
 
 The counters (``stats``: packs emitted and consumed, groups started and
-read, bytes streamed, stall and read seconds, peak groups in flight) are
-seen by ``obs.metrics.snapshot()`` as ``stream.<key>{stream=<name>}``.
+read, bytes streamed and staged, stall and read seconds, peak groups in
+flight) are seen by ``obs.metrics.snapshot()`` as
+``stream.<key>{stream=<name>}``.
 The ``stream.stall`` fault (resilience/faults.py) fires at ``emit``.
 """
 
@@ -140,6 +141,7 @@ class QoIStream:
             "read_s": 0.0,
             "inflight_peak": 0,
             "kicks": 0,
+            "bytes_staged": 0,
         }
 
     def snapshot(self) -> dict:
@@ -211,6 +213,17 @@ class QoIStream:
         self.stats["bytes_streamed"] += batch.nbytes
         self.stats["inflight_peak"] = max(self.stats["inflight_peak"],
                                           len(self._inflight))
+
+    # -- staging (device->host traffic outside the packs) -----------------
+
+    def stage(self, x: torch.Tensor) -> "_HostCopy":
+        """Start an async host copy of ``x`` (the AMR driver's scores
+        prefetch) and count its bytes in ``bytes_staged``.  The caller
+        reads it later with ``.values()``, which waits on the copy's
+        event (free once it has landed)."""
+        copy = _HostCopy(x)
+        self.stats["bytes_staged"] += copy.nbytes
+        return copy
 
     # -- consumption -------------------------------------------------------
 

@@ -169,17 +169,37 @@ def test_build_driver_dispatch_and_device(tmp_path, monkeypatch):
         tmain.build_driver(argv)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["-factory-content", "sphere L=0.1", "-pipelined", "1"], "A6"),
-    (["-pipelined", "1"], "A4"),
-    (["-implicitDiffusion", "1"], "A5"),
-    (["-bFixMassFlux", "1"], "A5"),
-    (["-uMax_forced", "0.5"], "A6"),
-])
-def test_unported_options_raise(tmp_path, flags, item):
-    argv = ARGV + ["-path4serialization", str(tmp_path), "-device", "cpu"]
-    with pytest.raises(NotImplementedError, match=item):
-        tmain.build_driver(argv + flags)
+@pytest.mark.parametrize("flags", [
+    ["-factory-content", "sphere L=0.1", "-pipelined", "1"],
+    ["-pipelined", "1"],
+    ["-implicitDiffusion", "1"],
+    ["-bFixMassFlux", "1"],
+    ["-uMax_forced", "0.5"],
+], ids=["bodies-pipelined", "pipelined", "implicit", "fixmassflux",
+        "forced"])
+def test_lifted_options_run_on_the_forest(tmp_path, flags):
+    """The options the forest refused before it was pipelined and carried
+    its physics now run: init and 2 steps on a bpd-2 forest (the first
+    occurrence of a flag wins), finite fields.  Their numbers are held
+    to the JAX package in tests/test_torch_amr_pipelined*.py,
+    test_torch_amr_physics.py and test_torch_amr_helmholtz.py."""
+    argv = flags + "-bpdx 2 -bpdy 2 -bpdz 2 -nsteps 2".split() + ARGV + [
+        "-path4serialization", str(tmp_path), "-device", "cpu"]
+    d = tmain.build_driver(argv)
+    d.init()
+    d.simulate()
+    assert d.step_idx == 2 and len(d.step_log) == 2
+    assert all(bool(torch.isfinite(v).all()) for v in d.state.values())
+    assert d.cfg.pipelined == ("-pipelined" in flags)
+
+
+def test_bodies_on_the_sharded_forest_raise(tmp_path):
+    from cup3d_tpu_torch.parallel.forest import make_block_mesh
+
+    cfg = TConfig(factory_content="sphere L=0.1", **_cfg_kw(tmp_path))
+    with pytest.raises(NotImplementedError, match="sharded forest.*A7"):
+        tamr.AMRSimulation(cfg, device="cpu",
+                           mesh=make_block_mesh([torch.device("cpu")] * 2))
 
 
 def test_scan_k_runs_on_the_forest(tmp_path):

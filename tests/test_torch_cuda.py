@@ -29,7 +29,10 @@ The forest's two-level getZ (B9) on the shared core at 8, 27, 9,472 and
 a ragged block count, rerun bitwise; the device midline's Frenet kernel
 against its plain loop; the fish pipelined on the card against the port
 on the CPU; the two-level getZ (B2) and the Laplacian (B4) on
-wall-bounded lanes (BASELINE config #5's walls), rerun bitwise."""
+wall-bounded lanes (BASELINE config #5's walls), rerun bitwise.  The
+pipelined forest (obstacle-free on the device dt chain, and two spheres
+with the rigid state chained on the device) for 3 steps on the card
+against the port on the CPU."""
 
 import math
 
@@ -706,3 +709,59 @@ def test_getz_two_and_lap_on_wall_bounded_lanes(dev, bcs):
             (a if k == 1 else want[0]) * want[0]))
     again = fb.lap(w, planes, a, 1.0 / h2)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("case", ["free", "spheres"])
+def test_pipelined_forest_matches_the_port_on_the_cpu(dev, monkeypatch,
+                                                      tmp_path, case):
+    """The pipelined forest for 3 steps on the card and on the CPU: the
+    Taylor-Green forest at bpd 3 on the device dt chain, or two spheres
+    on a bpd-1 forest of levelMax 2 at a fixed dt (the JAX package's
+    pipelined case): iterations +-1 and dt within 1e-5 a step, velocity
+    within 1e-5 of max|u|, the spheres' rigid state within 1e-5; the
+    card's forest kernel launches equal to its executed iterations."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.stream.qoi import QoIStream
+
+    monkeypatch.setattr(QoIStream, "_ready", staticmethod(lambda b: False))
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    if case == "free":
+        argv = ("-bpdx 3 -bpdy 3 -bpdz 3 -levelMax 2 -levelStart 0 "
+                "-extent 6.283185307179586 -initCond taylorGreen -Rtol 1.8 "
+                "-Ctol 0.05 -CFL 0.4 -rampup 0 -dtDevice 1").split()
+    else:
+        argv = ("-bpdx 1 -bpdy 1 -bpdz 1 -levelMax 2 -levelStart 1 -extent 1 "
+                "-Rtol 5 -Ctol 0.1 -CFL 0.4 -rampup 0 -dt 0.001").split() + [
+                    "-factory-content",
+                    "Sphere radius=0.12 xpos=0.35 ypos=0.5 zpos=0.5 xvel=0.3 "
+                    "bForcedInSimFrame=1 bFixFrameOfRef=1\n"
+                    "Sphere radius=0.1 xpos=0.7 ypos=0.45 zpos=0.5"]
+    argv += ("-nu 1e-3 -poissonSolver iterative -tend 0 -nsteps 3 "
+             f"-verbose 0 -pipelined 1 -path4serialization {tmp_path}"
+             ).split()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        d = build_driver(argv + ["-device", device])
+        d.init()
+        d.adapt_enabled = False
+        fa.reset_launches()
+        d.simulate()
+        runs[device] = d
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card._dt_chain == cpu._dt_chain == (case == "free")
+    iters = [int(row["iters"]) for row in card.step_log]
+    assert len(iters) == 3
+    executed = sum(krylov.ITER_CHUNK * math.ceil(k / krylov.ITER_CHUNK)
+                   for k in iters)
+    assert fa.iterations["executed"] == executed > 0
+    assert fa.launches["amr_getz_two"] == fa.launches["amr_lap"] == \
+        2 * executed
+    for a, b in zip(card.step_log, cpu.step_log):
+        assert abs(a["iters"] - b["iters"]) <= 1
+        assert a["dt"] == pytest.approx(b["dt"], rel=1e-5)
+    for oc, op in zip(card.obstacles, cpu.obstacles):
+        for k in ("transVel", "angVel", "position"):
+            assert np.abs(np.asarray(getattr(oc, k))
+                          - np.asarray(getattr(op, k))).max() <= 1e-5, k
+    _close(card.state["vel"].cpu(), cpu.state["vel"], 1e-5)

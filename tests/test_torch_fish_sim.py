@@ -17,8 +17,8 @@ state), and back.  Then:
   rollbacks as the JAX engine (warm-restart, zero-guess, tile-only), the
   same step and time, velocity within 1e-5 of max|u|;
 - a checkpoint round trip with the fish on the port;
-- two fish, the sphere and the foil build on the forest too; pipelined
-  stepping with a body on the forest is refused (ROADMAP A6).
+- two fish, the sphere and the foil build on the forest too, and the
+  pipelined forest takes a megastep with them.
 """
 
 import pickle
@@ -230,12 +230,11 @@ def test_checkpoint_round_trip_with_the_fish(tmp_path):
 
 @pytest.mark.parametrize("body", [twins.FISH_BODY + "\n" + twins.FISH_BODY,
                                   "sphere L=0.1", "naca L=0.2"])
-def test_other_bodies_are_refused(tmp_path, body):
+def test_other_bodies_build_on_the_forest(tmp_path, body):
     """Two fish, the sphere and the foil run on the uniform grid (ROADMAP
-    A5, tests/test_torch_bodies.py) and now build on the forest as well:
-    its init() rasterizes each onto the finest level; only pipelined
-    stepping with a body on the forest is still refused (A6, the
-    pipelined forest)."""
+    A5, tests/test_torch_bodies.py) and build on the forest as well: its
+    init() rasterizes each onto the finest level, and the pipelined forest
+    builds the same bodies and takes a megastep with them."""
     argv = twins.argv("fish", tmp_path, 1)
     argv[-1] = body
     d = build_driver(argv + ["-device", "cpu"])
@@ -258,5 +257,9 @@ def test_other_bodies_are_refused(tmp_path, body):
     assert abs(vol - want) <= 1e-5 * want
     near = f.scores()[1].numpy()
     assert near.any() == (want > 0) and np.all(f.grid.level[near] == 1)
-    with pytest.raises(NotImplementedError, match="A6"):
-        AMRSimulation(dataclasses.replace(cfg, pipelined=True), device="cpu")
+    p = AMRSimulation(dataclasses.replace(cfg, pipelined=True), device="cpu")
+    p.init()
+    assert torch.equal(p.state["chi"], f.state["chi"])
+    p.advance(p.calc_max_timestep())
+    p.flush_packs()
+    assert len(p.step_log) == 1 and bool(torch.isfinite(p.state["vel"]).all())

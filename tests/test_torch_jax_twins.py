@@ -19,6 +19,15 @@ adapting forest, the bench's factory lines) cut to bpd 1, levelMax 3,
 levelStart 2 (finest h 1/32, the fish twin's), the bodies' centres on
 cell centres in y and z; its JAX driver runs the unpadded host path
 (``CUP3D_BUCKET=0``, the JAX package's equivalence baseline).
+
+The forest's pipelined and physics twins are the JAX package's own test
+cases (tests/test_amr_pipelined.py, at its sizes): "amr_pipe", its
+pipelined Taylor-Green forest (bpd 2, levelMax 2, dt 1e-3); "amr_spheres",
+its two spheres pipelined on the bpd-1 forest at levelMax 2 (dt 1e-3);
+"amr_channel", a walled forest channel (bpd 2x1x1 at level 1, walls in
+y) with FixMassFlux at uMax_forced 0.5 on the host path; and
+"amr_implicit", the Taylor-Green forest with implicit diffusion at nu
+0.02, dt 0.02.
 """
 
 import os
@@ -50,21 +59,43 @@ TWO_FISH = ("StefanFish L=0.4 T=1.0 xpos=0.3 ypos=0.515625 zpos=0.515625 "
             "StefanFish L=0.4 T=1.0 xpos=0.7 ypos=0.515625 zpos=0.515625 "
             "heightProfile=danio widthProfile=stefan")
 
+FOREST_PIPE = ("-bpdx 2 -bpdy 2 -bpdz 2 -levelMax 2 -levelStart 0 "
+               "-extent 6.283185307179586 -initCond taylorGreen -Rtol 1.8 "
+               "-Ctol 0.05 -nu 0.001 -CFL 0.4 -rampup 0 -dt 0.001 "
+               "-poissonSolver iterative -poissonTol 1e-6 "
+               "-poissonTolRel 1e-4 -freqDiagnostics 0 -pipelined 1 "
+               "-verbose 0")
+SPHERES = ("-bpdx 1 -bpdy 1 -bpdz 1 -levelMax 2 -levelStart 1 -extent 1 "
+           "-Rtol 5 -Ctol 0.1 -CFL 0.4 -nu 0.001 -rampup 0 -dt 0.001 "
+           "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+           "-freqDiagnostics 0 -pipelined 1 -verbose 0")
+TWO_SPHERES = ("Sphere radius=0.12 xpos=0.35 ypos=0.5 zpos=0.5 xvel=0.3 "
+               "bForcedInSimFrame=1 bFixFrameOfRef=1\n"
+               "Sphere radius=0.1 xpos=0.7 ypos=0.45 zpos=0.5")
+CHANNEL = ("-bpdx 2 -bpdy 1 -bpdz 1 -levelMax 2 -levelStart 1 -extent 2 "
+           "-BC_y wall -Rtol 100 -Ctol 0 -nu 0.001 -CFL 0.4 -rampup 0 "
+           "-dt 0.005 -uMax_forced 0.5 -bFixMassFlux 1 "
+           "-poissonSolver iterative -poissonTol 1e-6 -poissonTolRel 1e-4 "
+           "-freqDiagnostics 0 -verbose 0")
+IMPLICIT = FOREST.replace("-CFL 0.3", "-CFL 0.3 -dt 0.02 "
+                          "-implicitDiffusion 1")
+_BASES = {"uniform": UNIFORM, "amr": FOREST, "fish": FISH,
+          "amr_fish": AMR_FISH, "amr_pipe": FOREST_PIPE,
+          "amr_spheres": SPHERES, "amr_channel": CHANNEL,
+          "amr_implicit": IMPLICIT}
+_BODIES = {"fish": FISH_BODY, "amr_fish": TWO_FISH,
+           "amr_spheres": TWO_SPHERES}
+
 _drivers = {}
 
 
 def argv(kind: str, tmp, nsteps: int) -> list:
-    """The CLI arguments of ``kind`` ("uniform", "amr", "fish" or
-    "amr_fish"), stopping after ``nsteps`` steps and writing under
-    ``tmp``."""
-    base = {"uniform": UNIFORM, "amr": FOREST, "fish": FISH,
-            "amr_fish": AMR_FISH}[kind]
-    out = (f"{base} -tend 0 -nsteps {nsteps} "
+    """The CLI arguments of ``kind`` (a key of ``_BASES``), stopping after
+    ``nsteps`` steps and writing under ``tmp``."""
+    out = (f"{_BASES[kind]} -tend 0 -nsteps {nsteps} "
            f"-path4serialization {tmp}").split()
-    if kind == "fish":
-        out += ["-factory-content", FISH_BODY]
-    elif kind == "amr_fish":
-        out += ["-factory-content", TWO_FISH]
+    if kind in _BODIES:
+        out += ["-factory-content", _BODIES[kind]]
     return out
 
 

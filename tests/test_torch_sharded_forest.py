@@ -26,7 +26,9 @@ one CPU tensor (``make_block_mesh([cpu] * 8)``).
   JAX package's own sharded-vs-single bound), its iterations within the
   range the JAX sharded solve's own count spans under 1e-7 input noise
   (8 draws), widened by one (ground rule 2's tile-only rule), and equal
-  to the unsharded static solve's;
+  to the unsharded static solve's; the sharded Helmholtz solve of
+  implicit diffusion (padding rows 0) within 1e-4 of the input's max of
+  the unsharded forest's;
 - two steps of ``AMRSimulation(mesh=...)`` TGV on the 15-block tree
   against the JAX mesh driver (fields within 5e-4, tests/test_forest.py's
   driver bound), the state round trip unpadded and a recovery restore;
@@ -285,8 +287,17 @@ def test_static_solve_matches_jax_sharded(p22):
     np.testing.assert_allclose(P.tfo.unpad(x).numpy(), x1.numpy(),
                                atol=SOLVE_ATOL, rtol=0)
     assert int(st1[1]) == k
-    with pytest.raises(NotImplementedError, match="A5"):
-        P.tfo.build_helmholtz_solver()
+    # the sharded Helmholtz solve of implicit diffusion: the forest solve
+    # over the padded geometry and the duck-typed tables, its padding
+    # rows 0, within the stopping target of the unsharded solve's
+    from cup3d_tpu_torch.ops.diffusion import build_amr_helmholtz_solver
+
+    nudt = 1e-4
+    xs = P.tfo.build_helmholtz_solver()(P.pad(P.v), nudt)
+    xu = build_amr_helmholtz_solver(P.tg)(torch.as_tensor(P.v), nudt)
+    assert not xs[P.tg.nb:].any()
+    np.testing.assert_allclose(P.tfo.unpad(xs).numpy(), xu.numpy(), rtol=0,
+                               atol=1e-4 * float(np.abs(P.v).max()))
 
 
 def _tgv_cfg(cls, out):

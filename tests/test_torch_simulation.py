@@ -113,8 +113,8 @@ def test_cli_device_flag_and_conf(tmp_path):
         parse_args(_expand_conf(argv)))
     with pytest.raises(ValueError, match="-device"):
         tmain.build_driver(argv + ["-device", "tpu"])
-    # levelMax > 1 builds the AMR driver, with bodies too; pipelined
-    # stepping of bodies on the forest waits (A6, the pipelined forest)
+    # levelMax > 1 builds the AMR driver, with bodies too, pipelined or
+    # not
     from cup3d_tpu_torch.sim.amr import AMRSimulation
 
     amr = tmain.build_driver(argv + ["-levelMax", "2", "-device", "cpu"])
@@ -122,9 +122,9 @@ def test_cli_device_flag_and_conf(tmp_path):
     body = ["-levelMax", "2", "-factory-content", "sphere L=0.1"]
     amr = tmain.build_driver(argv + body + ["-device", "cpu"])
     assert isinstance(amr, AMRSimulation) and "chi" in amr.state
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmain.build_driver(argv + body + ["-pipelined", "1", "-device",
-                                          "cpu"])
+    amr = tmain.build_driver(argv + body + ["-pipelined", "1", "-device",
+                                            "cpu"])
+    assert isinstance(amr, AMRSimulation) and amr.cfg.pipelined
     # pipelined stepping and the megaloop run, and so do dumps and
     # periodic checkpoints
     d = tmain.build_driver(argv + ["-pipelined", "1", "-scan_k", "8",
