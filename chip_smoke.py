@@ -179,7 +179,42 @@ each of which raises on a fault (nothing is caught):
     (its init time and max|div u|); the obstacle-free pipelined step on
     4 shards of the card under ``CUP3D_RING_HALO=1`` (config #3's forest
     at bpd 8, 5 fixed-dt steps): bitwise the sharded host path, within
-    5e-3 of the unsharded pipelined forest, B14's launches a step.
+    5e-3 of the unsharded pipelined forest, B14's launches a step;
+26. bf16 Krylov storage (``CUP3D_KRYLOV_DTYPE=bf16``): the twelve bf16
+    kernels (B1-B6 at 256^3, B8-B13 on config #3's forest of phase 6,
+    built again under bf16) against their bf16 plain versions on the same
+    seeded inputs by the stage rule (BF16_BITWISE; B1/B8 on the breakdown
+    branch too; the getZ kernels also their f32 twin rounded, on every
+    cell, B9 by that alone), timed beside their plain versions, their f32
+    twins on the same values in the same call and their bounds (from the
+    port's ``bytes_model``); one 64^3 bf16
+    solve, kernels against plain versions (iterations +-1, x within
+    1e-2, the reported residual at the target, ||b - A x|| printed); the
+    tile-only bf16 kernels on the entry points: config #2 at 128^3 (B3)
+    and config #4 (B10) under ``CUP3D_COARSE=0``, launches against the
+    executed iterations, then config #2's first system (held to
+    tests/data/config2_128_first_rhs.npz) solved tile-only at f32 and
+    bf16, kernels and plain versions, on 8 noisy copies: the bf16
+    breakdowns counted (the JAX package's solve of it breaks down too,
+    tests/test_torch_bf16_tile.py), the f32 solves converged, every bf16
+    kernel solve's best x within 1e-2 of the f32 x;
+27. config #2 as the bench's fish256 (256^3, pipelined, through
+    ``build_driver`` and ``simulate()``) for 20 steps from the initial
+    state at bf16 and at f32, each at ``CUP3D_FUSED``'s default (the
+    fused bf16 kernels; the legacy f32 composition), then at f32 on the
+    fused kernels: ms/step, the device's busy share, iterations a solve
+    (bf16 at most f32's + 10), launches against the executed iterations,
+    the fluid's max|div u| under the bench's 0.07, the Krylov gauges;
+28. config #3 under bf16: phase 23's main path (the first step, 9
+    warm-up and 10 timed, pipelined on the device dt chain) with the bf16
+    forest kernels' launches against the executed iterations and max|div
+    u| under 0.05, beside phase 23's f32 run; phase 15's 4-shard forest
+    under bf16, whose static solver takes the JAX package's route (the
+    legacy composition at f32), held to the unsharded static solve (x
+    within 1e-5 at 1e-6 relative), the unsharded forest's fused bf16
+    solve at its maxiter beside it (its best x within 1e-2 of the sharded
+    solve's, its iterations and residual printed), and B14 moving bf16
+    bitwise as its plain copy.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
@@ -198,7 +233,12 @@ largest exchange's in ``largest``, one whole exchange's in
 port: their rows carry ``redesigned`` (the change that did it).  B3's row
 carries ``library_ms``: one ``torch.matmul`` by the dense tile operator;
 B10's one ``torch.einsum`` by it and the column of -h^2, B9's the same
-on the rows of w - azf.
+on the rows of w - azf.  The twelve bf16 rows (``<name>_bf16``) name
+their f32 twin (``twin``) and carry its time in the same call
+(``f32_ms``), their bitwise share and ulps; their launches are from
+fish256 at bf16 (B1, B2, B4-B6), configs #2 (B3) and #4 (B10) under
+``CUP3D_COARSE=0`` and config #3 pipelined at bf16 (B8, B9, B11-B13);
+B3, B9 and B10 carry the f32 rows' library calls on the up-cast input.
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -1157,15 +1197,19 @@ def getz_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
 
 
 class _env:
-    """Set ``CUP3D_*`` variables for one phase; restore them (and clear
-    the process-global fault plan) on the way out."""
+    """Set ``CUP3D_*`` variables for one phase (None: unset one); restore
+    them (and clear the process-global fault plan) on the way out."""
 
     def __init__(self, **env):
         self.env = env
 
     def __enter__(self):
         self.saved = {k: os.environ.get(k) for k in self.env}
-        os.environ.update(self.env)
+        for k, v in self.env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         return self
 
     def __exit__(self, *exc):
@@ -3640,6 +3684,838 @@ def forest_physics_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 26-28: bf16 Krylov storage (CUP3D_KRYLOV_DTYPE=bf16)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# The stage rule of a bf16 kernel against its bf16 plain version on the
+# same inputs (tests/test_torch_bf16.py holds the plain versions to the
+# JAX package's by the same rule): its stored bf16 outputs bitwise equal
+# on at least BF16_BITWISE of the cells, and each cell within one bf16
+# ulp of the plain value, or, where the value is so near 0 that an ulp
+# is finer than f32 arithmetic in another order resolves, within the f32
+# twin's own bound (VEC_RTOL or GETZ_RTOL of max |plain|).  Its f32
+# partials within BF16_PART_RTOL of each tile's sum of |terms| of the
+# sum over its OWN stored vector (a one-ulp difference in a stored cell
+# moves the partial by that cell's ulp, which is the vector's rule);
+# x within VEC_RTOL as the f32 rows.  A getZ kernel (B2, B3, B9, B10)
+# is also held to its f32 twin on the up-cast inputs: its store is the
+# twin's output rounded, and the plain version's store is the f32 plain
+# version's rounded, on every cell, so the cells where the two bf16
+# outputs differ are exactly those where the f32 twin and its plain
+# version (held by GETZ_RTOL in phases 7 and 10) round apart.  B9 is held
+# by that rule and not by the share: on its random zc the f32 twin and
+# its plain version round apart in ~0.1% of the cells (the tile solve
+# cancels the jump of A zf at every block face there).
+BF16_BITWISE = 0.999
+BF16_PART_RTOL = 2e-5
+# one whole 64^3 bf16 solve, kernels against plain versions
+BF16_SOLVE_ITS = 1
+BF16_SOLVE_X = 1e-2
+# phase 27: config #2 as the bench's fish256 (bench.py:637-640, 2166-2199:
+# bench_fish_uniform(256), pipelined), bf16 and f32 from one state
+N_FISH256 = 256
+FISH256_STEPS = 20
+FISH256_DIV_GATE = 0.07     # bench.py:57-58, ("fish", 256)
+FISH256_EXTRA_ITS = 10      # bf16 iterations a solve <= f32's + 10
+# the knobs of a phase's solver: f32 on the fused kernels, or bf16 storage
+# at CUP3D_FUSED's default (auto: fused iff bf16)
+F32_KNOBS = dict(CUP3D_FUSED="1")
+BF16_KNOBS = dict(CUP3D_FUSED=None, CUP3D_KRYLOV_DTYPE="bf16")
+BF16_NAMES = ("update", "getz_two", "getz_tile", "lap", "axpy", "finish",
+              "amr_update", "amr_getz_two", "amr_getz_tile", "amr_lap",
+              "amr_axpy", "amr_finish")
+
+
+def _counts(mod, bf16: bool) -> dict:
+    """The launch counters of ``mod``'s kernels of one storage; the other
+    storage's must be all 0."""
+    other = mod.launches if bf16 else mod.launches_bf16
+    if any(other.values()):
+        raise AssertionError(f"kernels of the other storage launched: "
+                             f"{other}")
+    return dict(mod.launches_bf16 if bf16 else mod.launches)
+
+
+def _bf16_bits(t):
+    """A bf16 tensor's bits as ordered integers (sign-magnitude -> a line
+    on which neighbouring values are 1 apart)."""
+    b = t.view(torch.int16).to(torch.int32)
+    return torch.where(b < 0, -(b & 0x7FFF), b)
+
+
+def _bf16_check(stats, name, got, want, f32_rtol,
+                share_min=BF16_BITWISE, twin=None) -> float:
+    """The stage rule for a stored bf16 output (see BF16_BITWISE); adds
+    the bitwise share and the largest distance in ulps to ``stats``;
+    returns max |got - want|.  ``twin``: the f32 twin's output and its
+    f32 plain version's on the up-cast inputs, which ``got`` and ``want``
+    must equal rounded, on every cell (the getZ rule); ``share_min`` 0
+    then holds the ulps and that rule only."""
+    og, ow = _bf16_bits(got), _bf16_bits(want)
+    share = float((og == ow).double().mean())
+    if twin is not None:
+        k32, p32 = twin
+        rounded = (torch.equal(got.view(torch.int16),
+                               k32.to(BF16).view(torch.int16)),
+                   torch.equal(want.view(torch.int16),
+                               p32.to(BF16).view(torch.int16)))
+        same32 = float((k32.view(torch.int32)
+                        == p32.view(torch.int32)).double().mean())
+        stats["twin_bitwise"] = min(stats.get("twin_bitwise", 1.0), same32)
+        log(f"    {name}: {share:.5%} bitwise its plain version; the store "
+            f"is its f32 twin's rounded {rounded[0]}, the plain version's "
+            f"its f32 plain's rounded {rounded[1]}; the f32 twin "
+            f"{same32:.5%} bitwise its plain version")
+        if not all(rounded):
+            raise AssertionError(f"{name}: not its f32 twin rounded "
+                                 f"(kernel, plain): {rounded}")
+    wf = want.float()
+    err = torch.abs(got.float() - wf)
+    floor = f32_rtol * float(torch.max(torch.abs(wf)))
+    # distance in ulps where the f32 bound does not cover the difference
+    ulps = int(torch.max(torch.where(err > floor, torch.abs(og - ow), 0)))
+    stats["bitwise"] = min(stats.get("bitwise", 1.0), share)
+    stats["max_ulps"] = max(stats.get("max_ulps", 0), ulps)
+    if share < share_min or ulps > 1:
+        raise AssertionError(f"{name}: {share:.5%} bitwise (need "
+                             f"{share_min:.1%}), {ulps} ulps off beyond "
+                             f"{floor:.3e}")
+    return float(torch.max(err))
+
+
+def _bf16_part(name, got, own, *terms) -> float:
+    """A kernel's f32 per-tile partial against the same sum over its own
+    stored output, within BF16_PART_RTOL of each tile's sum of |terms|;
+    returns the largest error over its tolerance."""
+    scale = sum(torch.sum(torch.abs(t.float()), dim=(1, 2, 3))
+                for t in terms)
+    tol = BF16_PART_RTOL * torch.clamp(scale, min=1e-30)
+    ratio = float(torch.max(torch.abs(got - own) / tol))
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: partial off its own stored sum by "
+                             f"{ratio:.2f}x the bound")
+    return ratio
+
+
+def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
+    """The twelve bf16 kernels against their bf16 plain versions (the stage
+    rule above): B1-B6 at 256^3 (T = 32,768), B8-B13 at the config #3
+    forest of ``d``; timed beside their plain version and their f32 twin
+    on the same values (the bf16 inputs up-cast), their bound from the
+    bytes they move by the port's bytes_model at bf16 (and the per-tile
+    columns) or their f32 operations where those take longer."""
+    from cup3d_tpu_torch.ops import amr_ops, tilesolve
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    dev = torch.device(d.device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 26)
+    results = {}
+
+    def row(*vals):
+        return fb._scalars(*(torch.tensor(v, device=dev) for v in vals))
+
+    def rec(name, stats, errs, perrs, kernel_fn, plain_fn, f32_fn, nbytes,
+            flops):
+        key = name + "_bf16"
+        _record(results, key, errs, kernel_fn, plain_fn, nbytes, flops, bw,
+                fp32_flops, perrs=perrs)
+        f32_ms = time_ms(f32_fn)
+        results[key].update(twin=name, f32_ms=f32_ms, **stats)
+        log(f"    bitwise {stats['bitwise']:.5%}, at most "
+            f"{stats['max_ulps']} ulp off beyond the f32 bound; its f32 "
+            f"twin {f32_ms:.4f} ms in this call "
+            f"(bf16/f32 {results[key]['ms'] / f32_ms:.3f})")
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    for n, pre, mod, vol in (((N_MAIN // 8) ** 3, "", fb, None),
+                             (d.grid.nb, "amr_", fa, True)):
+        cells = n * 512
+        model = mod.bytes_model(BF16)
+
+        def moved(stage, calls=1, less=0.0):
+            """Bytes of one launch of ``stage`` over the cells: the port's
+            bytes_model entry (an iteration's bytes a cell) over its
+            launches an iteration, less what the kernel does not move."""
+            return (model[stage] / calls - less) * cells
+
+        def vec():
+            return torch.randn((n, 8, 8, 8), generator=gen,
+                               device=dev).to(BF16)
+
+        if vol:
+            h = d.grid.h_column(torch.float32, dev).reshape(n)
+            vol = (h ** 3).contiguous()
+            h2 = (h * h).contiguous()
+            w_ = (vol,)
+            wt = vol[:, None, None, None]
+        else:
+            h2 = (2 * math.pi / N_MAIN) ** 2
+            w_, wt = (), 1.0
+
+        # -- B1 / B8 update (in place on p, rhat: compare on clones) -------
+        r, p, v, rh = (vec() for _ in range(4))
+        stats, errs, perrs = {}, [], []
+        for vals in ((0.7, 1.3, 0.0), (0.0, 1.3, 1.0)):
+            sc = row(*vals)
+            want = mod.update(r, p.clone(), v, rh.clone(), *w_, sc,
+                              kernels=False)
+            got = mod.update(r, p.clone(), v, rh.clone(), *w_, sc)
+            for g_, w in zip(got[:2], want[:2]):
+                errs.append(_bf16_check(stats, pre + "update_bf16", g_, w,
+                                        VEC_RTOL))
+            perrs.append(_bf16_part(pre + "update_bf16 partial", got[2],
+                                    fb._cellsum(got[0].float() * wt),
+                                    got[0].float() * wt))
+        bad = torch.full_like(p, float("inf"))
+        got = mod.update(r, bad.clone(), bad, rh.clone(), *w_,
+                         row(0.0, 1.3, 1.0))
+        if not (torch.equal(got[0], r) and torch.equal(got[1], r)):
+            raise AssertionError(f"{pre}update_bf16: breakdown leaked p "
+                                 "or v")
+        sc = row(0.7, 1.3, 0.0)
+        pk, rk = p.clone(), rh.clone()
+        r32, p32, v32, rh32 = f32(r, p, v, rh)
+        rec(pre + "update", stats, errs, perrs,
+            lambda: mod.update(r, pk, v, rk, *w_, sc),
+            lambda: mod.update(r, p, v, rh, *w_, sc, kernels=False),
+            lambda: mod.update(r32, p32, v32, rh32, *w_, sc),
+            # the model reads and writes rhat every iteration; the kernel
+            # writes it only on a breakdown, and reads it never
+            moved("update", less=2 * 2) + 4 * len(w_) * n,
+            (4 + len(w_)) * cells)
+
+        # -- B2 / B9 getz, two-level --------------------------------------
+        w = vec()
+        stats = {}
+        if vol is None:
+            aux = torch.randn((8, n), generator=gen, device=dev)
+            aux[7] = 0.0
+            args, nbytes = (aux, h2), moved("getz", 2) + 28 * n
+            lib = None
+        else:
+            zc = torch.randn(n, generator=gen, device=dev)
+            zf = zc[:, None, None, None].expand(n, 8, 8, 8)
+            azf = amr_ops.laplacian_blocks(d.grid, zf, d._tab1,
+                                           d._ftab).contiguous()
+            args, nbytes = (azf, zc, h2), moved("getz", 2) + 8 * n
+            W = tilesolve.dense_operator(8, torch.float32, str(dev))
+            rows_ = (w.float() - azf).view(n, 512)
+            neg_h2 = -h2
+            lib = lambda: torch.einsum("tc,cd,t->td", rows_, W, neg_h2)
+        want = mod.getz_two(w, *args, kernels=False)
+        got = mod.getz_two(w, *args)
+        w32 = w.float()
+        twin = (mod.getz_two(w32, *args),
+                mod.getz_two(w32, *args, kernels=False))
+        errs = [_bf16_check(stats, pre + "getz_two_bf16", got, want,
+                            GETZ_RTOL, twin=twin,
+                            share_min=0.0 if vol is not None
+                            else BF16_BITWISE)]
+        if not torch.equal(mod.getz_two(w, *args), got):
+            raise AssertionError(f"{pre}getz_two_bf16: a rerun differs")
+        rec(pre + "getz_two", stats, errs, [0.0],
+            lambda: mod.getz_two(w, *args),
+            lambda: mod.getz_two(w, *args, kernels=False),
+            lambda: mod.getz_two(w32, *args), nbytes, 110 * cells)
+        if lib is not None:
+            results[pre + "getz_two_bf16"]["library_ms"] = time_ms(lib)
+
+        # -- B3 / B10 getz, tile-only --------------------------------------
+        w = vec()
+        stats = {}
+        want = mod.getz_tile(w, h2, kernels=False)
+        got = mod.getz_tile(w, h2)
+        w32 = w.float()
+        twin = (mod.getz_tile(w32, h2), mod.getz_tile(w32, h2, kernels=False))
+        errs = [_bf16_check(stats, pre + "getz_tile_bf16", got, want,
+                            GETZ_RTOL, twin=twin)]
+        W = tilesolve.dense_operator(8, torch.float32, str(dev))
+        rows_ = w32.view(n, 512)
+        if vol is None:
+            M = -h2 * W
+            lib = lambda: torch.matmul(rows_, M)
+        else:
+            neg_h2 = -h2
+            lib = lambda: torch.einsum("tc,cd,t->td", rows_, W, neg_h2)
+        rec(pre + "getz_tile", stats, errs, [0.0],
+            lambda: mod.getz_tile(w, h2),
+            lambda: mod.getz_tile(w, h2, kernels=False),
+            lambda: mod.getz_tile(w32, h2),
+            # the forest's model counts B9's f32 azf, which B10 does not read
+            moved("getz", 2, less=4 if vol is not None else 0)
+            + (4 * n if vol is not None else 0), 98 * cells)
+        results[pre + "getz_tile_bf16"]["library_ms"] = time_ms(lib)
+
+        # -- B4 / B11 lap --------------------------------------------------
+        w, a = vec(), vec()
+        stats = {}
+        if vol is None:
+            planes = torch.randn((n, 6, 8, 8), generator=gen,
+                                 device=dev).to(BF16)
+            args, inv = (w, planes), 1.0 / h2
+            args32 = (w.float(), planes.float())
+            nbytes, flops = moved("lap", 2), 12 * cells
+        else:
+            lab = d._tab1.assemble_scalar(w.float(), 8).contiguous()
+            inv_h = (1.0 / h)[:, None, None, None]
+            corr = d._ftab.apply(torch.zeros((n, 8, 8, 8), device=dev),
+                                 amr_ops.face_fluxes(lab, 1, 8, inv_h))
+            args = args32 = (lab, corr.contiguous())
+            inv = (1.0 / h2).contiguous()
+            nbytes = moved("lap", 2)
+            flops = 10 * cells
+        want = mod.lap(*args, a, inv, kernels=False)
+        got = mod.lap(*args, a, inv)
+        errs = [_bf16_check(stats, pre + "lap_bf16", got[0], want[0],
+                            VEC_RTOL)]
+        awk = got[0].float()
+        perrs = [_bf16_part(pre + "lap_bf16 partial a.Aw", got[1],
+                            fb._cellsum(a.float() * awk), a.float() * awk),
+                 _bf16_part(pre + "lap_bf16 partial Aw.Aw", got[2],
+                            fb._cellsum(awk * awk), awk * awk)]
+        a32 = a.float()
+        rec(pre + "lap", stats, errs, perrs,
+            lambda: mod.lap(*args, a, inv),
+            lambda: mod.lap(*args, a, inv, kernels=False),
+            lambda: mod.lap(*args32, a32, inv), nbytes, flops)
+
+        # -- B5 / B12 axpy -------------------------------------------------
+        r, v = vec(), vec()
+        stats = {}
+        sc = row(0.37)
+        want = mod.axpy(r, v, *w_, sc, kernels=False)
+        got = mod.axpy(r, v, *w_, sc)
+        errs = [_bf16_check(stats, pre + "axpy_bf16", got[0], want[0],
+                            VEC_RTOL)]
+        perrs = [_bf16_part(pre + "axpy_bf16 partial", got[1],
+                            fb._cellsum(got[0].float() * wt),
+                            got[0].float() * wt)]
+        r32, v32 = f32(r, v)
+        rec(pre + "axpy", stats, errs, perrs,
+            lambda: mod.axpy(r, v, *w_, sc),
+            lambda: mod.axpy(r, v, *w_, sc, kernels=False),
+            lambda: mod.axpy(r32, v32, *w_, sc),
+            moved("axpy") + 4 * len(w_) * n, (3 + len(w_)) * cells)
+
+        # -- B6 / B13 finish (x f32 in place, r into s) ---------------------
+        x = torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+        y, z, s_, t, rh = (vec() for _ in range(5))
+        stats = {}
+        sc = row(0.37, 1.21)
+        want = mod.finish(x.clone(), y, z, s_.clone(), t, rh, sc,
+                          kernels=False)
+        got = mod.finish(x.clone(), y, z, s_.clone(), t, rh, sc)
+        errs = [check_close(pre + "finish_bf16 x", got[0], want[0],
+                            VEC_RTOL),
+                _bf16_check(stats, pre + "finish_bf16 r", got[1], want[1],
+                            VEC_RTOL)]
+        rk = got[1].float()
+        perrs = [_bf16_part(pre + "finish_bf16 partial r.r", got[2],
+                            fb._cellsum(rk * rk), rk * rk),
+                 _bf16_part(pre + "finish_bf16 partial rhat.r", got[3],
+                            fb._cellsum(rh.float() * rk), rh.float() * rk)]
+        xk, sk = x.clone(), s_.clone()
+        y32, z32, s32, t32, rh32 = f32(y, z, s_, t, rh)
+        xk32, sk32 = x.clone(), s32.clone()
+        rec(pre + "finish", stats, errs, perrs,
+            lambda: mod.finish(xk, y, z, sk, t, rh, sc),
+            lambda: mod.finish(x, y, z, s_, t, rh, sc, kernels=False),
+            lambda: mod.finish(xk32, y32, z32, sk32, t32, rh32, sc),
+            moved("finish"), 10 * cells)
+    torch.cuda.synchronize()
+    return results
+
+
+def bf16_solve_phase(dev="cuda") -> dict:
+    """One whole 64^3 bf16 solve (phase 4's system), kernels against plain
+    versions, beside the f32 solve's iterations and the residual."""
+    from cup3d_tpu_torch.grid.uniform import UniformGrid
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import krylov
+
+    n = N_SOLVE
+    grid = UniformGrid((n, n, n), (1.0, 1.0, 1.0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    rhs = torch.randn((n, n, n), generator=gen, device=dev)
+    bt = krylov.to_lanes(rhs - torch.mean(rhs))
+    kw = dict(tol_abs=1e-6, tol_rel=1e-4, maxiter=200)
+    fb.reset_launches()
+    x_k, rn_k, k_k = fb.fused_bicgstab(grid, bt, store_dtype=BF16, **kw)
+    k_k = int(k_k)
+    launches = dict(fb.launches_bf16)
+    executed = fb.iterations["executed"]
+    x_p, rn_p, k_p = fb.fused_bicgstab(grid, bt, store_dtype=BF16,
+                                       kernels=False, **kw)
+    k_p = int(k_p)
+    _, rn_f, k_f = fb.fused_bicgstab(grid, bt, store_dtype=torch.float32,
+                                     **kw)
+    rel = float(torch.max(torch.abs(x_k - x_p)) / torch.max(torch.abs(x_p)))
+    A = krylov.make_laplacian_lanes(grid)
+    res = float(torch.sqrt(torch.sum((bt - A(x_k)) ** 2)))
+    target = max(1e-6, 1e-4 * float(torch.sqrt(torch.sum(bt * bt))))
+    # the stopping test reads the stored r's norm, as the JAX package's
+    # bf16 solve does; ||b - A x|| is printed beside it
+    log(f"  {n}^3 bf16 fused solve: kernels {k_k} its (resid "
+        f"{float(rn_k):.3e}, ||b - A x|| {res:.3e}, target {target:.3e}), "
+        f"plain {k_p} its (resid {float(rn_p):.3e}), x rel diff "
+        f"{rel:.3e}; f32 {int(k_f)} its; bf16 launches {launches}")
+    if (abs(k_k - k_p) > BF16_SOLVE_ITS or not rel <= BF16_SOLVE_X
+            or not float(rn_k) <= 1.01 * target or k_k > int(k_f) + 10
+            or launches["update"] != executed):
+        raise AssertionError(f"bf16 solve: its {k_k} vs {k_p} (f32 "
+                             f"{int(k_f)}), x rel {rel:.3e}, residual "
+                             f"{float(rn_k):.3e} vs {target:.3e}, launches "
+                             f"{launches} for {executed} executed")
+    return dict(its=k_k, its_plain=k_p, its_f32=int(k_f), rel=rel,
+                true_res=res / target)
+
+
+BF16_TILE_STEPS = 3     # config #2 and config #4 under CUP3D_COARSE=0, bf16
+# config #2's first nonzero pressure system at 128^3 (sparse: flat index,
+# value), as this phase catches it on the card; tests/test_torch_bf16_tile.py
+# solves it in both packages on the CPU
+TILE_SYSTEM = os.path.join("tests", "data", "config2_128_first_rhs.npz")
+TILE_SYSTEM_RTOL = 1e-5  # the card's system against the committed one
+BF16_TILE_SEEDS = 8      # its tile-only bf16 solves: rhs + 1e-5 noise draws
+TILE_NOISE = 1e-5
+
+
+def _catch_solves(d):
+    """Wrap the uniform driver's pressure solver: returns the list that
+    receives (rhs, x0) of every solve from now on."""
+    from cup3d_tpu_torch.sim.operators import PressureProjection
+
+    s, caught = d.sim, []
+    solver = s.poisson_solver
+
+    def spy(rhs, x0=None, with_stats=False):
+        caught.append((rhs.clone(), None if x0 is None else x0.clone()))
+        return solver(rhs, x0, with_stats=with_stats)
+
+    spy.supports_stats, spy.maxiter = True, solver.maxiter
+    s.poisson_solver = spy
+    for i, op in enumerate(d.pipeline):
+        if isinstance(op, PressureProjection):
+            d.pipeline[i] = PressureProjection(s)
+    return caught
+
+
+def _tile_system(caught, out: str):
+    """The first nonzero system of ``caught`` (its x0 is the zero
+    pressure), written sparse to ``out`` and held to TILE_SYSTEM."""
+    rhs = next(r for r, _ in caught if bool(torch.any(r != 0)))
+    flat = rhs.reshape(-1)
+    idx = torch.nonzero(flat).reshape(-1)
+    np.savez_compressed(out, shape=np.array(rhs.shape), idx=idx.cpu().numpy()
+                        .astype(np.int32), val=flat[idx].cpu().numpy())
+    ref = np.load(TILE_SYSTEM)
+    want = torch.zeros(int(np.prod(ref["shape"])), device=rhs.device)
+    want[torch.as_tensor(ref["idx"], device=rhs.device).long()] = \
+        torch.as_tensor(ref["val"], device=rhs.device)
+    diff = float(torch.max(torch.abs(flat - want)) / torch.max(torch.abs(want)))
+    return rhs, idx.numel(), diff
+
+
+def bf16_tile_phase() -> dict:
+    """The tile-only getZ kernels at bf16 on the entry points, under
+    CUP3D_COARSE=0: config #2 at 128^3 (B3) and config #4 on the host path
+    (B10) for BF16_TILE_STEPS steps each, the launches against the
+    executed iterations, the fluid's max|div u| under the bench's gates,
+    the fields finite.  Config #2's first nonzero system (held to
+    TILE_SYSTEM, which tests/test_torch_bf16_tile.py solves on the CPU) is
+    then solved tile-only at bf16, kernels and plain versions, on
+    BF16_TILE_SEEDS noisy copies: a tile-only bf16 solve of it breaks
+    down (NaN) or stalls at maxiter in a share of the copies, in the JAX
+    package too (that test), so the breakdowns are counted and printed;
+    the f32 tile-only solve must converge on every copy; the best x of
+    each bf16 kernel solve, broken down or not (the x the driver keeps;
+    its mean removed, as the solver returns it), within BF16_SOLVE_X of
+    the f32 x, as the JAX package's is after its breakdown (that test;
+    the plain versions' and ||b - A x|| are printed); the two-level bf16
+    solve's kernels and plain versions agree within one iteration."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import diagnostics as diag
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import krylov
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "tile_bf16"))
+    with _env(**BF16_KNOBS, CUP3D_COARSE="0"):
+        d = build_driver(fish_argv(out))
+        d.init()
+        caught = _catch_solves(d)
+        fb.reset_launches()
+        for _ in range(BF16_TILE_STEPS):
+            d.advance(d.calc_max_timestep())
+        torch.cuda.synchronize()
+        launches = _counts(fb, True)
+        executed = fb.iterations["executed"]
+    rows = d.step_log[-BF16_TILE_STEPS:]
+    want = {"update": executed, "getz_two": 0, "getz_tile": 2 * executed,
+            "lap": 2 * executed, "axpy": executed, "finish": executed}
+    div = _check_fish(d, "config #2 tile-only at bf16")
+    log(f"  config #2 at {N_FISH}^3, bf16, CUP3D_COARSE=0: iterations "
+        f"{[int(r['iters']) for r in rows]}, residuals "
+        f"{[float(r['resid']) for r in rows]}; fluid max|div u| {div:.3e}; "
+        f"bf16 launches {launches}")
+    if executed != _executed(rows) or launches != want or executed == 0:
+        raise AssertionError(f"config #2 tile-only bf16: launches "
+                             f"{launches}, executed {executed}, expected "
+                             f"{want}")
+    uniform = dict(launches=launches, iters=[int(r["iters"]) for r in rows])
+    rhs, nnz, diff = _tile_system(caught, os.path.join(out, "first_rhs.npz"))
+    log(f"  its first nonzero system: {nnz} nonzero cells, against "
+        f"{TILE_SYSTEM} {diff:.3e} of max |rhs| (gate {TILE_SYSTEM_RTOL})")
+    if not diff <= TILE_SYSTEM_RTOL:
+        raise AssertionError(f"config #2's first system is not "
+                             f"{TILE_SYSTEM}: {diff}")
+    gen = torch.Generator(device=rhs.device)
+    scale = TILE_NOISE * float(torch.max(torch.abs(rhs)))
+    kw = dict(tol_abs=1e-6, tol_rel=1e-4, maxiter=1000)
+    A = krylov.make_laplacian_tiles(d.sim.grid, 8)
+    res = {"kernels": [], "plain": [], "f32": []}
+    # the best x's distance from the f32 x and ||b - A x|| / |b|, by tag
+    gaps = {"kernels": [0.0, 0.0], "plain": [0.0, 0.0]}
+
+    def centred(x):
+        return x - torch.mean(x)
+
+    for seed in range(BF16_TILE_SEEDS):
+        r = rhs
+        if seed:
+            gen.manual_seed(SEED + seed)
+            r = rhs + scale * torch.randn(rhs.shape, generator=gen,
+                                          device=rhs.device)
+        bt = krylov.to_tiles(r - torch.mean(r))
+        ref = torch.sqrt(torch.sum(bt * bt))
+        x32, rn, k = fb.fused_bicgstab_tiles(
+            d.sim.grid, bt, rnorm_ref=ref, two_level=False,
+            store_dtype=torch.float32, **kw)
+        res["f32"].append((int(k), float(rn)))
+        target = max(1e-6, 1e-4 * float(ref))
+        # x as the solver returns it (its mean removed: the periodic
+        # system fixes x up to a constant)
+        x32 = centred(x32)
+        for tag, kern in (("kernels", None), ("plain", False)):
+            x, rn, k = fb.fused_bicgstab_tiles(
+                d.sim.grid, bt, rnorm_ref=ref, two_level=False,
+                store_dtype=BF16, kernels=kern, **kw)
+            res[tag].append((int(k), float(rn)))
+            gap = float(torch.max(torch.abs(centred(x) - x32))
+                        / torch.max(torch.abs(x32)))
+            true = float(torch.sqrt(torch.sum((bt - A(x)) ** 2)) / ref)
+            gaps[tag] = [max(gaps[tag][0], gap), max(gaps[tag][1], true)]
+        if seed == 0:
+            two = [int(fb.fused_bicgstab_tiles(
+                d.sim.grid, bt, rnorm_ref=ref, store_dtype=BF16,
+                kernels=kern, **kw)[2]) for kern in (None, False)]
+            f32_ok = float(res["f32"][0][1]) <= target
+
+    def broke(runs):
+        return sum(1 for k, rn in runs if not rn <= 1e6 or k >= 1000)
+
+    def conv(runs):
+        return all(k < 1000 and rn == rn for k, rn in runs)
+
+    log(f"  tile-only solves of it on {BF16_TILE_SEEDS} copies (the first "
+        f"as caught, then + {TILE_NOISE:g} of max |rhs| noise), iterations: "
+        f"bf16 kernels {[k for k, _ in res['kernels']]} "
+        f"({broke(res['kernels'])} broke down or stalled), plain "
+        f"{[k for k, _ in res['plain']]} ({broke(res['plain'])}), f32 "
+        f"kernels {[k for k, _ in res['f32']]}; the bf16 solves' best x "
+        f"within {gaps['kernels'][0]:.3e} (kernels; gate {BF16_SOLVE_X}) "
+        f"and {gaps['plain'][0]:.3e} (plain) of the f32 x, ||b - A x|| at "
+        f"most {gaps['kernels'][1]:.3e} and {gaps['plain'][1]:.3e} of |b|; "
+        f"two-level bf16 kernels / plain {two[0]} / {two[1]}")
+    if (not conv(res["f32"]) or not f32_ok
+            or not gaps["kernels"][0] <= BF16_SOLVE_X
+            or abs(two[0] - two[1]) > BF16_SOLVE_ITS):
+        raise AssertionError(f"config #2's system: f32 tile-only "
+                             f"{res['f32']}, bf16 x and residual {gaps}, "
+                             f"two-level {two}")
+    uniform.update(broke=broke(res["kernels"]), broke_plain=broke(
+        res["plain"]), copies=BF16_TILE_SEEDS, gaps=gaps)
+    del d
+    torch.cuda.empty_cache()
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "tile_amr_bf16"))
+    with _env(**BF16_KNOBS, CUP3D_COARSE="0"):
+        d = build_driver(FISH_AMR_ARGV.split() + [
+            "-path4serialization", out, "-factory-content", BENCH_TWO_FISH])
+        d.init()
+        fa.reset_launches()
+        for _ in range(BF16_TILE_STEPS):
+            d.advance(d.calc_max_timestep())
+        torch.cuda.synchronize()
+        launches = _counts(fa, True)
+        executed = fa.iterations["executed"]
+    rows = d.step_log[-BF16_TILE_STEPS:]
+    want = _forest_want(executed, tile=executed)
+    div = float(diag.fluid_divergence_max_blocks(
+        d.grid, d.state["vel"], d.state["chi"], d._tab1))
+    log(f"  config #4 ({d.grid.nb} blocks), bf16, CUP3D_COARSE=0: "
+        f"{BF16_TILE_STEPS} steps, iterations "
+        f"{[int(r['iters']) for r in rows]}; fluid max|div u| {div:.3e} "
+        f"(gate {FA_DIV_GATE}); bf16 launches {launches}")
+    if (executed != _executed(rows) or launches != want or executed == 0
+            or not div < FA_DIV_GATE or not _fish_ok(d)):
+        raise AssertionError(f"config #4 tile-only bf16: launches "
+                             f"{launches}, executed {executed}, expected "
+                             f"{want}; max|div u| {div}")
+    return dict(uniform=uniform, forest=dict(launches=launches))
+
+
+def _fish256_argv(out: str) -> list:
+    """Config #2 as bench_fish_uniform(256) builds it: 256^3, pipelined,
+    no per-step diagnostics rows, FISH256_STEPS steps."""
+    argv = fish_argv(out)
+    nb = N_FISH256 // 8
+    for flag, value in (("-bpdx", nb), ("-bpdy", nb), ("-bpdz", nb),
+                        ("-nsteps", FISH256_STEPS), ("-pipelined", 1),
+                        ("-freqDiagnostics", 0)):
+        argv = _set_flag(argv, flag, value)
+    return argv
+
+
+def fish256_phase() -> dict:
+    """The bench's fish256 through build_driver and simulate(), at bf16
+    storage and at f32 (each at CUP3D_FUSED's default: the fused bf16
+    kernels, the legacy f32 composition), then at f32 on the fused f32
+    kernels (CUP3D_FUSED=1), each from the initial state: ms/step, the
+    device's busy share under torch.profiler, iterations a solve,
+    launches against the executed iterations, the fluid's max|div u|
+    under the bench's fish256 gate, the Krylov gauges."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.obs import metrics
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import krylov
+
+    runs = {}
+    for tag, knobs in (("bf16", BF16_KNOBS),
+                       ("f32", dict(CUP3D_FUSED=None,
+                                    CUP3D_KRYLOV_DTYPE=None)),
+                       ("f32 fused", F32_KNOBS)):
+        out = _fresh_dir(os.path.join(OUT_DIR,
+                                      "fish256_" + tag.replace(" ", "_")))
+        with _env(**knobs):
+            t0 = time.perf_counter()
+            d = build_driver(_fish256_argv(out))
+            d.init()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            gauges = {k: metrics.gauge(k).value
+                      for k in ("poisson.krylov_bf16",
+                                "poisson.fused_iteration")}
+            fb.reset_launches()
+            krylov.iterations["executed"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d.simulate()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            bf16 = tag == "bf16"
+            launches = _counts(fb, bf16)
+            executed = fb.iterations["executed"]
+            legacy = krylov.iterations["executed"]
+            iters = [r["iters"] for r in d.step_log]
+            if len(iters) != FISH256_STEPS:
+                raise AssertionError(f"fish256 {tag}: {len(iters)} steps")
+            if tag == "f32":  # the legacy composition: no fused launch
+                if executed or any(launches.values()) or not legacy:
+                    raise AssertionError(f"fish256 f32 at its default: "
+                                         f"fused {executed}, launches "
+                                         f"{launches}, legacy {legacy}")
+            else:
+                _check_launches(f"fish256 {tag}", iters, launches, executed)
+            div = _fluid_div(d)
+            s = d.sim
+            ob = s.obstacles[0]
+            kin = np.concatenate([ob.transVel, ob.position])
+            finite = all(bool(torch.isfinite(s.state[k]).all())
+                         for k in ("vel", "p", "chi", "udef"))
+            prof = _profile_window(
+                d, prefix=f"fish256_{tag.replace(' ', '_')}_", trace=False,
+                run=lambda: ([d.advance(d.calc_max_timestep())
+                              for _ in range(3)], d.flush_packs()))
+        ms = wall / FISH256_STEPS * 1e3
+        runs[tag] = dict(ms=ms, iters=iters, div=div, launches=launches,
+                         executed=executed, legacy=legacy,
+                         busy=prof["busy_ms"] / max(prof["wall_ms"], 1e-9),
+                         gauges=gauges, init_s=init_s, t=s.time)
+        log(f"  {tag}: build + init {init_s:.2f} s; {FISH256_STEPS} steps "
+            f"{ms:.2f} ms/step to t={s.time:.5f}; iterations a solve "
+            f"{[int(k) for k in iters]} (mean "
+            f"{sum(iters) / len(iters):.2f}); fused executed {executed}, "
+            f"legacy {legacy}; launches a step "
+            f"{ {k: v / FISH256_STEPS for k, v in launches.items()} }; "
+            f"fluid max|div u| {div:.4e} (gate {FISH256_DIV_GATE}); "
+            f"busy {runs[tag]['busy']:.1%}; gauges {gauges}")
+        if not (finite and np.all(np.isfinite(kin))
+                and div <= FISH256_DIV_GATE):
+            raise AssertionError(f"fish256 {tag}: fields finite {finite}, "
+                                 f"transVel/position {kin}, max|div u| "
+                                 f"{div}")
+        if gauges["poisson.krylov_bf16"] != float(bf16):
+            raise AssertionError(f"fish256 {tag}: gauges {gauges}")
+        del d
+        torch.cuda.empty_cache()
+    b, f = runs["bf16"]["iters"], runs["f32"]["iters"]
+    worst = max(kb - kf for kb, kf in zip(b, f))
+    log(f"  bf16 - f32 iterations a solve: at most {worst} (bound "
+        f"{FISH256_EXTRA_ITS}); ms/step bf16 {runs['bf16']['ms']:.2f}, f32 "
+        f"(legacy) {runs['f32']['ms']:.2f}, f32 fused "
+        f"{runs['f32 fused']['ms']:.2f}")
+    if worst > FISH256_EXTRA_ITS:
+        raise AssertionError(f"fish256: bf16 iterations {b} against f32 "
+                             f"{f}")
+    return runs
+
+
+def pipe_amr_bf16_phase(f32_run: dict) -> dict:
+    """Config #3 as the bench runs it (phase 23's main path: the first
+    step, 9 warm-up and 10 timed on the device dt chain) under bf16:
+    the bf16 forest kernels' launches equal to the executed iterations,
+    max|div u| under 0.05, beside phase 23's f32 run; a profiler
+    window."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "pipe_amr_bf16"))
+    with _env(**BF16_KNOBS):
+        t0 = time.perf_counter()
+        d = build_driver(f"-pipelined 1 -freqDiagnostics 0 {AMR_ARGV} "
+                         f"-verbose 0 -path4serialization {out}".split())
+        d.init()
+        d.adapt_enabled = False
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if not d._dt_chain:
+            raise AssertionError("config #3 bf16 is not on the device dt "
+                                 "chain")
+        fa.reset_launches()
+        d.advance(d.calc_max_timestep())
+        win = _bench_window(d, PIPE_WARM, PIPE_TIMED)
+        d.flush_packs()
+        launches = _counts(fa, True)
+        executed = fa.iterations["executed"]
+        rows = d.step_log[-(1 + PIPE_WARM + PIPE_TIMED):]
+        _check_forest_launches("config #3 pipelined bf16", d, launches,
+                               executed, rows)
+        _, div_max = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+                                                     d._tab1)
+        div_max = float(div_max)
+        iters = [r["iters"] for r in rows]
+        log(f"  build_driver + init {init_s:.2f} s; the bench's window "
+            f"{win['ms']:.2f} ms/step (phase 23 at f32 "
+            f"{f32_run['ms']:.2f}); "
+            f"{sum(iters) / len(iters):.2f} iterations a step (f32 "
+            f"{f32_run['executed'] / f32_run['steps']:.2f} executed a step), "
+            f"{executed} executed; max|div u| {div_max:.3e} (gate "
+            f"{AMR_DIV_GATE}); bf16 launches a step "
+            f"{ {k: v / len(rows) for k, v in launches.items()} }")
+        if not (div_max < AMR_DIV_GATE
+                and all(math.isfinite(k) for k in iters)):
+            raise AssertionError(f"config #3 bf16: max|div u| {div_max}")
+        prof = _profile_window(d, prefix="pipe_amr_bf16_", trace=False)
+        d.flush_packs()
+    return dict(ms=win["ms"], launches=launches, steps=len(rows),
+                executed=executed, div_max=div_max, prof=prof,
+                iters=iters)
+
+
+def shard_bf16_phase(dev="cuda") -> dict:
+    """Phase 15's 4-shard forest under bf16: its static solver takes the
+    JAX package's route (the legacy composition at f32, no fused launch),
+    held to the unsharded static solver as phase 15 holds it (both to
+    SHARD_TIGHT: x within SHARD_X_ATOL); the unsharded forest's own route
+    under bf16 (the fused bf16 two-level solve at the driver's maxiter)
+    beside it: its best x within BF16_SOLVE_X of max |x| of the sharded
+    solve's, its launches equal to its executed iterations; its
+    iterations and residual are printed (on this cold Taylor-Green system
+    it breaks down, a NaN residual after its best x was kept, as the
+    uniform cold Taylor-Green solve stalls in both packages); B14 moves
+    bf16 bitwise as its plain copy."""
+    from cup3d_tpu_torch.grid.flux import build_flux_tables
+    from cup3d_tpu_torch.ops import amr_ops, krylov
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.parallel import ring
+
+    with _env(**BF16_KNOBS, CUP3D_RING_HALO="1"):
+        d, cfg, _ = shard_setup_phase(dev)
+        fo, g = d.forest, d.grid
+        dt_dev = torch.tensor(d.calc_max_timestep(), dtype=d.dtype,
+                              device=d.device)
+        v_s = amr_ops.rk3_step_blocks(fo.geom, d.state["vel"], dt_dev, d.nu,
+                                      d.uinf_device(), d._tab3, d._ftab)
+        b_s = amr_ops.pressure_rhs_blocks(fo.geom, v_s, dt_dev, d._tab1,
+                                          d._ftab)
+        b_r = fo.unpad(b_s).contiguous()
+        tab, ftab = g.face_tables(1, dev), build_flux_tables(g, dev)
+        fa.reset_launches()
+        krylov.iterations["executed"] = 0
+        x_s, st_s = d._solver(b_s, None, tab_arg=d._tab1, flux_arg=d._ftab,
+                              with_stats=True)
+        routed = (fa.iterations["executed"], krylov.iterations["executed"])
+        tight = dict(tol_abs=0.0, tol_rel=SHARD_TIGHT,
+                     maxiter=SHARD_TIGHT_ITERS)
+        xt_s, _ = fo.build_poisson_solver(**tight)(b_s, with_stats=True)
+        xt_r, _ = amr_ops.build_amr_poisson_solver(
+            g, tab=tab, flux_tab=ftab, two_level=False, device=dev,
+            **tight)(b_r, with_stats=True)
+        x_tight = float((fo.unpad(xt_s) - xt_r).abs().max())
+        x_prod = fo.unpad(x_s)
+        # the unsharded forest's own route under bf16: the fused bf16
+        # two-level solve
+        maxiter = d._poisson_maxiter
+        fused = amr_ops.build_amr_poisson_solver_dynamic(
+            g.bs, tol_abs=cfg.poissonTol, tol_rel=cfg.poissonTolRel,
+            maxiter=maxiter)
+        fa.reset_launches()
+        vol = (g.h_column(torch.float32, dev) ** 3).contiguous()
+        x_f, st_f = fused(b_r, tab_arg=tab, flux_arg=ftab, geom=g, vol=vol,
+                          graph=krylov.block_graph_tables(g, dev),
+                          with_stats=True)
+        launched = _counts(fa, True)
+        rel = float((x_prod - x_f).abs().max() / x_prod.abs().max())
+        bm = b_r - torch.sum(b_r * vol) / (torch.sum(vol) * g.bs ** 3)
+        target = max(cfg.poissonTol, cfg.poissonTolRel * float(
+            torch.sqrt(torch.sum(bm * bm))))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 28)
+        a = torch.randn((fo.D, 4099), generator=gen, device=dev).to(BF16)
+        ring_ok = all(torch.equal(ring.ring_shift_kernel(a, s_),
+                                  ring.ring_shift_plain(a, s_))
+                      for s_ in (1, -1))
+    log(f"  the sharded solve under bf16: {int(st_s[1])} iterations, fused "
+        f"executed {routed[0]}, legacy {routed[1]} (the JAX package's "
+        f"route: the static solver's legacy composition at f32); to "
+        f"{SHARD_TIGHT:g} against the unsharded static solve: x within "
+        f"{x_tight:.3e} (gate {SHARD_X_ATOL:g}); the unsharded forest's "
+        f"fused bf16 solve {int(st_f[1])} "
+        f"iterations (cap {maxiter}), residual "
+        f"{float(st_f[0]):.3e} (target {target:.3e}), x rel diff from the "
+        f"sharded solve {rel:.3e} (gate {BF16_SOLVE_X}), launches "
+        f"{launched}; B14 on bf16 bitwise "
+        f"its plain copy {ring_ok}")
+    if not (routed[0] == 0 and routed[1] > 0 and x_tight <= SHARD_X_ATOL
+            and rel <= BF16_SOLVE_X and ring_ok
+            and launched["amr_update"] == fa.iterations["executed"]):
+        raise AssertionError(f"sharded bf16: route {routed}, x tight "
+                             f"{x_tight}, x vs fused bf16 {rel}, launches "
+                             f"{launched}, ring {ring_ok}")
+    return dict(its=int(st_s[1]), x_tight=x_tight, rel=rel,
+                its_bf16=int(st_f[1]), resid_bf16=float(st_f[0]),
+                target=target)
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -3835,6 +4711,36 @@ def main() -> int:
         f"from one state {pipe_amr['host_ms']:.2f}) -> {pipe_amr['ms']:.2f}; "
         f"config #4 {fish_amr['ms']:.2f} -> {pipe_fish['ms']:.2f}; {smi}")
     torch.cuda.empty_cache()
+
+    log("phase 26: bf16 Krylov storage: the twelve bf16 kernels against "
+        f"their bf16 plain versions (B1-B6 at {N_MAIN}^3, B8-B13 on config "
+        f"#3's forest), one {N_SOLVE}^3 bf16 solve, the tile-only kernels "
+        "on config #2 and config #4 under CUP3D_COARSE=0 at bf16")
+    t0 = time.perf_counter()
+    with _env(**BF16_KNOBS):  # read when the forest's solver is built
+        d = amr_setup_phase()
+    bf16_rows = bf16_kernel_phase(d, bw, fp32_flops)
+    del d
+    torch.cuda.empty_cache()
+    bf16_solve_phase()
+    bf16_tile = bf16_tile_phase()
+    torch.cuda.empty_cache()
+    log(f"  phase 26 took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 27: config #2 as the bench's fish256 ({N_FISH256}^3, "
+        f"pipelined, CUP3D_FUSED at its default) for {FISH256_STEPS} steps "
+        "at bf16 and at f32, then at f32 on the fused kernels")
+    t0 = time.perf_counter()
+    fish256 = fish256_phase()
+    log(f"  phase 27 took {time.perf_counter() - t0:.1f} s; {smi}")
+    torch.cuda.empty_cache()
+    log("phase 28: config #3 under bf16: phase 23's pipelined run on the "
+        f"device dt chain; one solve of the {SHARDS}-shard forest")
+    t0 = time.perf_counter()
+    pipe_bf16 = pipe_amr_bf16_phase(pipe_amr)
+    torch.cuda.empty_cache()
+    shard_bf16_phase()
+    log(f"  phase 28 took {time.perf_counter() - t0:.1f} s; {smi}")
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -3873,12 +4779,27 @@ def main() -> int:
     per_kernel["ring_shift"]["pipe_shard_launches_per_step"] = (
         physics["b14_per_step"])
 
+    # the bf16 kernels' launches: B1, B2, B4-B6 on fish256 at bf16 (phase
+    # 27), B3 on config #2 and B10 on config #4 under CUP3D_COARSE=0
+    # (phase 26), B8, B9, B11-B13 on config #3 pipelined at bf16 (phase
+    # 28)
+    for kname in BF16_NAMES:
+        key = kname + "_bf16"
+        launches[key] = (
+            bf16_tile["uniform"]["launches"][kname] if kname == "getz_tile"
+            else bf16_tile["forest"]["launches"][kname]
+            if kname == "amr_getz_tile"
+            else pipe_bf16["launches"][kname] if kname.startswith("amr_")
+            else fish256["bf16"]["launches"][kname])
+        per_kernel[key] = bf16_rows[key]
+    replaces = {k: (r, src) for k, r, src in KERNELS}
     rows = []
-    for kname, replaces, src in KERNELS:
+    for kname, replaces_at, src in KERNELS + tuple(
+            (k + "_bf16", *replaces[k]) for k in BF16_NAMES):
         if not launches[kname] > 0:
             raise AssertionError(f"{kname}: no launch on its path")
         row = dict(name=kname, route="cuda",
-                   source=f"cup3d_tpu_torch/csrc/{src}", replaces=replaces,
+                   source=f"cup3d_tpu_torch/csrc/{src}", replaces=replaces_at,
                    launches=launches[kname], **per_kernel[kname])
         if kname in REDESIGNED:
             row["redesigned"] = REDESIGNED[kname]

@@ -9,9 +9,9 @@
 // _k_axpy :217, _k_finish :224), and
 // compute what those compute, not how: the TPU stages stream chunks of
 // 256 tiles or 64 blocks through VMEM; here every vector is BLOCK-MAJOR,
-// shape (T,8,8,8) in f32, so one 8^3 tile (a tile of the uniform grid or
-// a block of the forest) is 2 KB of contiguous memory and one thread
-// block owns one tile.  On the uniform grid the tile index
+// shape (T,8,8,8), so one 8^3 tile (a tile of the uniform grid or a block
+// of the forest) is 2 KB of contiguous memory in f32 (1 KB in bf16) and
+// one thread block owns one tile.  On the uniform grid the tile index
 // t = (tx*NBy + ty)*NBz + tz is the JAX lane index; on the forest it is
 // the block's slot.  A cell (a,b,c) of tile t lives at
 // t*512 + (a*8 + b)*8 + c.
@@ -37,12 +37,30 @@
 // atomics.  The per-tile partials are combined by one torch.sum on the
 // caller's side, exactly as the TPU drivers' _combine does.
 //
+// Storage.  Each kernel is a template over the storage type S of the
+// Krylov vectors (r, rhat, p, v, y, z, s, t): float, or __nv_bfloat16
+// under CUP3D_KRYLOV_DTYPE=bf16 (the TPU stages' _Stages.store,
+// cup3d_tpu/ops/fused_bicgstab.py:232, fused_amr_bicgstab.py:252).  x, the
+// per-tile partials, the aux / h^2 / zc columns, the forest's labs, its
+// reflux increment corr and its azf stay f32.  A bf16 kernel keeps the
+// f32 kernel's thread-to-cell mapping and fixed-order reductions and
+// changes only the width of its loads and stores: four cells a thread are
+// one 8-byte load, unpacked with __bfloat1622float2, and a store rounds to
+// nearest even with __floats2bfloat162_rn, as XLA's astype does.  All
+// arithmetic is f32, and every partial is summed over the value as
+// STORED (after rounding), as the TPU stages' math is; the bf16 builds
+// move about half the bytes of the f32 ones.  The entry points are
+// cup3d_<stage> (f32) and cup3d_<stage>_bf16.
+//
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kCells = 512;           // cells of one 8^3 tile
 constexpr int kVecThreads = 128;      // elementwise stages: 4 cells / thread
@@ -70,12 +88,90 @@ __device__ __forceinline__ float block_sum(float v, float* shared4) {
   return s;
 }
 
+// f32 arithmetic rounded at each operation, in the plain versions' order:
+// no multiply-add contraction, so an elementwise stage's f32 value before
+// its store is the plain version's bit for bit, and a bf16 store rounds
+// the same number (a contracted s - omega t differs in its last bits
+// wherever s and omega t nearly cancel, and rounds to another bf16 value
+// in ~0.1% of the cells)
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+
 __device__ __forceinline__ float hsum(float4 a) {
   return ((a.x + a.y) + a.z) + a.w;
 }
 
 __device__ __forceinline__ float hdot(float4 a, float4 b) {
   return ((a.x * b.x + a.y * b.y) + a.z * b.z) + a.w * b.w;
+}
+
+// -- storage: four consecutive cells (index i counts groups of four) ------
+
+__device__ __forceinline__ float4 ld4(const float* p, size_t i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+
+__device__ __forceinline__ float2 bf2_to_f2(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ unsigned f2_to_bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ float4 ld4(const bf16* p, size_t i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+  const float2 a = bf2_to_f2(u.x), b = bf2_to_f2(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// store four cells; returns them as stored (rounded), the values the
+// partials sum
+__device__ __forceinline__ float4 st4(float* p, size_t i, float4 v) {
+  reinterpret_cast<float4*>(p)[i] = v;
+  return v;
+}
+
+__device__ __forceinline__ float4 st4(bf16* p, size_t i, float4 v) {
+  const uint2 u = make_uint2(f2_to_bf2(v.x, v.y), f2_to_bf2(v.z, v.w));
+  reinterpret_cast<uint2*>(p)[i] = u;
+  const float2 a = bf2_to_f2(u.x), b = bf2_to_f2(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// one 8-cell pencil (16-byte aligned) to and from registers
+__device__ __forceinline__ void ld8(const float* g, float (&o)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(g);
+  const float4 hi = *reinterpret_cast<const float4*>(g + 4);
+  o[0] = lo.x; o[1] = lo.y; o[2] = lo.z; o[3] = lo.w;
+  o[4] = hi.x; o[5] = hi.y; o[6] = hi.z; o[7] = hi.w;
+}
+
+__device__ __forceinline__ void ld8(const bf16* g, float (&o)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(g);
+  const float2 a = bf2_to_f2(u.x), b = bf2_to_f2(u.y);
+  const float2 c = bf2_to_f2(u.z), d = bf2_to_f2(u.w);
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  o[4] = c.x; o[5] = c.y; o[6] = d.x; o[7] = d.y;
+}
+
+__device__ __forceinline__ void st8(float* g, const float (&v)[8]) {
+  reinterpret_cast<float4*>(g)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(g)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void st8(bf16* g, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(g) =
+      make_uint4(f2_to_bf2(v[0], v[1]), f2_to_bf2(v[2], v[3]),
+                 f2_to_bf2(v[4], v[5]), f2_to_bf2(v[6], v[7]));
 }
 
 // ---------------------------------------------------------------------------
@@ -97,30 +193,31 @@ __device__ __forceinline__ float upd1(float r, float p, float v, float beta,
                                       float omega, bool broke) {
   const float pe = broke ? 0.f : p;
   const float ve = broke ? 0.f : v;
-  return r + beta * (pe - omega * ve);
+  return add(r, mul(beta, sub(pe, mul(omega, ve))));
 }
 
 __device__ __forceinline__ float4 scale4(float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
-k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
-         float4* rhat, const float* __restrict__ scal,
-         const float* __restrict__ wt, float* __restrict__ ts) {
+k_update(const S* __restrict__ r, S* p, const S* __restrict__ v, S* rhat,
+         const float* __restrict__ scal, const float* __restrict__ wt,
+         float* __restrict__ ts) {
   __shared__ float red[kWarps];
   const float beta = scal[0], omega = scal[1];
   const bool broke = scal[2] > 0.5f;
   const float weight = wt ? wt[blockIdx.x] : 1.f;
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
-  const float4 rr = r[i], pp = p[i], vv = v[i];
+  const float4 rr = ld4(r, i), pp = ld4(p, i), vv = ld4(v, i);
   float4 pn;
   pn.x = upd1(rr.x, pp.x, vv.x, beta, omega, broke);
   pn.y = upd1(rr.y, pp.y, vv.y, beta, omega, broke);
   pn.z = upd1(rr.z, pp.z, vv.z, beta, omega, broke);
   pn.w = upd1(rr.w, pp.w, vv.w, beta, omega, broke);
-  p[i] = pn;
-  if (broke) rhat[i] = rr;
+  pn = st4(p, i, pn);
+  if (broke) st4(rhat, i, rr);  // r's stored value: exact in S
   const float s = block_sum(hsum(scale4(pn, weight)), red);
   if (threadIdx.x == 0) ts[blockIdx.x] = s;
 }
@@ -136,18 +233,19 @@ k_update(const float4* __restrict__ r, float4* p, const float4* __restrict__ v,
 // memory; each thread owns 4 consecutive cells along the last axis.
 // ---------------------------------------------------------------------------
 
+template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
-k_lap(const float4* __restrict__ w, const float4* __restrict__ planes,
-      const float4* __restrict__ a, float4* __restrict__ aw,
-      float* __restrict__ pa, float* __restrict__ ps, float inv_h2) {
+k_lap(const S* __restrict__ w, const S* __restrict__ planes,
+      const S* __restrict__ a, S* __restrict__ aw, float* __restrict__ pa,
+      float* __restrict__ ps, float inv_h2) {
   __shared__ __align__(16) float tile[kCells];
   __shared__ __align__(16) float pl[6 * 64];
   __shared__ float red_a[kWarps];
   __shared__ float red_s[kWarps];
   const size_t t = blockIdx.x;
   const int tid = threadIdx.x;
-  reinterpret_cast<float4*>(tile)[tid] = w[t * (kCells / 4) + tid];
-  if (tid < 96) reinterpret_cast<float4*>(pl)[tid] = planes[t * 96 + tid];
+  reinterpret_cast<float4*>(tile)[tid] = ld4(w, t * (kCells / 4) + tid);
+  if (tid < 96) reinterpret_cast<float4*>(pl)[tid] = ld4(planes, t * 96 + tid);
   __syncthreads();
 
   const int cell0 = tid * 4;  // (ia*8 + ib)*8 + ic0, ic0 in {0, 4}
@@ -163,18 +261,18 @@ k_lap(const float4* __restrict__ w, const float4* __restrict__ planes,
     const float ym = ib > 0 ? tile[cc - 8] : pl[2 * 64 + ia * 8 + ic];
     const float zp = ic < 7 ? tile[cc + 1] : pl[5 * 64 + ia * 8 + ib];
     const float zm = ic > 0 ? tile[cc - 1] : pl[4 * 64 + ia * 8 + ib];
-    float o = -6.f * tile[cc];
-    o = o + xp;
-    o = o + xm;
-    o = o + yp;
-    o = o + ym;
-    o = o + zp;
-    o = o + zm;
-    out[q] = o * inv_h2;
+    float o = mul(-6.f, tile[cc]);
+    o = add(o, xp);
+    o = add(o, xm);
+    o = add(o, yp);
+    o = add(o, ym);
+    o = add(o, zp);
+    o = add(o, zm);
+    out[q] = mul(o, inv_h2);
   }
-  const float4 res = make_float4(out[0], out[1], out[2], out[3]);
-  aw[t * (kCells / 4) + tid] = res;
-  const float4 av = a[t * (kCells / 4) + tid];
+  const float4 res = st4(aw, t * (kCells / 4) + tid,
+                         make_float4(out[0], out[1], out[2], out[3]));
+  const float4 av = ld4(a, t * (kCells / 4) + tid);
   const float sa = block_sum(hdot(av, res), red_a);
   const float ss = block_sum(hdot(res, res), red_s);
   if (tid == 0) {
@@ -199,10 +297,11 @@ k_lap(const float4* __restrict__ w, const float4* __restrict__ planes,
 constexpr int kLab = 10;                // width-1 lab edge
 constexpr int kLabCells = kLab * kLab * kLab;
 
+template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
 k_lap_amr(const float4* __restrict__ lab, const float4* __restrict__ corr,
-          const float4* __restrict__ a, const float* __restrict__ inv_h2,
-          float4* __restrict__ aw, float* __restrict__ pa,
+          const S* __restrict__ a, const float* __restrict__ inv_h2,
+          S* __restrict__ aw, float* __restrict__ pa,
           float* __restrict__ ps) {
   __shared__ __align__(16) float tile[kLabCells];
   __shared__ float red_a[kWarps];
@@ -222,18 +321,18 @@ k_lap_amr(const float4* __restrict__ lab, const float4* __restrict__ corr,
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int l = ((ia + 1) * kLab + (ib + 1)) * kLab + (ic0 + q + 1);
-    float s = -6.f * tile[l];
-    s = s + tile[l + kLab * kLab];
-    s = s + tile[l - kLab * kLab];
-    s = s + tile[l + kLab];
-    s = s + tile[l - kLab];
-    s = s + tile[l + 1];
-    s = s + tile[l - 1];
-    out[q] = s * ih + cv[q];
+    float s = mul(-6.f, tile[l]);
+    s = add(s, tile[l + kLab * kLab]);
+    s = add(s, tile[l - kLab * kLab]);
+    s = add(s, tile[l + kLab]);
+    s = add(s, tile[l - kLab]);
+    s = add(s, tile[l + 1]);
+    s = add(s, tile[l - 1]);
+    out[q] = add(mul(s, ih), cv[q]);
   }
-  const float4 res = make_float4(out[0], out[1], out[2], out[3]);
-  aw[t * (kCells / 4) + tid] = res;
-  const float4 av = a[t * (kCells / 4) + tid];
+  const float4 res = st4(aw, t * (kCells / 4) + tid,
+                         make_float4(out[0], out[1], out[2], out[3]));
+  const float4 av = ld4(a, t * (kCells / 4) + tid);
   const float sa = block_sum(hdot(av, res), red_a);
   const float ss = block_sum(hdot(res, res), red_s);
   if (tid == 0) {
@@ -249,18 +348,21 @@ k_lap_amr(const float4* __restrict__ lab, const float4* __restrict__ corr,
 // partial sum(s * wt[t]); wt == nullptr gives B5.
 // ---------------------------------------------------------------------------
 
+template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
-k_axpy(const float4* __restrict__ r, const float4* __restrict__ v,
+k_axpy(const S* __restrict__ r, const S* __restrict__ v,
        const float* __restrict__ scal, const float* __restrict__ wt,
-       float4* __restrict__ s, float* __restrict__ ts) {
+       S* __restrict__ s, float* __restrict__ ts) {
   __shared__ float red[kWarps];
   const float alpha = scal[0];
   const float weight = wt ? wt[blockIdx.x] : 1.f;
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
-  const float4 rr = r[i], vv = v[i];
-  const float4 ss = make_float4(rr.x - alpha * vv.x, rr.y - alpha * vv.y,
-                                rr.z - alpha * vv.z, rr.w - alpha * vv.w);
-  s[i] = ss;
+  const float4 rr = ld4(r, i), vv = ld4(v, i);
+  const float4 ss = st4(
+      s, i, make_float4(sub(rr.x, mul(alpha, vv.x)),
+                        sub(rr.y, mul(alpha, vv.y)),
+                        sub(rr.z, mul(alpha, vv.z)),
+                        sub(rr.w, mul(alpha, vv.w))));
   const float sum = block_sum(hsum(scale4(ss, weight)), red);
   if (threadIdx.x == 0) ts[blockIdx.x] = sum;
 }
@@ -272,24 +374,27 @@ k_axpy(const float4* __restrict__ r, const float4* __restrict__ v,
 // into r the same way): each thread reads its s before writing its r.
 // ---------------------------------------------------------------------------
 
+template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
-k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
-         const float4* s, const float4* __restrict__ t,
-         const float4* __restrict__ rhat, const float* __restrict__ scal,
-         float4* r, float* __restrict__ prr, float* __restrict__ prh) {
+k_finish(float4* x, const S* __restrict__ y, const S* __restrict__ z,
+         const S* s, const S* __restrict__ t, const S* __restrict__ rhat,
+         const float* __restrict__ scal, S* r, float* __restrict__ prr,
+         float* __restrict__ prh) {
   __shared__ float red_r[kWarps];
   __shared__ float red_h[kWarps];
   const float alpha = scal[0], omega = scal[1];
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
-  const float4 xx = x[i], yy = y[i], zz = z[i], sv = s[i], tv = t[i];
-  const float4 rh = rhat[i];
-  x[i] = make_float4(xx.x + alpha * yy.x + omega * zz.x,
-                     xx.y + alpha * yy.y + omega * zz.y,
-                     xx.z + alpha * yy.z + omega * zz.z,
-                     xx.w + alpha * yy.w + omega * zz.w);
-  const float4 rn = make_float4(sv.x - omega * tv.x, sv.y - omega * tv.y,
-                                sv.z - omega * tv.z, sv.w - omega * tv.w);
-  r[i] = rn;
+  const float4 xx = x[i], yy = ld4(y, i), zz = ld4(z, i), sv = ld4(s, i);
+  const float4 tv = ld4(t, i), rh = ld4(rhat, i);
+  x[i] = make_float4(add(add(xx.x, mul(alpha, yy.x)), mul(omega, zz.x)),
+                     add(add(xx.y, mul(alpha, yy.y)), mul(omega, zz.y)),
+                     add(add(xx.z, mul(alpha, yy.z)), mul(omega, zz.z)),
+                     add(add(xx.w, mul(alpha, yy.w)), mul(omega, zz.w)));
+  const float4 rn = st4(
+      r, i, make_float4(sub(sv.x, mul(omega, tv.x)),
+                        sub(sv.y, mul(omega, tv.y)),
+                        sub(sv.z, mul(omega, tv.z)),
+                        sub(sv.w, mul(omega, tv.w))));
   const float a = block_sum(hdot(rn, rn), red_r);
   const float b = block_sum(hdot(rh, rn), red_h);
   if (threadIdx.x == 0) {
@@ -379,6 +484,15 @@ k_finish(float4* x, const float4* __restrict__ y, const float4* __restrict__ z,
 //   GETZ_RTOL.
 // - Stores are y's k-pencils, 2 x 16 bytes a pencil; the tile-major
 //   (T, 8, 8, 8) layout and f32 are as before.
+//
+// bf16 storage (B2, B3, B9, B10 under CUP3D_KRYLOV_DTYPE=bf16): a stage
+// holds the tile's w as it is stored, 1 KB, brought in by the same bulk
+// copy at half the bytes (B9's azf stays f32 behind it: 3 KB a stage); a
+// k-pencil is one 16-byte vector of 8 bf16, unpacked to f32 registers
+// before the first transform, and the store rounds the f32 pencil (+ zc)
+// to bf16, one 16-byte vector a pencil.  Every transform, the shared
+// buffers and the scale table stay f32.  The stages take less shared
+// memory, so the occupancy-picked CTA count is at least the f32 build's.
 // ---------------------------------------------------------------------------
 
 constexpr int kGzWarps = 4;                 // tiles in flight a CTA
@@ -431,30 +545,30 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void bulk_copy(unsigned dst, const float* src,
-                                          unsigned bar) {
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(kTileBytes), "r"(bar)
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
-// one tile's w (2 KB), and for B9 the same block's azf (2 KB more, right
-// behind it), into a stage by TMA 1-D bulk copies that complete on the
-// stage's mbarrier, which expects the bytes of both; the fence orders the
-// warp's earlier reads of the stage (generic proxy) before the copies'
-// writes (async proxy)
-template <int kBufs>
-__device__ __forceinline__ void tile_load(unsigned dst, const float* src,
+// one tile's w (kW bytes: 2 KB f32, 1 KB bf16), and for B9 the same
+// block's f32 azf (kA = 2 KB more, right behind it), into a stage by TMA
+// 1-D bulk copies that complete on the stage's mbarrier, which expects the
+// bytes of both; the fence orders the warp's earlier reads of the stage
+// (generic proxy) before the copies' writes (async proxy)
+template <unsigned kW, unsigned kA>
+__device__ __forceinline__ void tile_load(unsigned dst, const void* src,
                                           const float* src2, unsigned bar) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(kBufs * kTileBytes)
+      "r"(kW + kA)
       : "memory");
-  bulk_copy(dst, src, bar);
-  if constexpr (kBufs == 2) bulk_copy(dst + kTileBytes, src2, bar);
+  bulk_copy(dst, src, kW, bar);
+  if constexpr (kA > 0) bulk_copy(dst + kW, src2, kA, bar);
 }
 
 // wait until the mbarrier's phase of this parity has completed
@@ -475,19 +589,21 @@ enum GzMode { kGzTwo, kGzTile, kGzTileCol, kGzAmr };
 // the body of every instance; the kernels below name the instances, so
 // that a profile tells B2 (k_getz_two) from B3/B10 (k_getz_tile) and B9
 // (k_getz_amr)
-template <int kMode, int kStages>
-__device__ __forceinline__ void getz_core(const float* __restrict__ w,
+template <int kMode, int kStages, typename S>
+__device__ __forceinline__ void getz_core(const S* __restrict__ w,
                                           const float* __restrict__ s1g,
                                           const float* __restrict__ lam3,
                                           const float* __restrict__ aux,
                                           const float* __restrict__ h2col,
                                           const float* __restrict__ azf,
                                           const float* __restrict__ zccol,
-                                          float* __restrict__ y, float h2,
+                                          S* __restrict__ y, float h2,
                                           int T) {
   constexpr bool kCol = kMode == kGzTileCol || kMode == kGzAmr;
-  constexpr int kBufs = kMode == kGzAmr ? 2 : 1;  // tiles a stage holds
-  __shared__ __align__(128) float stages[kGzWarps][kStages][kBufs * kCells];
+  // a stage: the tile's w as stored, then (B9) its f32 azf
+  constexpr unsigned kW = kCells * sizeof(S);
+  constexpr unsigned kA = kMode == kGzAmr ? kTileBytes : 0;
+  __shared__ __align__(128) unsigned char stages[kGzWarps][kStages][kW + kA];
   __shared__ __align__(16) float pads[kGzWarps][kPad];
   // -h2 / lam3 (B2, B3); 1 / lam3 (B10, B9: -h2[t] multiplies apart)
   __shared__ __align__(16) float scale[kPad];
@@ -499,9 +615,9 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
   // tile tt into stage q (lane 0 only); azf is read for B9 alone
   auto load = [&](int q, int tt) {
     const size_t off = (size_t)tt * kCells;
-    tile_load<kBufs>(smem_addr(stages[warp][q]), w + off,
-                     kBufs == 2 ? azf + off : nullptr,
-                     smem_addr(&bars[warp][q]));
+    tile_load<kW, kA>(smem_addr(stages[warp][q]), w + off,
+                      kA > 0 ? azf + off : nullptr,
+                      smem_addr(&bars[warp][q]));
   };
   // the first tiles' loads fly while the scale table is formed
   if (lane == 0) {
@@ -568,17 +684,17 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
     }
     bar_wait(smem_addr(&bars[warp][slot]), (unsigned)((i / kStages) & 1));
     __syncwarp();
-    const float* st = stages[warp][slot];
+    const S* st = reinterpret_cast<const S*>(stages[warp][slot]);
+    const float* sta =
+        reinterpret_cast<const float*>(stages[warp][slot] + kW);
     float x[2][8];
 
     // -- K: load, the right-hand side, the k transform ------------------
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int a = 4 * j + ka;
-      const float* g = st + (a * 8 + kb) * 8;
-      const float4 lo = *reinterpret_cast<const float4*>(g);
-      const float4 hi = *reinterpret_cast<const float4*>(g + 4);
-      const float wv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      float wv[8];
+      ld8(st + (a * 8 + kb) * 8, wv);
       if constexpr (kMode == kGzTwo) {
         const float part0 = a == 0 ? ax[0] : (a == 7 ? ax[1] : 0.f);
         const float part1 = kb == 0 ? ax[2] : (kb == 7 ? ax[3] : 0.f);
@@ -590,11 +706,8 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
         x[j][7] = wv[7] - (p01 + ax[5]);
       } else if constexpr (kMode == kGzAmr) {
         // w - azf; -h2 multiplies in the middle of the solve
-        const float* ga = g + kCells;
-        const float4 alo = *reinterpret_cast<const float4*>(ga);
-        const float4 ahi = *reinterpret_cast<const float4*>(ga + 4);
-        const float av[8] = {alo.x, alo.y, alo.z, alo.w,
-                             ahi.x, ahi.y, ahi.z, ahi.w};
+        float av[8];
+        ld8(sta + (a * 8 + kb) * 8, av);
 #pragma unroll
         for (int k = 0; k < 8; ++k) x[j][k] = wv[k] - av[k];
       } else {
@@ -653,71 +766,66 @@ __device__ __forceinline__ void getz_core(const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int a = 4 * j + ka;
-      const float* p = buf + pad_off(a, kb, 0);
-      const float4 lo = *reinterpret_cast<const float4*>(p);
-      const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      float v[8];
+      ld8(buf + pad_off(a, kb, 0), v);
       dst8(v, s);
-      float4* out = reinterpret_cast<float4*>(
-          y + (size_t)t * kCells + (a * 8 + kb) * 8);
       if constexpr (kMode == kGzTwo || kMode == kGzAmr) {
         const float zc = kMode == kGzTwo ? ax[6] : zct;
-        out[0] = make_float4(v[0] + zc, v[1] + zc, v[2] + zc, v[3] + zc);
-        out[1] = make_float4(v[4] + zc, v[5] + zc, v[6] + zc, v[7] + zc);
-      } else {
-        out[0] = make_float4(v[0], v[1], v[2], v[3]);
-        out[1] = make_float4(v[4], v[5], v[6], v[7]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] += zc;
       }
+      st8(y + (size_t)t * kCells + (a * 8 + kb) * 8, v);
     }
   }
 }
 
 #define GZ_PARAMS                                                         \
-  const float *__restrict__ w, const float *__restrict__ s1g,              \
+  const S *__restrict__ w, const float *__restrict__ s1g,                  \
       const float *__restrict__ lam3, const float *__restrict__ aux,       \
       const float *__restrict__ h2col, const float *__restrict__ azf,      \
-      const float *__restrict__ zccol, float *__restrict__ y, float h2, int T
+      const float *__restrict__ zccol, S *__restrict__ y, float h2, int T
 #define GZ_ARGS w, s1g, lam3, aux, h2col, azf, zccol, y, h2, T
 
-template <int kStages, int kMinBlocks>
+template <int kStages, int kMinBlocks, typename S>
 __global__ void __launch_bounds__(kGzThreads, kMinBlocks)
 k_getz_two(GZ_PARAMS) {
-  getz_core<kGzTwo, kStages>(GZ_ARGS);
+  getz_core<kGzTwo, kStages, S>(GZ_ARGS);
 }
 
-template <int kMode, int kStages, int kMinBlocks>
+template <int kMode, int kStages, int kMinBlocks, typename S>
 __global__ void __launch_bounds__(kGzThreads, kMinBlocks)
 k_getz_tile(GZ_PARAMS) {
-  getz_core<kMode, kStages>(GZ_ARGS);
+  getz_core<kMode, kStages, S>(GZ_ARGS);
 }
 
-template <int kStages, int kMinBlocks>
+template <int kStages, int kMinBlocks, typename S>
 __global__ void __launch_bounds__(kGzThreads, kMinBlocks)
 k_getz_amr(GZ_PARAMS) {
-  getz_core<kGzAmr, kStages>(GZ_ARGS);
+  getz_core<kGzAmr, kStages, S>(GZ_ARGS);
 }
 
-using GetzKernel = void (*)(const float*, const float*, const float*,
+template <typename S>
+using GetzKernel = void (*)(const S*, const float*, const float*,
                             const float*, const float*, const float*,
-                            const float*, float*, float, int);
+                            const float*, S*, float, int);
 
-template <int kMode, int kStages, int kMinBlocks>
-constexpr GetzKernel getz_kernel() {
+template <int kMode, int kStages, int kMinBlocks, typename S>
+constexpr GetzKernel<S> getz_kernel() {
   if constexpr (kMode == kGzTwo)
-    return k_getz_two<kStages, kMinBlocks>;
+    return k_getz_two<kStages, kMinBlocks, S>;
   else if constexpr (kMode == kGzAmr)
-    return k_getz_amr<kStages, kMinBlocks>;
+    return k_getz_amr<kStages, kMinBlocks, S>;
   else
-    return k_getz_tile<kMode, kStages, kMinBlocks>;
+    return k_getz_tile<kMode, kStages, kMinBlocks, S>;
 }
 
 // CTAs of one build that fit on card `dev` at once (cached; 0 on error)
-template <int kMode, int kStages, int kMinBlocks>
+template <int kMode, int kStages, int kMinBlocks, typename S>
 int getz_core_capacity(int dev) {
   static int cached[64] = {0};
   if (cached[dev] == 0) {
     int sms = 0, per_sm = 0;
-    const GetzKernel kern = getz_kernel<kMode, kStages, kMinBlocks>();
+    const GetzKernel<S> kern = getz_kernel<kMode, kStages, kMinBlocks, S>();
     cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -734,27 +842,80 @@ int getz_core_capacity(int dev) {
 // the persistent launch of one instance: the one-stage build when its
 // resident warps take every tile in one round, else the two-stage ring;
 // as many CTAs as fit (fewer when T needs fewer)
-template <int kMode>
-int launch_getz_core(const float* w, const float* s1, const float* lam3,
+template <int kMode, typename S>
+int launch_getz_core(const S* w, const float* s1, const float* lam3,
                      const float* aux, const float* h2col, const float* azf,
-                     const float* zccol, float* y, float h2, int T,
+                     const float* zccol, S* y, float h2, int T,
                      cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return (int)cudaErrorInvalidDevice;
   const int need = (T + kGzWarps - 1) / kGzWarps;
-  const int small = getz_core_capacity<kMode, 1, 8>(dev);
+  const int small = getz_core_capacity<kMode, 1, 8, S>(dev);
   if (small < 1) return (int)cudaErrorInvalidConfiguration;
   if (need <= small) {
-    getz_kernel<kMode, 1, 8>()<<<need, kGzThreads, 0, stream>>>(
+    getz_kernel<kMode, 1, 8, S>()<<<need, kGzThreads, 0, stream>>>(
         w, s1, lam3, aux, h2col, azf, zccol, y, h2, T);
   } else {
-    const int deep = getz_core_capacity<kMode, 2, 1>(dev);
+    const int deep = getz_core_capacity<kMode, 2, 1, S>(dev);
     if (deep < 1) return (int)cudaErrorInvalidConfiguration;
-    getz_kernel<kMode, 2, 1>()<<<need < deep ? need : deep, kGzThreads, 0,
-                                 stream>>>(w, s1, lam3, aux, h2col, azf,
-                                           zccol, y, h2, T);
+    getz_kernel<kMode, 2, 1, S>()<<<need < deep ? need : deep, kGzThreads,
+                                    0, stream>>>(w, s1, lam3, aux, h2col,
+                                                 azf, zccol, y, h2, T);
   }
+  return (int)cudaGetLastError();
+}
+
+// -- the launches behind the C entry points, one instance per storage -----
+
+template <typename S>
+int launch_update(const S* r, S* p, const S* v, S* rhat, const float* scal,
+                  const float* wt, float* ts, int T, cudaStream_t stream) {
+  k_update<S><<<T, kVecThreads, 0, stream>>>(r, p, v, rhat, scal, wt, ts);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_getz_tile(const S* w, const float* s1, const float* lam3,
+                     const float* h2col, float h2, S* y, int T,
+                     cudaStream_t stream) {
+  if (h2col)
+    return launch_getz_core<kGzTileCol, S>(w, s1, lam3, nullptr, h2col,
+                                           nullptr, nullptr, y, 0.f, T,
+                                           stream);
+  return launch_getz_core<kGzTile, S>(w, s1, lam3, nullptr, nullptr, nullptr,
+                                      nullptr, y, h2, T, stream);
+}
+
+template <typename S>
+int launch_lap(const S* w, const S* planes, const S* a, S* aw, float* pa,
+               float* ps, float inv_h2, int T, cudaStream_t stream) {
+  k_lap<S><<<T, kVecThreads, 0, stream>>>(w, planes, a, aw, pa, ps, inv_h2);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_axpy(const S* r, const S* v, const float* scal, const float* wt,
+                S* s, float* ts, int T, cudaStream_t stream) {
+  k_axpy<S><<<T, kVecThreads, 0, stream>>>(r, v, scal, wt, s, ts);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_finish(float* x, const S* y, const S* z, const S* s, const S* t,
+                  const S* rhat, const float* scal, S* r, float* prr,
+                  float* prh, int T, cudaStream_t stream) {
+  k_finish<S><<<T, kVecThreads, 0, stream>>>((float4*)x, y, z, s, t, rhat,
+                                             scal, r, prr, prh);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_lap_amr(const float* lab, const float* corr, const S* a,
+                   const float* inv_h2, S* aw, float* pa, float* ps, int T,
+                   cudaStream_t stream) {
+  k_lap_amr<S><<<T, kVecThreads, 0, stream>>>(
+      (const float4*)lab, (const float4*)corr, a, inv_h2, aw, pa, ps);
   return (int)cudaGetLastError();
 }
 
@@ -763,75 +924,62 @@ int launch_getz_core(const float* w, const float* s1, const float* lam3,
 // ---------------------------------------------------------------------------
 // plain C interface (loaded with ctypes); T = number of 8^3 tiles or
 // blocks; wt may be nullptr (the uniform grid's B1 and B5), h2col too
-// (the uniform grid's B3)
+// (the uniform grid's B3).  Each stage has an f32 entry point and a _bf16
+// one (S = __nv_bfloat16: the Krylov vectors in bf16; x, partials,
+// columns, labs, corr and azf f32 in both).
 // ---------------------------------------------------------------------------
 
+#define CUP3D_STAGES(S, SFX)                                                  \
+  int cup3d_update##SFX(const S* r, S* p, const S* v, S* rhat,               \
+                        const float* scal, const float* wt, float* ts, int T, \
+                        void* stream) {                                       \
+    return launch_update<S>(r, p, v, rhat, scal, wt, ts, T,                   \
+                            (cudaStream_t)stream);                            \
+  }                                                                           \
+  int cup3d_getz_two##SFX(const S* w, const float* s1, const float* lam3,    \
+                          const float* aux, S* y, float h2, int T,           \
+                          void* stream) {                                     \
+    return launch_getz_core<kGzTwo, S>(w, s1, lam3, aux, nullptr, nullptr,   \
+                                       nullptr, y, h2, T,                     \
+                                       (cudaStream_t)stream);                 \
+  }                                                                           \
+  int cup3d_getz_tile##SFX(const S* w, const float* s1, const float* lam3,   \
+                           const float* h2col, float h2, S* y, int T,        \
+                           void* stream) {                                    \
+    return launch_getz_tile<S>(w, s1, lam3, h2col, h2, y, T,                 \
+                               (cudaStream_t)stream);                         \
+  }                                                                           \
+  int cup3d_lap##SFX(const S* w, const S* planes, const S* a, S* aw,        \
+                     float* pa, float* ps, float inv_h2, int T,              \
+                     void* stream) {                                          \
+    return launch_lap<S>(w, planes, a, aw, pa, ps, inv_h2, T,                \
+                         (cudaStream_t)stream);                               \
+  }                                                                           \
+  int cup3d_axpy##SFX(const S* r, const S* v, const float* scal,             \
+                      const float* wt, S* s, float* ts, int T,               \
+                      void* stream) {                                         \
+    return launch_axpy<S>(r, v, scal, wt, s, ts, T, (cudaStream_t)stream);   \
+  }                                                                           \
+  int cup3d_finish##SFX(float* x, const S* y, const S* z, const S* s,       \
+                        const S* t, const S* rhat, const float* scal, S* r,  \
+                        float* prr, float* prh, int T, void* stream) {       \
+    return launch_finish<S>(x, y, z, s, t, rhat, scal, r, prr, prh, T,       \
+                            (cudaStream_t)stream);                            \
+  }                                                                           \
+  int cup3d_getz_amr##SFX(const S* w, const float* azf, const float* s1,    \
+                          const float* lam3, const float* zc,                \
+                          const float* h2, S* y, int T, void* stream) {      \
+    return launch_getz_core<kGzAmr, S>(w, s1, lam3, nullptr, h2, azf, zc,   \
+                                       y, 0.f, T, (cudaStream_t)stream);     \
+  }                                                                           \
+  int cup3d_lap_amr##SFX(const float* lab, const float* corr, const S* a,   \
+                         const float* inv_h2, S* aw, float* pa, float* ps,   \
+                         int T, void* stream) {                               \
+    return launch_lap_amr<S>(lab, corr, a, inv_h2, aw, pa, ps, T,            \
+                             (cudaStream_t)stream);                           \
+  }
+
 extern "C" {
-
-int cup3d_update(const float* r, float* p, const float* v, float* rhat,
-                 const float* scal, const float* wt, float* ts, int T,
-                 void* stream) {
-  k_update<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)r, (float4*)p, (const float4*)v, (float4*)rhat, scal, wt,
-      ts);
-  return (int)cudaGetLastError();
-}
-
-int cup3d_getz_two(const float* w, const float* s1, const float* lam3,
-                   const float* aux, float* y, float h2, int T, void* stream) {
-  return launch_getz_core<kGzTwo>(w, s1, lam3, aux, nullptr, nullptr,
-                                  nullptr, y, h2, T, (cudaStream_t)stream);
-}
-
-int cup3d_getz_tile(const float* w, const float* s1, const float* lam3,
-                    const float* h2col, float h2, float* y, int T,
-                    void* stream) {
-  if (h2col)
-    return launch_getz_core<kGzTileCol>(w, s1, lam3, nullptr, h2col, nullptr,
-                                        nullptr, y, 0.f, T,
-                                        (cudaStream_t)stream);
-  return launch_getz_core<kGzTile>(w, s1, lam3, nullptr, nullptr, nullptr,
-                                   nullptr, y, h2, T, (cudaStream_t)stream);
-}
-
-int cup3d_lap(const float* w, const float* planes, const float* a, float* aw,
-              float* pa, float* ps, float inv_h2, int T, void* stream) {
-  k_lap<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)w, (const float4*)planes, (const float4*)a, (float4*)aw,
-      pa, ps, inv_h2);
-  return (int)cudaGetLastError();
-}
-
-int cup3d_axpy(const float* r, const float* v, const float* scal,
-               const float* wt, float* s, float* ts, int T, void* stream) {
-  k_axpy<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)r, (const float4*)v, scal, wt, (float4*)s, ts);
-  return (int)cudaGetLastError();
-}
-
-int cup3d_finish(float* x, const float* y, const float* z, const float* s,
-                 const float* t, const float* rhat, const float* scal,
-                 float* r, float* prr, float* prh, int T, void* stream) {
-  k_finish<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
-      (float4*)x, (const float4*)y, (const float4*)z, (const float4*)s,
-      (const float4*)t, (const float4*)rhat, scal, (float4*)r, prr, prh);
-  return (int)cudaGetLastError();
-}
-
-int cup3d_getz_amr(const float* w, const float* azf, const float* s1,
-                   const float* lam3, const float* zc, const float* h2,
-                   float* y, int T, void* stream) {
-  return launch_getz_core<kGzAmr>(w, s1, lam3, nullptr, h2, azf, zc, y, 0.f,
-                                  T, (cudaStream_t)stream);
-}
-
-int cup3d_lap_amr(const float* lab, const float* corr, const float* a,
-                  const float* inv_h2, float* aw, float* pa, float* ps, int T,
-                  void* stream) {
-  k_lap_amr<<<T, kVecThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)lab, (const float4*)corr, (const float4*)a, inv_h2,
-      (float4*)aw, pa, ps);
-  return (int)cudaGetLastError();
-}
-
+CUP3D_STAGES(float, )
+CUP3D_STAGES(bf16, _bf16)
 }  // extern "C"

@@ -275,9 +275,11 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
 
     ``mean_constraint``: 0 none, 1 the corner row is the volume-weighted
     mean, 2 (default) mean removal, 3 Dirichlet pin of the corner cell.
-    ``CUP3D_FUSED=1`` with mean removal and the exact getZ runs the fused
-    driver (ops/fused_amr_bicgstab.py: the CUDA kernels on CUDA
-    tensors); otherwise the legacy composition over krylov.bicgstab,
+    ``CUP3D_FUSED=1`` (or ``auto`` under ``CUP3D_KRYLOV_DTYPE=bf16``)
+    with mean removal and the exact getZ runs the fused driver
+    (ops/fused_amr_bicgstab.py: the CUDA kernels on CUDA tensors) with
+    Krylov vectors stored in ``precision.krylov_dtype()``; otherwise the
+    legacy composition over krylov.bicgstab at f32,
     whose getZ is ``precond_iters`` CG sweeps per block under
     CUP3D_GETZ=cg (kernel B7 on CUDA tensors), with the block's own h^2
     folded into the rhs.  ``kernels`` is passed to every kernel wrapper
@@ -286,9 +288,13 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
     :func:`build_amr_poisson_solver`)."""
     from cup3d_tpu_torch.ops import krylov, precision
 
-    precision.check_policy(mean_constraint)
+    # the knobs are read here, when the solver is built; unlike the
+    # uniform solver the forest's does not refuse bf16 without the fused
+    # driver: its legacy composition then runs at f32, as the JAX
+    # package's does
     fused_on = ((precision.use_fused() if fused is None else fused)
                 and mean_constraint == 2 and krylov.use_exact_getz())
+    store = precision.krylov_dtype()
 
     def solve(rhs, x0=None, tab_arg=None, flux_arg=None, rnorm_ref=None,
               geom=None, vol=None, pmask=None, graph=None, slot0=None,
@@ -331,7 +337,8 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
             x, rnorm, k = _fused.fused_amr_bicgstab(
                 geom, b, tab=t, ftab=ft, vol=vol, graph=graph,
                 tol_abs=tol_abs, tol_rel=tol_rel, maxiter=maxiter,
-                rnorm_ref=rnorm_ref, x0=x0, kernels=kernels)
+                rnorm_ref=rnorm_ref, x0=x0, store_dtype=store,
+                kernels=kernels)
         else:
             x, rnorm, k = krylov.bicgstab(
                 A, b, M=M, x0=x0, tol_abs=tol_abs, tol_rel=tol_rel,

@@ -38,17 +38,21 @@ _F = ctypes.c_float
 #: c_void_p); None: a hot-path entry point taking ctypes arrays (passed by
 #: pointer, no per-argument conversion), bound with the GIL held
 #: (KernelLibrary.fast)
+#: the fused-BiCGSTAB stages; each has an f32 entry point and a ``_bf16``
+#: one of the same arguments (bf16 Krylov vectors)
+_STAGES = {
+    "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_getz_two": [_P, _P, _P, _P, _P, _F, _I, _P],
+    "cup3d_getz_tile": [_P, _P, _P, _P, _F, _P, _I, _P],
+    "cup3d_lap": [_P, _P, _P, _P, _P, _P, _F, _I, _P],
+    "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_getz_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_lap_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+}
 SOURCES = {
     CSRC / "fused_bicgstab.cu": {
-        "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-        "cup3d_getz_two": [_P, _P, _P, _P, _P, _F, _I, _P],
-        "cup3d_getz_tile": [_P, _P, _P, _P, _F, _P, _I, _P],
-        "cup3d_lap": [_P, _P, _P, _P, _P, _P, _F, _I, _P],
-        "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _P],
-        "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-        "cup3d_getz_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-        "cup3d_lap_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-    },
+        **_STAGES, **{name + "_bf16": a for name, a in _STAGES.items()}},
     CSRC / "getz_cg.cu": {
         "cup3d_getz_cg": [_P, _P, _F, _P, _I, _L, _L, _I, _P],
     },

@@ -4,8 +4,9 @@
 The production pressure system of the forest: A = the refluxed 7-point
 Laplacian (face tables of width 1 + flux tables), M = the exact getZ tile
 solve at each block's own h, plus the block-graph coarse level.  Each
-iteration runs five stages over ``(nb, 8, 8, 8)`` f32 blocks — the same
-block-major layout as the uniform driver's tiles — and on a CUDA tensor
+iteration runs five stages over ``(nb, 8, 8, 8)`` blocks — the same
+block-major layout and storage dtypes (f32 or bf16 Krylov vectors, f32 x)
+as the uniform driver's tiles — and on a CUDA tensor
 each is a hand-written kernel (csrc/fused_bicgstab.cu); beside it sits a
 plain PyTorch version (a port of the JAX package's ``*_math`` helpers):
 
@@ -27,11 +28,13 @@ kernel itself.  Their launches count under their
 own ``amr_*`` names so the two paths are held apart.
 
 Between the stages, in plain torch (the JAX package keeps the same
-pieces outside its kernels): the coarse solve (krylov.coarse_solve_graph,
-32 fixed CG sweeps on (nb,) vectors), the full refluxed Laplacian of the
-injected correction ``azf``, and the lab assembly with its reflux
-increment.  Partials are per block, combined by one ``torch.sum``: no
-float atomics, so reruns are bitwise equal.
+pieces outside its kernels): the coarse solve
+(krylov.coarse_solve_graph, 32 fixed CG sweeps on (nb,) vectors), the
+full refluxed Laplacian of the injected correction ``azf``, and the lab
+assembly with its reflux increment; these stay f32 under bf16 storage
+(the lab is assembled from the stored direction cast to f32, as the JAX
+driver's ``lab_corr``).  Partials are per block, combined by one
+``torch.sum``: no float atomics, so reruns are bitwise equal.
 
 The forest runs unpadded: exactly ``nb`` blocks, real per-block volumes.
 Dispatch follows ops/fused_bicgstab.py (``kernels`` None/False/True).
@@ -53,15 +56,22 @@ LAB = BS + 2  # width-1 lab edge
 #: kernel launches per stage, counted by the wrappers where they launch
 launches = {"amr_update": 0, "amr_getz_two": 0, "amr_getz_tile": 0,
             "amr_lap": 0, "amr_axpy": 0, "amr_finish": 0}
+#: the bf16 kernels' launches, by the same names
+launches_bf16 = dict.fromkeys(launches, 0)
 #: iterations the fused driver executed, chunk tails included: each runs
 #: update/axpy/finish once and getz (two-level or tile-only) and lap twice
 iterations = {"executed": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_bf16):
+        for name in counts:
+            counts[name] = 0
     iterations["executed"] = 0
+
+
+def _count(stage: str, dtype) -> None:
+    (launches_bf16 if dtype == torch.bfloat16 else launches)[stage] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -74,19 +84,21 @@ def _col(c: torch.Tensor) -> torch.Tensor:
     return c.reshape(-1, 1, 1, 1)
 
 
-def _update_math(r, p, v, rhat, vol, beta, omega, broke):
-    p_new, rhat_new, _ = fb._update_math(r, p, v, rhat, beta, omega, broke)
-    return p_new, rhat_new, fb._cellsum(p_new * _col(vol))
+def _update_math(r, p, v, rhat, vol, beta, omega, broke, store=_F32):
+    p_st, rh_st, _ = fb._update_math(r, p, v, rhat, beta, omega, broke,
+                                     store)
+    return p_st, rh_st, fb._cellsum(p_st.to(_F32) * _col(vol))
 
 
-def _getz_math(w, azf, zc, S3, lam, h2, two_level):
+def _getz_math(w, azf, zc, S3, lam, h2, two_level, store=_F32):
     """y = zc + tilesolve(-h2 (w - azf)) (two-level) or
     y = tilesolve(-h2 w) (tile-only), h2 per block; two (512, 512) f32
-    matmuls."""
+    matmuls; azf and zc f32, y rounded to ``store``."""
+    w32 = w.to(_F32)
     if two_level:
-        b = -_col(h2) * (w - azf)
+        b = -_col(h2) * (w32 - azf)
     else:
-        b = -_col(h2) * w
+        b = -_col(h2) * w32
     n = b.shape[0]
     if b.is_cuda:
         from cup3d_tpu_torch.ops import precision
@@ -97,12 +109,14 @@ def _getz_math(w, azf, zc, S3, lam, h2, two_level):
     y = (t @ S3).reshape(b.shape)
     if two_level:
         y = y + _col(zc)
-    return y
+    return y.to(store)
 
 
-def _lap_math(lab, corr, a, inv_h2):
-    """Refluxed 7-point Laplacian on width-1 labs (n, 10, 10, 10) + the
-    per-block partials of a . Aw and Aw . Aw."""
+def _lap_math(lab, corr, a, inv_h2, store=_F32):
+    """Refluxed 7-point Laplacian on f32 width-1 labs (n, 10, 10, 10) +
+    the f32 reflux increment, Aw rounded to ``store``, + the per-block
+    partials of a . Aw and Aw . Aw over the stored Aw."""
+    lab = lab.to(_F32)
     c = lab[:, 1:BS + 1, 1:BS + 1, 1:BS + 1]
     s = -6.0 * c
     s = s + lab[:, 2:BS + 2, 1:BS + 1, 1:BS + 1]
@@ -111,13 +125,15 @@ def _lap_math(lab, corr, a, inv_h2):
     s = s + lab[:, 1:BS + 1, 0:BS, 1:BS + 1]
     s = s + lab[:, 1:BS + 1, 1:BS + 1, 2:BS + 2]
     s = s + lab[:, 1:BS + 1, 1:BS + 1, 0:BS]
-    aw = s * _col(inv_h2) + corr
-    return aw, fb._cellsum(a * aw), fb._cellsum(aw * aw)
+    aw = (s * _col(inv_h2) + corr).to(store)
+    aw32 = aw.to(_F32)
+    a32 = a.to(_F32)
+    return aw, fb._cellsum(a32 * aw32), fb._cellsum(aw32 * aw32)
 
 
-def _axpy_math(r, v, vol, alpha):
-    s = r - alpha * v
-    return s, fb._cellsum(s * _col(vol))
+def _axpy_math(r, v, vol, alpha, store=_F32):
+    s, _ = fb._axpy_math(r, v, alpha, store)
+    return s, fb._cellsum(s.to(_F32) * _col(vol))
 
 
 # ---------------------------------------------------------------------------
@@ -131,36 +147,42 @@ def _check_cols(n: int, dev, *cols: torch.Tensor) -> None:
 
 
 def update(r, p, v, rhat, vol, scal, kernels=None):
-    """B8: (p_new, rhat_new, per-block sum p_new * vol); vol (nb,).  The
-    kernel updates p and rhat in place (returned)."""
+    """B8: (p_new, rhat_new, per-block sum p_new * vol); vol (nb,) f32,
+    the vectors in their storage dtype.  The kernel updates p and rhat in
+    place (returned)."""
     if not fb._use_kernel(r, kernels):
-        return _update_math(r, p, v, rhat, vol, scal[0], scal[1], scal[2])
+        return _update_math(r, p, v, rhat, vol, scal[0], scal[1], scal[2],
+                            p.dtype)
     n = fb._check_vecs(r, p, v, rhat)
     fb._check_small(scal, (8,), r.device)
     _check_cols(n, r.device, vol)
     if len({r.data_ptr(), p.data_ptr(), v.data_ptr(), rhat.data_ptr()}) < 4:
         raise ValueError("update: r, p, v and rhat must not share memory")
     ts = torch.empty(n, dtype=_F32, device=r.device)
-    fb._lib().call("cup3d_update", r.data_ptr(), p.data_ptr(), v.data_ptr(),
-                   rhat.data_ptr(), scal.data_ptr(), vol.data_ptr(),
-                   ts.data_ptr(), n, cuda_lib.stream(r.device))
-    launches["amr_update"] += 1
+    fb._lib().call(fb._entry("cup3d_update", r.dtype), r.data_ptr(),
+                   p.data_ptr(), v.data_ptr(), rhat.data_ptr(),
+                   scal.data_ptr(), vol.data_ptr(), ts.data_ptr(), n,
+                   cuda_lib.stream(r.device))
+    _count("amr_update", r.dtype)
     return p, rhat, ts
 
 
 def getz_two(w, azf, zc, h2, kernels=None):
-    """B9: y = zc + tilesolve(-h2 (w - azf)) per block; azf (nb,8,8,8),
-    zc and h2 (nb,)."""
+    """B9: y = zc + tilesolve(-h2 (w - azf)) per block, in w's storage
+    dtype; azf (nb,8,8,8), zc and h2 (nb,) f32."""
     S3, lam, S1 = tilesolve.basis(BS, _F32, str(w.device))
     if not fb._use_kernel(w, kernels):
-        return _getz_math(w, azf, zc, S3, lam, h2, True)
-    n = fb._check_vecs(w, azf)
+        return _getz_math(w, azf, zc, S3, lam, h2, True, w.dtype)
+    n = fb._check_vecs(w)
+    if fb._check_vecs(azf, dtype=_F32) != n or azf.device != w.device:
+        raise ValueError("getz_two: azf must match w's blocks")
     _check_cols(n, w.device, zc, h2)
     y = torch.empty_like(w)
-    fb._lib().call("cup3d_getz_amr", w.data_ptr(), azf.data_ptr(),
-                   S1.data_ptr(), lam.data_ptr(), zc.data_ptr(),
-                   h2.data_ptr(), y.data_ptr(), n, cuda_lib.stream(w.device))
-    launches["amr_getz_two"] += 1
+    fb._lib().call(fb._entry("cup3d_getz_amr", w.dtype), w.data_ptr(),
+                   azf.data_ptr(), S1.data_ptr(), lam.data_ptr(),
+                   zc.data_ptr(), h2.data_ptr(), y.data_ptr(), n,
+                   cuda_lib.stream(w.device))
+    _count("amr_getz_two", w.dtype)
     return y
 
 
@@ -169,66 +191,73 @@ def getz_tile(w, h2, kernels=None):
     (nb,).  The B3 kernel with the h^2 column."""
     S3, lam, S1 = tilesolve.basis(BS, _F32, str(w.device))
     if not fb._use_kernel(w, kernels):
-        return _getz_math(w, None, None, S3, lam, h2, False)
+        return _getz_math(w, None, None, S3, lam, h2, False, w.dtype)
     n = fb._check_vecs(w)
     _check_cols(n, w.device, h2)
     y = torch.empty_like(w)
-    fb._lib().call("cup3d_getz_tile", w.data_ptr(), S1.data_ptr(),
-                   lam.data_ptr(), h2.data_ptr(), 0.0, y.data_ptr(), n,
-                   cuda_lib.stream(w.device))
-    launches["amr_getz_tile"] += 1
+    fb._lib().call(fb._entry("cup3d_getz_tile", w.dtype), w.data_ptr(),
+                   S1.data_ptr(), lam.data_ptr(), h2.data_ptr(), 0.0,
+                   y.data_ptr(), n, cuda_lib.stream(w.device))
+    _count("amr_getz_tile", w.dtype)
     return y
 
 
 def lap(lab, corr, a, inv_h2, kernels=None):
-    """B11: (Aw, per-block a . Aw, per-block Aw . Aw); lab (nb,10,10,10),
-    corr/a (nb,8,8,8), inv_h2 (nb,)."""
+    """B11: (Aw, per-block a . Aw, per-block Aw . Aw); lab (nb,10,10,10)
+    and corr (nb,8,8,8) f32, a and Aw in the storage dtype, inv_h2 (nb,)."""
     if not fb._use_kernel(lab, kernels):
-        return _lap_math(lab, corr, a, inv_h2)
-    n = fb._check_vecs(corr, a)
+        return _lap_math(lab, corr, a, inv_h2, a.dtype)
+    n = fb._check_vecs(a)
+    if fb._check_vecs(corr, dtype=_F32) != n or corr.device != a.device:
+        raise ValueError("lap: corr must match a's blocks")
     fb._check_small(lab, (n, LAB, LAB, LAB), a.device, aligned=True)
     _check_cols(n, a.device, inv_h2)
     aw = torch.empty_like(a)
     pa = torch.empty(n, dtype=_F32, device=a.device)
     ps = torch.empty(n, dtype=_F32, device=a.device)
-    fb._lib().call("cup3d_lap_amr", lab.data_ptr(), corr.data_ptr(),
-                   a.data_ptr(), inv_h2.data_ptr(), aw.data_ptr(),
-                   pa.data_ptr(), ps.data_ptr(), n, cuda_lib.stream(a.device))
-    launches["amr_lap"] += 1
+    fb._lib().call(fb._entry("cup3d_lap_amr", a.dtype), lab.data_ptr(),
+                   corr.data_ptr(), a.data_ptr(), inv_h2.data_ptr(),
+                   aw.data_ptr(), pa.data_ptr(), ps.data_ptr(), n,
+                   cuda_lib.stream(a.device))
+    _count("amr_lap", a.dtype)
     return aw, pa, ps
 
 
 def axpy(r, v, vol, scal, kernels=None):
     """B12: (s = r - alpha v, per-block sum s * vol); scal = (alpha, ...)."""
     if not fb._use_kernel(r, kernels):
-        return _axpy_math(r, v, vol, scal[0])
+        return _axpy_math(r, v, vol, scal[0], r.dtype)
     n = fb._check_vecs(r, v)
     fb._check_small(scal, (8,), r.device)
     _check_cols(n, r.device, vol)
     s = torch.empty_like(r)
     ts = torch.empty(n, dtype=_F32, device=r.device)
-    fb._lib().call("cup3d_axpy", r.data_ptr(), v.data_ptr(), scal.data_ptr(),
-                   vol.data_ptr(), s.data_ptr(), ts.data_ptr(), n,
-                   cuda_lib.stream(r.device))
-    launches["amr_axpy"] += 1
+    fb._lib().call(fb._entry("cup3d_axpy", r.dtype), r.data_ptr(),
+                   v.data_ptr(), scal.data_ptr(), vol.data_ptr(),
+                   s.data_ptr(), ts.data_ptr(), n, cuda_lib.stream(r.device))
+    _count("amr_axpy", r.dtype)
     return s, ts
 
 
 def finish(x, y, z, s, t, rhat, scal, kernels=None):
     """B13: the B6 function on blocks (served by the B6 kernel): x +=
-    alpha y + omega z, r = s - omega t into the buffer of s, per-block
-    r . r and rhat . r."""
+    alpha y + omega z (x f32), r = s - omega t into the buffer of s,
+    per-block r . r and rhat . r."""
     if not fb._use_kernel(x, kernels):
-        return fb._finish_math(x, y, z, s, t, rhat, scal[0], scal[1])
-    n = fb._check_vecs(x, y, z, s, t, rhat)
+        return fb._finish_math(x, y, z, s, t, rhat, scal[0], scal[1],
+                               s.dtype)
+    n = fb._check_vecs(y, z, s, t, rhat)
+    if fb._check_vecs(x, dtype=_F32) != n or x.device != s.device:
+        raise ValueError("finish: x must match the other vectors' blocks")
     fb._check_small(scal, (8,), x.device)
     prr = torch.empty(n, dtype=_F32, device=x.device)
     prh = torch.empty(n, dtype=_F32, device=x.device)
-    fb._lib().call("cup3d_finish", x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                   s.data_ptr(), t.data_ptr(), rhat.data_ptr(),
-                   scal.data_ptr(), s.data_ptr(), prr.data_ptr(),
-                   prh.data_ptr(), n, cuda_lib.stream(x.device))
-    launches["amr_finish"] += 1
+    fb._lib().call(fb._entry("cup3d_finish", s.dtype), x.data_ptr(),
+                   y.data_ptr(), z.data_ptr(), s.data_ptr(), t.data_ptr(),
+                   rhat.data_ptr(), scal.data_ptr(), s.data_ptr(),
+                   prr.data_ptr(), prh.data_ptr(), n,
+                   cuda_lib.stream(x.device))
+    _count("amr_finish", s.dtype)
     return x, s, prr, prh
 
 
@@ -241,15 +270,19 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
                        vol: torch.Tensor, graph=None, tol_abs: float = 1e-6,
                        tol_rel: float = 1e-4, maxiter: int = 1000,
                        rnorm_ref=None, x0: Optional[torch.Tensor] = None,
-                       kernels: Optional[bool] = None):
+                       store_dtype=None, kernels: Optional[bool] = None):
     """Fused-iteration preconditioned BiCGSTAB on the forest ``geom`` (a
     BlockGrid): ``b`` the mean-removed rhs (nb, 8, 8, 8), ``tab`` width-1
     face tables, ``ftab`` flux tables, ``vol`` the (nb,1,1,1) cell volume,
-    ``graph`` the krylov.BlockGraph (None: tile-only getZ).  Returns
-    ``(x_best (nb,8,8,8) f32, rnorm_best, iterations)`` (0-dim device
-    tensors for the last two).  Tail iterations of the last chunk after
-    convergence never touch x_best, rnorm_best or the count."""
-    from cup3d_tpu_torch.ops import amr_ops
+    ``graph`` the krylov.BlockGraph (None: tile-only getZ),
+    ``store_dtype`` the Krylov vectors' storage (default
+    precision.krylov_dtype()).  Returns ``(x_best (nb,8,8,8) f32,
+    rnorm_best, iterations)`` (0-dim device tensors for the last two).
+    Tail iterations of the last chunk after convergence never touch
+    x_best, rnorm_best or the count."""
+    from cup3d_tpu_torch.ops import amr_ops, precision
+
+    store = precision.krylov_dtype() if store_dtype is None else store_dtype
 
     bs, nb = int(geom.bs), int(geom.nb)
     if bs != BS:
@@ -277,8 +310,9 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
 
     def lab_corr(w):
         """The width-1 halo lab of a direction and the dense coarse-fine
-        reflux increment: the two data-dependent pieces of A."""
-        lab = tab.assemble_scalar(w, bs).contiguous()
+        reflux increment: the two data-dependent pieces of A, assembled
+        in f32 from the stored direction."""
+        lab = tab.assemble_scalar(w.to(_F32), bs).contiguous()
         if ftab is not None and ftab.ncorr:
             fl = amr_ops.face_fluxes(lab, 1, bs, inv_h)
             return lab, ftab.apply(zeros, fl).contiguous()
@@ -288,15 +322,18 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
     x = (torch.zeros_like(b32) if x0 is None
          else x0.to(_F32).contiguous().clone())
     if x0 is None:
-        r = b32.clone()  # A(0) == 0 exactly; skip the apply
+        r0 = b32  # A(0) == 0 exactly; skip the apply
     else:
-        r = (b32 - amr_ops.laplacian_blocks(geom, x, tab, ftab)).contiguous()
-    rr0 = krylov._dot(r, r)
+        r0 = b32 - amr_ops.laplacian_blocks(geom, x, tab, ftab)
+    # the norm and rho from the f32 residual, the iteration from its
+    # stored copy (rhat its own buffer: B8 re-seeds it in place)
+    rr0 = krylov._dot(r0, r0)
     rnorm0 = torch.sqrt(rr0)
     ref = rnorm0 if rnorm_ref is None else rnorm_ref
     target = torch.clamp(tol_rel * ref, min=tol_abs)
     eps = torch.tensor(1e-30, dtype=_F32, device=dev)
     one = torch.ones((), dtype=_F32, device=dev)
+    r = r0.to(store, memory_format=torch.contiguous_format, copy=True)
 
     state = dict(
         k=torch.zeros((), dtype=torch.int32, device=dev),
@@ -345,3 +382,52 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
     out, executed = krylov.iterate(state, step, maxiter, target)
     iterations["executed"] += executed
     return out["x_best"], out["rnorm_best"], out["k"]
+
+
+# ---------------------------------------------------------------------------
+# analytic traffic model (the JAX package's,
+# ops/fused_amr_bicgstab.py:593-630)
+# ---------------------------------------------------------------------------
+
+
+def bytes_model(store_dtype=None, two_level: bool = True) -> dict:
+    """Analytic device bytes per cell per fused forest iteration (reads +
+    writes), by stage.  e = storage bytes a cell; labs cost (bs+2)^3/bs^3
+    ~ 1.95 f32 reads a cell an apply and the dense reflux increment one
+    more; per-block columns and partials are O(nb) and ignored."""
+    from cup3d_tpu_torch.ops import precision
+
+    store = precision.krylov_dtype() if store_dtype is None else store_dtype
+    e = torch.empty((), dtype=store).element_size()
+    lab = float((8 + 2) ** 3) / 8 ** 3  # width-1 halo amplification
+    per = {
+        # r, p, v, rhat in; p, rhat out
+        "update": 6 * e,
+        # 2x (w + azf in, y out)
+        "getz": 2 * (e + 4 + e),
+        # 2x (lab assemble: read w, write lab; corr: read lab, write)
+        "assemble": 2 * ((e + lab * 4) + (lab * 4 + 4)),
+        # 2x (lab + corr + partner in, Aw out)
+        "lap": 2 * ((lab * 4 + 4 + e) + e),
+        # coarse zf Laplacian between stages: lab round trip again
+        "coarse_azf": 2 * (4 + lab * 4 + 4) if two_level else 0.0,
+        # r, v in; s out
+        "axpy": 3 * e,
+        # y, z, s, t, rhat in + x f32 in; x f32 + r out
+        "finish": 5 * e + 4 + 4 + e,
+        # best-x select: x_new, x_best in, x_best out (f32)
+        "best_x": 12,
+    }
+    per["total"] = round(sum(per.values()), 2)
+    return per
+
+
+def legacy_bytes_model(two_level: bool = True) -> float:
+    """The unfused forest composition under the same counting rules: 2
+    refluxed Laplacians (lab assemble + stencil + corr), 2 getZ tile
+    solves, the two-level r2 Laplacians, ~10 vector ops, 4 dots, all
+    f32."""
+    lab = float((8 + 2) ** 3) / 8 ** 3
+    lap = (4 + lab * 4 + 4) + (lab * 4 + 4 + 4)  # assemble + apply
+    n_lap = 4 if two_level else 2
+    return n_lap * lap + 2 * 8.0 + 10 * 8.0 + 4 * 4.0

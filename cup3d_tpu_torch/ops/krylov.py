@@ -615,9 +615,13 @@ def build_iterative_solver(
     references the cold RHS norm; ``with_stats`` also returns the (2,)
     f32 device vector [residual, iterations].
 
-    CUP3D_FUSED=1 with mean removal and the exact getZ runs the fused
-    driver (the CUDA kernels on a CUDA tensor); otherwise the legacy
-    composition (kernel B7 on a CUDA tensor under CUP3D_GETZ=cg).
+    CUP3D_FUSED=1 (or ``auto`` under CUP3D_KRYLOV_DTYPE=bf16) with mean
+    removal and the exact getZ runs the fused driver (the CUDA kernels on
+    a CUDA tensor) with Krylov vectors stored in
+    ``precision.krylov_dtype()``; otherwise the legacy composition at f32
+    (kernel B7 on a CUDA tensor under CUP3D_GETZ=cg).  bf16 under
+    CUP3D_FUSED=0 raises ValueError (precision.check_policy).  The knobs
+    are read here, when the solver is built.
     ``kernels`` is passed to every kernel wrapper (False: the plain
     versions on any device)."""
     if any(s % precond_bs for s in grid.shape):
@@ -664,6 +668,8 @@ def build_iterative_solver(
     if precision.use_fused() and mean_constraint == 2 and use_exact_getz():
         from cup3d_tpu_torch.ops import fused_bicgstab as _fused
 
+        store = precision.krylov_dtype()
+
         def solve(rhs: torch.Tensor, x0: Optional[torch.Tensor] = None,
                   with_stats: bool = False):
             b = rhs - torch.mean(rhs)
@@ -672,7 +678,8 @@ def build_iterative_solver(
             xt, rnorm, k = _fused.fused_bicgstab_tiles(
                 grid, bt, tol_abs=tol_abs, tol_rel=tol_rel,
                 maxiter=maxiter, rnorm_ref=torch.sqrt(_dot(bt, bt)),
-                x0=x0t, two_level=use_two, kernels=kernels,
+                x0=x0t, two_level=use_two, store_dtype=store,
+                kernels=kernels,
             )
             x = from_tiles(xt, rhs.shape)
             x = x - torch.mean(x)

@@ -53,6 +53,15 @@ class SimulationData:
             tol_rel=cfg.poissonTolRel,
             mean_constraint=cfg.bMeanConstraint,
         )
+        # which Krylov path this run built (storage dtype, fused driver),
+        # so a metrics dump tells the configurations apart
+        from cup3d_tpu_torch.obs import metrics as obs_metrics
+        from cup3d_tpu_torch.ops import precision
+
+        obs_metrics.gauge("poisson.krylov_bf16").set(
+            float(precision.krylov_dtype() == torch.bfloat16))
+        obs_metrics.gauge("poisson.fused_iteration").set(
+            float(precision.use_fused()))
 
         # scalars (host side, mirroring main.cpp:15348-15387 defaults)
         self.time: float = 0.0

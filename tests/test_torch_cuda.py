@@ -32,7 +32,13 @@ on the CPU; the two-level getZ (B2) and the Laplacian (B4) on
 wall-bounded lanes (BASELINE config #5's walls), rerun bitwise.  The
 pipelined forest (obstacle-free on the device dt chain, and two spheres
 with the rigid state chained on the device) for 3 steps on the card
-against the port on the CPU."""
+against the port on the CPU.  The bf16 builds of B1-B6 and B8-B13
+against their bf16 plain versions by chip_smoke.py's stage rule (stored
+bf16 outputs bitwise on >= 99.9% of the cells, each within one ulp or
+the f32 bound near 0; partials within 2e-5 of the per-tile sum of
+|terms| of the sum over the kernel's own stored output), and fused bf16
+solves on both grids against their plain versions (+-1 iteration, x
+within 1e-2), the bf16 launches counted apart."""
 
 import math
 
@@ -765,3 +771,166 @@ def test_pipelined_forest_matches_the_port_on_the_cpu(dev, monkeypatch,
             assert np.abs(np.asarray(getattr(oc, k))
                           - np.asarray(getattr(op, k))).max() <= 1e-5, k
     _close(card.state["vel"].cpu(), cpu.state["vel"], 1e-5)
+
+
+# -- bf16 storage: the bf16 builds of B1-B6 and B8-B13 ------------------------
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+def _hold_bf16(got, want, floor_rtol):
+    """chip_smoke.py's stage rule for a stored bf16 output."""
+    def bits(t):
+        b = t.view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    og, ow = bits(got), bits(want)
+    share = float((og == ow).double().mean())
+    err = torch.abs(got.float() - want.float())
+    floor = floor_rtol * float(torch.max(torch.abs(want.float())))
+    ulps = int(torch.max(torch.where(err > floor, torch.abs(og - ow), 0)))
+    assert share >= 0.999 and ulps <= 1, (share, ulps)
+
+
+def _hold_part(got, own, terms):
+    tol = 2e-5 * torch.sum(torch.abs(terms.float()), dim=(1, 2, 3))
+    assert bool(torch.all(torch.abs(got - own) <= tol))
+
+
+def test_bf16_stage_kernels_match_plain_versions(dev):
+    fb.reset_launches()
+    r, p, v, rhat, w, a, y, z = (_bf16(t) for t in _vecs(dev, 11, 8))
+    x = _vecs(dev, 12, 1)[0]
+    for vals in ((0.7, 1.3, 0.0), (0.0, 1.3, 1.0)):
+        want = fb.update(r, p.clone(), v, rhat.clone(), _row(dev, *vals),
+                         kernels=False)
+        got = fb.update(r, p.clone(), v, rhat.clone(), _row(dev, *vals))
+        _hold_bf16(got[0], want[0], 2e-6)
+        _hold_bf16(got[1], want[1], 2e-6)
+        _hold_part(got[2], fb._cellsum(got[0]), got[0])
+    aux = torch.randn((8, T), device=dev)
+    _hold_bf16(fb.getz_two(w, aux, 0.01),
+               fb.getz_two(w, aux, 0.01, kernels=False), 1e-5)
+    _hold_bf16(fb.getz_tile(w, 0.01), fb.getz_tile(w, 0.01, kernels=False),
+               1e-5)
+    planes = _bf16(torch.randn((T, 6, 8, 8), device=dev))
+    want = fb.lap(w, planes, a, 100.0, kernels=False)
+    got = fb.lap(w, planes, a, 100.0)
+    _hold_bf16(got[0], want[0], 2e-6)
+    aw = got[0].float()
+    _hold_part(got[1], fb._cellsum(a.float() * aw), a.float() * aw)
+    _hold_part(got[2], fb._cellsum(aw * aw), aw * aw)
+    want = fb.axpy(r, v, _row(dev, 0.37), kernels=False)
+    got = fb.axpy(r, v, _row(dev, 0.37))
+    _hold_bf16(got[0], want[0], 2e-6)
+    _hold_part(got[1], fb._cellsum(got[0]), got[0])
+    sc = _row(dev, 0.37, 1.21)
+    want = fb.finish(x.clone(), y, z, r.clone(), v, rhat, sc, kernels=False)
+    got = fb.finish(x.clone(), y, z, r.clone(), v, rhat, sc)
+    _close(got[0], want[0], 2e-6)
+    _hold_bf16(got[1], want[1], 2e-6)
+    rk = got[1].float()
+    _hold_part(got[2], fb._cellsum(rk * rk), rk * rk)
+    _hold_part(got[3], fb._cellsum(rhat.float() * rk), rhat.float() * rk)
+    torch.cuda.synchronize()
+    assert fb.launches_bf16 == {"update": 2, "getz_two": 1, "getz_tile": 1,
+                                "lap": 1, "axpy": 1, "finish": 1}
+    assert not any(fb.launches.values())
+    with pytest.raises(ValueError, match="float32"):  # x stays f32
+        fb.finish(_bf16(x), y, z, r.clone(), v, rhat, sc)
+    with pytest.raises(ValueError, match="bfloat16"):  # one storage
+        fb.axpy(r, v.float(), _row(dev, 0.5))
+
+
+def test_bf16_forest_stage_kernels_match_plain_versions(dev):
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    g, tab, ftab, _ = _forest(dev)
+    n = g.nb
+    rng = np.random.default_rng(13)
+
+    def vec(dtype=torch.bfloat16):
+        return torch.as_tensor(rng.standard_normal((n, 8, 8, 8)),
+                               dtype=torch.float32, device=dev).to(dtype)
+
+    def col(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    vol, h2 = col(g.h ** 3), col(g.h ** 2)
+    wt = vol[:, None, None, None]
+    fa.reset_launches()
+    r, p, v, rhat, w, y = (vec() for _ in range(6))
+    for vals in ((0.7, 1.3, 0.0), (0.0, 1.3, 1.0)):
+        want = fa.update(r, p.clone(), v, rhat.clone(), vol, _row(dev, *vals),
+                         kernels=False)
+        got = fa.update(r, p.clone(), v, rhat.clone(), vol, _row(dev, *vals))
+        _hold_bf16(got[0], want[0], 2e-6)
+        _hold_part(got[2], fb._cellsum(got[0].float() * wt),
+                   got[0].float() * wt)
+    azf, zc = vec(torch.float32), col(rng.standard_normal(n))
+    _hold_bf16(fa.getz_two(w, azf, zc, h2),
+               fa.getz_two(w, azf, zc, h2, kernels=False), 1e-5)
+    _hold_bf16(fa.getz_tile(w, h2), fa.getz_tile(w, h2, kernels=False), 1e-5)
+    lab = tab.assemble_scalar(w.float(), 8).contiguous()
+    corr = vec(torch.float32)
+    want = fa.lap(lab, corr, rhat, 1.0 / h2, kernels=False)
+    got = fa.lap(lab, corr, rhat, 1.0 / h2)
+    _hold_bf16(got[0], want[0], 2e-6)
+    aw = got[0].float()
+    _hold_part(got[1], fb._cellsum(rhat.float() * aw), rhat.float() * aw)
+    want = fa.axpy(r, v, vol, _row(dev, 0.37), kernels=False)
+    got = fa.axpy(r, v, vol, _row(dev, 0.37))
+    _hold_bf16(got[0], want[0], 2e-6)
+    x = vec(torch.float32)
+    sc = _row(dev, 0.37, 1.21)
+    want = fa.finish(x.clone(), y, w, r.clone(), v, rhat, sc, kernels=False)
+    got = fa.finish(x.clone(), y, w, r.clone(), v, rhat, sc)
+    _close(got[0], want[0], 2e-6)
+    _hold_bf16(got[1], want[1], 2e-6)
+    torch.cuda.synchronize()
+    assert fa.launches_bf16 == {"amr_update": 2, "amr_getz_two": 1,
+                                "amr_getz_tile": 1, "amr_lap": 1,
+                                "amr_axpy": 1, "amr_finish": 1}
+    assert not any(fa.launches.values())
+
+
+def test_bf16_fused_solves_match_plain(dev):
+    """A bf16 fused solve on each grid, kernels against plain versions:
+    iterations +-1, x within 1e-2 of max |x| (the periodic systems' x up
+    to a constant: mean-free), the reported residual at the target, the
+    bf16 launches equal to the executed iterations."""
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    grid = UniformGrid((32, 32, 32), (2.0,) * 3)
+    rng = np.random.default_rng(14)
+    rhs = torch.as_tensor(rng.standard_normal((32,) * 3),
+                          dtype=torch.float32, device=dev)
+    bt = krylov.to_lanes(rhs - torch.mean(rhs))
+    kw = dict(maxiter=200, store_dtype=torch.bfloat16)
+    fb.reset_launches()
+    x_k, rn_k, k_k = fb.fused_bicgstab(grid, bt, **kw)
+    assert fb.launches_bf16["update"] == fb.iterations["executed"] > 0
+    x_p, _, k_p = fb.fused_bicgstab(grid, bt, kernels=False, **kw)
+    assert abs(int(k_k) - int(k_p)) <= 1
+    _close(x_k - torch.mean(x_k), x_p - torch.mean(x_p), 1e-2)
+    assert float(rn_k) <= 1.01 * max(1e-6, 1e-4 * float(
+        torch.sqrt(torch.sum(bt * bt))))
+    g, tab, ftab, graph = _forest(dev)
+    vol = g.h_column(torch.float32, dev) ** 3
+    rhs = torch.as_tensor(rng.standard_normal((g.nb, 8, 8, 8)),
+                          dtype=torch.float32, device=dev)
+    b = rhs - torch.sum(rhs * vol) / (torch.sum(vol) * 512)
+    kw = dict(tab=tab, ftab=ftab, vol=vol, graph=graph, maxiter=200,
+              store_dtype=torch.bfloat16)
+    fa.reset_launches()
+    x_k, _, k_k = fa.fused_amr_bicgstab(g, b, **kw)
+    assert fa.launches_bf16["amr_update"] == fa.iterations["executed"] > 0
+    x_p, _, k_p = fa.fused_amr_bicgstab(g, b, kernels=False, **kw)
+    assert abs(int(k_k) - int(k_p)) <= 1
+
+    def mean_free(x):  # the periodic forest's x is defined up to a constant
+        return x - torch.sum(x * vol) / (torch.sum(vol) * 512)
+
+    _close(mean_free(x_k), mean_free(x_p), 1e-2)

@@ -353,9 +353,27 @@ def test_maxiter_cap_and_unported_knobs(monkeypatch):
     assert int(k) == 3
     # chunked loop: a whole chunk runs, the count stops at maxiter
     assert tfb.iterations["executed"] == tk.ITER_CHUNK
+    # bf16 storage takes the fused route at CUP3D_FUSED's default (auto =
+    # fused iff bf16), its stages on bf16 vectors, as the JAX package does
     monkeypatch.setenv("CUP3D_KRYLOV_DTYPE", "bf16")
-    with pytest.raises(NotImplementedError, match="bf16.*queue B"):
-        tk.build_iterative_solver(tg)
+    seen = []
+    axpy = tfb.axpy
+
+    def spy(r, *a, **kw):
+        seen.append(r.dtype)
+        return axpy(r, *a, **kw)
+
+    monkeypatch.setattr(tfb, "axpy", spy)
+    tfb.reset_launches()
+    tk.iterations["executed"] = 0
+    solve = tk.build_iterative_solver(tg, maxiter=3, tol_abs=0.0,
+                                      tol_rel=0.0)
+    p, st = solve(torch.as_tensor(rhs), with_stats=True)
+    assert int(st[1]) == 3 and p.dtype == torch.float32
+    assert tfb.iterations["executed"] == tk.ITER_CHUNK
+    assert tk.iterations["executed"] == 0
+    assert seen and set(seen) == {torch.bfloat16}
+    monkeypatch.setattr(tfb, "axpy", axpy)
     monkeypatch.delenv("CUP3D_KRYLOV_DTYPE")
     # CUP3D_GETZ=cg builds the legacy composition even under
     # CUP3D_FUSED=1 (the fused driver runs the exact getZ only), as the
