@@ -8,7 +8,8 @@ repo checkout; it imports nothing of JAX or of the JAX package.  Phases,
 each of which raises on a fault (nothing is caught):
 
 1. versions, the card's name and power limit, the TF32 flags;
-2. build the CUDA kernels from ``cup3d_tpu_torch/csrc`` with nvcc (timed);
+2. build the CUDA kernels from ``cup3d_tpu_torch/csrc`` with nvcc (timed),
+   and the native lab-table builder (``csrc/tables.cpp``) with g++;
 3. each of the five fused-BiCGSTAB kernels at the main path's shape
    (256^3, T = 32768 tiles, f32) against its plain PyTorch version on the
    same seeded inputs (update also on its breakdown branch), then timed
@@ -25,10 +26,14 @@ each of which raises on a fault (nothing is caught):
    BASELINE config #3 (Taylor-Green on a 2-level forest, bpd 16: a 128^3
    base whose vortex cores refine to 256^3-equivalent) and ``init()``
    (its adaptation rounds and table builds, timed), then the mesh is
-   frozen (``adapt_enabled = False``), as the static config defines;
+   frozen (``adapt_enabled = False``), as the static config defines; the
+   forest is capacity-bucketed (the default, as the JAX package's):
+   9,472 blocks padded to 9,625;
 7. each of the five forest-BiCGSTAB kernels at that forest's block count
-   against its plain version (labs and reflux increments assembled from
-   the forest's own tables), timed beside the plain version and its bound;
+   (its capacity: inputs 0 on the padding rows, each output's padding
+   rows exactly 0 after each launch) against its plain version (labs and
+   reflux increments assembled from the forest's own tables), timed
+   beside the plain version and its bound;
    B9 also at a ragged block count and rerun bitwise, beside its library
    call and its time before its redesign;
 8. one whole forest solve, kernels against plain versions, and the same
@@ -66,8 +71,10 @@ each of which raises on a fault (nothing is caught):
     (1e-5 relative), max|div u| in the fluid against the JAX bench's
     fish gate, the fields and the fish's velocity and position finite;
     one step with torch's sync debug mode raising inside the body and
-    fluid operators; then the operator split, CreateObstacles in pieces
-    and a profiler window;
+    fluid operators; the fish's surface-point record dumped
+    (``ops/surface.dump_surface_points``: rows finite, their traction sum
+    the step's force QoI within 1e-3); then the operator split,
+    CreateObstacles in pieces and a profiler window;
 15. the block-sharded forest: BASELINE config #3 as
     ``AMRSimulation(cfg, mesh=make_block_mesh([cuda] * SHARDS))`` with
     ``CUP3D_RING_HALO=1`` (init's adaptation rounds each a re-shard, then
@@ -77,8 +84,8 @@ each of which raises on a fault (nothing is caught):
     exchange's all-to-all landing in a view, timed beside ``torch.roll``,
     and one whole exchange (one launch, the kernels on its profile
     counted) beside D one-step launches and the axis swap;
-    the unsharded port forest of the same state through the same static
-    tile-only solve as the reference: the first RK3 stage bitwise, one
+    the unsharded, unpadded (``CUP3D_BUCKET=0``) port forest of the same
+    state through the same static tile-only solve as the reference: the first RK3 stage bitwise, one
     solve (iterations in the reference's range under 1e-7 noise, +-1;
     x within 1e-5 when both are solved to 1e-6 relative), 2 steps on the
     ring and on the axis-swap transport bitwise, then SHARD_STEPS steps
@@ -214,7 +221,22 @@ each of which raises on a fault (nothing is caught):
     within 1e-5 at 1e-6 relative), the unsharded forest's fused bf16
     solve at its maxiter beside it (its best x within 1e-2 of the sharded
     solve's, its iterations and residual printed), and B14 moving bf16
-    bitwise as its plain copy.
+    bitwise as its plain copy;
+29. the bucketed forest: config #3 as the bench runs it under
+    ``CUP3D_BUCKET=0`` (phase 23's run without its profiler window and
+    host-path comparisons) beside phase 23's bucketed run of the same
+    call: ms/step, the regrid probe's steady p95 and regrid_wall_max_s,
+    capacity against blocks, the table memo's hits and misses
+    (``bucket.*`` metrics), the bytes each adaptation read for its
+    decision (int8 tags a slot against the score fields), the
+    iterations of each step within +-1; then B8, B9, B11-B13 at the
+    unpadded forest's block count (their rows' ``unpadded`` times);
+    configs #4 (phases 22, 24) and the towed fish report the same
+    bucket state (fields at capacity, padding rows exactly 0);
+30. config #3's set-up with the numpy lab-table builder
+    (``CUP3D_NO_NATIVE=1``) beside phase 6's native one, and the final
+    forest's width-1 lab tables from both builders timed and bitwise
+    equal.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
@@ -222,7 +244,9 @@ path's launches ride in each row's ``tgv256``, config #5's launches (the
 perturbed run, phase 17) in ``channel_launches``; the forest rows carry
 config #4's launches a step (``fish_amr_launches_per_step``, B10's
 ladder launches in ``fish_amr_launches``) and their times on its forest
-(``fish_amr``) and on the towed forest (``tow_amr``), and their launches
+(``fish_amr``) and on the towed forest (``tow_amr``), their times at
+config #3's capacity beside the unpadded forest's (``unpadded``, phase
+29; ``blocks``, ``capacity``), and their launches
 a step on the pipelined configs #3 and #4 (``pipe_amr_launches_per_step``,
 ``pipe_fish_amr_launches_per_step``); B7's row its launches a step on the
 forest Helmholtz (``helmholtz_launches_per_step``), B14's on the sharded
@@ -243,8 +267,8 @@ B3, B9 and B10 carry the f32 rows' library calls on the up-cast input.
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
 Writes the per-step diagnostics, the profiler's kernel tables
-(``kernels.txt``, ``amr_kernels.txt``, ``shard_kernels.txt``) and Chrome
-traces (``trace.json``, ``amr_trace.json``, ``shard_trace.json``) under
+(``kernels.txt``, ``amr_kernels.txt``, ``shard_kernels.txt``, ...) and
+Chrome traces (``trace.json``, ``fish_trace.json``, ...) under
 ``runs/chip_smoke/`` (git-ignored).
 """
 
@@ -361,7 +385,14 @@ PEAKS = (
 )
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """One line of the run's log; each phase's header carries the
+    seconds since the start."""
+    if msg.startswith("phase "):
+        msg = f"{msg}  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -400,6 +431,36 @@ def time_ms(fn, per_sample: int = LAUNCHES_PER_SAMPLE) -> float:
     return statistics.median(samples)
 
 
+def profile_us(fn, match: str, calls: int = 20) -> float:
+    """Device microseconds a launch of the kernels whose name holds
+    ``match``, over ``calls`` calls of ``fn`` under ``torch.profiler``
+    (events read the host's launch rate where a kernel is shorter); None
+    when three windows saw none of its records (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window can miss its kernels' records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.name]
+        if ours:
+            return sum(e.time_range.elapsed_us() for e in ours) / len(ours)
+    return None
+
+
+#: each forest stage's CUDA kernel (csrc/fused_bicgstab.cu)
+FOREST_KERNEL_NAMES = {"amr_update": "k_update", "amr_getz_two": "k_getz_amr",
+                       "amr_getz_tile": "k_getz_tile",
+                       "amr_lap": "k_lap_amr", "amr_axpy": "k_axpy",
+                       "amr_finish": "k_finish"}
+
+
 def max_err(got, want) -> tuple[float, float]:
     """(max |got - want|, max |want|)."""
     err = float(torch.max(torch.abs(got - want)))
@@ -413,6 +474,50 @@ def check_close(name, got, want, rtol, abs_scale=None) -> float:
         raise AssertionError(f"{name}: max abs err {err:.3e} > "
                              f"{rtol:g} x {scale:.3e}")
     return err
+
+
+def _zero_rows(name: str, nb: int, *ts) -> None:
+    """The bucketed forest's padding rows (past its nb real blocks) of
+    each block field in ``ts`` are exactly 0."""
+    for t in ts:
+        if (t.dim() == 4 and tuple(t.shape[1:]) == (8, 8, 8)
+                and t.shape[0] > nb and bool(t[nb:].any())):
+            raise AssertionError(f"{name}: nonzero padding rows")
+
+
+def _bucket_check(tag: str, d) -> dict:
+    """The bucketed forest's state: every field at capacity with its
+    padding rows exactly 0; capacity, the table memo and the bytes each
+    adaptation read for its decision, logged."""
+    nb = d.grid.nb
+    for k, f in d.state.items():
+        if f.shape[0] != (d._cap or nb) or bool(f[nb:].any()):
+            raise AssertionError(f"{tag}: {k} {tuple(f.shape)}, nonzero "
+                                 f"padding rows past {nb}")
+    info = dict(bucketed=d._bucketing, capacity=d._cap, blocks=nb,
+                memo=len(d._table_memo), memo_bytes=d.memo_bytes(),
+                adapt_bytes=list(d.adapt_bytes))
+    log(f"  {tag}: bucketed {d._bucketing}, {nb} blocks at capacity "
+        f"{d._cap}, padding rows 0; table memo {info['memo']} topologies "
+        f"({info['memo_bytes'] / 1e6:.2f} MB); bytes read for each of "
+        f"{len(d.adapt_bytes)} adaptations: "
+        f"{sorted(set(d.adapt_bytes))} (last {d.adapt_bytes[-3:]})")
+    return info
+
+
+def _forest_vecs(d, gen):
+    """(geometry, padded block count, real block count, vec): the
+    forest's operator geometry (nb = capacity when bucketed) and a
+    seeded block field with its padding rows 0."""
+    g = d._geom
+    n, nb = g.nb, d.grid.nb
+
+    def vec(dtype=torch.float32):
+        v = torch.randn((n, 8, 8, 8), generator=gen, device=d.device)
+        v[nb:] = 0.0
+        return v.to(dtype)
+
+    return g, n, nb, vec
 
 
 def part_scale(*terms) -> float:
@@ -716,14 +821,15 @@ def _profile_window(d, steps: int = 3, prefix: str = "", run=None,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = _busy_ms(prof.events())
+    averages = prof.key_averages()  # one pass over the window's events
     with open(os.path.join(OUT_DIR, prefix + "kernels.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=40))
+        f.write(averages.table(sort_by="self_device_time_total",
+                               row_limit=40))
     if trace:
         prof.export_chrome_trace(os.path.join(OUT_DIR,
                                               prefix + "trace.json"))
     # device-side entries only: the CPU ops' rows repeat their kernels' time
-    rows = sorted((e for e in prof.key_averages()
+    rows = sorted((e for e in averages
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0),
                   key=lambda e: -e.self_device_time_total)
@@ -768,6 +874,7 @@ def amr_setup_phase():
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     d.adapt_enabled = False
+    d.smoke_init_s = init_s  # this script's bookkeeping
     g = d.grid
     counts = np.bincount(g.level, minlength=g.tree.cfg.level_max)
     log(f"  build_driver + init: {init_s:.2f} s, of which table builds "
@@ -781,33 +888,39 @@ def amr_setup_phase():
 
 
 def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
-    """B8, B9, B11, B12, B13 at the forest's block count against their
-    plain versions, then timed; labs and reflux increments are assembled
-    from the forest's own width-1 face and flux tables."""
+    """B8, B9, B11, B12, B13 at the forest's block count (its capacity
+    when bucketed: inputs 0 on the padding rows, and each output's
+    padding rows exactly 0 after each launch) against their plain
+    versions, then timed; labs and reflux increments are assembled from
+    the forest's own width-1 face and flux tables."""
     from cup3d_tpu_torch.ops import amr_ops, tilesolve
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
 
-    g, dev = d.grid, d.device
-    n = g.nb
-    cells = n * 512
+    dev = d.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
-
-    def vec():
-        return torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+    g, n, nb, vec = _forest_vecs(d, gen)
+    cells = n * 512
+    log(f"  at {n} blocks ({nb} real, bucketed {d._bucketing})")
 
     def row(*vals):
         return fb._scalars(*(torch.tensor(v, device=dev) for v in vals))
 
     h = g.h_column(torch.float32, dev).reshape(n)
-    vol, h2 = (h ** 3).contiguous(), (h * h).contiguous()
+    vol = d._vol.reshape(n).float().contiguous()
+    h2 = (h * h).contiguous()
     inv_h2 = (1.0 / h2).contiguous()
     results = {}
 
     def record(name, errs, perrs, kernel_fn, plain_fn, nbytes, flops):
         _record(results, name, errs, kernel_fn, plain_fn, nbytes, flops, bw,
                 fp32_flops, perrs=perrs)
+        # events read the launch rate at this size: the device time too
+        results[name]["profile_us"] = profile_us(
+            kernel_fn, FOREST_KERNEL_NAMES[name])
+        log(f"    device time by profile {results[name]['profile_us']} us a "
+            f"launch")
 
     # -- B8 update (in place on p, rhat: compare on clones) ---------------
     r, p, v, rhat = vec(), vec(), vec(), vec()
@@ -817,6 +930,7 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
         want = fa.update(r, p.clone(), v, rhat.clone(), vol, sc,
                          kernels=False)
         got = fa.update(r, p.clone(), v, rhat.clone(), vol, sc)
+        _zero_rows("amr_update", nb, *got[:2])
         for gt, wt in zip(got[:2], want[:2]):
             errs.append(check_close("amr_update", gt, wt, VEC_RTOL))
         perrs.append(check_close("amr_update partial", got[2], want[2],
@@ -832,10 +946,12 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     # -- B9 getz on -h2 (w - azf) with a real A zf -------------------------
     w = vec()
     zc = torch.randn(n, generator=gen, device=dev)
+    zc[nb:] = 0.0  # the coarse solve's padding rows
     zf = zc[:, None, None, None].expand(n, 8, 8, 8)
     azf = amr_ops.laplacian_blocks(g, zf, d._tab1, d._ftab).contiguous()
     want = fa.getz_two(w, azf, zc, h2, kernels=False)
     got = fa.getz_two(w, azf, zc, h2)
+    _zero_rows("amr_getz_two", nb, azf, got)
     errs = [check_close("amr_getz_two", got, want, GETZ_RTOL)]
     if not torch.equal(fa.getz_two(w, azf, zc, h2), got):
         raise AssertionError("amr_getz_two: a rerun differs")
@@ -870,6 +986,7 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
                          amr_ops.face_fluxes(lab, 1, 8, inv_h)).contiguous()
     want = fa.lap(lab, corr, a, inv_h2, kernels=False)
     got = fa.lap(lab, corr, a, inv_h2)
+    _zero_rows("amr_lap", nb, corr, got[0])
     errs = [check_close("amr_lap", got[0], want[0], VEC_RTOL)]
     perrs = [check_close("amr_lap partial a.Aw", got[1], want[1], PART_RTOL,
                          part_scale(a * want[0])),
@@ -885,6 +1002,7 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     sc = row(0.37)
     want = fa.axpy(r, v, vol, sc, kernels=False)
     got = fa.axpy(r, v, vol, sc)
+    _zero_rows("amr_axpy", nb, got[0])
     errs = [check_close("amr_axpy", got[0], want[0], VEC_RTOL)]
     perrs = [check_close("amr_axpy partial", got[1], want[1], PART_RTOL,
                          part_scale(want[0] * vol[:, None, None, None]))]
@@ -897,6 +1015,7 @@ def forest_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
     sc = row(0.37, 1.21)
     want = fa.finish(x.clone(), y, z, s_.clone(), t, rh, sc, kernels=False)
     got = fa.finish(x.clone(), y, z, s_.clone(), t, rh, sc)
+    _zero_rows("amr_finish", nb, *got[:2])
     errs = [check_close("amr_finish x", got[0], want[0], VEC_RTOL),
             check_close("amr_finish r", got[1], want[1], VEC_RTOL)]
     perrs = [check_close("amr_finish partial r.r", got[2], want[2],
@@ -918,13 +1037,16 @@ def forest_solve_phase(d, rhs=None) -> None:
     ``rhs``: the right-hand side (default: seeded noise)."""
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
 
-    g, dev = d.grid, d.device
+    g, dev, nb = d._geom, d.device, d.grid.nb
     if rhs is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + 3)
         rhs = torch.randn((g.nb, 8, 8, 8), generator=gen, device=dev)
+        rhs[nb:] = 0.0
     vol = d._vol
     b = rhs - torch.sum(rhs * vol) / (torch.sum(vol) * 512)
+    if d._pmask is not None:
+        b = b * d._pmask  # the dynamic solver's padding mask
     kw = dict(tab=d._tab1, ftab=d._ftab, vol=vol, graph=d._graph,
               tol_abs=1e-6, tol_rel=1e-4, maxiter=200)
     t0 = time.perf_counter()
@@ -936,6 +1058,7 @@ def forest_solve_phase(d, rhs=None) -> None:
     k_p = int(k_p)
     t_p = time.perf_counter() - t0
     x_k2, _, k_k2 = fa.fused_amr_bicgstab(g, b, **kw)
+    _zero_rows("forest solve x", nb, x_k, x_p)
     rel = float(torch.max(torch.abs(x_k - x_p)) / torch.max(torch.abs(x_p)))
     same = bool(torch.equal(x_k, x_k2)) and int(k_k2) == k_k
     log(f"  forest solve ({g.nb} blocks): kernels {k_k} its in {t_k:.3f} s "
@@ -950,7 +1073,7 @@ def _kinetic_energy(d) -> float:
     from cup3d_tpu_torch.ops import amr_ops
 
     return float(amr_ops.dissipation_blocks(
-        d.grid, d.state["vel"], d.nu, d._tab1)["kinetic_energy"])
+        d._geom, d.state["vel"], d.nu, d._tab1)["kinetic_energy"])
 
 
 def amr_main_path_phase(d) -> dict:
@@ -981,7 +1104,7 @@ def amr_main_path_phase(d) -> dict:
     if not all(math.isfinite(k) and 0 <= k <= maxiter for k in iters):
         raise AssertionError(f"iteration counts out of range: {iters}")
     ke = _kinetic_energy(d)
-    _, div_max = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+    _, div_max = amr_ops.divergence_norms_blocks(d._geom, d.state["vel"],
                                                  d._tab1)
     div_max = float(div_max)
     # the JAX bench's divergence gate for this config (bench.py:62-65)
@@ -1004,7 +1127,7 @@ def amr_main_path_phase(d) -> dict:
     log(f"  launches: {launches}")
     split = _amr_step_split(d)
     pieces = _amr_solve_pieces(d)
-    prof = _profile_window(d, prefix="amr_")
+    prof = _profile_window(d, steps=1, prefix="amr_", trace=False)
     return dict(launches=launches, wall=wall, iters=iters, split=split,
                 pieces=pieces, prof=prof)
 
@@ -1057,7 +1180,7 @@ def _amr_solve_pieces(d) -> dict:
     piece and getz/lap twice, update/axpy/finish once."""
     from cup3d_tpu_torch.ops import amr_ops, krylov
 
-    g, dev, n = d.grid, d.device, d.grid.nb
+    g, dev, n = d._geom, d.device, d._geom.nb
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
     w = torch.randn((n, 8, 8, 8), generator=gen, device=dev)
@@ -1148,12 +1271,13 @@ def getz_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
         f"{lib_ms:.4f} ms")
 
     # -- B10: the same at each block's own h^2 -----------------------------
-    g = d.grid
-    n = g.nb
+    g, n, nb, fvec = _forest_vecs(d, gen)
     h = g.h_column(torch.float32, dev).reshape(n)
     h2c = (h * h).contiguous()
-    wf = torch.randn((n, 8, 8, 8), generator=gen, device=dev)
-    errs = [check_close("amr_getz_tile", fa.getz_tile(wf, h2c),
+    wf = fvec()
+    got = fa.getz_tile(wf, h2c)
+    _zero_rows("amr_getz_tile", nb, got)
+    errs = [check_close("amr_getz_tile", got,
                         fa.getz_tile(wf, h2c, kernels=False), GETZ_RTOL)]
     _record(results, "amr_getz_tile", errs, lambda: fa.getz_tile(wf, h2c),
             lambda: fa.getz_tile(wf, h2c, kernels=False),
@@ -1398,8 +1522,11 @@ def forest_ladder_phase(d) -> dict:
                              f"{executed}, expected {want}, {len(after)} "
                              f"steps after the rung")
     ke = _kinetic_energy(d)
-    _, div = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"], d._tab1)
+    _, div = amr_ops.divergence_norms_blocks(d._geom, d.state["vel"], d._tab1)
     div = float(div)
+    # the bucketed forest's tile-only rung rebuilds its memo once (the
+    # JAX package's: the memo carries the graph); restores build nothing
+    tables += int(d._bucketing)
     if not (math.isfinite(ke) and ke < ke0 and div < AMR_DIV_GATE
             and d._graph is None and len(d.table_build_s) == tables
             and d.step_idx == d.cfg.nsteps):
@@ -1508,12 +1635,14 @@ def cg_phase(d_forest, graph) -> dict:
         torch.cuda.empty_cache()
 
         # one forest solve with the CG getZ (two-level, legacy loop)
-        g, dev = d_forest.grid, d_forest.device
+        dev = d_forest.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + 6)
-        rhs = torch.randn((g.nb, 8, 8, 8), generator=gen, device=dev)
+        g, _, _, fvec = _forest_vecs(d_forest, gen)
+        rhs = fvec()
         kw = dict(tab_arg=d_forest._tab1, flux_arg=d_forest._ftab, geom=g,
-                  vol=d_forest._vol, graph=graph, with_stats=True)
+                  vol=d_forest._vol, pmask=d_forest._pmask, graph=graph,
+                  with_stats=True)
         res = {}
         for name, kernels in (("kernels", None), ("plain", False)):
             solve = amr_ops.build_amr_poisson_solver_dynamic(
@@ -1653,11 +1782,45 @@ def fish_phase() -> dict:
         f"{ob.angVel.tolist()}, position {ob.position.tolist()}, "
         f"force {ob.force.tolist()}, surface points {ob.n_surf_points:.0f}")
     log(f"  launches: {launches}")
+    surface = surface_dump_phase(d)
     _no_sync_step(d)
     split = _step_split(d)
     _create_split(d)
     _profile_window(d, prefix="fish_")
-    return dict(launches=launches, wall=wall, iters=iters, split=split)
+    return dict(launches=launches, wall=wall, iters=iters, split=split,
+                surface=surface)
+
+
+SURF_RTOL = 1e-3  # the dump's traction sum against the step's force QoI
+
+
+def surface_dump_phase(d) -> dict:
+    """The fish's surface-point record (ops/surface.py
+    ``dump_surface_points``) on config #2's last state: the .npy file's
+    rows finite, their traction sum the step's force QoI within
+    SURF_RTOL (tests/test_surface.py's driver check)."""
+    from cup3d_tpu_torch.ops import surface as sf
+
+    s, ob = d.sim, d.sim.obstacles[0]
+    path = os.path.join(OUT_DIR, "fish_surface_points.npy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sf.dump_surface_points(path, s.grid, s.state, ob, s.nu)
+    dump_s = time.perf_counter() - t0
+    rows = np.load(path)
+    cols = {k: i for i, k in enumerate(sf.SURFACE_POINT_COLUMNS)}
+    force = (rows[:, [cols["fxP"], cols["fyP"], cols["fzP"]]].sum(0)
+             + rows[:, [cols["fxV"], cols["fyV"], cols["fzV"]]].sum(0))
+    want = np.asarray(ob.force, np.float64)
+    rel = float(np.linalg.norm(force - want) / np.linalg.norm(want))
+    log(f"  surface-point dump: {n} points ({ob.n_surf_points:.0f} in the "
+        f"band), {os.path.getsize(path) / 1e6:.2f} MB in {dump_s:.3f} s; "
+        f"traction sum {force.tolist()} against the force QoI "
+        f"{want.tolist()} (rel {rel:.2e}, gate {SURF_RTOL:g})")
+    if not (n > 0 and rows.shape == (n, len(sf.SURFACE_POINT_COLUMNS))
+            and np.all(np.isfinite(rows)) and rel <= SURF_RTOL):
+        raise AssertionError(f"surface-point dump: {n} rows, rel {rel}")
+    return dict(points=n, rel=rel, dump_s=dump_s)
 
 
 def _create_split(d, reps: int = 3) -> None:
@@ -2314,7 +2477,8 @@ def shard_phase(d, cfg, bw: float, dev="cuda") -> dict:
     # -- the reference: the same state on the unsharded forest, with the
     # static tile-only solve
     t0 = time.perf_counter()
-    ref = AMRSimulation(cfg, device=dev)
+    with _env(CUP3D_BUCKET="0"):  # the unpadded forest of PR 5's bitwise
+        ref = AMRSimulation(cfg, device=dev)
     load_state_numpy(ref, *state_to_numpy(d))
     ref.adapt_enabled = False
     ref._solver = amr_ops.build_amr_poisson_solver(
@@ -2456,7 +2620,7 @@ def shard_phase(d, cfg, bw: float, dev="cuda") -> dict:
             problems.append(f"launches {launches}, KE {ke}, max|div u| "
                             f"{div_max}")
         split = _amr_step_split(d)
-        prof = _profile_window(d, prefix="shard_")
+        prof = _profile_window(d, steps=1, prefix="shard_", trace=False)
     del ref
     torch.cuda.empty_cache()
 
@@ -2967,20 +3131,20 @@ def _forest_reruns_bitwise(d) -> None:
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
 
-    g, dev, n = d.grid, d.device, d.grid.nb
+    dev = d.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
-
-    def vec():
-        return torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+    g, n, nb, vec = _forest_vecs(d, gen)
 
     def sc(*v):
         return fb._scalars(*(torch.tensor(x, device=dev) for x in v))
 
     h = g.h_column(torch.float32, dev).reshape(n)
-    vol, h2 = (h ** 3).contiguous(), (h * h).contiguous()
+    vol = d._vol.reshape(n).float().contiguous()
+    h2 = (h * h).contiguous()
     r, p, v, rh, w, a, x, y, z, s_, t = (vec() for _ in range(11))
     zc = torch.randn(n, generator=gen, device=dev)
+    zc[nb:] = 0.0
     azf = amr_ops.laplacian_blocks(
         g, zc[:, None, None, None].expand(n, 8, 8, 8), d._tab1,
         d._ftab).contiguous()
@@ -2999,6 +3163,7 @@ def _forest_reruns_bitwise(d) -> None:
     }
     for name, call in calls.items():
         first, again = call(), call()
+        _zero_rows(name, nb, *first)
         if not all(torch.equal(u, w_) for u, w_ in zip(first, again)):
             raise AssertionError(f"{name}: a rerun on the forest of {n} "
                                  "blocks differs")
@@ -3109,7 +3274,7 @@ def fish_amr_phase(bw: float, fp32_flops: float) -> dict:
     keep = max(1, int(np.ceil(len(tw) * 0.9)))
     ms = float(tw[:keep].mean()) * 1e3
     div = float(diag.fluid_divergence_max_blocks(
-        d.grid, d.state["vel"], d.state["chi"], d._tab1))
+        d._geom, d.state["vel"], d.state["chi"], d._tab1))
     lv = _interface_levels(d)
     late = [x for x in regrids if x[0] > 10]
     log(f"  {len(rows)} steps in {wall:.3f} s; the bench's window "
@@ -3131,7 +3296,7 @@ def fish_amr_phase(bw: float, fp32_flops: float) -> dict:
                              f"{sorted(set(lv.tolist()))}")
     split = _amr_step_split(d)
     _forest_no_sync_step(d)
-    prof = _profile_window(d, prefix="fish_amr_")
+    prof = _profile_window(d, steps=1, prefix="fish_amr_", trace=False)
 
     # -- the kernels on this run's (last) topology ------------------------
     log(f"  the five forest kernels against their plain versions on this "
@@ -3225,7 +3390,8 @@ def fish_amr_phase(bw: float, fp32_flops: float) -> dict:
         f" MB) resumed {FA_RESUME_STEPS} steps bitwise: {same}")
     if not same or back.time != d.time:
         raise AssertionError("the resumed config #4 checkpoint differs")
-    return dict(ms=ms, first_ms=walls[0] * 1e3, init_s=init_s,
+    bucket = _bucket_check("config #4", d)
+    return dict(ms=ms, first_ms=walls[0] * 1e3, init_s=init_s, bucket=bucket,
                 nb=d.grid.nb, levels=_levels(d.grid), iters=iters,
                 launches=launches, executed=executed, steps=len(rows),
                 tile_launches=l_launches["amr_getz_tile"], split=split,
@@ -3265,12 +3431,13 @@ def tow_amr_phase(bw: float, fp32_flops: float) -> dict:
     if not (late and any(a != b for _, a, b, _ in late) and ok):
         raise AssertionError(f"towed forest: regrids after step 10 "
                              f"{late}, fields finite {ok}")
+    bucket = _bucket_check("towed fish", d)
     log(f"  the five forest kernels against their plain versions after the "
         f"last regrid (step {regrids[-1][0]}, {d.grid.nb} blocks)")
     kernels = forest_kernel_phase(d, bw, fp32_flops)
     _forest_reruns_bitwise(d)
     return dict(regrids=regrids, launches=launches, kernels=kernels,
-                ms=sum(walls) / len(walls) * 1e3)
+                ms=sum(walls) / len(walls) * 1e3, bucket=bucket)
 
 
 # ---------------------------------------------------------------------------
@@ -3279,6 +3446,7 @@ def tow_amr_phase(bw: float, fp32_flops: float) -> dict:
 # ---------------------------------------------------------------------------
 
 PIPE_WARM, PIPE_TIMED = 9, 10      # bench.py bench_amr_tgv's window
+PROFILE_STEPS = 1                  # phase 23's profiler window
 REGRID_WARM, REGRID_TIMED = 2, 22  # its regrid probe
 PIPE_KE_STEPS = 5                  # fixed-dt steps, pipelined vs host
 PIPE_KE_DT = 1e-3
@@ -3324,6 +3492,7 @@ def _bench_window(d, warm: int, iters: int, regrid_log=None):
     return dict(ms=float(steady[:keep].mean()) * 1e3,
                 mean_ms=float(steady.mean()) * 1e3,
                 max_ms=float(steady.max()) * 1e3,
+                p95_ms=float(np.percentile(steady, 95)) * 1e3,
                 regrid_ms=[float(x) * 1e3 for x in w[f]])
 
 
@@ -3344,10 +3513,13 @@ def _check_forest_launches(tag, d, launches, executed, rows) -> None:
                              f"expected {want}")
 
 
-def pipe_amr_phase(host_ms: float) -> dict:
+def pipe_amr_phase(host_ms: float, full: bool = True) -> dict:
     """BASELINE config #3 as the bench runs it (see the module docstring,
-    phase 23); CUP3D_FUSED=1 is set by the caller."""
+    phase 23); CUP3D_FUSED=1 is set by the caller.  ``full=False``
+    (phase 29's unbucketed twin) skips the profiler window and the
+    comparisons with the host path."""
     from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.obs import metrics
     from cup3d_tpu_torch.ops import amr_ops
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
 
@@ -3363,7 +3535,9 @@ def pipe_amr_phase(host_ms: float) -> dict:
         raise AssertionError("config #3 pipelined is not on the device dt "
                              "chain on the card")
     log(f"  build_driver + init: {init_s:.2f} s; {d.grid.nb} blocks, per "
-        f"level {_levels(d.grid)}; the device dt chain on")
+        f"level {_levels(d.grid)}; the device dt chain on; bucketed "
+        f"{d._bucketing} (capacity {d._cap}); table builds "
+        f"{sum(d.table_build_s):.2f} s")
     # -- the main path: the bench's first step, 9 warm-up, 10 timed --------
     torch.cuda.synchronize()
     fa.reset_launches()
@@ -3378,7 +3552,7 @@ def pipe_amr_phase(host_ms: float) -> dict:
     rows = d.step_log[-(1 + PIPE_WARM + PIPE_TIMED):]
     _check_forest_launches("config #3 pipelined", d, launches, executed,
                            rows)
-    _, div_max = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+    _, div_max = amr_ops.divergence_norms_blocks(d._geom, d.state["vel"],
                                                  d._tab1)
     div_max = float(div_max)
     iters = [r["iters"] for r in rows]
@@ -3393,26 +3567,51 @@ def pipe_amr_phase(host_ms: float) -> dict:
         + _stream_line(d))
     if not (div_max < AMR_DIV_GATE and all(math.isfinite(k) for k in iters)):
         raise AssertionError(f"config #3 pipelined: max|div u| {div_max}")
-    t0 = time.perf_counter()
-    prof = _profile_window(d, prefix="pipe_amr_", trace=False)
-    log(f"  (profiler window {time.perf_counter() - t0:.1f} s)")
+    prof = None
+    if full:
+        t0 = time.perf_counter()
+        prof = _profile_window(d, steps=PROFILE_STEPS, prefix="pipe_amr_",
+                               trace=False)
+        log(f"  (profiler window {time.perf_counter() - t0:.1f} s)")
+    else:  # the same steps, unprofiled: the regrid probe starts alike
+        for _ in range(PROFILE_STEPS):
+            d.advance(d.calc_max_timestep())
     d.flush_packs()
     # -- the bench's regrid probe: adaptation on, 2 warm-up, 22 timed ------
     d.adapt_enabled = True
     d.prefetch = {"hits": 0, "misses": 0}
     regrids = _watch_regrids(d)
     nb0 = d.grid.nb
+    m0 = metrics.snapshot()
+    nbytes0 = len(d.adapt_bytes)
     probe = _bench_window(d, REGRID_WARM, REGRID_TIMED, regrid_log=regrids)
     d.flush_packs()
+    delta = {k: v for k, v in metrics.delta(m0).items()
+             if k.startswith(("bucket.", "amr.")) and v}
+    probe.update(bucket=dict(
+        capacity=d._cap, blocks=d.grid.nb, obs_delta=delta,
+        regrid_wall_max_s=max(probe["regrid_ms"], default=0.0) / 1e3,
+        adapt_bytes=d.adapt_bytes[nbytes0:],
+        memo_entries=len(d._table_memo), memo_bytes=d.memo_bytes()),
+        iters=[r["iters"] for r in d.step_log[-REGRID_TIMED:]])
     log(f"  regrid probe ({REGRID_WARM} + {REGRID_TIMED} steps, adaptation "
         f"on): steady {probe['ms']:.2f} ms/step (mean {probe['mean_ms']:.2f},"
-        f" max {probe['max_ms']:.2f}), regrid steps "
-        f"{[round(x, 2) for x in probe['regrid_ms']]} ms; blocks {nb0} -> "
-        f"{d.grid.nb}, regrids that changed the forest {len(regrids)}; "
-        f"scores prefetch {d.prefetch}; " + _stream_line(d))
+        f" p95 {probe['p95_ms']:.2f}, max {probe['max_ms']:.2f}), regrid "
+        f"steps {[round(x, 2) for x in probe['regrid_ms']]} ms; blocks {nb0}"
+        f" -> {d.grid.nb} (capacity {d._cap}), regrids that changed the "
+        f"forest {len(regrids)}; scores prefetch {d.prefetch}; decision "
+        f"bytes read {probe['bucket']['adapt_bytes']}; metrics {delta}; "
+        f"memo {len(d._table_memo)} topologies, "
+        f"{probe['bucket']['memo_bytes'] / 1e6:.2f} MB; " + _stream_line(d))
     if d.prefetch["hits"] < 1:
         raise AssertionError(f"the scores prefetch was never used: "
                              f"{d.prefetch}")
+    if not full:
+        return dict(ms=win["ms"], first_ms=first_ms, init_s=init_s,
+                    tables_s=sum(d.table_build_s), launches=launches,
+                    steps=len(rows), executed=executed, div_max=div_max,
+                    probe=probe, prefetch=dict(d.prefetch), nb=d.grid.nb,
+                    iters=iters)
     # -- pipelined against the host path: the same fixed-dt steps ----------
     d.adapt_enabled = False
     snap = _snapshot(d)
@@ -3439,10 +3638,10 @@ def pipe_amr_phase(host_ms: float) -> dict:
         f"{host['ms']:.2f} ms/step (mean {host['mean_ms']:.2f}, max "
         f"{host['max_ms']:.2f}); pipelined {win['ms']:.2f}")
     return dict(ms=win["ms"], host_ms=host["ms"], first_ms=first_ms,
-                init_s=init_s,
+                init_s=init_s, tables_s=sum(d.table_build_s),
                 launches=launches, steps=len(rows), executed=executed,
                 div_max=div_max, prof=prof, probe=probe,
-                prefetch=dict(d.prefetch), nb=d.grid.nb)
+                prefetch=dict(d.prefetch), nb=d.grid.nb, iters=iters)
 
 
 def pipe_fish_amr_phase(host_ms: float) -> dict:
@@ -3477,7 +3676,7 @@ def pipe_fish_amr_phase(host_ms: float) -> dict:
     _check_forest_launches("config #4 pipelined", d, launches, executed,
                            rows)
     div = float(diag.fluid_divergence_max_blocks(
-        d.grid, d.state["vel"], d.state["chi"], d._tab1))
+        d._geom, d.state["vel"], d.state["chi"], d._tab1))
     iters = [r["iters"] for r in rows]
     log(f"  the bench's window ({FA_TIMED} steps after {1 + FA_WARM}): "
         f"{win['ms']:.2f} ms/step pipelined (trimmed mean; mean "
@@ -3496,10 +3695,11 @@ def pipe_fish_amr_phase(host_ms: float) -> dict:
     if not (div < FA_DIV_GATE and _fish_ok(d)):
         raise AssertionError(f"config #4 pipelined: fluid div {div}, fish "
                              f"finite and moving {_fish_ok(d)}")
+    bucket = _bucket_check("config #4 pipelined", d)
     # -- the five forest kernels on one pipelined step's state -------------
     s = d.state
     rhs = amr_ops.pressure_rhs_blocks(
-        d.grid, s["vel"], torch.tensor(d.dt, device=d.device), d._tab1,
+        d._geom, s["vel"], torch.tensor(d.dt, device=d.device), d._tab1,
         d._ftab, s["chi"], s["udef"])
     log(f"  one forest solve on this state's pressure RHS ({d.grid.nb} "
         f"blocks): B8, B9, B11-B13 against their plain versions")
@@ -3507,7 +3707,8 @@ def pipe_fish_amr_phase(host_ms: float) -> dict:
     _forest_reruns_bitwise(d)
     return dict(ms=win["ms"], first_ms=first_ms, init_s=init_s,
                 launches=launches, steps=len(rows), executed=executed,
-                div=div, fallbacks=d.collision_fallbacks, nb=d.grid.nb)
+                div=div, fallbacks=d.collision_fallbacks, nb=d.grid.nb,
+                bucket=bucket)
 
 
 def _forest_channel(extra: str, out: str):
@@ -3567,8 +3768,9 @@ def forest_physics_phase() -> dict:
         gen = torch.Generator(device=d.device)
         gen.manual_seed(SEED + 9)
         vel = d.state["vel"]
-        d.state["vel"] = vel + IMPLICIT_PERTURB * torch.randn(
-            vel.shape, generator=gen, device=d.device)
+        noise = torch.randn(vel.shape, generator=gen, device=d.device)
+        noise[d.grid.nb:] = 0.0  # the bucketed forest's padding rows
+        d.state["vel"] = vel + IMPLICIT_PERTURB * noise
         # B7 on the Helmholtz's own input: the preconditioner's first
         # application, shift h^2/(nu dt) a block
         from cup3d_tpu_torch.ops import diffusion as dif
@@ -3577,7 +3779,7 @@ def forest_physics_phase() -> dict:
         ustar = dif.advect_euler_blocks(d._geom, d.state["vel"],
                                         IMPLICIT_AMR_DT, d.uinf_device(),
                                         d._tab3)
-        h2 = (d.grid.h_column(torch.float32, d.device)) ** 2
+        h2 = (d._geom.h_column(torch.float32, d.device)) ** 2
         shift = h2 / nudt
         b = ustar[..., 0]
         r0 = b - dif.helmholtz_comp_blocks(d._geom, b, d._tab1, nudt, 0,
@@ -3599,7 +3801,7 @@ def forest_physics_phase() -> dict:
         ms = (time.perf_counter() - t0) / IMPLICIT_AMR_STEPS * 1e3
         b7 = getz_cg.launches["getz_cg"]
         executed = krylov.iterations["executed"]
-        _, div = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+        _, div = amr_ops.divergence_norms_blocks(d._geom, d.state["vel"],
                                                  d._tab1)
         log(f"  implicit diffusion on config #3's forest at bpd 4 "
             f"({d.grid.nb} blocks, CUP3D_GETZ=cg, perturbed by "
@@ -3622,7 +3824,7 @@ def forest_physics_phase() -> dict:
     d.init()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    _, div = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+    _, div = amr_ops.divergence_norms_blocks(d._geom, d.state["vel"],
                                              d._tab1)
     umax = float(d.state["vel"].abs().max())
     log(f"  vorticity IC: init {init_s:.2f} s, {d.grid.nb} blocks per level "
@@ -3825,6 +4027,13 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
                 fp32_flops, perrs=perrs)
         f32_ms = time_ms(f32_fn)
         results[key].update(twin=name, f32_ms=f32_ms, **stats)
+        if name in FOREST_KERNEL_NAMES:
+            # the forest rows' events read the launch rate: their device
+            # time by profile
+            results[key]["profile_us"] = profile_us(
+                kernel_fn, FOREST_KERNEL_NAMES[name])
+            log(f"    device time by profile {results[key]['profile_us']} "
+                f"us a launch")
         log(f"    bitwise {stats['bitwise']:.5%}, at most "
             f"{stats['max_ulps']} ulp off beyond the f32 bound; its f32 "
             f"twin {f32_ms:.4f} ms in this call "
@@ -3834,7 +4043,9 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
         return [t.float() for t in ts]
 
     for n, pre, mod, vol in (((N_MAIN // 8) ** 3, "", fb, None),
-                             (d.grid.nb, "amr_", fa, True)):
+                             (d._geom.nb, "amr_", fa, True)):
+        # the forest's real blocks (its capacity's padding rows stay 0)
+        nb = d.grid.nb if vol else n
         cells = n * 512
         model = mod.bytes_model(BF16)
 
@@ -3845,12 +4056,13 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
             return (model[stage] / calls - less) * cells
 
         def vec():
-            return torch.randn((n, 8, 8, 8), generator=gen,
-                               device=dev).to(BF16)
+            v = torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+            v[nb:] = 0.0
+            return v.to(BF16)
 
         if vol:
-            h = d.grid.h_column(torch.float32, dev).reshape(n)
-            vol = (h ** 3).contiguous()
+            h = d._geom.h_column(torch.float32, dev).reshape(n)
+            vol = d._vol.reshape(n).float().contiguous()
             h2 = (h * h).contiguous()
             w_ = (vol,)
             wt = vol[:, None, None, None]
@@ -3866,6 +4078,7 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
             want = mod.update(r, p.clone(), v, rh.clone(), *w_, sc,
                               kernels=False)
             got = mod.update(r, p.clone(), v, rh.clone(), *w_, sc)
+            _zero_rows(pre + "update_bf16", nb, *got[:2])
             for g_, w in zip(got[:2], want[:2]):
                 errs.append(_bf16_check(stats, pre + "update_bf16", g_, w,
                                         VEC_RTOL))
@@ -3900,8 +4113,9 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
             lib = None
         else:
             zc = torch.randn(n, generator=gen, device=dev)
+            zc[nb:] = 0.0
             zf = zc[:, None, None, None].expand(n, 8, 8, 8)
-            azf = amr_ops.laplacian_blocks(d.grid, zf, d._tab1,
+            azf = amr_ops.laplacian_blocks(d._geom, zf, d._tab1,
                                            d._ftab).contiguous()
             args, nbytes = (azf, zc, h2), moved("getz", 2) + 8 * n
             W = tilesolve.dense_operator(8, torch.float32, str(dev))
@@ -3910,6 +4124,7 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
             lib = lambda: torch.einsum("tc,cd,t->td", rows_, W, neg_h2)
         want = mod.getz_two(w, *args, kernels=False)
         got = mod.getz_two(w, *args)
+        _zero_rows(pre + "getz_two_bf16", nb, got)
         w32 = w.float()
         twin = (mod.getz_two(w32, *args),
                 mod.getz_two(w32, *args, kernels=False))
@@ -3931,6 +4146,7 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
         stats = {}
         want = mod.getz_tile(w, h2, kernels=False)
         got = mod.getz_tile(w, h2)
+        _zero_rows(pre + "getz_tile_bf16", nb, got)
         w32 = w.float()
         twin = (mod.getz_tile(w32, h2), mod.getz_tile(w32, h2, kernels=False))
         errs = [_bf16_check(stats, pre + "getz_tile_bf16", got, want,
@@ -3972,6 +4188,7 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
             flops = 10 * cells
         want = mod.lap(*args, a, inv, kernels=False)
         got = mod.lap(*args, a, inv)
+        _zero_rows(pre + "lap_bf16", nb, got[0])
         errs = [_bf16_check(stats, pre + "lap_bf16", got[0], want[0],
                             VEC_RTOL)]
         awk = got[0].float()
@@ -3991,6 +4208,7 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
         sc = row(0.37)
         want = mod.axpy(r, v, *w_, sc, kernels=False)
         got = mod.axpy(r, v, *w_, sc)
+        _zero_rows(pre + "axpy_bf16", nb, got[0])
         errs = [_bf16_check(stats, pre + "axpy_bf16", got[0], want[0],
                             VEC_RTOL)]
         perrs = [_bf16_part(pre + "axpy_bf16 partial", got[1],
@@ -4005,12 +4223,14 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
 
         # -- B6 / B13 finish (x f32 in place, r into s) ---------------------
         x = torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+        x[nb:] = 0.0
         y, z, s_, t, rh = (vec() for _ in range(5))
         stats = {}
         sc = row(0.37, 1.21)
         want = mod.finish(x.clone(), y, z, s_.clone(), t, rh, sc,
                           kernels=False)
         got = mod.finish(x.clone(), y, z, s_.clone(), t, rh, sc)
+        _zero_rows(pre + "finish_bf16", nb, *got[:2])
         errs = [check_close(pre + "finish_bf16 x", got[0], want[0],
                             VEC_RTOL),
                 _bf16_check(stats, pre + "finish_bf16 r", got[1], want[1],
@@ -4259,7 +4479,7 @@ def bf16_tile_phase() -> dict:
     rows = d.step_log[-BF16_TILE_STEPS:]
     want = _forest_want(executed, tile=executed)
     div = float(diag.fluid_divergence_max_blocks(
-        d.grid, d.state["vel"], d.state["chi"], d._tab1))
+        d._geom, d.state["vel"], d.state["chi"], d._tab1))
     log(f"  config #4 ({d.grid.nb} blocks), bf16, CUP3D_COARSE=0: "
         f"{BF16_TILE_STEPS} steps, iterations "
         f"{[int(r['iters']) for r in rows]}; fluid max|div u| {div:.3e} "
@@ -4409,7 +4629,7 @@ def pipe_amr_bf16_phase(f32_run: dict) -> dict:
         rows = d.step_log[-(1 + PIPE_WARM + PIPE_TIMED):]
         _check_forest_launches("config #3 pipelined bf16", d, launches,
                                executed, rows)
-        _, div_max = amr_ops.divergence_norms_blocks(d.grid, d.state["vel"],
+        _, div_max = amr_ops.divergence_norms_blocks(d._geom, d.state["vel"],
                                                      d._tab1)
         div_max = float(div_max)
         iters = [r["iters"] for r in rows]
@@ -4516,6 +4736,87 @@ def shard_bf16_phase(dev="cuda") -> dict:
                 target=target)
 
 
+# ---------------------------------------------------------------------------
+# phases 29-30: the bucketed forest (A6c) and the native lab tables (A6e)
+# ---------------------------------------------------------------------------
+
+
+def bucket_phase(pipe_amr: dict, host_ms: float, bw: float,
+                 fp32_flops: float) -> dict:
+    """Config #3 as the bench runs it under ``CUP3D_BUCKET=0`` beside
+    phase 23's bucketed run of the same call: ms/step, the regrid probe's
+    steady p95 and regrid_wall_max_s, capacity against blocks, the table
+    memo's hits and misses, the iterations of each step within +-1; then
+    B8, B9, B11-B13 at the unpadded forest's block count, the rows'
+    times beside phase 7's at capacity."""
+    with _env(CUP3D_FUSED="1", CUP3D_BUCKET="0"):
+        unb = pipe_amr_phase(host_ms, full=False)
+    b, u = pipe_amr, unb
+    for tag, r in (("bucketed", b), ("unbucketed", u)):
+        pr = r["probe"]
+        log(f"  config #3 {tag}: {r['ms']:.2f} ms/step in the bench's window"
+            f" ({sum(r['iters']) / len(r['iters']):.2f} iterations a step);"
+            f" set-up {r['init_s']:.2f} s (tables {r['tables_s']:.2f} s); "
+            f"regrid probe steady {pr['ms']:.2f} ms/step, p95 "
+            f"{pr['p95_ms']:.2f}, regrid_wall_max_s "
+            f"{pr['bucket']['regrid_wall_max_s']:.4f}; blocks "
+            f"{pr['bucket']['blocks']} at capacity {pr['bucket']['capacity']};"
+            f" metrics {pr['bucket']['obs_delta']}")
+    pairs = list(zip(b["iters"], u["iters"])) + list(
+        zip(b["probe"]["iters"], u["probe"]["iters"]))
+    worst = max(abs(x - y) for x, y in pairs)
+    bk = b["probe"]["bucket"]
+    memo = {k: v for k, v in bk["obs_delta"].items() if "memo" in k}
+    log(f"  iterations bucketed against unbucketed, {len(pairs)} steps: "
+        f"largest difference {worst:.0f} (gate 1); the bucketed probe's "
+        f"table memo {memo}")
+    if not (worst <= 1 and bk["capacity"] > bk["blocks"]
+            and u["probe"]["bucket"]["capacity"] is None):
+        raise AssertionError(f"bucketed against unbucketed: iterations "
+                             f"{pairs}, capacity {bk}")
+    log("  the forest kernels at the unpadded forest's block count "
+        "(CUP3D_BUCKET=0)")
+    with _env(CUP3D_FUSED="1", CUP3D_BUCKET="0"):
+        d = amr_setup_phase()
+    kernels = forest_kernel_phase(d, bw, fp32_flops)
+    nb = d.grid.nb
+    del d
+    torch.cuda.empty_cache()
+    return dict(unbucketed=u, kernels=kernels, nb=nb)
+
+
+def native_tables_phase(native_s: float) -> dict:
+    """Config #3's set-up (``build_driver`` + ``init()``) with the numpy
+    lab-table builder (``CUP3D_NO_NATIVE=1``) beside phase 6's native
+    one; the final forest's per-cell tables of width 1 from both
+    builders timed and bitwise equal."""
+    from cup3d_tpu_torch import native
+
+    with _env(CUP3D_FUSED="1", CUP3D_NO_NATIVE="1"):
+        d = amr_setup_phase()
+    numpy_s = d.smoke_init_s
+    g = d.grid
+    del d
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nat = g._build_lab_tables(1)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = g._build_lab_tables_numpy(1)
+    np_s = time.perf_counter() - t0
+    same = all(nat[k].dtype == ref[k].dtype and np.array_equal(nat[k], ref[k])
+               for k in ref if k != "any_coarse"
+               ) and nat["any_coarse"] == ref["any_coarse"]
+    log(f"  config #3 set-up: native tables {native_s:.2f} s, numpy tables "
+        f"{numpy_s:.2f} s; the final forest's width-1 lab tables "
+        f"({g.nb} blocks): native {nat_s:.3f} s, numpy {np_s:.3f} s, bitwise "
+        f"equal {same} (library {native.library_path().name})")
+    if not (same and native.enabled()):
+        raise AssertionError("native and numpy lab tables differ")
+    return dict(native_s=native_s, numpy_s=numpy_s, lab_native_s=nat_s,
+                lab_numpy_s=np_s)
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -4566,10 +4867,16 @@ def main() -> int:
     bw, fp32_flops = peaks_for(name)
 
     # -- phase 2 ----------------------------------------------------------
+    from cup3d_tpu_torch import native
+
     t0 = time.perf_counter()
     lib = cuda_lib.load()
     log(f"phase 2: built {', '.join(p.name for p in lib.paths)} in "
         f"{lib.build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    native.load()  # the lab-table builder, csrc/tables.cpp (g++)
+    log(f"  built and loaded {native.library_path().name} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
@@ -4586,7 +4893,10 @@ def main() -> int:
     log("phase 6: AMR path set-up (BASELINE config #3, bpd 16, levelMax 2)")
     with _env(CUP3D_FUSED="1"):  # read when the forest's solver is built
         d = amr_setup_phase()
-    log(f"phase 7: forest kernels vs plain versions at {d.grid.nb} blocks")
+    native_s = d.smoke_init_s
+    forest_nb, forest_cap = d.grid.nb, d._cap
+    log(f"phase 7: forest kernels vs plain versions at {d._geom.nb} blocks "
+        f"({d.grid.nb} real)")
     per_kernel.update(forest_kernel_phase(d, bw, fp32_flops))
     log("phase 8: one whole forest solve")
     forest_solve_phase(d)
@@ -4741,6 +5051,20 @@ def main() -> int:
     shard_bf16_phase()
     log(f"  phase 28 took {time.perf_counter() - t0:.1f} s; {smi}")
     torch.cuda.empty_cache()
+    log("phase 29: the bucketed forest: config #3 as the bench runs it "
+        "under CUP3D_BUCKET=0 beside phase 23's bucketed run, the forest "
+        "kernels at the unpadded block count")
+    bucket = bucket_phase(pipe_amr, amr_run["wall"] / STEPS * 1e3, bw,
+                          fp32_flops)
+    torch.cuda.empty_cache()
+    log("phase 30: config #3's set-up with the numpy lab tables beside "
+        "phase 6's native ones")
+    tables = native_tables_phase(native_s)
+    log(f"  bucketed config #3: {pipe_amr['ms']:.2f} ms/step against "
+        f"{bucket['unbucketed']['ms']:.2f} unbucketed; set-up "
+        f"{tables['native_s']:.2f} s native against {tables['numpy_s']:.2f} "
+        f"s numpy; {smi}")
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -4773,6 +5097,11 @@ def main() -> int:
                 pipe_amr["launches"][kname] / pipe_amr["steps"])
             row["pipe_fish_amr_launches_per_step"] = (
                 pipe_fish["launches"][kname] / pipe_fish["steps"])
+            # phase 7's row is at config #3's capacity; the unpadded
+            # forest's in the same call (phase 29)
+            row.update(blocks=forest_nb, capacity=forest_cap,
+                       unpadded=dict(bucket["kernels"][kname],
+                                     blocks=bucket["nb"]))
     # B7 on the forest Helmholtz, B14 on the sharded pipelined step (25)
     per_kernel["getz_cg"]["helmholtz_launches_per_step"] = (
         physics["b7_per_step"])

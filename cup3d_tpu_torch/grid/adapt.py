@@ -13,9 +13,11 @@ from the JAX package).  Fields move in three batched torch steps:
   children, three f32 tensordots;
 - compress: 2x2x2 average of 8 children into the parent.
 
-The on-device tag decision of the JAX package's bucketed path
-(``device_tags``/``states_from_tags``) is not ported: the port tags on
-the host from the scores, which gives the same states.
+The bucketed forest takes the regrid DECISION on the device
+(``device_tags``: one int8 tag a slot) and the host decodes the small
+tag vector (``states_from_tags``); the unpadded and sharded forests tag
+on the host from the scores (``tag_states``), which gives the same
+states.
 """
 
 from __future__ import annotations
@@ -52,6 +54,42 @@ def tag_states(grid: BlockGrid, score: np.ndarray, rtol: float, ctol: float,
         else:
             states[key] = "L"
     return states
+
+
+def device_tags(vort: torch.Tensor, near: Optional[torch.Tensor],
+                level: torch.Tensor, rtol: float, ctol: float,
+                level_max: int, level_max_vort: int,
+                chi_inf: bool) -> torch.Tensor:
+    """The device mirror of tag_states: per-slot int8 tag (1=R, -1=C,
+    0=L).
+
+    Inputs are per-slot tensors over the padded bucket: ``vort`` the
+    vorticity score, ``near`` the grad-chi mask (None: no body, all
+    False), ``level`` the octree level of each slot (padding slots carry
+    level 0 and score 0, so they tag 'L').  As the JAX package's and
+    sim/amr.py's host tagging: the per-block level cap is levelMax-1 near
+    a body and levelMaxVorticity-1 away from it, the score goes to inf
+    near a body only under bAdaptChiGradient (``chi_inf``); comparisons
+    are strict in f32 and refine wins over coarsen."""
+    score = vort.to(torch.float32)
+    nearb = (torch.zeros_like(score, dtype=torch.bool) if near is None
+             else near.to(torch.bool))
+    if chi_inf:
+        score = torch.where(nearb, torch.full_like(score, float("inf")),
+                            score)
+    cap = torch.where(nearb, level_max - 1, level_max_vort - 1).to(
+        level.dtype)
+    refine = (score > rtol) & (level < cap)
+    coarsen = (score < ctol) & (level > 0)
+    one = torch.ones((), dtype=torch.int8, device=score.device)
+    return torch.where(refine, one, torch.where(coarsen, -one, 0 * one))
+
+
+def states_from_tags(grid: BlockGrid, tags: np.ndarray) -> Dict[Key, str]:
+    """Decode device_tags output (the real blocks' slots, on the host)
+    into the {key: 'R'/'C'/'L'} dict that valid_states/adapt consume."""
+    sym = {1: "R", -1: "C", 0: "L"}
+    return {key: sym[int(tags[s])] for s, key in enumerate(grid.keys)}
 
 
 def valid_states(tree: Octree, states: Dict[Key, str]) -> Dict[Key, str]:

@@ -25,8 +25,12 @@ coarser) are kept, so both packages assemble the same labs.
 
 Gather tables stay int32 on the device (``index_select`` takes them) and
 every index is in range: a missing source points at the zero sentinel
-appended after the flattened field.  The port runs unpadded forests:
-exactly ``nb`` blocks, no capacity ladder.
+appended after the flattened field.  Tables are built for the real
+blocks; the bucketed forest pads them (grid/faces.py, grid/flux.py).
+
+The per-cell tables come from the native builder (cup3d_tpu_torch/
+native.py, C++ built at first use), bit-identical to the numpy builder
+here, which ``CUP3D_NO_NATIVE=1`` selects.
 """
 
 from __future__ import annotations
@@ -289,8 +293,28 @@ class BlockGrid:
         return flat
 
     def _build_lab_tables(self, w: int) -> dict:
-        """The JAX package's numpy table build (its reference path, not
-        the native C++ one), returned as numpy arrays."""
+        """The per-cell tables of width ``w`` as numpy arrays: the native
+        builder's (the JAX package's order, grid/blocks.py:383-395), or
+        the numpy builder's under ``CUP3D_NO_NATIVE=1``."""
+        from cup3d_tpu_torch import native
+
+        if not native.enabled():
+            return self._build_lab_tables_numpy(w)
+        bs = self.bs
+        L = bs + 2 * w
+        cw = max(2, (w + 1) // 2 + 1)
+        S = bs // 2 + 2 * cw
+        gg = np.stack(np.meshgrid(*[np.arange(L)] * 3, indexing="ij"), -1)
+        interior = np.all((gg >= w) & (gg < w + bs), axis=-1)
+        gxyz = gg[~interior]
+        out = native.build_lab_tables(self, w, gxyz, cw)
+        out["ghost_xyz"] = gxyz
+        out["interp_w"] = self._interp_matrix(L, S, w, cw)
+        return out
+
+    def _build_lab_tables_numpy(self, w: int) -> dict:
+        """The JAX package's numpy table build (the reference of the
+        native one), returned as numpy arrays."""
         bs, nb = self.bs, self.nb
         L = bs + 2 * w
         cbs = bs // 2

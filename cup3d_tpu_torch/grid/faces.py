@@ -35,7 +35,7 @@ import torch
 
 from cup3d_tpu_torch.grid.uniform import BC
 
-__all__ = ["FaceTables", "build_face_tables"]
+__all__ = ["FaceTables", "build_face_tables", "pad_face_tables"]
 
 
 def _cw(w: int) -> int:
@@ -461,3 +461,144 @@ def _assemble_multi(t: FaceTables, fields: torch.Tensor,
                                               ghosts.to(field.dtype))
             lab[t.fb_rows, ci] = sub_lab
     return lab.movedim(1, -1)
+
+
+# ---------------------------------------------------------------------------
+# capacity-bucketed padding (grid/bucket.py): same-shape tables across
+# regrids that stay within a bucket
+# ---------------------------------------------------------------------------
+
+
+def pad_face_tables(t: FaceTables, grid, cap: int,
+                    device=None) -> FaceTables:
+    """Pad ``t`` (built for ``grid``, ``grid.nb`` real blocks) to block
+    capacity ``cap`` (> nb) with INERT rows, bucketing every auxiliary
+    row count up its own ladder (grid/bucket.py); the padded tables land
+    on ``device`` (default: ``t``'s).
+
+    Inertness: padding blocks' face sources point at the zero sentinel
+    (their labs assemble to 0); padded shadow-group rows restrict zeros
+    into padded shadow slots; padded coarse-face rows interpolate zeros
+    and write them into the last padding block (``cap - 1``), whose lab
+    is zero anyway; padded fallback rows gather the sentinel and write
+    into the same dump block.  The JAX package's ``pad_face_tables``
+    (the same entry layout and shadow ordering)."""
+    from cup3d_tpu_torch.grid import bucket as bk
+    from cup3d_tpu_torch.grid.blocks import LabTables
+
+    nb, bs, w = t.nb, t.bs, t.width
+    if cap <= nb:
+        raise ValueError(f"capacity {cap} must exceed nb={nb} "
+                         "(>= 1 padding block is the dump-target invariant)")
+    dev = t.src.device if device is None else torch.device(device)
+
+    def host(x):
+        return x.detach().cpu().numpy().astype(np.int64)
+
+    def on(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    tree = grid.tree
+    level_max = tree.cfg.level_max
+    # the build's own expression: the same shadow ordering
+    internal = sorted(tree.internal_nodes(), key=lambda k: -k[0])
+    counts: dict = {}
+    for k in internal:
+        counts[k[0]] = counts.get(k[0], 0) + 1
+    # one group per possible parent level, deepest first, ALWAYS emitted
+    # (empty levels keep shape (0, 8)) so the group order is bucket-stable
+    levels = list(range(level_max - 2, -1, -1))
+    caps_g = [bk.count_capacity(counts.get(l, 0)) for l in levels]
+    starts_new, off = [], 0
+    for c in caps_g:
+        starts_new.append(cap + off)
+        off += c
+    n_entries_new = cap + off
+    sent_new = n_entries_new
+
+    # old entry index -> padded entry index
+    remap = np.empty(t.n_entries + 1, np.int64)
+    remap[:nb] = np.arange(nb)
+    level_pos = dict(zip(levels, starts_new))
+    seen: dict = {}
+    for i, key in enumerate(internal):
+        l = key[0]
+        o = seen.get(l, 0)
+        seen[l] = o + 1
+        remap[nb + i] = level_pos[l] + o
+    remap[t.n_entries] = sent_new
+
+    present = sorted({k[0] for k in internal}, reverse=True)
+    child_new = []
+    for li, l in enumerate(levels):
+        cnt = counts.get(l, 0)
+        rows = np.full((caps_g[li], 8), sent_new, np.int64)
+        if cnt:
+            rows[:cnt] = remap[host(t.child_idx[present.index(l)])]
+        child_new.append(on(rows, torch.int32))
+
+    src_new = np.full((6, cap), sent_new, np.int64)
+    src_new[:, :nb] = remap[host(t.src)]
+    bmask_new = np.zeros((6, cap), bool)
+    bmask_new[:, :nb] = t.bmask.cpu().numpy()
+
+    dump_row = cap - 1  # guaranteed padding block
+    cf_rows_new, cf_src_new, cf_toff_new = [], [], []
+    for f in range(6):
+        rows = host(t.cf_rows[f])
+        n = rows.shape[0]
+        c = bk.count_capacity(n)
+        r2 = np.full(c, dump_row, np.int64)
+        s2 = np.full((c, 8), sent_new, np.int64)
+        o2 = np.zeros((c, 2), np.int64)
+        if n:
+            r2[:n] = rows
+            s2[:n] = remap[host(t.cf_src[f])]
+            o2[:n] = host(t.cf_toff[f])
+        cf_rows_new.append(on(r2, torch.int64))
+        cf_src_new.append(on(s2, torch.int32))
+        cf_toff_new.append(on(o2, torch.int64))
+
+    fb_rows = fb_tables = None
+    if t.fb_rows is not None:
+        old_rows = host(t.fb_rows)
+        c = bk.count_capacity(old_rows.shape[0])
+        fb_rows = on(bk.pad_rows(old_rows, c, fill=dump_row), torch.int64)
+        tb = t.fb_tables
+        cell_sent_old = nb * bs**3
+        cell_sent_new = cap * bs**3
+
+        def cells(idx):
+            v = host(idx)
+            v[v >= cell_sent_old] = cell_sent_new
+            return on(bk.pad_rows(v, c, fill=cell_sent_new), torch.int32)
+
+        def rows_of(x, fill):
+            return on(bk.pad_rows(x.cpu().numpy(), c, fill=fill), x.dtype)
+
+        fb_tables = LabTables(
+            width=tb.width, ghost_flat=tb.ghost_flat.to(dev),
+            g_idx=cells(tb.g_idx), g_w=rows_of(tb.g_w, 0.0),
+            g_sign=rows_of(tb.g_sign, 1.0),
+            mask_coarse=rows_of(tb.mask_coarse, False),
+            s_idx=cells(tb.s_idx), s_w=rows_of(tb.s_w, 0.0),
+            s_sign=rows_of(tb.s_sign, 1.0),
+            interp_w=tb.interp_w.to(dev), any_coarse=tb.any_coarse)
+
+    return FaceTables(
+        width=w, bs=bs, nb=cap,
+        child_idx=tuple(child_new),
+        shadow_starts=tuple(starts_new),
+        n_entries=n_entries_new,
+        src=on(src_new, torch.int32),
+        bmask=on(bmask_new, torch.bool),
+        bsign=t.bsign.to(dev),
+        cf_rows=tuple(cf_rows_new),
+        cf_src=tuple(cf_src_new),
+        cf_toff=tuple(cf_toff_new),
+        interp_t=t.interp_t.to(dev),
+        interp_n_lo=t.interp_n_lo.to(dev),
+        interp_n_hi=t.interp_n_hi.to(dev),
+        fb_rows=fb_rows,
+        fb_tables=fb_tables,
+    )

@@ -176,3 +176,60 @@ def add_grouped(flat: torch.Tensor, cells: torch.Tensor,
         part = corr[groups[..., k]]
         add = part if add is None else add + part
     flat[cells] = flat[cells] + add
+
+
+#: most coarse-fine faces one coarse cell can border (a block corner)
+GROUP_MAX = 3
+
+
+def pad_flux_tables(t: FluxTables, bs: int, cap: int,
+                    device=None) -> FluxTables:
+    """Capacity-bucketed padding (grid/bucket.py; the JAX package's
+    ``pad_flux_tables``): the correction rows round up their ladder with
+    INERT rows, so the table shapes are stable across regrids that stay
+    within a bucket; the padded tables land on ``device`` (default:
+    ``t``'s).
+
+    Padding rows carry ``inv_hc = 0`` (their correction is exactly 0)
+    and read the fluxes of cell 0's face of the last padding block
+    (``cap - 1``, which the strict block-capacity ladder guarantees).
+    The target cells round up their own ladder: padding groups name that
+    block's cell 0 and hold no row, and every group is GROUP_MAX wide,
+    so real cells are never touched, not even by a signed zero.  Empty
+    tables stay empty (a topology without coarse faces is its own
+    bucket class)."""
+    from cup3d_tpu_torch.grid import bucket as bk
+
+    n = int(t.ncorr)
+    dev = t.tgt_flux.device if device is None else torch.device(device)
+    if n == 0:
+        return FluxTables(**{k: (v.to(dev) if isinstance(v, torch.Tensor)
+                                 else v) for k, v in vars(t).items()})
+    c = bk.count_capacity(n)
+    ncell = bk.count_capacity(int(t.cells.shape[0]))
+    dump_cell = (cap - 1) * bs**3
+    dump_flux = (cap - 1) * 6 * bs * bs
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    groups = host(t.groups).astype(np.int64)
+    groups[groups == n] = c  # "no row": the zero row after c corrections
+    groups = np.concatenate(
+        [groups, np.full((groups.shape[0], GROUP_MAX - groups.shape[1]),
+                         c, np.int64)], axis=1)
+
+    def on(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    return FluxTables(
+        tgt_flux=on(bk.pad_rows(host(t.tgt_flux), c, fill=dump_flux),
+                    torch.int64),
+        src_flux=on(bk.pad_rows(host(t.src_flux), c, fill=dump_flux),
+                    torch.int64),
+        inv_hc=on(bk.pad_rows(host(t.inv_hc), c, fill=0.0), torch.float32),
+        cells=on(bk.pad_rows(host(t.cells), ncell, fill=dump_cell),
+                 torch.int64),
+        groups=on(bk.pad_rows(groups, ncell, fill=c), torch.int64),
+        ncorr=c,
+    )

@@ -46,7 +46,9 @@ def build_payload(driver) -> dict:
     ``fields`` holds references to the live tensors (the recovery engine
     clones them; :func:`materialize_payload` reads them)."""
     if _driver_kind(driver) == "amr":
-        kind, state = "amr", driver.state
+        # the real blocks' rows (views): a checkpoint is layout-free
+        kind = "amr"
+        state = {k: driver._unpad(v) for k, v in driver.state.items()}
         time, step, dt = driver.time, driver.step_idx, driver.dt
         uinf, lam = driver.uinf, driver.lambda_penal
         leaves = np.asarray(driver.grid.keys, np.int64).reshape(-1, 4)
@@ -84,7 +86,7 @@ def materialize_payload(payload: dict) -> dict:
     fields = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
               else np.asarray(v) for k, v in payload["fields"].items()}
     if payload["kind"] == "amr":
-        # a block-sharded driver's fields carry zero padding rows
+        # the real blocks' rows (build_payload's are already)
         nb = len(payload["leaves"])
         fields = {k: v[:nb] for k, v in fields.items()}
         fields.setdefault("chi", np.zeros_like(fields["p"]))
@@ -200,10 +202,9 @@ def load_checkpoint(path: str, device=None):
         if driver.grid.keys != keys:
             raise ValueError("checkpoint leaves are not in the forest's "
                              "Hilbert slot order")
-        driver.state = {k: torch.tensor(np.asarray(fields[k]),
-                                        dtype=driver.dtype,
-                                        device=driver.device)
-                        for k in driver.state}
+        driver.state = {k: driver._pad(torch.tensor(
+            np.asarray(fields[k]), dtype=driver.dtype, device=driver.device))
+            for k in driver.state}
         driver.time = float(payload["time"])
         driver.step_idx = int(payload["step"])
         driver.dt = float(payload["dt"])

@@ -224,8 +224,8 @@ class StefanFish(Obstacle):
         the host (the reference's prepare_segPerBlock,
         main.cpp:10672-10717) with the body's box padded at each block's
         own h (ops/surface.probe_margin), one midline pass over their
-        cells, gathered from the driver's cached centres ``sim._xc``,
-        scattered into (nb, bs, bs, bs) arrays.  The candidate count is
+        cells, gathered from the driver's cached centres ``sim.xc`` (the
+        real blocks'), scattered into (nb, bs, bs, bs) arrays.  The candidate count is
         padded to a multiple of 16 as in the JAX package."""
         from cup3d_tpu_torch.ops.surface import probe_margin
 
@@ -240,7 +240,7 @@ class StefanFish(Obstacle):
         mpad = max(16, -(-len(idx) // 16) * 16)
         pos, rot = self.pos_rot_device(s.dtype)
         return _raster_scatter_blocks(
-            s._xc, upload(idx, torch.long, s.device), mpad,
+            s.xc, upload(idx, torch.long, s.device), mpad,
             self._midline_device(), pos, rot)
 
     def rasterize(self, t: float):

@@ -271,7 +271,9 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
     vol, pmask, graph, slot0, with_stats)`` where ``geom`` is the
     BlockGrid, ``vol`` the (nb,1,1,1) cell volume, ``graph`` an optional
     krylov.BlockGraph (two-level preconditioner) and ``slot0`` the corner
-    block of the pinned-row modes.
+    block of the pinned-row modes (an int, or a 0-dim long device tensor:
+    the bucketed forest's pin slot moves across regrids without a read);
+    ``pmask`` zeroes padding blocks (0 on padding, 1 on real blocks).
 
     ``mean_constraint``: 0 none, 1 the corner row is the volume-weighted
     mean, 2 (default) mean removal, 3 Dirichlet pin of the corner cell.
@@ -307,7 +309,10 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
         def wmean(x):
             return torch.sum(x * vol) / vol_total
 
-        s0 = 0 if slot0 is None else int(slot0)
+        # the bucketed forest passes the pin slot as a device index (no
+        # read); an int otherwise
+        s0 = 0 if slot0 is None else (
+            slot0 if isinstance(slot0, torch.Tensor) else int(slot0))
         A = forest_operator(geom, t, ft, vol, mean_constraint, s0)
 
         if graph is not None and mean_constraint not in (1, 3):

@@ -165,7 +165,11 @@ def build_amr_helmholtz_solver(grid, tol_abs: float = 1e-6,
     block.  ``tab``/``flux_tab`` may be pre-built or the sharded forest's
     duck-typed tables (default: the grid's width-1 face tables and flux
     tables on ``device``).  The last call's per-component [residual,
-    iterations] device vectors stay in ``solve.last_stats``."""
+    iterations] device vectors stay in ``solve.last_stats``.  A call may
+    pass the tables (``tab_arg``, ``flux_arg``) and a geometry ``geom``
+    of its own: the bucketed forest binds one solve to every topology of
+    a capacity bucket (its h^2 then squares the f32 spacing, as the JAX
+    package's bucketed solve does)."""
     from cup3d_tpu_torch.grid.flux import build_flux_tables
     from cup3d_tpu_torch.ops import krylov
 
@@ -178,15 +182,24 @@ def build_amr_helmholtz_solver(grid, tol_abs: float = 1e-6,
         grid.nb, 1, 1, 1), dtype=torch.float32, device=device)
     inv_h = 1.0 / torch.sqrt(h2)
 
-    def solve(u: torch.Tensor, nudt) -> torch.Tensor:
-        shift = h2 / nudt  # the reference's coefficient -6 - h^2/(nu dt)
+    def solve(u: torch.Tensor, nudt, tab_arg=None, flux_arg=None,
+              geom=None) -> torch.Tensor:
+        t = tab if tab_arg is None else tab_arg
+        ft = flux_tab if flux_arg is None else flux_arg
+        if geom is None:
+            g_, h2_, inv_h_ = grid, h2, inv_h
+        else:
+            g_ = geom
+            h2_ = geom.h_column(u.dtype, u.device) ** 2
+            inv_h_ = 1.0 / torch.sqrt(h2_)
+        shift = h2_ / nudt  # the reference's coefficient -6 - h^2/(nu dt)
         outs, stats = [], []
         for c in range(3):
             b = u[..., c]
 
             def A(x, _c=c):
-                return helmholtz_comp_blocks(grid, x, tab, nudt, _c,
-                                             flux_tab, inv_h)
+                return helmholtz_comp_blocks(g_, x, t, nudt, _c, ft,
+                                             inv_h_)
 
             def M(r):
                 return krylov.getz_blocks(shift * r, precond_iters,

@@ -376,14 +376,16 @@ class BlockGraph(NamedTuple):
     deg: torch.Tensor
 
 
-def block_graph_tables(grid, device="cpu",
-                       dtype=torch.float32) -> BlockGraph:
+def block_graph_tables(grid, device="cpu", dtype=torch.float32,
+                       cap: Optional[int] = None) -> BlockGraph:
     """Host-build the face graph of ``grid`` (a BlockGrid) — the JAX
     package's numpy build.  Couplings are the finite-volume face
     conductances A/d: w = bs^2 h for same-level faces (the exact Galerkin
     P^T A P of the uniform limit) and shared area over the 1.5 h_f center
     distance for coarse-fine faces (a symmetric, positive semidefinite
-    approximation of the interpolated rows)."""
+    approximation of the interpolated rows).  ``cap``: the bucket
+    capacity to pad to (padding rows: idx 0, w 0, deg 0; the coarse CG's
+    deflation mask keeps them exactly 0, and nothing divides by deg)."""
     tree = grid.tree
     bs = grid.bs
     nb = grid.nb
@@ -429,6 +431,12 @@ def block_graph_tables(grid, device="cpu",
                                            "unbalanced tree")
                         add(s, int(fslot), bs * bs * hf / 1.5)
     deg = w.sum(axis=1)
+    if cap is not None:
+        from cup3d_tpu_torch.grid import bucket as bk
+
+        idx = bk.pad_rows(idx, cap)
+        w = bk.pad_rows(w, cap)
+        deg = bk.pad_rows(deg, cap)
     return BlockGraph(
         idx=torch.as_tensor(idx, device=device),
         w=torch.as_tensor(w, device=device).to(dtype),

@@ -23,6 +23,11 @@ On the forest the window is gathered from the finest-level blocks
 around the body (``force_integrals_probe_blocks``); its cells that no
 finest-level block owns are invalid, and the stencils that would reach
 them fall back to shorter ones, as the reference's lab-range cascade.
+
+``per_point=True`` adds the per-surface-point record (the reference's
+ObstacleBlock arrays, main.cpp:12300-12330) as K-slot tensors;
+``compact_surface_points`` compacts it to an (n_pts, 20) host array and
+``dump_surface_points`` writes one body's to an .npy file.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ def _central(f, axis):
 
 
 def surface_force_window(vel, p, chi, sdf, udef, valid, xc, h, nu: float,
-                         cm, u_trans, omega,
+                         cm, u_trans, omega, per_point: bool = False,
                          max_points=None) -> Dict[str, torch.Tensor]:
     """The reference's KernelComputeForces on a dense uniform window.
     vel/udef (Wx,Wy,Wz,3), p/chi/sdf (Wx,Wy,Wz), ``valid`` (Wx,Wy,Wz)
@@ -71,7 +76,12 @@ def surface_force_window(vel, p, chi, sdf, udef, valid, xc, h, nu: float,
     (Wx,Wy,Wz,3) cell centres, h the spacing, cm/u_trans/omega (3,).
     ``max_points`` (static) compacts the band to that many slots.
     Returns the force/torque/power dict ``pack_forces`` packs, with the
-    surface-cell count n_surf."""
+    surface-cell count n_surf and, with ``per_point``, the record of
+    each slot in ``points`` (``surf``: the slot holds a surface point;
+    ``x`` its cell centre, ``n_dS`` outward normal times dS, ``dS``,
+    ``p`` the pressure, ``fP``/``fV`` the pressure and viscous tractions
+    times dS, ``v`` the fluid and ``vdef`` the deformation velocity),
+    slots in window flat-index order."""
     shape = tuple(vel.shape[:3])
     dtype, dev = vel.dtype, vel.device
 
@@ -254,7 +264,7 @@ def surface_force_window(vel, p, chi, sdf, udef, valid, xc, h, nu: float,
     pow_pt = torch.sum(fT * v_base, -1)
     defp_pt = torch.sum(fT * u_base, -1)
     u_solid = u_trans + torch.linalg.cross(omega.expand_as(r), r)
-    return {
+    out = {
         "pres_force": pres_force,
         "visc_force": visc_force,
         "torque": torque,
@@ -267,6 +277,11 @@ def surface_force_window(vel, p, chi, sdf, udef, valid, xc, h, nu: float,
         "p_locom": torch.sum(fT * u_solid),
         "n_surf": n_surf,
     }
+    if per_point:
+        out["points"] = {"surf": pt_ok & (dS > 0), "x": xc, "n_dS": n_meas,
+                         "dS": dS, "p": P, "fP": fP, "fV": fV, "v": v_base,
+                         "vdef": u_base}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +338,8 @@ def window_index(idx0: torch.Tensor, shape):
 
 
 def _uniform_window_probe(vel, p, chi, sdf, udef, idx0, h, nu, cm, u_trans,
-                          omega, wcells: int, max_points=None):
+                          omega, wcells: int, per_point: bool = False,
+                          max_points=None):
     """``idx0``: the window corner, a device (3,) long tensor (the
     megaloop's, from the device position): the window is gathered
     without a read."""
@@ -335,11 +351,12 @@ def _uniform_window_probe(vel, p, chi, sdf, udef, idx0, h, nu, cm, u_trans,
     valid = torch.ones((wcells,) * 3, dtype=torch.bool, device=dev)
     return surface_force_window(
         vel[sl], p[sl], chi[sl], sdf[sl], udef[sl], valid, xc, h, nu, cm,
-        u_trans, omega, max_points=max_points)
+        u_trans, omega, per_point=per_point, max_points=max_points)
 
 
 def force_integrals_probe_uniform(grid, ob, vel, p, chi, sdf, udef, nu, cm,
-                                  u_trans, omega, max_points=None):
+                                  u_trans, omega, per_point: bool = False,
+                                  max_points=None):
     """Uniform-grid entry: a cubic window around the obstacle, its corner
     from the host mirror of the position (no device read)."""
     n = np.asarray(grid.shape)
@@ -356,7 +373,7 @@ def force_integrals_probe_uniform(grid, ob, vel, p, chi, sdf, udef, nu, cm,
     return _uniform_window_probe(
         vel, p, chi, sdf, udef, upload(idx0, torch.long, vel.device),
         float(npd(grid.h)), nu, cm, u_trans, omega, wcells=w,
-        max_points=max_points)
+        per_point=per_point, max_points=max_points)
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +418,8 @@ def gather_block_window(field: torch.Tensor, slots: torch.Tensor,
 
 
 def probe_blocks_core(vel, p, ob_chi, ob_sdf, ob_udef, slots, shape, b0, h,
-                      nu, cm, u_trans, omega, max_points=None):
+                      nu, cm, u_trans, omega, per_point: bool = False,
+                      max_points=None):
     """The forest's probe: the finest-level blocks of ``slots`` (device
     (nbx*nby*nbz,) long, -1 where the finest level holds no block) as a
     dense window of ``shape`` blocks whose origin is ``b0`` (3,) in
@@ -420,12 +438,13 @@ def probe_blocks_core(vel, p, ob_chi, ob_sdf, ob_udef, slots, shape, b0, h,
             for a in range(3)]
     xc = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
     return surface_force_window(*win[:5], valid, xc, h, nu, cm, u_trans,
-                                omega, max_points=max_points)
+                                omega, per_point=per_point,
+                                max_points=max_points)
 
 
 def force_integrals_probe_blocks(grid, vel, p, ob_chi, ob_sdf, ob_udef, nu,
                                  position, length, cm, u_trans, omega,
-                                 max_points=None):
+                                 per_point: bool = False, max_points=None):
     """The forest's entry: the window's slots from the host mirror of the
     position (no device read), the probe on the device."""
     from cup3d_tpu_torch.models.base import upload
@@ -437,4 +456,62 @@ def force_integrals_probe_blocks(grid, vel, p, ob_chi, ob_sdf, ob_udef, nu,
     return probe_blocks_core(
         vel, p, ob_chi, ob_sdf, ob_udef,
         upload(slots.reshape(-1), torch.long, vel.device), slots.shape,
-        b0, float(npd(h)), nu, cm, u_trans, omega, max_points=max_points)
+        b0, float(npd(h)), nu, cm, u_trans, omega, per_point=per_point,
+        max_points=max_points)
+
+
+# ---------------------------------------------------------------------------
+# per-surface-point export (reference per-point arrays, main.cpp:12300-12330)
+# ---------------------------------------------------------------------------
+
+SURFACE_POINT_COLUMNS = (
+    "x", "y", "z",              # surface-cell centre
+    "nx_dS", "ny_dS", "nz_dS",  # outward normal * dS
+    "dS",
+    "p",                        # surface-cell pressure
+    "fxP", "fyP", "fzP",        # pressure traction * dS
+    "fxV", "fyV", "fzV",        # viscous traction * dS
+    "vx", "vy", "vz",           # fluid velocity at the surface cell
+    "vxDef", "vyDef", "vzDef",  # body deformation velocity
+)
+
+
+def compact_surface_points(pts: Dict[str, torch.Tensor]) -> np.ndarray:
+    """A probe's per-point record (``per_point=True``) -> the compact
+    (n_pts, 20) float64 host array of its surface points, columns as
+    SURFACE_POINT_COLUMNS, rows in the probe's slot order: one device
+    read of the dense stack, the compaction on the host."""
+    dense = torch.cat(
+        [pts["x"], pts["n_dS"], pts["dS"][..., None], pts["p"][..., None],
+         pts["fP"], pts["fV"], pts["v"], pts["vdef"]], dim=-1)
+    mask = pts["surf"].reshape(-1).cpu().numpy()
+    flat = dense.cpu().to(torch.float64).numpy().reshape(-1, dense.shape[-1])
+    return flat[mask]
+
+
+def dump_surface_points(path: str, grid, state_fields, ob, nu) -> int:
+    """Write one body's compacted surface-point record (positions,
+    measures, tractions, velocities) to ``path`` (.npy, ``np.save``) and
+    return its row count.  ``grid``: the forest (a BlockGrid: the probe
+    on the finest-level window, slots as its ComputeForces budgets them
+    with no measurement) or the uniform grid; ``state_fields`` the
+    driver's ``vel`` and ``p``; the body's chi/sdf/udef and host rigid
+    state are read from ``ob``."""
+    vel, p = state_fields["vel"], state_fields["p"]
+
+    def dev(v):
+        return torch.as_tensor(np.asarray(v), dtype=vel.dtype,
+                               device=vel.device)
+
+    cm, ut, om = dev(ob.centerOfMass), dev(ob.transVel), dev(ob.angVel)
+    if hasattr(grid, "_slot_maps"):  # the forest
+        out = force_integrals_probe_blocks(
+            grid, vel, p, ob.chi, ob.sdf, ob.udef, nu, ob.position,
+            ob.length, cm, ut, om, per_point=True)
+    else:
+        out = force_integrals_probe_uniform(
+            grid, ob, vel, p, ob.chi, ob.sdf, ob.udef, nu, cm, ut, om,
+            per_point=True)
+    rows = compact_surface_points(out["points"])
+    np.save(path, rows)
+    return rows.shape[0]

@@ -255,32 +255,6 @@ class ShardedFluxTables:
         return flat.reshape(D, -1)[:, :-1].reshape(out.shape)
 
 
-class _PaddedGeom:
-    """Duck-typed BlockGrid view over the padded block axis: exactly the
-    attributes ops/amr_ops.py touches (nb, bs, h, ijk, h_column).  Padding
-    blocks get h = 1 (their fields are zero, so every operator output on
-    them is 0).  It carries no tree, so the sharded solve is tile-only
-    (no block graph), as in the JAX package."""
-
-    def __init__(self, grid: BlockGrid, nb_pad: int):
-        self.bs = grid.bs
-        self.nb = nb_pad
-        self.h = np.concatenate(
-            [grid.h, np.ones(nb_pad - grid.nb, grid.h.dtype)])
-        # padding sorts after every real block (the pinned-row corner)
-        self.ijk = np.concatenate(
-            [grid.ijk, np.full((nb_pad - grid.nb, 3),
-                               np.iinfo(grid.ijk.dtype).max, grid.ijk.dtype)])
-        self._hcol: Dict[tuple, torch.Tensor] = {}
-
-    def h_column(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
-        key = (str(dtype), str(torch.device(device)))
-        if key not in self._hcol:
-            self._hcol[key] = torch.as_tensor(
-                self.h.reshape(self.nb, 1, 1, 1), dtype=dtype, device=device)
-        return self._hcol[key]
-
-
 class ShardedForest:
     """One AMR topology cut into D shards of the block axis (see the
     module docstring)."""
@@ -296,7 +270,7 @@ class ShardedForest:
         # shards stay exact), as grid/bucket.py's JAX twin
         self.nbs = bucket.count_capacity(-(-grid.nb // self.D), base=1)
         self.nb_pad = self.nbs * self.D
-        self.geom = _PaddedGeom(grid, self.nb_pad)
+        self.geom = bucket.PaddedGeom(grid, self.nb_pad)
         self._lab_cache: Dict[object, object] = {}
         self._flux_cache: Optional[ShardedFluxTables] = None
         # (nb_pad,1,1,1) cell volume, 0 on padding: volume-weighted

@@ -47,9 +47,25 @@ keys are the live forest's) and abandons the stream's packs, and the
 ladder's tile-only rung drops the block graph, so the fused forest solve
 runs the tile-only getZ kernel B10.
 
-The forest is unpadded: every tensor has exactly ``nb`` blocks and every
-regrid rebuilds the tables (numpy) for the new topology.  With ``mesh``
-(parallel/forest.make_block_mesh) the forest is block-sharded instead:
+The single-device forest is CAPACITY-BUCKETED (grid/bucket.py), as the
+JAX package's production path: every block tensor pads up a geometric
+capacity ladder (zero padding rows, h = 1 and cell volume 0 there, halos
+from the zero sentinel), the padded tables of a topology (face and flux
+tables, the block graph, spacing, volumes, centres, the real-block mask,
+the pin slot and the per-slot level as device tensors) are memoised by
+octree signature (the last four topologies; a ping-pong regrid A -> B ->
+A rebuilds nothing), and the bound solver, Helmholtz solve and regrid
+decision are cached by bucket key (capacity plus the padded geometry's
+shapes).  The regrid decision is taken on the device: an adaptation
+reads one int8 tag a slot (grid/adapt.py ``device_tags``), staged one
+step early when pipelined.  Eager PyTorch compiles nothing, so the
+buckets buy the JAX package's padding contract and numbers, fixed tensor
+shapes across regrids (the caching allocator reuses its blocks; a CUDA
+graph of the step would need them) and the table memo.
+``CUP3D_BUCKET=0`` gives the unpadded forest: exactly ``nb`` blocks,
+every regrid rebuilding its tables, tagging on the host from both score
+fields.  With ``mesh`` (parallel/forest.make_block_mesh) the forest is
+block-sharded instead:
 every field is padded to the ShardedForest's ``nb_pad`` rows on every
 state-assignment path (zero padding rows), the operators take its
 padded geometry and duck-typed face and flux tables (the halo exchange
@@ -66,19 +82,23 @@ the sharded forest.
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cup3d_tpu_torch.config import SimulationConfig, parse_factory
 from cup3d_tpu_torch.grid import adapt as ad
+from cup3d_tpu_torch.grid import bucket as bk
 from cup3d_tpu_torch.grid.blocks import BlockGrid
-from cup3d_tpu_torch.grid.flux import build_flux_tables
+from cup3d_tpu_torch.grid.faces import pad_face_tables
+from cup3d_tpu_torch.grid.flux import build_flux_tables, pad_flux_tables
 from cup3d_tpu_torch.grid.octree import Octree, TreeConfig
 from cup3d_tpu_torch.grid.uniform import BC
 from cup3d_tpu_torch.io.logging import BufferedLogger, Profiler
+from cup3d_tpu_torch.obs import metrics as obs_metrics
 from cup3d_tpu_torch.models.base import (FORCE_PACK, RIGID_PACK,
                                          log_forces,
                                          momentum_integrals_core,
@@ -107,6 +127,43 @@ FIELDS = ("vel", "p")
 #: the fields a run with bodies adds: the combined chi and udef
 BODY_FIELDS = ("chi", "udef")
 _EPS = 1e-6
+#: topologies whose padded tables the bucketed forest keeps (LRU)
+TABLE_MEMO_ENTRIES = 4
+
+
+class BucketGeo(NamedTuple):
+    """One topology's padded geometry on the device (the JAX package's
+    ``_geo_args`` bundle): face tables of widths 1 and 3, flux tables,
+    the padded geometry view (nb = capacity, h = 1 on padding), cell
+    volume (0 on padding), cell centres (None without bodies), the
+    real-block mask, the block graph (None: tile-only getZ), the pin
+    slot (0-dim long) and the per-slot octree level (0 on padding)."""
+
+    tab1: object
+    tab3: object
+    ftab: object
+    geom: bk.PaddedGeom
+    vol: torch.Tensor
+    xc: Optional[torch.Tensor]
+    mask: torch.Tensor
+    graph: Optional[object]
+    slot0: torch.Tensor
+    level: torch.Tensor
+
+
+def _leaves(obj):
+    """The leaves of a geometry bundle in a fixed order: its tensors and
+    its integer layout data (the padded geometry by its block count)."""
+    if obj is None or isinstance(obj, (torch.Tensor, bool, int, float, str)):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _leaves(o)
+    elif isinstance(obj, bk.PaddedGeom):
+        yield obj.nb
+    else:
+        for _, v in sorted(vars(obj).items()):
+            yield from _leaves(v)
 
 
 def _unsupported(cfg: SimulationConfig, mesh=None) -> Optional[str]:
@@ -204,6 +261,20 @@ class AMRSimulation:
         #: adaptations that used the staged scores, and pipelined ones that
         #: computed them anew (none staged, or the forest changed since)
         self.prefetch = {"hits": 0, "misses": 0}
+        #: host bytes each adaptation read for its decision: the staged or
+        #: read tags (bucketed), or both score fields
+        self.adapt_bytes: List[int] = []
+        # capacity bucketing (module doc): single-device only; the
+        # JAX package's own switch
+        self._bucketing = (mesh is None
+                           and os.environ.get("CUP3D_BUCKET", "1") != "0")
+        self._cap: Optional[int] = None
+        #: octree signature -> BucketGeo + capacity (LRU, move-to-back)
+        self._table_memo: Dict = {}
+        #: bucket key -> the bound operators of a bucket
+        self._exec_cache: Dict = {}
+        self._device_tags = None
+        self._pmask: Optional[torch.Tensor] = None
         self._build_solver_core()
         self._rebuild()
         self._alloc_fields()
@@ -212,6 +283,10 @@ class AMRSimulation:
         """Driver state for a postmortem (called only at dump time)."""
         g = self.grid
         return {"driver": "amr", "blocks": int(g.nb),
+                "bucket_capacity": int(self._cap or g.nb),
+                "bucketing": bool(self._bucketing),
+                "table_memo_entries": len(self._table_memo),
+                "exec_cache_entries": len(self._exec_cache),
                 "levels": sorted(set(int(v) for v in g.level)),
                 "shards": 1 if self.mesh is None else self.mesh.D,
                 "step": self.step_idx, "time": self.time, "dt": self.dt,
@@ -253,11 +328,15 @@ class AMRSimulation:
             self._graph = None
             self.table_build_s.append(time.perf_counter() - t0)
             self._vol = fo.vol.to(self.dtype)
+            self._pmask = fo.pmask
             self._slot0 = 0
             self._build_physics()
             self._bind_solver()
             return
+        if self._bucketing:
+            return self._rebuild_bucketed()
         self._geom = g
+        self._pmask = None
         self._tab1 = g.face_tables(1, dev)
         self._tab3 = g.face_tables(3, dev)
         self._ftab = build_flux_tables(g, dev)
@@ -280,15 +359,167 @@ class AMRSimulation:
         self._build_physics()
         self._bind_solver()
 
+    # -- the capacity-bucketed forest (the single-device default) ----------
+
+    def _rebuild_bucketed(self) -> None:
+        """The bucketed twin of the unpadded rebuild (JAX
+        ``_rebuild_bucketed``): the padded tables from the memo (a miss
+        builds them), then the bucket's bound operators from the cache
+        (a miss builds them), bound to this topology."""
+        g = self.grid
+        sig = g.signature
+        memo = self._table_memo.pop(sig, None)
+        if memo is not None:
+            self._table_memo[sig] = memo  # move-to-back (LRU)
+        obs_metrics.counter("bucket.table_memo_hits" if memo is not None
+                            else "bucket.table_memo_misses").inc()
+        if memo is None:
+            t0 = time.perf_counter()
+            memo = self._bucket_tables()
+            self.table_build_s.append(time.perf_counter() - t0)
+            self._table_memo[sig] = memo
+            while len(self._table_memo) > TABLE_MEMO_ENTRIES:
+                self._table_memo.pop(next(iter(self._table_memo)))
+        self._cap, geo = memo
+        self._geo = geo
+        self._geom, self._tab1, self._tab3 = geo.geom, geo.tab1, geo.tab3
+        self._ftab, self._graph, self._vol = geo.ftab, geo.graph, geo.vol
+        self._xc, self._pmask = geo.xc, geo.mask
+        self._slot0 = geo.slot0
+        self._h_col = geo.geom.h_column(self.dtype, self.device)
+        key = self._bucket_key()
+        ops = self._exec_cache.get(key)
+        obs_metrics.counter("bucket.exec_cache_hits" if ops is not None
+                            else "bucket.exec_cache_misses").inc()
+        if ops is None:
+            ops = self._exec_cache[key] = self._build_bucket_ops()
+        obs_metrics.gauge("bucket.capacity").set(self._cap)
+        obs_metrics.gauge("amr.blocks").set(g.nb)
+        self._build_physics()
+        self._bind_bucket_ops(ops)
+
+    def _bucket_tables(self) -> tuple:
+        """(capacity, BucketGeo) of the current grid: its tables built on
+        the host and padded onto the device (grid/faces.py,
+        grid/flux.py, ops/krylov.py), h = 1 and volume 0 on padding."""
+        g, dev, dt = self.grid, self.device, self.dtype
+        cap = bk.capacity(g.nb)
+        vol = np.zeros((cap, 1, 1, 1), np.float64)
+        vol[: g.nb, 0, 0, 0] = g.h ** 3
+        mask = np.zeros((cap, 1, 1, 1), np.float32)
+        mask[: g.nb] = 1.0
+        xc = None
+        if self._with_bodies:
+            xc = bk.pad_field(g.cell_centers(dt, dev), cap)
+        # the corner pin slot of mean_constraint 1/3, a device index
+        slot0 = 0
+        if self.cfg.bMeanConstraint in (1, 3):
+            slot0 = int(np.lexsort((g.ijk[:, 2], g.ijk[:, 1],
+                                    g.ijk[:, 0]))[0])
+        level = np.zeros(cap, np.int32)
+        level[: g.nb] = g.level
+        geo = BucketGeo(
+            tab1=pad_face_tables(g.face_tables(1), g, cap, device=dev),
+            tab3=pad_face_tables(g.face_tables(3), g, cap, device=dev),
+            ftab=pad_flux_tables(build_flux_tables(g), g.bs, cap,
+                                 device=dev),
+            geom=bk.PaddedGeom(g, cap),
+            vol=torch.as_tensor(vol, dtype=dt, device=dev),
+            xc=xc,
+            mask=torch.as_tensor(mask, dtype=dt, device=dev),
+            graph=(krylov.block_graph_tables(g, dev, cap=cap)
+                   if self._coarse() else None),
+            slot0=torch.tensor(slot0, dtype=torch.long, device=dev),
+            level=torch.as_tensor(level, device=dev))
+        return cap, geo
+
+    def memo_bytes(self) -> int:
+        """Device bytes the table memo holds (every tensor of every
+        memoised topology, once)."""
+        tensors = {id(t): t for _, geo in self._table_memo.values()
+                   for t in _leaves(geo) if isinstance(t, torch.Tensor)}
+        return sum(t.numel() * t.element_size() for t in tensors.values())
+
+    def _bucket_key(self) -> tuple:
+        """(capacity, the shapes, dtypes and layout data of the geometry
+        bundle): equal keys share one bound-operator bundle, the JAX
+        package's compiled-step cache key."""
+        return (self._cap, tuple(
+            (tuple(t.shape), str(t.dtype)) if isinstance(t, torch.Tensor)
+            else t for t in _leaves(self._geo)))
+
+    def _build_bucket_ops(self) -> dict:
+        """The topology-free operators of a bucket (JAX
+        ``_build_bucket_executables``; eager PyTorch has nothing to
+        compile): each takes the geometry bundle at call time.  "solver"
+        the dynamic Poisson core, "helm" the forest Helmholtz solve
+        (implicitDiffusion), "tags" the on-device regrid decision."""
+        cfg, core = self.cfg, self._solver_core
+
+        def solver(rhs, x0, geo, **kw):
+            kw.setdefault("tab_arg", geo.tab1)
+            kw.setdefault("flux_arg", geo.ftab)
+            return core(rhs, x0, geom=geo.geom, vol=geo.vol, pmask=geo.mask,
+                        graph=geo.graph, slot0=geo.slot0, **kw)
+
+        def tags(vel, chi, geo):
+            vort = amr_ops.vorticity_score(geo.geom, vel, geo.tab1)
+            near = (None if chi is None
+                    else amr_ops.gradchi_mask(geo.geom, chi, geo.tab1))
+            return ad.device_tags(vort, near, geo.level, cfg.Rtol, cfg.Ctol,
+                                  cfg.levelMax, cfg.levelMaxVorticity,
+                                  bool(cfg.bAdaptChiGradient))
+
+        ops = {"solver": solver, "tags": tags, "helm": None}
+        if cfg.implicitDiffusion:
+            from cup3d_tpu_torch.ops import diffusion as dif
+
+            # the tables it closes over are fallbacks: every call passes
+            # the topology's own (tab_arg, flux_arg, geom)
+            geo = self._geo
+            ops["helm"] = dif.build_amr_helmholtz_solver(
+                geo.geom, tol_abs=cfg.diffusionTol,
+                tol_rel=cfg.diffusionTolRel, tab=geo.tab1,
+                flux_tab=geo.ftab, device=self.device)
+        return ops
+
+    def _bind_bucket_ops(self, ops: dict) -> None:
+        """Bind a bucket's operators to the current topology (JAX
+        ``_bind_bucket_executables``): ``_solver``, ``_helm`` and
+        ``_device_tags``."""
+        geo = self._geo
+
+        def solver(rhs, x0=None, **kw):
+            return ops["solver"](rhs, x0, geo, **kw)
+
+        solver.supports_stats = True
+        solver.maxiter = self._solver_core.maxiter
+        self._solver = solver
+        if ops["helm"] is not None:
+            inner = ops["helm"]
+
+            def helm(u, nudt):
+                out = inner(u, nudt, tab_arg=geo.tab1, flux_arg=geo.ftab,
+                            geom=geo.geom)
+                helm.last_stats = inner.last_stats
+                return out
+
+            helm.last_stats = []
+            self._helm = helm
+        self._device_tags = lambda vel, chi: ops["tags"](vel, chi, geo)
+
     def _build_physics(self) -> None:
         """The topology's implicit-diffusion Helmholtz solve and
         FixMassFlux profile (the reference's avgUx_nonUniform and
         parabolic add, main.cpp:12199-12249: the volume-weighted mean of
         u + uinf over ``vol_total``, then u += delta * 6 eta (1 - eta),
-        eta = y/H, zero on the sharded forest's padding rows)."""
+        eta = y/H, zero on padding rows; bucketed, ``vol_total`` is the
+        device sum of the padded volumes, as the JAX package's bucketed
+        path).  The bucketed forest binds its Helmholtz solve from the
+        bucket's operators instead (``_bind_bucket_ops``)."""
         g, cfg = self.grid, self.cfg
         self._helm = None
-        if cfg.implicitDiffusion:
+        if cfg.implicitDiffusion and not self._bucketing:
             kw = dict(tol_abs=cfg.diffusionTol, tol_rel=cfg.diffusionTolRel)
             if self.forest is not None:
                 self._helm = self.forest.build_helmholtz_solver(**kw)
@@ -304,10 +535,21 @@ class AMRSimulation:
             eta = g.cell_centers(self.dtype, self.device)[..., 1] / \
                 g.extent[1]
             self._flux_profile = self._pad(6.0 * eta * (1.0 - eta))
+            if self.forest is None and self._bucketing:
+                self._vol_total = torch.sum(self._vol) * g.bs ** 3
+                self._flux_profile = self._flux_profile * self._pmask
 
     def _bind_solver(self) -> None:
         """``self._solver``: the solver core bound to this topology (the
-        sharded forest's static solver on a mesh)."""
+        sharded forest's static solver on a mesh).  Bucketed, a new core
+        invalidates every bucket's operators: they are built anew with it
+        and bound."""
+        if self.forest is None and self._bucketing:
+            self._exec_cache.clear()
+            ops = self._exec_cache[self._bucket_key()] = \
+                self._build_bucket_ops()
+            self._bind_bucket_ops(ops)
+            return
         if self.forest is not None:
             cfg = self.cfg
             self._solver = self.forest.build_poisson_solver(
@@ -332,8 +574,8 @@ class AMRSimulation:
         self.state = {"vel": self._pad(g.zeros(3, **kw)),
                       "p": self._pad(g.zeros(0, **kw))}
         if self._with_bodies:
-            self.state["chi"] = g.zeros(0, **kw)
-            self.state["udef"] = g.zeros(3, **kw)
+            self.state["chi"] = self._pad(g.zeros(0, **kw))
+            self.state["udef"] = self._pad(g.zeros(3, **kw))
 
     # -- the surface the bodies address as their ``sim`` ---------------------
 
@@ -344,20 +586,36 @@ class AMRSimulation:
 
     @property
     def xc(self) -> torch.Tensor:
-        """The forest's cell centres (nb, bs, bs, bs, 3) on the device."""
-        return self._xc
+        """The real blocks' cell centres (nb, bs, bs, bs, 3) on the
+        device: the bodies rasterize on them (padded by CreateObstacles)."""
+        return self._unpad(self._xc)
 
-    # the uniform grid's, over this forest's ``xc`` and lambda caches
-    ubody = SimulationData.ubody
+    def ubody(self, udef, cm, ut, om) -> torch.Tensor:
+        """Rigid + deformation body velocity u_t + om x (x - cm) + udef on
+        the whole (padded) forest; the chi that weighs it is 0 on
+        padding."""
+        xc = self._xc
+        return ut + torch.linalg.cross(om.expand_as(xc), xc - cm) + udef
+
+    # the uniform grid's, over this forest's lambda caches
     lambda_device = SimulationData.lambda_device
 
     def _pad(self, field: torch.Tensor) -> torch.Tensor:
-        """Block-axis padding to the sharded forest's nb_pad rows (zero
-        rows); the identity without a mesh."""
-        return field if self.forest is None else self.forest.pad(field)
+        """Block-axis padding with zero rows: to the sharded forest's
+        nb_pad rows on a mesh, to the bucket's capacity on the bucketed
+        forest; the identity on the unpadded one (a field already padded
+        passes through)."""
+        if self.forest is not None:
+            return self.forest.pad(field)
+        if self._bucketing:
+            return bk.pad_field(field, self._cap)
+        return field
 
     def _unpad(self, field: torch.Tensor) -> torch.Tensor:
-        return field if self.forest is None else self.forest.unpad(field)
+        """The real blocks' rows."""
+        if self.forest is not None or self._bucketing:
+            return field[: self.grid.nb]
+        return field
 
     def uinf_device(self) -> torch.Tensor:
         """Device copy of the frame velocity, uploaded when ``uinf`` is
@@ -383,30 +641,42 @@ class AMRSimulation:
     def scores(self):
         """(nb,) max |vorticity| per block and, with bodies, (nb,) bool:
         the block's chi lab has a gradient (it touches an interface;
-        None without bodies), on the device."""
-        vort = amr_ops.vorticity_score(self._geom, self.state["vel"],
-                                       self._tab1)
+        None without bodies), on the device; the real blocks' rows."""
+        vort = self._unpad(amr_ops.vorticity_score(
+            self._geom, self.state["vel"], self._tab1))
         if not self.obstacles:
             return vort, None
-        return vort, amr_ops.gradchi_mask(self._geom, self.state["chi"],
-                                          self._tab1)
+        return vort, self._unpad(amr_ops.gradchi_mask(
+            self._geom, self.state["chi"], self._tab1))
 
     def adapt_mesh(self) -> bool:
         """Tag on max |vorticity| per block, the blocks at a body's
         interface forced to refine (bAdaptChiGradient) up to levelMax,
         the others capped at levelMaxVorticity; apply the validated
-        states.  The scores come from the pipelined step's prefetch when
-        it was staged on this forest, else they are computed and read
-        now (one read of both)."""
+        states.  Bucketed, the decision is the device's (``device_tags``,
+        the same states) and the host reads one int8 tag a slot; else
+        both score fields.  Either comes from the pipelined step's
+        prefetch when it was staged on a forest of this block count (the
+        JAX package's key), else it is computed and read now.  Its bytes
+        go to ``adapt_bytes``."""
         g, cfg = self.grid, self.cfg
         pf, self._scores_prefetch = self._scores_prefetch, None
-        if pf is not None and pf[1] == g.nb:
+        if pf is not None and pf[1] != g.nb:
+            pf = None  # staged on another forest: decide anew
+        if pf is not None:
             self.prefetch["hits"] += 1
             vals = pf[0].values()
+            self.adapt_bytes.append(pf[0].nbytes)
         else:
             if cfg.pipelined:
                 self.prefetch["misses"] += 1
-            vals = self._scores_flat().cpu().numpy().astype(np.float64)
+            flat = self._decision_flat()
+            vals = flat.cpu().numpy().astype(np.float64)
+            self.adapt_bytes.append(flat.numel() * flat.element_size())
+        if self._device_tags is not None:
+            # the device's decision: one tag a slot, decoded exactly
+            return self._apply_states(ad.states_from_tags(
+                g, np.rint(vals[: g.nb]).astype(np.int64)))
         score = vals[: g.nb]
         near = (vals[g.nb:] > 0.5 if vals.shape[0] > g.nb
                 else np.zeros(g.nb, bool))
@@ -416,14 +686,20 @@ class AMRSimulation:
         return self._apply_states(
             ad.tag_states(g, score, cfg.Rtol, cfg.Ctol, cap))
 
+    def _decision_flat(self) -> torch.Tensor:
+        """What the host reads for an adaptation: the bucketed forest's
+        (capacity,) int8 tags, else both score fields."""
+        if self._device_tags is not None:
+            return self._device_tags(self.state["vel"], self.state.get("chi"))
+        return self._scores_flat()
+
     def _scores_flat(self) -> torch.Tensor:
         """The real blocks' vorticity scores and, with bodies, their
         near-body flags after them, as one device vector."""
-        nb = self.grid.nb
         vort, near = self.scores()
         if near is None:
-            return vort[:nb]
-        return torch.cat([vort[:nb], near[:nb].to(vort.dtype)])
+            return vort
+        return torch.cat([vort, near.to(vort.dtype)])
 
     def _apply_states(self, states) -> bool:
         """Plan -> transfer -> rebuild; False when nothing changes.  Every
@@ -468,7 +744,12 @@ class AMRSimulation:
         chis, udefs = [], []
         for ob in self.obstacles:
             ob.update_shape(self.time, dt)
-            sdf, udef = ob.rasterize(self.time)
+            sdf, udef = ob.rasterize(self.time)  # the real blocks' rows
+            # padded BEFORE the chi: the padded tables assemble padded
+            # labs, and the Towers chi of the all-zero padding SDF is 0
+            sdf = self._pad(sdf)
+            if udef is not None:
+                udef = self._pad(udef)
             chi = towers_chi(self._tab1.assemble_scalar(sdf, bs),
                              self._h_col)
             if udef is None:
@@ -768,7 +1049,7 @@ class AMRSimulation:
         vel = self._unpad(self.state["vel"])
         chi = self.state.get("chi")
         view = {"vel": vel, "chi": (torch.zeros_like(vel[..., 0])
-                                    if chi is None else chi)}
+                                    if chi is None else self._unpad(chi))}
 
         def omega_mag(_vel):
             om = amr_ops.curl_blocks(
@@ -902,8 +1183,8 @@ class AMRSimulation:
 
     def _forcing(self, vel: torch.Tensor, uinf, dt):
         """FixMassFlux, or the constant streamwise acceleration of
-        ``uMax_forced`` (ExternalForcing, main.cpp:10581-10596; the
-        sharded forest's padding rows stay 0).  Returns (vel, the measured
+        ``uMax_forced`` (ExternalForcing, main.cpp:10581-10596; padding
+        rows stay 0).  Returns (vel, the measured
         bulk velocity as a 0-dim tensor, or None)."""
         cfg = self.cfg
         if cfg.bFixMassFlux:
@@ -916,8 +1197,8 @@ class AMRSimulation:
         if cfg.uMax_forced > 0:
             H = self.grid.extent[1]
             add = 8.0 * self.nu * cfg.uMax_forced / (H * H) * dt
-            if self.forest is not None:
-                add = add * self.forest.pmask[..., 0]
+            if self._pmask is not None:
+                add = add * self._pmask.reshape(-1, 1, 1, 1)
                 return torch.cat([vel[..., :1] + add[..., None],
                                   vel[..., 1:]], dim=-1), None
             return torch.cat([vel[..., :1] + add, vel[..., 1:]],
@@ -938,7 +1219,7 @@ class AMRSimulation:
         compute and host copy overlap this step's host work."""
         if self._adapt_due(self.step_idx + 1):
             self._scores_prefetch = (
-                self._pack_reader.stage(self._scores_flat()), self.grid.nb)
+                self._pack_reader.stage(self._decision_flat()), self.grid.nb)
 
     def _emit(self, parts: list, dt, dt_dev, t0: float) -> None:
         """The step's QoI pack into the stream, the step counter and, off
@@ -1243,8 +1524,9 @@ class AMRSimulation:
         keys = [tuple(int(v) for v in k) for k in payload["leaves"]]
         if keys != self.grid.keys:
             self.grid = grid_from_keys(self.grid, keys)
-            self._rebuild()
-        self.state = {k: self._pad(torch.clone(v))
+            self._rebuild()  # bucketed: a memo hit when seen lately
+        nb = len(keys)
+        self.state = {k: self._pad(torch.clone(v[:nb]))
                       for k, v in payload["fields"].items()}
         self.time = float(payload["time"])
         self.step_idx = int(payload["step"])
@@ -1278,10 +1560,18 @@ class AMRSimulation:
         """Ladder stages 'tile-only' / 'iter-bump': rebuild the solver
         with the block graph dropped (the fused forest solve then runs the
         tile-only getZ kernel B10) and/or a bigger iteration budget.  The
-        face and flux tables do not depend on the solver and stay."""
+        face and flux tables do not depend on the solver and stay on the
+        unpadded forest; the bucketed one clears both caches (the memo
+        carries the graph, the bucket's operators the solver) and
+        rebuilds, as the JAX package does."""
         self._poisson_two_level = two_level
         self._poisson_maxiter = 1000 * int(maxiter_mult)
         self._build_solver_core()
+        if self.forest is None and self._bucketing:
+            self._exec_cache.clear()
+            self._table_memo.clear()
+            self._rebuild()
+            return
         if not self._coarse():
             self._graph = None
         elif self._graph is None:  # (never on a mesh: no coarse level)

@@ -77,7 +77,8 @@ def runs(tmp_path_factory):
         out = dict(j_keys=list(js.grid.keys), t_keys=list(ts.grid.keys),
                    j_init=_unpadded(js), j_scalars=None, t_sim=ts,
                    score=amr_ops.vorticity_score(
-                       ts.grid, ts.state["vel"], ts._tab1).numpy())
+                       ts._geom, ts.state["vel"], ts._tab1)[: ts.grid.nb]
+                   .numpy())
         j_iters = []
         consume = js._consume_step_pack
 
@@ -97,8 +98,10 @@ def runs(tmp_path_factory):
             ts.advance(ts.calc_max_timestep())
             jv = _unpadded(js)["vel"]
             rows.append(dict(j_ke=_ke(jv, js.grid.h),
-                             t_ke=_ke(ts.state["vel"].numpy(), ts.grid.h),
-                             j_vel=jv, t_vel=ts.state["vel"].numpy().copy(),
+                             t_ke=_ke(ts._unpad(ts.state["vel"]).numpy(),
+                                      ts.grid.h),
+                             j_vel=jv,
+                             t_vel=ts._unpad(ts.state["vel"]).numpy().copy(),
                              t_iters=ts.step_log[-1]["iters"]))
         for row, k in zip(rows, j_iters):
             row["j_iters"] = k
@@ -145,7 +148,8 @@ def test_state_carries_from_jax(runs, tmp_path, monkeypatch):
     ts.advance(ts.calc_max_timestep())
     row = runs["rows"][0]
     umax = np.abs(row["j_vel"]).max()
-    assert np.abs(ts.state["vel"].numpy() - row["j_vel"]).max() <= 1e-3 * umax
+    assert np.abs(ts._unpad(ts.state["vel"]).numpy()
+                  - row["j_vel"]).max() <= 1e-3 * umax
     # and back out: state_to_numpy round-trips bitwise
     a2, s2 = tamr.state_to_numpy(ts)
     ts2 = tamr.AMRSimulation(TConfig(**_cfg_kw(tmp_path)), device="cpu")

@@ -251,7 +251,8 @@ def test_other_bodies_build_on_the_forest(tmp_path, body):
     assert len(f.obstacles) == len(body.splitlines())
     # the body's volume is the uniform grid's at the same finest h (the
     # foil is thinner than a cell there: no cell of either is inside)
-    vol = float(torch.sum(f.state["chi"] * f.grid.h_column() ** 3))
+    vol = float(torch.sum(f._unpad(f.state["chi"])
+                          * f.grid.h_column() ** 3))
     d.pipeline[0](0.0)  # the uniform grid's CreateObstacles at t = 0
     want = float(d.sim.state["chi"].sum()) * d.sim.grid.h ** 3
     assert abs(vol - want) <= 1e-5 * want

@@ -75,6 +75,9 @@ def test_every_module_imports_with_jax_blocked():
         # bodies on the forest (the forest's probe, fluid divergence and
         # state carry live in these)
         "ops.diagnostics", "sim.data",
+        # the bucketed forest, the native lab-table builder, the
+        # surface-point records
+        "native", "grid.adapt", "grid.faces", "grid.flux", "ops.krylov",
     )} <= set(mods)
     code = (
         "import sys\n"
