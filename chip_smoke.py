@@ -236,7 +236,35 @@ each of which raises on a fault (nothing is caught):
 30. config #3's set-up with the numpy lab-table builder
     (``CUP3D_NO_NATIVE=1``) beside phase 6's native one, and the final
     forest's width-1 lab tables from both builders timed and bitwise
-    equal.
+    equal;
+31. bench.py bench_mesh2d as the bench runs it: the TGV (bs 16,
+    spectral, nu 0.02, CFL 0.3, pipelined, K = 8) through ``Simulation``
+    at 64^3 and at 256^3, solo and under ``CUP3D_MESH_X=4`` (the
+    megaloop on 4 x-slabs of the card, the halos by B14): 2 untimed and
+    4 timed megaloops each, ms/step of both legs and their ratio (on one
+    card it measures overhead, not scaling: no efficiency gate); the
+    sharded leg really sharded (``_scan_mesh``), B14's launches a step
+    (set to 0 just before the timed megaloops, read just after), the
+    sharded velocity against the solo one (``torch.equal``, its largest
+    difference printed; within 1e-6 of max |u| and KE within 1e-6
+    relative); at 256^3 B14 against its plain version at the slab halo
+    shapes (strided component planes), bitwise, and timed;
+32. config #2's box (128^3, one StefanFish) with ``-poissonSolver
+    spectral`` as K = 8 megaloops for 16 steps, solo and on 4 x-slabs:
+    KE within 1e-6 relative, position within 1e-6, B14's launches a step,
+    ms/step; then config #2 as it stands (iterative) under
+    ``CUP3D_MESH_X=4``: the solo megaloop (``_scan_mesh`` None, no B14
+    launch), as the JAX package routes it;
+33. bodies on the sharded forest: config #4 (phase 22's) after init,
+    checkpointed and restored on 4 shards of the card (``mesh=``) and
+    unsharded, ``CUP3D_RING_HALO=1``: 3 steps on the host path, then 3
+    pipelined from the same state, each against the unsharded run
+    (positions within 1e-7, transVel within 1e-5, the velocity within
+    5e-4, tests/test_forest.py's bounds; the padding rows 0), B14's
+    launches a step (set to 0 just before each run, read just after),
+    ms/step beside phases 22 and 24; the sphere of
+    tests/test_parity_gaps.py saved unsharded and resumed sharded beside
+    its unsharded resume (velocity within 5e-5 after 2 steps).
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
@@ -250,8 +278,10 @@ config #3's capacity beside the unpadded forest's (``unpadded``, phase
 a step on the pipelined configs #3 and #4 (``pipe_amr_launches_per_step``,
 ``pipe_fish_amr_launches_per_step``); B7's row its launches a step on the
 forest Helmholtz (``helmholtz_launches_per_step``), B14's on the sharded
-pipelined step (``pipe_shard_launches_per_step``).  B14's row: its launches
-on phase 15's main path, its times at the Krylov loop's exchange (the
+pipelined step (``pipe_shard_launches_per_step``), on the x-slab megaloop
+and at its halo shapes (``slab_mesh``: phases 31-32) and under the bodies
+on the sharded forest (``sharded_bodies_launches_per_step``, phase 33).
+B14's row: its launches on phase 15's main path, its times at the Krylov loop's exchange (the
 largest exchange's in ``largest``, one whole exchange's in
 ``exchange``).  B2, B14, B3/B10, B7 and B9 were redesigned after their
 port: their rows carry ``redesigned`` (the change that did it).  B3's row
@@ -4817,6 +4847,333 @@ def native_tables_phase(native_s: float) -> dict:
                 lab_numpy_s=np_s)
 
 
+
+# ---------------------------------------------------------------------------
+# phases 31-33: ROADMAP A7's one-card steps (the x-slab megaloop, bodies on
+# the sharded forest)
+# ---------------------------------------------------------------------------
+
+MESH_X = 4               # CUP3D_MESH_X: x-slabs of the card
+MESH_K = 8
+MESH_WARM, MESH_TIMED = 2, 4   # megaloops (bench.py bench_mesh2d)
+MESH_SIZES = (64, 256)   # bench_mesh2d's 64^3, bench_spectral's 256^3
+MESH_FISH_STEPS = 16
+MESH_KE_RTOL = 1e-6      # sharded against solo (tests/test_topology.py)
+MESH_POS_ATOL = 1e-6
+GHOST_W = 3              # the upwind stencil's ghost planes (ops/advection)
+SB_STEPS = 3             # config #4 steps, host path and pipelined
+SB_POS_ATOL = 1e-7       # tests/test_forest.py's driver bounds
+SB_VEL_ATOL = 1e-5       # (transVel)
+SB_FIELD_ATOL = 5e-4
+CKPT_SPHERE = ("Sphere radius=0.14 xpos=0.4 ypos=0.5 zpos=0.5 xvel=0.3 "
+               "bForcedInSimFrame=1")   # tests/test_parity_gaps.py
+CKPT_ATOL = 5e-5
+
+
+def _mesh2d_leg(n: int, mesh_x: int, tag: str) -> dict:
+    """bench.py bench_mesh2d's leg: the TGV (bs 16, spectral, nu 0.02,
+    CFL 0.3, pipelined, K = 8) through ``Simulation``: MESH_WARM
+    megaloops, then MESH_TIMED timed ones each ended by a host read of
+    one value, B14's counter set to 0 just before and read just
+    after."""
+    from cup3d_tpu_torch.config import SimulationConfig
+    from cup3d_tpu_torch.parallel import ring
+    from cup3d_tpu_torch.sim.simulation import Simulation
+
+    bpd = n // 16
+    cfg = SimulationConfig(
+        bpdx=bpd, bpdy=bpd, bpdz=bpd, block_size=16, levelMax=1,
+        levelStart=0, extent=float(2 * np.pi), CFL=0.3, nu=0.02,
+        nsteps=10 ** 9, tend=0.0, rampup=0, initCond="taylorGreen",
+        pipelined=True, verbose=False, freqDiagnostics=0, scan_k=MESH_K,
+        path4serialization=_fresh_dir(os.path.join(
+            OUT_DIR, f"mesh2d_{n}_{tag}")))
+    with _env(CUP3D_MESH_X=str(mesh_x) if mesh_x else None):
+        d = Simulation(cfg)
+        d.init()
+        if not d._scan_ready():
+            raise AssertionError(f"mesh2d {n}^3 {tag}: megaloop not eligible")
+    if (d._scan_mesh is not None) != bool(mesh_x):
+        raise AssertionError(f"mesh2d {n}^3 {tag}: _scan_mesh "
+                             f"{d._scan_mesh} (a slab build fell back)")
+    for _ in range(MESH_WARM):
+        d.advance_megaloop()
+    torch.cuda.synchronize()
+    ring.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED):
+        d.advance_megaloop()
+        float(d.sim.state["vel"][0, 0, 0, 0])
+    wall = time.perf_counter() - t0
+    launches = ring.launches["ring_shift"]
+    d.flush_packs()
+    steps = MESH_TIMED * MESH_K
+    return dict(d=d, ms=wall / steps * 1e3, b14_per_step=launches / steps)
+
+
+def _slab_ring_check(vel, D: int, bw: float) -> dict:
+    """B14 at the x-slab halo shapes of a (n, n, n, 3) field on D slabs
+    against its plain version, bitwise (the 3-plane ghosts of each
+    component, the 1-plane ghosts of a scalar slab, both shifts); timed
+    at one component's 3-plane ghost planes (a strided (D, 3, n, n) view,
+    words at a 12-byte stride) beside the plain version, torch.roll of
+    the same view and its bound."""
+    from cup3d_tpu_torch.parallel import ring
+
+    n = vel.shape[0]
+    sx = n // D
+    u = vel.reshape(D, sx, n, n, 3)
+    f = u[..., 0]
+    views = ([u[..., c][:, sx - GHOST_W:] for c in range(3)]
+             + [u[..., c][:, :GHOST_W] for c in range(3)]
+             + [f[:, sx - 1:], f[:, :1]])
+    for x in views:
+        for k in (1, -1):
+            if not torch.equal(ring.ring_shift_kernel(x, k),
+                               ring.ring_shift_plain(x, k)):
+                raise AssertionError(f"B14 at the slab shape {tuple(x.shape)}"
+                                     f" stride {x.stride()}: kernel != plain")
+    x = views[0]
+    nbytes = x.numel() * x.element_size()
+    r = dict(shape=list(x.shape), stride=list(x.stride()), checked=len(views) * 2,
+             max_abs_err=0.0,
+             ms=time_ms(lambda: ring.ring_shift_kernel(x, 1)),
+             plain_ms=time_ms(lambda: ring.ring_shift_plain(x, 1)),
+             library_ms=time_ms(lambda: torch.roll(x, 1, 0)),
+             bound_ms=2 * nbytes / bw * 1e3, bound_by="bytes")
+    log(f"  B14 at the slab halo shapes ({len(views)} views x 2 shifts, "
+        f"bitwise its plain version); at {tuple(x.shape)} stride "
+        f"{tuple(x.stride())}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+        f"torch.roll {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}")
+    return r
+
+
+
+def mesh2d_phase(bw: float) -> dict:
+    """Phase 31 (see the module docstring)."""
+    out = {}
+    for n in MESH_SIZES:
+        solo = _mesh2d_leg(n, 0, "solo")
+        v_solo = solo.pop("d").sim.state["vel"].clone()
+        torch.cuda.empty_cache()
+        shd = _mesh2d_leg(n, MESH_X, "sharded")
+        d = shd.pop("d")
+        v = d.sim.state["vel"]
+        equal = torch.equal(v, v_solo)
+        diff = float(torch.max(torch.abs(v - v_solo)))
+        scale = float(torch.max(torch.abs(v_solo)))
+        ke, ke_solo = _mean_ke(v), _mean_ke(v_solo)
+        log(f"  {n}^3 TGV, K={MESH_K}, {MESH_TIMED * MESH_K} timed steps: "
+            f"solo {solo['ms']:.3f} ms/step, {MESH_X} x-slabs "
+            f"{shd['ms']:.3f} ms/step (ratio {shd['ms'] / solo['ms']:.3f}: "
+            f"overhead on one card, not scaling); B14 "
+            f"{shd['b14_per_step']:.1f} launches a step (solo "
+            f"{solo['b14_per_step']:.1f}); sharded vel == solo vel "
+            f"{equal} (largest difference {diff:.3e} of max |u| "
+            f"{scale:.3e}); KE {ke_solo:.10e} / {ke:.10e}")
+        if not (shd["b14_per_step"] > 0 and solo["b14_per_step"] == 0
+                and math.isfinite(ke)
+                and abs(ke - ke_solo) <= MESH_KE_RTOL * abs(ke_solo)
+                and diff <= 1e-6 * scale):
+            raise AssertionError(f"mesh2d {n}^3: {shd}, {solo}, vel diff "
+                                 f"{diff}, KE {ke} / {ke_solo}")
+        row = dict(solo_ms=solo["ms"], sharded_ms=shd["ms"],
+                   ratio=shd["ms"] / solo["ms"],
+                   b14_per_step=shd["b14_per_step"], bitwise=equal,
+                   max_diff=diff)
+        if n == MESH_SIZES[-1]:
+            row["slab_kernel"] = _slab_ring_check(v, MESH_X, bw)
+        out[n] = row
+        del d, v, v_solo
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spectral_fish_argv(out: str, nsteps: int) -> list:
+    return _set_flag(_bench_fish_argv(out, nsteps, MESH_K),
+                     "-poissonSolver", "spectral")
+
+
+def fish_mesh_phase() -> dict:
+    """Phase 32 (see the module docstring)."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.parallel import ring
+
+    runs = {}
+    for tag, mx in (("solo", None), ("sharded", str(MESH_X))):
+        out = _fresh_dir(os.path.join(OUT_DIR, f"fish_mesh_{tag}"))
+        with _env(CUP3D_MESH_X=mx):
+            d = build_driver(_spectral_fish_argv(out, MESH_FISH_STEPS))
+            d.init()
+            torch.cuda.synchronize()
+            ring.reset_launches()
+            t0 = time.perf_counter()
+            d.simulate()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if d._scan_k != MESH_K or (d._scan_mesh is not None) != bool(mx):
+            raise AssertionError(f"fish {tag}: K {d._scan_k}, _scan_mesh "
+                                 f"{d._scan_mesh}")
+        ob = d.sim.obstacles[0]
+        runs[tag] = dict(ms=wall / MESH_FISH_STEPS * 1e3,
+                         b14=ring.launches["ring_shift"] / MESH_FISH_STEPS,
+                         ke=_mean_ke(d.sim.state["vel"]),
+                         pos=np.asarray(ob.position, np.float64),
+                         vel=d.sim.state["vel"].clone(),
+                         steps=d.sim.step)
+        _check_fish(d, f"spectral fish {tag}")
+        del d
+        torch.cuda.empty_cache()
+    a, b = runs["solo"], runs["sharded"]
+    equal = torch.equal(a["vel"], b["vel"])
+    dpos = float(np.abs(a["pos"] - b["pos"]).max())
+    log(f"  config #2's box at {N_FISH}^3, spectral, K={MESH_K}, "
+        f"{MESH_FISH_STEPS} steps: solo {a['ms']:.2f} ms/step, {MESH_X} "
+        f"x-slabs {b['ms']:.2f} ms/step (ratio {b['ms'] / a['ms']:.3f}); B14 "
+        f"{b['b14']:.1f} launches a step; KE {a['ke']:.10e} / "
+        f"{b['ke']:.10e}, position difference {dpos:.3e}, vel bitwise "
+        f"{equal}")
+    if not (a["steps"] == b["steps"] == MESH_FISH_STEPS and b["b14"] > 0
+            and abs(a["ke"] - b["ke"]) <= MESH_KE_RTOL * abs(a["ke"])
+            and dpos <= MESH_POS_ATOL):
+        raise AssertionError(f"fish on the slab mesh: {a['ke']} / {b['ke']},"
+                             f" position {dpos}, B14 {b['b14']}")
+    # config #2 as it stands (iterative Poisson): the solo megaloop
+    out = _fresh_dir(os.path.join(OUT_DIR, "fish_mesh_iterative"))
+    with _env(CUP3D_MESH_X=str(MESH_X)):
+        d = build_driver(_bench_fish_argv(out, MESH_K, MESH_K))
+        d.init()
+        ring.reset_launches()
+        d.simulate()
+        torch.cuda.synchronize()
+    routed = dict(scan_k=d._scan_k, mesh=d._scan_mesh,
+                  b14=ring.launches["ring_shift"], steps=d.sim.step)
+    log(f"  config #2 as it stands (iterative) under CUP3D_MESH_X={MESH_X}: "
+        f"{routed['steps']} steps, K {routed['scan_k']}, _scan_mesh "
+        f"{routed['mesh']}, B14 launches {routed['b14']} (the solo megaloop)")
+    if not (routed["scan_k"] == MESH_K and routed["mesh"] is None
+            and routed["b14"] == 0 and routed["steps"] == MESH_K):
+        raise AssertionError(f"config #2 iterative under the slab mesh: "
+                             f"{routed}")
+    del d
+    torch.cuda.empty_cache()
+    return dict(solo_ms=a["ms"], sharded_ms=b["ms"], b14_per_step=b["b14"],
+                bitwise=equal)
+
+
+def _sb_compare(tag: str, sh, ref) -> dict:
+    """Sharded against unsharded: positions, transVel, the velocity."""
+    dpos = max(float(np.abs(np.asarray(a.position) - b.position).max())
+               for a, b in zip(sh.obstacles, ref.obstacles))
+    dtv = max(float(np.abs(np.asarray(a.transVel) - b.transVel).max())
+              for a, b in zip(sh.obstacles, ref.obstacles))
+    dvel = float(torch.max(torch.abs(sh._unpad(sh.state["vel"])
+                                     - ref._unpad(ref.state["vel"]))))
+    pad = all(not bool(v[sh.grid.nb:].any()) for v in sh.state.values())
+    if not (sh.grid.keys == ref.grid.keys and dpos <= SB_POS_ATOL
+            and dtv <= SB_VEL_ATOL and dvel <= SB_FIELD_ATOL and pad
+            and _fish_ok(sh)):
+        raise AssertionError(f"{tag}: positions {dpos}, transVel {dtv}, vel "
+                             f"{dvel}, padding rows 0 {pad}")
+    return dict(pos=dpos, trans_vel=dtv, vel=dvel)
+
+
+def sharded_bodies_phase(host_ms: float, pipe_ms: float) -> dict:
+    """Phase 33 (see the module docstring)."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.config import parse_args
+    from cup3d_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.parallel import ring
+    from cup3d_tpu_torch.parallel.forest import make_block_mesh
+    from cup3d_tpu_torch.sim.amr import AMRSimulation
+
+    mesh = make_block_mesh([torch.device("cuda")] * SHARDS)
+    out = _fresh_dir(os.path.join(OUT_DIR, "sharded_bodies"))
+    res = {}
+    with _env(CUP3D_FUSED="1", CUP3D_RING_HALO="1"):
+        t0 = time.perf_counter()
+        d = build_driver(FISH_AMR_ARGV.split() + [
+            "-path4serialization", out, "-factory-content", BENCH_TWO_FISH])
+        d.init()
+        path = save_checkpoint(d, os.path.join(out, "init.pkl"))
+        log(f"  config #4: build_driver + init {time.perf_counter() - t0:.2f}"
+            f" s, {d.grid.nb} blocks; its state restored unsharded and on "
+            f"{SHARDS} shards of the card")
+        del d
+        for mode in ("host", "pipelined"):
+            drv = {}
+            for tag, m in (("sharded", mesh), ("unsharded", None)):
+                t0 = time.perf_counter()
+                x = load_checkpoint(path, mesh=m)
+                load_s = time.perf_counter() - t0
+                x.cfg.pipelined = mode == "pipelined"
+                torch.cuda.synchronize()
+                ring.reset_launches()
+                fa.reset_launches()
+                walls = _timed_steps(x, SB_STEPS)
+                if x.cfg.pipelined:
+                    x.flush_packs()
+                torch.cuda.synchronize()
+                drv[tag] = (x, dict(
+                    load_s=load_s, ms=float(np.mean(walls[1:])) * 1e3,
+                    first_ms=walls[0] * 1e3,
+                    b14=ring.launches["ring_shift"] / SB_STEPS,
+                    fused={k: v / SB_STEPS for k, v in fa.launches.items()}))
+            sh, s_info = drv["sharded"]
+            ref, u_info = drv["unsharded"]
+            cmp = _sb_compare(f"config #4 {mode}, sharded", sh, ref)
+            log(f"  {mode}: {SB_STEPS} steps, {SHARDS} shards "
+                f"{s_info['ms']:.2f} ms/step (first {s_info['first_ms']:.2f})"
+                f" against unsharded {u_info['ms']:.2f} (phase "
+                f"{22 if mode == 'host' else 24}: "
+                f"{host_ms if mode == 'host' else pipe_ms:.2f}); nb_pad "
+                f"{sh.forest.nb_pad} for {sh.grid.nb} blocks; B14 "
+                f"{s_info['b14']:.1f} launches a step, forest kernels a step"
+                f" {s_info['fused']}; positions within {cmp['pos']:.3e}, "
+                f"transVel {cmp['trans_vel']:.3e}, vel {cmp['vel']:.3e}; "
+                f"restore {s_info['load_s']:.2f} s sharded")
+            if not s_info["b14"] > 0:
+                raise AssertionError(f"config #4 {mode} sharded: no B14 "
+                                     "launch")
+            res[mode] = dict(sharded=s_info, unsharded=u_info, **cmp)
+            del drv, sh, ref
+            torch.cuda.empty_cache()
+        # the sphere of tests/test_parity_gaps.py: saved unsharded, resumed
+        # sharded beside its unsharded resume
+        cfg = parse_args(
+            ("-bpdx 2 -bpdy 2 -bpdz 2 -levelMax 2 -levelStart 0 -extent 1 "
+             "-CFL 0.4 -Ctol 0.1 -Rtol 5 -nu 1e-3 -tend 0 -nsteps 2 "
+             "-rampup 0 -dt 1e-3 -poissonSolver iterative -poissonTol 1e-5 "
+             "-poissonTolRel 1e-3 -verbose 0 -freqDiagnostics 0 "
+             f"-path4serialization {out}").split()
+            + ["-factory-content", CKPT_SPHERE])
+        d = AMRSimulation(cfg)
+        d.init()
+        d.simulate()
+        path = save_checkpoint(d, os.path.join(out, "sphere.pkl"))
+        ref = load_checkpoint(path)
+        sh = load_checkpoint(path, mesh=mesh)
+        ring.reset_launches()
+        for x in (ref, sh):
+            x.adapt_enabled = False
+            for _ in range(2):
+                x.advance(1e-3)
+        torch.cuda.synchronize()
+        dvel = float(torch.max(torch.abs(sh._unpad(sh.state["vel"])
+                                         - ref.state["vel"][:ref.grid.nb])))
+        pad = all(not bool(v[sh.grid.nb:].any()) for v in sh.state.values())
+        log(f"  the sphere resumed on {SHARDS} shards (nb_pad "
+            f"{sh.forest.nb_pad}, {sh.grid.nb} blocks) beside its unsharded "
+            f"resume: vel within {dvel:.3e} (gate {CKPT_ATOL}), padding rows "
+            f"0 {pad}, B14 {ring.launches['ring_shift']} launches")
+        if not (dvel <= CKPT_ATOL and pad and sh.state["vel"].shape[0]
+                == sh.forest.nb_pad and ring.launches["ring_shift"] > 0):
+            raise AssertionError(f"sharded resume of the sphere: vel {dvel}")
+        res["ckpt_vel"] = dvel
+    return res
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -5065,6 +5422,25 @@ def main() -> int:
         f"{tables['native_s']:.2f} s native against {tables['numpy_s']:.2f} "
         f"s numpy; {smi}")
     torch.cuda.empty_cache()
+    log(f"phase 31: bench_mesh2d as the bench runs it: the TGV megaloop "
+        f"(K={MESH_K}, spectral) solo and on CUP3D_MESH_X={MESH_X} x-slabs "
+        f"of the card at {' and '.join(f'{n}^3' for n in MESH_SIZES)}")
+    t0 = time.perf_counter()
+    mesh2d = mesh2d_phase(bw)
+    log(f"  phase 31 took {time.perf_counter() - t0:.1f} s; {smi}")
+    log(f"phase 32: config #2's box ({N_FISH}^3, one StefanFish) with the "
+        f"spectral solver as K={MESH_K} megaloops, solo and on {MESH_X} "
+        "x-slabs; config #2 as it stands under CUP3D_MESH_X")
+    t0 = time.perf_counter()
+    fish_mesh = fish_mesh_phase()
+    log(f"  phase 32 took {time.perf_counter() - t0:.1f} s; {smi}")
+    log(f"phase 33: bodies on the sharded forest: config #4 on {SHARDS} "
+        "shards of the card (CUP3D_RING_HALO=1), host path and pipelined, "
+        "beside the unsharded forest from one state; a sharded resume")
+    t0 = time.perf_counter()
+    sbodies = sharded_bodies_phase(fish_amr["ms"], pipe_fish["ms"])
+    log(f"  phase 33 took {time.perf_counter() - t0:.1f} s; {smi}")
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -5107,6 +5483,16 @@ def main() -> int:
         physics["b7_per_step"])
     per_kernel["ring_shift"]["pipe_shard_launches_per_step"] = (
         physics["b14_per_step"])
+    # B14 on the x-slab megaloop (phases 31, 32) and under the bodies on
+    # the sharded forest (phase 33)
+    big = mesh2d[MESH_SIZES[-1]]
+    per_kernel["ring_shift"]["slab_mesh"] = dict(
+        big.pop("slab_kernel"),
+        tgv_launches_per_step={n: r["b14_per_step"]
+                               for n, r in mesh2d.items()},
+        fish_launches_per_step=fish_mesh["b14_per_step"])
+    per_kernel["ring_shift"]["sharded_bodies_launches_per_step"] = {
+        m: sbodies[m]["sharded"]["b14"] for m in ("host", "pipelined")}
 
     # the bf16 kernels' launches: B1, B2, B4-B6 on fish256 at bf16 (phase
     # 27), B3 on config #2 and B10 on config #4 under CUP3D_COARSE=0

@@ -181,10 +181,14 @@ def latest_valid_checkpoint(directory: str) -> Optional[str]:
     return None
 
 
-def load_checkpoint(path: str, device=None):
+def load_checkpoint(path: str, device=None, mesh=None):
     """Rebuild the driver (AMRSimulation or Simulation) from a checkpoint,
     ready to ``simulate()``, on ``device`` (None: CUDA, as every entry
-    point)."""
+    point).  ``mesh`` (parallel/forest.make_block_mesh) restores a forest
+    checkpoint INTO the block-sharded mode, on the mesh's device: the
+    fields padded to the forest's ``nb_pad`` rows exactly as a fresh mesh
+    run lays them out.  Checkpoints hold unpadded fields, so a save of
+    either layout restores into the other."""
     from cup3d_tpu_torch.config import SimulationConfig
 
     payload = read_payload(path)
@@ -198,7 +202,7 @@ def load_checkpoint(path: str, device=None):
         periodic = tuple(b == "periodic" for b in cfg.bc)
         tree = tree_from_keys(TreeConfig((cfg.bpdx, cfg.bpdy, cfg.bpdz),
                                          cfg.levelMax, periodic), keys)
-        driver = AMRSimulation(cfg, tree=tree, device=device)
+        driver = AMRSimulation(cfg, tree=tree, device=device, mesh=mesh)
         if driver.grid.keys != keys:
             raise ValueError("checkpoint leaves are not in the forest's "
                              "Hilbert slot order")
@@ -219,6 +223,9 @@ def load_checkpoint(path: str, device=None):
 
     from cup3d_tpu_torch.sim.simulation import Simulation
 
+    if mesh is not None:
+        raise ValueError("mesh= restores a forest checkpoint; this one is "
+                         "of the uniform grid")
     driver = Simulation(cfg, device=device)
     s = driver.sim
     s.state = {k: torch.tensor(np.asarray(v), dtype=s.dtype, device=s.device)

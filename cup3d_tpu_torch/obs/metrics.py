@@ -6,8 +6,9 @@ stage="tile-only")`` returns the same object on every call.
 ``snapshot()`` flattens everything to ``{"name{label=value}": number}``
 with the JAX package's key format, so the port's tests read the same
 keys (``resilience.retries{stage=tile-only}``, ``faults.injected{site=
-solver.itercap}``).  Values entering the registry are host scalars: an
-``inc`` never reads a device tensor.
+solver.itercap}``, ``topology.megaloop_mesh_fallbacks``: the x-slab
+megaloops that could not slab their grid and ran solo).  Values entering
+the registry are host scalars: an ``inc`` never reads a device tensor.
 
 Per-instance collectors (``register_collector``: the QoI streams'
 ``stats`` views, held by weakref) merge into every snapshot.  Not ported

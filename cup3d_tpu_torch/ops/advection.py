@@ -21,11 +21,14 @@ RK3_B = (1.0 / 3.0, 15.0 / 16.0, 8.0 / 15.0)
 
 
 def advection_diffusion_rhs(grid: UniformGrid, u: torch.Tensor, nu: float,
-                            uinf: torch.Tensor) -> torch.Tensor:
+                            uinf: torch.Tensor, pad=None) -> torch.Tensor:
     """du/dt from advection + diffusion; u (nx,ny,nz,3), uinf (3,) frame
-    velocity added to the advecting field only."""
+    velocity added to the advecting field only.  ``pad``: a ``(u, width)
+    -> padded`` ghost supplier in place of ``grid.pad_vector``; the x-slab
+    megaloop passes parallel/ring.pad_slab_vector with u as D slabs
+    (D, sx, ny, nz, 3), so the stencils run on every slab at once."""
     h = grid.h
-    up = grid.pad_vector(u, GHOSTS)
+    up = grid.pad_vector(u, GHOSTS) if pad is None else pad(u, GHOSTS)
     uadv = [u[..., c] + uinf[c] for c in range(3)]
     out = []
     for c in range(3):
@@ -39,10 +42,11 @@ def advection_diffusion_rhs(grid: UniformGrid, u: torch.Tensor, nu: float,
 
 
 def rk3_step(grid: UniformGrid, u: torch.Tensor, dt, nu: float,
-             uinf: torch.Tensor) -> torch.Tensor:
-    """One explicit low-storage RK3 advection-diffusion step."""
+             uinf: torch.Tensor, pad=None) -> torch.Tensor:
+    """One explicit low-storage RK3 advection-diffusion step (``pad`` as
+    in :func:`advection_diffusion_rhs`)."""
     k = torch.zeros_like(u)
     for a, b in zip(RK3_A, RK3_B):
-        k = a * k + dt * advection_diffusion_rhs(grid, u, nu, uinf)
+        k = a * k + dt * advection_diffusion_rhs(grid, u, nu, uinf, pad=pad)
         u = u + b * k
     return u

@@ -2,8 +2,10 @@
 ``cup3d_tpu/ops/stencils.py``).
 
 Every function takes a tensor already padded with ``w`` ghost cells on
-each face of the three leading spatial axes (trailing axes, e.g. the
-vector component, are untouched) and returns interior-shaped results.
+each face of its three spatial axes and returns interior-shaped results.
+A scalar's spatial axes are its last three (a leading shard axis rides
+along); a vector field's component is its last axis, which ``grad``,
+``divergence``, ``curl`` and ``vector_laplacian`` index or stack.
 Same arithmetic, in the same order, as the JAX package.
 
 Math sources in the reference (not code): 7-point Laplacian and
@@ -18,11 +20,15 @@ import torch
 
 
 def shift(ap: torch.Tensor, w: int, ox: int = 0, oy: int = 0, oz: int = 0):
-    """Interior view of padded tensor `ap`, shifted by (ox,oy,oz) cells."""
-    nx = ap.shape[0] - 2 * w
-    ny = ap.shape[1] - 2 * w
-    nz = ap.shape[2] - 2 * w
+    """Interior view of padded tensor `ap`, shifted by (ox,oy,oz) cells.
+    The spatial axes are the LAST three, so a leading shard axis (D x-slabs
+    ``(D, sx+2w, ny+2w, nz+2w)``, parallel/ring.pad_slab_scalar) rides
+    along: one launch set covers every shard."""
+    nx = ap.shape[-3] - 2 * w
+    ny = ap.shape[-2] - 2 * w
+    nz = ap.shape[-1] - 2 * w
     return ap[
+        ...,
         w + ox : w + ox + nx,
         w + oy : w + oy + ny,
         w + oz : w + oz + nz,

@@ -72,12 +72,17 @@ padded geometry and duck-typed face and flux tables (the halo exchange
 between shards, on the ring transport under ``CUP3D_RING_HALO=1``), and
 the Poisson solve is the static tile-only composition
 (``ShardedForest.build_poisson_solver``), as the JAX package's mesh
-mode; its pipelined step takes a host dt.  Field dumps
+mode; its pipelined step takes a host dt.  Bodies run on it as in the
+JAX package's mesh mode: they rasterize on the real blocks' centres,
+their SDF is padded before the Towers chi is taken from labs assembled
+through the sharded face tables, and every body stage (UpdateObstacles,
+the collision pass, Penalization, the force probe, near-body tagging,
+the megastep) reads the padded fields with ``vol`` = 0 and chi = 0 on
+padding; a regrid re-shards through ``cached_forest``.  Field dumps
 (``tdump``/``fdump``) and periodic checkpoints (``saveFreq``) run off
 the step loop, through the same sharded writer and async checkpointer as
 the uniform driver (stream/).  Runs on CUDA unless the caller asks for
-the CPU.  Not ported yet, and raising with its ROADMAP item: bodies on
-the sharded forest.
+the CPU.
 """
 
 from __future__ import annotations
@@ -166,18 +171,9 @@ def _leaves(obj):
             yield from _leaves(v)
 
 
-def _unsupported(cfg: SimulationConfig, mesh=None) -> Optional[str]:
-    if mesh is not None and (cfg.factory_content or cfg.factory):
-        return "obstacles on the sharded forest (ROADMAP A7)"
-    return None
-
-
 class AMRSimulation:
     def __init__(self, cfg: SimulationConfig, tree: Optional[Octree] = None,
                  device=None, mesh=None):
-        missing = _unsupported(cfg, mesh)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {missing}")
         self.cfg = cfg
         #: the 1-D block mesh (parallel/forest.BlockMesh) or None
         self.mesh = mesh
@@ -329,6 +325,12 @@ class AMRSimulation:
             self.table_build_s.append(time.perf_counter() - t0)
             self._vol = fo.vol.to(self.dtype)
             self._pmask = fo.pmask
+            # the bodies' spacing and cell centres, padded with zero rows
+            # (the JAX mesh driver's): the Towers chi of a padding block's
+            # all-zero SDF lab is 0 at h = 0, and vol = 0 weighs it out
+            self._h_col = self._pad(g.h_column(self.dtype, dev))
+            self._xc = (self._pad(g.cell_centers(self.dtype, dev))
+                        if self._with_bodies else None)
             self._slot0 = 0
             self._build_physics()
             self._bind_solver()

@@ -30,8 +30,19 @@ a Python loop of eager launches, and the iterative Poisson solve inside
 keeps its host read of the residual once per chunk of 4 iterations
 (ROADMAP ground rule 6): the one place where the K steps are not free of
 host reads.  A CUDA graph of the K steps with device-side Krylov
-termination is ROADMAP A4's second part.  The x-slab sharded bodies wait
-for A7.
+termination is ROADMAP A4's second part.
+
+The x-slab sharded bodies (``CUP3D_MESH_X=D``, parallel/topology.py):
+the field is cut into D x-slabs, a leading axis of one tensor on one
+device.  RK3 (and the TGV projection's divergence) read slabs padded by
+parallel/ring.pad_slab_vector, whose cross-slab x-ghosts are B14 ring
+steps; the global phases (the spectral solve, rasterization, chi, the
+momentum integrals, the rigid update, penalization, the fish's
+projection and the probe) run once on the gathered field, which on one
+device is the unsharded view (parallel/collectives.py).  Every element
+sees the solo step's arithmetic, so a sharded megaloop is bitwise the
+solo one, and the carry keeps its global shape: dumps, checkpoints and
+the QoI rows see the solo layout.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ from cup3d_tpu_torch.models.base import (
     rigid_update_device,
     upload,
 )
-from cup3d_tpu_torch.ops.advection import rk3_step
+from cup3d_tpu_torch.ops import stencils as st
+from cup3d_tpu_torch.ops.advection import GHOSTS, rk3_step
 from cup3d_tpu_torch.ops.chi import towers_chi
 from cup3d_tpu_torch.ops.diagnostics import max_velocity
 from cup3d_tpu_torch.ops.penalization import (
@@ -56,6 +68,9 @@ from cup3d_tpu_torch.ops.penalization import (
     per_obstacle_penalization_force,
 )
 from cup3d_tpu_torch.ops.projection import project
+from cup3d_tpu_torch.parallel import collectives as coll
+from cup3d_tpu_torch.parallel import ring
+from cup3d_tpu_torch.parallel.compat import shard_view
 from cup3d_tpu_torch.sim import dtpolicy
 
 # QoI row layouts.  Fish: rigid pack 0:29 | penal force/torque 29:35 |
@@ -134,23 +149,57 @@ def _project(grid, vel, dt, solver, chi, udef, p, no_stats):
     return vel, p, no_stats
 
 
-def make_tgv_step(s):
+def _advect(grid, nu: float, slabs):
+    """RK3 of the whole field, or with ``slabs`` = D on its D x-slabs:
+    ghosts from parallel/ring.pad_slab_vector (B14 ring steps across
+    slabs), the result the gathered field (an unsharded view)."""
+    if slabs is None:
+        return lambda vel, dt, uinf: rk3_step(grid, vel, dt, nu, uinf)
+
+    def pad(u, w):
+        return ring.pad_slab_vector(grid, u, w)
+
+    def advect(vel, dt, uinf):
+        return coll.all_gather_tiled(rk3_step(
+            grid, shard_view(vel, slabs), dt, nu, uinf, pad=pad))
+
+    return advect
+
+
+def make_tgv_step(s, slabs=None):
     """The obstacle-free step as a function ``one_step(carry, cfl_eff) ->
-    (carry', row (TGV_ROW,))``; grid, solver and uinf are frozen."""
+    (carry', row (TGV_ROW,))``; grid, solver and uinf are frozen.  With
+    ``slabs`` = D (make_tgv_step_sharded) RK3 and the projection's
+    divergence run on D x-slabs and max|u| reduces per slab then across
+    them; the solve and the pressure gradient see the gathered field."""
     grid, nu, dtype, dev = s.grid, s.nu, s.dtype, s.device
     h = float(grid.h)
     solver = s.poisson_solver
     no_stats = (None if getattr(solver, "supports_stats", False)
                 else _solver_stats(dtype, dev))
     uinf = s.uinf_device()
+    advect = _advect(grid, nu, slabs)
+
+    def project_slabs(vel, dt, p):
+        # ops/projection.project with the divergence on padded slabs
+        rhs = coll.all_gather_tiled(st.divergence(ring.pad_slab_vector(
+            grid, shard_view(vel, slabs), 1), 1, grid.h) / dt)
+        p = solver(rhs, p)
+        return vel - dt * st.grad(grid.pad_scalar(p, 1), 1, grid.h), p
 
     def one_step(carry, cfl_eff):
         vel, p = carry["vel"], carry["p"]
         dt = _dt_from_carry(carry["umax"], carry["dt"], cfl_eff, h, nu)
-        vel = rk3_step(grid, vel, dt, nu, uinf)
-        vel, p, stats = _project(grid, vel, dt, solver, None, None, p,
-                                 no_stats)
-        umax_new = max_velocity(vel, uinf)
+        vel = advect(vel, dt, uinf)
+        if slabs is None:
+            vel, p, stats = _project(grid, vel, dt, solver, None, None, p,
+                                     no_stats)
+            umax_new = max_velocity(vel, uinf)
+        else:
+            vel, p = project_slabs(vel, dt, p)
+            stats = no_stats
+            umax_new = coll.pmax_axis(torch.amax(
+                torch.abs(shard_view(vel, slabs) + uinf), dim=(1, 2, 3, 4)))
         time_new = carry["time"] + dt
         out = {"vel": vel, "p": p, "umax": umax_new, "time": time_new,
                "dt": dt}
@@ -178,11 +227,13 @@ def build_tgv_megaloop(s):
     return _megaloop(make_tgv_step(s))
 
 
-def make_fish_step(s, ob):
+def make_fish_step(s, ob, slabs=None):
     """The single-StefanFish step as ``one_step(gait, carry, cfl_eff) ->
     (carry', row (FISH_ROW,))``.  Geometry is frozen at build time: the
     rasterization window, the probe window and its slot budget, the
-    forced/blocked masks.  The frozen gait is an argument."""
+    forced/blocked masks.  The frozen gait is an argument.  With
+    ``slabs`` = D (make_fish_step_sharded) RK3 runs on D x-slabs; the
+    body phases see the gathered field."""
     from cup3d_tpu_torch.models.fish.device_midline import (
         midline_state_device,
     )
@@ -220,6 +271,7 @@ def make_fish_step(s, ob):
     h3 = grid.h ** 3
     dlm = float(cfg.DLM)
     lam_static = _scalar(cfg.lambda_penalization, dtype, dev)
+    advect = _advect(grid, nu, slabs)
 
     def one_step(gait, carry, cfl_eff):
         vel, p = carry["vel"], carry["p"]
@@ -237,7 +289,7 @@ def make_fish_step(s, ob):
                                              grid_shape, window_shape)
         chi = towers_chi(grid.pad_scalar(sdf, 1), grid.h)
         udef = udef * (chi > 0)[..., None]
-        vel = rk3_step(grid, vel, dt, nu, uinf)
+        vel = advect(vel, dt, uinf)
         # chi-weighted fluid momenta -> 6-DOF rigid update, on the device
         mom = pack_moments(
             momentum_integrals_core(xc, h3, chi, vel, rigid[12:15]))
@@ -290,3 +342,104 @@ def build_fish_megaloop(s, ob):
         return None
     one_step = make_fish_step(s, ob)
     return _megaloop(lambda c, x: one_step(gait, c, x))
+
+
+# -- the x-slab sharded megaloop ---------------------------------------------
+
+
+def _slab_specs(keys, axis="x"):
+    """The carry's layout on the slab mesh: the field leaves
+    (topology.FIELD_KEYS) cut into x-slabs over ``axis``, every other
+    leaf whole on every shard (None); the JAX package's shard_map
+    specs."""
+    from cup3d_tpu_torch.parallel.topology import FIELD_KEYS
+
+    return {k: (axis if k in FIELD_KEYS else None) for k in keys}
+
+
+def _slab_count(s, mesh, axis):
+    """D, the mesh's x-slabs, when the grid cuts into them (nx % D == 0,
+    slabs of >= GHOSTS planes); else a warning, one
+    ``topology.megaloop_mesh_fallbacks`` and None (the solo megaloop)."""
+    import warnings
+
+    from cup3d_tpu_torch.obs import metrics as M
+    from cup3d_tpu_torch.parallel import topology as topo
+
+    D = topo.mesh_axis_size(mesh, axis)
+    nx = s.grid.shape[0]
+    if nx % D or nx // D < GHOSTS:
+        warnings.warn(
+            f"{D} x-shards cannot slab nx={nx} (need even slabs of >= "
+            f"{GHOSTS} planes for the one-hop ring halo): megaloop runs "
+            f"unsharded", stacklevel=3)
+        M.counter("topology.megaloop_mesh_fallbacks").inc()
+        return None
+    return D
+
+
+def _sharded_megaloop(one_step, keys, D, axis):
+    specs = _slab_specs(keys, axis)
+    loop = _megaloop(one_step)
+
+    def megaloop(carry, cfl_eff):
+        for k, ax in specs.items():
+            if ax is not None and carry[k].shape[0] % D:
+                raise ValueError(f"carry field {k!r} does not cut into "
+                                 f"{D} x-slabs")
+        return loop(carry, cfl_eff)
+
+    return megaloop
+
+
+def make_tgv_step_sharded(s, mesh, axis="x"):
+    """The obstacle-free step on the mesh's ``axis`` x-slabs (make_tgv_step
+    with ``slabs``)."""
+    from cup3d_tpu_torch.parallel import topology as topo
+
+    return make_tgv_step(s, slabs=topo.mesh_axis_size(mesh, axis))
+
+
+def build_tgv_megaloop_sharded(s, mesh, axis="x"):
+    """(carry, cfl_eff (K,)) -> (carry', rows (K, TGV_ROW)) on the mesh's
+    ``axis`` x-slabs, the carry in its global shape.  None, as in the JAX
+    package, for a solver that advertises stats (the iterative ones keep
+    the solo path) and, loudly, for a grid that does not cut into the
+    slabs."""
+    if getattr(s.poisson_solver, "supports_stats", False):
+        return None
+    D = _slab_count(s, mesh, axis)
+    if D is None:
+        return None
+    return _sharded_megaloop(make_tgv_step_sharded(s, mesh, axis),
+                             ("vel", "p", "umax", "time", "dt"), D, axis)
+
+
+def make_fish_step_sharded(s, ob, mesh, axis="x"):
+    """The single-StefanFish step on the mesh's ``axis`` x-slabs
+    (make_fish_step with ``slabs``)."""
+    from cup3d_tpu_torch.parallel import topology as topo
+
+    return make_fish_step(s, ob, slabs=topo.mesh_axis_size(mesh, axis))
+
+
+def build_fish_megaloop_sharded(s, ob, mesh, axis="x"):
+    """(carry, cfl_eff (K,)) -> (carry', rows (K, FISH_ROW)) on the mesh's
+    ``axis`` x-slabs.  None when the gait is not freezable, the solver
+    advertises stats, or (loudly) the grid does not cut into the
+    slabs."""
+    from cup3d_tpu_torch.models.fish.device_midline import freeze_gait
+
+    gait = freeze_gait(ob, s.time, s.dtype, s.device)
+    if gait is None:
+        return None
+    if getattr(s.poisson_solver, "supports_stats", False):
+        return None
+    D = _slab_count(s, mesh, axis)
+    if D is None:
+        return None
+    one_step = make_fish_step_sharded(s, ob, mesh, axis)
+    return _sharded_megaloop(
+        lambda c, x: one_step(gait, c, x),
+        ("vel", "p", "chi", "udef", "rigid", "qint", "umax", "time", "dt"),
+        D, axis)

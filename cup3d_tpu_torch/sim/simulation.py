@@ -18,7 +18,11 @@ With ``scan_k`` K >= 1 a pipelined run takes K steps at a time from a
 device carry (sim/megaloop.py: ``advance_megaloop``), one (K, ROW) block
 of QoI rows a megaloop, applied row by row at consumption
 (``_consume_scan_rows``); a step budget that K does not divide finishes
-on the per-step loop.
+on the per-step loop.  ``CUP3D_MESH_X=D`` runs the megaloop on D x-slabs
+of the device (``_scan_mesh``; parallel/topology.py, the halos by kernel
+B14), bitwise the solo megaloop; a run that cannot slab (an iterative
+solver, ``nx % D``, slabs thinner than the three ghost planes) runs
+solo, the last two with a warning and a counted fallback.
 
 ``simulate()`` runs through the RecoveryEngine (resilience/recovery.py)
 unless ``CUP3D_RECOVER=0``: health-check failures (NaN or runaway
@@ -140,6 +144,8 @@ class Simulation:
         #: K of the megaloop, resolved at init(); 0 = the per-step loop
         self._scan_k = 0
         self._megaloop = None  # (megaloop fn, row width) once built
+        #: the x-slab mesh of a sharded megaloop (CUP3D_MESH_X), else None
+        self._scan_mesh = None
         self._scan_carry = None  # the device carry between megaloops
         # off-critical-path output (stream/dump.py, stream/checkpoint.py)
         from cup3d_tpu_torch.stream.checkpoint import AsyncCheckpointer
@@ -226,13 +232,28 @@ class Simulation:
                 and self._resilience.dt_scale != 1.0):
             return False
         if self._megaloop is None:
+            from cup3d_tpu_torch.parallel import topology as topo
             from cup3d_tpu_torch.sim import megaloop as ml
 
+            # CUP3D_MESH_X asks for the x-slab sharded megaloop; its
+            # builders return None where the run cannot slab (solver
+            # stats, nx % D, thin slabs) and the solo loop runs
+            mesh = topo.megaloop_mesh(s.device)
+            fn = None
             if s.obstacles:
-                fn = ml.build_fish_megaloop(s, s.obstacles[0])
+                if mesh is not None:
+                    fn = ml.build_fish_megaloop_sharded(
+                        s, s.obstacles[0], mesh)
+                self._scan_mesh = mesh if fn is not None else None
+                if fn is None:
+                    fn = ml.build_fish_megaloop(s, s.obstacles[0])
                 row_w = ml.FISH_ROW
             else:
-                fn = ml.build_tgv_megaloop(s)
+                if mesh is not None:
+                    fn = ml.build_tgv_megaloop_sharded(s, mesh)
+                self._scan_mesh = mesh if fn is not None else None
+                if fn is None:
+                    fn = ml.build_tgv_megaloop(s)
                 row_w = ml.TGV_ROW
             if fn is None:
                 # gait not freezable after all: scan off for the run
@@ -589,6 +610,11 @@ class Simulation:
                 ob._dev_rigid = None
             self._scan_carry = (ml.init_fish_carry(s, s.obstacles[0])
                                 if s.obstacles else ml.init_tgv_carry(s))
+            if self._scan_mesh is not None:
+                from cup3d_tpu_torch.parallel import topology as topo
+
+                self._scan_carry = topo.shard_carry(self._scan_carry,
+                                                    self._scan_mesh)
             self._umax_dev = self._time_dev = None
         # the ramp is a function of the step index: host, once a megaloop
         cfl = [dtpolicy.ramped_cfl(cfg.CFL, base_step + k, cfg.rampup)

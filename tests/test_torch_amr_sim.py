@@ -198,12 +198,24 @@ def test_lifted_options_run_on_the_forest(tmp_path, flags):
 
 
 def test_bodies_on_the_sharded_forest_raise(tmp_path):
+    """Bodies on the sharded forest, once refused, now run (their numbers
+    are held to the unsharded port and to the JAX package in
+    tests/test_torch_sharded_bodies.py): the body is built, its chi is
+    taken on the padded forest, and the padding rows of every field stay
+    0 through a step."""
     from cup3d_tpu_torch.parallel.forest import make_block_mesh
 
-    cfg = TConfig(factory_content="sphere L=0.1", **_cfg_kw(tmp_path))
-    with pytest.raises(NotImplementedError, match="sharded forest.*A7"):
-        tamr.AMRSimulation(cfg, device="cpu",
+    cfg = TConfig(factory_content="sphere L=1.0", **_cfg_kw(tmp_path))
+    d = tamr.AMRSimulation(cfg, device="cpu",
                            mesh=make_block_mesh([torch.device("cpu")] * 2))
+    d.init()
+    d.advance(d.calc_max_timestep())
+    nb = d.grid.nb
+    assert d.state["chi"].shape[0] == d.forest.nb_pad
+    assert float(d.state["chi"][:nb].sum()) > 0
+    for k, v in d.state.items():
+        assert bool(torch.isfinite(v).all()), k
+        assert not v[nb:].any(), k
 
 
 def test_scan_k_runs_on_the_forest(tmp_path):

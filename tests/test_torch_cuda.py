@@ -38,7 +38,9 @@ bf16 outputs bitwise on >= 99.9% of the cells, each within one ulp or
 the f32 bound near 0; partials within 2e-5 of the per-tile sum of
 |terms| of the sum over the kernel's own stored output), and fused bf16
 solves on both grids against their plain versions (+-1 iteration, x
-within 1e-2), the bf16 launches counted apart."""
+within 1e-2), the bf16 launches counted apart.  B14 at the x-slab
+megaloop's halo shapes (strided component planes of vector slabs) and
+RK3 on the slabs bitwise the unsharded RK3 on the card."""
 
 import math
 
@@ -934,3 +936,41 @@ def test_bf16_fused_solves_match_plain(dev):
         return x - torch.sum(x * vol) / (torch.sum(vol) * 512)
 
     _close(mean_free(x_k), mean_free(x_p), 1e-2)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("bc_x", ["periodic", "wall"])
+def test_ring_shift_at_the_slab_halo_shapes(dev, D, bc_x):
+    """B14 at the x-slab megaloop's halo shapes against its plain version,
+    bitwise: the (D, 3, ny, nz) ghost planes of one component of (D, sx,
+    ny, nz, 3) slabs (words at a 12-byte stride) and of the scalar slabs
+    of the projection's divergence; then RK3 on the slabs
+    (``rk3_step(pad=pad_slab_vector)``) bitwise the unsharded RK3 on the
+    card, with 3 components x 2 ring shifts a stage launched."""
+    from cup3d_tpu_torch.grid.uniform import BC
+    from cup3d_tpu_torch.ops.advection import rk3_step
+    from cup3d_tpu_torch.parallel import ring
+
+    n, w = 32, 3
+    sx = n // D
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = torch.randn((D, sx, n, n, 3), device=dev, generator=gen)
+    f = torch.randn((D, sx, n, n), device=dev, generator=gen)
+    for x in ([u[..., c][:, sx - w:] for c in range(3)]
+              + [u[..., c][:, :w] for c in range(3)]
+              + [f[:, sx - 1:], f[:, :1]]):
+        for k in (1, -1):
+            assert torch.equal(ring.ring_shift_kernel(x, k),
+                               ring.ring_shift_plain(x, k))
+    grid = UniformGrid((n, n, n), (1.0,) * 3,
+                       (BC(bc_x), BC.periodic, BC.wall))
+    vel = u.reshape(n, n, n, 3)
+    uinf = torch.tensor([0.2, -0.1, 0.3], device=dev)
+    dt = torch.tensor(1e-3, device=dev)
+    want = rk3_step(grid, vel, dt, 1e-2, uinf)
+    ring.reset_launches()
+    got = rk3_step(grid, u, dt, 1e-2, uinf,
+                   pad=lambda v, wd: ring.pad_slab_vector(grid, v, wd))
+    torch.cuda.synchronize()
+    assert ring.launches["ring_shift"] == 3 * 3 * 2
+    assert torch.equal(got.reshape(n, n, n, 3), want)

@@ -78,6 +78,8 @@ def test_every_module_imports_with_jax_blocked():
         # the bucketed forest, the native lab-table builder, the
         # surface-point records
         "native", "grid.adapt", "grid.faces", "grid.flux", "ops.krylov",
+        # the slab mesh of the megaloop and its collectives
+        "parallel.mesh", "parallel.topology", "parallel.collectives",
     )} <= set(mods)
     code = (
         "import sys\n"
