@@ -206,7 +206,7 @@ each of which raises on a fault (nothing is caught):
     tests/test_torch_bf16_tile.py), the f32 solves converged, every bf16
     kernel solve's best x within 1e-2 of the f32 x;
 27. config #2 as the bench's fish256 (256^3, pipelined, through
-    ``build_driver`` and ``simulate()``) for 20 steps from the initial
+    ``build_driver`` and ``simulate()``) for 12 steps from the initial
     state at bf16 and at f32, each at ``CUP3D_FUSED``'s default (the
     fused bf16 kernels; the legacy f32 composition), then at f32 on the
     fused kernels: ms/step, the device's busy share, iterations a solve
@@ -265,6 +265,34 @@ each of which raises on a fault (nothing is caught):
     ms/step beside phases 22 and 24; the sphere of
     tests/test_parity_gaps.py saved unsharded and resumed sharded beside
     its unsharded resume (velocity within 5e-5 after 2 steps).
+34. the fleet (``cup3d_tpu_torch/fleet/``): bench.py bench_fleet32 as
+    the bench runs it: 32 fish lanes at 32^3, 16 steps (K = 8) after a
+    warm-up drain, served by one lane batch against the same jobs served
+    one at a time through the per-step path: fleet_cells_per_s,
+    solo_cells_per_s, wall_per_lane_step_s, host_dispatch_per_lane_s and
+    fleet_amortization_ratio beside the bench's gate of 4.0 (reported,
+    not asserted); every job done; lanes 0 and 17 against the port's
+    solo K = 8 megaloop of the spec (KE within 1e-4 relative, position
+    within 1e-5); the Frenet kernel launched once a step for all lanes,
+    and at the fleet's shape against its plain version;
+35. 8 ``amr_tgv`` lanes on config #3's forest as bench_amr_tgv builds it
+    at its default scale (bpd 8, levelMax 2, levelStart 0, Rtol 1.8,
+    Ctol 0.05, nu 1e-3), CFLs 0.30-0.40, 16 steps, ``CUP3D_FUSED=1``:
+    every lane at the first dispatch's journaled snapshot against the
+    port's solo fused forest step of its spec over the same 8 steps
+    (velocity within 1e-4, time and dt within 1e-4 relative); B8, B9 and
+    B11-B13 launched as many times an executed Krylov iteration at 8
+    lanes as at 1, the iterations the most any lane takes (chunks of
+    4); B8, B12 and B13 with a scalar row a lane on the 8 lanes' stacked
+    blocks at f32 and bf16: each lane's vectors bitwise its plain
+    version, the lane launch bitwise the one-lane launches, the (1, 8)
+    call bitwise the (8,) one; B9, B11 by phase 7's rule; each timed at
+    8 x capacity blocks; ``fleet.lane_nan`` at lane 3 (the other lanes
+    ``torch.equal`` the unfaulted run, lane 3 rolled back and done); a
+    ``server.crash`` drill in this process (the exit intercepted) whose
+    ``recover()`` ends with every job's QoI bytes equal to the uncrashed
+    run; the crashed journal recovered by a server at bf16 storage, its
+    lanes finishing the second dispatch from the f32 snapshots.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
@@ -293,6 +321,11 @@ their f32 twin (``twin``) and carry its time in the same call
 fish256 at bf16 (B1, B2, B4-B6), configs #2 (B3) and #4 (B10) under
 ``CUP3D_COARSE=0`` and config #3 pipelined at bf16 (B8, B9, B11-B13);
 B3, B9 and B10 carry the f32 rows' library calls on the up-cast input.
+The fleet (phases 34-35): B8, B9 and B11-B13 (f32 and bf16) carry a
+``lanes`` block: their launches a dispatch at 8 lanes and at 1, the
+Krylov iterations executed, and (f32) their device time a launch at
+8 x capacity blocks with its bound; the Frenet row its launches a step
+of the 32-lane batch and its time on the 32 lanes' midlines.
 
 Prints ``{"kernels": [...]}``, then the card's ``nvidia-smi`` name and
 power limit, then as its last line ``{"ok": true, "device": ...}``.
@@ -3948,7 +3981,7 @@ BF16_SOLVE_X = 1e-2
 # phase 27: config #2 as the bench's fish256 (bench.py:637-640, 2166-2199:
 # bench_fish_uniform(256), pipelined), bf16 and f32 from one state
 N_FISH256 = 256
-FISH256_STEPS = 20
+FISH256_STEPS = 12
 FISH256_DIV_GATE = 0.07     # bench.py:57-58, ("fish", 256)
 FISH256_EXTRA_ITS = 10      # bf16 iterations a solve <= f32's + 10
 # the knobs of a phase's solver: f32 on the fused kernels, or bf16 storage
@@ -5174,6 +5207,605 @@ def sharded_bodies_phase(host_ms: float, pipe_ms: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 34-35: the fleet (A8a), lanes of one batched K-step advance
+# ---------------------------------------------------------------------------
+
+# phase 34: bench_fleet32 as bench.py:1523-1662 runs it: FLEET_LANES fish
+# lanes at FLEET_N^3, FLEET_STEPS steps (K = 8), after a warm-up drain,
+# against the same jobs served one at a time through the per-step path
+FLEET_LANES = 32
+FLEET_N = 32
+FLEET_STEPS = 16
+FLEET_GATE = 4.0        # bench.py's fleet_amortization_gate (reported)
+FLEET_SPEC = dict(kind="fish", n=FLEET_N, nsteps=FLEET_STEPS, cfl=0.3,
+                  L=0.3, T=1.0, xpos=0.5)
+FLEET_CHECK_LANES = (0, 17)
+# tests/test_fleet.py's lane-vs-solo bounds
+FLEET_KE_RTOL = 1e-4
+FLEET_POS_ATOL = 1e-5
+# phase 35: FA_LANES amr_tgv lanes on config #3's forest as bench.py's
+# bench_amr_tgv builds it at its default scale (:1155-1175: bpd 8,
+# levelMax 2, levelStart 0, Rtol 1.8, Ctol 0.05, nu 1e-3), CFLs spread
+# over 0.30-0.40, FA_FLEET_STEPS steps, CUP3D_FUSED=1
+FA_LANES = 8
+FA_FLEET_STEPS = 16
+FA_FLEET_SPEC = dict(kind="amr_tgv", bpd=8, levelMax=2, levelStart=0,
+                     rtol=1.8, ctol=0.05, nu=1e-3, nsteps=FA_FLEET_STEPS)
+FA_FLEET_SNAP = 8       # a journaled snapshot every dispatch (K = 8)
+# the server's default lane ladder pads the 8 jobs to 9 lanes; the
+# padding lane is frozen, and its Poisson solve does not iterate
+FA_NAN_LANE = 3
+# tests/test_fused_amr.py's lane-vs-solo bounds
+FA_VEL_ATOL = 1e-4
+FA_TIME_RTOL = 1e-4
+#: the forest stages' launches a Krylov iteration (the fused driver)
+FA_PER_ITER = {"amr_update": 1, "amr_getz_two": 2, "amr_lap": 2,
+               "amr_axpy": 1, "amr_finish": 1}
+
+
+def _fleet_drain(specs, out: str, before_steps=None, **kw):
+    """A fresh server drains ``specs``; ``before_steps()`` runs after the
+    batches are assembled (the lanes' drivers built and initialised) and
+    before the first dispatch.  Returns (server, job ids, seconds of the
+    drain after assembly: dispatches, fan-out and journal snapshots)."""
+    from cup3d_tpu_torch.fleet.server import FleetServer
+
+    srv = FleetServer(workdir=out, **kw)
+    ids = [srv.submit(f"tenant-{i}", dict(sp)) for i, sp in enumerate(specs)]
+    srv.assemble()
+    torch.cuda.synchronize()
+    if before_steps is not None:
+        before_steps()
+    t0 = time.perf_counter()
+    srv.drain()
+    torch.cuda.synchronize()
+    return srv, ids, time.perf_counter() - t0
+
+
+def _lane_np(srv, job_id) -> dict:
+    """One job's lane of its batch's carry, f64 host copies."""
+    job = srv._jobs[job_id]
+    return {k: v[job.lane].detach().double().cpu().numpy()
+            for k, v in job.batch.carry.items() if k != "left"}
+
+
+def fleet32_phase(bw: float) -> dict:
+    """bench_fleet32 on the port: serving throughput of FLEET_LANES fish
+    jobs in one lane batch against the same jobs served one at a time
+    (both warm, both paying their set-up in the window); two lanes held to
+    the port's solo K = 8 megaloop of the spec; the Frenet kernel launched
+    once a step for all lanes."""
+    from cup3d_tpu_torch.config import SimulationConfig
+    from cup3d_tpu_torch.fleet.server import FleetServer
+    from cup3d_tpu_torch.models.fish import device_midline as dm
+    from cup3d_tpu_torch.sim.simulation import Simulation
+
+    B, n, nsteps = FLEET_LANES, FLEET_N, FLEET_STEPS
+    out = _fresh_dir(os.path.join(OUT_DIR, "fleet32"))
+    srv = FleetServer(max_lanes=B, snap_every=10**9, workdir=out)
+    for _ in range(B):
+        srv.submit("warmup", dict(FLEET_SPEC, nsteps=8))
+    srv.drain()
+    torch.cuda.synchronize()
+    ids = [srv.submit(f"lane-{i}", dict(FLEET_SPEC)) for i in range(B)]
+    host = 0.0
+    t0 = time.perf_counter()
+    (batch,) = srv.assemble()
+    torch.cuda.synchronize()
+    dm.launches["frenet"] = 0
+    t_loop = time.perf_counter()
+    while (batch.left_h > 0).any():
+        t1 = time.perf_counter()
+        batch.dispatch()
+        host += time.perf_counter() - t1
+    batch.settle()  # every QoI row consumed: every lane-step done
+    t_end = time.perf_counter()
+    frenet = dm.launches["frenet"]
+    wall, loop_wall = t_end - t0, t_end - t_loop
+    done = sum(srv.poll(j)["status"] == "done" for j in ids)
+    if done != B:
+        raise AssertionError(f"fleet32: {done} of {B} jobs done")
+    if batch.carry["vel"].is_cuda and frenet != nsteps:
+        raise AssertionError(f"fleet32: {frenet} Frenet launches for "
+                             f"{nsteps} steps of {B} lanes (want one a step)")
+    fleet_cells = B * n ** 3 * nsteps / wall
+
+    def cfg_of(**kw):
+        base = dict(bpdx=1, bpdy=1, bpdz=1, block_size=n, levelMax=1,
+                    levelStart=0, extent=1.0, nu=1e-4, CFL=0.3,
+                    nsteps=nsteps, tend=0.0, rampup=0,
+                    factory_content="stefanfish L=0.3 T=1.0 xpos=0.5",
+                    dtype="float32", verbose=False, freqDiagnostics=0,
+                    path4serialization=out)
+        base.update(kw)
+        return SimulationConfig(**base)
+
+    def solo_job():
+        d = Simulation(cfg_of(scan_k=0))
+        d.init()
+        for _ in range(nsteps):
+            d.advance(d.calc_max_timestep())
+        torch.cuda.synchronize()
+        return d
+
+    solo_job()  # warm
+    t0 = time.perf_counter()
+    for _ in range(3):
+        solo_job()
+    solo_wall = (time.perf_counter() - t0) / 3
+    solo_cells = n ** 3 * nsteps / solo_wall
+    ratio = fleet_cells / max(solo_cells, 1e-9)
+
+    # two lanes against the port's solo K = 8 megaloop of the spec
+    d = Simulation(cfg_of(scan_k=SCAN_K, pipelined=True))
+    d.init()
+    d.simulate()
+    torch.cuda.synchronize()
+    if d._scan_k != SCAN_K:
+        raise AssertionError("fleet32: the solo twin did not take the "
+                             "megaloop")
+    s = d.sim
+    vel_s = s.state["vel"].double()
+    ke_s = float(torch.sum(vel_s * vel_s))
+    pos_s = np.asarray(s.obstacles[0].position, np.float64)
+    errs = {}
+    for lane in FLEET_CHECK_LANES:
+        ln = _lane_np(srv, ids[lane])
+        ke = float(np.sum(ln["vel"] ** 2))
+        dke = abs(ke - ke_s) / ke_s
+        dpos = float(np.max(np.abs(ln["rigid"][6:9] - pos_s)))
+        if not (dke <= FLEET_KE_RTOL and dpos <= FLEET_POS_ATOL):
+            raise AssertionError(f"fleet32 lane {lane}: KE rel {dke:.3e}, "
+                                 f"position {dpos:.3e} off the solo "
+                                 "megaloop")
+        errs[lane] = (dke, dpos)
+    res = {
+        "fleet_cells_per_s": fleet_cells,
+        "solo_cells_per_s": solo_cells,
+        "fleet_steady_cells_per_s": B * n ** 3 * nsteps / loop_wall,
+        "wall_per_lane_step_s": loop_wall / (B * nsteps),
+        "host_dispatch_per_lane_s": host / (B * nsteps),
+        "solo_job_wall_s": solo_wall,
+        "fleet_amortization_ratio": ratio,
+        "fleet_amortization_gate": FLEET_GATE,
+        "dispatches": int(batch.dispatches), "jobs_done": int(done),
+        "frenet_launches": frenet, "frenet_lanes": B,
+    }
+    log(f"  {B} fish lanes at {n}^3, {nsteps} steps: fleet_cells_per_s "
+        f"{fleet_cells:.6g}, solo_cells_per_s {solo_cells:.6g}, "
+        f"wall_per_lane_step_s {res['wall_per_lane_step_s']:.6g}, "
+        f"host_dispatch_per_lane_s {res['host_dispatch_per_lane_s']:.6g}, "
+        f"fleet_amortization_ratio {ratio:.4f} (bench gate {FLEET_GATE}; "
+        f"reported, not asserted); serving wall {wall:.3f} s (dispatch loop "
+        f"{loop_wall:.3f} s), solo job {solo_wall:.3f} s")
+    log(f"  every job done; the Frenet kernel {frenet} launches for "
+        f"{nsteps} steps of {B} lanes; lanes {FLEET_CHECK_LANES} against "
+        f"the solo K={SCAN_K} megaloop: KE rel / position "
+        + ", ".join(f"{a:.3e} / {b:.3e}" for a, b in errs.values()))
+    # the Frenet kernel at the fleet's shape: one launch on B midlines
+    gaits = batch.gaits
+    rs = gaits["rs"].contiguous()
+    t = batch.carry["time"]
+    from cup3d_tpu_torch.models.fish.device_midline import (
+        midline_curvature_device)
+
+    rk, vk = torch.func.vmap(midline_curvature_device)(gaits, t)
+    rk, vk = rk.contiguous(), vk.contiguous()
+    got = dm._frenet_scan_dev(rs, rk, vk)
+    want = dm._frenet_scan_dev(rs, rk, vk, kernels=False)
+    ferr = max(check_close(f"frenet lanes {k}", got[k], want[k], FRENET_RTOL)
+               for k in got)
+    nm = rs.shape[-1]
+    res["frenet_lanes_ms"] = time_ms(lambda: dm._frenet_scan_dev(rs, rk, vk))
+    res["frenet_lanes_plain_ms"] = time_ms(
+        lambda: dm._frenet_scan_dev(rs, rk, vk, kernels=False), 1)
+    res["frenet_lanes_bound_ms"] = (B * nm * (3 * 4 + 18 * 4)) / bw * 1e3
+    res["frenet_lanes_err"] = ferr
+    log(f"  frenet at {B} lanes x {nm} points: {res['frenet_lanes_ms']:.4f} "
+        f"ms a launch (plain {res['frenet_lanes_plain_ms']:.4f} ms), err "
+        f"{ferr:.3e}")
+    del srv, batch, d
+    # the CLI entry on a mixed queue: `python -m cup3d_tpu_torch fleet
+    # --scenarios spec.json` (in this process), its summary JSON
+    import contextlib
+    import io
+
+    from cup3d_tpu_torch.__main__ import main as cli_main
+
+    spec = os.path.join(out, "mixed.json")
+    with open(spec, "w") as f:
+        json.dump({"scenarios": [
+            dict(kind="tgv", n=32, nsteps=8, cfl=0.3, tenant="tgv"),
+            dict(FLEET_SPEC, nsteps=8, tenant="fish"),
+            dict(kind="amr_tgv", bpd=2, levelMax=2, nsteps=8,
+                 tenant="amr")]}, f)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli_main(["fleet", "--scenarios", spec, "--workdir",
+                      os.path.join(out, "cli")])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    summary = json.loads(buf.getvalue())
+    got = {t: v["statuses"] for t, v in summary.items()}
+    if code != 0 or got != {t: {"done": 1} for t in ("tgv", "fish", "amr")}:
+        raise AssertionError(f"fleet CLI: exit {code}, {got}")
+    log(f"  python -m cup3d_tpu_torch fleet --scenarios (tgv + fish + "
+        f"amr_tgv): exit 0, per-tenant statuses {got}")
+    return res
+
+
+def _fa_stack_vecs(d, L: int, gen):
+    """L lanes of the template forest's capacity stacked along the block
+    axis: seeded block fields with every lane's padding rows 0, the
+    volume column tiled, the lanes' real block count."""
+    g = d._geom
+    n, nb = g.nb, d.grid.nb
+    dev = d.device
+
+    def vec(dtype=torch.float32):
+        v = torch.randn((L, n, 8, 8, 8), generator=gen, device=dev)
+        v[:, nb:] = 0.0
+        return v.reshape(L * n, 8, 8, 8).to(dtype)
+
+    vol = d._vol.reshape(n).float().repeat(L).contiguous()
+    return n, vec, vol
+
+
+def fleet_lane_kernels(d, L: int, bw: float, fp32_flops: float) -> dict:
+    """B8, B12, B13 with an (L, 8) block of scalar rows, one row a lane, on
+    L lanes of the template forest stacked along the block axis, at f32
+    and bf16: each lane's stored vectors bitwise its plain version on its
+    blocks, the partials within PART_RTOL, the L-lane launch bitwise the
+    one-lane launches, the (1, 8) call bitwise the (8,) one; B9 and B11 on
+    the same L x cap blocks against their plain versions (the stage rule
+    of phase 7).  Each timed at L x cap blocks."""
+    from cup3d_tpu_torch.ops import amr_ops
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    dev = d.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 35)
+    n, vec, vol = _fa_stack_vecs(d, L, gen)
+    cells = L * n * 512
+    rows = torch.randn((L, 8), generator=gen, device=dev)
+    rows[:, 2] = 0.0
+    rows[FA_NAN_LANE % L, 2] = 1.0  # one lane on the breakdown branch
+    out = {}
+    for store in (torch.float32, torch.bfloat16):
+        tag = "f32" if store == torch.float32 else "bf16"
+        r, p, v, rh, y, z, s_, t = (vec(store) for _ in range(8))
+        x = vec()
+        stages = {
+            "amr_update": lambda sc, sl=slice(None), kk=None: fa.update(
+                r[sl], p[sl].clone(), v[sl], rh[sl].clone(), vol[sl], sc,
+                kernels=kk),
+            "amr_axpy": lambda sc, sl=slice(None), kk=None: fa.axpy(
+                r[sl], v[sl], vol[sl], sc, kernels=kk),
+            "amr_finish": lambda sc, sl=slice(None), kk=None: fa.finish(
+                x[sl].clone(), y[sl], z[sl], s_[sl].clone(), t[sl], rh[sl],
+                sc, kernels=kk),
+        }
+
+        def scales(name, outs, sl):
+            """The partials' error scales: per block sums of |terms|."""
+            f = [u.float() for u in outs]
+            if name == "amr_finish":
+                return (part_scale(f[1] * f[1]),
+                        part_scale(rh[sl].float() * f[1]))
+            return (part_scale(f[0] * vol[sl][:, None, None, None]),)
+        for name, fn in stages.items():
+            got = fn(rows)
+            want = fn(rows, kk=False)
+            worst = 0.0
+            for lane in range(L):
+                sl = slice(lane * n, (lane + 1) * n)
+                one = fn(rows[lane].contiguous(), sl)
+                for a, b in zip(got, one):
+                    if not torch.equal(a[sl], b):
+                        raise AssertionError(f"{name} {tag}: lane {lane} of "
+                                             "the lane launch differs from "
+                                             "its one-lane launch")
+                sc_iter = iter(scales(name, one, sl))
+                for a, b in zip(got, want):
+                    if a.dim() > 1:
+                        if not torch.equal(a[sl], b[sl]):
+                            raise AssertionError(
+                                f"{name} {tag}: lane {lane} not bitwise "
+                                "its plain version")
+                    else:
+                        worst = max(worst, check_close(
+                            f"{name} {tag} lane {lane} partials", a[sl],
+                            b[sl], PART_RTOL, next(sc_iter)))
+            first = fn(rows[:1].contiguous(), slice(0, n))
+            old = fn(rows[0].contiguous(), slice(0, n))
+            if not all(torch.equal(a, b) for a, b in zip(first, old)):
+                raise AssertionError(f"{name} {tag}: the (1, 8) call is not "
+                                     "bitwise the (8,) call")
+            out.setdefault(name, {})[f"partials_err_{tag}"] = worst
+            log(f"    {name} {tag} at {L} lanes x {n} blocks: vectors bitwise "
+                "the plain version a lane, the lane launch bitwise the "
+                "one-lane launches, (1, 8) bitwise (8,); partials "
+                f"{worst:.3e}")
+    # B9 and B11 on the lanes' stacked blocks (per-block columns tiled)
+    h = d._geom.h_column(torch.float32, dev).reshape(n)
+    h2 = (h * h).repeat(L).contiguous()
+    inv_h2 = (1.0 / (h * h)).repeat(L).contiguous()
+    w = vec()
+    zc = torch.randn(L * n, generator=gen, device=dev)
+    zc.view(L, n)[:, d.grid.nb:] = 0.0
+    azf = torch.func.vmap(lambda u: amr_ops.laplacian_blocks(
+        d._geom, u[:, None, None, None].expand(n, 8, 8, 8), d._tab1,
+        d._ftab))(zc.view(L, n)).reshape(L * n, 8, 8, 8).contiguous()
+    e9 = check_close("amr_getz_two lanes", fa.getz_two(w, azf, zc, h2),
+                     fa.getz_two(w, azf, zc, h2, kernels=False), GETZ_RTOL)
+    inv_h = (1.0 / h)[:, None, None, None]
+
+    def lab_corr(u):
+        lab = d._tab1.assemble_scalar(u, 8)
+        return lab, d._ftab.apply(torch.zeros_like(u),
+                                  amr_ops.face_fluxes(lab, 1, 8, inv_h))
+
+    lab, corr = torch.func.vmap(lab_corr)(w.view(L, n, 8, 8, 8))
+    lab = lab.reshape(L * n, 10, 10, 10).contiguous()
+    corr = corr.reshape(L * n, 8, 8, 8).contiguous()
+    a = vec()
+    got, want = fa.lap(lab, corr, a, inv_h2), fa.lap(lab, corr, a, inv_h2,
+                                                     kernels=False)
+    e11 = check_close("amr_lap lanes", got[0], want[0], VEC_RTOL)
+    log(f"    amr_getz_two / amr_lap at {L} lanes x {n} blocks against their "
+        f"plain versions: {e9:.3e} / {e11:.3e}")
+    # device time per launch at L x cap blocks, f32
+    r, p, v, rh, y, z, s_, t = (vec() for _ in range(8))
+    x = vec()
+    timed = {
+        "amr_update": (lambda: fa.update(r, p, v, rh, vol, rows),
+                       4 * 4 * cells, 5 * cells),
+        "amr_getz_two": (lambda: fa.getz_two(w, azf, zc, h2),
+                         3 * 4 * cells + 8 * L * n, 110 * cells),
+        "amr_lap": (lambda: fa.lap(lab, corr, a, inv_h2),
+                    (1000 / 512 + 3) * 4 * cells, 10 * cells),
+        "amr_axpy": (lambda: fa.axpy(r, v, vol, rows), 3 * 4 * cells,
+                     4 * cells),
+        "amr_finish": (lambda: fa.finish(x, y, z, s_, t, rh, rows),
+                       8 * 4 * cells, 10 * cells),
+    }
+    for name, (fn, nbytes, flops) in timed.items():
+        ms = time_ms(fn)
+        us = profile_us(fn, FOREST_KERNEL_NAMES[name])
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32_flops * 1e3
+        out.setdefault(name, {}).update(
+            blocks=L * n, ms=ms, profile_us=us,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"    {name:13s} at {L} x {n} blocks: {ms:.4f} ms a launch "
+            f"(profile {us} us), bound {max(t_bytes, t_ops):.4f} ms")
+    torch.cuda.synchronize()
+    return out
+
+
+def _fa_iters(rows) -> list:
+    return [int(r[1]) for r in rows]
+
+
+def fleet_amr_phase(bw: float, fp32_flops: float) -> dict:
+    """FA_LANES amr_tgv lanes on config #3's forest under CUP3D_FUSED=1
+    (the caller sets it): the lanes against the port's solo fused forest
+    step of their specs; the forest stages' launches a dispatch at
+    FA_LANES lanes and at one; the stage kernels with a scalar row a lane;
+    fleet.lane_nan at lane FA_NAN_LANE; a server.crash drill recovered in
+    this process; the lanes at bf16 storage."""
+    from unittest import mock
+
+    from cup3d_tpu_torch.fleet import batch as FB
+    from cup3d_tpu_torch.fleet import server as S
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.resilience import faults
+    from cup3d_tpu_torch.sim.amr import make_amr_tgv_step
+
+    cfls = [float(c) for c in np.linspace(0.30, 0.40, FA_LANES)]
+    specs = [dict(FA_FLEET_SPEC, cfl=c) for c in cfls]
+    out = _fresh_dir(os.path.join(OUT_DIR, "fleet_amr"))
+    res = {}
+
+    # -- the f32 drain: every lane done, the launches a dispatch -----------
+    t0 = time.perf_counter()
+    srv, ids, loop_s = _fleet_drain(specs, os.path.join(out, "f32"),
+                                    before_steps=fa.reset_launches,
+                                    snap_every=FA_FLEET_SNAP)
+    wall = time.perf_counter() - t0
+    if srv.jobs_by_status() != {"done": FA_LANES}:
+        raise AssertionError(f"fleet amr: {srv.jobs_by_status()}")
+    batch = srv._jobs[ids[0]].batch
+    tmpl = batch.template.sim
+    executed = fa.iterations["executed"]
+    disp = int(batch.dispatches)
+    counts = dict(fa.launches)
+    on_card = tmpl.state["vel"].is_cuda
+    for kname, per in FA_PER_ITER.items():
+        if on_card and counts[kname] != per * executed:
+            raise AssertionError(f"fleet amr: {kname} {counts[kname]} "
+                                 f"launches for {executed} iterations")
+    # every live lane steps until the last one stops, in chunks of 4; the
+    # padding lane does not iterate
+    rows = {jid: srv._jobs[jid].rows for jid in ids}
+    most = [max(int(rows[j][k, 1]) for j in ids)
+            for k in range(FA_FLEET_STEPS)]
+    want_exec = sum(4 * math.ceil(m / 4) for m in most)
+    if executed != want_exec:
+        raise AssertionError(f"fleet amr: {executed} iterations executed, "
+                             f"the most a lane took needs {want_exec}")
+    res.update(lanes=FA_LANES, batch_lanes=batch.B, blocks=tmpl.grid.nb,
+               capacity=tmpl._cap, wall_s=wall, loop_s=loop_s,
+               ms_per_step=loop_s / FA_FLEET_STEPS * 1e3,
+               dispatches=disp, executed=executed,
+               launches_per_dispatch={k: counts[k] / disp
+                                      for k in FA_PER_ITER},
+               most_iters=most)
+    log(f"  {FA_LANES} lanes of {tmpl.grid.nb} blocks (capacity {tmpl._cap}) "
+        f"in a batch of {batch.B}, CFL {cfls[0]:.2f}-{cfls[-1]:.2f}, "
+        f"{FA_FLEET_STEPS} steps in {disp} dispatches: {wall:.2f} s with "
+        f"set-up, {loop_s:.3f} s after assembly = "
+        f"{res['ms_per_step']:.1f} ms a step of all lanes (dispatches, "
+        f"fan-out, journal snapshots); {executed} iterations "
+        f"executed (the most a lane took a step: {most}); launches a "
+        f"dispatch {res['launches_per_dispatch']}")
+
+    # -- one lane: the same launches an executed iteration ------------------
+    fa.reset_launches()
+    adv = FB.build_fleet_advance(tmpl, kind="amr_tgv")
+    c1 = FB.stack_carries([FB.init_amr_carry(tmpl)], [FA_FLEET_STEPS])
+    c1, _ = adv(c1, np.full((1, SCAN_K), cfls[0]), None)
+    disp1 = 1
+    torch.cuda.synchronize()
+    ex1 = fa.iterations["executed"]
+    one = dict(fa.launches)
+    for kname, per in FA_PER_ITER.items():
+        if on_card and one[kname] != per * ex1:
+            raise AssertionError(f"fleet amr, one lane: {kname} "
+                                 f"{one[kname]} for {ex1} iterations")
+    res["one_lane"] = dict(executed=ex1, launches_per_dispatch={
+        k: one[k] / disp1 for k in FA_PER_ITER})
+    log(f"  one lane: {ex1} iterations executed, launches a dispatch "
+        f"{res['one_lane']['launches_per_dispatch']}: the same launches an "
+        f"iteration at {FA_LANES} lanes as at 1")
+
+    # -- each lane against the port's solo fused forest step, over the
+    # first dispatch: the lane's state there is its journaled snapshot --
+    snaps = {r["job_id"]: r["carry"] for r in srv.journal.records()
+             if r["type"] == "snapshot" and r["step"] == SCAN_K}
+    step = make_amr_tgv_step(tmpl)
+    worst = [0.0, 0.0]
+    t0 = time.perf_counter()
+    for lane, (jid, cfl) in enumerate(zip(ids, cfls)):
+        carry = FB.init_amr_carry(tmpl)
+        for k in range(SCAN_K):
+            carry, _ = step(carry, torch.tensor(cfl, device=tmpl.device))
+        ln = {k: np.asarray(v, np.float64) for k, v in snaps[jid].items()}
+        dv = float(torch.max(torch.abs(carry["vel"].double().cpu()
+                                       - torch.from_numpy(ln["vel"]))))
+        dt_rel = max(abs(float(carry[k]) - float(ln[k])) / abs(float(ln[k]))
+                     for k in ("time", "dt"))
+        if not (dv <= FA_VEL_ATOL and dt_rel <= FA_TIME_RTOL):
+            raise AssertionError(f"fleet amr lane {lane}: vel {dv:.3e}, "
+                                 f"time/dt rel {dt_rel:.3e} off its solo run")
+        worst = [max(worst[0], dv), max(worst[1], dt_rel)]
+    torch.cuda.synchronize()
+    res["solo_err"] = worst
+    res["solo_s"] = time.perf_counter() - t0
+    log(f"  every lane against its solo fused run over the first dispatch "
+        f"({SCAN_K} steps each, {res['solo_s']:.2f} s): vel {worst[0]:.3e}, "
+        f"time/dt rel {worst[1]:.3e}")
+
+    # -- the stage kernels with a scalar row a lane --------------------------
+    res["kernels"] = fleet_lane_kernels(tmpl, FA_LANES, bw, fp32_flops)
+
+    # -- fleet.lane_nan at lane FA_NAN_LANE ---------------------------------
+    faults.arm("fleet.lane_nan", FA_NAN_LANE, 1)
+    try:
+        nsrv, nids, _ = _fleet_drain(specs, os.path.join(out, "nan"),
+                                     snap_every=FA_FLEET_SNAP)
+    finally:
+        faults.clear()
+    for lane, (a, b) in enumerate(zip(ids, nids)):
+        if lane == FA_NAN_LANE:
+            continue
+        ca, cb = srv._jobs[a].batch.carry, nsrv._jobs[b].batch.carry
+        if not all(torch.equal(ca[k][lane], cb[k][lane]) for k in ca):
+            raise AssertionError(f"fleet amr: lane {lane} moved under lane "
+                                 f"{FA_NAN_LANE}'s fault")
+    st = nsrv.poll(nids[FA_NAN_LANE])
+    rb = nsrv.health()["rollbacks"]
+    if st["status"] != "done" or rb != 1:
+        raise AssertionError(f"fleet amr: faulted lane {st}, rollbacks {rb}")
+    log(f"  fleet.lane_nan at lane {FA_NAN_LANE}: the other lanes "
+        f"torch.equal the unfaulted run, lane {FA_NAN_LANE} rolled back "
+        f"{rb} time and done")
+    del nsrv
+    torch.cuda.empty_cache()
+
+    # -- a server.crash drill, recovered in this process --------------------
+    class _Crash(Exception):
+        pass
+
+    cdir = os.path.join(out, "crash")
+    faults.arm("server.crash", 1, 1)
+    try:
+        with mock.patch.object(S.os, "_exit", side_effect=_Crash):
+            csrv = S.FleetServer(workdir=cdir, snap_every=FA_FLEET_SNAP)
+            for i, sp in enumerate(specs):
+                csrv.submit(f"tenant-{i}", dict(sp))
+            crashed = False
+            try:
+                csrv.drain()
+            except _Crash:
+                crashed = True
+    finally:
+        faults.clear()
+    if not crashed:
+        raise AssertionError("fleet amr: the crash drill did not crash")
+    del csrv
+    # the crashed journal again, for the bf16 lanes below
+    shutil.copytree(cdir, cdir + "_bf16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rsrv = S.FleetServer(workdir=cdir, snap_every=FA_FLEET_SNAP)
+    stats = rsrv.recover()
+    rsrv.drain()
+    torch.cuda.synchronize()
+    same = all(rsrv._jobs[j].qoi_bytes() == srv._jobs[j].qoi_bytes()
+               for j in ids)
+    if stats["resumed"] != FA_LANES or not same:
+        raise AssertionError(f"fleet amr crash drill: {stats}, QoI bytes "
+                             f"equal {same}")
+    log(f"  server.crash at dispatch 1: recover() {stats}, every job's QoI "
+        "bytes equal to the uncrashed run")
+    del rsrv
+    torch.cuda.empty_cache()
+
+    # -- the lanes at bf16 storage: the crashed journal recovered by a bf16
+    # server, its lanes resuming from the f32 snapshots at step K (a warm
+    # pressure; a cold bf16 first solve runs hundreds of iterations) ----
+    with _env(CUP3D_KRYLOV_DTYPE="bf16"):
+        bsrv = S.FleetServer(workdir=cdir + "_bf16",
+                             snap_every=FA_FLEET_SNAP)
+        bstats = bsrv.recover()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        bsrv.drain()
+        torch.cuda.synchronize()
+        bwall = time.perf_counter() - t0
+    if (bstats["resumed"] != FA_LANES
+            or bsrv.jobs_by_status() != {"done": FA_LANES}):
+        raise AssertionError(f"fleet amr bf16: {bstats}, "
+                             f"{bsrv.jobs_by_status()}")
+    bdv = 0.0
+    for jid in ids:
+        ln = _lane_np(bsrv, jid)
+        if not np.isfinite(ln["vel"]).all():
+            raise AssertionError("fleet amr bf16: non-finite velocity")
+        bdv = max(bdv, float(np.max(np.abs(ln["vel"]
+                                           - _lane_np(srv, jid)["vel"]))))
+    bdisp = int(bsrv._jobs[ids[0]].batch.dispatches)
+    res["bf16"] = dict(wall_s=bwall, executed=fa.iterations["executed"],
+                       dispatches=bdisp, launches=dict(fa.launches_bf16),
+                       vel_vs_f32=bdv)
+    for kname, per in FA_PER_ITER.items():
+        if on_card and fa.launches_bf16[kname] != (
+                per * fa.iterations["executed"]):
+            raise AssertionError(f"fleet amr bf16: {kname} launches")
+    log(f"  bf16 storage (the crashed journal resumed by a bf16 server, "
+        f"steps {SCAN_K}-{FA_FLEET_STEPS}): every lane done and finite, "
+        f"{bwall:.2f} s, {fa.iterations['executed']} iterations executed, "
+        f"max |vel - f32 lanes| {bdv:.3e}; bf16 launches "
+        f"{dict(fa.launches_bf16)}")
+    del bsrv, srv
+    torch.cuda.empty_cache()
+    return res
+
+
 KERNELS = (
     # name, TPU kernel body it replaces, the port's source
     ("update", "cup3d_tpu/ops/fused_bicgstab.py:173", "fused_bicgstab.cu"),
@@ -5441,6 +6073,22 @@ def main() -> int:
     sbodies = sharded_bodies_phase(fish_amr["ms"], pipe_fish["ms"])
     log(f"  phase 33 took {time.perf_counter() - t0:.1f} s; {smi}")
     torch.cuda.empty_cache()
+    log(f"phase 34: bench_fleet32 as the bench runs it: {FLEET_LANES} fish "
+        f"lanes at {FLEET_N}^3, {FLEET_STEPS} steps (K={SCAN_K}), against "
+        "the same jobs served one at a time")
+    t0 = time.perf_counter()
+    fleet32 = fleet32_phase(bw)
+    log(f"  phase 34 took {time.perf_counter() - t0:.1f} s; {smi}")
+    torch.cuda.empty_cache()
+    log(f"phase 35: {FA_LANES} amr_tgv lanes on config #3's forest (bpd 8, "
+        f"levelMax 2), {FA_FLEET_STEPS} steps, CUP3D_FUSED=1: the lanes "
+        "against their solo runs, the forest stages a lane, lane_nan, a "
+        "crash drill, bf16 storage")
+    t0 = time.perf_counter()
+    with _env(CUP3D_FUSED="1"):
+        fleet_amr = fleet_amr_phase(bw, fp32_flops)
+    log(f"  phase 35 took {time.perf_counter() - t0:.1f} s; {smi}")
+    torch.cuda.empty_cache()
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's
@@ -5507,6 +6155,28 @@ def main() -> int:
             else pipe_bf16["launches"][kname] if kname.startswith("amr_")
             else fish256["bf16"]["launches"][kname])
         per_kernel[key] = bf16_rows[key]
+    # the fleet's lanes (phases 34, 35)
+    for kname in FA_PER_ITER:
+        per_kernel[kname]["lanes"] = dict(
+            fleet_amr["kernels"][kname], lanes=FA_LANES,
+            launches_per_dispatch=fleet_amr["launches_per_dispatch"][kname],
+            launches_per_dispatch_1lane=(
+                fleet_amr["one_lane"]["launches_per_dispatch"][kname]),
+            executed=fleet_amr["executed"],
+            executed_1lane=fleet_amr["one_lane"]["executed"])
+        bf = fleet_amr["kernels"][kname].get("partials_err_bf16")
+        per_kernel[kname + "_bf16"]["lanes"] = dict(
+            partials_err=bf, lanes=FA_LANES,
+            launches_per_dispatch=(fleet_amr["bf16"]["launches"][kname]
+                                   / fleet_amr["bf16"]["dispatches"]),
+            executed=fleet_amr["bf16"]["executed"])
+    per_kernel["frenet"]["lanes"] = dict(
+        lanes=fleet32["frenet_lanes"],
+        launches_per_step=fleet32["frenet_launches"] / FLEET_STEPS,
+        ms=fleet32["frenet_lanes_ms"],
+        plain_ms=fleet32["frenet_lanes_plain_ms"],
+        bound_ms=fleet32["frenet_lanes_bound_ms"],
+        max_abs_err=fleet32["frenet_lanes_err"])
     replaces = {k: (r, src) for k, r, src in KERNELS}
     rows = []
     for kname, replaces_at, src in KERNELS + tuple(

@@ -80,9 +80,14 @@ def _log_config(driver) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = sys.argv[1:] if argv is None else argv
-    if args and args[0] in ("fleet", "aot"):
+    if args and args[0] == "fleet":
+        from cup3d_tpu_torch.fleet.cli import main as fleet_main
+
+        sys.exit(fleet_main(args[1:]))
+    if args and args[0] == "aot":
         raise NotImplementedError(
-            f"`{args[0]}` mode is not ported yet (ROADMAP A8)")
+            "`aot` mode (the compiled store of the fleet advance) is "
+            "ROADMAP A8b")
     driver = build_driver(args)
     _log_config(driver)
     driver.init()

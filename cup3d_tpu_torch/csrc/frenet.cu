@@ -20,6 +20,11 @@
 // f32: r, v, nor, vnor, bin, vbin of each point, point 0 the initial
 // frame (r = v = 0, nor = e_y, bin = e_z).
 //
+// Lanes (the fleet's fish lanes): L independent midlines, inputs
+// (L, Nm) and output (L, Nm, 6, 3), one CTA a lane in ONE launch (grid
+// L); each CTA's thread 0 runs its lane's recurrence as above.  L = 1
+// is the one-midline launch.
+//
 // The entry point launches on the caller's stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
@@ -50,6 +55,11 @@ __global__ void __launch_bounds__(32)
 k_frenet(const float* __restrict__ rs, const float* __restrict__ curv,
          const float* __restrict__ dcurv, float* __restrict__ out, int n) {
   if (threadIdx.x != 0) return;
+  const size_t lane = blockIdx.x;
+  rs += lane * n;
+  curv += lane * n;
+  dcurv += lane * n;
+  out += lane * (size_t)n * 18;
   float ksi[3] = {1.f, 0.f, 0.f}, vksi[3] = {0.f, 0.f, 0.f};
   float r[3] = {0.f, 0.f, 0.f}, v[3] = {0.f, 0.f, 0.f};
   float nor[3] = {0.f, 1.f, 0.f}, vnor[3] = {0.f, 0.f, 0.f};
@@ -99,8 +109,10 @@ k_frenet(const float* __restrict__ rs, const float* __restrict__ curv,
 extern "C" {
 
 int cup3d_frenet(const float* rs, const float* curv, const float* dcurv,
-                 float* out, int n, void* stream) {
-  k_frenet<<<1, 32, 0, (cudaStream_t)stream>>>(rs, curv, dcurv, out, n);
+                 float* out, int n, int lanes, void* stream) {
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  k_frenet<<<lanes, 32, 0, (cudaStream_t)stream>>>(rs, curv, dcurv, out,
+                                                     n);
   return (int)cudaGetLastError();
 }
 

@@ -187,6 +187,11 @@ __device__ __forceinline__ void st8(bf16* g, const float (&v)[8]) {
 // _k_update (cup3d_tpu/ops/fused_amr_bicgstab.py:183, math :97-108).
 // wt == nullptr weighs every cell by 1.0f, which leaves B1's bits as
 // they were.
+//
+// Lanes (the fleet's lane-batched forest): T = L x bpl blocks, lane l's
+// blocks contiguous, each lane its own 8-float scalar row, scal (L, 8);
+// block t reads row t / bpl.  bpl = T is one lane, the call as it was.
+// B12 (axpy) and B13 (finish) take the same bpl.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float upd1(float r, float p, float v, float beta,
@@ -204,10 +209,11 @@ template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
 k_update(const S* __restrict__ r, S* p, const S* __restrict__ v, S* rhat,
          const float* __restrict__ scal, const float* __restrict__ wt,
-         float* __restrict__ ts) {
+         float* __restrict__ ts, int bpl) {
   __shared__ float red[kWarps];
-  const float beta = scal[0], omega = scal[1];
-  const bool broke = scal[2] > 0.5f;
+  const float* row = scal + 8 * (size_t)(blockIdx.x / bpl);
+  const float beta = row[0], omega = row[1];
+  const bool broke = row[2] > 0.5f;
   const float weight = wt ? wt[blockIdx.x] : 1.f;
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
   const float4 rr = ld4(r, i), pp = ld4(p, i), vv = ld4(v, i);
@@ -352,9 +358,9 @@ template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
 k_axpy(const S* __restrict__ r, const S* __restrict__ v,
        const float* __restrict__ scal, const float* __restrict__ wt,
-       S* __restrict__ s, float* __restrict__ ts) {
+       S* __restrict__ s, float* __restrict__ ts, int bpl) {
   __shared__ float red[kWarps];
-  const float alpha = scal[0];
+  const float alpha = scal[8 * (size_t)(blockIdx.x / bpl)];
   const float weight = wt ? wt[blockIdx.x] : 1.f;
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
   const float4 rr = ld4(r, i), vv = ld4(v, i);
@@ -379,10 +385,11 @@ __global__ void __launch_bounds__(kVecThreads)
 k_finish(float4* x, const S* __restrict__ y, const S* __restrict__ z,
          const S* s, const S* __restrict__ t, const S* __restrict__ rhat,
          const float* __restrict__ scal, S* r, float* __restrict__ prr,
-         float* __restrict__ prh) {
+         float* __restrict__ prh, int bpl) {
   __shared__ float red_r[kWarps];
   __shared__ float red_h[kWarps];
-  const float alpha = scal[0], omega = scal[1];
+  const float* row = scal + 8 * (size_t)(blockIdx.x / bpl);
+  const float alpha = row[0], omega = row[1];
   const size_t i = (size_t)blockIdx.x * (kCells / 4) + threadIdx.x;
   const float4 xx = x[i], yy = ld4(y, i), zz = ld4(z, i), sv = ld4(s, i);
   const float4 tv = ld4(t, i), rh = ld4(rhat, i);
@@ -870,8 +877,11 @@ int launch_getz_core(const S* w, const float* s1, const float* lam3,
 
 template <typename S>
 int launch_update(const S* r, S* p, const S* v, S* rhat, const float* scal,
-                  const float* wt, float* ts, int T, cudaStream_t stream) {
-  k_update<S><<<T, kVecThreads, 0, stream>>>(r, p, v, rhat, scal, wt, ts);
+                  const float* wt, float* ts, int T, int bpl,
+                  cudaStream_t stream) {
+  if (bpl < 1 || T % bpl) return (int)cudaErrorInvalidValue;
+  k_update<S><<<T, kVecThreads, 0, stream>>>(r, p, v, rhat, scal, wt, ts,
+                                            bpl);
   return (int)cudaGetLastError();
 }
 
@@ -896,17 +906,19 @@ int launch_lap(const S* w, const S* planes, const S* a, S* aw, float* pa,
 
 template <typename S>
 int launch_axpy(const S* r, const S* v, const float* scal, const float* wt,
-                S* s, float* ts, int T, cudaStream_t stream) {
-  k_axpy<S><<<T, kVecThreads, 0, stream>>>(r, v, scal, wt, s, ts);
+                S* s, float* ts, int T, int bpl, cudaStream_t stream) {
+  if (bpl < 1 || T % bpl) return (int)cudaErrorInvalidValue;
+  k_axpy<S><<<T, kVecThreads, 0, stream>>>(r, v, scal, wt, s, ts, bpl);
   return (int)cudaGetLastError();
 }
 
 template <typename S>
 int launch_finish(float* x, const S* y, const S* z, const S* s, const S* t,
                   const S* rhat, const float* scal, S* r, float* prr,
-                  float* prh, int T, cudaStream_t stream) {
+                  float* prh, int T, int bpl, cudaStream_t stream) {
+  if (bpl < 1 || T % bpl) return (int)cudaErrorInvalidValue;
   k_finish<S><<<T, kVecThreads, 0, stream>>>((float4*)x, y, z, s, t, rhat,
-                                             scal, r, prr, prh);
+                                             scal, r, prr, prh, bpl);
   return (int)cudaGetLastError();
 }
 
@@ -924,7 +936,9 @@ int launch_lap_amr(const float* lab, const float* corr, const S* a,
 // ---------------------------------------------------------------------------
 // plain C interface (loaded with ctypes); T = number of 8^3 tiles or
 // blocks; wt may be nullptr (the uniform grid's B1 and B5), h2col too
-// (the uniform grid's B3).  Each stage has an f32 entry point and a _bf16
+// (the uniform grid's B3); bpl (update, axpy, finish) is the blocks of
+// one lane, each lane reading its own 8-float scalar row (T: one lane).
+// Each stage has an f32 entry point and a _bf16
 // one (S = __nv_bfloat16: the Krylov vectors in bf16; x, partials,
 // columns, labs, corr and azf f32 in both).
 // ---------------------------------------------------------------------------
@@ -932,8 +946,8 @@ int launch_lap_amr(const float* lab, const float* corr, const S* a,
 #define CUP3D_STAGES(S, SFX)                                                  \
   int cup3d_update##SFX(const S* r, S* p, const S* v, S* rhat,               \
                         const float* scal, const float* wt, float* ts, int T, \
-                        void* stream) {                                       \
-    return launch_update<S>(r, p, v, rhat, scal, wt, ts, T,                   \
+                        int bpl, void* stream) {                              \
+    return launch_update<S>(r, p, v, rhat, scal, wt, ts, T, bpl,              \
                             (cudaStream_t)stream);                            \
   }                                                                           \
   int cup3d_getz_two##SFX(const S* w, const float* s1, const float* lam3,    \
@@ -956,14 +970,16 @@ int launch_lap_amr(const float* lab, const float* corr, const S* a,
                          (cudaStream_t)stream);                               \
   }                                                                           \
   int cup3d_axpy##SFX(const S* r, const S* v, const float* scal,             \
-                      const float* wt, S* s, float* ts, int T,               \
+                      const float* wt, S* s, float* ts, int T, int bpl,      \
                       void* stream) {                                         \
-    return launch_axpy<S>(r, v, scal, wt, s, ts, T, (cudaStream_t)stream);   \
+    return launch_axpy<S>(r, v, scal, wt, s, ts, T, bpl,                      \
+                          (cudaStream_t)stream);                              \
   }                                                                           \
   int cup3d_finish##SFX(float* x, const S* y, const S* z, const S* s,       \
                         const S* t, const S* rhat, const float* scal, S* r,  \
-                        float* prr, float* prh, int T, void* stream) {       \
-    return launch_finish<S>(x, y, z, s, t, rhat, scal, r, prr, prh, T,       \
+                        float* prr, float* prh, int T, int bpl,              \
+                        void* stream) {                                       \
+    return launch_finish<S>(x, y, z, s, t, rhat, scal, r, prr, prh, T, bpl,  \
                             (cudaStream_t)stream);                            \
   }                                                                           \
   int cup3d_getz_amr##SFX(const S* w, const float* azf, const float* s1,    \

@@ -148,8 +148,12 @@ def apply_flux_correction(out: torch.Tensor, fluxes: torch.Tensor,
         return out
     corr = corrections(fluxes.reshape(-1), tab.src_flux, tab.tgt_flux,
                        tab.inv_hc)
-    flat = out.reshape(-1).clone()
-    add_grouped(flat, tab.cells, tab.groups, corr)
+    flat = out.reshape(-1)
+    # out of place (the same sums as add_grouped): ``out`` may be one
+    # tensor shared by lanes whose fluxes differ (torch.func.vmap)
+    flat = flat.index_put((tab.cells,),
+                          flat[tab.cells] + grouped_sums(tab.groups, corr,
+                                                         flat.dtype))
     return flat.reshape(out.shape)
 
 
@@ -168,14 +172,20 @@ def add_grouped(flat: torch.Tensor, cells: torch.Tensor,
     """flat[cells] += the corrections of each cell's group, summed in
     table order (``groups`` index ``corr`` along its last axis with one
     zero row appended; every target written once), in place."""
+    flat[cells] = flat[cells] + grouped_sums(groups, corr, flat.dtype)
+
+
+def grouped_sums(groups: torch.Tensor, corr: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """Each cell's group of corrections summed in table order."""
     corr = torch.cat([corr, corr.new_zeros(corr.shape[:-1] + (1,))],
-                     dim=-1).to(flat.dtype)
+                     dim=-1).to(dtype)
     corr = corr.reshape(-1)
     add = None
     for k in range(groups.shape[-1]):
         part = corr[groups[..., k]]
         add = part if add is None else add + part
-    flat[cells] = flat[cells] + add
+    return add
 
 
 #: most coarse-fine faces one coarse cell can border (a block corner)

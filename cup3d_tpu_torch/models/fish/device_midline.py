@@ -161,21 +161,26 @@ def _frenet_scan_dev(rs, curv, dcurv, kernels=None):
     """Twin of frenet.frenet_solve with zero torsion (torsion control is
     excluded by eligibility): forward-Euler Frenet-Serret integration
     carrying the frame and its time derivative, renormalising each step.
-    rs, curv, dcurv (Nm,); returns r, v, nor, vnor, bin, vbin (Nm, 3).
-    The CUDA kernel on a CUDA tensor (f32), the plain loop on a CPU one
-    or with ``kernels=False``."""
+    rs, curv, dcurv (Nm,), or (L, Nm) for L lanes (the fleet's fish
+    lanes: one launch for all of them); returns r, v, nor, vnor, bin,
+    vbin (Nm, 3) or (L, Nm, 3).  The CUDA kernel on a CUDA tensor (f32),
+    the plain loop on a CPU one or with ``kernels=False``."""
     if not _use_kernel(rs, kernels):
         return _frenet_scan_plain(rs, curv, dcurv)
-    n = rs.shape[0]
+    n = rs.shape[-1]
+    lanes = rs.shape[0] if rs.dim() == 2 else 1
     for t in (rs, curv, dcurv):
-        _check_small(t, (n,), rs.device)
-    out = torch.empty((n, 6, 3), dtype=rs.dtype, device=rs.device)
+        _check_small(t, tuple(rs.shape), rs.device)
+    if rs.dim() not in (1, 2):
+        raise ValueError("the Frenet kernel takes (Nm,) or (L, Nm) inputs")
+    out = torch.empty(tuple(rs.shape) + (6, 3), dtype=rs.dtype,
+                      device=rs.device)
     cuda_lib.load().call("cup3d_frenet", rs.data_ptr(), curv.data_ptr(),
-                         dcurv.data_ptr(), out.data_ptr(), n,
+                         dcurv.data_ptr(), out.data_ptr(), n, lanes,
                          cuda_lib.stream(rs.device))
     launches["frenet"] += 1
     return dict(zip(("r", "v", "nor", "vnor", "bin", "vbin"),
-                    out.unbind(1)))
+                    out.unbind(-2)))
 
 
 def _frenet_scan_plain(rs, curv, dcurv):
@@ -184,41 +189,44 @@ def _frenet_scan_plain(rs, curv, dcurv):
     The state S = [ksi, vksi, r, v, nor, vnor, bin, vbin] (8, 3) moves by
     one linear map a point, M_i (8, 8) built for every point at once from
     (k, dk, ds), then ksi, nor and bin are renormalised; M_i reads the OLD
-    ksi, vksi and nor, as the host loop does."""
+    ksi, vksi and nor, as the host loop does.  (L, Nm) inputs run the L
+    lanes' recurrences side by side, S (L, 8, 3)."""
     dtype, dev = rs.dtype, rs.device
-    n = rs.shape[0]
-    ds = rs[1:] - rs[:-1]
-    k, dk = curv[:-1], dcurv[:-1]
-    M = torch.eye(8, dtype=dtype, device=dev).repeat(n - 1, 1, 1)
+    lead = tuple(rs.shape[:-1])
+    n = rs.shape[-1]
+    ds = rs[..., 1:] - rs[..., :-1]
+    k, dk = curv[..., :-1], dcurv[..., :-1]
+    M = torch.eye(8, dtype=dtype, device=dev).repeat(lead + (n - 1, 1, 1))
     # ksi += ds k nor; vksi += ds (dk nor + k vnor); r += ds ksi;
     # v += ds vksi; nor -= ds k ksi; vnor -= ds (dk ksi + k vksi)
-    M[:, 0, 4] = ds * k
-    M[:, 1, 4] = ds * dk
-    M[:, 1, 5] = ds * k
-    M[:, 2, 0] = ds
-    M[:, 3, 1] = ds
-    M[:, 4, 0] = -(ds * k)
-    M[:, 5, 0] = -(ds * dk)
-    M[:, 5, 1] = -(ds * k)
+    M[..., 0, 4] = ds * k
+    M[..., 1, 4] = ds * dk
+    M[..., 1, 5] = ds * k
+    M[..., 2, 0] = ds
+    M[..., 3, 1] = ds
+    M[..., 4, 0] = -(ds * k)
+    M[..., 5, 0] = -(ds * dk)
+    M[..., 5, 1] = -(ds * k)
     renorm = upload(np.array([1, 0, 0, 0, 1, 0, 1, 0], bool), torch.bool,
                     dev)
     one = torch.ones((), dtype=dtype, device=dev)
-    S = torch.zeros((8, 3), dtype=dtype, device=dev)
-    S[0, 0] = 1.0  # ksi = e_x
-    S[4, 1] = 1.0  # nor = e_y
-    S[6, 2] = 1.0  # bin = e_z
+    S = torch.zeros(lead + (8, 3), dtype=dtype, device=dev)
+    S[..., 0, 0] = 1.0  # ksi = e_x
+    S[..., 4, 1] = 1.0  # nor = e_y
+    S[..., 6, 2] = 1.0  # bin = e_z
     out = [S]
     for i in range(n - 1):
-        S = M[i] @ S
-        d = torch.sum(S * S, dim=1)
+        S = M[..., i, :, :] @ S
+        d = torch.sum(S * S, dim=-1)
         sc = torch.where(renorm & (d > _EPS64),
                          torch.rsqrt(torch.clamp_min(d, _EPS64)), one)
-        S = S * sc[:, None]
+        S = S * sc[..., None]
         out.append(S)
-    st = torch.stack(out)
+    st = torch.stack(out, dim=-3)
     # the first point keeps r = v = 0 and the initial frame
-    return {"r": st[:, 2], "v": st[:, 3], "nor": st[:, 4], "vnor": st[:, 5],
-            "bin": st[:, 6], "vbin": st[:, 7]}
+    return {"r": st[..., 2, :], "v": st[..., 3, :], "nor": st[..., 4, :],
+            "vnor": st[..., 5, :], "bin": st[..., 6, :],
+            "vbin": st[..., 7, :]}
 
 
 def _pitching_dev(r, v, R, Rdot):
@@ -431,19 +439,23 @@ def _curvature_dev(gait, t):
     return rK, vK
 
 
-def midline_state_device(gait, t, dt, qint):
-    """The full midline state at device time ``t``: gait wave -> Frenet
-    integration -> pitching wrap -> normal re-orthonormalisation ->
-    deformation-momentum removal.  ``t``, ``dt`` 0-dim tensors (or
-    floats), ``qint`` the carried internal quaternion (4,).  Returns
-    (midline dict for rasterize_midline, updated qint)."""
+def midline_curvature_device(gait, t):
+    """The first part of :func:`midline_state_device`: the gait's
+    curvature and its rate (Nm,) at device time ``t``, the Frenet
+    integration's input."""
     rs = gait["rs"]
     t = torch.as_tensor(t, dtype=rs.dtype, device=rs.device)
-    rK, vK = _curvature_dev(gait, t)
     # no host-style finite check: a NaN reaches the carried umax and the
     # megaloop's consumer raises the recoverable nan-velocity failure
+    return _curvature_dev(gait, t)
 
-    sol = _frenet_scan_dev(rs, rK, vK)
+
+def midline_from_frenet_device(gait, sol, dt, qint):
+    """The rest of :func:`midline_state_device` from the Frenet
+    integration ``sol`` (its r, v, nor, vnor): pitching wrap -> normal
+    re-orthonormalisation -> deformation-momentum removal.  Returns
+    (midline dict, updated qint)."""
+    rs = gait["rs"]
     r, v = _pitching_dev(sol["r"], sol["v"], gait["R"], gait["Rdot"])
     nor, vnor, bin_, vbin = _recompute_normals_dev(rs, r, v,
                                                    sol["nor"], sol["vnor"])
@@ -461,3 +473,14 @@ def midline_state_device(gait, t, dt, qint):
     mid = {"r": r, "v": v, "nor": nor, "vnor": vnor, "bin": bin_,
            "vbin": vbin, "width": gait["width"], "height": gait["height"]}
     return mid, qint_new
+
+
+def midline_state_device(gait, t, dt, qint):
+    """The full midline state at device time ``t``: gait wave -> Frenet
+    integration -> pitching wrap -> normal re-orthonormalisation ->
+    deformation-momentum removal.  ``t``, ``dt`` 0-dim tensors (or
+    floats), ``qint`` the carried internal quaternion (4,).  Returns
+    (midline dict for rasterize_midline, updated qint)."""
+    rK, vK = midline_curvature_device(gait, t)
+    sol = _frenet_scan_dev(gait["rs"], rK, vK)
+    return midline_from_frenet_device(gait, sol, dt, qint)

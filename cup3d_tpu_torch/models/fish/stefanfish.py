@@ -49,10 +49,12 @@ def _raster_window_dense(pos, rot, midline, half, h, grid_shape,
     sdf_w, udef_w = rasterize_midline(origin, h, window_shape, midline, pos,
                                       rot)
     sl = window_index(idx0, window_shape)
-    sdf = torch.full(tuple(grid_shape), -1.0, dtype=dtype, device=dev)
-    sdf[sl] = sdf_w
-    udef = torch.zeros(tuple(grid_shape) + (3,), dtype=dtype, device=dev)
-    udef[sl] = udef_w
+    # out of place: the fleet's fish lanes place each lane's window at its
+    # own position from one shared background (torch.func.vmap)
+    sdf = torch.full(tuple(grid_shape), -1.0, dtype=dtype,
+                     device=dev).index_put(sl, sdf_w)
+    udef = torch.zeros(tuple(grid_shape) + (3,), dtype=dtype,
+                       device=dev).index_put(sl, udef_w)
     return sdf, udef
 
 

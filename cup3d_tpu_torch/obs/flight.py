@@ -32,6 +32,7 @@ import json
 import math
 import os
 import time
+import weakref
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
@@ -75,6 +76,16 @@ def _jsonable(obj, depth: int = 0):
     return repr(obj)
 
 
+#: every live recorder, held by weakref: the fleet server notes each
+#: terminal job into all of them (fleet/server.py)
+_LIVE: "weakref.WeakSet[FlightRecorder]" = weakref.WeakSet()
+
+
+def live_recorders() -> List["FlightRecorder"]:
+    """Currently-alive recorders (arbitrary order)."""
+    return list(_LIVE)
+
+
 class FlightRecorder:
     """Ring buffer of recent step records + residual samples with a
     one-shot postmortem dump.  ``state_probe`` (optional, zero-arg) returns
@@ -98,12 +109,20 @@ class FlightRecorder:
         #: when it claims the failure (resilience/recovery.py)
         self.recovery_intercept: Optional[Callable[[str, dict], bool]] = None
         self.recovery_events: deque = deque(maxlen=64)
+        self.job_events: deque = deque(maxlen=64)
+        _LIVE.add(self)
 
     def note_recovery(self, event: dict) -> None:
         """Append one rollback/retry/give-up event (part of every later
         postmortem)."""
         self.recovery_events.append(dict(event))
         _metrics.counter("flight.recovery_events").inc()
+
+    def note_job(self, event: dict) -> None:
+        """Append one terminal fleet-job event (job_id, tenant, status,
+        durations; part of every later postmortem)."""
+        self.job_events.append(dict(event))
+        _metrics.counter("flight.job_events").inc()
 
     # -- recording (O(1) host appends) -----------------------------------
 
@@ -169,7 +188,9 @@ class FlightRecorder:
             "steps": [_jsonable(r) for r in self.steps],
             "residual_history": list(self.residuals),
             "recovery_events": [_jsonable(e) for e in self.recovery_events],
+            "job_events": [_jsonable(e) for e in self.job_events],
             "metrics": _jsonable(_metrics.snapshot()),
+            "mesh": _mesh_block(),
         }
         os.makedirs(self.directory or ".", exist_ok=True)
         tag = at_step if at_step is not None else len(self.steps)
@@ -179,6 +200,19 @@ class FlightRecorder:
         self.dumps_written.append(path)
         self._c_dumps.inc()
         return path
+
+
+def _mesh_block() -> Dict:
+    """The postmortem's mesh picture: the distributed-init state and
+    every live fleet server's ``mesh_state()``; a broken probe must not
+    kill the dump it is trying to explain."""
+    try:
+        from cup3d_tpu_torch.obs import federate as _federate
+
+        return _jsonable(_federate.mesh_summary())
+    except Exception as e:
+        _metrics.counter("flight.mesh_probe_errors").inc()
+        return {"probe_error": repr(e)}
 
 
 def load_postmortem(path: str) -> Dict:

@@ -300,7 +300,10 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
 
     def solve(rhs, x0=None, tab_arg=None, flux_arg=None, rnorm_ref=None,
               geom=None, vol=None, pmask=None, graph=None, slot0=None,
-              with_stats=False):
+              with_stats=False, lanes=False, live=None):
+        if lanes:
+            return solve_lanes(rhs, x0, tab_arg, flux_arg, rnorm_ref, geom,
+                               vol, pmask, graph, with_stats, live)
         t, ft = tab_arg, flux_arg
         h_col = _hcol(geom, rhs)
         h2 = h_col * h_col
@@ -350,6 +353,69 @@ def build_amr_poisson_solver_dynamic(bs: int, tol_abs: float = 1e-6,
                 maxiter=maxiter, rnorm_ref=rnorm_ref)
         if mean_constraint == 2:
             x = x - wmean(x)
+        x = x * pmask if pmask is not None else x
+        if with_stats:
+            return x, krylov.solver_stats(rnorm, k)
+        return x
+
+    def solve_lanes(rhs, x0, t, ft, rnorm_ref, geom, vol, pmask, graph,
+                    with_stats, live):
+        """L independent systems on one topology, ``rhs`` (L, nb, bs, bs,
+        bs), ``x0`` likewise or None, ``rnorm_ref`` (L,): mean removal and
+        the masks per lane, the solve lane-batched (the fused driver's
+        ``lanes``, or the legacy BiCGSTAB's).  ``live`` ((L,) bool or
+        None): the lanes that solve at all; the others come back
+        unsolved.  Mean removal only (the fleet's lanes)."""
+        if mean_constraint != 2:
+            raise ValueError("lane-batched forest solves remove the mean "
+                             "(mean_constraint 2)")
+        L, nb = rhs.shape[0], rhs.shape[1]
+        vol_total = torch.sum(vol) * bs**3
+
+        def wmean(x):
+            return (torch.sum((x * vol).reshape(L, -1), dim=1)
+                    / vol_total).reshape(L, 1, 1, 1, 1)
+
+        b = rhs - wmean(rhs)
+        b = b * pmask if pmask is not None else b
+        if rnorm_ref is None:
+            rnorm_ref = torch.sqrt(torch.sum((b * b).reshape(L, -1), dim=1,
+                                             dtype=torch.float32))
+        if fused_on:
+            from cup3d_tpu_torch.ops import fused_amr_bicgstab as _fused
+
+            flat = (L * nb,) + tuple(rhs.shape[2:])
+            x, rnorm, k = _fused.fused_amr_bicgstab(
+                geom, b.reshape(flat), tab=t, ftab=ft, vol=vol, graph=graph,
+                tol_abs=tol_abs, tol_rel=tol_rel, maxiter=maxiter,
+                rnorm_ref=rnorm_ref,
+                x0=None if x0 is None else x0.reshape(flat),
+                store_dtype=store, kernels=kernels, lanes=L, live=live)
+            x = x.reshape(rhs.shape)
+        else:
+            h2 = _hcol(geom, rhs[0]) ** 2
+
+            def A(x):
+                return torch.func.vmap(
+                    lambda u: laplacian_blocks(geom, u, t, ft))(x)
+
+            def coarse(r):
+                zc = krylov.coarse_correct_blocks(r, vol, graph)
+                zf = zc[:, None, None, None].expand(r.shape).to(r.dtype)
+                return zf, r - laplacian_blocks(geom, zf, t, ft)
+
+            def M(r):
+                # the tile solves see every lane's blocks at once
+                if graph is not None:
+                    zf, r2 = torch.func.vmap(coarse)(r)
+                    return krylov.getz_blocks(-h2 * r2, precond_iters,
+                                              kernels) + zf
+                return krylov.getz_blocks(-h2 * r, precond_iters, kernels)
+
+            x, rnorm, k = krylov.bicgstab(
+                A, b, M=M, x0=x0, tol_abs=tol_abs, tol_rel=tol_rel,
+                maxiter=maxiter, rnorm_ref=rnorm_ref, lanes=True, live=live)
+        x = x - wmean(x)
         x = x * pmask if pmask is not None else x
         if with_stats:
             return x, krylov.solver_stats(rnorm, k)

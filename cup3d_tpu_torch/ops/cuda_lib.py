@@ -41,12 +41,12 @@ _F = ctypes.c_float
 #: the fused-BiCGSTAB stages; each has an f32 entry point and a ``_bf16``
 #: one of the same arguments (bf16 Krylov vectors)
 _STAGES = {
-    "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cup3d_getz_two": [_P, _P, _P, _P, _P, _F, _I, _P],
     "cup3d_getz_tile": [_P, _P, _P, _P, _F, _P, _I, _P],
     "cup3d_lap": [_P, _P, _P, _P, _P, _P, _F, _I, _P],
-    "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _P],
-    "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cup3d_getz_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     "cup3d_lap_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
@@ -60,7 +60,7 @@ SOURCES = {
         "cup3d_ring_steps": None,
     },
     CSRC / "frenet.cu": {
-        "cup3d_frenet": [_P, _P, _P, _P, _I, _P],
+        "cup3d_frenet": [_P, _P, _P, _P, _I, _I, _P],
     },
 }
 

@@ -84,6 +84,27 @@ def _col(c: torch.Tensor) -> torch.Tensor:
     return c.reshape(-1, 1, 1, 1)
 
 
+def _lanes(scal: torch.Tensor, n: int) -> int:
+    """Blocks a lane for ``n`` blocks and a scalar block ``scal``: (8,)
+    is one lane (n), (L, 8) one row a lane, n / L blocks each."""
+    if scal.dim() == 1:
+        return n
+    L = scal.shape[0]
+    if L < 1 or n % L:
+        raise ValueError(f"{n} blocks do not split into {L} lanes")
+    return n // L
+
+
+def _row_col(scal: torch.Tensor, j: int, bpl: int) -> torch.Tensor:
+    """Entry j of the scalar rows for the plain versions: the 0-dim
+    scalar of one row, or a per-block (n, 1, 1, 1) column of the (L, 8)
+    rows (each block its lane's value: the same elementwise arithmetic as
+    the scalar broadcast)."""
+    if scal.dim() == 1:
+        return scal[j]
+    return _col(scal[:, j].repeat_interleave(bpl))
+
+
 def _update_math(r, p, v, rhat, vol, beta, omega, broke, store=_F32):
     p_st, rh_st, _ = fb._update_math(r, p, v, rhat, beta, omega, broke,
                                      store)
@@ -148,20 +169,23 @@ def _check_cols(n: int, dev, *cols: torch.Tensor) -> None:
 
 def update(r, p, v, rhat, vol, scal, kernels=None):
     """B8: (p_new, rhat_new, per-block sum p_new * vol); vol (nb,) f32,
-    the vectors in their storage dtype.  The kernel updates p and rhat in
-    place (returned)."""
+    the vectors in their storage dtype; scal the (8,) row, or (L, 8) for
+    L lanes of nb / L contiguous blocks each (every lane its own row).
+    The kernel updates p and rhat in place (returned)."""
+    bpl = _lanes(scal, r.shape[0])
     if not fb._use_kernel(r, kernels):
-        return _update_math(r, p, v, rhat, vol, scal[0], scal[1], scal[2],
+        return _update_math(r, p, v, rhat, vol, _row_col(scal, 0, bpl),
+                            _row_col(scal, 1, bpl), _row_col(scal, 2, bpl),
                             p.dtype)
     n = fb._check_vecs(r, p, v, rhat)
-    fb._check_small(scal, (8,), r.device)
+    fb._check_small(scal, tuple(scal.shape[:-1]) + (8,), r.device)
     _check_cols(n, r.device, vol)
     if len({r.data_ptr(), p.data_ptr(), v.data_ptr(), rhat.data_ptr()}) < 4:
         raise ValueError("update: r, p, v and rhat must not share memory")
     ts = torch.empty(n, dtype=_F32, device=r.device)
     fb._lib().call(fb._entry("cup3d_update", r.dtype), r.data_ptr(),
                    p.data_ptr(), v.data_ptr(), rhat.data_ptr(),
-                   scal.data_ptr(), vol.data_ptr(), ts.data_ptr(), n,
+                   scal.data_ptr(), vol.data_ptr(), ts.data_ptr(), n, bpl,
                    cuda_lib.stream(r.device))
     _count("amr_update", r.dtype)
     return p, rhat, ts
@@ -224,17 +248,20 @@ def lap(lab, corr, a, inv_h2, kernels=None):
 
 
 def axpy(r, v, vol, scal, kernels=None):
-    """B12: (s = r - alpha v, per-block sum s * vol); scal = (alpha, ...)."""
+    """B12: (s = r - alpha v, per-block sum s * vol); scal = (alpha, ...),
+    or (L, 8) rows for L lanes as in :func:`update`."""
+    bpl = _lanes(scal, r.shape[0])
     if not fb._use_kernel(r, kernels):
-        return _axpy_math(r, v, vol, scal[0], r.dtype)
+        return _axpy_math(r, v, vol, _row_col(scal, 0, bpl), r.dtype)
     n = fb._check_vecs(r, v)
-    fb._check_small(scal, (8,), r.device)
+    fb._check_small(scal, tuple(scal.shape[:-1]) + (8,), r.device)
     _check_cols(n, r.device, vol)
     s = torch.empty_like(r)
     ts = torch.empty(n, dtype=_F32, device=r.device)
     fb._lib().call(fb._entry("cup3d_axpy", r.dtype), r.data_ptr(),
                    v.data_ptr(), scal.data_ptr(), vol.data_ptr(),
-                   s.data_ptr(), ts.data_ptr(), n, cuda_lib.stream(r.device))
+                   s.data_ptr(), ts.data_ptr(), n, bpl,
+                   cuda_lib.stream(r.device))
     _count("amr_axpy", r.dtype)
     return s, ts
 
@@ -242,20 +269,22 @@ def axpy(r, v, vol, scal, kernels=None):
 def finish(x, y, z, s, t, rhat, scal, kernels=None):
     """B13: the B6 function on blocks (served by the B6 kernel): x +=
     alpha y + omega z (x f32), r = s - omega t into the buffer of s,
-    per-block r . r and rhat . r."""
+    per-block r . r and rhat . r; scal (8,) or (L, 8) as in
+    :func:`update`."""
+    bpl = _lanes(scal, s.shape[0])
     if not fb._use_kernel(x, kernels):
-        return fb._finish_math(x, y, z, s, t, rhat, scal[0], scal[1],
-                               s.dtype)
+        return fb._finish_math(x, y, z, s, t, rhat, _row_col(scal, 0, bpl),
+                               _row_col(scal, 1, bpl), s.dtype)
     n = fb._check_vecs(y, z, s, t, rhat)
     if fb._check_vecs(x, dtype=_F32) != n or x.device != s.device:
         raise ValueError("finish: x must match the other vectors' blocks")
-    fb._check_small(scal, (8,), x.device)
+    fb._check_small(scal, tuple(scal.shape[:-1]) + (8,), x.device)
     prr = torch.empty(n, dtype=_F32, device=x.device)
     prh = torch.empty(n, dtype=_F32, device=x.device)
     fb._lib().call(fb._entry("cup3d_finish", s.dtype), x.data_ptr(),
                    y.data_ptr(), z.data_ptr(), s.data_ptr(), t.data_ptr(),
                    rhat.data_ptr(), scal.data_ptr(), s.data_ptr(),
-                   prr.data_ptr(), prh.data_ptr(), n,
+                   prr.data_ptr(), prh.data_ptr(), n, bpl,
                    cuda_lib.stream(x.device))
     _count("amr_finish", s.dtype)
     return x, s, prr, prh
@@ -266,11 +295,62 @@ def finish(x, y, z, s, t, rhat, scal, kernels=None):
 # ---------------------------------------------------------------------------
 
 
+class _Lanes:
+    """The per-lane reductions and selects of the lane-batched driver: L
+    lanes of ``nb`` blocks each stacked along the block axis (lane l's
+    blocks contiguous), every Krylov scalar an (L,) tensor.  With
+    ``L = None`` each is the one-system version the driver always used
+    (so one system's bits are unchanged)."""
+
+    def __init__(self, L: Optional[int]):
+        self.L = L
+
+    def dot(self, a, b):
+        if self.L is None:
+            return krylov._dot(a, b)
+        from cup3d_tpu_torch.ops import precision
+
+        return torch.sum((a * b).reshape(self.L, -1), dim=1,
+                         dtype=precision.accum_dtype(a.dtype))
+
+    def combine(self, part):
+        """Per-block partials -> one scalar a lane, each lane's blocks
+        summed in block order (no float atomics)."""
+        if self.L is None:
+            return fb._combine(part)
+        return torch.sum(part.reshape(self.L, -1), dim=1, dtype=_F32)
+
+    def rows(self, *vals):
+        """The scalar row(s) the stages read: (8,), or (L, 8)."""
+        if self.L is None:
+            return fb._scalars(*vals)
+        row = torch.stack([v.to(_F32) for v in vals], dim=1)
+        return torch.cat([row, row.new_zeros(self.L, 8 - len(vals))],
+                         dim=1).contiguous()
+
+    def select_into(self, mask, new, dst):
+        """dst = where(mask, new, dst) in place, mask one value a lane."""
+        if self.L is None:
+            torch.where(mask, new, dst, out=dst)
+            return
+        dv = dst.view(self.L, -1)
+        torch.where(mask[:, None], new.reshape(self.L, -1), dv, out=dv)
+
+    def blocks(self, fn, x):
+        """``fn`` of one lane's blocks, applied to every lane (L * nb
+        stacked blocks -> L * nb stacked results) in one batched call."""
+        if self.L is None:
+            return fn(x)
+        y = torch.func.vmap(fn)(x.reshape((self.L, -1) + tuple(x.shape[1:])))
+        return y.reshape((-1,) + tuple(y.shape[2:]))
+
+
 def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
                        vol: torch.Tensor, graph=None, tol_abs: float = 1e-6,
                        tol_rel: float = 1e-4, maxiter: int = 1000,
                        rnorm_ref=None, x0: Optional[torch.Tensor] = None,
-                       store_dtype=None, kernels: Optional[bool] = None):
+                       store_dtype=None, kernels: Optional[bool] = None,
+                       lanes: Optional[int] = None, live=None):
     """Fused-iteration preconditioned BiCGSTAB on the forest ``geom`` (a
     BlockGrid): ``b`` the mean-removed rhs (nb, 8, 8, 8), ``tab`` width-1
     face tables, ``ftab`` flux tables, ``vol`` the (nb,1,1,1) cell volume,
@@ -279,44 +359,87 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
     precision.krylov_dtype()).  Returns ``(x_best (nb,8,8,8) f32,
     rnorm_best, iterations)`` (0-dim device tensors for the last two).
     Tail iterations of the last chunk after convergence never touch
-    x_best, rnorm_best or the count."""
+    x_best, rnorm_best or the count.
+
+    ``lanes`` = L solves L independent systems on one topology at once
+    (the fleet's lane-batched forest, the JAX package's ``vmap`` of this
+    solve): ``b``, ``x0`` and the result are (L * nb, 8, 8, 8), lane l's
+    blocks contiguous; ``geom``, ``tab``, ``ftab``, ``vol`` and ``graph``
+    are one lane's; ``rnorm_ref`` is (L,) and the returned residual and
+    iteration count are (L,).  Each stage launches once for all lanes,
+    B8, B12 and B13 reading each lane's own scalar row; the dot partials
+    combine per lane; every lane iterates until the last one stops, a
+    stopped lane's x_best, residual and count frozen (the JAX
+    ``while_loop`` under ``vmap``).  ``live`` ((L,) bool, or None) marks
+    the lanes that solve at all: a lane False (the fleet's finished and
+    padding lanes, whose step the gate discards) is frozen from the start
+    and holds no lane to its iteration count (krylov.iterate)."""
     from cup3d_tpu_torch.ops import amr_ops, precision
 
     store = precision.krylov_dtype() if store_dtype is None else store_dtype
+    ln = _Lanes(lanes)
+    nl = 1 if lanes is None else int(lanes)
 
     bs, nb = int(geom.bs), int(geom.nb)
     if bs != BS:
         raise ValueError(f"the fused forest driver is built for {BS}^3 blocks")
     if tab.width != 1:
         raise ValueError("fused AMR Laplacian needs width-1 lab tables")
+    if b.shape[0] != nl * nb:
+        raise ValueError(f"rhs of {b.shape[0]} blocks for {nl} lane(s) of "
+                         f"{nb} blocks")
     dev = b.device
     h_col = geom.h_column(_F32, dev)
     inv_h = 1.0 / h_col
-    h2 = (h_col * h_col).reshape(nb).contiguous()
-    inv_h2 = (inv_h * inv_h).reshape(nb).contiguous()
-    vol_c = vol.to(_F32).reshape(nb).contiguous()
+    h2 = (h_col * h_col).reshape(nb).repeat(nl).contiguous()
+    inv_h2 = (inv_h * inv_h).reshape(nb).repeat(nl).contiguous()
+    vol_c = vol.to(_F32).reshape(nb).repeat(nl).contiguous()
     two_level = graph is not None
     zeros = torch.zeros((nb, bs, bs, bs), dtype=_F32, device=dev)
+    zeros_all = (zeros if lanes is None else
+                 torch.zeros((nl * nb, bs, bs, bs), dtype=_F32, device=dev))
+
+    def coarse(tsum):
+        zc = krylov.coarse_solve_graph(tsum, graph).to(_F32)
+        zf = zc[:, None, None, None].expand(nb, bs, bs, bs)
+        azf = amr_ops.laplacian_blocks(geom, zf, tab, ftab)
+        return zc, azf
 
     def getz(w, tsum):
         if not two_level:
             return getz_tile(w, h2, kernels)
         # the coarse solve of coarse_correct_blocks, its restriction taken
         # from the update/axpy partials; then the full refluxed A zf
-        zc = krylov.coarse_solve_graph(tsum, graph).to(_F32).contiguous()
-        zf = zc[:, None, None, None].expand(nb, bs, bs, bs)
-        azf = amr_ops.laplacian_blocks(geom, zf, tab, ftab).contiguous()
-        return getz_two(w, azf, zc, h2, kernels)
+        if lanes is None:
+            zc, azf = coarse(tsum)
+        else:
+            zc, azf = torch.func.vmap(coarse)(tsum.reshape(nl, nb))
+            zc = zc.reshape(nl * nb)
+            azf = azf.reshape((nl * nb,) + tuple(azf.shape[2:]))
+        return getz_two(w, azf.contiguous(), zc.contiguous(), h2, kernels)
+
+    def lab_corr_one(w32):
+        lab = tab.assemble_scalar(w32, bs)
+        if ftab is not None and ftab.ncorr:
+            fl = amr_ops.face_fluxes(lab, 1, bs, inv_h)
+            return lab, ftab.apply(zeros, fl)
+        return lab, zeros
 
     def lab_corr(w):
         """The width-1 halo lab of a direction and the dense coarse-fine
         reflux increment: the two data-dependent pieces of A, assembled
         in f32 from the stored direction."""
-        lab = tab.assemble_scalar(w.to(_F32), bs).contiguous()
-        if ftab is not None and ftab.ncorr:
-            fl = amr_ops.face_fluxes(lab, 1, bs, inv_h)
-            return lab, ftab.apply(zeros, fl).contiguous()
-        return lab, zeros
+        w32 = w.to(_F32)
+        if lanes is None:
+            lab, corr = lab_corr_one(w32)
+            return lab.contiguous(), corr.contiguous()
+        if not (ftab is not None and ftab.ncorr):
+            return ln.blocks(lambda u: tab.assemble_scalar(u, bs),
+                             w32).contiguous(), zeros_all
+        lab, corr = torch.func.vmap(lab_corr_one)(
+            w32.reshape(nl, nb, bs, bs, bs))
+        return (lab.reshape((nl * nb,) + tuple(lab.shape[2:])).contiguous(),
+                corr.reshape(nl * nb, bs, bs, bs).contiguous())
 
     b32 = b.to(_F32).contiguous()
     x = (torch.zeros_like(b32) if x0 is None
@@ -324,19 +447,21 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
     if x0 is None:
         r0 = b32  # A(0) == 0 exactly; skip the apply
     else:
-        r0 = b32 - amr_ops.laplacian_blocks(geom, x, tab, ftab)
+        r0 = b32 - ln.blocks(
+            lambda u: amr_ops.laplacian_blocks(geom, u, tab, ftab), x)
     # the norm and rho from the f32 residual, the iteration from its
     # stored copy (rhat its own buffer: B8 re-seeds it in place)
-    rr0 = krylov._dot(r0, r0)
+    rr0 = ln.dot(r0, r0)
     rnorm0 = torch.sqrt(rr0)
     ref = rnorm0 if rnorm_ref is None else rnorm_ref
     target = torch.clamp(tol_rel * ref, min=tol_abs)
     eps = torch.tensor(1e-30, dtype=_F32, device=dev)
-    one = torch.ones((), dtype=_F32, device=dev)
+    one = torch.ones(() if lanes is None else (nl,), dtype=_F32, device=dev)
     r = r0.to(store, memory_format=torch.contiguous_format, copy=True)
 
     state = dict(
-        k=torch.zeros((), dtype=torch.int32, device=dev),
+        k=torch.zeros(() if lanes is None else (nl,), dtype=torch.int32,
+                      device=dev),
         x=x, r=r, rhat=r.clone(), p=torch.zeros_like(r),
         v=torch.zeros_like(r), rho=one, alpha=one, omega=one,
         rnorm=rnorm0, rho_dot=rr0, x_best=x.clone(), rnorm_best=rnorm0,
@@ -351,35 +476,35 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
         beta = torch.where(broke, 0.0, beta)
 
         p, rhat, ts_p = update(s["r"], s["p"], s["v"], s["rhat"], vol_c,
-                               fb._scalars(beta, s["omega"], broke), kernels)
+                               ln.rows(beta, s["omega"], broke), kernels)
         y = getz(p, ts_p)
         lab_y, corr_y = lab_corr(y)
         v, d_rhv, _ = lap(lab_y, corr_y, rhat, inv_h2, kernels)
-        alpha = rho_new / krylov._safe(fb._combine(d_rhv))
+        alpha = rho_new / krylov._safe(ln.combine(d_rhv))
 
-        svec, ts_s = axpy(s["r"], v, vol_c, fb._scalars(alpha), kernels)
+        svec, ts_s = axpy(s["r"], v, vol_c, ln.rows(alpha), kernels)
         z = getz(svec, ts_s)
         lab_z, corr_z = lab_corr(z)
         t, d_ts, d_tt = lap(lab_z, corr_z, svec, inv_h2, kernels)
-        omega = fb._combine(d_ts) / krylov._safe(fb._combine(d_tt))
+        omega = ln.combine(d_ts) / krylov._safe(ln.combine(d_tt))
 
         x, r, p_rr, p_rhr = finish(s["x"], y, z, svec, t, rhat,
-                                   fb._scalars(alpha, omega), kernels)
-        rnorm = torch.sqrt(fb._combine(p_rr))
+                                   ln.rows(alpha, omega), kernels)
+        rnorm = torch.sqrt(ln.combine(p_rr))
         better = active & (rnorm < s["rnorm_best"])
         # the best iterate is updated in place: x_best is its own buffer
-        torch.where(better, x, s["x_best"], out=s["x_best"])
+        ln.select_into(better, x, s["x_best"])
         return dict(
             k=s["k"] + active.to(torch.int32), x=x, r=r, rhat=rhat, p=p,
             v=v, rho=rho_new, alpha=alpha, omega=omega,
             rnorm=torch.where(active, rnorm, s["rnorm"]),
-            rho_dot=fb._combine(p_rhr), x_best=s["x_best"],
+            rho_dot=ln.combine(p_rhr), x_best=s["x_best"],
             rnorm_best=torch.where(
                 active, torch.minimum(rnorm, s["rnorm_best"]),
                 s["rnorm_best"]),
         )
 
-    out, executed = krylov.iterate(state, step, maxiter, target)
+    out, executed = krylov.iterate(state, step, maxiter, target, live)
     iterations["executed"] += executed
     return out["x_best"], out["rnorm_best"], out["k"]
 

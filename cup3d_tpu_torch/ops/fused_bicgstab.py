@@ -255,7 +255,7 @@ def update(r, p, v, rhat, scal, kernels=None):
     ts = torch.empty(T, dtype=_F32, device=r.device)
     _lib().call(_entry("cup3d_update", r.dtype), r.data_ptr(), p.data_ptr(),
                 v.data_ptr(), rhat.data_ptr(), scal.data_ptr(), None,
-                ts.data_ptr(), T, cuda_lib.stream(r.device))
+                ts.data_ptr(), T, T, cuda_lib.stream(r.device))
     _count("update", r.dtype)
     return p, rhat, ts
 
@@ -317,7 +317,7 @@ def axpy(r, v, scal, kernels=None):
     s = torch.empty_like(r)
     ts = torch.empty(T, dtype=_F32, device=r.device)
     _lib().call(_entry("cup3d_axpy", r.dtype), r.data_ptr(), v.data_ptr(),
-                scal.data_ptr(), None, s.data_ptr(), ts.data_ptr(), T,
+                scal.data_ptr(), None, s.data_ptr(), ts.data_ptr(), T, T,
                 cuda_lib.stream(r.device))
     _count("axpy", r.dtype)
     return s, ts
@@ -339,7 +339,7 @@ def finish(x, y, z, s, t, rhat, scal, kernels=None):
     _lib().call(_entry("cup3d_finish", s.dtype), x.data_ptr(), y.data_ptr(),
                 z.data_ptr(), s.data_ptr(), t.data_ptr(), rhat.data_ptr(),
                 scal.data_ptr(), s.data_ptr(), prr.data_ptr(), prh.data_ptr(),
-                T, cuda_lib.stream(x.device))
+                T, T, cuda_lib.stream(x.device))
     _count("finish", s.dtype)
     return x, s, prr, prh
 

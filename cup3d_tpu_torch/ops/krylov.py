@@ -510,20 +510,26 @@ def coarse_correct_blocks(r: torch.Tensor, vol: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def iterate(state: dict, step: Callable, maxiter: int, target) -> tuple:
+def iterate(state: dict, step: Callable, maxiter: int, target,
+            live=None) -> tuple:
     """``while k < maxiter and rnorm > target: state = step(state)`` with
     one host read of the predicate per ITER_CHUNK iterations.  Inside a
     chunk ``step(state, active)`` runs unconditionally and must leave k,
     rnorm and the best iterate untouched where ``active`` (a 0-dim bool
-    device tensor) is False; once False it stays False, so tail
-    iterations change nothing that is returned.  Returns (state,
-    iterations executed, tail included)."""
+    device tensor, or (L,) for L lane-batched systems: the loop runs while
+    any lane is active) is False; once False it stays False, so tail
+    iterations change nothing that is returned.  ``live`` (an (L,) bool
+    device tensor, or None) leaves the lanes it marks False inactive from
+    the start: their state is returned as it came in, and they hold no
+    lane to their iteration count.  Returns (state, iterations executed,
+    tail included)."""
     executed = 0
 
     def active_of(s):
-        return (s["k"] < maxiter) & (s["rnorm"] > target)
+        act = (s["k"] < maxiter) & (s["rnorm"] > target)
+        return act if live is None else act & live
 
-    while bool(active_of(state)):
+    while bool(active_of(state).any()):
         for _ in range(ITER_CHUNK):
             state = step(state, active_of(state))
             executed += 1
@@ -539,63 +545,86 @@ def bicgstab(
     tol_rel: float = 1e-4,
     maxiter: int = 1000,
     rnorm_ref=None,
+    lanes: bool = False,
+    live=None,
 ):
     """Preconditioned BiCGSTAB with breakdown re-seeding and best-x
     tracking (the reference's solve loop, main.cpp:14449-14604).  Returns
     (x_best, best residual norm, iterations) — the last two as 0-dim
     device tensors.  Stops when ||r|| <= max(tol_abs, tol_rel * ref),
-    ref = ``rnorm_ref`` or ||r0||."""
+    ref = ``rnorm_ref`` or ||r0||.
+
+    ``lanes``: ``b`` is (L, ...), L independent systems solved at once
+    (``apply_A`` and ``M`` act on the whole (L, ...) stack, lane by
+    lane); every scalar is (L,), dots reduce per lane, and every lane
+    iterates until the last one stops, a stopped lane frozen.  ``live``
+    ((L,) bool) marks the lanes that solve at all (:func:`iterate`)."""
     if M is None:
         M = lambda r: r
     if x0 is None:
         x0 = torch.zeros_like(b)
     acc = precision.accum_dtype(b.dtype)
     eps = torch.tensor(1e-30, dtype=acc, device=b.device)
+    if lanes:
+        L = b.shape[0]
+        shp = (L,)
+
+        def dot(a, c):
+            return torch.sum((a * c).reshape(L, -1), dim=1, dtype=acc)
+
+        def C(v):
+            return v.reshape((L,) + (1,) * (b.dim() - 1))
+    else:
+        shp = ()
+        dot = _dot
+
+        def C(v):
+            return v
 
     r0 = b - apply_A(x0)
-    rnorm0 = torch.sqrt(_dot(r0, r0))
+    rnorm0 = torch.sqrt(dot(r0, r0))
     ref = rnorm0 if rnorm_ref is None else rnorm_ref
     target = torch.clamp(tol_rel * ref, min=tol_abs)
-    one = torch.ones((), dtype=b.dtype, device=b.device)
+    one = torch.ones(shp, dtype=b.dtype, device=b.device)
 
-    init = dict(k=torch.zeros((), dtype=torch.int32, device=b.device),
+    init = dict(k=torch.zeros(shp, dtype=torch.int32, device=b.device),
                 x=x0, r=r0, rhat=r0, p=torch.zeros_like(b),
                 v=torch.zeros_like(b), rho=one, alpha=one, omega=one,
                 rnorm=rnorm0, x_best=x0, rnorm_best=rnorm0)
 
     def step(s, active):
-        rho_new = _dot(s["rhat"], s["r"])
+        rho_new = dot(s["rhat"], s["r"])
         rn2 = s["rnorm"] * s["rnorm"]
         broke = torch.abs(rho_new) < eps * torch.clamp(rn2, min=1.0)
-        rhat = torch.where(broke, s["r"], s["rhat"])
+        rhat = torch.where(C(broke), s["r"], s["rhat"])
         rho_new = torch.where(broke, rn2, rho_new)
-        p_prev = torch.where(broke, 0.0, s["p"])
-        v_prev = torch.where(broke, 0.0, s["v"])
+        p_prev = torch.where(C(broke), 0.0, s["p"])
+        v_prev = torch.where(C(broke), 0.0, s["v"])
         beta = (rho_new / _safe(s["rho"])) * (s["alpha"] / _safe(s["omega"]))
         beta = torch.where(broke, 0.0, beta)
-        p = s["r"] + beta * (p_prev - s["omega"] * v_prev)
+        p = s["r"] + C(beta) * (p_prev - C(s["omega"]) * v_prev)
         y = M(p)
         v = apply_A(y)
-        alpha = rho_new / _safe(_dot(rhat, v))
-        svec = s["r"] - alpha * v
+        alpha = rho_new / _safe(dot(rhat, v))
+        svec = s["r"] - C(alpha) * v
         z = M(svec)
         t = apply_A(z)
-        omega = _dot(t, svec) / _safe(_dot(t, t))
-        x = s["x"] + alpha * y + omega * z
-        r = svec - omega * t
-        rnorm = torch.sqrt(_dot(r, r))
+        omega = dot(t, svec) / _safe(dot(t, t))
+        x = s["x"] + C(alpha) * y + C(omega) * z
+        r = svec - C(omega) * t
+        rnorm = torch.sqrt(dot(r, r))
         better = rnorm < s["rnorm_best"]
         return dict(
             k=s["k"] + active.to(torch.int32), x=x, r=r, rhat=rhat, p=p, v=v,
             rho=rho_new, alpha=alpha, omega=omega,
             rnorm=torch.where(active, rnorm, s["rnorm"]),
-            x_best=torch.where(active & better, x, s["x_best"]),
+            x_best=torch.where(C(active & better), x, s["x_best"]),
             rnorm_best=torch.where(
                 active, torch.minimum(rnorm, s["rnorm_best"]),
                 s["rnorm_best"]),
         )
 
-    out, executed = iterate(init, step, maxiter, target)
+    out, executed = iterate(init, step, maxiter, target, live)
     iterations["executed"] += executed
     return out["x_best"], out["rnorm_best"], out["k"]
 
@@ -723,6 +752,7 @@ def build_iterative_solver(
 
 
 def solver_stats(rnorm, k) -> torch.Tensor:
-    """(2,) f32 device vector [residual norm, iterations]."""
+    """(2,) f32 device vector [residual norm, iterations]; (L, 2) for the
+    (L,) residuals and counts of L lane-batched systems."""
     return torch.stack([torch.as_tensor(rnorm).to(torch.float32),
-                        torch.as_tensor(k).to(torch.float32)])
+                        torch.as_tensor(k).to(torch.float32)], dim=-1)

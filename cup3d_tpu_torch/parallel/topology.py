@@ -22,7 +22,8 @@ at least the three ghost planes the upwind stencil reads (the sharded
 builders fall back to the solo megaloop, loudly, otherwise).  Shards on
 distinct devices, and a multi-process ``CUP3D_DIST``, raise: transport
 between cards is ROADMAP A7's multi-card step.  The fleet's batch mesh
-(``fleet_mesh2d``) waits for the fleet (ROADMAP A8).
+(``fleet_mesh2d``, ``CUP3D_FLEET_MESH=1``), its lanes cut into shards
+across cards, is ROADMAP A8b.
 """
 
 from __future__ import annotations

@@ -21,12 +21,21 @@ dump.write_fail      ``stream.dump.AsyncDumper._write``: the dump write
                      whose retries all fail is dropped and counted)
 stream.stall         ``stream.qoi.QoIStream.emit``: sleeps ``STALL_S``
                      (a simulated stall, counted in the stream's stall_s)
+fleet.lane_nan       ``fleet.isolate.LaneGuard.check_row``: armed with the
+                     LANE index in the step slot, the consumed row of
+                     that lane (and, an arm matching every step at or
+                     above it, of every lane above) reads as NaN
+journal.write_fail   ``fleet.journal.JobJournal.append``: the segment
+                     write raises (a one-shot arm is absorbed by the
+                     write guard's retry)
+server.crash         ``fleet.server.FleetBatch.dispatch``: armed with the
+                     dispatch count, the process exits (code 23) at that
+                     K-boundary
 ==================== ======================================================
 
-The other sites (``fleet.*``, ``journal.write_fail``, ``server.crash``,
-``aot.store_corrupt``, ``compile.service_die``) parse and arm, and fire
-nowhere yet: their seams are in modules the port does not have (ROADMAP
-A8).
+``fleet.shard_loss``, ``aot.store_corrupt`` and ``compile.service_die``
+parse and arm, and fire nowhere yet: their seams are in the fleet across
+cards and the compiled store (ROADMAP A8b).
 
 Arming is via ``CUP3D_FAULT="site@step[:count]"`` (``;``-separated for
 several; ``step`` may be ``*`` for any step) or :func:`arm`.  A site

@@ -1607,7 +1607,9 @@ class AMRSimulation:
                         print(f"cup3d_tpu_torch[amr]: step: {self.step_idx},"
                               f" time: {self.time:f}, dt: {float(dt):.3e}, "
                               f"blocks: {self.grid.nb}")
-                    self.advance(dt)
+                    with self._obs.step(self.step_idx, self.time, dt,
+                                        nb=int(self.grid.nb)):
+                        self.advance(dt)
                 except Exception as e:
                     if eng is not None and eng.handle_failure(e):
                         continue  # rolled back: retry from the snapshot
@@ -1701,3 +1703,115 @@ def load_state_numpy(sim: AMRSimulation, arrays: Dict[str, np.ndarray],
     sim._umax_next = None
     sim._umax_dev = sim._time_dev = sim._uinf_dev = None
     sim._scores_prefetch = None
+
+
+# -- the fleet's forest lanes (JAX sim/amr.make_amr_tgv_step) -----------------
+
+
+def _amr_step_parts(sim: AMRSimulation):
+    """What the obstacle-free forest step closes over: the bucket's
+    padded geometry bundle (frozen: the fleet's forest lanes never
+    regrid), the finest spacing of the dt chain, uinf and the pressure
+    order."""
+    if not sim._bucketing or sim.forest is not None:
+        raise ValueError("the fleet's forest lanes run on the bucketed "
+                         "single-device forest")
+    return (sim._geo, sim.nu, float(np.min(sim.grid.h)), sim.uinf_device(),
+            sim.cfg.step_2nd_start == 0)
+
+
+def _amr_dt(umax, dtprev, cfl_eff, h_fine: float, nu: float):
+    """The dt chain on the finest spacing (elementwise: a lane each)."""
+    cap_dt = (h_fine * h_fine / 6.0) / (nu + (h_fine / 6.0) * umax)
+    dt = torch.minimum(cfl_eff * h_fine / (umax + 1e-8), cap_dt)
+    return torch.where(dtprev > 0, torch.minimum(dt, 1.03 * dtprev), dt)
+
+
+def make_amr_tgv_step(sim: AMRSimulation):
+    """The obstacle-free bucketed-forest step as ``one_step(carry,
+    cfl_eff) -> (carry', row (TGV_ROW,))`` on a frozen padded topology
+    (JAX ``make_amr_tgv_step``): carry ``vel`` (cap, 8, 8, 8, 3), ``p``
+    (cap, 8, 8, 8) and the (umax, time, dt) chain; dt from the carried
+    umax on the finest spacing, capped by the advection-diffusion bound
+    and the 1.03x growth limiter; umax of the padded forest (padding
+    rows are zero)."""
+    geo, nu, h_fine, uinf, so = _amr_step_parts(sim)
+    solver = sim._solver
+
+    def one_step(carry, cfl_eff):
+        vel, p = carry["vel"], carry["p"]
+        dt = _amr_dt(carry["umax"], carry["dt"], cfl_eff, h_fine, nu)
+        vel = amr_ops.rk3_step_blocks(geo.geom, vel, dt, nu, uinf, geo.tab3,
+                                      geo.ftab)
+        vel, p, stats = amr_ops.project_blocks(
+            geo.geom, vel, dt, solver, geo.tab1, geo.ftab, p_init=p,
+            second_order=so, with_stats=True)
+        umax_new = torch.max(torch.abs(vel + uinf))
+        time_new = carry["time"] + dt
+        out = {"vel": vel, "p": p, "umax": umax_new, "time": time_new,
+               "dt": dt}
+        row = torch.cat([stats.to(vel.dtype), umax_new.reshape(1),
+                         dt.reshape(1), time_new.reshape(1)])
+        return out, row
+
+    return one_step
+
+
+def make_amr_tgv_lanes_step(sim: AMRSimulation):
+    """:func:`make_amr_tgv_step` for L lanes at once on the same frozen
+    topology: every carry leaf has a leading lane axis ((L, cap, ...) and
+    (L,)), ``cfl_eff`` is (L,), the rows (L, TGV_ROW).  RK3, the pressure
+    rhs and gradient run on every lane's blocks in one batched call
+    (``torch.func.vmap`` over the lane axis); the Poisson solve is one
+    lane-batched solve (ops/amr_ops ``lanes``: the fused kernels launch
+    once for all lanes, each lane its own Krylov scalars).  ``live`` ((L,)
+    bool, the fleet gate's ``left > 0``) marks the lanes whose step is
+    kept: the others' solves do not iterate, so a finished or padding
+    lane never holds the live lanes to its iteration count.  No operation
+    reduces across lanes."""
+    geo, nu, h_fine, uinf, so = _amr_step_parts(sim)
+    core = sim._solver_core
+    geom, tab1, tab3, ftab = geo.geom, geo.tab1, geo.tab3, geo.ftab
+    bs = geom.bs
+    vmap = torch.func.vmap
+
+    def rk3(v, d):
+        return amr_ops.rk3_step_blocks(geom, v, d, nu, uinf, tab3, ftab)
+
+    def rhs_of(v, d):
+        return amr_ops.pressure_rhs_blocks(geom, v, d, tab1, ftab)
+
+    def lap(x):
+        return amr_ops.laplacian_blocks(geom, x, tab1, ftab)
+
+    def correct(v, p, d):
+        gp = amr_ops.grad_blocks(geom, tab1.assemble_scalar(p, bs),
+                                 tab1.width)
+        return v - d * gp
+
+    def one_step(carry, cfl_eff, live=None):
+        vel, p = carry["vel"], carry["p"]
+        L = vel.shape[0]
+        dt = _amr_dt(carry["umax"], carry["dt"], cfl_eff, h_fine, nu)
+        vel = vmap(rk3)(vel, dt)
+        rhs = vmap(rhs_of)(vel, dt)
+        ref = torch.sqrt(torch.sum((rhs * rhs).reshape(L, -1), dim=1,
+                                   dtype=torch.float32))
+        kw = dict(tab_arg=tab1, flux_arg=ftab, rnorm_ref=ref, geom=geom,
+                  vol=geo.vol, pmask=geo.mask, graph=geo.graph,
+                  slot0=geo.slot0, with_stats=True, lanes=True, live=live)
+        if so:
+            dp, stats = core(rhs - vmap(lap)(p), None, **kw)
+            p = p + dp
+        else:
+            p, stats = core(rhs, p, **kw)
+        vel = vmap(correct)(vel, p, dt)
+        umax_new = torch.amax(torch.abs(vel + uinf).reshape(L, -1), dim=1)
+        time_new = carry["time"] + dt
+        out = {"vel": vel, "p": p, "umax": umax_new, "time": time_new,
+               "dt": dt}
+        rows = torch.cat([stats.to(vel.dtype), umax_new[:, None],
+                          dt[:, None], time_new[:, None]], dim=1)
+        return out, rows
+
+    return one_step

@@ -227,15 +227,18 @@ def build_tgv_megaloop(s):
     return _megaloop(make_tgv_step(s))
 
 
-def make_fish_step(s, ob, slabs=None):
-    """The single-StefanFish step as ``one_step(gait, carry, cfl_eff) ->
-    (carry', row (FISH_ROW,))``.  Geometry is frozen at build time: the
-    rasterization window, the probe window and its slot budget, the
-    forced/blocked masks.  The frozen gait is an argument.  With
-    ``slabs`` = D (make_fish_step_sharded) RK3 runs on D x-slabs; the
-    body phases see the gathered field."""
+def _fish_step_parts(s, ob, slabs=None):
+    """The single-StefanFish step in two parts around its Frenet
+    integration: ``pre(gait, carry, cfl_eff) -> (dt, curvature, rate)``
+    and ``post(gait, carry, dt, sol) -> (carry', row)``.  The solo step
+    runs the Frenet kernel between them on one midline; the fleet's fish
+    lanes run ``pre`` and ``post`` over the lane axis and the kernel
+    once on every lane's midline (fleet/batch.py).  Geometry is frozen at
+    build time: the rasterization window, the probe window and its slot
+    budget, the forced/blocked masks.  The frozen gait is an argument."""
     from cup3d_tpu_torch.models.fish.device_midline import (
-        midline_state_device,
+        midline_curvature_device,
+        midline_from_frenet_device,
     )
     from cup3d_tpu_torch.models.fish.stefanfish import (
         _raster_window_dense,
@@ -273,16 +276,20 @@ def make_fish_step(s, ob, slabs=None):
     lam_static = _scalar(cfg.lambda_penalization, dtype, dev)
     advect = _advect(grid, nu, slabs)
 
-    def one_step(gait, carry, cfl_eff):
+    def pre(gait, carry, cfl_eff):
+        # dt from the carried umax (one step stale, like the host chain)
+        dt = _dt_from_carry(carry["umax"], carry["dt"], cfl_eff, h, nu)
+        rK, vK = midline_curvature_device(gait, carry["time"])
+        return dt, rK, vK
+
+    def post(gait, carry, dt, sol):
         vel, p = carry["vel"], carry["p"]
         rigid, qint = carry["rigid"], carry["qint"]
         time = carry["time"]
-        # dt from the carried umax (one step stale, like the host chain)
-        dt = _dt_from_carry(carry["umax"], carry["dt"], cfl_eff, h, nu)
         uinf = -rigid[0:3] if fix_frame else uinf_const
         # shape kinematics + rasterization from the PRE-update rigid state
         # (host order: CreateObstacles runs before UpdateObstacles)
-        mid, qint_new = midline_state_device(gait, time, dt, qint)
+        mid, qint_new = midline_from_frenet_device(gait, sol, dt, qint)
         pos = rigid[6:9]
         rot = quat_to_rot_dev(rigid[15:19])
         sdf, udef = _raster_window_dense(pos, rot, mid, half_win, hw,
@@ -328,7 +335,55 @@ def make_fish_step(s, ob, slabs=None):
                          time_new.reshape(1)])
         return carry_new, row
 
+    return pre, post
+
+
+def make_fish_step(s, ob, slabs=None):
+    """The single-StefanFish step as a function ``one_step(gait, carry,
+    cfl_eff) -> (carry', row (FISH_ROW,))``.  Geometry is frozen at
+    build time: the rasterization window, the probe window and its slot
+    budget, the forced/blocked masks.  The frozen gait is an argument.
+    With ``slabs`` = D (make_fish_step_sharded) RK3 runs on D x-slabs;
+    the body phases see the gathered field."""
+    from cup3d_tpu_torch.models.fish.device_midline import _frenet_scan_dev
+
+    pre, post = _fish_step_parts(s, ob, slabs)
+
+    def one_step(gait, carry, cfl_eff):
+        dt, rK, vK = pre(gait, carry, cfl_eff)
+        return post(gait, carry, dt, _frenet_scan_dev(gait["rs"], rK, vK))
+
     return one_step
+
+
+def make_fish_lanes_step(s, ob):
+    """:func:`make_fish_step` for L fish lanes at once: every carry leaf
+    and every gait leaf has a leading lane axis (the frozen gaits stacked
+    by fleet/batch.stack_gaits), ``cfl_eff`` is (L,), the rows (L,
+    FISH_ROW).  The step's body runs over the lane axis in batched calls
+    (``torch.func.vmap``: per-lane FFTs, reductions and windows, each
+    lane's rasterization and probe window at its own position, gathered
+    and scattered by index) and the Frenet kernel launches once for all
+    lanes' midlines.  No operation reduces across lanes."""
+    from cup3d_tpu_torch.models.fish.device_midline import _frenet_scan_dev
+
+    pre, post = _fish_step_parts(s, ob)
+    vpre, vpost = torch.func.vmap(pre), torch.func.vmap(post)
+
+    def step(gaits, carry, cfl_eff):
+        dt, rK, vK = vpre(gaits, carry, cfl_eff)
+        sol = _frenet_scan_dev(gaits["rs"].contiguous(), rK.contiguous(),
+                               vK.contiguous())
+        return vpost(gaits, carry, dt, sol)
+
+    return step
+
+
+def make_tgv_lanes_step(s):
+    """:func:`make_tgv_step` for L lanes at once: carry leaves (L, ...),
+    ``cfl_eff`` (L,), rows (L, TGV_ROW); the spectral solve and every
+    reduction per lane (``torch.func.vmap`` over the lane axis)."""
+    return torch.func.vmap(make_tgv_step(s))
 
 
 def build_fish_megaloop(s, ob):

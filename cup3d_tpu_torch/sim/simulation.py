@@ -802,13 +802,16 @@ class Simulation:
                                   f"{s.step + self._scan_k - 1} "
                                   f"(scan K={self._scan_k}), "
                                   f"time: {s.time:f}")
-                        self.advance_megaloop()
+                        with self._obs.step(s.step, s.time, -1.0,
+                                            scan=True):
+                            self.advance_megaloop()
                     else:
                         dt = self.calc_max_timestep()
                         if cfg.verbose:
                             print(f"cup3d_tpu_torch: step: {s.step}, "
                                   f"time: {s.time:f}, dt: {dt:.3e}")
-                        self.advance(dt)
+                        with self._obs.step(s.step, s.time, dt):
+                            self.advance(dt)
                 except Exception as e:
                     if eng is not None and eng.handle_failure(e):
                         continue  # rolled back: retry from the snapshot

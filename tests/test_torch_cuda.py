@@ -974,3 +974,98 @@ def test_ring_shift_at_the_slab_halo_shapes(dev, D, bc_x):
     torch.cuda.synchronize()
     assert ring.launches["ring_shift"] == 3 * 3 * 2
     assert torch.equal(got.reshape(n, n, n, 3), want)
+
+
+# -- the fleet's lanes: B8, B12, B13 with a scalar row a lane; the batched
+# -- Frenet kernel -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_forest_stages_take_a_scalar_row_a_lane(dev, store):
+    """B8, B12 and B13 on L = 4 lanes of the forest's blocks, stacked
+    along the block axis, each lane its own (8,) row of an (L, 8) block:
+    each lane's outputs bitwise the one-lane launch on its blocks, the
+    vectors within the stage tolerances of the plain versions, and the
+    (1, 8) call bitwise the (8,) one."""
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+
+    g, _, _, _ = _forest(dev)
+    n, L = g.nb, 4
+    rng = np.random.default_rng(9)
+
+    def vec(dtype=store):
+        return torch.as_tensor(rng.standard_normal((L * n, 8, 8, 8)),
+                               dtype=torch.float32, device=dev).to(dtype)
+
+    vol = torch.as_tensor(np.tile(g.h ** 3, L), dtype=torch.float32,
+                          device=dev)
+    rows = torch.as_tensor(rng.standard_normal((L, 8)), dtype=torch.float32,
+                           device=dev)
+    rows[:, 2] = torch.tensor([0.0, 1.0, 0.0, 0.0], device=dev)
+    r, p, v, rh, y, z, s, t = (vec() for _ in range(8))
+    x = vec(torch.float32)
+    fa.reset_launches()
+    lanes = (fa.update(r, p.clone(), v, rh.clone(), vol, rows),
+             fa.axpy(r, v, vol, rows),
+             fa.finish(x.clone(), y, z, s.clone(), t, rh, rows))
+    torch.cuda.synchronize()
+    counts = fa.launches_bf16 if store == torch.bfloat16 else fa.launches
+    assert (counts["amr_update"], counts["amr_axpy"],
+            counts["amr_finish"]) == (1, 1, 1)
+    plain = (fa.update(r, p.clone(), v, rh.clone(), vol, rows,
+                       kernels=False),
+             fa.axpy(r, v, vol, rows, kernels=False),
+             fa.finish(x.clone(), y, z, s.clone(), t, rh, rows,
+                       kernels=False))
+    for lane in range(L):
+        sl = slice(lane * n, (lane + 1) * n)
+        one = (fa.update(r[sl], p[sl].clone(), v[sl], rh[sl].clone(),
+                         vol[sl], rows[lane].contiguous()),
+               fa.axpy(r[sl], v[sl], vol[sl], rows[lane].contiguous()),
+               fa.finish(x[sl].clone(), y[sl], z[sl], s[sl].clone(), t[sl],
+                         rh[sl], rows[lane].contiguous()))
+        for got, want in zip(lanes, one):
+            for a, b in zip(got, want):
+                assert torch.equal(a[sl], b)
+    # the vectors (the per-block partials against the plain sums are
+    # test_forest_stage_kernels_match_plain_versions's, one lane)
+    for got, want in zip(lanes, plain):
+        for a, b in zip(got, want):
+            if a.dim() > 1:
+                _close(a.float(), b.float(),
+                       2e-6 if store == torch.float32 else 8e-3)
+    one = fa.axpy(r[:n], v[:n], vol[:n], rows[:1].contiguous())
+    old = fa.axpy(r[:n], v[:n], vol[:n], rows[0].contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(one, old))
+    with pytest.raises(ValueError):
+        fa.axpy(r, v, vol, rows[:3].contiguous())
+
+
+@pytest.mark.parametrize("n", [41, 105])
+def test_frenet_kernel_lanes_match_plain_per_lane(dev, n):
+    """The Frenet kernel on L = 3 midlines at once (one launch, a CTA a
+    lane) against the plain loop on each lane: within 1e-5 of max
+    |plain|; the lane launch bitwise the one-midline launches."""
+    from cup3d_tpu_torch.models.fish import device_midline as dm
+
+    rng = np.random.default_rng(n)
+    s = np.linspace(0.0, 1.0, n)
+    rs = np.stack([np.cumsum(rng.uniform(0.002, 0.006, n))
+                   for _ in range(3)])
+    rk = np.stack([a * s * np.sin(2 * np.pi * (s - 0.3))
+                   for a in (20.0, 15.0, 25.0)])
+    vk = np.stack([2 * a * s * np.cos(2 * np.pi * (s - 0.3))
+                   for a in (20.0, 15.0, 25.0)])
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in (rs, rk, vk))
+    dm.launches["frenet"] = 0
+    got = dm._frenet_scan_dev(*args)
+    torch.cuda.synchronize()
+    assert dm.launches["frenet"] == 1
+    for lane in range(3):
+        one = tuple(a[lane].contiguous() for a in args)
+        want = dm._frenet_scan_plain(*one)
+        solo = dm._frenet_scan_dev(*one)
+        for k in ("r", "v", "nor", "vnor", "bin", "vbin"):
+            _close(got[k][lane], want[k], 1e-5)
+            assert torch.equal(got[k][lane], solo[k])

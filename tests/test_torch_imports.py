@@ -80,6 +80,10 @@ def test_every_module_imports_with_jax_blocked():
         "native", "grid.adapt", "grid.faces", "grid.flux", "ops.krylov",
         # the slab mesh of the megaloop and its collectives
         "parallel.mesh", "parallel.topology", "parallel.collectives",
+        # the fleet: lane batching, isolation, the journal, the server,
+        # migration, the CLI, and the observability under it
+        "fleet", "fleet.batch", "fleet.isolate", "fleet.journal",
+        "fleet.server", "fleet.migrate", "fleet.cli", "obs.federate",
     )} <= set(mods)
     code = (
         "import sys\n"
