@@ -12,9 +12,15 @@ each of which raises on a fault (nothing is caught):
    and the native lab-table builder (``csrc/tables.cpp``) with g++;
 3. each of the five fused-BiCGSTAB kernels at the main path's shape
    (256^3, T = 32768 tiles, f32) against its plain PyTorch version on the
-   same seeded inputs (update also on its breakdown branch), then timed
-   with CUDA events beside the plain version and its bound;
-4. one whole Poisson solve at 64^3, kernels against plain versions;
+   same seeded inputs (update also on its breakdown branch; lap on the
+   periodic grid, reading its neighbour faces from w, its Aw bitwise the
+   plain version's), then timed with CUDA events and by torch.profiler
+   (device time a launch) beside the plain version and its bound, lap
+   also beside its library call (one conv3d of the 7-point stencil on
+   the grid layout and the two dots);
+4. one whole Poisson solve at 64^3, kernels against plain versions; the
+   device kernels a fused iteration launches, by profile, on the
+   periodic grid and on config #5's BCs (walls in y);
 5. the uniform main path through the CLI entry: ``build_driver``,
    ``init()``, ``simulate()`` of the 256^3 Taylor-Green vortex with the
    iterative solver and ``CUP3D_FUSED=1`` for 20 steps, with the
@@ -110,7 +116,8 @@ each of which raises on a fault (nothing is caught):
 17. BASELINE config #5 (bench.py bench_channel: 128x64x64, walls in y,
     uMax_forced 0.5, bFixMassFlux, iterative Poisson 1e-6/1e-4) through
     ``build_driver`` under ``CUP3D_FUSED=1``: B2 and B4 against their
-    plain versions on its wall-bounded lanes (T = 1,024, reruns bitwise),
+    plain versions on its wall-bounded lanes (T = 1,024, reruns bitwise;
+    B4's Aw bitwise at f32 and bf16),
     the bench's window (3 warm-up steps, 10 timed: ms/step, iterations a
     step, max|div u| under phase 5's gate, the flux.txt bulk velocity
     within 5% of its target); the bench's state stays a streamwise u(y)
@@ -311,8 +318,11 @@ and at its halo shapes (``slab_mesh``: phases 31-32) and under the bodies
 on the sharded forest (``sharded_bodies_launches_per_step``, phase 33).
 B14's row: its launches on phase 15's main path, its times at the Krylov loop's exchange (the
 largest exchange's in ``largest``, one whole exchange's in
-``exchange``).  B2, B14, B3/B10, B7 and B9 were redesigned after their
-port: their rows carry ``redesigned`` (the change that did it).  B3's row
+``exchange``).  B2, B14, B3/B10, B7, B9 and B4 were redesigned after
+their port: their rows carry ``redesigned`` (the change that did it).
+The uniform rows carry ``profile_us`` (the device time a launch by
+profile); B4's carries ``library_ms`` (one ``conv3d`` and two dots) and
+``iteration_kernels`` (phase 4).  B3's row
 carries ``library_ms``: one ``torch.matmul`` by the dense tile operator;
 B10's one ``torch.einsum`` by it and the column of -h^2, B9's the same
 on the rows of w - azf.  The twelve bf16 rows (``<name>_bf16``) name
@@ -517,6 +527,10 @@ def profile_us(fn, match: str, calls: int = 20) -> float:
     return None
 
 
+#: each uniform stage's CUDA kernel (csrc/fused_bicgstab.cu)
+UNIFORM_KERNEL_NAMES = {"update": "k_update", "getz_two": "k_getz_two",
+                        "getz_tile": "k_getz_tile", "lap": "k_lap",
+                        "axpy": "k_axpy", "finish": "k_finish"}
 #: each forest stage's CUDA kernel (csrc/fused_bicgstab.cu)
 FOREST_KERNEL_NAMES = {"amr_update": "k_update", "amr_getz_two": "k_getz_amr",
                        "amr_getz_tile": "k_getz_tile",
@@ -583,6 +597,43 @@ def _forest_vecs(d, gen):
     return g, n, nb, vec
 
 
+def check_bitwise(name, got, want) -> float:
+    """A kernel's output bitwise its plain version's (returns the max abs
+    error, 0.0)."""
+    if not torch.equal(got, want):
+        err, _ = max_err(got.float(), want.float())
+        raise AssertionError(f"{name}: not bitwise its plain version "
+                             f"(max abs err {err:.3e})")
+    return 0.0
+
+
+def lap_library_ms(w, a, inv_h2, shape, pad_mode) -> float:
+    """B4's library yardstick (TF32 off): one ``conv3d`` of the 7-point
+    stencil / h^2 on the grid layout of ``w`` (padded by ``pad_mode``:
+    circular for periodic axes, replicate for the zero-gradient ones),
+    plus the two dots a . Aw and Aw . Aw; the layout conversion is outside
+    the timed call."""
+    import torch.nn.functional as F
+
+    from cup3d_tpu_torch.ops import krylov
+
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the library yardstick runs with TF32 off")
+    u = krylov.from_lanes(krylov.tiles_to_lanes(w.float()), shape)[None, None]
+    ag = krylov.from_lanes(krylov.tiles_to_lanes(a.float()), shape).reshape(-1)
+    k = torch.zeros((1, 1, 3, 3, 3), device=w.device)
+    k[0, 0, 1, 1, 1] = -6.0 * inv_h2
+    for i in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+              (1, 1, 2)):
+        k[(0, 0) + i] = inv_h2
+
+    def call():
+        aw = F.conv3d(F.pad(u, (1,) * 6, mode=pad_mode), k).reshape(-1)
+        return torch.dot(ag, aw), torch.dot(aw, aw)
+
+    return time_ms(call)
+
+
 def part_scale(*terms) -> float:
     """Largest per-tile sum of |terms| (the partials' error scale)."""
     acc = 0
@@ -621,6 +672,11 @@ def kernel_phase(bw: float, fp32_flops: float, dev="cuda",
     def record(name, errs, perrs, kernel_fn, plain_fn, nbytes, flops):
         _record(results, name, errs, kernel_fn, plain_fn, nbytes, flops, bw,
                 fp32_flops, perrs=perrs)
+        # events read the host's launch rate where a kernel is shorter:
+        # the device time a launch by profile beside them
+        us = profile_us(kernel_fn, UNIFORM_KERNEL_NAMES[name])
+        results[name]["profile_us"] = us
+        log(f"    device time by profile {us} us a launch")
 
     # -- B1 update (in place on p, rhat: compare on clones) ---------------
     r, p, v, rhat = vec(), vec(), vec(), vec()
@@ -659,20 +715,26 @@ def kernel_phase(bw: float, fp32_flops: float, dev="cuda",
            lambda: fb.getz_two(w, aux, h2, kernels=False),
            2 * 4 * cells, 110 * cells)
 
-    # -- B4 lap ------------------------------------------------------------------
+    # -- B4 lap (the periodic n^3 grid, its neighbour faces read from w) ----
+    from cup3d_tpu_torch.grid.uniform import UniformGrid
+
     w, a = vec(), vec()
-    planes = torch.randn((T, 6, 8, 8), generator=gen, device=dev)
+    grid = UniformGrid((n, n, n), (2 * math.pi,) * 3)
+    geom = fb.LapGeom(grid)
     inv_h2 = 1.0 / h2
-    want = fb.lap(w, planes, a, inv_h2, kernels=False)
-    got = fb.lap(w, planes, a, inv_h2)
-    errs = [check_close("lap", got[0], want[0], VEC_RTOL)]
+    want = fb.lap(w, a, inv_h2, geom, kernels=False)
+    got = fb.lap(w, a, inv_h2, geom)
+    errs = [check_bitwise("lap", got[0], want[0])]
     perrs = [check_close("lap partial a.Aw", got[1], want[1], PART_RTOL,
                         part_scale(a * want[0])),
             check_close("lap partial Aw.Aw", got[2], want[2], PART_RTOL,
                         part_scale(want[0] * want[0]))]
-    record("lap", errs, perrs, lambda: fb.lap(w, planes, a, inv_h2),
-           lambda: fb.lap(w, planes, a, inv_h2, kernels=False),
-           3.75 * 4 * cells, 12 * cells)
+    # w, a in, Aw out; 7 flops a cell for Aw, 4 for the two partials
+    record("lap", errs, perrs, lambda: fb.lap(w, a, inv_h2, geom),
+           lambda: fb.lap(w, a, inv_h2, geom, kernels=False),
+           3 * 4 * cells, 11 * cells)
+    results["lap"]["library_ms"] = lap_library_ms(
+        w, a, inv_h2, (n, n, n), "circular")
 
     # -- B5 axpy -----------------------------------------------------------------
     r, v = vec(), vec()
@@ -709,10 +771,15 @@ def kernel_phase(bw: float, fp32_flops: float, dev="cuda",
 # ---------------------------------------------------------------------------
 
 
-def solve_phase(dev="cuda") -> None:
+def solve_phase(dev="cuda") -> dict:
+    """The whole solve, kernels against plain versions; then the device
+    kernels a fused iteration launches (tools/kernel_ab.py's count: the
+    solve at tolerance 0 over one chunk and over two, by profile) on the
+    periodic grid and on config #5's BCs (walls in y); returns those."""
     from cup3d_tpu_torch.grid.uniform import UniformGrid
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
     from cup3d_tpu_torch.ops import krylov
+    from cup3d_tpu_torch.tools.kernel_ab import iteration_kernels
 
     n = N_SOLVE
     grid = UniformGrid((n, n, n), (1.0, 1.0, 1.0))
@@ -730,6 +797,19 @@ def solve_phase(dev="cuda") -> None:
     if abs(k_k - k_p) > 1 or not rel <= 1e-4:
         raise AssertionError(f"whole solve disagrees: its {k_k} vs {k_p}, "
                              f"x rel {rel:.3e} (bounds +-1, 1e-4)")
+    counts = {}
+    for g in (grid, UniformGrid((n, n // 2, n // 2), (1.0, 0.5, 0.5),
+                                ("periodic", "wall", "periodic"))):
+        bc = g.bc[1].value
+        b = krylov.lanes_to_tiles(bt) if g is grid else torch.randn(
+            (g.ncells // 512, 8, 8, 8), generator=gen, device=dev)
+        fb.reset_launches()
+        counts[bc] = iteration_kernels(torch, fb, g, b - torch.mean(b))
+        log(f"  device kernels of the fused solve, {g.shape} {bc} in y: "
+            f"{counts[bc]}; the wrappers' launches {dict(fb.launches)}")
+        if not fb.launches["lap"] > 0:
+            raise AssertionError("the fused solve launched no B4")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -770,6 +850,7 @@ def main_path_phase() -> dict:
     wall = time.perf_counter() - t0
     launches = dict(fb.launches)
     executed = fb.iterations["executed"]
+    residual = fb.residual_launches["lap"]  # B4 on the warm starts' r0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     energy = _read_table(os.path.join(OUT_DIR, "energy.txt"))
@@ -795,13 +876,16 @@ def main_path_phase() -> dict:
     log(f"  {STEPS} steps in {wall:.3f} s ({wall / STEPS * 1e3:.2f} ms/step), "
         f"{int(sum(iters))} iterations ({executed} executed), "
         f"KE {ke0:.8e} -> {kes[-1]:.8e}, peak memory {peak_gb:.2f} GB")
-    log(f"  launches: {launches}")
+    log(f"  launches: {launches}; B4 on the warm starts' residual: "
+        f"{residual}")
+    if not residual > 0:
+        raise AssertionError("TGV: no warm-start residual on B4")
     split = _step_split(d)
     _profile_window(d)
     # KE at the end of each step (a row logs the step's start time)
     ke_curve = [(0.0, ke0)] + [(e[0] + DT_MAIN, e[1]) for e in energy]
     return dict(launches=launches, wall=wall, iters=iters, split=split,
-                ke_curve=ke_curve)
+                ke_curve=ke_curve, residual=residual)
 
 
 def _check_launches(tag, iters, launches, executed) -> None:
@@ -1802,6 +1886,7 @@ def fish_phase() -> dict:
     wall = time.perf_counter() - t0
     launches = dict(fb.launches)
     executed = fb.iterations["executed"]
+    residual = fb.residual_launches["lap"]  # B4 on the warm starts' r0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     div = _read_table(os.path.join(out, "div.txt"))
@@ -1844,14 +1929,17 @@ def fish_phase() -> dict:
     log(f"  fish: transVel {ob.transVel.tolist()}, angVel "
         f"{ob.angVel.tolist()}, position {ob.position.tolist()}, "
         f"force {ob.force.tolist()}, surface points {ob.n_surf_points:.0f}")
-    log(f"  launches: {launches}")
+    log(f"  launches: {launches}; B4 on the warm starts' residual: "
+        f"{residual}")
+    if not residual > 0:
+        raise AssertionError("fish: no warm-start residual on B4")
     surface = surface_dump_phase(d)
     _no_sync_step(d)
     split = _step_split(d)
     _create_split(d)
     _profile_window(d, prefix="fish_")
     return dict(launches=launches, wall=wall, iters=iters, split=split,
-                surface=surface)
+                surface=surface, residual=residual)
 
 
 SURF_RTOL = 1e-3  # the dump's traction sum against the step's force QoI
@@ -2458,8 +2546,9 @@ def ring_kernel_phase(d, bw: float, dev="cuda") -> dict:
     b14 = ring.launches["ring_shift"]
     ab = subprocess.run(
         [sys.executable, os.path.join("cup3d_tpu_torch", "tools",
-                                      "kernel_ab.py"), "--child", ".",
-         str(Mk)], capture_output=True, text=True, check=True, timeout=600)
+                                      "kernel_ab.py"), "--only", "ring",
+         "--child", ".", str(Mk)], capture_output=True, text=True,
+        check=True, timeout=600)
     prof = json.loads(ab.stdout.strip().splitlines()[-1])
     res["device_us"] = prof["ring_shift"]["device_us"]
     res["exchange"] = dict(
@@ -2769,17 +2858,16 @@ def _steps_ms(d, n: int) -> float:
 
 
 def _wall_lanes(grid, gen):
-    """Seeded tile-major w with the wall grid's face planes (B4) and
-    coarse aux (B2), built as the fused driver builds them."""
+    """Seeded tile-major w with the wall grid's coarse aux (B2), built as
+    the fused driver builds it (B4 reads its faces from w itself)."""
     from cup3d_tpu_torch.ops import krylov
 
     T = grid.ncells // 512
     w = torch.randn((T, 8, 8, 8), generator=gen, device="cuda")
-    planes = krylov.make_tile_planes(grid, 8)(w)
     zc = krylov._make_coarse_core(grid, 8)(torch.sum(w, dim=(1, 2, 3)))
     aux = torch.cat([krylov.make_face_deltas(grid, 8)(zc), zc[None, :],
                      zc.new_zeros(1, T)], dim=0)
-    return w, planes, aux
+    return w, aux
 
 
 def channel_wall_kernels(grid) -> dict:
@@ -2789,7 +2877,7 @@ def channel_wall_kernels(grid) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 5)
-    w, planes, aux = _wall_lanes(grid, gen)
+    w, aux = _wall_lanes(grid, gen)
     a = torch.randn(w.shape, generator=gen, device="cuda")
     h2 = grid.h * grid.h
     got = fb.getz_two(w, aux, h2)
@@ -2797,17 +2885,24 @@ def channel_wall_kernels(grid) -> dict:
                                     fb.getz_two(w, aux, h2, kernels=False),
                                     GETZ_RTOL)}
     same = torch.equal(got, fb.getz_two(w, aux, h2))
-    got = fb.lap(w, planes, a, 1.0 / h2)
-    want = fb.lap(w, planes, a, 1.0 / h2, kernels=False)
-    errs["lap"] = check_close("lap (walls)", got[0], want[0], VEC_RTOL)
-    check_close("lap partial (walls)", got[1], want[1], PART_RTOL,
-                part_scale(a * want[0]))
-    again = fb.lap(w, planes, a, 1.0 / h2)
-    same = same and all(torch.equal(x, y) for x, y in zip(got, again))
+    geom = fb.LapGeom(grid)
+    for store in (torch.float32, BF16):  # B4 bitwise at both storages
+        ws, as_ = w.to(store), a.to(store)
+        got = fb.lap(ws, as_, 1.0 / h2, geom)
+        want = fb.lap(ws, as_, 1.0 / h2, geom, kernels=False)
+        errs["lap"] = check_bitwise(f"lap (walls, {store})", got[0], want[0])
+        aw = got[0].float()
+        check_close("lap partial (walls)", got[1], want[1], PART_RTOL,
+                    part_scale(as_.float() * aw))
+        check_close("lap partial Aw.Aw (walls)", got[2], want[2], PART_RTOL,
+                    part_scale(aw * aw))
+        again = fb.lap(ws, as_, 1.0 / h2, geom)
+        same = same and all(torch.equal(x, y) for x, y in zip(got, again))
     if not same:
         raise AssertionError("B2/B4 on wall lanes: rerun not bitwise")
-    log(f"  B2, B4 on the wall-bounded lanes (T = {w.shape[0]}): max abs "
-        f"err {errs['getz_two']:.3e}, {errs['lap']:.3e}; reruns bitwise")
+    log(f"  B2, B4 on the wall-bounded lanes (T = {w.shape[0]}, NB "
+        f"{geom.nb}): max abs err {errs['getz_two']:.3e}; B4's Aw bitwise "
+        "its plain version at f32 and bf16; reruns bitwise")
     return errs
 
 
@@ -4235,23 +4330,36 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
         w, a = vec(), vec()
         stats = {}
         if vol is None:
-            planes = torch.randn((n, 6, 8, 8), generator=gen,
-                                 device=dev).to(BF16)
-            args, inv = (w, planes), 1.0 / h2
-            args32 = (w.float(), planes.float())
-            nbytes, flops = moved("lap", 2), 12 * cells
+            # B4 on the periodic 256^3 grid, its faces read from w
+            from cup3d_tpu_torch.grid.uniform import UniformGrid
+
+            geom = fb.LapGeom(UniformGrid((N_MAIN,) * 3, (2 * math.pi,) * 3))
+            inv = 1.0 / h2
+
+            def lap_of(w_, a_, **kw):
+                return fb.lap(w_, a_, inv, geom, **kw)
+
+            w32 = w.float()
+            nbytes, flops = moved("lap", 2), 11 * cells
         else:
             lab = d._tab1.assemble_scalar(w.float(), 8).contiguous()
             inv_h = (1.0 / h)[:, None, None, None]
             corr = d._ftab.apply(torch.zeros((n, 8, 8, 8), device=dev),
                                  amr_ops.face_fluxes(lab, 1, 8, inv_h))
-            args = args32 = (lab, corr.contiguous())
+            corr = corr.contiguous()
             inv = (1.0 / h2).contiguous()
+
+            def lap_of(w_, a_, **kw):  # the lab stands for w
+                return fa.lap(lab, corr, a_, inv, **kw)
+
+            w32 = None
             nbytes = moved("lap", 2)
             flops = 10 * cells
-        want = mod.lap(*args, a, inv, kernels=False)
-        got = mod.lap(*args, a, inv)
+        want = lap_of(w, a, kernels=False)
+        got = lap_of(w, a)
         _zero_rows(pre + "lap_bf16", nb, got[0])
+        if vol is None:  # the same f32 arithmetic, one rounding: bitwise
+            check_bitwise("lap_bf16", got[0], want[0])
         errs = [_bf16_check(stats, pre + "lap_bf16", got[0], want[0],
                             VEC_RTOL)]
         awk = got[0].float()
@@ -4261,9 +4369,14 @@ def bf16_kernel_phase(d, bw: float, fp32_flops: float) -> dict:
                             fb._cellsum(awk * awk), awk * awk)]
         a32 = a.float()
         rec(pre + "lap", stats, errs, perrs,
-            lambda: mod.lap(*args, a, inv),
-            lambda: mod.lap(*args, a, inv, kernels=False),
-            lambda: mod.lap(*args32, a32, inv), nbytes, flops)
+            lambda: lap_of(w, a),
+            lambda: lap_of(w, a, kernels=False),
+            lambda: lap_of(w32, a32), nbytes, flops)
+        if vol is None:
+            results["lap_bf16"]["profile_us"] = profile_us(
+                lambda: lap_of(w, a), "k_lap")
+            log(f"    device time by profile "
+                f"{results['lap_bf16']['profile_us']} us a launch")
 
         # -- B5 / B12 axpy -------------------------------------------------
         r, v = vec(), vec()
@@ -5833,7 +5946,8 @@ KERNELS = (
 )
 # kernels redesigned after their port, by the PR of the redesign
 REDESIGNED = {"getz_two": 6, "ring_shift": 6, "getz_tile": 7,
-              "amr_getz_tile": 7, "getz_cg": 7, "amr_getz_two": 8}
+              "amr_getz_tile": 7, "getz_cg": 7, "amr_getz_two": 8,
+              "lap": 16}
 
 
 def main() -> int:
@@ -5873,7 +5987,7 @@ def main() -> int:
     log(f"phase 3: kernels vs plain versions at {N_MAIN}^3")
     per_kernel = kernel_phase(bw, fp32_flops)
     log(f"phase 4: whole solve at {N_SOLVE}^3")
-    solve_phase()
+    iter_kernels = solve_phase()
     log(f"phase 5: main path, {N_MAIN}^3 TGV, {STEPS} steps")
     with _env(CUP3D_FUSED="1"):
         run = main_path_phase()
@@ -6104,6 +6218,13 @@ def main() -> int:
         per_kernel[kname] = dict(fish_kernels[kname], tgv256=dict(
             per_kernel[kname], launches=run["launches"][kname]),
             channel_launches=channel["launches"][kname])
+    # B4's stage is the kernel alone: the device kernels an iteration;
+    # its launches include those without partials (the warm starts' r0)
+    per_kernel["lap"]["iteration_kernels"] = iter_kernels
+    per_kernel["lap"]["residual_launches"] = fish_run["residual"]
+    per_kernel["lap"]["tgv256"]["residual_launches"] = run["residual"]
+    per_kernel["lap"]["tgv256"]["launches"] += run["residual"]
+    launches["lap"] += fish_run["residual"]
     # the forest kernels on config #4 (phase 22): their launches a step on
     # its main path, their times on its forest and on the towed forest
     # after its last regrid

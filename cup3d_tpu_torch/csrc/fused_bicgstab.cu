@@ -11,10 +11,10 @@
 // 256 tiles or 64 blocks through VMEM; here every vector is BLOCK-MAJOR,
 // shape (T,8,8,8), so one 8^3 tile (a tile of the uniform grid or a block
 // of the forest) is 2 KB of contiguous memory in f32 (1 KB in bf16) and
-// one thread block owns one tile.  On the uniform grid the tile index
-// t = (tx*NBy + ty)*NBz + tz is the JAX lane index; on the forest it is
-// the block's slot.  A cell (a,b,c) of tile t lives at
-// t*512 + (a*8 + b)*8 + c.
+// one thread block owns one tile (B4: a 128-thread group of a block owns
+// one).  On the uniform grid the tile index t = (tx*NBy + ty)*NBz + tz is
+// the JAX lane index; on the forest it is the block's slot.  A cell
+// (a,b,c) of tile t lives at t*512 + (a*8 + b)*8 + c.
 //
 // What bounds them on an H100: all are memory-bound (T = 32768 tiles at
 // 256^3, ~10^4 blocks on the forest of BASELINE config #3).  Per launch
@@ -24,7 +24,7 @@
 //   getz    w in, y out (+ 8 aux floats per tile)     2 x 4 B / cell
 //   getz_tile w in, y out (+ 1 h^2 per block)         2 x 4 B / cell
 //   getz_amr w, azf in; y out (+ 2 floats per block)  3 x 4 B / cell
-//   lap     w, a in; 6 face planes in; Aw out        3.75 x 4 B / cell
+//   lap     w, a in (neighbour faces from w); Aw out  3 x 4 B / cell
 //   lap_amr (10^3 lab)/8^3, corr, a in; Aw out  (1000/512 + 3) x 4 B / cell
 //   axpy    r, v in; s out                            3 x 4 B / cell
 //   finish  x, y, z, s, t, rhat in; x, r out         8 x 4 B / cell
@@ -73,15 +73,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of one value per thread over a 128-thread block, valid in thread 0.
-// Fixed shuffle tree then a fixed-order sum of the 4 warp totals:
-// the same inputs always give the same bits.
+// Sum of one value per thread over a 128-thread block (or over each
+// 128-thread group of a larger block, each group with its own shared4),
+// valid in the group's first thread.  Fixed shuffle tree then a
+// fixed-order sum of the 4 warp totals: the same inputs always give the
+// same bits.
 __device__ __forceinline__ float block_sum(float v, float* shared4) {
+  const int l = threadIdx.x & (kVecThreads - 1);
   v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) shared4[threadIdx.x >> 5] = v;
+  if ((l & 31) == 0) shared4[l >> 5] = v;
   __syncthreads();
   float s = 0.f;
-  if (threadIdx.x == 0) {
+  if (l == 0) {
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += shared4[w];
   }
@@ -131,6 +134,15 @@ __device__ __forceinline__ float4 ld4(const bf16* p, size_t i) {
   const uint2 u = reinterpret_cast<const uint2*>(p)[i];
   const float2 a = bf2_to_f2(u.x), b = bf2_to_f2(u.y);
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// one cell
+__device__ __forceinline__ float ld1(const float* p, size_t i) {
+  return p[i];
+}
+
+__device__ __forceinline__ float ld1(const bf16* p, size_t i) {
+  return __bfloat162float(p[i]);
 }
 
 // store four cells; returns them as stored (rounded), the values the
@@ -229,61 +241,173 @@ k_update(const S* __restrict__ r, S* p, const S* __restrict__ v, S* rhat,
 }
 
 // ---------------------------------------------------------------------------
-// B4 lap: Aw = 7-point Laplacian / h^2 with cross-tile face planes, plus
-// the per-tile partials sum(a * Aw) and sum(Aw * Aw).
-// Replaces _k_lap (:195, math :133-148 over stencils.laplacian_lanes_chunk).
-// The planes come from make_lane_planes (built by torch outside the
-// kernel, as the TPU driver builds them outside its kernel), tile-major
-// (T, 6, 8, 8): rows lo0, hi0, lo1, hi1, lo2, hi2, each indexed by the
-// two remaining in-tile axes.  The tile and its planes sit in shared
-// memory; each thread owns 4 consecutive cells along the last axis.
+// B4 lap, redesigned: Aw = 7-point Laplacian / h^2 with the grid's BCs,
+// plus the per-tile partials sum(a * Aw) and sum(Aw * Aw), reading every
+// neighbour across a tile face from w itself.  Replaces _k_lap (:195,
+// math :133-148 over stencils.laplacian_lanes_chunk) together with the
+// face planes the TPU driver gathers for it outside the kernel
+// (krylov.make_lane_planes), and the first port's k_lap, which read those
+// planes as a (T, 6, 8, 8) array that torch gathered before each launch
+// (krylov.make_tile_planes: 6 index_selects, up to 6 wheres and a stack,
+// 7-13 launches and ~19 B a cell of traffic beside the kernel's 15).
+//
+// The grid is NBx x NBy x NBz tiles, t = (tx*NBy + ty)*NBz + tz.  Across
+// a face along an axis the neighbour is the next tile's first plane or the
+// previous tile's last plane; at the domain's edge the wrapped tile
+// (periodic bit of the axis set) or the tile's own boundary plane (the
+// zero-gradient clamp of wall and freespace), exactly as make_tile_planes.
+//
+// What bounds it: bytes.  It must read w and a and write Aw, 3 x 4 B a
+// cell (3 x 2 B at bf16): 0.0601 ms at 256^3, 0.0075 ms at 128^3 at 3.35
+// TB/s; 7 flops a cell + the partials' 4 (11 x 2^24 = 0.18 GFLOP, 2.8 us
+// at 67 TFLOP/s) sit far under that.  The faces are the design's
+// problem: an x face (a = 0 or 7) is 64 contiguous cells and a y face 8
+// runs of 8, both whole 32-byte sectors, but a z face is 64 cells at a
+// stride of 8, one useful float in every sector of the neighbour tile.
+// So a block takes a run of kLapRun tiles along z (tz is the fastest
+// tile index: the run is contiguous memory) with one 128-thread group a
+// tile, each group in k_lap's old mapping (4 consecutive cells along z a
+// thread) and with its own fixed-order block_sum tree, so Aw and the
+// partials are bitwise those of the plane-fed kernel.  Inside the run a
+// tile's z neighbours are the next and previous tiles of the run, read
+// from shared memory; only the run's first and last tile read a z face
+// from global memory: 2 strided planes a run instead of 2 a tile.  x and
+// y faces (2 KB a tile) and the z faces come from L2: the neighbour tiles
+// are the launch's neighbouring blocks, NBz or NBy*NBz tiles away (0.5 or
+// 2 MB at 256^3).  The run's tiles, its faces and each tile's x/y faces
+// are loaded by all threads at once (one 16-byte or 8-byte vector or one
+// scalar each) together with the partner a (into registers), one
+// barrier, then the stencil from shared memory.  At 128^3 the launch is
+// 1,024 blocks of 512 threads, at 256^3 8,192 (32 registers a thread, 4
+// blocks an SM).  On an H100 (80GB HBM3, 700 W) it takes ~1.25x its
+// byte bound at 256^3 in f32 and ~2.2x in bf16, where it is barely
+// faster than in f32: not bound by its shared-memory reads or by load
+// latency alone, since 16-byte shared reads with lane shuffles, one
+// barrier for both partials, and a persistent walk over runs with the
+// next run's loads in flight (in registers or by cp.async into a double
+// buffer) each measured the same or slower (tools/kernel_ab.py).
+// a == nullptr (with pa, ps): Aw alone, no partials (the warm start's
+// residual).
 // ---------------------------------------------------------------------------
 
+constexpr int kLapRun = 4;                          // tiles a block, along z
+constexpr int kLapThreads = kVecThreads * kLapRun;  // 128 threads a tile
+
+// The tile across one face of tile coordinate c along an axis of nb
+// tiles, and the plane of it that faces c: the previous tile's plane 7
+// (hi false) or the next tile's plane 0; at the domain's edge the wrapped
+// tile (periodic) or c itself with its own boundary plane (clamp).
+__device__ __forceinline__ int face_tile(int c, int nb, bool hi,
+                                         bool periodic, int& plane) {
+  int d = hi ? c + 1 : c - 1;
+  plane = hi ? 0 : 7;
+  if (d < 0 || d >= nb) {
+    if (periodic) {
+      d = hi ? 0 : nb - 1;
+    } else {
+      d = c;
+      plane = hi ? 7 : 0;
+    }
+  }
+  return d;
+}
+
 template <typename S>
-__global__ void __launch_bounds__(kVecThreads)
-k_lap(const S* __restrict__ w, const S* __restrict__ planes,
-      const S* __restrict__ a, S* __restrict__ aw, float* __restrict__ pa,
-      float* __restrict__ ps, float inv_h2) {
-  __shared__ __align__(16) float tile[kCells];
-  __shared__ __align__(16) float pl[6 * 64];
-  __shared__ float red_a[kWarps];
-  __shared__ float red_s[kWarps];
-  const size_t t = blockIdx.x;
+__global__ void __launch_bounds__(kLapThreads)
+k_lap(const S* __restrict__ w, const S* __restrict__ a, S* __restrict__ aw,
+      float* __restrict__ pa, float* __restrict__ ps, float inv_h2, int nbx,
+      int nby, int nbz, int periodic) {
+  __shared__ __align__(16) float tile[kLapRun][kCells];
+  __shared__ __align__(16) float xf[kLapRun][2][64];  // lo0, hi0 a tile
+  __shared__ __align__(16) float yf[kLapRun][2][64];  // lo1, hi1 a tile
+  __shared__ float zf[2][64];  // lo2 of the run's first tile, hi2 of its last
+  __shared__ float red_a[kLapRun][kWarps];
+  __shared__ float red_s[kLapRun][kWarps];
+  // the run: kLapRun tiles along z from (tx, ty, tz0), n of them inside
+  // the grid, the first t0
+  const int runs = (nbz + kLapRun - 1) / kLapRun;
+  const int col = blockIdx.x / runs;  // tx*nby + ty
+  const int tz0 = (blockIdx.x - col * runs) * kLapRun;
+  const int tx = col / nby, ty = col - tx * nby;
+  const int n = min(kLapRun, nbz - tz0);
+  const size_t t0 = (size_t)col * nbz + tz0;
   const int tid = threadIdx.x;
-  reinterpret_cast<float4*>(tile)[tid] = ld4(w, t * (kCells / 4) + tid);
-  if (tid < 96) reinterpret_cast<float4*>(pl)[tid] = ld4(planes, t * 96 + tid);
+  const int g = tid >> 7, l = tid & (kVecThreads - 1);
+  const bool live = g < n;
+
+  // the loads, all at once: the thread's four cells of w (into shared
+  // memory) and of a (kept for the partials), and one piece of a face
+  if (live)
+    reinterpret_cast<float4*>(tile[g])[l] = ld4(w, (t0 + g) * 128 + l);
+  const float4 av = live && a != nullptr ? ld4(a, (t0 + g) * 128 + l)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < 64 * n) {
+    // x and y faces: tile fg of the run, face f (lo0, hi0, lo1, hi1),
+    // four cells q of its 64
+    const int fg = tid >> 6, f = (tid >> 4) & 3, q = tid & 15;
+    const bool hi = f & 1;
+    int plane;
+    if (f < 2) {  // cells (plane, b, c): 16 groups of 4 in a row
+      const int sx = face_tile(tx, nbx, hi, periodic & 1, plane);
+      const size_t ts = ((size_t)sx * nby + ty) * nbz + tz0 + fg;
+      reinterpret_cast<float4*>(xf[fg][hi])[q] =
+          ld4(w, ts * 128 + plane * 16 + q);
+    } else {  // cells (a, plane, c): group q is a = q/2, c = 4 (q%2)..
+      const int sy = face_tile(ty, nby, hi, periodic & 2, plane);
+      const size_t ts = ((size_t)tx * nby + sy) * nbz + tz0 + fg;
+      reinterpret_cast<float4*>(yf[fg][hi])[q] =
+          ld4(w, ts * 128 + (q >> 1) * 16 + plane * 2 + (q & 1));
+    }
+  } else if (tid >= 256 && tid < 384) {
+    // the run's two z faces, one cell (a, b, plane) a thread
+    const int j = tid - 256;
+    const bool hi = j >= 64;
+    int plane;
+    const int sz = face_tile(hi ? tz0 + n - 1 : tz0, nbz, hi,
+                             periodic & 4, plane);
+    zf[hi][j & 63] = ld1(w, ((size_t)col * nbz + sz) * kCells +
+                                (j & 63) * 8 + plane);
+  }
   __syncthreads();
 
-  const int cell0 = tid * 4;  // (ia*8 + ib)*8 + ic0, ic0 in {0, 4}
+  const int cell0 = l * 4;  // (ia*8 + ib)*8 + ic0, ic0 in {0, 4}
   const int ia = cell0 >> 6, ib = (cell0 >> 3) & 7, ic0 = cell0 & 7;
-  float out[4];
+  float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+    const float* tg = tile[g];
+    float out[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int ic = ic0 + q;
-    const int cc = cell0 + q;
-    const float xp = ia < 7 ? tile[cc + 64] : pl[1 * 64 + ib * 8 + ic];
-    const float xm = ia > 0 ? tile[cc - 64] : pl[0 * 64 + ib * 8 + ic];
-    const float yp = ib < 7 ? tile[cc + 8] : pl[3 * 64 + ia * 8 + ic];
-    const float ym = ib > 0 ? tile[cc - 8] : pl[2 * 64 + ia * 8 + ic];
-    const float zp = ic < 7 ? tile[cc + 1] : pl[5 * 64 + ia * 8 + ib];
-    const float zm = ic > 0 ? tile[cc - 1] : pl[4 * 64 + ia * 8 + ib];
-    float o = mul(-6.f, tile[cc]);
-    o = add(o, xp);
-    o = add(o, xm);
-    o = add(o, yp);
-    o = add(o, ym);
-    o = add(o, zp);
-    o = add(o, zm);
-    out[q] = mul(o, inv_h2);
+    for (int q = 0; q < 4; ++q) {
+      const int ic = ic0 + q;
+      const int cc = cell0 + q;
+      const float xp = ia < 7 ? tg[cc + 64] : xf[g][1][ib * 8 + ic];
+      const float xm = ia > 0 ? tg[cc - 64] : xf[g][0][ib * 8 + ic];
+      const float yp = ib < 7 ? tg[cc + 8] : yf[g][1][ia * 8 + ic];
+      const float ym = ib > 0 ? tg[cc - 8] : yf[g][0][ia * 8 + ic];
+      const float zp = ic < 7      ? tg[cc + 1]
+                       : g + 1 < n ? tile[g + 1][cc - 7]
+                                   : zf[1][ia * 8 + ib];
+      const float zm = ic > 0  ? tg[cc - 1]
+                       : g > 0 ? tile[g - 1][cc + 7]
+                               : zf[0][ia * 8 + ib];
+      float o = mul(-6.f, tg[cc]);
+      o = add(o, xp);
+      o = add(o, xm);
+      o = add(o, yp);
+      o = add(o, ym);
+      o = add(o, zp);
+      o = add(o, zm);
+      out[q] = mul(o, inv_h2);
+    }
+    res = st4(aw, (t0 + g) * 128 + l,
+              make_float4(out[0], out[1], out[2], out[3]));
   }
-  const float4 res = st4(aw, t * (kCells / 4) + tid,
-                         make_float4(out[0], out[1], out[2], out[3]));
-  const float4 av = ld4(a, t * (kCells / 4) + tid);
-  const float sa = block_sum(hdot(av, res), red_a);
-  const float ss = block_sum(hdot(res, res), red_s);
-  if (tid == 0) {
-    pa[t] = sa;
-    ps[t] = ss;
+  if (a == nullptr) return;  // block-uniform: no barrier is skipped apart
+  const float sa = block_sum(hdot(av, res), red_a[g]);
+  const float ss = block_sum(hdot(res, res), red_s[g]);
+  if (l == 0 && live) {
+    pa[t0 + g] = sa;
+    ps[t0 + g] = ss;
   }
 }
 
@@ -898,9 +1022,17 @@ int launch_getz_tile(const S* w, const float* s1, const float* lam3,
 }
 
 template <typename S>
-int launch_lap(const S* w, const S* planes, const S* a, S* aw, float* pa,
-               float* ps, float inv_h2, int T, cudaStream_t stream) {
-  k_lap<S><<<T, kVecThreads, 0, stream>>>(w, planes, a, aw, pa, ps, inv_h2);
+int launch_lap(const S* w, const S* a, S* aw, float* pa, float* ps,
+               float inv_h2, int nbx, int nby, int nbz, int periodic,
+               cudaStream_t stream) {
+  if (nbx < 1 || nby < 1 || nbz < 1 || (a == nullptr) != (pa == nullptr) ||
+      (pa == nullptr) != (ps == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      (long long)nbx * nby * ((nbz + kLapRun - 1) / kLapRun);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  k_lap<S><<<(unsigned)blocks, kLapThreads, 0, stream>>>(
+      w, a, aw, pa, ps, inv_h2, nbx, nby, nbz, periodic);
   return (int)cudaGetLastError();
 }
 
@@ -938,6 +1070,8 @@ int launch_lap_amr(const float* lab, const float* corr, const S* a,
 // blocks; wt may be nullptr (the uniform grid's B1 and B5), h2col too
 // (the uniform grid's B3); bpl (update, axpy, finish) is the blocks of
 // one lane, each lane reading its own 8-float scalar row (T: one lane).
+// lap takes the grid's tiles a side (T = nbx nby nbz) and a periodic bit
+// an axis (1 x, 2 y, 4 z); a, pa and ps all nullptr: Aw alone.
 // Each stage has an f32 entry point and a _bf16
 // one (S = __nv_bfloat16: the Krylov vectors in bf16; x, partials,
 // columns, labs, corr and azf f32 in both).
@@ -963,10 +1097,10 @@ int launch_lap_amr(const float* lab, const float* corr, const S* a,
     return launch_getz_tile<S>(w, s1, lam3, h2col, h2, y, T,                 \
                                (cudaStream_t)stream);                         \
   }                                                                           \
-  int cup3d_lap##SFX(const S* w, const S* planes, const S* a, S* aw,        \
-                     float* pa, float* ps, float inv_h2, int T,              \
+  int cup3d_lap##SFX(const S* w, const S* a, S* aw, float* pa, float* ps,  \
+                     float inv_h2, int nbx, int nby, int nbz, int periodic,  \
                      void* stream) {                                          \
-    return launch_lap<S>(w, planes, a, aw, pa, ps, inv_h2, T,                \
+    return launch_lap<S>(w, a, aw, pa, ps, inv_h2, nbx, nby, nbz, periodic,  \
                          (cudaStream_t)stream);                               \
   }                                                                           \
   int cup3d_axpy##SFX(const S* r, const S* v, const float* scal,             \

@@ -44,7 +44,7 @@ _STAGES = {
     "cup3d_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cup3d_getz_two": [_P, _P, _P, _P, _P, _F, _I, _P],
     "cup3d_getz_tile": [_P, _P, _P, _P, _F, _P, _I, _P],
-    "cup3d_lap": [_P, _P, _P, _P, _P, _P, _F, _I, _P],
+    "cup3d_lap": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "cup3d_axpy": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cup3d_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cup3d_getz_amr": [_P, _P, _P, _P, _P, _P, _P, _I, _P],

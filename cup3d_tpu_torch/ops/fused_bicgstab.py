@@ -11,6 +11,7 @@ of the same function (a port of the JAX package's ``*_math`` helpers):
   (``two_level=False``: ``CUP3D_COARSE=0`` and the recovery ladder's
   tile-only rung)
 - ``lap``     (B4) cross-tile Laplacian apply + the iteration's dot partials
+  (the kernel reads its neighbour faces from w itself: :class:`LapGeom`)
 - ``axpy``    (B5) s = r - alpha v + per-tile sum s
 - ``finish``  (B6) x/r updates + the residual/rho dot partials
 
@@ -47,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from cup3d_tpu_torch.grid.uniform import BC
 from cup3d_tpu_torch.ops import cuda_lib, krylov, tilesolve
 from cup3d_tpu_torch.ops.stencils import laplacian_faces
 
@@ -58,13 +60,17 @@ BS = 8
 launches = {"update": 0, "getz_two": 0, "getz_tile": 0, "lap": 0,
             "axpy": 0, "finish": 0}
 launches_bf16 = dict.fromkeys(launches, 0)
+#: B4 launches without partials (``lap(x, None, ...)``: the warm start's
+#: residual r0 = b - A x0, one a warm-started solve), counted apart so
+#: that the per-stage counts above stay per iteration
+residual_launches = {"lap": 0}
 #: iterations the fused driver executed, chunk tails included: each runs
 #: update/axpy/finish once and getz (two-level or tile-only) and lap twice
 iterations = {"executed": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, launches_bf16):
+    for counts in (launches, launches_bf16, residual_launches):
         for name in counts:
             counts[name] = 0
     iterations["executed"] = 0
@@ -149,12 +155,14 @@ def _getz_math(w, aux, S3, lam, h2, two_level, store=_F32):
 def _lap_math(w, planes, a, inv_h2, store=_F32):
     """Cross-tile Laplacian + per-tile partials of a . Aw and Aw . Aw
     over the stored Aw; ``planes`` (T, 6, bs, bs) from
-    krylov.make_tile_planes."""
-    w32, pl32, a32 = _f32(w, planes, a)
+    krylov.make_tile_planes.  ``a`` None: Aw alone (partials None)."""
+    w32, pl32 = _f32(w, planes)
     aw = laplacian_faces(w32, [pl32[:, k] for k in range(6)], inv_h2,
                          first=1).to(store)
+    if a is None:
+        return aw, None, None
     aw32 = aw.to(_F32)
-    return aw, _cellsum(a32 * aw32), _cellsum(aw32 * aw32)
+    return aw, _cellsum(a.to(_F32) * aw32), _cellsum(aw32 * aw32)
 
 
 def _axpy_math(r, v, alpha, store=_F32):
@@ -224,14 +232,13 @@ def _check_vecs(*vecs: torch.Tensor, dtype=None) -> int:
     return T
 
 
-def _check_small(t: torch.Tensor, shape, dev, aligned=False,
-                 dtype=_F32) -> None:
-    """A contiguous ``dtype`` ``shape`` on ``dev``; 16-byte aligned where
-    the kernel reads it in 16-byte vectors (``aligned``)."""
-    if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+def _check_small(t: torch.Tensor, shape, dev, aligned=False) -> None:
+    """A contiguous f32 ``shape`` on ``dev``; 16-byte aligned where the
+    kernel reads it in 16-byte vectors (``aligned``)."""
+    if (t.device != dev or t.dtype != _F32 or not t.is_contiguous()
             or tuple(t.shape) != tuple(shape)
             or (aligned and t.data_ptr() % 16)):
-        raise ValueError(f"expected contiguous {dtype} {tuple(shape)} on "
+        raise ValueError(f"expected contiguous {_F32} {tuple(shape)} on "
                          f"{dev}{', 16-byte aligned' if aligned else ''}, "
                          f"got {tuple(t.shape)} {t.dtype} {t.device} at "
                          f"{t.data_ptr() % 16} bytes past 16")
@@ -290,21 +297,56 @@ def getz_tile(w, h2, kernels=None):
     return y
 
 
-def lap(w, planes, a, inv_h2, kernels=None):
-    """B4: (Aw, per-tile a . Aw, per-tile Aw . Aw); planes (T,6,8,8); w,
-    planes, a and Aw in one storage dtype."""
+class LapGeom:
+    """What B4 needs of a uniform grid, built once per grid: its tiles a
+    side ``nb`` (the tile index is (tx NBy + ty) NBz + tz), a periodic
+    bit an axis (``periodic``: 1 x, 2 y, 4 z; a clear bit is the
+    zero-gradient clamp of wall and freespace) and, for the plain version
+    alone, the neighbour face planes (krylov.make_tile_planes, built at
+    its first use: the kernel path builds no table)."""
+
+    def __init__(self, grid, bs: int = BS):
+        if bs != BS:
+            raise ValueError(f"B4 is built for {BS}^3 tiles")
+        self.grid = grid
+        self.nb = tuple(int(s) // bs for s in grid.shape)
+        self.tiles = self.nb[0] * self.nb[1] * self.nb[2]
+        self.periodic = sum(1 << ax for ax in range(3)
+                            if grid.bc[ax] == BC.periodic)
+        self._planes = None
+
+    def planes(self, w: torch.Tensor) -> torch.Tensor:
+        """(T, 6, 8, 8) face planes of ``w`` (the plain version's input)."""
+        if self._planes is None:
+            self._planes = krylov.make_tile_planes(self.grid, BS)
+        return self._planes(w)
+
+
+def lap(w, a, inv_h2, geom: LapGeom, kernels=None):
+    """B4: (Aw, per-tile a . Aw, per-tile Aw . Aw) on the grid of ``geom``;
+    w, a and Aw in one storage dtype.  ``a`` None: (Aw, None, None), the
+    kernel skipping the partials (the warm start's residual).  The kernel
+    reads the cross-tile neighbours from w; the plain version builds the
+    face planes and applies laplacian_faces."""
     if not _use_kernel(w, kernels):
-        return _lap_math(w, planes, a, inv_h2, w.dtype)
-    T = _check_vecs(w, a)
-    _check_small(planes, (T, 6, BS, BS), w.device, aligned=True,
-                 dtype=w.dtype)
+        return _lap_math(w, geom.planes(w), a, inv_h2, w.dtype)
+    T = _check_vecs(w) if a is None else _check_vecs(w, a)
+    if T != geom.tiles:
+        raise ValueError(f"lap: {T} tiles, the grid has {geom.nb}")
     aw = torch.empty_like(w)
-    pa = torch.empty(T, dtype=_F32, device=w.device)
-    ps = torch.empty(T, dtype=_F32, device=w.device)
+    pa = ps = None
+    if a is not None:
+        pa = torch.empty(T, dtype=_F32, device=w.device)
+        ps = torch.empty(T, dtype=_F32, device=w.device)
     _lib().call(_entry("cup3d_lap", w.dtype), w.data_ptr(),
-                planes.data_ptr(), a.data_ptr(), aw.data_ptr(), pa.data_ptr(),
-                ps.data_ptr(), float(inv_h2), T, cuda_lib.stream(w.device))
-    _count("lap", w.dtype)
+                None if a is None else a.data_ptr(), aw.data_ptr(),
+                None if pa is None else pa.data_ptr(),
+                None if ps is None else ps.data_ptr(), float(inv_h2),
+                *geom.nb, geom.periodic, cuda_lib.stream(w.device))
+    if a is None:
+        residual_launches["lap"] += 1
+    else:
+        _count("lap", w.dtype)
     return aw, pa, ps
 
 
@@ -375,7 +417,7 @@ def fused_bicgstab_tiles(grid, b, *, tol_abs=1e-6, tol_rel=1e-4,
     h2 = float(grid.h * grid.h)
     inv_h2 = 1.0 / h2
     dev = b.device
-    planes_fn = krylov.make_tile_planes(grid, bs)
+    geom = LapGeom(grid, bs)
     coarse_core = krylov._make_coarse_core(grid, bs) if two_level else None
     deltas_fn = krylov.make_face_deltas(grid, bs) if two_level else None
     T = b.shape[0]
@@ -396,7 +438,7 @@ def fused_bicgstab_tiles(grid, b, *, tol_abs=1e-6, tol_rel=1e-4,
     if x0 is None:
         r0 = b32  # A(0) == 0 exactly; skip the apply
     else:
-        r0 = b32 - krylov.make_laplacian_tiles(grid, bs)(x)
+        r0 = b32 - lap(x, None, inv_h2, geom, kernels)[0]
     # the norm and rho come from the f32 residual, the iteration starts
     # from its stored copy (rhat is its own buffer: B1 re-seeds in place)
     rr0 = krylov._dot(r0, r0)
@@ -425,12 +467,12 @@ def fused_bicgstab_tiles(grid, b, *, tol_abs=1e-6, tol_rel=1e-4,
         p, rhat, ts_p = update(s["r"], s["p"], s["v"], s["rhat"],
                                _scalars(beta, s["omega"], broke), kernels)
         y = getz(p, ts_p)
-        v, d_rhv, _ = lap(y, planes_fn(y), rhat, inv_h2, kernels)
+        v, d_rhv, _ = lap(y, rhat, inv_h2, geom, kernels)
         alpha = rho_new / krylov._safe(_combine(d_rhv))
 
         svec, ts_s = axpy(s["r"], v, _scalars(alpha), kernels)
         z = getz(svec, ts_s)
-        t, d_ts, d_tt = lap(z, planes_fn(z), svec, inv_h2, kernels)
+        t, d_ts, d_tt = lap(z, svec, inv_h2, geom, kernels)
         omega = _combine(d_ts) / krylov._safe(_combine(d_tt))
 
         x, r, p_rr, p_rhr = finish(s["x"], y, z, svec, t, rhat,
@@ -484,8 +526,11 @@ def fused_bicgstab(grid, b: torch.Tensor, *, tol_abs: float = 1e-6,
 def bytes_model(store_dtype=None, two_level: bool = True) -> dict:
     """Analytic device bytes per cell per fused iteration (reads + writes),
     by stage.  e = storage bytes a cell (4 f32, 2 bf16); x stays 4 B.
-    Face planes count 6 bs^2 / bs^3 = 0.75 e a pass.  Partials and aux
-    are O(T) and ignored."""
+    Partials and aux are O(T) and ignored.  The JAX package's model has a
+    "planes" entry (the face planes its driver gathers before each lap,
+    0.75 e a pass written and read again): the port's B4 reads its
+    neighbour faces from w inside the kernel, so it has no planes glue
+    and its lap moves w and the partner in and Aw out, 3 e a pass."""
     from cup3d_tpu_torch.ops import precision
 
     store = precision.krylov_dtype() if store_dtype is None else store_dtype
@@ -495,10 +540,8 @@ def bytes_model(store_dtype=None, two_level: bool = True) -> dict:
         "update": 6 * e,
         # 2x (w in, y out)
         "getz": 2 * (2 * e),
-        # 2x (planes glue: read 6 faces, write planes array)
-        "planes": 2 * (2 * 0.75 * e),
-        # 2x (w + planes + partner in, Aw out)
-        "lap": 2 * ((2 + 0.75) * e + e),
+        # 2x (w + partner in, Aw out)
+        "lap": 2 * 3 * e,
         # r, v in; s out
         "axpy": 3 * e,
         # y, z, s, t, rhat in + x f32 in; x f32 + r out

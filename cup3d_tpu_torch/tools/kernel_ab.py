@@ -1,8 +1,12 @@
 """A/B timing of kernels B2 (getz_two), B3/B10 (getz_tile), B9 (the
-forest's getz_two), B7 (getz_cg) and B14 (the ring step) between
-checkouts of the port, on one CUDA card.
+forest's getz_two), B7 (getz_cg), B14 (the ring step) and the B4 stage
+(lap) between checkouts of the port, on one CUDA card.
 
-    python cup3d_tpu_torch/tools/kernel_ab.py [TREE ...]
+    python cup3d_tpu_torch/tools/kernel_ab.py [--only SECTIONS] [TREE ...]
+
+``--only`` takes a comma-separated list of the sections below (getz_two,
+getz for getz_tile/getz_amr/getz_cg, ring for ring_shift/all_to_all/
+host_us, lap); default all.
 
 Each TREE is the root of a checkout of the repository (default: this
 one).  The trees run in the order given, each in a process of its own
@@ -43,7 +47,24 @@ its tree's kernels and prints one JSON line (``"tree"`` and):
   lookup, the shape and overlap checks, ``torch.empty_like``, the whole
   ``ring_shift_kernel`` call, and ``torch.roll``; on a tree with the
   strided ring step also the call into a given ``out`` and the C entry
-  point alone (the launch).
+  point alone (the launch);
+- ``lap``: the B4 stage on the periodic 128^3 and 256^3 grids (the fish's
+  and the TGV's), f32 and bf16 storage, random w and a (one generator
+  seeded 16 for the section, so both trees see the same bits): on a
+  tree whose ``fused_bicgstab`` has ``LapGeom`` the kernel reading its
+  faces from w, ``lap(w, a, inv_h2, geom)``; on an older tree the torch
+  face-plane gather and the plane-fed kernel, ``lap(w, planes(w), a,
+  inv_h2)`` with ``planes = krylov.make_tile_planes(grid)``.  Each: the
+  CUDA-event time a call, the device time a call by profile (every
+  device kernel of the stage summed), the device kernels a call, the
+  host us a call (50 calls after a synchronise), whether Aw is bitwise
+  the plain Laplacian rounded to the storage, and the first 16 hex
+  digits of the SHA-1 of Aw; then ``iteration``: the device kernels of
+  the fused solve (``fused_bicgstab_tiles`` at tolerance 0) over one
+  chunk of ITER_CHUNK iterations and over two, on the periodic 128^3 grid
+  and on BASELINE config #5's 128 x 64 x 64 with walls in y, and their
+  difference over ITER_CHUNK: an iteration's kernels (with a share of
+  the chunk's predicate read).
 
 Prints the card's ``nvidia-smi`` name and power limit first.  ``python
 cup3d_tpu_torch/tools/kernel_ab.py --child TREE [M]`` measures one tree
@@ -68,6 +89,10 @@ D, MK = 4, 449           # phase 15's Krylov exchange: shards, entries
 HOST_CALLS = 1000
 SAMPLES, PER_SAMPLE = 21, 10
 CG_ITERS = 24            # the CG getZ's sweeps (ops/krylov.py)
+LAP_SIZES = (128, 256)   # B4's periodic grids: the fish's, the TGV's
+# the fused iteration's grids: the periodic 128^3, config #5's walls in y
+ITER_GRIDS = (((128,) * 3, ("periodic",) * 3),
+              ((128, 64, 64), ("periodic", "wall", "periodic")))
 
 
 def _events_ms(torch, fn) -> float:
@@ -87,11 +112,10 @@ def _events_ms(torch, fn) -> float:
     return statistics.median(out)
 
 
-def _profile(torch, fn, calls: int, match: str, windows: int = 3):
-    """(device us a launch of the kernels whose name holds ``match``,
-    launches of them a call, device kernels of any name a call), from the
-    one of ``windows`` profiler windows that saw the most kernels (a
-    window can miss some of its kernels' records, never add any)."""
+def _device_events(torch, fn, calls: int, windows: int = 3) -> list:
+    """The device records of ``calls`` calls of ``fn``, from the one of
+    ``windows`` profiler windows that saw the most (a window can miss
+    some of its kernels' records, never add any)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -107,6 +131,19 @@ def _profile(torch, fn, calls: int, match: str, windows: int = 3):
                if e.device_type == torch.autograd.DeviceType.CUDA]
         if best is None or len(dev) > len(best):
             best = dev
+    return best
+
+
+def _kernels(events) -> list:
+    """The kernels among device records (copies and memsets left out)."""
+    return [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def _profile(torch, fn, calls: int, match: str, windows: int = 3):
+    """(device us a launch of the kernels whose name holds ``match``,
+    launches of them a call, device kernels of any name a call), from the
+    one of ``windows`` profiler windows that saw the most kernels."""
+    best = _device_events(torch, fn, calls, windows)
     ours = [e for e in best if match in e.name]
     us = (sum(e.time_range.elapsed_us() for e in ours) / len(ours)
           if ours else None)
@@ -141,21 +178,105 @@ def _forest_h2(torch, tree: str, dev):
     return (h * h).contiguous()
 
 
-def child(tree: str, mk: int = MK) -> dict:
+def iteration_kernels(torch, fb, grid, b) -> dict:
+    """Device kernels of the fused solve of ``b`` (tile-major) on
+    ``grid`` at tolerance 0: over one chunk of ITER_CHUNK iterations and
+    over two (``torch.profiler``), and their difference over ITER_CHUNK,
+    an iteration's kernels (the solve's set-up cancels; a chunk's
+    predicate read is shared among its iterations)."""
+    from cup3d_tpu_torch.ops import krylov
+
+    chunk = krylov.ITER_CHUNK
+    n = {}
+    for m in (chunk, 2 * chunk):
+        n[m] = len(_kernels(_device_events(
+            torch, lambda: fb.fused_bicgstab_tiles(
+                grid, b, tol_abs=0.0, tol_rel=0.0, maxiter=m), 1)))
+    return dict(one_chunk=n[chunk], two_chunks=n[2 * chunk],
+                per_iteration=(n[2 * chunk] - n[chunk]) / chunk)
+
+
+def lap_section(torch, dev) -> dict:
+    """The ``lap`` section (see the module docstring)."""
+    from cup3d_tpu_torch.grid.uniform import UniformGrid
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.ops import krylov
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    out = {}
+    for n in LAP_SIZES:
+        grid = UniformGrid((n, n, n), (2 * math.pi,) * 3)
+        T, inv_h2 = (n // 8) ** 3, 1.0 / (grid.h * grid.h)
+        for store in (torch.float32, torch.bfloat16):
+            w, a = (torch.randn((T, 8, 8, 8), generator=gen,
+                                device=dev).to(store) for _ in range(2))
+            if hasattr(fb, "LapGeom"):
+                geom = fb.LapGeom(grid)
+                stage = lambda: fb.lap(w, a, inv_h2, geom)  # noqa: E731
+            else:
+                planes = krylov.make_tile_planes(grid, 8)
+                stage = lambda: fb.lap(w, planes(w), a,  # noqa: E731
+                                       inv_h2)
+            aw = stage()[0]
+            plain = krylov.make_laplacian_tiles(grid, 8)(w.float())
+            events = _device_events(torch, stage, 20)
+            torch.cuda.synchronize()
+            out[f"{n}_{str(store)[6:]}"] = dict(
+                ms=_events_ms(torch, stage),
+                device_us=sum(e.time_range.elapsed_us()
+                              for e in events) / 20,
+                kernels_a_call=len(_kernels(events)) / 20,
+                host_us=_host_us(stage, 50),
+                bitwise_plain=bool(torch.equal(aw, plain.to(store))),
+                sha1=hashlib.sha1(aw.float().cpu().numpy().tobytes())
+                .hexdigest()[:16])
+            del w, a, aw, plain
+    it = {}
+    for shape, bcs in ITER_GRIDS:
+        grid = UniformGrid(shape, tuple(2.0 * s / shape[0] for s in shape),
+                           bcs)
+        b = torch.randn((grid.ncells // 512, 8, 8, 8), generator=gen,
+                        device=dev)
+        it["x".join(map(str, shape)) + "_" + bcs[1]] = iteration_kernels(
+            torch, fb, grid, b - b.mean())
+    out["iteration"] = it
+    return out
+
+
+def child(tree: str, mk: int = MK, only=None) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     from cup3d_tpu_torch.ops import cuda_lib
     from cup3d_tpu_torch.ops import fused_bicgstab as fb
-    from cup3d_tpu_torch.parallel import compat, ring
 
     dev = torch.device("cuda")
     for line in cuda_lib.load().log.splitlines():  # ptxas: registers, spills
         if "Compiling" in line or "registers" in line or "spill" in line:
             print(f"[{tree}] {line.strip()}", file=sys.stderr)
+    out = {"tree": tree}
+
+    def want(section):
+        return only is None or section in only
+
+    if want("lap"):
+        out["lap"] = lap_section(torch, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    out = {"tree": tree, "getz_two": {}}
+    if want("getz_two"):
+        getz_two_section(torch, fb, dev, gen, out)
+    if want("getz"):
+        getz_sections(torch, tree, dev, gen, out)
+    if want("ring"):
+        ring_sections(torch, dev, gen, mk, out)
+    torch.cuda.synchronize()
+    return out
+
+
+def getz_two_section(torch, fb, dev, gen, out) -> None:
+    """getz_two (see the module docstring)."""
+    out["getz_two"] = {}
     for T in (32768, 4096):
         w = torch.randn((T, 8, 8, 8), generator=gen, device=dev)
         aux = torch.randn((8, T), generator=gen, device=dev)
@@ -171,7 +292,11 @@ def child(tree: str, mk: int = MK) -> dict:
             device_us=us, launches_a_call=n, rel_err=err, sha1=digest)
         del w, aux, want, got
 
+
+def getz_sections(torch, tree, dev, gen, out) -> None:
+    """getz_tile, getz_amr and getz_cg (see the module docstring)."""
     from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
     from cup3d_tpu_torch.ops import getz_cg, tilesolve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -231,6 +356,12 @@ def child(tree: str, mk: int = MK) -> dict:
                                        got)))}
     del bt, got
 
+
+def ring_sections(torch, dev, gen, mk, out) -> None:
+    """ring_shift, all_to_all and host_us (see the module docstring)."""
+    from cup3d_tpu_torch.ops import cuda_lib
+    from cup3d_tpu_torch.parallel import compat, ring
+
     x = torch.randn((D, mk, 1, 8, 8, 8), generator=gen, device=dev)
     if not torch.equal(ring.ring_shift_kernel(x, 1),
                        ring.ring_shift_plain(x, 1)):
@@ -287,14 +418,15 @@ def child(tree: str, mk: int = MK) -> dict:
         out["host_us"].update(
             call_into=_host_us(lambda: ring.ring_steps_kernel(x, pre, 1)),
             c_launch=_host_us(lambda: ring._STEPS(lay, blk)))
-    torch.cuda.synchronize()
-    return out
 
 
 def main(argv) -> int:
+    only = None
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1].split(","), argv[2:]
     if len(argv) > 1 and argv[0] == "--child":  # [--child TREE [M]]
         mk = int(argv[2]) if len(argv) > 2 else MK
-        print(json.dumps(child(argv[1], mk)), flush=True)
+        print(json.dumps(child(argv[1], mk, only)), flush=True)
         return 0
     import torch
 
@@ -305,8 +437,9 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    pick = ["--only", ",".join(only)] if only else []
     for tree in argv or ["."]:
-        subprocess.run([sys.executable, os.path.abspath(__file__),
+        subprocess.run([sys.executable, os.path.abspath(__file__), *pick,
                         "--child", tree], check=True, timeout=900)
     return 0
 

@@ -40,7 +40,12 @@ the f32 bound near 0; partials within 2e-5 of the per-tile sum of
 solves on both grids against their plain versions (+-1 iteration, x
 within 1e-2), the bf16 launches counted apart.  B14 at the x-slab
 megaloop's halo shapes (strided component planes of vector slabs) and
-RK3 on the slabs bitwise the unsharded RK3 on the card."""
+RK3 on the slabs bitwise the unsharded RK3 on the card.  The Laplacian
+(B4), which reads its neighbour faces from w, on periodic, walls-in-y
+and closed grids whose z runs of four tiles are whole or ragged, at f32
+and bf16: Aw bitwise its plain version (the face planes of
+make_tile_planes and laplacian_faces), its partial-free call bitwise
+make_laplacian_tiles."""
 
 import math
 
@@ -86,6 +91,61 @@ def _tile_abs_sum(x):
     return float(torch.max(torch.sum(torch.abs(x), dim=(1, 2, 3))))
 
 
+def _lap_grid(bcs, shape=(16, 24, 32)):
+    """A grid of T = 24 tiles (2 x 3 x 4) for B4, which reads its
+    neighbour faces by the grid's tile counts and BCs."""
+    return UniformGrid(shape, tuple(n / 32 for n in shape), bcs)
+
+
+# B4's BC sets: periodic (the TGV), walls in y (BASELINE config #5) and no
+# periodic axis; shapes whose z runs of 4 tiles are whole, ragged (5 and 3
+# tiles along z) and a single tile along x and y
+LAP_BCS = [("periodic",) * 3, ("periodic", "wall", "periodic"),
+           ("wall", "freespace", "wall")]
+LAP_SHAPES = [(32, 24, 32), (16, 8, 40), (8, 8, 24)]
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LAP_SHAPES)
+@pytest.mark.parametrize("bcs", LAP_BCS)
+def test_lap_reads_its_faces_on_every_bc_set(dev, bcs, shape, store):
+    """B4 against its plain version (the face planes of make_tile_planes
+    and laplacian_faces): Aw bitwise, the partials within 1e-5 (f32) or
+    2e-5 (bf16, of its own stored Aw) of the per-tile sum of |terms|; the
+    partial-free call (the warm start's residual) bitwise the plain
+    Laplacian; a rerun bitwise; one launch a call."""
+    grid = _lap_grid(bcs, shape)
+    geom = fb.LapGeom(grid)
+    T = grid.ncells // 512
+    rng = np.random.default_rng(31)
+    w, a = (torch.as_tensor(rng.standard_normal((T, 8, 8, 8)),
+                            dtype=torch.float32, device=dev).to(store)
+            for _ in range(2))
+    inv_h2 = 1.0 / (grid.h * grid.h)
+    fb.reset_launches()
+    got = fb.lap(w, a, inv_h2, geom)
+    want = fb.lap(w, a, inv_h2, geom, kernels=False)
+    assert torch.equal(got[0], want[0])
+    aw = got[0].float()
+    if store == torch.float32:
+        _close(got[1], want[1], 1e-5, _tile_abs_sum(a * aw))
+        _close(got[2], want[2], 1e-5, _tile_abs_sum(aw * aw))
+    else:
+        _hold_part(got[1], fb._cellsum(a.float() * aw), a.float() * aw)
+        _hold_part(got[2], fb._cellsum(aw * aw), aw * aw)
+    again = fb.lap(w, a, inv_h2, geom)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    x = w.float()
+    alone = fb.lap(x, None, inv_h2, geom)
+    assert alone[1:] == (None, None)
+    assert torch.equal(alone[0], krylov.make_laplacian_tiles(grid)(x))
+    torch.cuda.synchronize()
+    counts = fb.launches if store == torch.float32 else fb.launches_bf16
+    assert counts["lap"] == 2 and fb.residual_launches["lap"] == 1
+    assert sum(fb.launches.values()) + sum(
+        fb.launches_bf16.values()) == 2
+
+
 def test_stage_kernels_match_plain_versions(dev):
     fb.reset_launches()
     r, p, v, rhat, w, a, x, y = _vecs(dev, 0, 8)
@@ -99,10 +159,10 @@ def test_stage_kernels_match_plain_versions(dev):
     aux = torch.randn((8, T), device=dev)
     _close(fb.getz_two(w, aux, 0.01), fb.getz_two(w, aux, 0.01,
                                                   kernels=False), 1e-5)
-    planes = torch.randn((T, 6, 8, 8), device=dev)
-    want = fb.lap(w, planes, a, 100.0, kernels=False)
-    got = fb.lap(w, planes, a, 100.0)
-    _close(got[0], want[0], 2e-6)
+    geom = fb.LapGeom(_lap_grid(("periodic", "wall", "freespace")))
+    want = fb.lap(w, a, 100.0, geom, kernels=False)
+    got = fb.lap(w, a, 100.0, geom)
+    assert torch.equal(got[0], want[0])
     _close(got[1], want[1], 1e-5, _tile_abs_sum(a * want[0]))
     _close(got[2], want[2], 1e-5, _tile_abs_sum(want[0] * want[0]))
     want = fb.axpy(r, v, _row(dev, 0.37), kernels=False)
@@ -132,10 +192,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fb.axpy(r.double(), v.double(), _row(dev, 0.5))
     with pytest.raises(ValueError, match="contiguous"):
         fb.getz_tile(r.transpose(1, 2), 0.01)
-    # lap reads the face planes as float4: a view 4 bytes in is refused
-    planes = torch.zeros(T * 6 * 64 + 1, device=dev)[1:].view(T, 6, 8, 8)
+    # lap reads w as float4: a view 4 bytes in is refused
+    geom = fb.LapGeom(_lap_grid(("periodic",) * 3))
+    bad = torch.zeros(T * 512 + 1, device=dev)[1:].view(T, 8, 8, 8)
     with pytest.raises(ValueError, match="aligned"):
-        fb.lap(r, planes, v, 1.0)
+        fb.lap(bad, v, 1.0, geom)
+    # and a vector of another grid's tile count
+    with pytest.raises(ValueError, match="tiles"):
+        fb.lap(r[:12], v[:12], 1.0, geom)
 
 
 @pytest.mark.parametrize("shape,bcs", [
@@ -173,6 +237,8 @@ def test_driver_launch_counts_match_iterations(dev, monkeypatch, tmp_path):
     assert fb.launches == {"update": executed, "getz_two": 2 * executed,
                            "getz_tile": 0, "lap": 2 * executed,
                            "axpy": executed, "finish": executed}
+    # each step's solve starts warm: its residual is one B4 launch
+    assert fb.residual_launches["lap"] == len(iters)
     assert torch.isfinite(d.sim.state["vel"]).all()
 
 
@@ -701,7 +767,6 @@ def test_getz_two_and_lap_on_wall_bounded_lanes(dev, bcs):
     w, a = (torch.as_tensor(rng.standard_normal((T, 8, 8, 8)),
                             dtype=torch.float32, device=dev)
             for _ in range(2))
-    planes = krylov.make_tile_planes(grid, 8)(w)
     zc = krylov._make_coarse_core(grid, 8)(torch.sum(w, dim=(1, 2, 3)))
     aux = torch.cat([krylov.make_face_deltas(grid, 8)(zc), zc[None, :],
                      zc.new_zeros(1, T)], dim=0)
@@ -709,13 +774,14 @@ def test_getz_two_and_lap_on_wall_bounded_lanes(dev, bcs):
     got = fb.getz_two(w, aux, h2)
     _close(got, fb.getz_two(w, aux, h2, kernels=False), 1e-5)
     assert torch.equal(got, fb.getz_two(w, aux, h2))
-    got = fb.lap(w, planes, a, 1.0 / h2)
-    want = fb.lap(w, planes, a, 1.0 / h2, kernels=False)
-    _close(got[0], want[0], 2e-6)
+    geom = fb.LapGeom(grid)
+    got = fb.lap(w, a, 1.0 / h2, geom)
+    want = fb.lap(w, a, 1.0 / h2, geom, kernels=False)
+    assert torch.equal(got[0], want[0])
     for k in (1, 2):
         _close(got[k], want[k], 1e-5, _tile_abs_sum(
             (a if k == 1 else want[0]) * want[0]))
-    again = fb.lap(w, planes, a, 1.0 / h2)
+    again = fb.lap(w, a, 1.0 / h2, geom)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
@@ -817,10 +883,10 @@ def test_bf16_stage_kernels_match_plain_versions(dev):
                fb.getz_two(w, aux, 0.01, kernels=False), 1e-5)
     _hold_bf16(fb.getz_tile(w, 0.01), fb.getz_tile(w, 0.01, kernels=False),
                1e-5)
-    planes = _bf16(torch.randn((T, 6, 8, 8), device=dev))
-    want = fb.lap(w, planes, a, 100.0, kernels=False)
-    got = fb.lap(w, planes, a, 100.0)
-    _hold_bf16(got[0], want[0], 2e-6)
+    geom = fb.LapGeom(_lap_grid(("periodic", "wall", "freespace")))
+    want = fb.lap(w, a, 100.0, geom, kernels=False)
+    got = fb.lap(w, a, 100.0, geom)
+    assert torch.equal(got[0], want[0])
     aw = got[0].float()
     _hold_part(got[1], fb._cellsum(a.float() * aw), a.float() * aw)
     _hold_part(got[2], fb._cellsum(aw * aw), aw * aw)

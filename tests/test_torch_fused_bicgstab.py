@@ -116,18 +116,60 @@ def test_getz_stage(mode):
         _cmp_vec(tfb.getz_tile(_tiles(w), H * H), want)
 
 
+# B4's grids: T = 64 tiles as 4 x 4 x 4 periodic, BASELINE config #5's
+# walls in y on 8 x 4 x 2 tiles, and no periodic axis (walls and
+# freespace) on 2 x 4 x 8 tiles
+LAP_GRIDS = {
+    "periodic": ((32, 32, 32), ("periodic",) * 3),
+    "walls_y": ((64, 32, 16), ("periodic", "wall", "periodic")),
+    "closed": ((16, 32, 64), ("wall", "freespace", "wall")),
+}
+STORES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _lap_grids(name):
+    shape, bcs = LAP_GRIDS[name]
+    ext = tuple(n / 32 for n in shape)
+    return (JGrid(shape, ext, tuple(JBC(b) for b in bcs)),
+            TGrid(shape, ext, tuple(TBC(b) for b in bcs)))
+
+
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("grid", list(LAP_GRIDS))
 @pytest.mark.parametrize("mode", MODES)
-def test_lap_stage(mode):
-    st = _jstages(mode)
-    w, a = _vecs(2, 2)
-    rng = np.random.default_rng(12)
-    planes = rng.standard_normal((6, BS, BS, T)).astype(np.float32)
-    want = st.lap(jnp.asarray(w), jnp.asarray(planes), jnp.asarray(a))
-    pl_t = torch.as_tensor(planes).permute(3, 0, 1, 2).contiguous()
-    got = tfb.lap(_tiles(w), pl_t, _tiles(a), 1.0 / (H * H))
-    _cmp_vec(got[0], want[0])
+def test_lap_stage(mode, grid, store):
+    """The port's lap(w, a, inv_h2, geom), which finds the neighbour faces
+    itself, against the JAX stage fed make_lane_planes of the same grid;
+    bf16 storage on bf16 inputs (the same bits in both packages)."""
+    js, ts = STORES[store]
+    st = _jstages(mode)._replace(store=js)
+    jg, tg = _lap_grids(grid)
+    w, a = (jnp.asarray(v).astype(js) for v in _vecs(2, 2))
+    want = st.lap(w, jk.make_lane_planes(jg)(w), a)
+    wt, at = (_tiles(np.array(v.astype(jnp.float32))).to(ts) for v in (w, a))
+    got = tfb.lap(wt, at, 1.0 / (H * H), tfb.LapGeom(tg))
+    assert got[0].dtype == ts
+    _cmp_vec(got[0].float(), np.asarray(want[0].astype(jnp.float32)))
     _cmp_part(got[1], want[1])
     _cmp_part(got[2], want[2])
+
+
+@pytest.mark.parametrize("grid", list(LAP_GRIDS))
+def test_lap_plain_is_the_tile_laplacian(grid):
+    """The plain lap on a tile-major grid is make_laplacian_tiles bitwise
+    (the fused driver's warm-start residual), its partials skipped
+    without a partner vector."""
+    _, tg = _lap_grids(grid)
+    w, a = (_tiles(v) for v in _vecs(5, 2))
+    inv_h2 = 1.0 / (tg.h * tg.h)
+    want = tk.make_laplacian_tiles(tg)(w)
+    aw, pa, ps = tfb.lap(w, a, inv_h2, tfb.LapGeom(tg))
+    assert torch.equal(aw, want)
+    assert torch.equal(pa, tfb._cellsum(a * aw))
+    assert torch.equal(ps, tfb._cellsum(aw * aw))
+    assert torch.equal(tfb.lap(w, None, inv_h2, tfb.LapGeom(tg))[0], want)
+    assert tfb.lap(w, None, inv_h2, tfb.LapGeom(tg))[1:] == (None, None)
 
 
 @pytest.mark.parametrize("mode", MODES)
