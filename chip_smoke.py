@@ -47,6 +47,10 @@ each of which raises on a fault (nothing is caught):
 9. the AMR main path: ``simulate()`` for 20 steps with the ``amr_*``
    launch counters set to 0 just before and read just after, then the
    solve's synchronised per-piece split and a ``torch.profiler`` window;
+   then the forest window: 2 more steps in one capture window of the
+   port's attribution (``obs/profile.CONTROLLER.capture()``), its
+   BiCGSTAB sections (B8, B9, B11-B13) each above zero, no telemetry
+   failure, the sum invariant, and the kernel names each section caught;
 10. the tile-only getZ kernels B3 (at 256^3) and B10 (at the forest's
     block count) and the CG getZ kernel B7 (at 256^3, lanes layout, with
     a zero and a random per-tile shift) against their plain versions,
@@ -142,7 +146,8 @@ each of which raises on a fault (nothing is caught):
     StefanFish on the adapting forest, levelMax 4, levelStart 3) on the
     host path under ``CUP3D_FUSED=1`` through ``build_driver``:
     ``init()`` (every interface block at level 3), the bench's first
-    step, 24 warm-up and 20 timed steps with the forest kernels'
+    step, 8 warm-up and 12 timed steps (the bench's 24 and 20, cut) with
+    the forest kernels'
     counters set to 0 just before and read just after (each equal to the
     executed iterations times its launches per iteration), per step the
     blocks, the levels, the regrids, the iterations and the ms; the
@@ -162,7 +167,8 @@ each of which raises on a fault (nothing is caught):
 
 23. BASELINE config #3 as the bench runs it (bench.py bench_amr_tgv:
     ``-pipelined 1``, the mesh frozen after init, on the device dt chain
-    on the card): the bench's first step, 9 warm-up and 10 timed steps
+    on the card): the bench's first step, 4 warm-up (the bench's 9, cut)
+    and 10 timed steps
     (the trimmed mean of its _time_steps_robust) beside phase 9's host
     path, with the forest kernels' counters set to 0 just before and
     read just after (each equal to the executed iterations times its
@@ -175,7 +181,7 @@ each of which raises on a fault (nothing is caught):
     host path's step in the same window from the same state;
 24. BASELINE config #4 as the bench runs it (bench.py bench_two_fish_amr,
     ``-pipelined 1``: the bodies' rigid state chained on the device):
-    the bench's first step, 24 warm-up and 20 timed steps beside phase
+    the bench's first step, 8 warm-up and 12 timed steps beside phase
     22's host path, the launches against the executed iterations, the
     fluid's max|div u| under 0.01, the collision fallbacks taken, the
     stream's reads and stalls; one forest solve on
@@ -213,8 +219,8 @@ each of which raises on a fault (nothing is caught):
     tests/test_torch_bf16_tile.py), the f32 solves converged, every bf16
     kernel solve's best x within 1e-2 of the f32 x;
 27. config #2 as the bench's fish256 (256^3, pipelined, through
-    ``build_driver`` and ``simulate()``) for 12 steps from the initial
-    state at bf16 and at f32, each at ``CUP3D_FUSED``'s default (the
+    ``build_driver`` and ``simulate()``) for 8 steps (12 before, cut)
+    from the initial state at bf16 and at f32, each at ``CUP3D_FUSED``'s default (the
     fused bf16 kernels; the legacy f32 composition), then at f32 on the
     fused kernels: ms/step, the device's busy share, iterations a solve
     (bf16 at most f32's + 10), launches against the executed iterations,
@@ -299,7 +305,27 @@ each of which raises on a fault (nothing is caught):
     ``server.crash`` drill in this process (the exit intercepted) whose
     ``recover()`` ends with every job's QoI bytes equal to the uncrashed
     run; the crashed journal recovered by a server at bf16 storage, its
-    lanes finishing the second dispatch from the f32 snapshots.
+    lanes finishing the second dispatch from the f32 snapshots;
+36. device-time attribution on the drivers (``obs/profile.py``,
+    ``obs/export.py``, ``obs/costs.py``): config #2 as bench_fish_uniform
+    runs it (128^3, pipelined, ``CUP3D_FUSED=1``: B1, B2, B4-B6) for 6
+    steps through ``build_driver`` and ``simulate()`` under
+    ``CUP3D_PROFILE=once:2``, ``CUP3D_PROFILE_STEPS=2``, ``CUP3D_TRACE=1``
+    and ``CUP3D_TRACE_XLA=1``, the exporter on an ephemeral loopback port:
+    the window's ``kind="device"`` record; bicgstab.update,
+    bicgstab.getz_lap and bicgstab.finish above zero; the sum invariant
+    to 1e-9 relative; each of those sections within 25% of the window's
+    launches (the counters at the window's open and close) times phase
+    3's profile us of its kernels scaled by cells from 256^3 to 128^3
+    (phase 14's back-to-back us at 128^3 printed beside: their vectors
+    stay in L2, the solve's do not); no capture, parse
+    or empty-capture count; the window's ops on the pid-2 track of
+    ``trace.pfto.json``; a scrape of ``/metrics`` giving the same
+    ``profile.device_ms`` values, ``/health`` one window and an armed
+    flight recorder, ``/federate`` schema 1; ``costs.device_peaks()`` the
+    H100 entry and ``memory_watermarks()`` a peak on cuda:0; the capture
+    trimmed to a test fixture (``torch_profile_h100.trace.json.gz``).
+    The card's ceilings for every bound come from ``obs/costs.py``.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
@@ -450,14 +476,6 @@ PART_RTOL = 1e-5
 # NVIDIA H100 80GB HBM3, 700 W), printed beside its time now
 B9_EARLIER_MS = 0.0685
 
-# Published peaks of the H100 SXM (NVIDIA data sheet): memory bytes/s, f32
-# FLOP/s outside the tensor cores.  Keyed on a substring of the nvidia-smi
-# name; another card has no row and stops the run.
-PEAKS = (
-    ("H100 80GB HBM3", 3.35e12, 67e12),
-)
-
-
 _T0 = time.perf_counter()
 
 
@@ -477,11 +495,17 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks_for(name: str):
-    for key, bw, fl in PEAKS:
-        if key in name:
-            return bw, fl
-    raise RuntimeError(f"no published peaks known for card {name!r}")
+def card_peaks():
+    """The card's memory bytes/s and f32 FLOP/s outside the tensor cores,
+    from the port's one peak table (``obs/costs.py``).  A card with no
+    entry there gets the nominal entry, and stops the run."""
+    from cup3d_tpu_torch.obs import costs
+
+    pk = costs.device_peaks()
+    if pk.nominal:
+        raise RuntimeError(f"no published peaks known for card "
+                           f"{torch.cuda.get_device_name(0)!r}")
+    return pk.hbm_bytes_per_s, pk.f32_flops
 
 
 def time_ms(fn, per_sample: int = LAUNCHES_PER_SAMPLE) -> float:
@@ -956,6 +980,7 @@ def _profile_window(d, steps: int = 3, prefix: str = "", run=None,
     megaloop)."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_win = time.perf_counter()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -997,6 +1022,8 @@ def _profile_window(d, steps: int = 3, prefix: str = "", run=None,
     log("  port kernels on this path (device us per launch): " + ", ".join(
         f"{e.key.split('k_', 1)[1].split('(')[0]} "
         f"{e.self_device_time_total / e.count:.1f}" for e in ours))
+    log(f"  (the profiler window took {time.perf_counter() - t_win:.1f} s "
+        f"with its tables)")
     return dict(wall_ms=wall_ms / steps, busy_ms=busy / steps,
                 kernel_ms=total / steps)
 
@@ -1275,8 +1302,9 @@ def amr_main_path_phase(d) -> dict:
     split = _amr_step_split(d)
     pieces = _amr_solve_pieces(d)
     prof = _profile_window(d, steps=1, prefix="amr_", trace=False)
+    window = forest_window(d)
     return dict(launches=launches, wall=wall, iters=iters, split=split,
-                pieces=pieces, prof=prof)
+                pieces=pieces, prof=prof, window=window)
 
 
 class _SyncProfiler:
@@ -3211,7 +3239,9 @@ BENCH_TWO_FISH = ("StefanFish L=0.4 T=1.0 xpos=0.3 ypos=0.5 zpos=0.5 "
                   "bFixFrameOfRef=1\n"
                   "StefanFish L=0.4 T=1.0 xpos=0.7 ypos=0.5 zpos=0.5 "
                   "heightProfile=danio widthProfile=stefan")
-FA_WARM, FA_TIMED = 24, 20  # bench.py: its first step, warmup=24, iters=20
+# bench.py takes its first step, 24 warm-up and 20 timed; the depth here
+# is cut to 8 and 12 to keep the whole run in its time limit
+FA_WARM, FA_TIMED = 8, 12
 FA_DIV_GATE = 0.01          # bench.py:61 ("two_fish_amr")
 FA_LEGACY_STEPS = 5         # the fused solve against the legacy one
 FA_VEL_RTOL = 1e-4
@@ -3402,7 +3432,7 @@ def fish_amr_phase(bw: float, fp32_flops: float) -> dict:
         raise AssertionError(f"interface blocks off the finest level: {lv}")
     regrids = _watch_regrids(d)
     maxiter = d._solver.maxiter
-    # -- the main path: the bench's first step, 24 warm-up, 20 timed -------
+    # -- the main path: the bench's first step, FA_WARM, FA_TIMED ----------
     torch.cuda.synchronize()
     fa.reset_launches()
     t0 = time.perf_counter()
@@ -3603,7 +3633,9 @@ def tow_amr_phase(bw: float, fp32_flops: float) -> dict:
 # bench runs them) and the forest's physics
 # ---------------------------------------------------------------------------
 
-PIPE_WARM, PIPE_TIMED = 9, 10      # bench.py bench_amr_tgv's window
+# bench.py bench_amr_tgv's window is 9 warm-up and 10 timed steps; the
+# warm-up is cut to 4 to keep the whole run in its time limit
+PIPE_WARM, PIPE_TIMED = 4, 10
 PROFILE_STEPS = 1                  # phase 23's profiler window
 REGRID_WARM, REGRID_TIMED = 2, 22  # its regrid probe
 PIPE_KE_STEPS = 5                  # fixed-dt steps, pipelined vs host
@@ -3696,7 +3728,7 @@ def pipe_amr_phase(host_ms: float, full: bool = True) -> dict:
         f"level {_levels(d.grid)}; the device dt chain on; bucketed "
         f"{d._bucketing} (capacity {d._cap}); table builds "
         f"{sum(d.table_build_s):.2f} s")
-    # -- the main path: the bench's first step, 9 warm-up, 10 timed --------
+    # -- the main path: the bench's first step, PIPE_WARM, PIPE_TIMED ------
     torch.cuda.synchronize()
     fa.reset_launches()
     t0 = time.perf_counter()
@@ -4076,7 +4108,7 @@ BF16_SOLVE_X = 1e-2
 # phase 27: config #2 as the bench's fish256 (bench.py:637-640, 2166-2199:
 # bench_fish_uniform(256), pipelined), bf16 and f32 from one state
 N_FISH256 = 256
-FISH256_STEPS = 12
+FISH256_STEPS = 8
 FISH256_DIV_GATE = 0.07     # bench.py:57-58, ("fish", 256)
 FISH256_EXTRA_ITS = 10      # bf16 iterations a solve <= f32's + 10
 # the knobs of a phase's solver: f32 on the fused kernels, or bf16 storage
@@ -4776,7 +4808,8 @@ def fish256_phase() -> dict:
 
 def pipe_amr_bf16_phase(f32_run: dict) -> dict:
     """Config #3 as the bench runs it (phase 23's main path: the first
-    step, 9 warm-up and 10 timed on the device dt chain) under bf16:
+    step, PIPE_WARM warm-up and PIPE_TIMED timed on the device dt chain)
+    under bf16:
     the bf16 forest kernels' launches equal to the executed iterations,
     max|div u| under 0.05, beside phase 23's f32 run; a profiler
     window."""
@@ -4820,7 +4853,8 @@ def pipe_amr_bf16_phase(f32_run: dict) -> dict:
         if not (div_max < AMR_DIV_GATE
                 and all(math.isfinite(k) for k in iters)):
             raise AssertionError(f"config #3 bf16: max|div u| {div_max}")
-        prof = _profile_window(d, prefix="pipe_amr_bf16_", trace=False)
+        prof = _profile_window(d, steps=1, prefix="pipe_amr_bf16_",
+                               trace=False)
         d.flush_packs()
     return dict(ms=win["ms"], launches=launches, steps=len(rows),
                 executed=executed, div_max=div_max, prof=prof,
@@ -5950,6 +5984,261 @@ REDESIGNED = {"getz_two": 6, "ring_shift": 6, "getz_tile": 7,
               "lap": 16}
 
 
+# ---------------------------------------------------------------------------
+# phase 36 and the forest window: device-time attribution on the drivers
+# ---------------------------------------------------------------------------
+
+PROFILE_FISH_STEPS = 6      # config #2 steps in phase 36
+PROFILE_AT, PROFILE_LEN = 2, 2  # CUP3D_PROFILE=once:2, CUP3D_PROFILE_STEPS=2
+PROFILE_AGREE = 0.25        # a section against launches x phase 3's us
+PROFILE_INVARIANT = 1e-9    # sum(sections) + other == total, relative
+#: each BiCGSTAB section's port kernels (their launch counter keys)
+SECTION_KERNELS = {"bicgstab.update": ("update",),
+                   "bicgstab.getz_lap": ("getz_two", "getz_tile", "lap"),
+                   "bicgstab.finish": ("axpy", "finish")}
+FIXTURE_OPS = 120           # device ops kept in the trimmed capture
+
+
+def _telemetry_errors(snap: dict) -> dict:
+    return {k: snap.get(k, 0) for k in (
+        "profile.capture_errors", "profile.parse_errors",
+        "profile.empty_captures")}
+
+
+def _check_attribution(tag: str, attr, before: dict, after: dict) -> None:
+    """The window's attribution: no telemetry failure, the three
+    BiCGSTAB sections above zero, the sum invariant; logs what each
+    section caught (cub's scan kernels reach megaloop.body by the JAX
+    package's fragments: this line shows any such catch)."""
+    errs = {k: after[k] - before[k] for k in before}
+    if any(errs.values()):
+        raise AssertionError(f"{tag}: telemetry failures {errs}")
+    if attr is None:
+        raise AssertionError(f"{tag}: the window produced no attribution")
+    total = sum(attr.sections.values()) + attr.other_ms
+    if abs(total - attr.total_ms) > PROFILE_INVARIANT * attr.total_ms:
+        raise AssertionError(f"{tag}: sections + other {total} != total "
+                             f"{attr.total_ms}")
+    missing = [k for k in SECTION_KERNELS if not attr.sections.get(k, 0) > 0]
+    if missing:
+        raise AssertionError(f"{tag}: no device time in {missing}: "
+                             f"{attr.sections}")
+    log(f"  {tag}: device total {attr.total_ms:.3f} ms over "
+        f"{len(attr.events)} ops; sections " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(attr.sections.items()))
+        + f", other {attr.other_ms:.3f} ms")
+    for sec, names in sorted(attr.kernels_by_section().items()):
+        top = sorted(names.items(), key=lambda kv: -kv[1])
+        log(f"    {sec}: {len(names)} kernel names, "
+            f"{sum(names.values())} ops: " + "; ".join(
+                f"{n[:60]} x{c}" for n, c in top[:6]))
+
+
+def forest_window(d) -> dict:
+    """Two more steps of phase 9's config #3 run in one programmatic
+    capture window (``CONTROLLER.capture()``): B8, B9 and B11-B13 in the
+    three BiCGSTAB sections."""
+    from cup3d_tpu_torch.obs import metrics as om
+    from cup3d_tpu_torch.obs import profile as op
+
+    before = _telemetry_errors(om.snapshot())
+    t0 = time.perf_counter()
+    with op.CONTROLLER.capture("forest_window"):
+        for _ in range(2):
+            d.advance(d.calc_max_timestep())
+    attr = op.CONTROLLER.last_attribution
+    _check_attribution("forest window, 2 steps", attr, before,
+                       _telemetry_errors(om.snapshot()))
+    log(f"  (forest window {time.perf_counter() - t0:.1f} s with its "
+        f"capture and parse)")
+    return dict(total_ms=attr.total_ms, sections=dict(attr.sections),
+                other_ms=attr.other_ms)
+
+
+def _trim_capture(path: str, out: str, n_ops: int = FIXTURE_OPS) -> int:
+    """Cut a Kineto capture to ``n_ops`` consecutive device ops from the
+    first ``k_update`` on, their host launches, the record_function
+    ranges and device-side ranges around them and the metadata: a test
+    fixture of the card's own format.  Returns the events kept."""
+    import gzip
+
+    from cup3d_tpu_torch.obs import profile as op
+
+    trace = op.load_chrome_trace(path)
+    ev = trace["traceEvents"]
+    ops = sorted((e for e in ev if str(e.get("cat", "")).lower()
+                  in op.KINETO_DEVICE_CATS), key=lambda e: e["ts"])
+    first = next(i for i, e in enumerate(ops) if "k_update" in e["name"])
+    keep = ops[first:first + n_ops]
+    corr = {e.get("args", {}).get("correlation") for e in keep}
+    launches = [e for e in ev if e.get("ph") == "X"
+                and str(e.get("cat", "")).lower() not in op.KINETO_DEVICE_CATS
+                and isinstance(e.get("args"), dict)
+                and e["args"].get("correlation") in corr]
+    t_lo = min([e["ts"] for e in launches + keep])
+    t_hi = max([e["ts"] + e.get("dur", 0) for e in launches + keep])
+    ranges = [e for e in ev if e.get("cat") in ("user_annotation",
+                                                "gpu_user_annotation")
+              and e["ts"] <= t_hi and e["ts"] + e.get("dur", 0) >= t_lo]
+    meta = [e for e in ev if e.get("ph") == "M"]
+    kept = meta + ranges + launches + keep
+    with open(out, "wb") as raw:
+        with gzip.GzipFile(filename="", fileobj=raw, mode="wb",
+                           mtime=0) as f:
+            f.write(json.dumps({"schemaVersion": trace.get("schemaVersion"),
+                                "traceEvents": kept}).encode())
+    return len(kept)
+
+
+def profile_phase(main_us: dict, fish_us: dict) -> dict:
+    """Phase 36 (see the module docstring).  ``main_us``: phase 3's
+    device us a launch by profile at N_MAIN^3, ``fish_us`` phase 14's at
+    N_FISH^3 (back to back: their vectors stay in the 50 MB L2 there, the
+    solve's working set does not, so they are printed, not held)."""
+    import urllib.request
+
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.obs import costs, export
+    from cup3d_tpu_torch.obs import metrics as om
+    from cup3d_tpu_torch.obs import profile as op
+    from cup3d_tpu_torch.obs import trace as ot
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    out = _fresh_dir(os.path.join(OUT_DIR, "profile36"))
+    ot.TRACE.configure(enabled=True, directory=out, xla_annotate=True)
+    ex = export.ensure_exporter(port=0)
+    if ex is None:
+        raise AssertionError("phase 36: the exporter did not start")
+    with _env(CUP3D_PROFILE=f"once:{PROFILE_AT}",
+              CUP3D_PROFILE_STEPS=str(PROFILE_LEN),
+              CUP3D_PROFILE_DIR=None, CUP3D_TRACE="1", CUP3D_TRACE_XLA="1"):
+        ctl = op.CONTROLLER = op.CaptureController.from_env()
+    # the launch counters at the window's open and close
+    marks = []
+    start, stop = ctl._start, ctl._stop
+
+    def counts():
+        c = dict(fb.launches)
+        c["lap"] += fb.residual_launches["lap"]
+        return c
+
+    def start_marked(logdir):
+        start(logdir)
+        marks.append(counts())
+
+    def stop_marked():
+        marks.append(counts())
+        stop()
+
+    ctl._start, ctl._stop = start_marked, stop_marked
+    before = _telemetry_errors(om.snapshot())
+    try:
+        d = build_driver(_bench_fish_argv(out, PROFILE_FISH_STEPS, 0))
+        d.init()
+        fb.reset_launches()
+        t0 = time.perf_counter()
+        d.simulate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        attr = ctl.last_attribution
+        _check_attribution(f"config #2 window (steps {PROFILE_AT}-"
+                           f"{PROFILE_AT + PROFILE_LEN - 1})", attr, before,
+                           _telemetry_errors(om.snapshot()))
+        if ctl.windows != 1 or len(marks) != 2:
+            raise AssertionError(f"phase 36: {ctl.windows} windows, "
+                                 f"{len(marks)} counter marks")
+        log(f"  {PROFILE_FISH_STEPS} steps in {wall:.2f} s with the window "
+            f"(capture, export, parse); iterations "
+            f"{[int(r['iters']) for r in d.step_log]}")
+        # each section against the window's launches times phase 3's
+        # device us a launch, scaled from N_MAIN^3 to the window's cells
+        # (the kernels are bandwidth-bound there: time goes with bytes)
+        delta = {k: marks[1][k] - marks[0][k] for k in marks[0]}
+        scale = (N_FISH / N_MAIN) ** 3
+        agree = {}
+        for sec, kernels in SECTION_KERNELS.items():
+            ks = [k for k in kernels if delta[k]]
+            if any(main_us.get(k) is None for k in ks):
+                raise AssertionError(f"phase 36: {sec}: a kernel without "
+                                     f"its profile time {main_us}")
+            want = sum(delta[k] * main_us[k] * scale for k in ks) / 1e3
+            warm = sum(delta[k] * (fish_us.get(k) or math.nan)
+                       for k in ks) / 1e3
+            got = attr.sections[sec]
+            agree[sec] = dict(ms=got, want_ms=want, warm_ms=warm,
+                              launches={k: delta[k] for k in ks},
+                              rel=(got - want) / want)
+            log(f"  {sec}: {got:.3f} ms in the window against {want:.3f} "
+                f"ms = launches {agree[sec]['launches']} x phase 3's "
+                f"profile us x {scale:.4f} ({(got - want) / want:+.1%}); "
+                f"x phase 14's back-to-back us {warm:.3f} ms")
+            if not abs(got - want) <= PROFILE_AGREE * want:
+                raise AssertionError(f"phase 36: {sec} {got} ms against "
+                                     f"{want} ms from the launches")
+        # the kind="device" record and the pid-2 track of the trace
+        ot.TRACE.flush()
+        with open(ot.TRACE.jsonl_path) as f:
+            recs = [json.loads(x) for x in f if x.strip()]
+        dev = [r for r in recs if r.get("kind") == "device"]
+        if len(dev) != 1 or ot.validate_step_record(dev[0]):
+            raise AssertionError(f"phase 36: device records {dev}")
+        ot.TRACE.export_chrome()
+        with open(ot.TRACE.perfetto_path) as f:
+            pid2 = [e for e in json.load(f)["traceEvents"]
+                    if e.get("pid") == op.DEVICE_PID and e.get("ph") == "X"]
+        if len(pid2) != len(attr.events) or not any(
+                "k_update" in e["name"] for e in pid2):
+            raise AssertionError(f"phase 36: {len(pid2)} pid-2 events for "
+                                 f"{len(attr.events)} device ops")
+        # the exporter over loopback
+        def get(path):
+            with urllib.request.urlopen(ex.url + path, timeout=30) as r:
+                return r.read().decode()
+
+        scraped = export.parse_prometheus_text(get("/metrics"))
+        for sec, ms in list(attr.sections.items()) + [("other",
+                                                       attr.other_ms)]:
+            key = ("cup3d_profile_device_ms", frozenset({("section", sec)}))
+            if scraped.get(key) != ms:
+                raise AssertionError(f"phase 36: /metrics {sec} "
+                                     f"{scraped.get(key)} != {ms}")
+        health = json.loads(get("/health"))
+        mine = [f for f in health["flight_recorders"]
+                if f["directory"] == out]
+        if health["profile"]["windows"] != 1 or not (
+                mine and mine[0]["armed"]):
+            raise AssertionError(f"phase 36: /health profile "
+                                 f"{health['profile']}, recorders {mine}")
+        fed = json.loads(get("/federate"))
+        if fed.get("schema") != 1:
+            raise AssertionError(f"phase 36: /federate schema "
+                                 f"{fed.get('schema')}")
+        pk = costs.device_peaks()
+        if pk.nominal or "H100" not in pk.kind:
+            raise AssertionError(f"phase 36: device peaks {pk}")
+        marks_mem = costs.memory_watermarks()
+        if not marks_mem.get("cuda:0", {}).get("peak_bytes_in_use", 0) > 0:
+            raise AssertionError(f"phase 36: watermarks {marks_mem}")
+        log(f"  device record {dev[0]['device_sections']}; pid-2 track "
+            f"{len(pid2)} events; /metrics, /health (windows 1, recorder "
+            f"armed), /federate (schema 1) on {ex.url}; peaks {pk.kind} "
+            f"({pk.hbm_bytes_per_s:.3g} B/s, {pk.f32_flops:.3g} f32 "
+            f"FLOP/s); cuda:0 peak "
+            f"{marks_mem['cuda:0']['peak_bytes_in_use'] / 1e9:.2f} GB")
+        cap = op.find_trace_files(ctl.directory)[-1]
+        n = _trim_capture(cap, os.path.join(OUT_DIR,
+                                            "torch_profile_h100.trace.json.gz"))
+        log(f"  capture {cap} ({os.path.getsize(cap) / 1e6:.1f} MB gz); "
+            f"trimmed to {n} events")
+        return dict(total_ms=attr.total_ms, sections=dict(attr.sections),
+                    other_ms=attr.other_ms, agree=agree, wall_s=wall,
+                    ops=len(attr.events))
+    finally:
+        ex.stop()
+        export.EXPORTER = None
+        ot.TRACE.configure(enabled=False, xla_annotate=False)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -5967,7 +6256,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    bw, fp32_flops = peaks_for(name)
+    bw, fp32_flops = card_peaks()
 
     # -- phase 2 ----------------------------------------------------------
     from cup3d_tpu_torch import native
@@ -5986,6 +6275,7 @@ def main() -> int:
 
     log(f"phase 3: kernels vs plain versions at {N_MAIN}^3")
     per_kernel = kernel_phase(bw, fp32_flops)
+    main_us = {k: r.get("profile_us") for k, r in per_kernel.items()}
     log(f"phase 4: whole solve at {N_SOLVE}^3")
     iter_kernels = solve_phase()
     log(f"phase 5: main path, {N_MAIN}^3 TGV, {STEPS} steps")
@@ -6203,6 +6493,17 @@ def main() -> int:
         fleet_amr = fleet_amr_phase(bw, fp32_flops)
     log(f"  phase 35 took {time.perf_counter() - t0:.1f} s; {smi}")
     torch.cuda.empty_cache()
+    log(f"phase 36: device-time attribution on the port's drivers: "
+        f"config #2 at {N_FISH}^3 as bench_fish_uniform runs it, "
+        f"{PROFILE_FISH_STEPS} steps under CUP3D_PROFILE=once:{PROFILE_AT}, "
+        f"CUP3D_PROFILE_STEPS={PROFILE_LEN}, CUP3D_TRACE=1, "
+        "CUP3D_TRACE_XLA=1, the exporter on loopback")
+    t0 = time.perf_counter()
+    with _env(CUP3D_FUSED="1"):
+        profile_phase(main_us, {k: r.get("profile_us")
+                                for k, r in fish_kernels.items()})
+    log(f"  phase 36 took {time.perf_counter() - t0:.1f} s; {smi}")
+    log(f"  the whole run: {time.perf_counter() - _T0:.1f} s")
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV
     # path's launches beside them; B14's from the sharded forest's

@@ -2,18 +2,17 @@
 
 Copies of ``cup3d_tpu/io/logging.py``'s ``BufferedLogger`` (the
 reference's named append-only text streams, main.cpp:7232-7245,
-10300-10345) and of the self-time span accumulator its ``Profiler``
-wraps (``cup3d_tpu/obs/trace.py::SpanTimer``) without the trace sink,
-which belongs to the observability layer not yet ported (ROADMAP A9).
+10300-10345) and its ``Profiler``, the self-time span accumulator of
+``obs/trace.py`` (``SpanTimer``) forwarding to the trace sink.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from collections import defaultdict
-from contextlib import contextmanager
 from typing import Dict, List
+
+from cup3d_tpu_torch.obs.trace import SpanTimer
 
 
 class BufferedLogger:
@@ -41,41 +40,13 @@ class BufferedLogger:
             buf.clear()
 
 
-class Profiler:
+class Profiler(SpanTimer):
     """Host wall time per named section, as SELF time: an inner section's
     wall is excluded from the enclosing one, so section totals partition
     the measured wall.  A section re-entering itself counts one call.
     On CUDA the sections time the host's enqueue, not the device, unless
-    the section ends in a synchronising read."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-        self._stack: List[float] = []
-        self._active: Dict[str, int] = defaultdict(int)
-
-    @contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
-        self._stack.append(0.0)
-        self._active[name] += 1
-        try:
-            yield
-        finally:
-            elapsed = time.perf_counter() - t0
-            child = self._stack.pop()
-            self.totals[name] += elapsed - child
-            self._active[name] -= 1
-            if self._active[name] == 0:
-                self.counts[name] += 1
-            if self._stack:
-                self._stack[-1] += elapsed
-
-    def report(self) -> str:
-        total = sum(self.totals.values()) or 1.0
-        lines = [f"{'section':<28}{'calls':>8}{'total_s':>12}{'share':>8}"]
-        for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            lines.append(
-                f"{name:<28}{self.counts[name]:>8}{t:>12.4f}{t / total:>8.1%}"
-            )
-        return "\n".join(lines)
+    the section ends in a synchronising read.  With tracing on
+    (``CUP3D_TRACE=1``) each closed section is a span of the trace sink,
+    and under ``CUP3D_TRACE_XLA=1`` a ``torch.profiler.record_function``
+    range that a capture window attributes device time to
+    (obs/profile.py); off, the cost is one attribute load and a test."""

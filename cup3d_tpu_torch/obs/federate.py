@@ -1,5 +1,4 @@
-"""Metric federation, the in-process half (port of
-``cup3d_tpu/obs/federate.py``).
+"""Metric federation (port of ``cup3d_tpu/obs/federate.py``).
 
 **Federation.**  Each process serializes its registry
 (:func:`local_snapshot`: counters, gauges, and histograms with their
@@ -10,12 +9,20 @@ keep per-process identity (``process=i``), histograms revive
 bucket-wise, so ``metrics.merged_quantile`` over a group is the
 quantile one fleet-wide registry would have given.  In-process
 providers (``Federation.register_provider``) feed the coordinator
-without sockets.  The HTTP half (peers in ``CUP3D_FEDERATE``, the
-``/federate`` endpoint and the Prometheus rendering of obs/export.py)
-is ROADMAP A8b: asking for it raises ``NotImplementedError``.  So is the
-mesh straggler watch (``StragglerWatch``, ``CUP3D_STRAGGLER_RATIO``):
-it judges shards that are separate devices, which the fleet across
-cards brings.
+without sockets; HTTP peers (``peers=`` or a comma-separated list of
+exporter base URLs in ``CUP3D_FEDERATE``) are scraped at their
+``/federate`` endpoint (obs/export.py) with a timeout, and a peer that
+fails is counted (``federate.scrape_errors{peer=}``) and left out of
+the view, never raised.  The merged view renders through the exposition
+of obs/export.py (``/metrics/federated``) and a federated ``/health``.
+The snapshot is JSON with ``SNAPSHOT_SCHEMA = 1`` in both packages, so
+a port coordinator merges JAX peers and the reverse.
+
+Not ported: the mesh straggler watch (``StragglerWatch``,
+``CUP3D_STRAGGLER_RATIO``, ROADMAP queue A item 5): it judges shards
+that are separate devices.  Constructing one raises; /health reports
+the block the JAX package's watch gives before any shard wall
+(:func:`straggler_health`).
 
 Everything here is host arithmetic on scalars the callers already had:
 no device read.
@@ -23,6 +30,7 @@ no device read.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -31,6 +39,45 @@ from cup3d_tpu_torch.obs import metrics as _metrics
 from cup3d_tpu_torch.obs import trace as _trace
 
 SNAPSHOT_SCHEMA = 1
+
+#: the straggler alert threshold the JAX package defaults to
+DEFAULT_STRAGGLER_RATIO = 2.0
+
+
+def straggler_ratio() -> float:
+    """``CUP3D_STRAGGLER_RATIO`` (> 1.0) or the default."""
+    raw = os.environ.get("CUP3D_STRAGGLER_RATIO", "").strip()
+    if not raw:
+        return DEFAULT_STRAGGLER_RATIO
+    try:
+        r = float(raw)
+    except ValueError:
+        _metrics.counter("federate.bad_knob",
+                         knob="CUP3D_STRAGGLER_RATIO").inc()
+        return DEFAULT_STRAGGLER_RATIO
+    if r > 1.0:
+        return r
+    _metrics.counter("federate.bad_knob",
+                     knob="CUP3D_STRAGGLER_RATIO").inc()
+    return DEFAULT_STRAGGLER_RATIO
+
+
+def straggler_health() -> dict:
+    """The /health "stragglers" block as the JAX package's
+    ``StragglerWatch.health()`` gives it before any shard wall."""
+    return {"threshold": straggler_ratio(), "skew_ratio": None,
+            "last_walls": {}, "straggler_counts": {}, "warnings": [],
+            "alerts": []}
+
+
+class StragglerWatch:
+    """The mesh straggler watch: not ported (ROADMAP queue A item 5)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "StragglerWatch judges shards on separate devices: ROADMAP "
+            "queue A item 5")
+
 
 def _dist_probe() -> dict:
     """``parallel.topology.dist_state()``; a rank-0 single-process stub
@@ -204,10 +251,14 @@ class FederatedView:
                 for ph, group in sorted(pooled.items())}
 
     def render_prometheus(self) -> str:
-        """Prometheus exposition of the merged view: the exposition
-        renderer (obs/export.py) waits for ROADMAP A8b."""
-        raise NotImplementedError(
-            "the Prometheus exposition (obs/export.py) is ROADMAP A8b")
+        """Prometheus exposition of the merged view: counters summed (no
+        process label), gauges and histogram families per process with
+        ``process=i``, so ``sum by (le)`` downstream is exact."""
+        from cup3d_tpu_torch.obs import export as _export
+
+        snap = dict(self.counters)
+        snap.update(self.gauges)
+        return _export.render_prometheus(snap, self.histograms)
 
     def health(self) -> dict:
         """Federated /health body: per-process sub-blocks + the
@@ -233,11 +284,21 @@ def merge_snapshots(snapshots: Sequence[dict]) -> FederatedView:
 # -- transport ---------------------------------------------------------------
 
 def _scrape_peer(url: str, timeout: float = 2.0) -> Optional[dict]:
-    """HTTP peer scrape: the peers' ``/federate`` endpoint is served by
-    the exporter (obs/export.py), which waits for ROADMAP A8b."""
-    raise NotImplementedError(
-        f"federating HTTP peer {url!r} needs the /federate exporter "
-        "(ROADMAP A8b); in-process providers work now")
+    """GET one peer exporter's ``/federate`` JSON (stdlib urllib); a
+    failure is counted per peer, never raised: a dead peer drops out of
+    the merged view instead of failing the scrape."""
+    import urllib.request
+
+    target = url.rstrip("/") + "/federate"
+    try:
+        with urllib.request.urlopen(target, timeout=timeout) as resp:
+            snap = json.loads(resp.read().decode("utf-8"))
+        if isinstance(snap, dict):
+            return snap
+        _metrics.counter("federate.scrape_errors", peer=url).inc()
+    except Exception:
+        _metrics.counter("federate.scrape_errors", peer=url).inc()
+    return None
 
 
 def _peers_from_env() -> List[str]:
@@ -265,10 +326,6 @@ class Federation:
                  registry: Optional[_metrics.MetricsRegistry] = None):
         env = os.environ.get("CUP3D_FEDERATE", "0").strip()
         self.providers = list(providers or [])
-        if peers:
-            raise NotImplementedError(
-                "HTTP federation peers need the /federate exporter "
-                "(ROADMAP A8b); in-process providers work now")
         self.peers = list(peers if peers is not None
                           else _peers_from_env())
         self.registry = registry

@@ -112,6 +112,11 @@ class FlightRecorder:
         self.job_events: deque = deque(maxlen=64)
         _LIVE.add(self)
 
+    @property
+    def armed(self) -> bool:
+        """True while the postmortem dump budget is unspent (/health)."""
+        return len(self.dumps_written) < self.max_dumps
+
     def note_recovery(self, event: dict) -> None:
         """Append one rollback/retry/give-up event (part of every later
         postmortem)."""

@@ -113,6 +113,9 @@ from cup3d_tpu_torch.models.base import (FORCE_PACK, RIGID_PACK,
                                          unpack_moments,
                                          update_penalization_forces, upload)
 from cup3d_tpu_torch.obs.flight import FlightRecorder
+from cup3d_tpu_torch.obs import costs as obs_costs
+from cup3d_tpu_torch.obs import export as obs_export
+from cup3d_tpu_torch.obs import profile as obs_profile
 from cup3d_tpu_torch.obs.trace import StepObserver
 from cup3d_tpu_torch.ops import amr_ops, krylov
 from cup3d_tpu_torch.ops.chi import towers_chi
@@ -225,6 +228,12 @@ class AMRSimulation:
                                      run_config=cfg,
                                      state_probe=self._flight_state)
         self._obs = StepObserver(self.flight, kind="amr")
+        # capture windows at the loop top (CUP3D_PROFILE) and the
+        # /metrics exporter (CUP3D_METRICS_PORT): both off by default
+        obs_profile.CONTROLLER.default_directory(cfg.path4serialization,
+                                                 device=self.device)
+        self._obs_profile = obs_profile.CONTROLLER
+        obs_export.ensure_exporter()
         self._last_umax: Optional[float] = None
         #: the RecoveryEngine while simulate() runs one (None otherwise)
         self._resilience: Optional[RecoveryEngine] = None
@@ -496,7 +505,7 @@ class AMRSimulation:
 
         solver.supports_stats = True
         solver.maxiter = self._solver_core.maxiter
-        self._solver = solver
+        self._solver = self._arm_costs(solver)
         if ops["helm"] is not None:
             inner = ops["helm"]
 
@@ -554,10 +563,10 @@ class AMRSimulation:
             return
         if self.forest is not None:
             cfg = self.cfg
-            self._solver = self.forest.build_poisson_solver(
+            self._solver = self._arm_costs(self.forest.build_poisson_solver(
                 tol_abs=cfg.poissonTol, tol_rel=cfg.poissonTolRel,
                 maxiter=self._poisson_maxiter,
-                mean_constraint=cfg.bMeanConstraint)
+                mean_constraint=cfg.bMeanConstraint))
             return
         core, geom = self._solver_core, self.grid
         vol, graph, slot0 = self._vol, self._graph, self._slot0
@@ -568,7 +577,29 @@ class AMRSimulation:
 
         solver.supports_stats = True
         solver.maxiter = core.maxiter
-        self._solver = solver
+        self._solver = self._arm_costs(solver)
+
+    def _arm_costs(self, solver):
+        """The forest bind seam's cost row under ``CUP3D_COSTS=1``
+        (obs/costs.py; where the JAX package arms it on the forest's
+        bound executables): the first solve on this topology fills the
+        row ``forest.poisson`` by the fused and legacy traffic models of
+        ops/fused_amr_bicgstab.py (bytes a cell an iteration, times the
+        solve's rows of cells, times the iterations it executed) and the
+        allocator's peak around it."""
+        if not obs_costs.enabled():
+            return solver
+        from cup3d_tpu_torch.ops import fused_amr_bicgstab as fab
+
+        cells = self._geom.nb * self.grid.bs ** 3
+        two = self._graph is not None
+        cost = obs_costs.model_cost(
+            (fab.bytes_model(two_level=two)["total"] * cells,
+             lambda: fab.iterations["executed"]),
+            (fab.legacy_bytes_model(two) * cells,
+             lambda: krylov.iterations["executed"]))
+        return obs_costs.harvest_on_first_call(solver, "forest.poisson",
+                                               cost)
 
     def _alloc_fields(self) -> None:
         g = self.grid
@@ -1591,6 +1622,8 @@ class AMRSimulation:
         eng = RecoveryEngine.install(self)
         try:
             while True:
+                # the capture-window hook (disarmed: one branch)
+                self._obs_profile.on_step(self.step_idx)
                 if (eng is not None and cfg.pipelined
                         and eng.snapshot_due(self.step_idx)):
                     try:

@@ -64,6 +64,8 @@ import torch
 
 from cup3d_tpu_torch.config import SimulationConfig, parse_factory
 from cup3d_tpu_torch.obs.flight import FlightRecorder
+from cup3d_tpu_torch.obs import export as obs_export
+from cup3d_tpu_torch.obs import profile as obs_profile
 from cup3d_tpu_torch.obs.trace import StepObserver
 from cup3d_tpu_torch.ops import diagnostics as diag
 from cup3d_tpu_torch.resilience import faults
@@ -134,6 +136,13 @@ class Simulation:
                                      run_config=cfg,
                                      state_probe=self._flight_state)
         self._obs = StepObserver(self.flight, kind="uniform")
+        # device-time capture windows at the loop top (CUP3D_PROFILE)
+        # and the /metrics exporter (CUP3D_METRICS_PORT): both off by
+        # default, and neither reads a device value on the step loop
+        obs_profile.CONTROLLER.default_directory(cfg.path4serialization,
+                                                 device=self.device)
+        self._obs_profile = obs_profile.CONTROLLER
+        obs_export.ensure_exporter()
         #: the RecoveryEngine while simulate() runs one (None otherwise)
         self._resilience: Optional[RecoveryEngine] = None
         # the device dt chain (pipelined, obstacle-free): this step's
@@ -774,6 +783,9 @@ class Simulation:
         eng = RecoveryEngine.install(self)
         try:
             while True:
+                # the capture-window hook: for the megaloop a K boundary
+                # (disarmed: one branch)
+                self._obs_profile.on_step(s.step)
                 try:
                     scan_now = self._scan_ready()
                     if scan_now or self._dt_chain:

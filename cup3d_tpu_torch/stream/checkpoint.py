@@ -172,8 +172,11 @@ def save_guarded(checkpointer: AsyncCheckpointer, driver) -> None:
 def drain(dumper, checkpointer: AsyncCheckpointer, driver) -> None:
     """Join a driver's pending dumps and checkpoints.  Under recovery a
     failed final checkpoint write does not fail an otherwise complete
-    run: it is dropped and counted."""
+    run: it is dropped and counted.  Then a still-open capture window
+    closes and is harvested before the trace flush, so its device record
+    lands in this trace."""
     from cup3d_tpu_torch.obs import metrics as obs_metrics
+    from cup3d_tpu_torch.obs import trace as obs_trace
 
     dumper.wait()
     try:
@@ -182,3 +185,5 @@ def drain(dumper, checkpointer: AsyncCheckpointer, driver) -> None:
         if driver._resilience is None:
             raise
         obs_metrics.counter("resilience.ckpt_dropped").inc()
+    driver._obs_profile.finish()
+    obs_trace.TRACE.flush()

@@ -1135,3 +1135,46 @@ def test_frenet_kernel_lanes_match_plain_per_lane(dev, n):
         for k in ("r", "v", "nor", "vnor", "bin", "vbin"):
             _close(got[k][lane], want[k], 1e-5)
             assert torch.equal(got[k][lane], solo[k])
+
+
+def test_capture_window_attributes_the_fused_solve(dev, monkeypatch,
+                                                   tmp_path):
+    """One real torch.profiler window on the card over a step of the
+    fused TGV solve: the kernels land in the three BiCGSTAB sections, the
+    sum invariant holds, nothing is counted as a telemetry failure, and
+    the device record reaches the sink."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.obs import metrics as om
+    from cup3d_tpu_torch.obs import profile as op
+    from cup3d_tpu_torch.obs import trace as ot
+
+    monkeypatch.setenv("CUP3D_FUSED", "1")
+    sink = ot.TraceSink(enabled=True, directory=str(tmp_path / "trace"))
+    ctl = op.CaptureController(plan="once:1", window_steps=1, sink=sink,
+                               directory=str(tmp_path / "prof"))
+    monkeypatch.setattr(op, "CONTROLLER", ctl)
+    before = om.snapshot()
+    d = build_driver(
+        ("-bpdx 4 -bpdy 4 -bpdz 4 -extent 6.283185307179586 "
+         "-initCond taylorGreen -poissonSolver iterative -nu 1e-3 "
+         "-dt 1e-3 -tend 0 -nsteps 3 -verbose 0 -path4serialization "
+         f"{tmp_path}").split())
+    d.init()
+    d.simulate()
+    after = om.snapshot()
+    for key in ("profile.capture_errors", "profile.parse_errors",
+                "profile.empty_captures"):
+        assert after.get(key, 0) == before.get(key, 0), key
+    attr = ctl.last_attribution
+    assert ctl.windows == 1 and attr is not None
+    for s in ("bicgstab.update", "bicgstab.getz_lap", "bicgstab.finish"):
+        assert attr.sections.get(s, 0.0) > 0.0, attr.sections
+    assert abs(sum(attr.sections.values()) + attr.other_ms
+               - attr.total_ms) < 1e-9 * max(1.0, attr.total_ms)
+    sink.close()
+    import json
+
+    with open(sink.jsonl_path) as f:
+        recs = [json.loads(x) for x in f if x.strip()]
+    dev_recs = [r for r in recs if r.get("kind") == "device"]
+    assert len(dev_recs) == 1 and ot.validate_step_record(dev_recs[0]) == []

@@ -110,9 +110,11 @@ def test_trace_schema_and_history_equal_jax():
 
 def test_federation_in_process_and_flight_job_events(tmp_path):
     """Two in-process registries federate: counters sum, histograms merge
-    bucket-wise to the quantile of one registry holding both; the HTTP
-    half raises (ROADMAP A8b).  The fleet notes terminal jobs into the
-    live flight recorders."""
+    bucket-wise to the quantile of one registry holding both; a dead
+    HTTP peer is counted, not raised, the merged view renders as
+    Prometheus text, and the straggler watch raises (ROADMAP queue A
+    item 5).  The fleet notes terminal jobs into the live flight
+    recorders."""
     r1, r2, both = (TM.MetricsRegistry() for _ in range(3))
     rng = np.random.default_rng(2)
     for v in rng.uniform(0.001, 10, 200):
@@ -129,10 +131,18 @@ def test_federation_in_process_and_flight_job_events(tmp_path):
     for q in (0.5, 0.99):
         assert view.quantile("fleet.job_e2e_s", q, tenant="a") == \
             TM.merged_quantile(both.histograms("fleet.job_e2e_s"), q)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        TF.Federation(peers=["http://localhost:1"])
-    with pytest.raises(NotImplementedError, match="A8b"):
-        view.render_prometheus()
+    dead = "http://127.0.0.1:1"
+    fed = TF.Federation(peers=[dead])
+    before = TM.snapshot().get(f"federate.scrape_errors{{peer={dead}}}", 0)
+    assert len(fed.collect()) == 1
+    assert TM.snapshot()[f"federate.scrape_errors{{peer={dead}}}"] == \
+        before + 1
+    from cup3d_tpu_torch.obs import export as TX
+
+    text = TX.parse_prometheus_text(view.render_prometheus())
+    assert text[("cup3d_fleet_submits", frozenset())] == 7
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
+        TF.StragglerWatch()
 
     fr = TFL.FlightRecorder(directory=str(tmp_path))
     srv = FleetServer(workdir=str(tmp_path / "w"), device="cpu")

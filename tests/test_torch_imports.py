@@ -84,6 +84,8 @@ def test_every_module_imports_with_jax_blocked():
         # migration, the CLI, and the observability under it
         "fleet", "fleet.batch", "fleet.isolate", "fleet.journal",
         "fleet.server", "fleet.migrate", "fleet.cli", "obs.federate",
+        # device-time attribution, the exporter, cost accounting
+        "obs.export", "obs.profile", "obs.costs",
     )} <= set(mods)
     code = (
         "import sys\n"
