@@ -291,7 +291,7 @@ each of which raises on a fault (nothing is caught):
 35. 8 ``amr_tgv`` lanes on config #3's forest as bench_amr_tgv builds it
     at its default scale (bpd 8, levelMax 2, levelStart 0, Rtol 1.8,
     Ctol 0.05, nu 1e-3), CFLs 0.30-0.40, 16 steps, ``CUP3D_FUSED=1``:
-    every lane at the first dispatch's journaled snapshot against the
+    every other lane at the first dispatch's journaled snapshot against the
     port's solo fused forest step of its spec over the same 8 steps
     (velocity within 1e-4, time and dt within 1e-4 relative); B8, B9 and
     B11-B13 launched as many times an executed Krylov iteration at 8
@@ -325,7 +325,28 @@ each of which raises on a fault (nothing is caught):
     flight recorder, ``/federate`` schema 1; ``costs.device_peaks()`` the
     H100 entry and ``memory_watermarks()`` a peak on cuda:0; the capture
     trimmed to a test fixture (``torch_profile_h100.trace.json.gz``).
-    The card's ceilings for every bound come from ``obs/costs.py``.
+    The card's ceilings for every bound come from ``obs/costs.py``;
+37. the compiled store and the background compile service
+    (``cup3d_tpu_torch/aot/``, ``CUP3D_AOT_STORE``): a fresh copy of the
+    package (no ``csrc/build/``) in a child process builds the kernels
+    with nvcc into an empty store (timed), a second fresh copy loads them
+    from the store with no nvcc, and its launches of every kernel (B1-B14
+    and the Frenet kernel, once each on seeded inputs at small shapes)
+    are bitwise this process's nvcc build's, which are held to their
+    plain versions; config #3 (bpd 16) set up cold, then a fresh driver
+    on the warm store (no table built): tables ``torch.equal`` leaf by
+    leaf, 2 steps bitwise; 4 tgv lanes at 32^3 and 2 ``amr_tgv`` lanes at
+    bpd 8 on a server with no store, on a cold store (the ``amr_tgv``
+    jobs' tables built by the service while the tgv jobs dispatch:
+    ``compile_wait`` and the pid-5 spans printed) and on a warm one (no
+    table build, no nvcc; every run binds its advances), the seconds to
+    each kind's first dispatch in the three, rows bitwise across them,
+    and the helper's tables record ``torch.equal`` a build of the same
+    forest on the card; the dispatch thread's ms a step for warm tgv
+    lanes alone and over the rounds that overlap a cold ``amr_tgv``
+    signature's background table build, in the service's helper process
+    and on the worker thread; ``compile.service_die`` on the ``amr_tgv``
+    jobs (they end done).  Phase 37 stays under 120 s.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
@@ -2329,7 +2350,7 @@ def bench_fish_phase(bw: float, fp32_flops: float) -> dict:
         f"alone, plain: {frenet['plain_ms']:.3f} ms, kernel "
         f"{frenet['ms']:.4f} ms")
     prof = _profile_window(d, steps=SCAN_K, prefix="fish_scan_", run=lambda: (
-        d.advance_megaloop(), d.flush_packs()))
+        d.advance_megaloop(), d.flush_packs()), trace=False)
     d._scan_carry = None
 
     # -- K = 1 against K = 8 on the card -----------------------------------
@@ -4109,6 +4130,8 @@ BF16_SOLVE_X = 1e-2
 # bench_fish_uniform(256), pipelined), bf16 and f32 from one state
 N_FISH256 = 256
 FISH256_STEPS = 8
+#: steps in each fish256 run's profiler window (its busy share)
+FISH256_PROFILE_STEPS = 1
 FISH256_DIV_GATE = 0.07     # bench.py:57-58, ("fish", 256)
 FISH256_EXTRA_ITS = 10      # bf16 iterations a solve <= f32's + 10
 # the knobs of a phase's solver: f32 on the fused kernels, or bf16 storage
@@ -4771,7 +4794,8 @@ def fish256_phase() -> dict:
             prof = _profile_window(
                 d, prefix=f"fish256_{tag.replace(' ', '_')}_", trace=False,
                 run=lambda: ([d.advance(d.calc_max_timestep())
-                              for _ in range(3)], d.flush_packs()))
+                              for _ in range(FISH256_PROFILE_STEPS)],
+                             d.flush_packs()))
         ms = wall / FISH256_STEPS * 1e3
         runs[tag] = dict(ms=ms, iters=iters, div=div, launches=launches,
                          executed=executed, legacy=legacy,
@@ -5383,6 +5407,7 @@ FA_FLEET_SNAP = 8       # a journaled snapshot every dispatch (K = 8)
 # the server's default lane ladder pads the 8 jobs to 9 lanes; the
 # padding lane is frozen, and its Poisson solve does not iterate
 FA_NAN_LANE = 3
+FA_SOLO_EVERY = 2       # every other lane against its solo run (time)
 # tests/test_fused_amr.py's lane-vs-solo bounds
 FA_VEL_ATOL = 1e-4
 FA_TIME_RTOL = 1e-4
@@ -5826,7 +5851,8 @@ def fleet_amr_phase(bw: float, fp32_flops: float) -> dict:
     step = make_amr_tgv_step(tmpl)
     worst = [0.0, 0.0]
     t0 = time.perf_counter()
-    for lane, (jid, cfl) in enumerate(zip(ids, cfls)):
+    solo = list(enumerate(zip(ids, cfls)))[::FA_SOLO_EVERY]
+    for lane, (jid, cfl) in solo:
         carry = FB.init_amr_carry(tmpl)
         for k in range(SCAN_K):
             carry, _ = step(carry, torch.tensor(cfl, device=tmpl.device))
@@ -5842,9 +5868,10 @@ def fleet_amr_phase(bw: float, fp32_flops: float) -> dict:
     torch.cuda.synchronize()
     res["solo_err"] = worst
     res["solo_s"] = time.perf_counter() - t0
-    log(f"  every lane against its solo fused run over the first dispatch "
-        f"({SCAN_K} steps each, {res['solo_s']:.2f} s): vel {worst[0]:.3e}, "
-        f"time/dt rel {worst[1]:.3e}")
+    log(f"  lanes {[lane for lane, _ in solo]} against their solo fused "
+        f"runs over the first dispatch ({SCAN_K} steps each, "
+        f"{res['solo_s']:.2f} s): vel {worst[0]:.3e}, time/dt rel "
+        f"{worst[1]:.3e}")
 
     # -- the stage kernels with a scalar row a lane --------------------------
     res["kernels"] = fleet_lane_kernels(tmpl, FA_LANES, bw, fp32_flops)
@@ -6239,6 +6266,562 @@ def profile_phase(main_us: dict, fish_us: dict) -> dict:
         ot.TRACE.configure(enabled=False, xla_annotate=False)
 
 
+# ---------------------------------------------------------------------------
+# phase 37: the compiled store and the background compile service
+# ---------------------------------------------------------------------------
+
+AOT_N = 32              # the uniform kernels' grid in phase 37 (T = 64)
+AOT_FOREST_ARGV = ("-bpdx 2 -bpdy 2 -bpdz 2 -levelMax 2 -levelStart 1 "
+                   "-extent 6.283185307179586 -initCond taylorGreen "
+                   "-poissonSolver iterative -tend 0 -nsteps 2")
+AOT_TGV = dict(kind="tgv", n=32, nsteps=2, cfl=0.3)
+AOT_TGV_LANES = 4
+AOT_AMR_LANES = 2
+AOT_AMR_STEPS = 2
+#: compile.service_die's jobs: a small forest whose cold tables are the
+#: service's build
+AOT_DIE_AMR = dict(kind="amr_tgv", bpd=4, levelMax=2, levelStart=0,
+                   nsteps=1)
+#: the dispatch-thread probe: warm tgv lanes that run through a cold
+#: amr_tgv signature's background table build (a uniform level-1 forest
+#: at bpd 8: 4,096 blocks, no adaptation)
+AOT_PROBE_TGV = dict(AOT_TGV, nsteps=96)
+AOT_PROBE_AMR = dict(kind="amr_tgv", bpd=8, levelMax=2, levelStart=1,
+                     nsteps=8)
+AOT_PROBE_AT = 4        # the dispatch round the amr_tgv job arrives at
+AOT_PHASE_BUDGET_S = 120.0
+AOT_CHILD = """
+import json, os, sys, time
+sys.path.insert(1, {repo!r})
+import torch
+import cup3d_tpu_torch
+from cup3d_tpu_torch.obs import metrics as M
+from cup3d_tpu_torch.ops import cuda_lib
+t0 = time.perf_counter()
+lib = cuda_lib.load()
+load_s = time.perf_counter() - t0
+if {run!r}:
+    import chip_smoke
+    torch.save(chip_smoke.aot_kernel_outputs(), {out!r})
+snap = M.snapshot()
+print(json.dumps(dict(
+    package=os.path.dirname(cup3d_tpu_torch.__file__),
+    build_s=lib.build_s, load_s=load_s, origins=lib.origins,
+    nvcc_builds=int(snap.get("kernels.nvcc_builds", 0)),
+    store_hits=int(snap.get("kernels.store_hits", 0)))))
+"""
+
+
+def _outputs(res) -> list:
+    """A wrapper's tensor outputs, flattened (tuples and dicts in order)."""
+    if isinstance(res, torch.Tensor):
+        return [res]
+    if isinstance(res, dict):
+        return [v for k in sorted(res) for v in _outputs(res[k])]
+    return [t for r in res for t in _outputs(r)]
+
+
+def aot_kernel_outputs(check_plain: bool = False) -> dict:
+    """Every kernel (B1-B14 and the Frenet kernel) launched once on seeded
+    inputs at small shapes (the uniform stages at 32^3, the forest's on a
+    69-block bucketed forest, B14 on 4 shards): {name: [outputs on the
+    host]}.  With ``check_plain`` each is held to its plain version on the
+    same inputs (this script's tolerances; B4's Aw and B14 bitwise)."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.grid.uniform import UniformGrid
+    from cup3d_tpu_torch.models.fish import device_midline as dm
+    from cup3d_tpu_torch.ops import amr_ops, getz_cg
+    from cup3d_tpu_torch.ops import fused_amr_bicgstab as fa
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+    from cup3d_tpu_torch.parallel import ring
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 37)
+    T = (AOT_N // 8) ** 3
+    h2 = (2 * math.pi / AOT_N) ** 2
+    outs, calls = {}, {}
+
+    def vec(n=T):
+        return torch.randn((n, 8, 8, 8), generator=gen, device=dev)
+
+    def row(*vals):
+        return fb._scalars(*(torch.tensor(v, device=dev) for v in vals))
+
+    def run(name, fn, plain, rtol, first_only=True):
+        got = _outputs(fn())
+        outs[name] = [t.detach().cpu().clone() for t in got]
+        if check_plain:
+            want = _outputs(plain())
+            for i, (g, w) in enumerate(zip(got, want)):
+                if first_only and i:
+                    break
+                if rtol == 0:
+                    check_bitwise(f"aot {name}", g, w)
+                else:
+                    check_close(f"aot {name}", g, w, rtol)
+        calls[name] = fn
+
+    r, p, v, rh = vec(), vec(), vec(), vec()
+    sc = row(0.7, 1.3, 0.0)
+    run("update", lambda: fb.update(r, p.clone(), v, rh.clone(), sc),
+        lambda: fb.update(r, p.clone(), v, rh.clone(), sc, kernels=False),
+        VEC_RTOL)
+    w = vec()
+    aux = torch.randn((8, T), generator=gen, device=dev)
+    aux[7] = 0.0
+    run("getz_two", lambda: fb.getz_two(w, aux, h2),
+        lambda: fb.getz_two(w, aux, h2, kernels=False), GETZ_RTOL)
+    run("getz_tile", lambda: fb.getz_tile(w, h2),
+        lambda: fb.getz_tile(w, h2, kernels=False), GETZ_RTOL)
+    a = vec()
+    geom = fb.LapGeom(UniformGrid((AOT_N,) * 3, (2 * math.pi,) * 3))
+    run("lap", lambda: fb.lap(w, a, 1.0 / h2, geom),
+        lambda: fb.lap(w, a, 1.0 / h2, geom, kernels=False), 0)
+    sc1 = row(0.37)
+    run("axpy", lambda: fb.axpy(r, v, sc1),
+        lambda: fb.axpy(r, v, sc1, kernels=False), VEC_RTOL)
+    x, y, z, s, t, rr = (vec() for _ in range(6))
+    sc2 = row(0.37, 1.21)
+    run("finish", lambda: fb.finish(x.clone(), y, z, s.clone(), t, rr, sc2),
+        lambda: fb.finish(x.clone(), y, z, s.clone(), t, rr, sc2,
+                          kernels=False), VEC_RTOL)
+    bt = torch.randn((8, 8, 8, T), generator=gen, device=dev)
+    run("getz_cg", lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS, 0.0),
+        lambda: getz_cg.cg_tiles_lanes(bt, CG_ITERS, 0.0, kernels=False),
+        GETZ_RTOL)
+
+    out = os.path.join(OUT_DIR, "aot_forest")
+    os.makedirs(out, exist_ok=True)
+    d = build_driver(f"{AOT_FOREST_ARGV} -verbose 0 -path4serialization "
+                     f"{out}".split())
+    g, n, nb, fvec = _forest_vecs(d, gen)
+    h = g.h_column(torch.float32, dev).reshape(n)
+    fh2 = (h * h).contiguous()
+    vol = d._vol.reshape(n).float().contiguous()
+    r, p, v, rh = fvec(), fvec(), fvec(), fvec()
+    run("amr_update",
+        lambda: fa.update(r, p.clone(), v, rh.clone(), vol, sc),
+        lambda: fa.update(r, p.clone(), v, rh.clone(), vol, sc,
+                          kernels=False), VEC_RTOL)
+    w = fvec()
+    zc = torch.randn(n, generator=gen, device=dev)
+    zc[nb:] = 0.0
+    zf = zc[:, None, None, None].expand(n, 8, 8, 8)
+    azf = amr_ops.laplacian_blocks(g, zf, d._tab1, d._ftab).contiguous()
+    run("amr_getz_two", lambda: fa.getz_two(w, azf, zc, fh2),
+        lambda: fa.getz_two(w, azf, zc, fh2, kernels=False), GETZ_RTOL)
+    run("amr_getz_tile", lambda: fa.getz_tile(w, fh2),
+        lambda: fa.getz_tile(w, fh2, kernels=False), GETZ_RTOL)
+    a = fvec()
+    lab = d._tab1.assemble_scalar(w, 8).contiguous()
+    corr = d._ftab.apply(torch.zeros_like(w), amr_ops.face_fluxes(
+        lab, 1, 8, (1.0 / h)[:, None, None, None])).contiguous()
+    run("amr_lap", lambda: fa.lap(lab, corr, a, 1.0 / fh2),
+        lambda: fa.lap(lab, corr, a, 1.0 / fh2, kernels=False), VEC_RTOL)
+    run("amr_axpy", lambda: fa.axpy(r, v, vol, sc1),
+        lambda: fa.axpy(r, v, vol, sc1, kernels=False), VEC_RTOL)
+    x, y, z, s, t, rr = (fvec() for _ in range(6))
+    run("amr_finish",
+        lambda: fa.finish(x.clone(), y, z, s.clone(), t, rr, sc2),
+        lambda: fa.finish(x.clone(), y, z, s.clone(), t, rr, sc2,
+                          kernels=False), VEC_RTOL)
+    del d
+    xs = torch.randn((SHARDS, 16, 512), generator=gen, device=dev)
+    run("ring_shift", lambda: ring.ring_shift_kernel(xs, 1),
+        lambda: ring.ring_shift_plain(xs, 1), 0)
+    m = torch.arange(64, device=dev, dtype=torch.float32)
+    rs = m * (0.4 / 63)
+    curv = torch.sin(2 * math.pi * rs / 0.4) * 3.0
+    dcurv = torch.cos(2 * math.pi * rs / 0.4)
+    run("frenet", lambda: dm._frenet_scan_dev(rs, curv, dcurv),
+        lambda: dm._frenet_scan_dev(rs, curv, dcurv, kernels=False),
+        FRENET_RTOL, first_only=False)
+    torch.cuda.synchronize()
+    return outs
+
+
+def _aot_child(copy: str, store: str, tag: str, run: bool) -> dict:
+    """One fresh process on a fresh copy of the package (no csrc/build/)
+    and the store: it loads the kernels (nvcc or the store) and, with
+    ``run``, launches each once on phase 37's inputs and saves the
+    outputs (the forest's lab tables by numpy: the copy has no g++
+    build either)."""
+    out = os.path.abspath(os.path.join(OUT_DIR, f"aot_{tag}.pt"))
+    script = AOT_CHILD.format(repo=os.path.abspath("."), out=out, run=run)
+    env = dict(os.environ, CUP3D_AOT_STORE=os.path.abspath(store),
+               CUP3D_FUSED="1", CUP3D_NO_NATIVE="1")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", script], cwd=copy, env=env,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"aot {tag} child failed:\n{res.stderr[-3000:]}")
+    rep = json.loads(res.stdout.strip().splitlines()[-1])
+    if not rep["package"].startswith(os.path.abspath(copy)):
+        raise AssertionError(f"aot {tag} child imported {rep['package']}")
+    rep["wall_s"] = wall
+    rep["outputs"] = torch.load(out) if run else None
+    return rep
+
+
+def _fresh_copy(dst: str) -> str:
+    """The package's sources without any build: a fresh checkout's."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree("cup3d_tpu_torch", os.path.join(dst, "cup3d_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    return dst
+
+
+def _aot_fleet(specs, out: str, **kw):
+    """A fresh server drains ``specs``; returns (server, job ids, wall s,
+    {kind: seconds from the server's construction to its first job's
+    first dispatch}).  The server's compile service, if any, is closed
+    (its helper process stopped)."""
+    from cup3d_tpu_torch.fleet.server import DONE, FleetServer
+    from cup3d_tpu_torch.obs import trace as OT
+
+    t0 = time.perf_counter()
+    c0 = OT.now()
+    srv = FleetServer(workdir=out, **kw)
+    ids = [srv.submit(f"t{i}", dict(sp)) for i, sp in enumerate(specs)]
+    try:
+        srv.drain()
+    finally:
+        if srv._aot_service is not None:
+            srv._aot_service.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [j for j in ids if srv._jobs[j].status != DONE]
+    if bad:
+        raise AssertionError(f"aot fleet: jobs not done: {bad}")
+    first = {}
+    for j, sp in zip(ids, specs):
+        t = srv._jobs[j].event_time("dispatched") - c0
+        first[sp["kind"]] = min(first.get(sp["kind"], t), t)
+    return srv, ids, wall, first
+
+
+def _tick_ms(srv, done, inject=None):
+    """Wrap ``srv._schedule`` (called once a dispatch round) to stamp each
+    round; ``inject`` = (round, spec) submits one more job at the start of
+    that round, once the lanes already there are dispatching, and cancels
+    it once ``done()`` (its background build finished: its own run is not
+    what is measured).  Returns the stamps list."""
+    stamps = []
+    orig = srv._schedule
+    late = []
+
+    def sched():
+        if inject is not None and len(stamps) == inject[0]:
+            late.append(srv.submit("late", dict(inject[1])))
+        if late and done() and srv.poll(late[0])["status"] == "queued":
+            srv.cancel(late[0])
+        stamps.append((time.perf_counter(),
+                       any(b.active() for b in srv.batches)))
+        return orig()
+
+    srv._schedule = sched
+    return stamps
+
+
+def _round_ms(stamps, K: int, window=None) -> tuple:
+    """(ms a step, rounds) of the dispatch rounds between ``stamps`` that
+    started with lanes to dispatch: the median round over K without
+    ``window``; with ``window`` = (t0, t1) (a background build) the rounds
+    that overlap it, from the start of the first to the end of the last,
+    over their steps (a round that spans the whole build counts as one)."""
+    rounds = [(a[0], b[0]) for a, b in zip(stamps, stamps[1:]) if a[1]]
+    if window is None:
+        dts = [(b - a) * 1e3 / K for a, b in rounds]
+        return (statistics.median(dts) if dts else None), len(dts)
+    hit = [(a, b) for a, b in rounds if b > window[0] and a < window[1]]
+    if not hit:
+        return None, 0
+    return (hit[-1][1] - hit[0][0]) * 1e3 / (len(hit) * K), len(hit)
+
+
+def aot_phase() -> dict:
+    """Phase 37 (module doc)."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.aot import store as aot_store
+    from cup3d_tpu_torch.obs import metrics as M
+    from cup3d_tpu_torch.obs import trace as OT
+    from cup3d_tpu_torch.resilience import faults
+    from cup3d_tpu_torch.sim.megaloop import DEFAULT_SCAN_K
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "aot")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res = {}
+
+    # -- kernels: cold (nvcc into an empty store), then warm (the store) ---
+    kstore = os.path.join(root, "kstore")
+    cold = _aot_child(_fresh_copy(os.path.join(root, "cold")), kstore,
+                      "cold", run=False)
+    warm = _aot_child(_fresh_copy(os.path.join(root, "warm")), kstore,
+                      "warm", run=True)
+    n_src = len(cold["origins"])
+    if cold["nvcc_builds"] != n_src or set(cold["origins"].values()) != {
+            "nvcc"}:
+        raise AssertionError(f"aot cold: {cold['origins']}")
+    if warm["nvcc_builds"] != 0 or set(warm["origins"].values()) != {
+            "store"}:
+        raise AssertionError(f"aot warm ran nvcc: {warm['origins']}")
+    mine = aot_kernel_outputs(check_plain=True)
+    for name, want in mine.items():
+        got = warm["outputs"][name]
+        if len(got) != len(want) or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"aot warm: {name} differs from this "
+                                 "process's nvcc build")
+    log(f"  kernels: cold copy {cold['nvcc_builds']} nvcc builds in "
+        f"{cold['build_s']:.2f} s (load {cold['load_s']:.2f} s, process "
+        f"{cold['wall_s']:.1f} s); warm copy 0 nvcc, {warm['store_hits']} "
+        f"libraries from the store, load {warm['load_s']:.3f} s (process "
+        f"{warm['wall_s']:.1f} s); its {len(mine)} kernels' outputs bitwise "
+        "this process's nvcc build, held to their plain versions")
+    res["kernels"] = dict(
+        cold_nvcc_s=cold["build_s"], cold_load_s=cold["load_s"],
+        warm_load_s=warm["load_s"], warm_nvcc_builds=warm["nvcc_builds"],
+        cold_wall_s=cold["wall_s"], warm_wall_s=warm["wall_s"],
+        kernels=sorted(mine))
+
+    # -- tables: config #3 set up cold, then on the warm store -------------
+    tstore = os.path.join(root, "tstore")
+    argv = (f"{AMR_ARGV} -verbose 0 -path4serialization "
+            f"{os.path.join(root, 'amr')}").split()
+    drivers, setup = [], []
+    with _env(CUP3D_AOT_STORE=tstore, CUP3D_FUSED="1"):
+        for _ in range(2):
+            t0 = time.perf_counter()
+            d = build_driver(argv)
+            d.init()
+            torch.cuda.synchronize()
+            setup.append(time.perf_counter() - t0)
+            d.adapt_enabled = False
+            drivers.append(d)
+        d1, d2 = drivers
+        if not aot_store.tensors_equal(d1._geo, d2._geo):
+            raise AssertionError("aot tables: the loaded tables differ")
+        if d2.table_build_s:
+            raise AssertionError(f"aot tables: the warm driver built "
+                                 f"{len(d2.table_build_s)} topologies")
+        for d in drivers:
+            _steps(d, 2)
+        torch.cuda.synchronize()
+        for k in ("vel", "p"):
+            if not torch.equal(d1.state[k], d2.state[k]):
+                raise AssertionError(f"aot tables: 2 steps' {k} differ")
+        rows = [[(r["dt"], r["umax"], r["resid"], r["iters"])
+                 for r in d.step_log] for d in drivers]
+        if rows[0] != rows[1]:
+            raise AssertionError("aot tables: the steps' rows differ")
+    log(f"  config #3 set-up: cold {setup[0]:.2f} s ({len(d1.table_build_s)} "
+        f"topologies built, {sum(d1.table_build_s):.2f} s), warm "
+        f"{setup[1]:.2f} s (0 built, loaded from the store); tables "
+        "torch.equal leaf by leaf, 2 steps bitwise")
+    res["tables"] = dict(cold_setup_s=setup[0], warm_setup_s=setup[1],
+                         cold_table_build_s=list(d1.table_build_s),
+                         warm_table_build_s=list(d2.table_build_s))
+    del drivers, d, d1, d2
+    torch.cuda.empty_cache()
+
+    # -- the fleet: cold without a store, cold with the service, warm -----
+    from cup3d_tpu_torch.fleet.server import _job_config
+    from cup3d_tpu_torch.sim import amr as amr_mod
+
+    fstore = os.path.join(root, "fstore")
+    amr = dict(FA_FLEET_SPEC, nsteps=AOT_AMR_STEPS)
+    specs = ([dict(AOT_TGV, cfl=0.3 + 0.02 * i)
+              for i in range(AOT_TGV_LANES)]
+             + [dict(amr, cfl=0.3 + 0.05 * i) for i in range(AOT_AMR_LANES)])
+    keys = ("fleet.executable_builds", "bucket.table_builds",
+            "aot.background_compiles", "aot.store_hits",
+            "kernels.nvcc_builds")
+
+    def deltas(before):
+        now = M.snapshot()
+        return {k: now.get(k, 0) - before.get(k, 0) for k in keys}
+
+    tdir = os.path.join(root, "trace")
+    with _env(CUP3D_AOT_STORE=None, CUP3D_FUSED="1"):
+        before = M.snapshot()
+        s0, i0, wall0, first0 = _aot_fleet(specs, os.path.join(root, "f0"))
+        off_d = deltas(before)
+    with _env(CUP3D_AOT_STORE=fstore, CUP3D_FUSED="1"):
+        before = M.snapshot()
+        OT.TRACE.configure(enabled=True, directory=tdir)
+        try:
+            s1, i1, wall1, first1 = _aot_fleet(specs,
+                                               os.path.join(root, "f1"))
+            OT.TRACE.flush()
+            OT.TRACE.export_chrome()
+        finally:
+            OT.TRACE.close()
+            OT.TRACE.configure(enabled=False)
+        cold_d = deltas(before)
+        helper_s = s1._aot_service.host.start_s
+        waits = {j: s1._jobs[j].phases().get("compile_wait", 0.0)
+                 for j in i1}
+        with open(os.path.join(tdir, "trace.pfto.json")) as f:
+            events = json.load(f)["traceEvents"]
+        spans = [e for e in events
+                 if e.get("pid") == OT.COMPILE_PID and e.get("ph") == "X"]
+        before = M.snapshot()
+        s2, i2, wall2, first2 = _aot_fleet(specs, os.path.join(root, "f2"))
+        warm_d = deltas(before)
+        # the helper process's record (built on the host, loaded here)
+        # against the same forest's tables built live on the card
+        _, cfg = _job_config(amr, os.path.join(root, "f3"))
+        rec = aot_store.active_store().get(amr_mod.initial_tables_sig(cfg),
+                                           device="cuda")
+        g, dt, with_bodies, coarse = amr_mod._initial_knobs(cfg)
+        live = amr_mod.bucket_tables(g, cfg, dt, torch.device("cuda"),
+                                     with_bodies, coarse)
+    if rec is None:
+        raise AssertionError("aot fleet: no tables record of the amr_tgv "
+                             "forest in the store")
+    if int(rec["cap"]) != live[0] or not aot_store.tensors_equal(
+            rec["geo"], live[1]):
+        raise AssertionError("aot fleet: the helper's tables differ from "
+                             "a build on the card")
+    amr_ids = set(i1[AOT_TGV_LANES:])
+    if not all(waits[j] > 0 for j in amr_ids):
+        raise AssertionError(f"aot fleet: an amr_tgv job did not wait on "
+                             f"its table build {waits}")
+    if any(s1._jobs[j].event_time("compile_wait") is not None
+           for j in i1[:AOT_TGV_LANES]):
+        raise AssertionError(f"aot fleet: a tgv job waited {waits}")
+    if not spans:
+        raise AssertionError("aot fleet: no pid-5 compile span")
+    if warm_d["bucket.table_builds"] or warm_d["kernels.nvcc_builds"]:
+        raise AssertionError(f"aot fleet: the warm server built {warm_d}")
+    if not (warm_d["fleet.executable_builds"]
+            == cold_d["fleet.executable_builds"]
+            == off_d["fleet.executable_builds"] > 0):
+        raise AssertionError(f"aot fleet: binds {off_d} {cold_d} {warm_d}")
+    if not off_d["bucket.table_builds"] >= AOT_AMR_LANES:
+        raise AssertionError(f"aot fleet: the store-off run built {off_d}")
+    for a, b, c in zip(i0, i1, i2):
+        if not (s0._jobs[a].qoi_bytes() == s1._jobs[b].qoi_bytes()
+                == s2._jobs[c].qoi_bytes()):
+            raise AssertionError(f"aot fleet: {a}, {b}, {c}'s rows differ")
+        if s2._jobs[c].event_time("compile_wait") is not None:
+            raise AssertionError(f"aot fleet: warm {c} waited on a build")
+
+    def fd(first):
+        return ", ".join(f"{k} {v:.3f} s" for k, v in sorted(first.items()))
+
+    log(f"  fleet ({AOT_TGV_LANES} tgv lanes at 32^3, {AOT_AMR_LANES} "
+        f"amr_tgv at bpd 8): no store {wall0:.2f} s, first dispatch "
+        f"{fd(first0)}, {off_d}; cold store {wall1:.2f} s, first dispatch "
+        f"{fd(first1)}, {cold_d}; compile_wait a job "
+        f"{', '.join(f'{v:.3f}' for v in waits.values())} s (tgv none); "
+        f"pid-5 spans "
+        f"{[(e['name'], round(e['dur'] / 1e3, 2)) for e in spans]} (ms), "
+        f"the helper's start {helper_s:.2f} s of it; "
+        f"warm store {wall2:.2f} s, first dispatch {fd(first2)}, {warm_d}; "
+        "every advance bound in all three (a bind builds nothing); rows "
+        "bitwise across the three, no compile_wait warm; the helper's "
+        "tables record torch.equal a build on the card")
+    res["fleet"] = dict(
+        off_s=wall0, cold_s=wall1, warm_s=wall2, off=off_d, cold=cold_d,
+        warm=warm_d, first_dispatch_s=dict(off=first0, cold=first1,
+                                           warm=first2),
+        helper_start_s=helper_s,
+        compile_wait_s=list(waits.values()),
+        spans=[(e["name"], e["dur"] / 1e3) for e in spans])
+    del s0, s1, s2, rec, live
+    torch.cuda.empty_cache()
+
+    # -- the dispatch thread during a background table build ---------------
+    from cup3d_tpu_torch.fleet.server import FleetServer
+
+    K = DEFAULT_SCAN_K
+    tg = [dict(AOT_PROBE_TGV, cfl=0.3 + 0.02 * i)
+          for i in range(AOT_TGV_LANES)]
+    child = amr_mod.host_tables_build_child
+
+    def in_thread(cfg, host, timeout=None):
+        # the build on the worker thread itself, for comparison
+        return amr_mod.host_tables_build(cfg)
+
+    probe = {}
+    try:
+        for tag, build in (("alone", None), ("process", child),
+                           ("thread", in_thread)):
+            builds = []
+
+            def timed(cfg, host, timeout=None, build=build, builds=builds):
+                t0 = time.perf_counter()
+                try:
+                    return build(cfg, host, timeout=timeout)
+                finally:
+                    builds.append((t0, time.perf_counter()))
+
+            amr_mod.host_tables_build_child = timed
+            pstore = os.path.join(root, f"pstore-{tag}")
+            shutil.copytree(fstore, pstore)  # warm tgv, cold probe tables
+            with _env(CUP3D_AOT_STORE=pstore, CUP3D_FUSED="1"):
+                srv = FleetServer(workdir=os.path.join(root, f"p-{tag}"))
+                for i, sp in enumerate(tg):
+                    srv.submit(f"t{i}", dict(sp))
+                stamps = _tick_ms(srv, lambda: bool(builds), inject=(
+                    AOT_PROBE_AT, AOT_PROBE_AMR) if build else None)
+                try:
+                    srv.drain()
+                finally:
+                    if srv._aot_service is not None:
+                        srv._aot_service.close()
+                torch.cuda.synchronize()
+            if build is not None and len(builds) != 1:
+                raise AssertionError(f"aot {tag}: {len(builds)} builds")
+            if build is child:
+                probe["helper_start_s"] = srv._aot_service.host.start_s
+            ms, n = _round_ms(stamps, K, builds[0] if build else None)
+            if not n:
+                raise AssertionError(f"aot {tag}: no dispatch round")
+            probe[tag] = dict(ms=ms, rounds=n, build_s=(
+                builds[0][1] - builds[0][0] if build else None))
+    finally:
+        amr_mod.host_tables_build_child = child
+    log(f"  dispatch thread, {AOT_TGV_LANES} warm tgv lanes at 32^3 (K={K}): "
+        f"{probe['alone']['ms']:.3f} ms a step alone (median of "
+        f"{probe['alone']['rounds']} rounds); over the rounds that overlap "
+        f"a cold amr_tgv signature's background table build (bpd 8, 4,096 "
+        f"blocks): {probe['process']['ms']:.3f} ms a step with the build in "
+        f"the service's helper process ({probe['process']['rounds']} rounds, "
+        f"{probe['process']['build_s']:.2f} s, its start "
+        f"{probe['helper_start_s']:.2f} s), "
+        f"{probe['thread']['ms']:.3f} with it on the worker thread "
+        f"({probe['thread']['rounds']} rounds, "
+        f"{probe['thread']['build_s']:.2f} s)")
+    res["dispatch"] = probe
+
+    # -- compile.service_die: the jobs still end done ----------------------
+    with _env(CUP3D_AOT_STORE=os.path.join(root, "dstore"), CUP3D_FUSED="1"):
+        before = M.snapshot()
+        faults.arm("compile.service_die", "*", 1)
+        _, ids, wall, _ = _aot_fleet(
+            [dict(AOT_DIE_AMR, cfl=0.3 + 0.05 * i)
+             for i in range(AOT_AMR_LANES)], os.path.join(root, "die"))
+        fb_ = M.snapshot().get("aot.service_fallbacks", 0) - before.get(
+            "aot.service_fallbacks", 0)
+    if not fb_ >= 1:
+        raise AssertionError("aot: the dead worker's build was not reaped")
+    log(f"  compile.service_die: {len(ids)} jobs done in {wall:.2f} s, "
+        f"{fb_:.0f} build(s) reaped and built inline")
+    res["service_die"] = dict(fallbacks=fb_, wall_s=wall)
+    took = time.perf_counter() - t_phase
+    res["phase_s"] = took
+    if took > AOT_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 37 took {took:.1f} s > "
+                             f"{AOT_PHASE_BUDGET_S} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -6485,8 +7068,8 @@ def main() -> int:
     log(f"  phase 34 took {time.perf_counter() - t0:.1f} s; {smi}")
     torch.cuda.empty_cache()
     log(f"phase 35: {FA_LANES} amr_tgv lanes on config #3's forest (bpd 8, "
-        f"levelMax 2), {FA_FLEET_STEPS} steps, CUP3D_FUSED=1: the lanes "
-        "against their solo runs, the forest stages a lane, lane_nan, a "
+        f"levelMax 2), {FA_FLEET_STEPS} steps, CUP3D_FUSED=1: every other "
+        "lane against its solo run, the forest stages a lane, lane_nan, a "
         "crash drill, bf16 storage")
     t0 = time.perf_counter()
     with _env(CUP3D_FUSED="1"):
@@ -6503,6 +7086,18 @@ def main() -> int:
         profile_phase(main_us, {k: r.get("profile_us")
                                 for k, r in fish_kernels.items()})
     log(f"  phase 36 took {time.perf_counter() - t0:.1f} s; {smi}")
+    torch.cuda.empty_cache()
+    log("phase 37: the compiled store and the background compile service: "
+        "the kernels from nvcc into an empty store and back from it in "
+        "fresh copies of the package, config #3's tables cold and warm, "
+        f"{AOT_TGV_LANES} tgv and {AOT_AMR_LANES} amr_tgv lanes on a cold "
+        "and a warm server, the dispatch thread during a background table "
+        "build, compile.service_die")
+    t0 = time.perf_counter()
+    aot = aot_phase()
+    log(f"  phase 37 took {time.perf_counter() - t0:.1f} s; {smi}")
+    with open(os.path.join(OUT_DIR, "aot.json"), "w") as f:
+        json.dump(aot, f, indent=1, default=str)
     log(f"  the whole run: {time.perf_counter() - _T0:.1f} s")
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV

@@ -8,7 +8,9 @@ own, ``-device cpu|cuda`` (default cuda), is spliced out before parsing,
 so both packages parse the rest of the argv to equal configs.  The
 parsed config is recorded to ``argumentparser.log``.  ``-pipelined 1``
 streams the step packs (sim/simulation.py), ``-scan_k K`` with it runs
-K-step megaloops (sim/megaloop.py), as in the JAX CLI.
+K-step megaloops (sim/megaloop.py), as in the JAX CLI.  Two modes as in
+the JAX CLI: ``fleet`` (fleet/cli.py) and ``aot`` (aot/cli.py: the
+compiled store's ``warm``/``list``/``gc``/``verify``/``probe``).
 """
 
 from __future__ import annotations
@@ -85,9 +87,9 @@ def main(argv: Optional[List[str]] = None) -> None:
 
         sys.exit(fleet_main(args[1:]))
     if args and args[0] == "aot":
-        raise NotImplementedError(
-            "`aot` mode (the compiled store of the fleet advance) is "
-            "ROADMAP A8b")
+        from cup3d_tpu_torch.aot.cli import main as aot_main
+
+        sys.exit(aot_main(args[1:]))
     driver = build_driver(args)
     _log_config(driver)
     driver.init()

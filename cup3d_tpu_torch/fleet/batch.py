@@ -26,9 +26,12 @@ The carry is never written in place: reseeds and rollbacks return new
 tensors, so a carry the QoI stream or a rollback snapshot still holds
 stays valid (the JAX package's non-donated carry).
 
-The fleet mesh (``CUP3D_FLEET_MESH=1``, a batch's lanes cut into shards
-across cards) and the compiled store's abstract argument shapes
-(``abstract_advance_args``) are ROADMAP A8b.
+:func:`abstract_advance_args` gives the batched advance's argument
+shapes as ``torch.device("meta")`` tensors, from one lane's payload (the
+JAX package's avals): ``aot warm`` sizes each group's batch from them
+without touching device memory.  The fleet mesh
+(``CUP3D_FLEET_MESH=1``, a batch's lanes cut into shards across cards)
+is ROADMAP A8b.
 """
 
 from __future__ import annotations
@@ -108,6 +111,45 @@ def stack_carries(carries, targets):
     out[LEFT] = torch.as_tensor(np.maximum(np.asarray(targets, np.int64), 0)
                                 .astype(np.int32), device=dev)
     return out
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def abstract_advance_args(carry, gait, B, K, dtype):
+    """The arguments of one batched advance call as meta tensors (shapes
+    and dtypes, no data): exactly what :func:`stack_carries`, the
+    server's ``_cfl_block`` and :func:`stack_gaits` produce for ``B``
+    lanes and ``K`` steps, from a SINGLE lane's solo (carry, gait)
+    payload (tensors or numpy arrays).  No device memory is touched (the
+    JAX package's ``jax.ShapeDtypeStruct`` avals).  Returns
+    ``(carry, cfl, gaits_or_None)``."""
+    meta = torch.device("meta")
+
+    def batched(v):
+        if isinstance(v, torch.Tensor):
+            shape, dt = tuple(v.shape), v.dtype
+        else:
+            arr = np.asarray(v)
+            shape, dt = arr.shape, _torch_dtype(arr.dtype)
+        return torch.empty((int(B),) + tuple(shape), dtype=dt, device=meta)
+
+    fdt = _torch_dtype(dtype)
+    carry_avals = {k: batched(v) for k, v in carry.items()}
+    carry_avals[LEFT] = torch.empty((int(B),), dtype=torch.int32, device=meta)
+    cfl = torch.empty((int(B), int(K)), dtype=fdt, device=meta)
+    gaits = None
+    if gait is not None:
+        # stack_gaits casts every leaf to the sim dtype and stacks it
+        # along a new lane axis (floats become (B,) rows)
+        gaits = {k: torch.empty((int(B),) + tuple(
+            v.shape if isinstance(v, torch.Tensor) else np.shape(v)),
+            dtype=fdt, device=meta) for k, v in gait.items()}
+    return carry_avals, cfl, gaits
 
 
 def _lane_mask(act, v):

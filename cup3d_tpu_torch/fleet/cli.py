@@ -151,7 +151,8 @@ def cmd_recover(argv: List[str], t0: float) -> int:
         digest.update(jid.encode())
         digest.update(server._jobs[jid].qoi_bytes())
     # eager PyTorch compiles nothing: the count is the lane-batched
-    # advances this process built (a store of them is ROADMAP A8b)
+    # advances this process bound, with the compiled store or without (a
+    # bind builds nothing the store could hold)
     builds = int(M.counter("fleet.executable_builds").value - builds0)
     report = {
         "recovery": recovery,

@@ -59,8 +59,18 @@ Env knobs, with the JAX package's defaults: ``CUP3D_FLEET_LANES`` (64),
 ``CUP3D_FLEET_CONTINUOUS`` (1), ``CUP3D_FLEET_POLICY`` (fifo),
 ``CUP3D_FLEET_QUEUE_DEPTH`` (1024), ``CUP3D_FLEET_TENANT_QUOTA`` (0 =
 unlimited), ``CUP3D_FLEET_PROVENANCE`` (1), ``CUP3D_FLEET_JOURNAL`` (1).
-``CUP3D_AOT_STORE`` (the compiled store) and ``CUP3D_FLEET_MESH=1`` (the
-fleet's lanes cut into shards across cards) raise: ROADMAP A8b.
+``CUP3D_FLEET_MESH=1`` (the fleet's lanes cut into shards across cards)
+raises: ROADMAP A8b.
+
+The compiled store (``CUP3D_AOT_STORE``, aot/store.py; off by default,
+and then every seam returns what it returned before): a cold ``amr_tgv``
+job's initial forest tables are built by the background compile service
+(aot/compiler.py, in its helper process; put into the store) while the
+job waits in ``compile_wait`` and the other jobs dispatch; its driver
+then loads them.  A server on a warm store builds no table and runs no
+nvcc (the ``tables`` and ``kernels`` records).  The lane-batched advance
+is bound inline as without a store (a bind builds nothing; every bind
+counts in ``fleet.executable_builds``).
 
 ``FleetServer(device=None)`` runs its lanes on the card (no card:
 raise); ``device="cpu"`` runs them on the CPU, where every kernel takes
@@ -900,6 +910,12 @@ class FleetServer:
         #: sig, bucket key) — a job waiting for a compatible lane is
         #: not re-inited at every K-boundary
         self._prepared: Dict[str, tuple] = {}
+        #: the background compile service (aot/compiler.py), created
+        #: lazily iff the compiled store is active; with CUP3D_AOT_STORE
+        #: unset the whole path is inert
+        self._aot_service = None
+        #: amr_tgv job id -> its initial forest's tables key and config
+        self._tables_keys: Dict[str, tuple] = {}
         # latency provenance: per-job phase decomposition,
         # fleet.latency_phase_s histograms, and SLO burn
         # attribution.  CUP3D_FLEET_PROVENANCE=0 reverts _job_terminal
@@ -926,18 +942,87 @@ class FleetServer:
         self.migrations = 0
         _LIVE.append(weakref.ref(self))
 
-    # -- the compiled store (ROADMAP A8b) ---------------------------------
+    # -- the compiled store and the background compile service -----------
 
     def _aot(self):
-        """(store, compile service): (None, None) with ``CUP3D_AOT_STORE``
-        unset, as in the JAX package.  The store of CUDA graphs of the
-        fleet advance and its background compile service are ROADMAP A8b:
-        asking for them raises."""
-        if os.environ.get("CUP3D_AOT_STORE"):
-            raise NotImplementedError(
-                "CUP3D_AOT_STORE: the compiled store of the fleet advance "
-                "and its background compile service are ROADMAP A8b")
-        return None, None
+        """(store, compile service) when ``CUP3D_AOT_STORE`` is set, else
+        (None, None): the whole machinery keys off the active store.  The
+        environment's fingerprint is taken here, on the dispatch thread
+        (it initialises CUDA), so that the service's worker makes no CUDA
+        call."""
+        from cup3d_tpu_torch.aot import store as aot_store
+
+        st = aot_store.active_store()
+        if st is None:
+            return None, None
+        if self._aot_service is None:
+            from cup3d_tpu_torch.aot.compiler import CompileService
+
+            aot_store.fingerprint()
+            self._aot_service = CompileService()
+        return st, self._aot_service
+
+    def _tables_wait(self, job: FleetJob) -> bool:
+        """With the service active, an ``amr_tgv`` job whose initial
+        forest's ``tables`` record is not in the store parks in
+        ``compile_wait`` on a background table build (on the CPU, in the
+        service's helper process so that it holds no GIL against the
+        dispatch thread, put into the store) instead of building the
+        tables on the dispatch thread at its driver's init; other jobs
+        dispatch meanwhile.  True while it waits; the pass that finds the
+        build finished closes the wait (``compile_ready``)."""
+        if job.job_id in self._prepared or job.spec.get("kind") != "amr_tgv":
+            return False
+        if os.environ.get("CUP3D_BUCKET", "1") == "0":
+            return False
+        st, svc = self._aot()
+        if svc is None:
+            return False
+        from cup3d_tpu_torch.aot.compiler import BUILD_TIMEOUT_S
+        from cup3d_tpu_torch.sim import amr as amr_mod
+
+        tkey = self._tables_keys.get(job.job_id)
+        if tkey is None:
+            _, cfg = _job_config(job.spec, self.workdir)
+            tkey = self._tables_keys[job.job_id] = (
+                amr_mod.initial_tables_sig(cfg), cfg)
+        sig, cfg = tkey
+        bkey = ("tables",) + tuple(sig)
+        status = svc.status(bkey)
+        if st.contains(sig) or status in ("done", "failed"):
+            # built (a failed build, or a refused write: the init builds)
+            if job.events and job.events[-1][0] == "compile_wait":
+                job.mark("compile_ready")
+            return False
+        if status is None:
+            svc.submit(bkey, lambda cfg=cfg: amr_mod.host_tables_build_child(
+                cfg, svc.host, timeout=BUILD_TIMEOUT_S),
+                name="forest.tables", jobs=[job.job_id])
+        else:
+            svc.attach(bkey, [job.job_id])
+        job.mark("compile_wait", collapse=True)
+        return True
+
+    def _neighbor_rungs(self, cap: int) -> List[int]:
+        """The +-1 rungs of the x1.25 lane ladder around ``cap``
+        (max-lanes-clamped, deduplicated): the JAX package's speculative
+        compile targets.  The port binds no rung ahead of its use (a bind
+        builds nothing a rung could share), so the serve path does not
+        call this."""
+        rungs = []
+        down = None
+        c = LANE_LADDER_BASE
+        while c < cap:
+            down = c
+            c = max(c + 1, int(np.ceil(c * 1.25)))
+        if down is not None:
+            down = self.lane_capacity(down)
+            if 0 < down != cap:
+                rungs.append(down)
+        up = self.lane_capacity(cap + 1)
+        if cap < up <= self.max_lanes and up not in rungs:
+            rungs.append(up)
+        return rungs
 
     # -- tenant lifecycle --------------------------------------------------
 
@@ -1062,6 +1147,16 @@ class FleetServer:
             tick += 1
             queued = any(
                 j.status == QUEUED for j in self._jobs.values())
+            svc = self._aot_service
+            if svc is not None and svc.depth() > 0:
+                # a dead worker's orphans, or a build past its deadline,
+                # are failed (aot.service_fallbacks) so that their jobs
+                # build inline at the next pass; when nothing is live and
+                # every queued job waits on a build, park on the service,
+                # in slices, instead of busy-spinning the scheduler
+                reaped = svc.fail_orphans() or svc.fail_stale()
+                if not live and queued and not reaped:
+                    svc.wait(0.05)
             if not admitting and not live and not queued:
                 break
         for b in self.batches:
@@ -1072,8 +1167,14 @@ class FleetServer:
         return self.tenant_summary()
 
     def _aot_quiesce(self) -> None:
-        """The drain/serve window's close: in-flight background builds
-        would finish here (the compile service is ROADMAP A8b)."""
+        """Let in-flight background builds finish before the serve/drain
+        window closes (their records land in the store, warm for the next
+        boot), for at most the service's build deadline.  The helper
+        process stays up for the next drain."""
+        if self._aot_service is not None:
+            from cup3d_tpu_torch.aot.compiler import BUILD_TIMEOUT_S
+
+            self._aot_service.drain(timeout=BUILD_TIMEOUT_S)
 
     def queue_depth(self) -> int:
         return sum(1 for j in self._jobs.values() if j.status == QUEUED)
@@ -1309,6 +1410,8 @@ class FleetServer:
         leftovers: "OrderedDict[tuple, list]" = OrderedDict()
         waiting: "OrderedDict[tuple, list]" = OrderedDict()
         for job in queued:
+            if self._tables_wait(job):
+                continue
             prep = self._prepare(job)
             if prep is None:
                 continue
@@ -1360,17 +1463,17 @@ class FleetServer:
 
     def executable(self, sig: tuple, s, ob, cap: int, K: int,
                    kind: Optional[str] = None):
-        """The compiled-advance cache, LRU-capped by the buckets knob:
-        one lane-batched advance per (signature, lane rung, K).
-        ``CUP3D_AOT_STORE`` (a store of the advance) raises: ROADMAP
-        A8b."""
+        """The advance cache, LRU-capped by the buckets knob: one
+        lane-batched advance per (signature, lane rung, K).  Every bind
+        counts in ``fleet.executable_builds``, with the compiled store or
+        without: a bind builds nothing the store could hold (the tables
+        and kernels it closes over come through their own records)."""
         key = (sig, int(cap), int(K))
         hit = self._execs.pop(key, None)
         if hit is not None:
             self._execs[key] = hit
             M.counter("fleet.executable_hits").inc()
             return hit
-        self._aot()
         fn = FB.build_fleet_advance(s, ob, kind=kind)
         self._execs[key] = fn
         M.counter("fleet.executable_builds").inc()
@@ -1486,6 +1589,12 @@ class FleetServer:
                 if name == "rollback":
                     sink.lane_instant(tid, "rollback", t,
                                       args={"job_id": job.job_id})
+            if (self.provenance
+                    and job.event_time("compile_wait") is not None):
+                # the receiving end of the flow arrow the compile service
+                # opened: it lands inside this job's lane span
+                sink.flow_finish(job.job_id, "compile->lane", t_run,
+                                 OT.LANE_PID, tid)
 
     def latency_quantiles(self, name: str = "fleet.job_e2e_s",
                           tenant: Optional[str] = None,
@@ -1617,9 +1726,17 @@ class FleetServer:
         return job.batch.lane_state(job.lane)
 
     def _aot_health(self) -> Optional[dict]:
-        """Store + compile-service state: None, the store being inert
-        (ROADMAP A8b)."""
-        return None
+        """Store + compile-service state, or None when inert."""
+        from cup3d_tpu_torch.aot import store as aot_store
+
+        st = aot_store.active_store()
+        if st is None and self._aot_service is None:
+            return None
+        return {
+            "store": st.state() if st is not None else None,
+            "service": (self._aot_service.state()
+                        if self._aot_service is not None else None),
+        }
 
     def health(self) -> dict:
         """Fleet state for the obs /health endpoint."""

@@ -23,15 +23,15 @@ matching parser and :func:`parse_histograms` regroups the bucket series.
 
 ``/health`` carries the JAX package's keys: each live flight recorder's
 arm state and last-known-good step, the recovery and fleet counters,
-the live fleet servers' ``health()``, the trace sink's and the capture
-controller's state (obs/profile.py) and the federation state.  Two
-blocks carry the JAX package's own "unset" value, since nothing stands
-behind them in the port yet: ``"aot": {"store": None}`` (what the JAX
-package reports with ``CUP3D_AOT_STORE`` unset; the port refuses the
-compiled store, ROADMAP queue A item 3), and ``"stragglers"``, the
-block the JAX package's ``StragglerWatch.health()`` gives before any
-shard wall was recorded (threshold from ``CUP3D_STRAGGLER_RATIO``,
-default 2.0; the watch itself is ROADMAP queue A item 5).
+the live fleet servers' ``health()``, the compiled store's state
+(``"aot": {"store": ...}``, aot/store.py; ``None`` with
+``CUP3D_AOT_STORE`` unset, as in the JAX package), the trace sink's and
+the capture controller's state (obs/profile.py) and the federation
+state.  ``"stragglers"`` carries the JAX package's own "unset" value,
+since nothing stands behind it in the port yet: the block the JAX
+package's ``StragglerWatch.health()`` gives before any shard wall was
+recorded (threshold from ``CUP3D_STRAGGLER_RATIO``, default 2.0; the
+watch itself is ROADMAP queue A item 5).
 
 ``/federate`` serves this process's federation snapshot (JSON, schema
 1), ``/metrics/federated`` and ``/health/federated`` the coordinator's
@@ -245,15 +245,17 @@ def health_payload() -> dict:
     counters = {k: v for k, v in snap.items()
                 if k.startswith(("flight.", "resilience.", "recovery.",
                                  "fleet.", "aot.", "journal."))}
+    from cup3d_tpu_torch.aot import store as _aot_store
+
+    aot_st = _aot_store.active_store()
     return {
         "status": "ok",
         "time": _trace.wall(),
         "flight_recorders": flights,
         "recovery_counters": counters,
         "fleet": [srv.health() for srv in _fleet_live()],
-        # the compiled store is refused in the port (ROADMAP queue A
-        # item 3): the JAX package's value with CUP3D_AOT_STORE unset
-        "aot": {"store": None},
+        # the compiled store's state (None when CUP3D_AOT_STORE is unset)
+        "aot": {"store": aot_st.state() if aot_st is not None else None},
         "trace": {"enabled": _trace.TRACE.enabled,
                   "steps_recorded": _trace.TRACE.steps_recorded,
                   "steps_dropped": _trace.TRACE.steps_dropped},

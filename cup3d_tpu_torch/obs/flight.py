@@ -22,8 +22,10 @@ installed RecoveryEngine claims recoverable triggers through
 ``recovery_intercept``; the trigger then records a recovery event instead
 of a postmortem.  One dump per recorder by default (``max_dumps``).
 
-Not ported: the JAX postmortem's mesh, shard and AOT blocks (they wait for
-the multi-GPU and serving layers, ROADMAP A7/A8) and its fleet job ring.
+The postmortem's ``aot`` block lists the compiled store's state, its
+hit, miss and reject counts and the live fleet servers' compile-service
+states (aot/).  Not ported: the JAX postmortem's shard block (it waits
+for the fleet across cards, ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -196,6 +198,7 @@ class FlightRecorder:
             "job_events": [_jsonable(e) for e in self.job_events],
             "metrics": _jsonable(_metrics.snapshot()),
             "mesh": _mesh_block(),
+            "aot": _aot_block(),
         }
         os.makedirs(self.directory or ".", exist_ok=True)
         tag = at_step if at_step is not None else len(self.steps)
@@ -217,6 +220,41 @@ def _mesh_block() -> Dict:
         return _jsonable(_federate.mesh_summary())
     except Exception as e:
         _metrics.counter("flight.mesh_probe_errors").inc()
+        return {"probe_error": repr(e)}
+
+
+def _aot_block() -> Dict:
+    """The compiled store and compile-service state at dump time: store
+    hits, misses and rejects by reason, and every live fleet server's
+    service state (queue depth, builds in flight), so a death in a build
+    storm shows in the postmortem.  ``active: False`` when the store is
+    inert (CUP3D_AOT_STORE unset); a broken probe must not kill the
+    dump."""
+    try:
+        from cup3d_tpu_torch.aot import store as _aot_store
+        from cup3d_tpu_torch.fleet import server as _fleet_server
+
+        st = _aot_store.active_store()
+        services = [
+            srv._aot_service.state()
+            for srv in _fleet_server.live_servers()
+            if srv._aot_service is not None
+        ]
+        rejects = {
+            str(c.labels.get("reason", "")): int(c.value)
+            for c in _metrics.counters("aot.store_rejects")
+        }
+        return _jsonable({
+            "active": st is not None,
+            "store": st.state() if st is not None else None,
+            "store_hits": int(_metrics.counter("aot.store_hits").value),
+            "store_misses": int(
+                _metrics.counter("aot.store_misses").value),
+            "store_rejects": rejects,
+            "services": services,
+        })
+    except Exception as e:
+        _metrics.counter("flight.aot_probe_errors").inc()
         return {"probe_error": repr(e)}
 
 

@@ -21,7 +21,7 @@ buckets summed, PromQL ``histogram_quantile(sum by (le))``), and the
 
 Per-instance collectors (``register_collector``: the QoI streams'
 ``stats`` views, held by weakref) merge into every snapshot.  The HTTP
-exporter that renders the buckets waits for ROADMAP A8b.
+exporter (obs/export.py) renders the buckets.
 """
 
 from __future__ import annotations

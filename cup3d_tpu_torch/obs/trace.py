@@ -9,9 +9,10 @@ observer (port of ``cup3d_tpu/obs/trace.py``).
   per-step and auxiliary records appended to ``trace.jsonl`` by a
   background writer, and the Chrome trace-event export
   (``trace.pfto.json``, Perfetto-loadable) with the pid-3 lane-occupancy
-  tracks of the fleet (:data:`LANE_PID`); the pid-4 shard
-  (:data:`SHARD_PID`) and pid-5 compile (:data:`COMPILE_PID`) numbers
-  are the JAX package's.
+  tracks of the fleet (:data:`LANE_PID`), the pid-5 compile-service
+  track (:data:`COMPILE_PID`: one span a background build, and the flow
+  arrows from a build to the lane spans of the jobs that waited on it);
+  the pid-4 shard number (:data:`SHARD_PID`) is the JAX package's.
   ``CUP3D_TRACE_XLA=1`` wraps every span in
   ``torch.profiler.record_function``.
 - The record schemas (:data:`SCHEMA_VERSION` 2: step records, and the
@@ -155,9 +156,10 @@ SHARD_REQUIRED = {"schema": int, "step": int, "shard": int,
 #: spans, pid 2 = obs.profile.DEVICE_PID device sections)
 LANE_PID = 3
 
-#: Perfetto pids of the per-shard K-boundary wall tracks and the
-#: background compile-service track, as the JAX package numbers them;
-#: nothing of the port emits on them before ROADMAP A8b
+#: Perfetto pids of the per-shard K-boundary wall tracks (nothing of
+#: the port emits on them before the fleet across cards, ROADMAP A8b) and
+#: of the background compile-service track (aot/compiler.py), as the JAX
+#: package numbers them
 SHARD_PID = 4
 COMPILE_PID = 5
 
@@ -472,6 +474,7 @@ class TraceSink:
         self.steps_dropped = 0
         self._writer: Optional[_AsyncLineWriter] = None
         self._lane_meta_emitted = False
+        self._compile_meta_emitted = False
         self._lock = threading.Lock()
         # the annotation class resolves ONCE at
         # construction/configure time, so the span hot path is a single
@@ -500,6 +503,7 @@ class TraceSink:
         self.steps_recorded = 0
         self.steps_dropped = 0
         self._lane_meta_emitted = False
+        self._compile_meta_emitted = False
         self._annotation_cls = self._resolve_annotation()
         return self
 
@@ -592,6 +596,58 @@ class TraceSink:
             "ts": (t - self.epoch) * 1e6, "s": "t",
             "args": dict(args or {}),
         })
+
+    def _ensure_compile_meta(self) -> None:
+        if not self._compile_meta_emitted:
+            self._compile_meta_emitted = True
+            self.events.append({
+                "name": "process_name", "ph": "M", "pid": COMPILE_PID,
+                "ts": 0, "args": {"name": "compile service"},
+            })
+
+    def compile_span(self, tid: int, name: str, t0: float, dur: float,
+                     args: Optional[dict] = None) -> None:
+        """One closed background-build span on the pid-5 track (``t0``/
+        ``dur`` in :func:`now` seconds).  ``tid`` is the worker's stable
+        track id; ``args`` carries the outcome and the waiting job ids.
+        Emits the pid-5 ``process_name`` metadata event once a sink."""
+        if not self.enabled:
+            return
+        self._ensure_compile_meta()
+        self.events.append({
+            "name": name, "ph": "X", "pid": COMPILE_PID, "tid": int(tid),
+            "ts": (t0 - self.epoch) * 1e6, "dur": dur * 1e6,
+            "args": dict(args or {}),
+        })
+        _metrics.counter("trace.compile_spans").inc()
+
+    def flow_start(self, flow_id: str, name: str, t: float, pid: int,
+                   tid: int) -> None:
+        """Open one Perfetto flow arrow (``ph:"s"``) at (pid, tid, t): a
+        build's span (pid 5) to the lane span of each job that waited on
+        it.  ``flow_id`` is any stable string (the job id)."""
+        if not self.enabled:
+            return
+        self.events.append({
+            "name": name, "ph": "s", "cat": "flow", "id": str(flow_id),
+            "pid": int(pid), "tid": int(tid),
+            "ts": (t - self.epoch) * 1e6,
+        })
+        _metrics.counter("trace.flow_events").inc()
+
+    def flow_finish(self, flow_id: str, name: str, t: float, pid: int,
+                    tid: int) -> None:
+        """Terminate a flow arrow (``ph:"f"``, binding point "e", the
+        enclosing slice) at (pid, tid, t): the receiving end of a
+        :meth:`flow_start` with the same ``flow_id``."""
+        if not self.enabled:
+            return
+        self.events.append({
+            "name": name, "ph": "f", "bp": "e", "cat": "flow",
+            "id": str(flow_id), "pid": int(pid), "tid": int(tid),
+            "ts": (t - self.epoch) * 1e6,
+        })
+        _metrics.counter("trace.flow_events").inc()
 
     def aux(self, record: dict) -> None:
         """One kind-tagged auxiliary JSONL record interleaved with the

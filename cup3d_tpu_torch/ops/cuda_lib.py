@@ -6,7 +6,13 @@ at once (the compilers run in parallel), and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  The builds happen at first
 use, keyed on a hash of each source and the flags, into
 ``cup3d_tpu_torch/csrc/build/`` (listed in ``.gitignore``); a finished
-build is reused by later processes of the same checkout.
+build is reused by later processes of the same checkout.  With the
+compiled store active (``CUP3D_AOT_STORE``, aot/store.py) a source with
+no build here loads from its ``kernels`` record (keyed by the source's
+sha256, the flags and ``nvcc --version``) and runs no nvcc; a miss or a
+rejected record builds with nvcc from the repo's source and puts the
+library there.  ``kernels.nvcc_builds`` and ``kernels.store_hits`` count
+each source's way.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and there is no ``nvcc`` there.
@@ -24,6 +30,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from cup3d_tpu_torch.obs import metrics as M
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -81,12 +89,17 @@ def stream(device) -> int:
 
 
 class KernelLibrary:
-    """The loaded libraries' entry points plus what their build reported."""
+    """The loaded libraries' entry points plus what their build reported:
+    ``origins`` (per source file name: "nvcc" built in this process,
+    "build" an earlier build of this checkout reused, "store" unpacked
+    from a ``kernels`` record of the compiled store) and ``build_s``."""
 
-    def __init__(self, paths: list, build_s: float, log: str):
+    def __init__(self, paths: list, build_s: float, log: str,
+                 origins: dict | None = None):
         self.paths = paths      # one .so per source
         self.build_s = build_s  # wall seconds of the build, 0.0 if reused
         self.log = log          # nvcc / ptxas output of this build
+        self.origins = dict(origins or {})
         self._fns = {}
         for path, entries in zip(paths, SOURCES.values()):
             lib, plib = ctypes.CDLL(str(path)), ctypes.PyDLL(str(path))
@@ -129,17 +142,115 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[list, float, str]:
+_NVCC_VERSION: list = []
+
+
+def nvcc_version() -> str:
+    """``nvcc --version``'s output (cached a process; "" without nvcc):
+    part of a ``kernels`` record's key, so another compiler's library is
+    never loaded."""
+    if not _NVCC_VERSION:
+        try:
+            out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout
+        except (RuntimeError, OSError, subprocess.SubprocessError):
+            out = ""
+        _NVCC_VERSION.append(out.strip())
+    return _NVCC_VERSION[0]
+
+
+def kernel_sig(src: Path, version: str) -> tuple:
+    """The compiled store's key of one source's library: its name, the
+    sha256 of its text, the flags and the compiler's version."""
+    return ("kernels", src.name, hashlib.sha256(src.read_bytes()).hexdigest(),
+            NVCC_FLAGS, version)
+
+
+def store_load(store, src: Path, version: str):
+    """The library of ``src`` from a ``kernels`` record: its bytes
+    written (atomically) to a file named by the record's digest under the
+    store's own directory, whose path is returned; None on a miss (absent
+    or rejected: the caller builds with nvcc).  A path is only ever
+    written with the bytes of its digest, so a path that was loaded once
+    is never overwritten with others (dlopen caches by path)."""
+    from cup3d_tpu_torch.aot import store as aot_store
+    from cup3d_tpu_torch.resilience import writeguard
+
+    sig = kernel_sig(src, version)
+    rec = store.get(sig, name=f"kernels.{src.stem}")
+    if rec is None:
+        return None
+    data = rec.get("so") if isinstance(rec, dict) else None
+    if not isinstance(data, bytes) or not data:
+        store.reject(store.path_for(sig), "payload")
+        return None
+    path = store.lib_path(sig, src.stem)
+    try:
+        with open(path, "rb") as f:
+            same = f.read() == data
+    except OSError:
+        same = False
+    if not same:
+        def write(tmp: str) -> None:
+            with open(tmp, "wb") as f:
+                f.write(data)
+
+        writeguard.atomic_write(path, write, site="aot-store")
+    M.counter("kernels.store_hits").inc()
+    return Path(path)
+
+
+def store_put(store, src: Path, version: str, lib: Path):
+    """Put a built library's bytes into the store as ``src``'s record."""
+    return store.put(kernel_sig(src, version),
+                     {"so": lib.read_bytes(), "source": src.name,
+                      "flags": NVCC_FLAGS, "nvcc": version},
+                     name=f"kernels.{src.stem}")
+
+
+def build() -> tuple[list, float, str, dict]:
     """Compile every source without a build of its exact text, one nvcc
-    per source, all started together.  Returns (library paths, build
-    seconds, compiler log)."""
+    per source, all started together.  With the compiled store active
+    (``CUP3D_AOT_STORE``) a source with no build here is first looked up
+    in the store (a hit runs no nvcc), and every library this process
+    built or reused is put there.  Returns (library paths, build seconds,
+    compiler log, origin of each source's library)."""
+    from cup3d_tpu_torch.aot import store as aot_store
+
+    store = aot_store.active_store()
+    version = nvcc_version() if store is not None else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     outs = [_target(src) for src in SOURCES]
-    todo = [(src, out) for src, out in zip(SOURCES, outs)
-            if not out.exists()]
-    if not todo:
-        return outs, 0.0, ""
+    origins = {}
+    todo = []
+    for i, (src, out) in enumerate(zip(SOURCES, outs)):
+        if out.exists():
+            origins[src.name] = "build"
+            continue
+        hit = store_load(store, src, version) if store is not None else None
+        if hit is not None:
+            outs[i] = hit
+            origins[src.name] = "store"
+            continue
+        todo.append((src, out))
     t0 = time.perf_counter()
+    log = ""
+    if todo:
+        log = _nvcc_build(todo)
+        for src, _ in todo:
+            origins[src.name] = "nvcc"
+            M.counter("kernels.nvcc_builds").inc()
+    secs = time.perf_counter() - t0 if todo else 0.0
+    if store is not None:
+        for src, out in zip(SOURCES, outs):
+            if (origins[src.name] != "store"
+                    and not store.contains(kernel_sig(src, version))):
+                store_put(store, src, version, out)
+    return outs, secs, log, origins
+
+
+def _nvcc_build(todo) -> str:
+    """Run one nvcc a source, all at once; raise if any fails."""
     procs = []
     for src, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -159,7 +270,7 @@ def build() -> tuple[list, float, str]:
     log = "".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
-    return outs, time.perf_counter() - t0, log
+    return log
 
 
 def load() -> KernelLibrary:
@@ -167,6 +278,6 @@ def load() -> KernelLibrary:
     global _loaded
     with _lock:
         if _loaded is None:
-            paths, secs, log = build()
-            _loaded = KernelLibrary(paths, secs, log)
+            paths, secs, log, origins = build()
+            _loaded = KernelLibrary(paths, secs, log, origins)
         return _loaded

@@ -96,11 +96,15 @@ _FOREST_MEMO: "OrderedDict[tuple, ShardedForest]" = OrderedDict()
 _FOREST_MEMO_MAX = 4
 
 
-def cached_forest(grid: BlockGrid, mesh: Optional[BlockMesh] = None
-                  ) -> "ShardedForest":
+def cached_forest(grid: BlockGrid, mesh: Optional[BlockMesh] = None,
+                  store_sig=None) -> "ShardedForest":
     """Signature-keyed ShardedForest memo: a regrid that returns to a
     topology seen before reuses its host-built exchange tables (equal
-    signatures give equal tables)."""
+    signatures give equal tables).  ``store_sig`` (the driver's content
+    key) keys the exchange tables into the compiled store when
+    ``CUP3D_AOT_STORE`` is active, under the JAX package's sharded key
+    ``("forest", label, donate, store_sig)``: a memo miss loads them from
+    the store, or builds them and puts them there."""
     from cup3d_tpu_torch.obs import metrics as obs_metrics
 
     if mesh is None:
@@ -112,10 +116,46 @@ def cached_forest(grid: BlockGrid, mesh: Optional[BlockMesh] = None
     ).inc()
     if forest is None:
         forest = ShardedForest(grid, mesh)
+        if store_sig is not None:
+            _store_exchange(forest, store_sig)
     _FOREST_MEMO[key] = forest
     while len(_FOREST_MEMO) > _FOREST_MEMO_MAX:
         _FOREST_MEMO.popitem(last=False)
     return forest
+
+
+def _store_exchange(forest: "ShardedForest", store_sig) -> None:
+    """Fill a new forest's exchange tables (the face tables of widths 1
+    and 3 and the flux tables the driver binds) from the compiled store,
+    or build them and put them there; nothing without a store."""
+    from cup3d_tpu_torch.aot import store as aot_store
+    from cup3d_tpu_torch.obs import metrics as obs_metrics
+
+    st = aot_store.active_store()
+    if st is None:
+        return
+    sig = ("forest", "exchange", (), store_sig)
+    refs = {"forest": forest}
+    payload = st.get(sig, name="forest.exchange")
+    if payload is not None:
+        try:
+            forest._lab_cache = aot_store.from_host(
+                payload["lab"], forest.device, refs)
+            forest._flux_cache = aot_store.from_host(
+                payload["flux"], forest.device, refs)
+            obs_metrics.counter("forest.table_store_hits").inc()
+            return
+        except Exception:
+            st.reject(st.path_for(sig), "payload")
+            forest._lab_cache, forest._flux_cache = {}, None
+    forest.face_tables(1)
+    forest.face_tables(3)
+    forest.flux_tables  # noqa: B018  (builds and caches the tables)
+    obs_metrics.counter("forest.table_builds").inc()
+    ids = {id(forest): "forest"}
+    st.put(sig, {"lab": aot_store.to_host(forest._lab_cache, ids),
+                 "flux": aot_store.to_host(forest._flux_cache, ids)},
+           name="forest.exchange")
 
 
 class _Exchange:

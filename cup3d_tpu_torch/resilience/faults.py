@@ -31,11 +31,16 @@ journal.write_fail   ``fleet.journal.JobJournal.append``: the segment
 server.crash         ``fleet.server.FleetBatch.dispatch``: armed with the
                      dispatch count, the process exits (code 23) at that
                      K-boundary
+aot.store_corrupt    ``aot.store.ExecutableStore.get``: flips bytes in the
+                     middle of the record before it loads (the checksum
+                     rejects it; the caller builds live)
+compile.service_die  ``aot.compiler.CompileService._run``: the worker
+                     thread dies holding a RUNNING build (the serve loop
+                     reaps the orphan and builds inline)
 ==================== ======================================================
 
-``fleet.shard_loss``, ``aot.store_corrupt`` and ``compile.service_die``
-parse and arm, and fire nowhere yet: their seams are in the fleet across
-cards and the compiled store (ROADMAP A8b).
+``fleet.shard_loss`` parses and arms, and fires nowhere yet: its seam is
+in the fleet across cards (ROADMAP A8b).
 
 Arming is via ``CUP3D_FAULT="site@step[:count]"`` (``;``-separated for
 several; ``step`` may be ``*`` for any step) or :func:`arm`.  A site

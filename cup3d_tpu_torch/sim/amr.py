@@ -174,6 +174,157 @@ def _leaves(obj):
             yield from _leaves(v)
 
 
+def bucket_tables(g: BlockGrid, cfg: SimulationConfig, dt, dev,
+                  with_bodies: bool, coarse: bool) -> tuple:
+    """(capacity, BucketGeo) of ``g``: its tables built on the host and
+    padded onto ``dev`` (grid/faces.py, grid/flux.py, ops/krylov.py),
+    h = 1 and volume 0 on padding.  With ``dev`` the CPU it makes no
+    CUDA call (the compile service's worker builds there)."""
+    cap = bk.capacity(g.nb)
+    vol = np.zeros((cap, 1, 1, 1), np.float64)
+    vol[: g.nb, 0, 0, 0] = g.h ** 3
+    mask = np.zeros((cap, 1, 1, 1), np.float32)
+    mask[: g.nb] = 1.0
+    xc = None
+    if with_bodies:
+        xc = bk.pad_field(g.cell_centers(dt, dev), cap)
+    # the corner pin slot of mean_constraint 1/3, a device index
+    slot0 = 0
+    if cfg.bMeanConstraint in (1, 3):
+        slot0 = int(np.lexsort((g.ijk[:, 2], g.ijk[:, 1], g.ijk[:, 0]))[0])
+    level = np.zeros(cap, np.int32)
+    level[: g.nb] = g.level
+    geo = BucketGeo(
+        tab1=pad_face_tables(g.face_tables(1), g, cap, device=dev),
+        tab3=pad_face_tables(g.face_tables(3), g, cap, device=dev),
+        ftab=pad_flux_tables(build_flux_tables(g), g.bs, cap, device=dev),
+        geom=bk.PaddedGeom(g, cap),
+        vol=torch.as_tensor(vol, dtype=dt, device=dev),
+        xc=xc,
+        mask=torch.as_tensor(mask, dtype=dt, device=dev),
+        graph=(krylov.block_graph_tables(g, dev, cap=cap) if coarse
+               else None),
+        slot0=torch.tensor(slot0, dtype=torch.long, device=dev),
+        level=torch.as_tensor(level, device=dev))
+    return cap, geo
+
+
+def tables_content_sig(octree_sig, g: BlockGrid, cfg: SimulationConfig, dt,
+                       nu: float, with_bodies: bool, coarse: bool,
+                       shards) -> tuple:
+    """The compiled store's content key of one topology's tables: the JAX
+    package's ``_aot_content_sig`` (the octree signature, block size,
+    dtype, nu, extent, the solver's and the Helmholtz solve's
+    tolerances, the mean-constraint and mass-flux switches, the pressure
+    order's switch step, the mesh layout) plus what the port's table
+    build reads and the JAX key lacks: the mean-constraint mode (the pin
+    slot of modes 1 and 3), the bodies (the cell centres) and the coarse
+    correction (the block graph)."""
+    return (
+        octree_sig,
+        int(g.bs),
+        str(torch.empty((), dtype=dt).numpy().dtype),
+        float(nu),
+        tuple(float(v) for v in g.extent),
+        float(cfg.poissonTol),
+        float(cfg.poissonTolRel),
+        bool(cfg.bMeanConstraint),
+        bool(cfg.implicitDiffusion),
+        float(cfg.diffusionTol),
+        float(cfg.diffusionTolRel),
+        bool(cfg.bFixMassFlux),
+        int(cfg.step_2nd_start),
+        (("blocks", int(shards)),) if shards is not None else None,
+        ("port", int(cfg.bMeanConstraint), bool(with_bodies), bool(coarse)),
+    )
+
+
+def tables_payload(cap: int, geo) -> dict:
+    """One topology's (capacity, BucketGeo) as a ``tables`` record's host
+    payload (aot/store.py ``to_host``: numpy arrays, dtypes and bits
+    kept)."""
+    from cup3d_tpu_torch.aot import store as aot_store
+
+    return {"cap": int(cap), "geo": aot_store.to_host(geo)}
+
+
+def initial_grid(cfg: SimulationConfig) -> BlockGrid:
+    """The forest a driver of ``cfg`` starts from (before init's
+    adaptation rounds): pure host work."""
+    periodic = tuple(b == "periodic" for b in cfg.bc)
+    tree = Octree(TreeConfig((cfg.bpdx, cfg.bpdy, cfg.bpdz), cfg.levelMax,
+                             periodic), cfg.levelStart)
+    return BlockGrid(tree, cfg.extents, tuple(BC(b) for b in cfg.bc),
+                     cfg.block_size)
+
+
+def host_tables_build(cfg: SimulationConfig, fp: Optional[dict] = None):
+    """A background build of the tables of ``cfg``'s initial forest: built
+    on the CPU (no CUDA call; the tables are built by numpy and torch on
+    the host, which chip_smoke.py phase 37 holds bitwise to a build on
+    the card) and put into the active store under the key a driver of
+    ``cfg`` looks up.  ``fp``: the fingerprint of the environment that
+    loads the record (the service's helper process writes for its
+    parent and initialises no CUDA to take its own; default this
+    process's).  Returns the record's path or None."""
+    from cup3d_tpu_torch.aot import store as aot_store
+
+    st = aot_store.active_store()
+    if st is None:
+        return None
+    g, dt, with_bodies, coarse = _initial_knobs(cfg)
+    memo = bucket_tables(g, cfg, dt, "cpu", with_bodies, coarse)
+    obs_metrics.counter("bucket.table_builds").inc()
+    return st.put(tables_key(tables_content_sig(
+        g.signature, g, cfg, dt, cfg.nu, with_bodies, coarse, None)),
+        tables_payload(*memo), name="forest.tables", fp=fp)
+
+
+def host_tables_build_child(cfg: SimulationConfig, host,
+                            timeout: Optional[float] = None):
+    """:func:`host_tables_build` in the compile service's helper process
+    (aot/compiler.py ``HostProcess``): the worker thread waits on it with
+    the GIL released, so the table build (Python loops, mostly) does not
+    convoy the dispatch thread's launches.  The helper's own counters
+    stay in its process: the build and the write are counted here, in
+    ``bucket.table_builds`` and ``aot.store_writes``.  Raises when the
+    helper fails (the service then fails the build and the driver builds
+    inline)."""
+    from cup3d_tpu_torch.aot import store as aot_store
+    from cup3d_tpu_torch.aot.compiler import BUILD_TIMEOUT_S
+
+    path = host.call("cup3d_tpu_torch.sim.amr:host_tables_build",
+                     (cfg, aot_store.fingerprint()),
+                     BUILD_TIMEOUT_S if timeout is None else timeout)
+    if path is None:
+        raise RuntimeError("table build: the store refused the record")
+    obs_metrics.counter("bucket.table_builds").inc()
+    obs_metrics.counter("aot.store_writes").inc()
+    return path
+
+
+def _initial_knobs(cfg: SimulationConfig) -> tuple:
+    """(initial grid, dtype, bodies, coarse level) of a fresh
+    single-device driver of ``cfg``: what its first table build reads."""
+    coarse = (krylov.use_coarse_correction()
+              and cfg.bMeanConstraint not in (1, 3))
+    return (initial_grid(cfg), getattr(torch, cfg.dtype),
+            bool(cfg.resolved_factory_content()), coarse)
+
+
+def initial_tables_sig(cfg: SimulationConfig) -> tuple:
+    """The ``tables`` record key of ``cfg``'s initial forest on the
+    single-device bucketed driver (what :func:`host_tables_build` puts)."""
+    g, dt, with_bodies, coarse = _initial_knobs(cfg)
+    return tables_key(tables_content_sig(
+        g.signature, g, cfg, dt, cfg.nu, with_bodies, coarse, None))
+
+
+def tables_key(content_sig) -> tuple:
+    """The compiled store's key of one topology's ``tables`` record."""
+    return ("forest", "tables", content_sig)
+
+
 class AMRSimulation:
     def __init__(self, cfg: SimulationConfig, tree: Optional[Octree] = None,
                  device=None, mesh=None):
@@ -188,12 +339,9 @@ class AMRSimulation:
             device = mesh.device
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
-        if tree is None:
-            periodic = tuple(b == "periodic" for b in cfg.bc)
-            tree = Octree(TreeConfig((cfg.bpdx, cfg.bpdy, cfg.bpdz),
-                                     cfg.levelMax, periodic), cfg.levelStart)
-        self.grid = BlockGrid(tree, cfg.extents,
-                              tuple(BC(b) for b in cfg.bc), cfg.block_size)
+        self.grid = (initial_grid(cfg) if tree is None else
+                     BlockGrid(tree, cfg.extents,
+                               tuple(BC(b) for b in cfg.bc), cfg.block_size))
         self.state: Dict[str, torch.Tensor] = {}
         #: the bodies (models/), built by init() from the factory lines
         self.obstacles: List = []
@@ -325,7 +473,8 @@ class AMRSimulation:
         if self.mesh is not None:
             from cup3d_tpu_torch.parallel.forest import cached_forest
 
-            fo = self.forest = cached_forest(g, self.mesh)
+            fo = self.forest = cached_forest(
+                g, self.mesh, store_sig=self._aot_content_sig(g.signature))
             self._geom = fo.geom
             self._tab1 = fo.face_tables(1)
             self._tab3 = fo.face_tables(3)
@@ -385,9 +534,13 @@ class AMRSimulation:
         obs_metrics.counter("bucket.table_memo_hits" if memo is not None
                             else "bucket.table_memo_misses").inc()
         if memo is None:
-            t0 = time.perf_counter()
-            memo = self._bucket_tables()
-            self.table_build_s.append(time.perf_counter() - t0)
+            memo = self._stored_tables(sig)
+            if memo is None:
+                t0 = time.perf_counter()
+                memo = self._bucket_tables()
+                self.table_build_s.append(time.perf_counter() - t0)
+                obs_metrics.counter("bucket.table_builds").inc()
+                self._put_tables(sig, memo)
             self._table_memo[sig] = memo
             while len(self._table_memo) > TABLE_MEMO_ENTRIES:
                 self._table_memo.pop(next(iter(self._table_memo)))
@@ -410,39 +563,45 @@ class AMRSimulation:
         self._bind_bucket_ops(ops)
 
     def _bucket_tables(self) -> tuple:
-        """(capacity, BucketGeo) of the current grid: its tables built on
-        the host and padded onto the device (grid/faces.py,
-        grid/flux.py, ops/krylov.py), h = 1 and volume 0 on padding."""
-        g, dev, dt = self.grid, self.device, self.dtype
-        cap = bk.capacity(g.nb)
-        vol = np.zeros((cap, 1, 1, 1), np.float64)
-        vol[: g.nb, 0, 0, 0] = g.h ** 3
-        mask = np.zeros((cap, 1, 1, 1), np.float32)
-        mask[: g.nb] = 1.0
-        xc = None
-        if self._with_bodies:
-            xc = bk.pad_field(g.cell_centers(dt, dev), cap)
-        # the corner pin slot of mean_constraint 1/3, a device index
-        slot0 = 0
-        if self.cfg.bMeanConstraint in (1, 3):
-            slot0 = int(np.lexsort((g.ijk[:, 2], g.ijk[:, 1],
-                                    g.ijk[:, 0]))[0])
-        level = np.zeros(cap, np.int32)
-        level[: g.nb] = g.level
-        geo = BucketGeo(
-            tab1=pad_face_tables(g.face_tables(1), g, cap, device=dev),
-            tab3=pad_face_tables(g.face_tables(3), g, cap, device=dev),
-            ftab=pad_flux_tables(build_flux_tables(g), g.bs, cap,
-                                 device=dev),
-            geom=bk.PaddedGeom(g, cap),
-            vol=torch.as_tensor(vol, dtype=dt, device=dev),
-            xc=xc,
-            mask=torch.as_tensor(mask, dtype=dt, device=dev),
-            graph=(krylov.block_graph_tables(g, dev, cap=cap)
-                   if self._coarse() else None),
-            slot0=torch.tensor(slot0, dtype=torch.long, device=dev),
-            level=torch.as_tensor(level, device=dev))
-        return cap, geo
+        """(capacity, BucketGeo) of the current grid (:func:`bucket_tables`
+        on this driver's device, dtype and knobs)."""
+        return bucket_tables(self.grid, self.cfg, self.dtype, self.device,
+                             self._with_bodies, self._coarse())
+
+    def _aot_content_sig(self, octree_sig) -> tuple:
+        """The compiled store's content key of this layout's tables (JAX
+        ``_aot_content_sig``): the octree signature plus every config knob
+        the closures capture, plus what the port's table build reads
+        (:func:`tables_content_sig`)."""
+        return tables_content_sig(
+            octree_sig, self.grid, self.cfg, self.dtype, self.nu,
+            self._with_bodies, self._coarse(),
+            self.mesh.D if self.mesh is not None else None)
+
+    def _stored_tables(self, sig):
+        """(capacity, BucketGeo) of topology ``sig`` from the compiled
+        store's ``tables`` record (loaded onto this driver's device), or
+        None: no store, a miss, or a rejected record."""
+        from cup3d_tpu_torch.aot import store as aot_store
+
+        st = aot_store.active_store()
+        if st is None:
+            return None
+        payload = st.get(tables_key(self._aot_content_sig(sig)),
+                         name="forest.tables", device=self.device)
+        if payload is None:
+            return None
+        obs_metrics.counter("bucket.table_store_hits").inc()
+        return int(payload["cap"]), payload["geo"]
+
+    def _put_tables(self, sig, memo) -> None:
+        """Put a live-built topology's tables into the compiled store."""
+        from cup3d_tpu_torch.aot import store as aot_store
+
+        st = aot_store.active_store()
+        if st is not None:
+            st.put(tables_key(self._aot_content_sig(sig)),
+                   tables_payload(*memo), name="forest.tables")
 
     def memo_bytes(self) -> int:
         """Device bytes the table memo holds (every tensor of every

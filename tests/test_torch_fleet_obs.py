@@ -244,7 +244,9 @@ def test_fleet_cli_keys_match_jax(tmp_path, mode):
     else:
         assert sorted(jout["tenants"]["acme"]) == \
             sorted(tout["tenants"]["acme"])
-    with pytest.raises(NotImplementedError, match="A8b"):
+    # the aot mode runs (aot/cli.py); with no store it exits as the JAX
+    # package's does
+    with pytest.raises(SystemExit, match="no store"):
         tmain(["aot", "list"])
 
 

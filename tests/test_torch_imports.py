@@ -86,6 +86,8 @@ def test_every_module_imports_with_jax_blocked():
         "fleet.server", "fleet.migrate", "fleet.cli", "obs.federate",
         # device-time attribution, the exporter, cost accounting
         "obs.export", "obs.profile", "obs.costs",
+        # the compiled store, the background compile service, their CLI
+        "aot", "aot.store", "aot.compiler", "aot.cli",
     )} <= set(mods)
     code = (
         "import sys\n"
