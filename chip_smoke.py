@@ -346,7 +346,22 @@ each of which raises on a fault (nothing is caught):
     lanes alone and over the rounds that overlap a cold ``amr_tgv``
     signature's background table build, in the service's helper process
     and on the worker thread; ``compile.service_die`` on the ``amr_tgv``
-    jobs (they end done).  Phase 37 stays under 120 s.
+    jobs (they end done).  Phase 37 stays under 120 s;
+38. the package's sanitizers (``analysis/runtime.py``): a planted
+    ``.item()`` under the sync guard raises, and the guard catches (and
+    misses) the syncs its docstring lists; config #2 at 128^3 pipelined,
+    two per-step steps and two K = 8 megaloops, each under the guard
+    with only the sanctioned sites open (the tags printed per step); two
+    steps of phase 9's forest the same way (run right after phase 9);
+    the second of each under ``RecompileCounter``, which must count no
+    build; the fleet's drain of 2 tgv and 2 fish jobs (32^3, 16 steps)
+    under the guard; a 32^3 Taylor-Green step on the fused solve under
+    ``debug_nans`` with a NaN put in vel raises ``FloatingPointError``
+    naming the aten op, B5 on a NaN input names the kernel, and the sync
+    debug mode is back at its value after each.  Phases 14 and 22 run
+    one step each under the same guard (``_no_sync_step``,
+    ``_forest_no_sync_step``), their body operators with only the
+    uploads open.
 
 The five uniform kernels' rows report their times at the fish path's
 shape and their launches on it (phase 14); the 256^3 times and the TGV
@@ -2060,25 +2075,44 @@ NO_SYNC_OPS = ("CreateObstacles", "AdvectionDiffusion", "UpdateObstacles",
                "Penalization", "ComputeForces")
 
 
+def _upload_tags():
+    """The sanctioned tags of the sites that do not wait for the device
+    (the uploads: pinned non-blocking copies, fill kernels; the stream's
+    copies): they stay under the guard's "error" mode."""
+    from cup3d_tpu_torch.analysis.runtime import ALLOWLIST
+
+    return tuple(t for t, site in ALLOWLIST.items() if not site.waits)
+
+
 def _no_sync_step(d) -> None:
-    """One more step with torch's sync debug mode set to raise inside the
-    body and fluid operators: a device read, a blocking copy or a
-    ``nonzero`` there fails the run."""
+    """One more step under the package's sync guard
+    (``analysis.runtime.no_implicit_transfers``, CUDA's sync debug mode
+    at "error"): the whole step with only the sanctioned sites open, and
+    the body and fluid operators with only the uploads open.  A device
+    read, a blocking copy or a ``nonzero`` anywhere else fails the run."""
+    from cup3d_tpu_torch.analysis import runtime as R
+
     s = d.sim
-    dt = d.calc_max_timestep()
-    dt_dev = torch.tensor(dt, dtype=s.dtype, device=s.device)
-    t0 = time.perf_counter()
-    for op in d.pipeline:
-        guard = op.name in NO_SYNC_OPS
-        if guard:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            op(dt_dev)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    d.end_step(dt, dt_dev, t0)
-    log(f"  no host sync in {', '.join(NO_SYNC_OPS)} (torch sync debug "
-        "mode 'error' around them for one step)")
+    before = dict(R.TRANSFER_SITES)
+    with R.no_implicit_transfers(allow=R.ALLOWLIST):
+        dt = d.calc_max_timestep()
+        dt_dev = R.device_scalar(dt, s.dtype, s.device, tag="dt-upload")
+        t0 = time.perf_counter()
+        for op in d.pipeline:
+            if op.name in NO_SYNC_OPS:
+                with R.no_implicit_transfers(allow=_upload_tags()):
+                    op(dt_dev)
+            else:
+                op(dt_dev)
+        d.end_step(dt, dt_dev, t0)
+    log(f"  one step under the sync guard, no host sync in "
+        f"{', '.join(NO_SYNC_OPS)} (only uploads open there); its sites: "
+        f"{_delta(R.TRANSFER_SITES, before)}")
+
+
+def _delta(sites: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in sorted(sites.items())
+            if v - before.get(k, 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -3383,8 +3417,8 @@ FOREST_NO_SYNC = ("CreateObstacles", "Penalization", "ComputeForces")
 
 
 class _NoSyncSections:
-    """The driver's Profiler protocol with torch's sync debug mode set to
-    raise inside the named sections."""
+    """The driver's Profiler protocol with the named sections under the
+    package's sync guard with only the uploads open."""
 
     def __init__(self, names):
         self.names = names
@@ -3392,28 +3426,30 @@ class _NoSyncSections:
     def __call__(self, name):
         import contextlib
 
-        @contextlib.contextmanager
-        def section():
-            if name in self.names:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                yield
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return section()
+        from cup3d_tpu_torch.analysis import runtime as R
+
+        if name in self.names:
+            return R.no_implicit_transfers(allow=_upload_tags())
+        return contextlib.nullcontext()
 
 
 def _forest_no_sync_step(d) -> None:
-    """One step with a device read, a blocking copy or a ``nonzero``
-    inside the forest's body sections failing the run (their reads ride
-    the step's moments read and its end-of-step read)."""
+    """One step under the package's sync guard with only the sanctioned
+    sites open, the forest's body sections with only the uploads open
+    (their reads ride the step's moments read and its end-of-step
+    read)."""
+    from cup3d_tpu_torch.analysis import runtime as R
+
+    before = dict(R.TRANSFER_SITES)
     prof, d.profiler = d.profiler, _NoSyncSections(FOREST_NO_SYNC)
     try:
-        d.advance(d.calc_max_timestep())
+        with R.no_implicit_transfers(allow=R.ALLOWLIST):
+            d.advance(d.calc_max_timestep())
     finally:
         d.profiler = prof
-    log(f"  no host sync in {', '.join(FOREST_NO_SYNC)} (torch sync debug "
-        "mode 'error' around them for one step)")
+    log(f"  one step under the sync guard, no host sync in "
+        f"{', '.join(FOREST_NO_SYNC)} (only uploads open there); its "
+        f"sites: {_delta(R.TRANSFER_SITES, before)}")
 
 
 def _timed_steps(d, n: int) -> list:
@@ -6707,7 +6743,10 @@ def aot_phase() -> dict:
     for a, b, c in zip(i0, i1, i2):
         if not (s0._jobs[a].qoi_bytes() == s1._jobs[b].qoi_bytes()
                 == s2._jobs[c].qoi_bytes()):
-            raise AssertionError(f"aot fleet: {a}, {b}, {c}'s rows differ")
+            lines = [[e for e, _ in srv._jobs[j].events]
+                     for srv, j in ((s0, a), (s1, b), (s2, c))]
+            raise AssertionError(f"aot fleet: {a}, {b}, {c}'s rows differ; "
+                                 f"their timelines {lines}")
         if s2._jobs[c].event_time("compile_wait") is not None:
             raise AssertionError(f"aot fleet: warm {c} waited on a build")
 
@@ -6822,6 +6861,243 @@ def aot_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 38: the sanitizers on the card (analysis/runtime.py)
+# ---------------------------------------------------------------------------
+
+SAN_TGV_N = 32          # the debug_nans step's Taylor-Green grid
+SAN_STEPS = 2           # config #2's per-step steps under the guard
+SAN_FLEET_JOBS = 4      # the fleet's jobs under the guard (tgv, fish)
+SAN_FLEET_SPEC = dict(n=32, nsteps=16, cfl=0.3, L=0.3, T=1.0, xpos=0.5)
+#: the text of the error CUDA's sync debug mode raises (c10/cuda)
+SYNC_CAUGHT = "synchronizing CUDA operation"
+
+
+def _sync_candidates() -> dict:
+    """name -> (call, whether CUDA's sync debug mode catches it): the
+    table analysis/runtime.py's docstring states, checked here on the
+    card's torch."""
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    dev = torch.device("cuda")
+    x = torch.randn(1 << 16, device=dev)
+    pinned = torch.empty(4, pin_memory=True)
+    T = 8
+    r = torch.randn(T, 8, 8, 8, device=dev)
+    v = torch.randn(T, 8, 8, 8, device=dev)
+    scal = torch.zeros(8, device=dev)
+
+    def event_sync():
+        e = torch.cuda.Event()
+        e.record()
+        e.synchronize()
+
+    return {
+        ".item()": (lambda: x.sum().item(), True),
+        "float(tensor)": (lambda: float(x.sum()), True),
+        "bool(tensor)": (lambda: bool(x.sum() > 0), True),
+        ".cpu()": (lambda: x[:4].cpu(), True),
+        ".tolist()": (lambda: x[:4].tolist(), True),
+        "torch.tensor(v, device=cuda)": (
+            lambda: torch.tensor(0.5, device=dev), True),
+        "pageable .to(cuda)": (lambda: torch.ones(4).to(dev), True),
+        "pinned .to(cuda) blocking": (lambda: pinned.to(dev), True),
+        "torch.as_tensor(array, device=cuda)": (
+            lambda: torch.as_tensor(np.ones(3), device=dev), True),
+        "nonzero": (lambda: torch.nonzero(x > 0), True),
+        "boolean-mask index": (lambda: x[x > 0], True),
+        "unique": (lambda: torch.unique(x[:16]), True),
+        "stream.synchronize()": (
+            lambda: torch.cuda.current_stream().synchronize(), True),
+        "pinned .to(cuda) non_blocking": (
+            lambda: pinned.to(dev, non_blocking=True), False),
+        "copy_ to pinned non_blocking": (
+            lambda: pinned.copy_(x[:4], non_blocking=True), False),
+        "torch.full/zeros/arange(device=cuda)": (
+            lambda: (torch.full((), 0.5, device=dev),
+                     torch.zeros(8, device=dev),
+                     torch.arange(8, device=dev)), False),
+        "torch.cuda.synchronize()": (torch.cuda.synchronize, False),
+        "Event.synchronize()": (event_sync, False),
+        "a ctypes kernel launch (B5)": (
+            lambda: fb.axpy(r, v, scal), False),
+    }
+
+
+def _guarded(step, n: int, label: str) -> list:
+    """``n`` calls of ``step``, each under the package's sync guard with
+    the sanctioned sites open; the sites each call fired."""
+    from cup3d_tpu_torch.analysis import runtime as R
+
+    out = []
+    for i in range(n):
+        before = dict(R.TRANSFER_SITES)
+        with R.no_implicit_transfers(allow=R.ALLOWLIST):
+            step()
+        out.append(_delta(R.TRANSFER_SITES, before))
+        log(f"  {label} {i}: sites {out[-1]}")
+    return out
+
+
+def _second_builds_nothing(step, label: str) -> list:
+    """One more guarded call of ``step`` under RecompileCounter, which
+    must count no build."""
+    from cup3d_tpu_torch.analysis.runtime import RecompileCounter
+
+    with RecompileCounter() as rc:
+        tags = _guarded(step, 1, f"{label} (builds counted)")
+    log(f"  {label}: builds over the counted call {rc.compiles}")
+    rc.assert_steady_state(budget=0)
+    return tags
+
+
+def sanitizer_forest(d) -> dict:
+    """Phase 38's forest part, on phase 9's driver (config #3, bpd 16,
+    the fused solve): one step under the guard, a second under the
+    guard and RecompileCounter."""
+    t0 = time.perf_counter()
+    step = lambda: d.advance(d.calc_max_timestep())  # noqa: E731
+    tags = _guarded(step, 1, "forest step")
+    tags += _second_builds_nothing(step, "forest step")
+    return dict(tags=tags, s=time.perf_counter() - t0)
+
+
+def sanitizer_phase(forest: dict) -> dict:
+    """The package's sanitizers on the card: the guard is live (a
+    planted ``.item()`` raises) and catches what its docstring says;
+    config #2 at N_FISH^3, SAN_STEPS pipelined steps and a K = SCAN_K
+    megaloop each under the guard with only the sanctioned sites open,
+    a second of each building nothing (with phase 9's forest step,
+    ``sanitizer_forest``); the fleet's drain of 2 tgv and 2 fish jobs
+    under the guard; a 32^3 Taylor-Green step on the fused solve
+    under ``debug_nans`` with a NaN put in vel raises FloatingPointError
+    naming the op, a B5 launch on a NaN input names the kernel, and the
+    sync debug mode is back at its prior value after each."""
+    from cup3d_tpu_torch.__main__ import build_driver
+    from cup3d_tpu_torch.analysis import runtime as R
+    from cup3d_tpu_torch.ops import fused_bicgstab as fb
+
+    t0 = time.perf_counter()
+    out = _fresh_dir(os.path.join(OUT_DIR, "sanitizers"))
+    prior = torch.cuda.get_sync_debug_mode()
+
+    # -- the guard is live, and catches what the docstring says -------------
+    x = torch.ones(8, device="cuda")
+    try:
+        with R.no_implicit_transfers(allow=R.ALLOWLIST):
+            x.sum().item()
+    except RuntimeError as e:
+        if SYNC_CAUGHT not in str(e):
+            raise
+        log(f"  a planted .item() under the guard raised: "
+            f"{str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("a planted .item() under the guard did not "
+                             "raise")
+    if torch.cuda.get_sync_debug_mode() != prior:
+        raise AssertionError("the guard left the sync debug mode changed")
+    table, wrong = {}, []
+    for name, (call, expect) in _sync_candidates().items():
+        torch.cuda.synchronize()
+        with R.no_implicit_transfers():
+            try:
+                call()
+                table[name] = False
+            except RuntimeError as e:
+                if SYNC_CAUGHT not in str(e):
+                    raise
+                table[name] = True
+        if table[name] != expect:
+            wrong.append(name)
+    torch.cuda.synchronize()
+    log("  caught by the sync debug mode: "
+        f"{[k for k, v in table.items() if v]}; missed: "
+        f"{[k for k, v in table.items() if not v]}")
+    if wrong:
+        raise AssertionError(f"the sync debug mode no longer does what "
+                             f"analysis/runtime.py says for {wrong}")
+
+    # -- config #2: per-step and megaloop steps under the guard -------------
+    nsteps = 1 + SAN_STEPS + 2 * SCAN_K
+    d = build_driver(_bench_fish_argv(out, nsteps, SCAN_K))
+    d.init()
+    d.advance(d.calc_max_timestep())  # its first step: reads, uploads
+    step = lambda: d.advance(d.calc_max_timestep())  # noqa: E731
+    per_step = _guarded(step, SAN_STEPS - 1, "config #2 pipelined step")
+    per_step += _second_builds_nothing(step, "config #2 pipelined step")
+    if not d._scan_ready():
+        raise AssertionError("config #2: the megaloop did not take")
+    mega = _guarded(d.advance_megaloop, 1, f"config #2 K={SCAN_K} megaloop")
+    mega += _second_builds_nothing(d.advance_megaloop,
+                                   f"config #2 K={SCAN_K} megaloop")
+    d.flush_packs()
+    if not all(bool(torch.isfinite(d.sim.state[k]).all())
+               for k in ("vel", "p")):
+        raise AssertionError("config #2 under the guard: non-finite fields")
+    del d
+
+    # -- the fleet's dispatch loop under the guard --------------------------
+    from cup3d_tpu_torch.fleet.server import FleetServer
+
+    srv = FleetServer(max_lanes=SAN_FLEET_JOBS, workdir=os.path.join(
+        out, "fleet"))
+    ids = [srv.submit(f"t{i}", dict(SAN_FLEET_SPEC, kind=kind))
+           for i, kind in enumerate(("tgv", "fish") * (SAN_FLEET_JOBS // 2))]
+    fleet = _guarded(srv.drain, 1, f"fleet drain ({SAN_FLEET_JOBS} tgv and "
+                     "fish jobs)")
+    status = [srv.poll(j)["status"] for j in ids]
+    if status != ["done"] * len(ids):
+        raise AssertionError(f"the fleet under the guard: {status}")
+    del srv
+
+    # -- debug_nans: an op and a kernel named -------------------------------
+    n = SAN_TGV_N
+    with _env(CUP3D_FUSED="1"):
+        d = build_driver(
+            f"-bpdx {n // 8} -bpdy {n // 8} -bpdz {n // 8} -extent "
+            "6.283185307179586 -initCond taylorGreen -poissonSolver "
+            "iterative -nu 1e-3 -CFL 0.3 -rampup 0 -tend 0 -nsteps 4 "
+            f"-verbose 0 -path4serialization {out}".split())
+        d.init()
+        d.advance(d.calc_max_timestep())
+        dt = d.calc_max_timestep()
+        d.sim.state["vel"][1, 2, 3, 0] = float("nan")
+        try:
+            with R.debug_nans():
+                d.advance(dt)
+        except FloatingPointError as e:
+            op_msg = str(e)
+        else:
+            raise AssertionError("debug_nans: a NaN-injected step ran")
+    T = (n // 8) ** 3
+    r = torch.randn(T, 8, 8, 8, device="cuda")
+    r[0, 0, 0, 0] = float("nan")
+    v = torch.randn(T, 8, 8, 8, device="cuda")
+    scal = torch.zeros(8, device="cuda")
+    try:
+        with R.debug_nans():
+            fb.axpy(r, v, scal)
+    except FloatingPointError as e:
+        kernel_msg = str(e)
+    else:
+        raise AssertionError("debug_nans: B5 on a NaN input passed")
+    fb.reset_launches()
+    if "B5" not in kernel_msg or "aten." not in op_msg:
+        raise AssertionError(f"debug_nans named {op_msg!r}, {kernel_msg!r}")
+    if torch.cuda.get_sync_debug_mode() != prior or R.NAN_CHECKS[0]:
+        raise AssertionError("debug_nans left its state behind")
+    log(f"  debug_nans: the NaN-injected {n}^3 step raised "
+        f"'{op_msg}'; B5 on a NaN input raised '{kernel_msg}'; the sync "
+        f"debug mode is back at {prior}")
+    secs = time.perf_counter() - t0
+    log(f"  phase 38: {secs:.1f} s here and {forest['s']:.1f} s for the "
+        "forest part after phase 9")
+    return dict(table=table, per_step=per_step, megaloop=mega,
+                forest=forest["tags"], fleet=fleet, op=op_msg,
+                kernel=kernel_msg,
+                s=secs, forest_s=forest["s"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -6878,6 +7154,8 @@ def main() -> int:
     forest_solve_phase(d)
     log(f"phase 9: AMR main path, {STEPS} steps")
     amr_run = amr_main_path_phase(d)
+    log("phase 38, forest part: phase 9's driver under the sync guard")
+    san_forest = sanitizer_forest(d)
     graph = d._graph  # the two-level forest's, for phase 13
 
     log(f"phase 10: tile-only and CG getZ kernels vs plain versions "
@@ -7098,6 +7376,14 @@ def main() -> int:
     log(f"  phase 37 took {time.perf_counter() - t0:.1f} s; {smi}")
     with open(os.path.join(OUT_DIR, "aot.json"), "w") as f:
         json.dump(aot, f, indent=1, default=str)
+    torch.cuda.empty_cache()
+    log(f"phase 38: the sanitizers on the card: the guard on CUDA's sync "
+        f"debug mode, config #2 at {N_FISH}^3 pipelined and as K={SCAN_K} "
+        "megaloops under it, builds on second steps, debug_nans")
+    sanitizers = sanitizer_phase(san_forest)
+    with open(os.path.join(OUT_DIR, "sanitizers.json"), "w") as f:
+        json.dump(sanitizers, f, indent=1, default=str)
+    log(f"  phase 38 took {sanitizers['s']:.1f} s; {smi}")
     log(f"  the whole run: {time.perf_counter() - _T0:.1f} s")
     # each kernel's launches from its own path's run: the five uniform
     # kernels' from the fish path, with their 256^3 numbers and the TGV

@@ -232,12 +232,13 @@ def cmd_warm(args) -> int:
 
 
 def cmd_probe(args, t0: float) -> int:
+    from cup3d_tpu_torch.analysis.runtime import RecompileCounter
     from cup3d_tpu_torch.obs import metrics as M
 
     _resolve_store(args, required=False)
-    snap0 = M.snapshot()
-    server = _make_server(args)
-    summary = server.drain()
+    with RecompileCounter() as rc:
+        server = _make_server(args)
+        summary = server.drain()
     dispatched = [t for t in (
         j.event_time("dispatched") for j in server._jobs.values())
         if t is not None]
@@ -246,16 +247,13 @@ def cmd_probe(args, t0: float) -> int:
         digest.update(jid.encode())
         digest.update(server._jobs[jid].qoi_bytes())
     snap = M.snapshot()
-
-    def delta(key):
-        return int(snap.get(key, 0) - snap0.get(key, 0))
-
     counters = {k: v for k, v in sorted(snap.items())
                 if k.startswith("aot.")}
-    advance_compiles = delta("fleet.executable_builds")
-    nvcc_builds = delta("kernels.nvcc_builds")
-    table_builds = (delta("bucket.table_builds")
-                    + delta("forest.table_builds"))
+    builds = rc.compiles
+    advance_compiles = builds["fleet.executable_builds"]
+    nvcc_builds = builds["kernels.nvcc_builds"]
+    table_builds = (builds["bucket.table_builds"]
+                    + builds["forest.table_builds"])
     # the drain's aggregate per-phase seconds (each job's decomposition
     # sums to its e2e) and the compile_wait fraction
     phase_totals: dict = {}
@@ -268,7 +266,7 @@ def cmd_probe(args, t0: float) -> int:
                              else None),
         "total_s": OT.now() - t0,
         "advance_compiles": advance_compiles,
-        "total_compiles": advance_compiles + nvcc_builds + table_builds,
+        "total_compiles": rc.total_compiles,
         "nvcc_builds": nvcc_builds,
         "table_builds": table_builds,
         "aot_counters": counters,

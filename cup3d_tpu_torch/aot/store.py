@@ -100,6 +100,8 @@ def _driver_version() -> int:
         v = ctypes.c_int(0)
         if lib.cuDriverGetVersion(ctypes.byref(v)) == 0:
             return int(v.value)
+    # torch-lint: allow(JX009, no libcuda (a CPU host): the driver version 0 is
+    # the key's answer)
     except OSError:
         pass
     return 0
@@ -343,9 +345,9 @@ class ExecutableStore:
         for p in [path] + self._libs_of(digest):
             try:
                 os.remove(p)
+            # torch-lint: allow(JX009, an entry another process removed
+            # first has left the store all the same)
             except OSError:
-                # an entry another process removed first has left the
-                # store all the same
                 pass
 
     def _libs_of(self, digest: str) -> List[str]:
@@ -395,9 +397,9 @@ class ExecutableStore:
             return None
         try:
             os.utime(path)
+        # torch-lint: allow(JX009, the LRU clock is best-effort: a failed
+        # utime only ages the entry toward eviction)
         except OSError:
-            # the LRU clock is best-effort: a failed utime only ages the
-            # entry toward eviction
             pass
         M.counter("aot.store_hits").inc()
         return payload
@@ -462,8 +464,9 @@ class ExecutableStore:
             path = os.path.join(self.root, fname)
             try:
                 st = os.stat(path)
+            # torch-lint: allow(JX009, an entry unlinked between listdir and
+            # stat has left the store)
             except OSError:
-                # an entry unlinked between listdir and stat has left
                 continue
             out.append((path, int(st.st_size), float(st.st_mtime)))
         out.sort(key=lambda e: e[2])

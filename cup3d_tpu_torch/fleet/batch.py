@@ -41,7 +41,8 @@ import os
 import numpy as np
 import torch
 
-from cup3d_tpu_torch.models.base import upload
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer
+from cup3d_tpu_torch.analysis.runtime import upload
 from cup3d_tpu_torch.obs import metrics as M
 from cup3d_tpu_torch.sim.megaloop import (  # noqa: F401  (rows re-exported)
     FISH_ROW,
@@ -86,9 +87,9 @@ def stack_gaits(gaits, dtype, device=None):
                       if isinstance(v, torch.Tensor))
     out = {}
     for k in keys:
-        leaves = [torch.as_tensor(np.asarray(g[k], np.float64)
-                                  if not isinstance(g[k], torch.Tensor)
-                                  else g[k]).to(device=device, dtype=dtype)
+        leaves = [g[k].to(device=device, dtype=dtype)
+                  if isinstance(g[k], torch.Tensor)
+                  else upload(np.asarray(g[k], np.float64), dtype, device)
                   for g in gaits]
         shapes = {tuple(leaf.shape) for leaf in leaves}
         if len(shapes) != 1:
@@ -108,8 +109,8 @@ def stack_carries(carries, targets):
             raise ValueError("lane carries disagree on state set")
     out = {k: torch.stack([c[k] for c in carries]) for k in keys}
     dev = out[keys[0]].device
-    out[LEFT] = torch.as_tensor(np.maximum(np.asarray(targets, np.int64), 0)
-                                .astype(np.int32), device=dev)
+    out[LEFT] = upload(np.maximum(np.asarray(targets, np.int64), 0)
+                       .astype(np.int32), torch.int32, dev)
     return out
 
 
@@ -233,8 +234,9 @@ def lane_carry_host(carry, lane):
     journal snapshot and migration payload, the same keys, dtypes and
     shapes as the JAX package's).  The ``left`` budget is dropped:
     placement decides a resumed lane's budget."""
-    return {k: v[lane].detach().cpu().numpy().copy()
-            for k, v in carry.items() if k != LEFT}
+    with sanctioned_transfer("fleet-read"):
+        return {k: v[lane].detach().cpu().numpy().copy()
+                for k, v in carry.items() if k != LEFT}
 
 
 #: lane-track tid stride: lane tids are ``batch_id * LANE_TID_STRIDE +
@@ -287,8 +289,9 @@ def build_fleet_advance(s, ob=None, kind=None):
 
     def advance(carry, cfl_eff, gaits):
         dev = carry["vel"].device
-        cfl = torch.as_tensor(np.asarray(cfl_eff, np.float64),
-                              device=dev).to(carry["vel"].dtype)
+        # the dispatch's CFL ramp, as the solo megaloop's
+        cfl = upload(np.asarray(cfl_eff, np.float64), carry["vel"].dtype,
+                     dev, tag="scan-carry-upload")
         rows = []
         for k in range(cfl.shape[1]):
             carry, r = body(gaits, carry, cfl[:, k].contiguous())

@@ -119,7 +119,7 @@ def _why_report(server: FleetServer, job_id: Optional[str]) -> dict:
 
 def cmd_recover(argv: List[str], t0: float) -> int:
     """``fleet recover``: journal replay -> drain -> probe report."""
-    from cup3d_tpu_torch.obs import metrics as M
+    from cup3d_tpu_torch.analysis.runtime import RecompileCounter
 
     ap = argparse.ArgumentParser(
         prog="python -m cup3d_tpu_torch fleet recover",
@@ -138,11 +138,11 @@ def cmd_recover(argv: List[str], t0: float) -> int:
                          "run on the CPU)")
     args = ap.parse_args(argv)
 
-    builds0 = M.counter("fleet.executable_builds").value
-    server = FleetServer(max_lanes=args.lanes, max_buckets=args.buckets,
-                         workdir=args.workdir, device=args.device)
-    recovery = server.recover()
-    summary = server.drain()
+    with RecompileCounter(("fleet.executable_builds",)) as rc:
+        server = FleetServer(max_lanes=args.lanes, max_buckets=args.buckets,
+                             workdir=args.workdir, device=args.device)
+        recovery = server.recover()
+        summary = server.drain()
     dispatched = [t for t in (
         j.event_time("dispatched") for j in server._jobs.values())
         if t is not None]
@@ -153,7 +153,7 @@ def cmd_recover(argv: List[str], t0: float) -> int:
     # eager PyTorch compiles nothing: the count is the lane-batched
     # advances this process bound, with the compiled store or without (a
     # bind builds nothing the store could hold)
-    builds = int(M.counter("fleet.executable_builds").value - builds0)
+    builds = rc.total_compiles
     report = {
         "recovery": recovery,
         "recover_restart_s": (min(dispatched) - t0 if dispatched

@@ -91,6 +91,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer
 from cup3d_tpu_torch.config import SimulationConfig
 from cup3d_tpu_torch.fleet import batch as FB
 from cup3d_tpu_torch.fleet import isolate as ISO
@@ -399,9 +400,10 @@ def _static_signature(drv, kind: str) -> tuple:
             float(ob.length),
             bool(ob.bFixFrameOfRef),
             tuple(int(v) for v in ob._window_shape),
-            tuple(ob.forced_mask_dev().cpu().numpy().astype(float)
+            # the host attributes the device masks are uploaded from
+            tuple(np.asarray(ob.bForcedInSimFrame, bool).astype(float)
                   .tolist()),
-            tuple(ob.block_mask_dev().cpu().numpy().astype(float)
+            tuple(np.asarray(ob.bBlockRotation, bool).astype(float)
                   .tolist()),
             float(drv.cfg.DLM),
             float(drv.cfg.lambda_penalization),
@@ -476,6 +478,8 @@ class FleetBatch:
             job.status = RUNNING
             job.mark("running")
             job.rows = np.zeros((job.nsteps, self.row_w), np.float64)
+            # torch-lint: allow(JX013, the journal append is a host file
+            # write: no device work)
             server._journal(
                 "place", job_id=job.job_id, batch_uid=self.uid,
                 lane=lane, cap=self.B, K=self.K, kind=kind)
@@ -610,7 +614,9 @@ class FleetBatch:
     def _consume(self, entry: dict) -> None:
         vals = entry.get("vals")
         if vals is None:
-            vals = entry["pack"].detach().cpu().numpy().astype(np.float64)
+            with sanctioned_transfer("fleet-read"):
+                vals = (entry["pack"].detach().cpu().numpy()
+                        .astype(np.float64))
         rows = np.asarray(vals, np.float64).reshape(
             self.B, self.K, self.row_w)
         step0, valid = entry["step0"], entry["valid"]
@@ -807,8 +813,9 @@ class FleetBatch:
 
     def lane_state(self, lane: int) -> Dict[str, np.ndarray]:
         """Host copies of one lane's carry leaves (tests, summaries)."""
-        return {k: v[lane].detach().cpu().numpy()
-                for k, v in self.carry.items()}
+        with sanctioned_transfer("fleet-read"):
+            return {k: v[lane].detach().cpu().numpy()
+                    for k, v in self.carry.items()}
 
     def running_lanes(self) -> int:
         return sum(
@@ -916,6 +923,9 @@ class FleetServer:
         self._aot_service = None
         #: amr_tgv job id -> its initial forest's tables key and config
         self._tables_keys: Dict[str, tuple] = {}
+        #: tables build key -> whether it was ready, read once a
+        #: scheduling pass (``_tables_wait``)
+        self._pass_ready: Dict[tuple, bool] = {}
         # latency provenance: per-job phase decomposition,
         # fleet.latency_phase_s histograms, and SLO burn
         # attribution.  CUP3D_FLEET_PROVENANCE=0 reverts _job_terminal
@@ -970,7 +980,11 @@ class FleetServer:
         dispatch thread, put into the store) instead of building the
         tables on the dispatch thread at its driver's init; other jobs
         dispatch meanwhile.  True while it waits; the pass that finds the
-        build finished closes the wait (``compile_ready``)."""
+        build finished closes the wait (``compile_ready``).  A pass reads
+        a build's readiness once, so the jobs waiting on one build leave
+        their wait in the same pass and batch together: a build that ends
+        between two of them would split them into batches that depend on
+        its timing (a lane's rows depend on its batch's other lanes)."""
         if job.job_id in self._prepared or job.spec.get("kind") != "amr_tgv":
             return False
         if os.environ.get("CUP3D_BUCKET", "1") == "0":
@@ -988,12 +1002,16 @@ class FleetServer:
                 amr_mod.initial_tables_sig(cfg), cfg)
         sig, cfg = tkey
         bkey = ("tables",) + tuple(sig)
-        status = svc.status(bkey)
-        if st.contains(sig) or status in ("done", "failed"):
+        ready = self._pass_ready.get(bkey)
+        if ready is None:
+            ready = self._pass_ready[bkey] = (
+                st.contains(sig) or svc.status(bkey) in ("done", "failed"))
+        if ready:
             # built (a failed build, or a refused write: the init builds)
             if job.events and job.events[-1][0] == "compile_wait":
                 job.mark("compile_ready")
             return False
+        status = svc.status(bkey)
         if status is None:
             svc.submit(bkey, lambda cfg=cfg: amr_mod.host_tables_build_child(
                 cfg, svc.host, timeout=BUILD_TIMEOUT_S),
@@ -1400,6 +1418,7 @@ class FleetServer:
         queued = [j for j in self._jobs.values() if j.status == QUEUED]
         if not queued:
             return 0
+        self._pass_ready = {}
         for b in self.batches:
             if b.active():
                 b.settle()

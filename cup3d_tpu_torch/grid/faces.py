@@ -421,7 +421,9 @@ def _assemble_multi(t: FaceTables, fields: torch.Tensor,
             own = _slab(ext[:nb], a, bs - 1 if hi else 0, 1)
             own = own.expand(slab.shape)
             if sign_comps is not None:
-                sgn = t.bsign[f, list(sign_comps)].to(own.dtype)
+                # integer indices: views, no index tensor to upload
+                sgn = torch.stack([t.bsign[f, c] for c in sign_comps]
+                                  ).to(own.dtype)
                 own = own * sgn.reshape(1, C, 1, 1, 1)
             bm = t.bmask[f][:, None, None, None, None]
             slab = torch.where(bm, own.to(slab.dtype), slab)

@@ -164,6 +164,8 @@ def list_checkpoints(directory: str):
         if n.startswith("ckpt_") and n.endswith(".pkl"):
             try:
                 step = int(n[len("ckpt_"):-len(".pkl")])
+            # torch-lint: allow(JX009, a file named like a checkpoint without a
+            # step number is not one)
             except ValueError:
                 continue
             out.append((step, os.path.join(directory, n)))
@@ -175,6 +177,8 @@ def latest_valid_checkpoint(directory: str) -> Optional[str]:
     for path in reversed(list_checkpoints(directory)):
         try:
             read_payload(path)
+        # torch-lint: allow(JX009, an invalid checkpoint is skipped for the
+        # next newest: the search's purpose)
         except (ValueError, OSError):
             continue
         return path

@@ -25,18 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer, upload
 from cup3d_tpu_torch.grid.uniform import UniformGrid
-
-
-def upload(a, dtype: torch.dtype, device) -> torch.Tensor:
-    """Host numpy -> device tensor in ``dtype`` without a stream sync: the
-    values are rounded on the host and staged in pinned memory, so the
-    copy is queued behind the device's work instead of waiting for it."""
-    dev = torch.device(device)
-    t = torch.as_tensor(np.asarray(a), dtype=dtype)
-    if dev.type != "cuda":
-        return t.to(dev)
-    return t.contiguous().pin_memory().to(dev, non_blocking=True)
 
 
 # -- quaternion helpers (host, float64) --------------------------------------
@@ -332,7 +322,8 @@ class Obstacle:
         only when the attribute is reassigned)."""
         if getattr(self, "_forced_src_cache", None) is not self.bForcedInSimFrame:
             self._forced_dev_cache = upload(self.bForcedInSimFrame,
-                                            torch.bool, self.sim.device)
+                                            torch.bool, self.sim.device,
+                                            tag="scalar-upload")
             self._forced_src_cache = self.bForcedInSimFrame
         return self._forced_dev_cache
 
@@ -340,7 +331,8 @@ class Obstacle:
         """Cached device mirror of ``bBlockRotation``."""
         if getattr(self, "_block_src_cache", None) is not self.bBlockRotation:
             self._block_dev_cache = upload(self.bBlockRotation, torch.bool,
-                                           self.sim.device)
+                                           self.sim.device,
+                                           tag="scalar-upload")
             self._block_src_cache = self.bBlockRotation
         return self._block_dev_cache
 

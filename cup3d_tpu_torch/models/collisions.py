@@ -23,6 +23,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer
+
 _TOL_CELLS = 0.001  # minimum overlap count (reference `tolerance`)
 
 
@@ -90,8 +92,12 @@ def elastic_collision(m1, m2, J1, J2, v1, v2, o1, o2, c1, c2, n, c, vc1,
 
 
 def _host(v) -> np.ndarray:
-    return np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                      else v, np.float64)
+    """A device value read on the host: the collision pass's one read a
+    pair in contact."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v, np.float64)
+    with sanctioned_transfer("body-read"):
+        return np.asarray(v.detach().cpu().numpy(), np.float64)
 
 
 def prevent_colliding_obstacles(obstacles: List, ubody_fields: List,
@@ -119,7 +125,7 @@ def prevent_colliding_obstacles(obstacles: List, ubody_fields: List,
         for j in range(i + 1, n_obs):
             oi, oj = obstacles[i], obstacles[j]
             cnt = (precheck_counts[(i, j)] if precheck_counts is not None
-                   else float(overlap_count(oi.chi, oj.chi)))
+                   else float(_host(overlap_count(oi.chi, oj.chi))))
             if cnt < _TOL_CELLS:
                 continue
             s = pair_overlap_summary(oi.chi, oj.chi, grad(i), grad(j),

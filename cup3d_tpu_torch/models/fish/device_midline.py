@@ -33,7 +33,9 @@ import copy
 import numpy as np
 import torch
 
-from cup3d_tpu_torch.models.base import quat_to_rot_dev, solve3, upload
+from cup3d_tpu_torch.analysis import runtime
+from cup3d_tpu_torch.analysis.runtime import upload
+from cup3d_tpu_torch.models.base import quat_to_rot_dev, solve3
 from cup3d_tpu_torch.models.fish.interpolation import natural_cubic_spline
 from cup3d_tpu_torch.ops import cuda_lib
 from cup3d_tpu_torch.ops.fused_bicgstab import _check_small, _use_kernel
@@ -179,6 +181,8 @@ def _frenet_scan_dev(rs, curv, dcurv, kernels=None):
                          dcurv.data_ptr(), out.data_ptr(), n, lanes,
                          cuda_lib.stream(rs.device))
     launches["frenet"] += 1
+    if runtime.NAN_CHECKS[0]:
+        runtime.check_kernel_outputs("cup3d_frenet", out)
     return dict(zip(("r", "v", "nor", "vnor", "bin", "vbin"),
                     out.unbind(-2)))
 

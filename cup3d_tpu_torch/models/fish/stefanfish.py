@@ -22,7 +22,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from cup3d_tpu_torch.models.base import Obstacle, quat_to_rot, upload
+from cup3d_tpu_torch.analysis.runtime import upload
+from cup3d_tpu_torch.models.base import Obstacle, quat_to_rot
 from cup3d_tpu_torch.models.fish.curvature import CurvatureDefinedFishData
 from cup3d_tpu_torch.models.fish.rasterize import (rasterize_midline,
                                                    rasterize_points)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer, upload
 from cup3d_tpu_torch.models.base import (
     log_forces,
     momentum_integrals,
@@ -28,7 +29,6 @@ from cup3d_tpu_torch.models.base import (
     unpack_forces,
     unpack_moments,
     update_penalization_forces,
-    upload,
 )
 from cup3d_tpu_torch.ops.penalization import (
     penalize,
@@ -123,7 +123,8 @@ class UpdateObstacles(Operator):
             s.pending_parts.append(("rigid", out))
             return
         # host path: one read of every obstacle's moments
-        M = M.detach().cpu().numpy().astype(np.float64)
+        with sanctioned_transfer("body-read"):
+            M = M.detach().cpu().numpy().astype(np.float64)
         dt_host = _host_dt(s, dt)
         for ob, row in zip(s.obstacles, M):
             ob.compute_velocities(unpack_moments(row))
@@ -203,7 +204,8 @@ class ComputeForces(Operator):
                      s.dtype, s.device)
         F = torch.stack([probe(ob, kin[i, 0], kin[i, 1], kin[i, 2])
                          for i, ob in enumerate(s.obstacles)])
-        F = F.detach().cpu().numpy().astype(np.float64)
+        with sanctioned_transfer("body-read"):
+            F = F.detach().cpu().numpy().astype(np.float64)
         for i, (ob, row) in enumerate(zip(s.obstacles, F)):
             store_force_qoi(ob, unpack_forces(row))
             log_forces(s.logger, i, s.time, ob)

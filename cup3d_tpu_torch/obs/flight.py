@@ -33,12 +33,12 @@ from __future__ import annotations
 import json
 import math
 import os
-import time
 import weakref
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
 from cup3d_tpu_torch.obs import metrics as _metrics
+from cup3d_tpu_torch.obs import trace as obs_trace
 
 SCHEMA_VERSION = 1
 
@@ -186,7 +186,7 @@ class FlightRecorder:
         payload = {
             "schema": SCHEMA_VERSION,
             "reason": reason,
-            "wall_time": time.time(),
+            "wall_time": obs_trace.wall(),
             "triggered_at_step": _jsonable(at_step),
             "last_known_good_step": self.last_known_good_step,
             "config": _jsonable(self.run_config),

@@ -344,9 +344,10 @@ class MetricsRegistry:
             try:
                 for k, v in fn().items():
                     out[k] = out.get(k, 0) + v if k in out else v
-            # a dying collector must not kill telemetry, and counting
-            # INTO the registry being snapshotted here would recurse;
             # dead owners are dropped by the weakref sweep above
+            # torch-lint: allow(JX009, a dying collector must not kill
+            # telemetry, and counting INTO the registry being snapshotted
+            # here would recurse)
             except Exception:
                 continue
         return out

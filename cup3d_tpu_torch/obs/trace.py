@@ -776,12 +776,15 @@ class SpanTimer:
         ann = self.sink.annotation(name)
         if ann is not None:
             ann.__enter__()
+        # torch-lint: allow(JX006, a host span by design: device time comes
+        # from the profile windows, obs/profile.py)
         t0 = time.perf_counter()
         self._stack.append(0.0)
         self._active[name] += 1
         try:
             yield
         finally:
+            # torch-lint: allow(JX006, the host span's end, see above)
             elapsed = time.perf_counter() - t0
             if ann is not None:
                 ann.__exit__(None, None, None)
@@ -864,10 +867,13 @@ class StepObserver:
         stall0 = (self.stream.stats.get("stall_s", 0.0)
                   if self.stream is not None else 0.0)
         late: dict = {}
+        # torch-lint: allow(JX006, the step span's start: host wall)
         t0 = time.perf_counter()
         try:
             yield late
         finally:
+            # torch-lint: allow(JX006, the step's host wall by design: its
+            # device time comes from the profile windows)
             wall_s = time.perf_counter() - t0
             self._steps.inc()
             if tracing:

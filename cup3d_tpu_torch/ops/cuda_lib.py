@@ -26,12 +26,12 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
 
 from cup3d_tpu_torch.obs import metrics as M
+from cup3d_tpu_torch.obs.trace import now as obs_now
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -233,14 +233,14 @@ def build() -> tuple[list, float, str, dict]:
             origins[src.name] = "store"
             continue
         todo.append((src, out))
-    t0 = time.perf_counter()
+    t0 = obs_now()
     log = ""
     if todo:
         log = _nvcc_build(todo)
         for src, _ in todo:
             origins[src.name] = "nvcc"
             M.counter("kernels.nvcc_builds").inc()
-    secs = time.perf_counter() - t0 if todo else 0.0
+    secs = obs_now() - t0 if todo else 0.0
     if store is not None:
         for src, out in zip(SOURCES, outs):
             if (origins[src.name] != "store"

@@ -46,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from cup3d_tpu_torch.analysis import runtime
 from cup3d_tpu_torch.ops import fused_bicgstab as fb
 from cup3d_tpu_torch.ops import cuda_lib, krylov, tilesolve
 
@@ -70,8 +71,19 @@ def reset_launches() -> None:
     iterations["executed"] = 0
 
 
-def _count(stage: str, dtype) -> None:
+#: the kernel table's names of the stages
+KERNEL_IDS = {"amr_update": "B8", "amr_getz_two": "B9",
+              "amr_getz_tile": "B10", "amr_lap": "B11", "amr_axpy": "B12",
+              "amr_finish": "B13"}
+
+
+def _count(stage: str, dtype, *outs) -> None:
+    """One launch of ``stage``'s kernel; under
+    ``analysis.runtime.debug_nans`` its outputs ``outs`` are checked."""
     (launches_bf16 if dtype == torch.bfloat16 else launches)[stage] += 1
+    if runtime.NAN_CHECKS[0]:
+        runtime.check_kernel_outputs(
+            f"{KERNEL_IDS[stage]} ({stage})", *outs)
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +199,7 @@ def update(r, p, v, rhat, vol, scal, kernels=None):
                    p.data_ptr(), v.data_ptr(), rhat.data_ptr(),
                    scal.data_ptr(), vol.data_ptr(), ts.data_ptr(), n, bpl,
                    cuda_lib.stream(r.device))
-    _count("amr_update", r.dtype)
+    _count("amr_update", r.dtype, p, rhat, ts)
     return p, rhat, ts
 
 
@@ -206,7 +218,7 @@ def getz_two(w, azf, zc, h2, kernels=None):
                    azf.data_ptr(), S1.data_ptr(), lam.data_ptr(),
                    zc.data_ptr(), h2.data_ptr(), y.data_ptr(), n,
                    cuda_lib.stream(w.device))
-    _count("amr_getz_two", w.dtype)
+    _count("amr_getz_two", w.dtype, y)
     return y
 
 
@@ -222,7 +234,7 @@ def getz_tile(w, h2, kernels=None):
     fb._lib().call(fb._entry("cup3d_getz_tile", w.dtype), w.data_ptr(),
                    S1.data_ptr(), lam.data_ptr(), h2.data_ptr(), 0.0,
                    y.data_ptr(), n, cuda_lib.stream(w.device))
-    _count("amr_getz_tile", w.dtype)
+    _count("amr_getz_tile", w.dtype, y)
     return y
 
 
@@ -243,7 +255,7 @@ def lap(lab, corr, a, inv_h2, kernels=None):
                    corr.data_ptr(), a.data_ptr(), inv_h2.data_ptr(),
                    aw.data_ptr(), pa.data_ptr(), ps.data_ptr(), n,
                    cuda_lib.stream(a.device))
-    _count("amr_lap", a.dtype)
+    _count("amr_lap", a.dtype, aw, pa, ps)
     return aw, pa, ps
 
 
@@ -262,7 +274,7 @@ def axpy(r, v, vol, scal, kernels=None):
                    v.data_ptr(), scal.data_ptr(), vol.data_ptr(),
                    s.data_ptr(), ts.data_ptr(), n, bpl,
                    cuda_lib.stream(r.device))
-    _count("amr_axpy", r.dtype)
+    _count("amr_axpy", r.dtype, s, ts)
     return s, ts
 
 
@@ -286,7 +298,7 @@ def finish(x, y, z, s, t, rhat, scal, kernels=None):
                    rhat.data_ptr(), scal.data_ptr(), s.data_ptr(),
                    prr.data_ptr(), prh.data_ptr(), n, bpl,
                    cuda_lib.stream(x.device))
-    _count("amr_finish", s.dtype)
+    _count("amr_finish", s.dtype, x, s, prr, prh)
     return x, s, prr, prh
 
 
@@ -455,7 +467,7 @@ def fused_amr_bicgstab(geom, b: torch.Tensor, *, tab, ftab=None,
     rnorm0 = torch.sqrt(rr0)
     ref = rnorm0 if rnorm_ref is None else rnorm_ref
     target = torch.clamp(tol_rel * ref, min=tol_abs)
-    eps = torch.tensor(1e-30, dtype=_F32, device=dev)
+    eps = torch.full((), 1e-30, dtype=_F32, device=dev)
     one = torch.ones(() if lanes is None else (nl,), dtype=_F32, device=dev)
     r = r0.to(store, memory_format=torch.contiguous_format, copy=True)
 

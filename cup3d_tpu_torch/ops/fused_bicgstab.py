@@ -48,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from cup3d_tpu_torch.analysis import runtime
 from cup3d_tpu_torch.grid.uniform import BC
 from cup3d_tpu_torch.ops import cuda_lib, krylov, tilesolve
 from cup3d_tpu_torch.ops.stencils import laplacian_faces
@@ -76,9 +77,18 @@ def reset_launches() -> None:
     iterations["executed"] = 0
 
 
-def _count(stage: str, dtype) -> None:
-    """One launch of ``stage``'s kernel for storage ``dtype``."""
+#: the kernel table's names of the stages
+KERNEL_IDS = {"update": "B1", "getz_two": "B2", "getz_tile": "B3",
+              "lap": "B4", "axpy": "B5", "finish": "B6"}
+
+
+def _count(stage: str, dtype, *outs) -> None:
+    """One launch of ``stage``'s kernel for storage ``dtype``; under
+    ``analysis.runtime.debug_nans`` its outputs ``outs`` are checked."""
     (launches_bf16 if dtype == torch.bfloat16 else launches)[stage] += 1
+    if runtime.NAN_CHECKS[0]:
+        runtime.check_kernel_outputs(
+            f"{KERNEL_IDS.get(stage, stage)} (cup3d_{stage})", *outs)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +273,7 @@ def update(r, p, v, rhat, scal, kernels=None):
     _lib().call(_entry("cup3d_update", r.dtype), r.data_ptr(), p.data_ptr(),
                 v.data_ptr(), rhat.data_ptr(), scal.data_ptr(), None,
                 ts.data_ptr(), T, T, cuda_lib.stream(r.device))
-    _count("update", r.dtype)
+    _count("update", r.dtype, p, rhat, ts)
     return p, rhat, ts
 
 
@@ -279,7 +289,7 @@ def getz_two(w, aux, h2, kernels=None):
     _lib().call(_entry("cup3d_getz_two", w.dtype), w.data_ptr(),
                 S1.data_ptr(), lam.data_ptr(), aux.data_ptr(), y.data_ptr(),
                 float(h2), T, cuda_lib.stream(w.device))
-    _count("getz_two", w.dtype)
+    _count("getz_two", w.dtype, y)
     return y
 
 
@@ -293,7 +303,7 @@ def getz_tile(w, h2, kernels=None):
     _lib().call(_entry("cup3d_getz_tile", w.dtype), w.data_ptr(),
                 S1.data_ptr(), lam.data_ptr(), None, float(h2), y.data_ptr(),
                 T, cuda_lib.stream(w.device))
-    _count("getz_tile", w.dtype)
+    _count("getz_tile", w.dtype, y)
     return y
 
 
@@ -345,8 +355,10 @@ def lap(w, a, inv_h2, geom: LapGeom, kernels=None):
                 *geom.nb, geom.periodic, cuda_lib.stream(w.device))
     if a is None:
         residual_launches["lap"] += 1
+        if runtime.NAN_CHECKS[0]:
+            runtime.check_kernel_outputs("B4 (cup3d_lap)", aw)
     else:
-        _count("lap", w.dtype)
+        _count("lap", w.dtype, aw, pa, ps)
     return aw, pa, ps
 
 
@@ -361,7 +373,7 @@ def axpy(r, v, scal, kernels=None):
     _lib().call(_entry("cup3d_axpy", r.dtype), r.data_ptr(), v.data_ptr(),
                 scal.data_ptr(), None, s.data_ptr(), ts.data_ptr(), T, T,
                 cuda_lib.stream(r.device))
-    _count("axpy", r.dtype)
+    _count("axpy", r.dtype, s, ts)
     return s, ts
 
 
@@ -382,7 +394,7 @@ def finish(x, y, z, s, t, rhat, scal, kernels=None):
                 z.data_ptr(), s.data_ptr(), t.data_ptr(), rhat.data_ptr(),
                 scal.data_ptr(), s.data_ptr(), prr.data_ptr(), prh.data_ptr(),
                 T, T, cuda_lib.stream(x.device))
-    _count("finish", s.dtype)
+    _count("finish", s.dtype, x, s, prr, prh)
     return x, s, prr, prh
 
 
@@ -445,7 +457,7 @@ def fused_bicgstab_tiles(grid, b, *, tol_abs=1e-6, tol_rel=1e-4,
     rnorm0 = torch.sqrt(rr0)
     ref = rnorm0 if rnorm_ref is None else rnorm_ref
     target = torch.clamp(tol_rel * ref, min=tol_abs)
-    eps = torch.tensor(1e-30, dtype=_F32, device=dev)
+    eps = torch.full((), 1e-30, dtype=_F32, device=dev)
     one = torch.ones((), dtype=_F32, device=dev)
     r = r0.to(store, copy=True)
 

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from cup3d_tpu_torch.analysis import runtime
 from cup3d_tpu_torch.ops import fused_bicgstab as fb
 from cup3d_tpu_torch.ops import cuda_lib, precision
 
@@ -98,6 +99,8 @@ def _launch(b: torch.Tensor, iters: int, shift, n: int, cs: int,
                    z.data_ptr(), n, cs, ts, int(iters),
                    cuda_lib.stream(b.device))
     launches["getz_cg"] += 1
+    if runtime.NAN_CHECKS[0]:
+        runtime.check_kernel_outputs("B7 (cup3d_getz_cg)", z)
     return z
 
 

@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer, upload
 from cup3d_tpu_torch.grid.uniform import BC, UniformGrid
 from cup3d_tpu_torch.ops import precision
 from cup3d_tpu_torch.ops.stencils import laplacian_faces, laplacian_lanes_chunk
@@ -63,7 +64,7 @@ class DeviceConsts:
     def on(self, device) -> dict:
         key = str(device)
         if key not in self._dev:
-            self._dev[key] = {k: torch.as_tensor(v, device=device)
+            self._dev[key] = {k: upload(v, None, device, tag="table-upload")
                               for k, v in self._np.items()}
         return self._dev[key]
 
@@ -529,7 +530,12 @@ def iterate(state: dict, step: Callable, maxiter: int, target,
         act = (s["k"] < maxiter) & (s["rnorm"] > target)
         return act if live is None else act & live
 
-    while bool(active_of(state).any()):
+    while True:
+        # the loop's one designed host read, once a chunk
+        with sanctioned_transfer("krylov-chunk-read"):
+            go = bool(active_of(state).any())
+        if not go:
+            break
         for _ in range(ITER_CHUNK):
             state = step(state, active_of(state))
             executed += 1
@@ -564,7 +570,7 @@ def bicgstab(
     if x0 is None:
         x0 = torch.zeros_like(b)
     acc = precision.accum_dtype(b.dtype)
-    eps = torch.tensor(1e-30, dtype=acc, device=b.device)
+    eps = torch.full((), 1e-30, dtype=acc, device=b.device)
     if lanes:
         L = b.shape[0]
         shp = (L,)

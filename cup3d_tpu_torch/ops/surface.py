@@ -367,7 +367,7 @@ def force_integrals_probe_uniform(grid, ob, vel, p, chi, sdf, udef, nu, cm,
     idx0 = np.clip(np.floor((pos - half) / grid.h).astype(np.int64), 0, n - w)
     if max_points is None:
         max_points = obstacle_probe_budget(ob, grid.h)
-    from cup3d_tpu_torch.models.base import upload
+    from cup3d_tpu_torch.analysis.runtime import upload
 
     npd = np.float32 if vel.dtype == torch.float32 else np.float64
     return _uniform_window_probe(
@@ -447,7 +447,7 @@ def force_integrals_probe_blocks(grid, vel, p, ob_chi, ob_sdf, ob_udef, nu,
                                  per_point: bool = False, max_points=None):
     """The forest's entry: the window's slots from the host mirror of the
     position (no device read), the probe on the device."""
-    from cup3d_tpu_torch.models.base import upload
+    from cup3d_tpu_torch.analysis.runtime import upload
 
     slots, b0, h = block_window_slots(grid, np.asarray(position), length)
     if max_points is None:

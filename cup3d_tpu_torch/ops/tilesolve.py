@@ -17,6 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import upload
 from cup3d_tpu_torch.ops import precision
 
 
@@ -38,11 +39,12 @@ def _basis_np(bs: int, np_dtype: str):
 @lru_cache(maxsize=None)
 def basis(bs: int, dtype: torch.dtype, device: str):
     """(S3 (bs^3, bs^3), lam3 (bs^3,), S1 (bs, bs)) as tensors of
-    ``dtype`` on ``device``, uploaded once per device."""
+    ``dtype`` on ``device``, uploaded once per device (at the first
+    preconditioned iteration: through pinned memory, no wait)."""
     S3, lam3, _ = _basis_np(bs, str(dtype).replace("torch.", ""))
     i = np.arange(1, bs + 1)
     S1 = np.sqrt(2.0 / (bs + 1)) * np.sin(np.pi * np.outer(i, i) / (bs + 1))
-    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+    return tuple(upload(a, dtype, device, tag="table-upload")
                  for a in (S3, lam3, S1))
 
 
@@ -53,6 +55,14 @@ def dense_operator(bs: int, dtype: torch.dtype, device: str) -> torch.Tensor:
     (the library yardstick of chip_smoke.py and tools/kernel_ab.py)."""
     W = _basis_np(bs, str(dtype).replace("torch.", ""))[2]
     return torch.as_tensor(W, dtype=dtype, device=device)
+
+
+def _on_device(shift, dtype, device) -> torch.Tensor:
+    """A shift on the device: a host scalar written by a fill kernel (an
+    upload from pageable memory would wait for the device)."""
+    if isinstance(shift, (int, float, np.floating)):
+        return torch.full((), float(shift), dtype=dtype, device=device)
+    return torch.as_tensor(shift, dtype=dtype, device=device)
 
 
 def tile_solve_blocks(b: torch.Tensor, shift=None) -> torch.Tensor:
@@ -72,9 +82,8 @@ def tile_solve_blocks(b: torch.Tensor, shift=None) -> torch.Tensor:
     if shift is None:
         t = t / lam3[None, :]
     else:
-        sh = torch.broadcast_to(
-            torch.as_tensor(shift, dtype=acc, device=b.device),
-            lead + (1, 1, 1)).reshape(n, 1)
+        sh = torch.broadcast_to(_on_device(shift, acc, b.device),
+                                lead + (1, 1, 1)).reshape(n, 1)
         t = t / (lam3[None, :] + sh)
     z = t @ S3
     return z.reshape(b.shape).to(b.dtype)
@@ -91,8 +100,7 @@ def tile_solve_lanes(bt: torch.Tensor, shift=None) -> torch.Tensor:
     if shift is None:
         sh = torch.zeros((1, T), dtype=acc, device=bt.device)
     else:
-        sh = torch.broadcast_to(torch.as_tensor(shift, dtype=acc,
-                                                device=bt.device), (1, T))
+        sh = torch.broadcast_to(_on_device(shift, acc, bt.device), (1, T))
     if bt.is_cuda:
         precision.check_fp32_matmul()
     t = S3 @ b2

@@ -41,6 +41,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis import runtime
 from cup3d_tpu_torch.grid.uniform import BC, UniformGrid
 from cup3d_tpu_torch.ops import cuda_lib
 
@@ -244,6 +245,8 @@ def ring_steps_kernel(src: torch.Tensor, out: torch.Tensor = None,
     if err:
         raise RuntimeError(f"cup3d_ring_steps: CUDA error {err} at launch")
     launches["ring_shift"] += 1
+    if runtime.NAN_CHECKS[0]:
+        runtime.check_kernel_outputs("B14 (cup3d_ring_steps)", out)
     return out
 
 

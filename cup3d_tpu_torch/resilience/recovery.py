@@ -199,9 +199,18 @@ class RecoveryEngine:
         """Rolling in-memory snapshot: the restart payload with every
         device field cloned into a fresh buffer (a device copy, no host
         read) and the obstacle list frozen to bytes."""
+        from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer
         from cup3d_tpu_torch.io.checkpoint import build_payload
 
-        payload = build_payload(self.driver)
+        drv = self.driver
+        if isinstance(getattr(getattr(drv, "sim", drv), "dt", 0.0),
+                      torch.Tensor):
+            # a device dt: the payload's float(dt) reads it, once a
+            # snapshot cadence
+            with sanctioned_transfer("resilience-snapshot"):
+                payload = build_payload(drv)
+        else:
+            payload = build_payload(drv)
         payload["obstacles"] = pickle.dumps(
             payload["obstacles"], protocol=pickle.HIGHEST_PROTOCOL)
         payload["fields"] = {

@@ -88,12 +88,13 @@ the CPU.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import (device_scalar,
+                                              sanctioned_transfer, upload)
 from cup3d_tpu_torch.config import SimulationConfig, parse_factory
 from cup3d_tpu_torch.grid import adapt as ad
 from cup3d_tpu_torch.grid import bucket as bk
@@ -111,7 +112,7 @@ from cup3d_tpu_torch.models.base import (FORCE_PACK, RIGID_PACK,
                                          rigid_update_bodies,
                                          store_force_qoi, unpack_forces,
                                          unpack_moments,
-                                         update_penalization_forces, upload)
+                                         update_penalization_forces)
 from cup3d_tpu_torch.obs.flight import FlightRecorder
 from cup3d_tpu_torch.obs import costs as obs_costs
 from cup3d_tpu_torch.obs import export as obs_export
@@ -129,6 +130,7 @@ from cup3d_tpu_torch.sim.data import (SimulationData,
                                       obstacle_state_to_numpy)
 from cup3d_tpu_torch.sim.simulation import resolve_device
 from cup3d_tpu_torch.stream.qoi import PackPolicy, QoIStream
+from cup3d_tpu_torch.obs.trace import now as obs_now
 
 ADAPT_EVERY = 20  # reference cadence (main.cpp:15314)
 FIELDS = ("vel", "p")
@@ -469,7 +471,7 @@ class AMRSimulation:
     def _rebuild(self) -> None:
         """Tables, coarse graph and solver binding of the current grid."""
         g, cfg, dev = self.grid, self.cfg, self.device
-        t0 = time.perf_counter()
+        t0 = obs_now()
         if self.mesh is not None:
             from cup3d_tpu_torch.parallel.forest import cached_forest
 
@@ -480,7 +482,7 @@ class AMRSimulation:
             self._tab3 = fo.face_tables(3)
             self._ftab = fo.flux_tables
             self._graph = None
-            self.table_build_s.append(time.perf_counter() - t0)
+            self.table_build_s.append(obs_now() - t0)
             self._vol = fo.vol.to(self.dtype)
             self._pmask = fo.pmask
             # the bodies' spacing and cell centres, padded with zero rows
@@ -502,7 +504,7 @@ class AMRSimulation:
         self._ftab = build_flux_tables(g, dev)
         self._graph = (krylov.block_graph_tables(g, dev) if self._coarse()
                        else None)
-        self.table_build_s.append(time.perf_counter() - t0)
+        self.table_build_s.append(obs_now() - t0)
         # cell volume h^3 in f64 rounded to the field dtype (the JAX
         # bucketed driver's values)
         self._vol = torch.as_tensor((g.h ** 3).reshape(g.nb, 1, 1, 1),
@@ -536,9 +538,9 @@ class AMRSimulation:
         if memo is None:
             memo = self._stored_tables(sig)
             if memo is None:
-                t0 = time.perf_counter()
+                t0 = obs_now()
                 memo = self._bucket_tables()
-                self.table_build_s.append(time.perf_counter() - t0)
+                self.table_build_s.append(obs_now() - t0)
                 obs_metrics.counter("bucket.table_builds").inc()
                 self._put_tables(sig, memo)
             self._table_memo[sig] = memo
@@ -813,8 +815,8 @@ class AMRSimulation:
         """Device copy of the frame velocity, uploaded when ``uinf`` is
         reassigned (identity check) and reused otherwise."""
         if self._uinf_src is not self.uinf:
-            self._uinf_cache = torch.as_tensor(self.uinf, dtype=self.dtype,
-                                               device=self.device)
+            self._uinf_cache = upload(self.uinf, self.dtype, self.device,
+                                      tag="uinf-upload")
             self._uinf_src = self.uinf
         return self._uinf_cache
 
@@ -863,7 +865,8 @@ class AMRSimulation:
             if cfg.pipelined:
                 self.prefetch["misses"] += 1
             flat = self._decision_flat()
-            vals = flat.cpu().numpy().astype(np.float64)
+            with sanctioned_transfer("regrid-read"):
+                vals = flat.cpu().numpy().astype(np.float64)
             self.adapt_bytes.append(flat.numel() * flat.element_size())
         if self._device_tags is not None:
             # the device's decision: one tag a slot, decoded exactly
@@ -984,7 +987,8 @@ class AMRSimulation:
         pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
         parts += [overlap_count(obs[i].chi, obs[j].chi).to(self.dtype)
                   .reshape(1) for i, j in pairs]
-        vals = torch.cat(parts).cpu().numpy().astype(np.float64)
+        with sanctioned_transfer("moments-read"):
+            vals = torch.cat(parts).cpu().numpy().astype(np.float64)
         precheck = {p: float(v) for p, v in zip(pairs, vals[n * 19:])}
         for ob, row in zip(obs, vals[: n * 19].reshape(n, 19)):
             ob.compute_velocities(unpack_moments(row))
@@ -1180,7 +1184,8 @@ class AMRSimulation:
                 for ob in self.obstacles:
                     umax = max(umax, ob.max_body_speed(self.uinf))
         else:
-            umax = float(self._maxu())
+            with sanctioned_transfer("umax-read"):
+                umax = float(self._maxu())
         self._last_umax = umax
         if not np.isfinite(umax) or umax > cfg.uMax_allowed:
             self._runaway(umax)
@@ -1293,9 +1298,9 @@ class AMRSimulation:
                 ob._dev_rigid = None
             self._uinf_dev = None
         s, prof = self.state, self.profiler
-        t0 = time.perf_counter()
+        t0 = obs_now()
         self._maybe_dump_save()
-        dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
+        dt_dev = device_scalar(dt, self.dtype, self.device, tag="dt-upload")
         # the frame velocity of the step's start: CreateObstacles moves
         # the swimming frame for the rigid update, not for the advection
         # (the JAX host path's order)
@@ -1322,7 +1327,9 @@ class AMRSimulation:
                 s["vel"], u_msr = self._forcing(s["vel"], self.uinf_device(),
                                                 dt)
                 if u_msr is not None:
-                    self._log_flux(self.step_idx, self.time, float(u_msr))
+                    with sanctioned_transfer("flux-read"):
+                        u_msr = float(u_msr)
+                    self._log_flux(self.step_idx, self.time, u_msr)
         with prof("PressureProjection"):
             # warm start from the previous pressure; after step_2nd_start
             # the reference's increment form (main.cpp:15087-15100)
@@ -1347,7 +1354,7 @@ class AMRSimulation:
             self._consume_entry(self._pack_reader.pack_parts(
                 parts, self.dtype, time=self.time, step=self.step_idx,
                 nb=g.nb, dt=dt, umax_dt=self._last_umax, wall_s=None))
-            self.step_log[-1]["wall_s"] = time.perf_counter() - t0
+            self.step_log[-1]["wall_s"] = obs_now() - t0
         # the collision fallback: the host path just measured fresh
         # overlap counts; resume the pipelined step once they are clear
         if self._collision_hot:
@@ -1425,7 +1432,7 @@ class AMRSimulation:
             parts, self.dtype, time=self.time, step=self.step_idx,
             nb=self.grid.nb, umax_dt=self._last_umax,
             dt=None if isinstance(dt, torch.Tensor) else dt,
-            wall_s=time.perf_counter() - t0)
+            wall_s=obs_now() - t0)
         self._pack_reader.emit(entry)
         self.step_idx += 1
         if not isinstance(dt, torch.Tensor):
@@ -1452,9 +1459,10 @@ class AMRSimulation:
         """The obstacle-free pipelined step: one megastep, its pack into
         the stream, the next adaptation's scores staged."""
         s = self.state
-        t0 = time.perf_counter()
+        t0 = obs_now()
         dt_dev = (dt if isinstance(dt, torch.Tensor) else
-                  torch.tensor(dt, dtype=self.dtype, device=self.device))
+                  device_scalar(dt, self.dtype, self.device,
+                                tag="dt-upload"))
         self._maybe_dump_save()
         if self._adapt_due(self.step_idx):
             with self.profiler("AdaptMesh"):
@@ -1546,8 +1554,8 @@ class AMRSimulation:
                                                  obstacle_probe_budget)
 
         s, obs = self.state, self.obstacles
-        t0 = time.perf_counter()
-        dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
+        t0 = obs_now()
+        dt_dev = device_scalar(dt, self.dtype, self.device, tag="dt-upload")
         self._maybe_dump_save()
         if self._adapt_due(self.step_idx):
             with self.profiler("AdaptMesh"):
@@ -1565,6 +1573,8 @@ class AMRSimulation:
             windows = []
             for ob in obs:
                 slots, b0, h = block_window_slots(
+                    # torch-lint: allow(JX010, ob.position is the host
+                    # numpy mirror: no device value crosses)
                     g, np.asarray(ob.position), ob.length)
                 windows.append((upload(slots.reshape(-1), torch.long,
                                        self.device), slots.shape, b0,
@@ -1628,7 +1638,8 @@ class AMRSimulation:
         the step's ``step_log`` row and flight record."""
         vals = entry.get("vals")
         if vals is None:
-            vals = entry["pack"].cpu().to(torch.float64).numpy()
+            with sanctioned_transfer("qoi-read"):
+                vals = entry["pack"].cpu().to(torch.float64).numpy()
         obs = self.obstacles
         step = int(entry["step"])
         row = {"step": step, "time": entry["time"], "dt": entry["dt"],
@@ -1691,16 +1702,17 @@ class AMRSimulation:
         with self.profiler("Diagnostics"):
             g, vel = self._geom, self.state["vel"]
             total, peak = amr_ops.divergence_norms_blocks(g, vel, self._tab1)
+            d = amr_ops.dissipation_blocks(g, vel, self.nu, self._tab1)
+            with sanctioned_transfer("diagnostics-read"):
+                total, peak, ke, ens, rate = (float(v) for v in (
+                    total, peak, d["kinetic_energy"], d["enstrophy"],
+                    d["dissipation_rate"]))
             self.logger.write(
                 "div.txt",
-                f"{self.step_idx} {self.time:.8e} {float(total):.8e}"
-                f" {float(peak):.8e}\n")
-            d = amr_ops.dissipation_blocks(g, vel, self.nu, self._tab1)
+                f"{self.step_idx} {self.time:.8e} {total:.8e} {peak:.8e}\n")
             self.logger.write(
                 "energy.txt",
-                f"{self.time:.8e} {float(d['kinetic_energy']):.8e} "
-                f"{float(d['enstrophy']):.8e}"
-                f" {float(d['dissipation_rate']):.8e}\n")
+                f"{self.time:.8e} {ke:.8e} {ens:.8e} {rate:.8e}\n")
 
     # -- resilience hooks (resilience/recovery.py driver contract) ---------
 

@@ -20,7 +20,7 @@ import torch
 from cup3d_tpu_torch.config import SimulationConfig
 from cup3d_tpu_torch.grid.uniform import BC, UniformGrid
 from cup3d_tpu_torch.io.logging import BufferedLogger, Profiler
-from cup3d_tpu_torch.models.base import upload
+from cup3d_tpu_torch.analysis.runtime import upload
 from cup3d_tpu_torch.ops.poisson import make_poisson_solver
 
 FIELDS = ("vel", "chi", "p", "udef")
@@ -97,7 +97,8 @@ class SimulationData:
         reassigned (identity check: a swimming frame reassigns it every
         step) and reused otherwise."""
         if self._uinf_src is not self.uinf:
-            self._uinf_dev = upload(self.uinf, self.dtype, self.device)
+            self._uinf_dev = upload(self.uinf, self.dtype, self.device,
+                                    tag="uinf-upload")
             self._uinf_src = self.uinf
         return self._uinf_dev
 
@@ -122,11 +123,13 @@ class SimulationData:
         if self.cfg.DLM > 0:
             if self._dlm_dev_cache is None:
                 self._dlm_dev_cache = upload(self.cfg.DLM, self.dtype,
-                                             self.device)
+                                             self.device,
+                                             tag="scalar-upload")
             return self._dlm_dev_cache / dt_dev
         if self._lambda_dev_val != self.lambda_penal:
             self._lambda_dev_cache = upload(self.lambda_penal, self.dtype,
-                                            self.device)
+                                            self.device,
+                                            tag="scalar-upload")
             self._lambda_dev_val = self.lambda_penal
         return self._lambda_dev_cache
 

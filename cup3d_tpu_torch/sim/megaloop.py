@@ -50,6 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import upload
 from cup3d_tpu_torch.models.base import (
     RIGID_STATE,
     momentum_integrals_core,
@@ -57,7 +58,6 @@ from cup3d_tpu_torch.models.base import (
     pack_moments,
     quat_to_rot_dev,
     rigid_update_device,
-    upload,
 )
 from cup3d_tpu_torch.ops import stencils as st
 from cup3d_tpu_torch.ops.advection import GHOSTS, rk3_step

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer
 from cup3d_tpu_torch.ops import diagnostics as diag
 from cup3d_tpu_torch.ops import diffusion
 from cup3d_tpu_torch.ops.advection import rk3_step
@@ -108,9 +109,10 @@ class FixMassFlux(Operator):
         s.state["vel"] = torch.cat(
             [vel[..., :1] + (delta * self._profile)[..., None],
              vel[..., 1:]], dim=-1)
-        s.logger.write(
-            "flux.txt",
-            f"{s.step} {s.time:.8e} {float(u_msr):.8e} {u_target:.8e}\n")
+        with sanctioned_transfer("flux-read"):
+            u_msr = float(u_msr)
+        s.logger.write("flux.txt",
+                       f"{s.step} {s.time:.8e} {u_msr:.8e} {u_target:.8e}\n")
 
 
 class PressureProjection(Operator):
@@ -149,8 +151,9 @@ class ComputeDissipation(Operator):
         if freq <= 0 or s.step % freq:
             return
         d = diag.dissipation(s.grid, s.state["vel"], s.nu)
-        ke, ens, rate = (float(d[k]) for k in
-                         ("kinetic_energy", "enstrophy", "dissipation_rate"))
+        with sanctioned_transfer("diagnostics-read"):
+            ke, ens, rate = (float(d[k]) for k in (
+                "kinetic_energy", "enstrophy", "dissipation_rate"))
         s.logger.write("energy.txt",
                        f"{s.time:.8e} {ke:.8e} {ens:.8e} {rate:.8e}\n")
 
@@ -165,10 +168,10 @@ class ComputeDivergence(Operator):
         if freq <= 0 or s.step % freq:
             return
         total, peak = diag.divergence_norms(s.grid, s.state["vel"])
-        s.logger.write(
-            "div.txt",
-            f"{s.step} {s.time:.8e} {float(total):.8e} {float(peak):.8e}\n",
-        )
+        with sanctioned_transfer("diagnostics-read"):
+            total, peak = float(total), float(peak)
+        s.logger.write("div.txt",
+                       f"{s.step} {s.time:.8e} {total:.8e} {peak:.8e}\n")
 
 
 def initial_conditions(sim: SimulationData) -> None:

@@ -56,12 +56,12 @@ refused at ``init()``, as in the JAX package.
 from __future__ import annotations
 
 import os
-import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from cup3d_tpu_torch.analysis.runtime import device_scalar, sanctioned_transfer
 from cup3d_tpu_torch.config import SimulationConfig, parse_factory
 from cup3d_tpu_torch.obs.flight import FlightRecorder
 from cup3d_tpu_torch.obs import export as obs_export
@@ -74,6 +74,7 @@ from cup3d_tpu_torch.resilience.recovery import (  # noqa: F401 (re-export)
 from cup3d_tpu_torch.sim import operators as ops
 from cup3d_tpu_torch.sim.data import SimulationData
 from cup3d_tpu_torch.stream.qoi import PackPolicy, QoIStream
+from cup3d_tpu_torch.obs.trace import now as obs_now
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,6 +98,8 @@ def resolve_scan_k(cfg: SimulationConfig) -> int:
     if env is not None:
         try:
             return max(0, int(env))
+        # torch-lint: allow(JX009, a malformed CUP3D_SCAN_K falls back to
+        # cfg.scan_k, as documented)
         except ValueError:
             pass
     return max(0, int(cfg.scan_k))
@@ -365,7 +368,8 @@ class Simulation:
                     umax = max(umax, ob.max_body_speed(s.uinf))
         else:
             # the first step's read (the packs bring it afterwards)
-            umax = float(self._umax_device())
+            with sanctioned_transfer("umax-read"):
+                umax = float(self._umax_device())
         self._last_umax = umax
         if not np.isfinite(umax) or umax > cfg.uMax_allowed:
             self._runaway(s.step, umax)
@@ -415,7 +419,7 @@ class Simulation:
         if self._umax_dev is None:
             self._umax_dev = self._umax_device()
         if self._time_dev is None:
-            from cup3d_tpu_torch.models.base import upload
+            from cup3d_tpu_torch.analysis.runtime import upload
 
             self._time_dev = upload(np.float64(s.time), s.dtype, s.device)
         h = float(s.grid.h)
@@ -490,13 +494,13 @@ class Simulation:
         """One step of the pipeline.  ``dt`` a host float, or the device
         dt of the dt chain."""
         s = self.sim
-        t0 = time.perf_counter()
+        t0 = obs_now()
         self._maybe_dump_save()
         if isinstance(dt, torch.Tensor):
             dt_dev = dt
         else:
             # one host->device upload: every operator gets the same tensor
-            dt_dev = torch.tensor(dt, dtype=s.dtype, device=s.device)
+            dt_dev = device_scalar(dt, s.dtype, s.device, tag="dt-upload")
         for op in self.pipeline:
             with s.profiler(op.name):
                 op(dt_dev)
@@ -513,11 +517,11 @@ class Simulation:
             entry["dt"] = dt if not isinstance(dt, torch.Tensor) else None
             entry["umax_dt"] = self._last_umax  # the max|u| dt came from
             if self.cfg.pipelined:
-                entry["wall_s"] = time.perf_counter() - t0
+                entry["wall_s"] = obs_now() - t0
                 self._pack_reader.emit(entry)
             else:
                 self._consume_pack(entry)
-                self.step_log[-1]["wall_s"] = time.perf_counter() - t0
+                self.step_log[-1]["wall_s"] = obs_now() - t0
         s.step += 1
         if not isinstance(dt, torch.Tensor):
             s.time += dt
@@ -551,7 +555,8 @@ class Simulation:
         vals = entry.get("vals")
         if vals is None:
             # the non-pipelined step's one end-of-step read
-            vals = entry["pack"].cpu().to(torch.float64).numpy()
+            with sanctioned_transfer("qoi-read"):
+                vals = entry["pack"].cpu().to(torch.float64).numpy()
         ob = s.obstacles[0] if s.obstacles else None
         step = int(entry["step"])
         row = {"step": step, "time": entry["time"], "dt": entry["dt"],
@@ -598,7 +603,7 @@ class Simulation:
         ROW) QoI block into the stream.  Host mirrors, logs and failure
         detection are applied row by row at consumption, so the loop's
         visible sequence is the per-step one, K steps late."""
-        from cup3d_tpu_torch.models.base import upload
+        from cup3d_tpu_torch.analysis.runtime import upload
         from cup3d_tpu_torch.sim import dtpolicy
         from cup3d_tpu_torch.sim import megaloop as ml
 
@@ -606,7 +611,7 @@ class Simulation:
         K = self._scan_k
         fn, row_w = self._megaloop
         base_step = s.step
-        t0 = time.perf_counter()
+        t0 = obs_now()
         self._maybe_dump_save()
         if self._scan_carry is None:
             # carry (re)seed from the host mirrors: cold start, after a
@@ -617,8 +622,9 @@ class Simulation:
             self.flush_packs()
             for ob in s.obstacles:
                 ob._dev_rigid = None
-            self._scan_carry = (ml.init_fish_carry(s, s.obstacles[0])
-                                if s.obstacles else ml.init_tgv_carry(s))
+            with sanctioned_transfer("scan-carry-upload"):
+                self._scan_carry = (ml.init_fish_carry(s, s.obstacles[0])
+                                    if s.obstacles else ml.init_tgv_carry(s))
             if self._scan_mesh is not None:
                 from cup3d_tpu_torch.parallel import topology as topo
 
@@ -628,7 +634,8 @@ class Simulation:
         # the ramp is a function of the step index: host, once a megaloop
         cfl = [dtpolicy.ramped_cfl(cfg.CFL, base_step + k, cfg.rampup)
                for k in range(K)]
-        cfl_dev = upload(np.asarray(cfl, np.float64), s.dtype, s.device)
+        cfl_dev = upload(np.asarray(cfl, np.float64), s.dtype, s.device,
+                         tag="scan-carry-upload")
         with s.profiler("Megaloop"):
             carry, rows = fn(self._scan_carry, cfl_dev)
         self._scan_carry = carry
@@ -641,7 +648,7 @@ class Simulation:
             entry = self._pack_reader.pack_parts(
                 [("scan", rows.reshape(K * row_w))], s.dtype, time=s.time,
                 step=base_step, scan_k=K, dt=None,
-                wall_s=(time.perf_counter() - t0) / K)
+                wall_s=(obs_now() - t0) / K)
             self._pack_reader.emit(entry)
         s.step += K
 
@@ -690,6 +697,8 @@ class Simulation:
                 store_force_qoi(ob, unpack_forces(row[35:52]))
                 log_forces(s.logger, 0, t_k, ob)
                 if ob.bFixFrameOfRef:
+                    # torch-lint: allow(JX010, a host-mirror copy: transVel
+                    # was just set from the row read above)
                     s.uinf = -np.asarray(ob.transVel, np.float64)
             log_row = {"step": step_k, "time": t_k - dt_k, "dt": dt_k,
                        "umax": umax, "wall_s": entry.get("wall_s"),

@@ -27,7 +27,6 @@ re-raised by the next ``save()`` or by ``wait()``, and visible through
 from __future__ import annotations
 
 import pickle
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -38,6 +37,7 @@ from cup3d_tpu_torch.io.checkpoint import (
     write_payload,
 )
 from cup3d_tpu_torch.stream.dump import StagedTensor
+from cup3d_tpu_torch.obs.trace import now as obs_now
 
 
 class AsyncCheckpointer:
@@ -97,7 +97,7 @@ class AsyncCheckpointer:
         if self._failed is not None:
             err, self._failed = self._failed, None
             raise err
-        t0 = time.perf_counter()
+        t0 = obs_now()
         payload = build_payload(driver)
         payload["obstacles"] = pickle.loads(pickle.dumps(
             payload["obstacles"], protocol=pickle.HIGHEST_PROTOCOL))
@@ -113,11 +113,11 @@ class AsyncCheckpointer:
         self._pending.append(self._pool.submit(self._write, payload, path))
         self.stats["saves"] += 1
         # the host staging cost the step loop pays
-        self.stats["snapshot_s"] += time.perf_counter() - t0
+        self.stats["snapshot_s"] += obs_now() - t0
         return path
 
     def _write(self, payload: dict, path: str) -> str:
-        t0 = time.perf_counter()
+        t0 = obs_now()
         try:
             payload = dict(payload, fields={
                 k: v.numpy() for k, v in payload["fields"].items()})
@@ -125,7 +125,7 @@ class AsyncCheckpointer:
         except Exception:
             self.stats["write_failures"] += 1
             raise  # latched by _reap_done, surfaced by save()/wait()
-        self.stats["write_s"] += time.perf_counter() - t0
+        self.stats["write_s"] += obs_now() - t0
         return out
 
     def wait(self) -> None:

@@ -26,7 +26,6 @@ write while the step loop goes on.
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -34,6 +33,7 @@ import numpy as np
 import torch
 
 from cup3d_tpu_torch.io.dump import _CORNERS, _XDMF, cell_geometry
+from cup3d_tpu_torch.obs.trace import now as obs_now
 
 
 class StagedTensor:
@@ -262,7 +262,7 @@ class AsyncDumper:
 
     def submit(self, prefix: str, time_: float, grid,
                fields: Dict[str, object], step=None) -> None:
-        t0 = time.perf_counter()
+        t0 = obs_now()
         staged = {name: StagedTensor(arr) for name, arr in fields.items()}
         if self._pool is None:
             self._pool = ThreadPoolExecutor(1, thread_name_prefix="cup3d-dump")
@@ -272,10 +272,10 @@ class AsyncDumper:
             self._pool.submit(self._write, prefix, time_, grid, staged, step))
         self.stats["dumps"] += 1
         # the host staging cost the step loop pays (the copies run on)
-        self.stats["submit_s"] += time.perf_counter() - t0
+        self.stats["submit_s"] += obs_now() - t0
 
     def _write(self, prefix, time_, grid, staged, step=None):
-        t0 = time.perf_counter()
+        t0 = obs_now()
         host = {k: v.numpy() for k, v in staged.items()}
         from cup3d_tpu_torch.resilience import faults, writeguard
 
@@ -300,7 +300,7 @@ class AsyncDumper:
             obs_metrics.counter("dump.write_dropped").inc()
             return None
         self.stats["bytes_written"] += out["bytes_written"]
-        self.stats["write_s"] += time.perf_counter() - t0
+        self.stats["write_s"] += obs_now() - t0
         return out
 
     def wait(self) -> None:

@@ -29,13 +29,15 @@ The ``stream.stall`` fault (resilience/faults.py) fires at ``emit``.
 
 from __future__ import annotations
 
-import time
 import weakref
 from contextlib import nullcontext
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from cup3d_tpu_torch.analysis.runtime import sanctioned_transfer
+from cup3d_tpu_torch.obs.trace import now as obs_now
 
 
 class PackPolicy:
@@ -76,14 +78,15 @@ class _HostCopy:
         batch = batch.detach()
         self.nbytes = batch.numel() * batch.element_size()
         self.event = None
-        if batch.is_cuda:
-            self.host = torch.empty(batch.shape, dtype=batch.dtype,
-                                    pin_memory=True)
-            self.host.copy_(batch, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = batch
+        with sanctioned_transfer("stream-copy"):
+            if batch.is_cuda:
+                self.host = torch.empty(batch.shape, dtype=batch.dtype,
+                                        pin_memory=True)
+                self.host.copy_(batch, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
+            else:
+                self.host = batch
 
     def is_ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -144,6 +147,11 @@ class QoIStream:
             "bytes_staged": 0,
         }
 
+    def reset_stats(self) -> None:
+        """Zero the counters (a timed window's start); the queue and the
+        groups in flight stay."""
+        self.stats = self._zero_stats()
+
     def snapshot(self) -> dict:
         """Counters plus the instantaneous queue state."""
         out = dict(self.stats)
@@ -182,9 +190,9 @@ class QoIStream:
 
         # stream.stall seam: a simulated stall lands in the stream's own
         # stall accounting
-        t0 = time.perf_counter()
+        t0 = obs_now()
         if faults.maybe_stall(step=entry.get("step")):
-            self.stats["stall_s"] += time.perf_counter() - t0
+            self.stats["stall_s"] += obs_now() - t0
         self.queue.append(entry)
         self.stats["packs_emitted"] += 1
         self.poll()
@@ -235,11 +243,11 @@ class QoIStream:
         was_ready = self._ready(holder["batch"]) is True
         ctx = (self.profiler("StreamRead" if was_ready else "StreamWait")
                if self.profiler is not None else nullcontext())
-        t0 = time.perf_counter()
+        t0 = obs_now()
         with ctx:
             vals = holder["batch"].values()
         self.stats["read_s" if was_ready else "stall_s"] += (
-            time.perf_counter() - t0)
+            obs_now() - t0)
         self.stats["groups_read"] += 1
         off = 0
         for entry in holder["group"]:

@@ -48,6 +48,10 @@ def _times(torch, fn) -> dict:
     torch.cuda.synchronize()
     wall = []
     for _ in range(SAMPLES):
+        # torch-lint: allow(JX008, an A/B timing harness run by hand over
+        # checkouts, no driver metric) torch-lint: allow(JX020, the
+        # harness's own interval clock; it imports the checkout under
+        # test, not this tree's obs layer)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -72,7 +76,7 @@ def child(tree: str) -> dict:
     import torch
 
     from cup3d_tpu_torch.__main__ import build_driver
-    from cup3d_tpu_torch.models.base import upload
+    from cup3d_tpu_torch.analysis.runtime import upload
     from cup3d_tpu_torch.ops.surface import force_integrals_probe_uniform
 
     out_dir = os.path.join(os.path.abspath(tree), "runs", "fish_window_ab")

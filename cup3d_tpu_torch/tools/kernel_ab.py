@@ -116,6 +116,8 @@ def _device_events(torch, fn, calls: int, windows: int = 3) -> list:
     """The device records of ``calls`` calls of ``fn``, from the one of
     ``windows`` profiler windows that saw the most (a window can miss
     some of its kernels' records, never add any)."""
+    # torch-lint: allow(JX012, the tool's own device read of one kernel,
+    # run alone by hand, never beside a driver's obs window)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -152,9 +154,16 @@ def _profile(torch, fn, calls: int, match: str, windows: int = 3):
 
 def _host_us(fn, calls: int = HOST_CALLS) -> float:
     fn()
+    # torch-lint: allow(JX008, an A/B timing harness run by hand over
+    # checkouts, no driver metric) torch-lint: allow(JX020, the
+    # harness's own interval clock; it imports the checkout under
+    # test, not this tree's obs layer)
+    # torch-lint: allow(JX006, the host's launch time on purpose: the
+    # device's is _device_events)
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
+    # torch-lint: allow(JX006, the host's launch time on purpose)
     return (time.perf_counter() - t0) / calls * 1e6
 
 

@@ -11,6 +11,8 @@ through ``build_driver`` with ``CUP3D_FUSED=1``, no dumps:
 
 - ``fish``: BASELINE config #2 at 128^3 (one StefanFish, iterative
   Poisson, non-pipelined), as chip_smoke.py phase 14 runs it;
+- ``fish_pipe``: the same pipelined (``-pipelined 1``, per-step steps),
+  as phase 16 runs it before its megaloops;
 - ``tgv``: the 256^3 Taylor-Green vortex at dt 1e-3, as phase 5 runs it;
 
 takes WARM steps, then times STEPS steps between two synchronisations
@@ -44,6 +46,10 @@ def _ms_per_step(torch, d) -> float:
     for _ in range(WARM):
         d.advance(d.calc_max_timestep())
     torch.cuda.synchronize()
+    # torch-lint: allow(JX008, an A/B timing harness run by hand over
+    # checkouts, no driver metric) torch-lint: allow(JX020, the
+    # harness's own interval clock; it imports the checkout under
+    # test, not this tree's obs layer)
     t0 = time.perf_counter()
     for _ in range(STEPS):
         d.advance(d.calc_max_timestep())
@@ -62,7 +68,9 @@ def child(tree: str) -> dict:
     out_dir = os.path.join(os.path.abspath(tree), "runs", "step_ab")
     os.makedirs(out_dir, exist_ok=True)
     out = {"tree": tree}
-    for name, argv in (("fish", FISH), ("tgv", TGV)):
+    for name, argv in (("fish", FISH), ("fish_pipe", FISH + ["-pipelined",
+                                                             "1"]),
+                       ("tgv", TGV)):
         d = build_driver(argv + ["-path4serialization", out_dir])
         d.init()
         out[name] = _ms_per_step(torch, d)

@@ -560,6 +560,43 @@ def test_miss_queue_serve_with_compile_wait(tmp_path, monkeypatch):
         assert s2._jobs[j].event_time("compile_wait") is None
 
 
+def test_jobs_on_one_build_leave_their_wait_in_one_pass(tmp_path,
+                                                      monkeypatch):
+    """Two amr_tgv jobs waiting on one tables build: a build that ends
+    between the two jobs' checks in one scheduling pass releases neither
+    (so they cannot be split into batches by its timing), and the next
+    pass releases both."""
+
+    class Store:
+        def contains(self, sig):
+            return False
+
+    class Service:
+        host = None
+
+        def __init__(self):
+            self.state = "running"
+
+        def status(self, key):
+            # the build ends right after its first read
+            state, self.state = self.state, "done"
+            return state
+
+        def attach(self, key, jobs):
+            pass
+
+    srv = FleetServer(workdir=str(tmp_path), device="cpu")
+    pair = (Store(), Service())
+    monkeypatch.setattr(srv, "_aot", lambda: pair)
+    jobs = [srv._jobs[srv.submit(t, dict(AMR, cfl=c))]
+            for t, c in (("a", 0.3), ("b", 0.35))]
+    srv._pass_ready = {}
+    assert [srv._tables_wait(j) for j in jobs] == [True, True]
+    srv._pass_ready = {}
+    assert [srv._tables_wait(j) for j in jobs] == [False, False]
+    assert all(j.event_time("compile_ready") is not None for j in jobs)
+
+
 def test_helper_process_outlives_a_drain(tmp_path, monkeypatch):
     """The service's helper process starts at the first cold table build
     and serves the next drain's build too (its start costs seconds);

@@ -88,6 +88,9 @@ def test_every_module_imports_with_jax_blocked():
         "obs.export", "obs.profile", "obs.costs",
         # the compiled store, the background compile service, their CLI
         "aot", "aot.store", "aot.compiler", "aot.cli",
+        # the analysis layer: the lint, its catalog and CLI, the sanitizers
+        "analysis", "analysis.rules", "analysis.lint", "analysis.__main__",
+        "analysis.runtime",
     )} <= set(mods)
     code = (
         "import sys\n"

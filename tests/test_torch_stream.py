@@ -107,6 +107,39 @@ def test_bounded_staleness_under_backpressure(pkg, monkeypatch):
     assert when == [0] * 5 + [2 * ((i - 3) // 2) for i in range(5, 25)]
 
 
+def test_reset_stats_matches_the_jax_stream():
+    """emit -> reset_stats -> emit: both packages' snapshots agree at each
+    stage (the timed-window boundary of the JAX package's bench); the
+    reset zeroes the counters and keeps the packs queued and in flight."""
+    snaps = {}
+    for pkg in ("jax", "torch"):
+        Stream, _, _, _, arr = PKGS[pkg]
+        seen = []
+        st = Stream(lambda e: seen.append(e["idx"]), read_every=2,
+                    max_inflight=2)
+        monkey = staticmethod(lambda batch: False)  # reads at backpressure
+        Stream._ready, saved = monkey, Stream.__dict__["_ready"]
+        try:
+            for i in range(5):
+                st.emit(_entry(arr, i))
+            first = st.snapshot()
+            st.reset_stats()
+            reset = st.snapshot()
+            for i in range(5, 9):
+                st.emit(_entry(arr, i))
+            second = st.snapshot()
+            st.flush()
+        finally:
+            Stream._ready = saved
+        assert seen == list(range(9))
+        snaps[pkg] = [{k: v for k, v in s.items()
+                       if not k.endswith("_s")} for s in
+                      (first, reset, second)]
+        assert reset["packs_emitted"] == 0 and reset["groups_read"] == 0
+        assert reset["groups_inflight"] == first["groups_inflight"] > 0
+    assert snaps["torch"] == snaps["jax"]
+
+
 @pytest.mark.parametrize("pkg", ["jax", "torch"])
 def test_kick_respects_inflight_limit(pkg):
     Stream, _, _, _, arr = PKGS[pkg]
